@@ -35,6 +35,9 @@ def pytest_configure(config):
         "dist: multi-process fault-tolerance harness (spawns real rank "
         "subprocesses; CI runs these in their own lane)",
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one; a CUDA kernel has no CPU mode)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
