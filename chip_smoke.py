@@ -4,19 +4,31 @@
     python3 chip_smoke.py
 
 Drives ``src/repro_torch`` (never the JAX package) through its serving
-path and fails (non-zero exit, no result line) on any error:
+path and its ssProp training path, and fails (non-zero exit, no result
+line) on any error:
 
 1. device check: needs CUDA; prints the card's name and power limit and
    turns TF32 off for float32 matmuls and convolutions;
 2. builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` with
-   nvcc for sm_90a and prints the build time and the ptxas report;
+   nvcc for sm_90a, one process per source, all at once, and prints the
+   build time and the ptxas report;
 3. kernel phase: ``paged_attention`` against its plain PyTorch version at
    qwen2.5-3b head shapes (H=16, KV=2, D=128, bs=16, B=4, S in {1, 32},
    NB in {10, 128}; bf16 and fp32 queries over fp32 pools; bf16 pools
    too), raw fp32 outputs held at rtol=atol=1e-4, plus the garbage-table
    fence; times the kernel, the plain version and, as a yardstick only,
    ``F.scaled_dot_product_attention`` on the gathered view;
-4. route check: one mixed prefill+decode ``decode_slots`` call of the
+4. gathered-kernel phase: ``dx_gathered``, ``dw_gathered``,
+   ``conv_dw_fused`` and ``conv_dx_fused`` against their plain versions
+   at every shape a sparse ResNet-18 training step launches them with
+   (B=128, 3x32x32, ``tpu_default(0.8)`` with ``use_pallas``; the route
+   table decides which), plus a KB=2-of-4 non-contiguous case and a
+   groups=2 case, fp32 and bf16 operands, raw fp32 outputs within
+   1e-4 * max(1, max|plain|); dropped blocks exactly 0 after the scatter;
+   times each kernel, its plain version and one library call
+   (``matmul`` / ``conv2d_weight`` / ``conv2d_input`` on the kept
+   channels) at the fp32 main-path shapes, with the bound of each;
+5. LM route check: one mixed prefill+decode ``decode_slots`` call of the
    full-width qwen2.5-3b (random bf16 weights) through the kernel route
    and the gather route, with bf16 params and an fp32 copy of them
    (fp32 logits within a relative L2 of 1e-4; the bf16 kernel route no
@@ -25,14 +37,25 @@ path and fails (non-zero exit, no result line) on any error:
    busy time, the kernels that take most of it); then the serving CLI on
    the reduced config through both routes, whose greedy token streams
    must be identical;
-5. serve phase: ``repro_torch.launch.serve.run`` serves 8 Poisson-arriving
+6. serve phase: ``repro_torch.launch.serve.run`` serves 8 Poisson-arriving
    requests (prompt 128, gen 32) through 4 slots of the paged engine at
    full width; every request must get exactly 32 tokens in the
    vocabulary, and the kernel must have launched once per layer per step;
-6. prints the kernels' JSON line and, last, the device JSON line.
+7. training-route check: the loss and every gradient of one sparse step
+   of the full-width ResNet-18 (B=128, 3x32x32) through the kernels, the
+   gather route and the mask oracle, each leaf within a relative L2 of
+   1e-4 of the others, with each site's kept blocks printed per route;
+8. training phase: ``repro_torch.launch.train_classifier.run`` trains
+   ResNet-18 for 8 epoch-bar steps (2 a epoch: steps 2, 3, 6, 7 sparse);
+   every loss finite, each gathered kernel launched the route table's
+   count times 4, ``paged_attention`` not at all; then a profile of one
+   dense and one sparse step;
+9. prints the card's line, the kernels' JSON line and, last, the device
+   JSON line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 from pathlib import Path
@@ -51,6 +74,14 @@ L2_BYTES = 50 * 2**20
 KERNEL_TOL = 1e-4  # raw fp32 outputs: summation order only
 FP32_ROUTE_TOL = 1e-4  # fp32 params: the routes differ in summation order only
 BF16_NOISE_FACTOR = 1.5  # bf16 params: kernel route's distance to fp32 vs the gather route's
+TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summation order only
+RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
+GATHERED = {  # kernel -> the TPU kernel it replaces
+    "dx_gathered": "src/repro/kernels/gathered_matmul.py:66",
+    "dw_gathered": "src/repro/kernels/gathered_matmul.py:119",
+    "conv_dw_fused": "src/repro/kernels/gathered_matmul.py:187",
+    "conv_dx_fused": "src/repro/kernels/gathered_matmul.py:273",
+}
 
 
 def smi() -> str:
@@ -319,6 +350,338 @@ def step_profile(cfg, lm, params, dev="cuda"):
     return out
 
 
+# ----------------------------------------------------------------------
+# ssProp training: the four gathered kernels and the ResNet-18 path
+# ----------------------------------------------------------------------
+
+
+def train_policy(policy_mod):
+    """The main path's sparse policy: ``tpu_default(0.8)`` with
+    ``use_pallas`` (128-channel blocks, fused im2col)."""
+    return dataclasses.replace(policy_mod.tpu_default(0.8), use_pallas=True)
+
+
+def main_path_launches(resnet, policy) -> dict:
+    """``(kernel, geometry) -> launches`` in one sparse ResNet-18 step,
+    from the route table; geometry is ``(C_in, C_out, k, H_in, stride,
+    KB)``. The stem's input needs no gradient: no dX kernel there."""
+    routes = resnet.backward_routes(RESNET, TRAIN_BATCH, TRAIN_IMAGE, policy)
+    strides = resnet.block_strides(RESNET)
+    kernels_of = {"fused": ("conv_dw_fused", "conv_dx_fused"),
+                  "canonical": ("dw_gathered", "dx_gathered")}
+    counts: dict = {}
+    for site, c_in, c_out, k, h_out, _ in resnet.iter_conv_shapes(RESNET, TRAIN_IMAGE):
+        if site == "stem" or site.endswith("conv2"):
+            stride = 1
+        else:
+            stride = strides[int(site.split("/")[0].split("_")[1])]
+        geo = (c_in, c_out, k, h_out * stride, stride, policy.keep_count(c_out))
+        for name in kernels_of.get(routes[site], ()):
+            if site == "stem" and name in ("dx_gathered", "conv_dx_fused"):
+                continue
+            counts[(name, geo)] = counts.get((name, geo), 0) + 1
+    per_kernel = {n: sum(c for (k, _), c in counts.items() if k == n) for n in GATHERED}
+    expect = resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE, policy)
+    if per_kernel != expect:
+        raise AssertionError(f"launch table {per_kernel} != kernel_launches_per_step {expect}")
+    return counts
+
+
+def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=128,
+                  batch=TRAIN_BATCH, dev="cuda"):
+    """Inputs of one gathered-kernel launch at ``geo``, with random data
+    and random sorted kept blocks (or ``blocks``). Returns the kernel and
+    plain calls, their arguments, a library call that computes the same
+    function on the kept real channels (its operands gathered here,
+    untimed), and what the bound needs."""
+    c_in, c_out, k, h_in, stride, kb = geo
+    pad = (k - 1) // 2
+    h_out = (h_in + 2 * pad - k) // stride + 1
+    nb = -(-c_out // bs)
+    if blocks is None:
+        blocks = torch.randperm(nb, generator=gen, device=dev)[:kb].sort().values.tolist()
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=dev)
+    real = torch.tensor([c for b in blocks for c in range(b * bs, min(b * bs + bs, c_out))],
+                        device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    m, d = batch * h_out * h_out, c_in * k * k
+    st, pd = (stride, stride), ((pad, pad), (pad, pad))
+    if name in ("dx_gathered", "dw_gathered"):
+        dy = rnd(m, c_out)
+        dy_k = dy.index_select(1, real)
+        if name == "dx_gathered":
+            w = rnd(d, c_out)
+            args, lib_args = (dy, w, bidx), (dy_k, w.index_select(1, real))
+            lib = lambda a, b: a @ b.T  # noqa: E731
+        else:
+            x = rnd(m, d)
+            args, lib_args = (x, dy, bidx), (x, dy_k)
+            lib = lambda a, b: a.T @ b  # noqa: E731
+        kw = dict(block_size=bs)
+        plain_kw = kw
+    else:
+        x = rnd(batch, c_in, h_in, h_in)
+        dy = rnd(batch, c_out, h_out, h_out)
+        dy_k = dy.index_select(1, real).contiguous()
+        dy2r = ops._dy_rows(dy, bs)
+        if name == "conv_dw_fused":
+            args = (ops._image_rows(x, pd, groups), dy2r, bidx)
+            plain_kw = dict(kh_dim=k, kw_dim=k, stride=st, dilation=(1, 1), h_out=h_out,
+                            block_size=bs)
+            lib_args = (x, dy_k)
+            lib = lambda a, b: torch.nn.grad.conv2d_weight(  # noqa: E731
+                a, (b.shape[1], c_in // groups, k, k), b, st, pad, 1, groups)
+        else:
+            w = rnd(c_out, c_in // groups, k, k)
+            args = (dy2r, ops._compact_filters(w, bidx, bs), bidx)
+            plain_kw = dict(b=batch, h_pad=h_in + 2 * pad, w_pad=h_in + 2 * pad, groups=groups,
+                            stride=st, dilation=(1, 1), block_size=bs)
+            lib_args = (dy_k, w.index_select(0, real).contiguous())
+            lib = lambda a, b: torch.nn.grad.conv2d_input(  # noqa: E731
+                (batch, c_in, h_in, h_in), b, a, st, pad, 1, groups)
+        kw = dict(plain_kw, c_out=c_out)
+    return dict(
+        kernel=lambda *a: getattr(gm, name)(*a, **kw),
+        plain=lambda *a: getattr(gm, f"{name}_ref")(*a, **plain_kw),
+        args=args, library=lib, lib_args=lib_args, blocks=blocks,
+        dims=dict(m=m, d=d, k_real=len(real), kb=kb, bs=bs, c_in=c_in,
+                  h_pad=h_in + 2 * pad, batch=batch, itemsize=args[0].element_size()),
+    )
+
+
+def gathered_bound_ms(name, dims) -> tuple[float, str]:
+    """Least time for the work: each input the function needs read once
+    (the kept channels of dY and W only), each output written once in
+    fp32; 2 flops a multiply-add over the real kept channels at the fp32
+    rate (the kernels compute in fp32 whatever the operand type)."""
+    m, d, kr, it = dims["m"], dims["d"], dims["k_real"], dims["itemsize"]
+    compact = d * dims["kb"] * dims["bs"] * 4
+    image = dims["batch"] * dims["h_pad"] ** 2 * dims["c_in"]
+    nbytes = {
+        "dx_gathered": (m * kr + d * kr) * it + m * d * 4,
+        "dw_gathered": (m * d + m * kr) * it + compact,
+        "conv_dw_fused": (image + m * kr) * it + compact,
+        "conv_dx_fused": m * kr * it + d * dims["kb"] * dims["bs"] * it + image * 4,
+    }[name] + 4 * dims["kb"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * d * kr / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_close(name, out, ref, what) -> float:
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    limit = KERNEL_TOL * max(1.0, ref.abs().max().item())
+    if not (out.dtype == torch.float32 and out.shape == ref.shape and err <= limit):
+        raise AssertionError(f"{name} {what}: max|kernel - plain| {err} > {limit} "
+                             f"({out.dtype}, {tuple(out.shape)} vs {tuple(ref.shape)})")
+    return err
+
+
+def gathered_phase(gm, ops, resnet, policy_mod):
+    """Every gathered kernel against its plain version at the main path's
+    shapes (fp32 and bf16) and at the extra cases; timings and bounds at
+    the fp32 main-path shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    launches = main_path_launches(resnet, train_policy(policy_mod))
+    rows, max_err = [], dict.fromkeys(GATHERED, 0.0)
+    for (name, geo), count in launches.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            case = gathered_case(gm, ops, name, geo, dtype, gen)
+            out, ref = case["kernel"](*case["args"]), case["plain"](*case["args"])
+            err = _check_close(name, out, ref, f"at {geo} {dtype}")
+            max_err[name] = max(max_err[name], err)
+            if dtype != torch.float32:
+                continue
+            sets = [case["args"], tuple(a.clone() for a in case["args"])]
+            ms = gpu_time_ms(case["kernel"], sets, 20)
+            plain_ms = gpu_time_ms(case["plain"], sets, 5)
+            lib = case["lib_args"]
+            library_ms = gpu_time_ms(case["library"], [lib, tuple(a.clone() for a in lib)], 20)
+            bound_ms, bound_by = gathered_bound_ms(name, case["dims"])
+            c_in, c_out, k, h_in, stride, kb = geo
+            row = dict(name=name, shape=f"B={TRAIN_BATCH} C_in={c_in} C_out={c_out} k={k} "
+                       f"H={h_in} stride={stride} KB={kb} blocks={case['blocks']}",
+                       launches_per_step=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       flops=2 * case["dims"]["m"] * case["dims"]["d"] * case["dims"]["k_real"])
+            rows.append(row)
+            print("[gathered] " + json.dumps(row))
+            del sets, case
+    # the extra cases: KB=2 of 4 non-contiguous, groups=2; and exact zeros
+    extra = [("dx_gathered", (256, 512, 1, 8, 2, 2), 1, [1, 3]),
+             ("dw_gathered", (256, 512, 1, 8, 2, 2), 1, [1, 3]),
+             ("conv_dw_fused", (512, 512, 3, 4, 1, 2), 1, [0, 2]),
+             ("conv_dx_fused", (512, 512, 3, 4, 1, 2), 1, [0, 2]),
+             ("conv_dw_fused", (256, 512, 3, 8, 1, 2), 2, [1, 2]),
+             ("conv_dx_fused", (256, 512, 3, 8, 1, 2), 2, [1, 2]),
+             ("conv_dw_fused", (128, 256, 3, 16, 2, 1), 2, [1])]
+    for name, geo, groups, blocks in extra:
+        for dtype in (torch.float32, torch.bfloat16):
+            case = gathered_case(gm, ops, name, geo, dtype, gen, groups=groups, blocks=blocks)
+            err = _check_close(name, case["kernel"](*case["args"]), case["plain"](*case["args"]),
+                               f"at {geo} groups={groups} blocks={blocks} {dtype}")
+            max_err[name] = max(max_err[name], err)
+    print(f"[gathered] {len(launches)} main-path shapes and {len(extra)} extra cases, fp32 and "
+          f"bf16: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}")
+    x = torch.randn((TRAIN_BATCH, 256, 8, 8), generator=gen, device="cuda")
+    dy = torch.randn((TRAIN_BATCH, 512, 8, 8), generator=gen, device="cuda")
+    bidx = torch.tensor([1, 3], dtype=torch.int32, device="cuda")
+    dropped = torch.cat([torch.arange(0, 128), torch.arange(256, 384)]).cuda()
+    dw2 = ops.conv_dw_fused_scatter(x, dy, bidx, kh=3, kw=3, stride=(1, 1),
+                                    padding=((1, 1), (1, 1)), dilation=(1, 1), groups=1)
+    dwg = ops.dw_gathered_scatter(x.permute(0, 2, 3, 1).reshape(-1, 256),
+                                  dy.permute(0, 2, 3, 1).reshape(-1, 512), bidx, 512)
+    torch.cuda.synchronize()
+    if dw2[:, dropped].any() or dwg[:, dropped].any() or not dw2.any() or not dwg.any():
+        raise AssertionError("dropped blocks are not exactly 0 after the scatter")
+    print("[gathered] dropped blocks exactly 0 after the scatter (dw_gathered, conv_dw_fused)")
+    return rows, max_err
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) in the order of ``optim.adam.tree_leaves``."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def training_batch(pipeline, dev="cuda"):
+    pipe = pipeline.ImagePipeline(
+        pipeline.ImagePipelineConfig(TRAIN_IMAGE, 10, TRAIN_BATCH, seed=11), n_train=1024)
+    b = pipe.batch_at(0)
+    return torch.from_numpy(b["images"]).to(dev), torch.from_numpy(b["labels"]).long().to(dev)
+
+
+def training_route_check(tc, resnet, backward, policy_mod, pipeline):
+    """The loss and all parameter gradients of one sparse step (0.8) of
+    the full-width ResNet-18 three ways: through the kernels, the gather
+    route (the conv VJP on the kept filters) and the mask oracle. All
+    fp32 with TF32 off, so the routes differ in summation order only."""
+    params = resnet.init_params(RESNET, 0, 10, device="cuda")
+    x, y = training_batch(pipeline)
+    kern = train_policy(policy_mod)
+    routes = {"kernels": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    site_of = {params["stem"]["w"].data_ptr(): "stem"}
+    for bi, blk in enumerate(params["blocks"]):
+        for key, site in (("conv1", "conv1"), ("conv2", "conv2"), ("down_conv", "down")):
+            if key in blk:
+                site_of[blk[key]["w"].data_ptr()] = f"block_{bi}/{site}"
+    res = {}
+    for name, pol in routes.items():
+        with backward.record_selections() as log:
+            loss, grads = tc.value_and_grad(RESNET, params, x, y, pol)
+        torch.cuda.synchronize()
+        kept = {site_of[p]: s.block_idx.tolist() for p, s in log}
+        res[name] = (loss.item(), _named_leaves(grads), kept)
+    for site in resnet.site_names(RESNET)[0]:
+        print(f"[train-route] {site:15s} kept blocks: " + "  ".join(
+            f"{name} {res[name][2][site]}" for name in routes))
+    worst = {}
+    for a, b in (("kernels", "gather"), ("kernels", "mask"), ("gather", "mask")):
+        if res[a][0] != res[b][0]:
+            raise AssertionError(f"loss {a} {res[a][0]} != {b} {res[b][0]}")
+        flips = [s for s in res[a][2] if res[a][2][s] != res[b][2][s]]
+        bad, top = [], 0.0
+        for (path, ga), (_, gb) in zip(res[a][1], res[b][1], strict=True):
+            n = gb.norm().item()
+            rel = (ga - gb).norm().item() / n if n > 0 else ga.norm().item()
+            top = max(top, rel)
+            if rel > TRAIN_ROUTE_TOL:
+                bad.append(f"{path} {rel:.3e}")
+        worst[f"{a}_vs_{b}"] = top
+        if flips or bad:
+            raise AssertionError(f"{a} vs {b}: selection flipped at {flips}; leaves over "
+                                 f"{TRAIN_ROUTE_TOL}: {bad}")
+    print(f"[train-route] full width, B={TRAIN_BATCH}, one sparse step: loss {res['kernels'][0]:.6f} "
+          f"on every route; {len(res['kernels'][1])} gradient leaves, worst relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {TRAIN_ROUTE_TOL})")
+    return worst
+
+
+def training_phase(tc, gm, pa, resnet, policy_mod):
+    """The port's training entry point, counted: 8 epoch-bar steps."""
+    argv = ["--model", RESNET, "--batch", str(TRAIN_BATCH), "--image-size", str(TRAIN_IMAGE[1]),
+            "--classes", "10", "--steps", "8", "--steps-per-epoch", "2", "--drop-rate", "0.8",
+            "--granularity", "block", "--block-size", "128", "--use-pallas", "--mode", "ssprop",
+            "--device", "cuda"]
+    args = tc.build_parser().parse_args(argv)
+    per_step = resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE,
+                                               train_policy(policy_mod))
+    pa_before = pa.launches
+    torch.cuda.reset_peak_memory_stats()
+    for k in gm.launches:
+        gm.launches[k] = 0
+    t0 = time.perf_counter()
+    out = tc.run(args)
+    wall = time.perf_counter() - t0
+    launches = dict(gm.launches)
+    rec = out["modes"]["ssprop"]
+    sparse = [i for i, r in enumerate(rec["rates"]) if r > 0]
+    if sparse != [2, 3, 6, 7]:
+        raise AssertionError(f"sparse steps {sparse}, expected [2, 3, 6, 7]")
+    if not all(math.isfinite(v) for v in rec["losses"]):
+        raise AssertionError(f"non-finite loss: {rec['losses']}")
+    expect = {k: per_step[k] * len(sparse) for k in GATHERED}
+    if launches != expect or out["launches"] != expect:
+        raise AssertionError(f"kernel launches {launches} != route table x 4 {expect}")
+    if pa.launches != pa_before:
+        raise AssertionError("the training phase launched paged_attention")
+    ms = [t * 1e3 for t in rec["step_times"]]
+    dense_ms = sorted(ms[i] for i in range(8) if i not in sparse)
+    sparse_ms = sorted(ms[i] for i in sparse)
+    med = lambda v: (v[len(v) // 2 - 1] + v[len(v) // 2]) / 2  # noqa: E731
+    print(f"[train] {RESNET} B={TRAIN_BATCH} {TRAIN_IMAGE}: 8 steps in {wall:.2f} s; losses "
+          f"{[round(v, 4) for v in rec['losses']]}; eval acc {rec['eval_acc']}")
+    print(f"[train] step ms {[round(v, 2) for v in ms]}; dense median {med(dense_ms):.2f} ms "
+          f"({TRAIN_BATCH / med(dense_ms) * 1e3:.0f} images/s), sparse median "
+          f"{med(sparse_ms):.2f} ms ({TRAIN_BATCH / med(sparse_ms) * 1e3:.0f} images/s); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches} = {per_step} x 4")
+    return launches, dict(dense_ms=med(dense_ms), sparse_ms=med(sparse_ms))
+
+
+def train_profile(tc, resnet, policy_mod, pipeline, adam):
+    """Where one dense and one sparse training step spend their time:
+    host wall over 3 runs, then one profiled run (device busy time and
+    the device items that take most of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = training_batch(pipeline)
+    ocfg = adam.AdamConfig()
+    out = {}
+    for name, pol in (("dense", policy_mod.SsPropPolicy(0.0)), ("sparse", train_policy(policy_mod))):
+        params = resnet.init_params(RESNET, 0, 10, device="cuda")
+        opt = adam.init(params)
+
+        def step():
+            p, _, loss = tc.train_step(RESNET, params, opt, x, y, pol, ocfg)
+            return loss.item()  # waits for the step
+
+        step()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"[train-profile] {name} step: host wall {wall_ms:.2f} ms, device busy "
+              f"{busy_ms:.2f} ms in {sum(e.count for e in kernels)} kernels")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"[train-profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+                  f"{e.key[:90]}")
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -327,10 +690,18 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import backward
+    from repro_torch.core import policy as policy_mod
+    from repro_torch.data import pipeline
     from repro_torch.kernels import build
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve
+    from repro_torch.launch import train_classifier as tc
     from repro_torch.models import model as lm
+    from repro_torch.models import resnet
+    from repro_torch.optim import adam
 
     # 1. device check
     card = smi()
@@ -354,7 +725,10 @@ def main() -> int:
     # 3. kernel phase
     rows, max_err = kernel_phase(pa, F)
 
-    # 4. route check at full width
+    # 4. gathered-kernel phase
+    g_rows, g_err = gathered_phase(gm, ops, resnet, policy_mod)
+
+    # 5. route check at full width
     cfg = get_config("qwen2.5-3b")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
@@ -366,7 +740,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     reduced_streams_agree(serve)
 
-    # 5. serve phase: the port's entry point, counted
+    # 6. serve phase: the port's entry point, counted
     argv = ["--arch", "qwen2.5-3b", "--batch", "4", "--requests", "8",
             "--prompt-len", "128", "--gen", "32", "--prefill-chunk", "32",
             "--block-size", "16", "--n-blocks", "0", "--arrival-rate", "0.5",
@@ -396,8 +770,18 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"paged_attention launches {launches} = {cfg.n_layers} x {steps}")
     print("[serve] first request tokens:", gen[0][:16].tolist())
+    del out
+    torch.cuda.empty_cache()
 
-    # 6. result lines
+    # 7. training-route check at full width
+    train_rel = training_route_check(tc, resnet, backward, policy_mod, pipeline)
+    torch.cuda.empty_cache()
+
+    # 8. training phase: the port's entry point, counted; then a profile
+    train_launches, train_ms = training_phase(tc, gm, pa, resnet, policy_mod)
+    train_profile(tc, resnet, policy_mod, pipeline, adam)
+
+    # 9. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
@@ -410,8 +794,21 @@ def main() -> int:
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         shape=head["shape"] + " q=bfloat16 pools=float32",
+        step_ms=cfg.n_layers * head["ms"],  # one engine step: a launch a layer
         route_rel_l2_fp32=route_rel["fp32"],
     )]
+    for name, replaces in GATHERED.items():
+        mine = [r for r in g_rows if r["name"] == name]
+        top = max(mine, key=lambda r: r["flops"])  # the main path's largest shape
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=train_launches[name], max_abs_err=g_err[name],
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["shape"],
+            # one sparse step's launches of this kernel, at their shapes
+            step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
+        ))
+    print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

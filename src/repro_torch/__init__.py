@@ -1,10 +1,13 @@
 """PyTorch + CUDA port of ``repro`` for an NVIDIA H100.
 
-Mirrors the JAX package's layout (``configs/``, ``kernels/``,
-``models/``, ``launch/``, ``serve/``) so every module has an obvious
-twin, and imports nothing of it. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``. Ported so far: serving the dense family
-(qwen2.5-3b) through the paged continuous-batching engine, with
-``paged_attention`` as a hand-written CUDA kernel
-(``kernels/csrc/paged_attention.cu``).
+Mirrors the JAX package's layout (``configs/``, ``core/``, ``data/``,
+``kernels/``, ``models/``, ``optim/``, ``launch/``, ``serve/``) so every
+module has an obvious twin, and imports nothing of it. Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``. Ported so far:
+serving the dense family (qwen2.5-3b) through the paged
+continuous-batching engine, with ``paged_attention`` as a hand-written
+CUDA kernel; and ssProp training of the ResNets through the
+channel-sparse backward engine, with the four gathered backward kernels
+(``dx_gathered``, ``dw_gathered``, ``conv_dw_fused``, ``conv_dx_fused``)
+hand-written in CUDA (``kernels/csrc/``).
 """

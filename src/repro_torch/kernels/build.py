@@ -3,8 +3,8 @@
 Every ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 repository's ``build/kernels/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. Nothing is compiled when a module is imported: the first
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is reused. Nothing is compiled when a module is imported: the first
 :func:`load` builds, or :func:`build_all` builds every source at once,
 one ``nvcc`` process per source, all started together.
 """
@@ -47,8 +47,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """The shared library for ``csrc/<name>.cu`` at its current content."""
+    """The shared library for ``csrc/<name>.cu`` at its current content
+    (and that of the shared headers, ``csrc/*.cuh``)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,1 +1,1 @@
-"""Entry points: the serving CLI and the step builders it drives."""
+"""Entry points: the serving and CNN-training CLIs and the step builders they drive."""

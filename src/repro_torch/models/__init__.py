@@ -1,1 +1,1 @@
-"""Model layers, the decoder stack and the top-level LM."""
+"""Model layers, the decoder stack and the top-level LM, and the ResNets."""

@@ -1,10 +1,11 @@
 """Shared model layers: plain functions on tensors and dict params.
 
 The twin of ``repro.models.layers`` for the dense decoder's serving
-path. Parameters keep the JAX package's layouts (dense weights are
-``[d_in, d_out]``), so a JAX param tree converts array for array
-(:func:`repro_torch.models.model.params_from_jax`). Forward only: the
-ssProp sparse backward of ``dense_apply`` comes with the training slice.
+path and the CNNs' convolutions. Parameters keep the JAX package's
+layouts (dense weights are ``[d_in, d_out]``, conv filters OIHW), so a
+JAX param tree converts array for array. ``dense_apply`` is forward
+only (the LM's sparse backward is not ported yet); ``conv_apply`` is
+the ssProp convolution (:func:`repro_torch.core.conv.sparse_conv2d`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.conv import sparse_conv2d
+from repro_torch.core.policy import SsPropPolicy, policy_for
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import paged_attention_ref
 
@@ -36,6 +39,44 @@ def dense_apply(p, x):
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def conv2d_init(gen, c_out, c_in, k, *, bias=False, dtype=torch.float32, device="cuda"):
+    """Kaiming-normal OIHW conv params ``{"w"[, "b"]}``, drawn from the
+    ``torch.Generator`` ``gen``."""
+    fan_in = c_in * k * k
+    w = torch.randn((c_out, c_in, k, k), generator=gen, dtype=torch.float32, device=device)
+    p = {"w": (w * math.sqrt(2.0 / fan_in)).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), dtype=dtype, device=device)
+    return p
+
+
+def conv_apply(
+    p,
+    x,
+    policy: SsPropPolicy,
+    *,
+    stride=1,
+    padding=0,
+    dilation=1,
+    groups=1,
+    key=None,
+    site: str = "",
+):
+    """The single conv call site the CNN models share: params dict in,
+    ssProp-backward conv out."""
+    return sparse_conv2d(
+        x,
+        p["w"],
+        p.get("b"),
+        stride=stride,
+        padding=padding,
+        dilation=dilation,
+        groups=groups,
+        policy=policy_for(policy, site),
+        key=key,
+    )
 
 
 def rmsnorm_init(d, dtype=torch.bfloat16, device="cuda"):

@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
+``paged_attention`` and the four gathered-matmul kernels of the ssProp
+backward (``dx_gathered``, ``dw_gathered``, ``conv_dw_fused``,
+``conv_dx_fused``).
+
 Every test here is marked ``cuda``: it needs a CUDA card and skips
 without one (a CUDA kernel has no CPU mode). The file imports neither
 JAX nor the JAX package, so it also runs where only PyTorch is
@@ -11,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import gathered_matmul as tgm
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +89,140 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q64, k64, v64, _, _ = _inputs(cuda, d=64)  # no ported config has head_dim 64
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_attention(q64, k64, v64, tables, qpos)
+
+
+# --- the gathered-matmul kernels of the ssProp backward ---------------
+
+
+def _close(out, ref):
+    """Raw fp32 outputs within 1e-4 * max(1, max|plain|): summation
+    order only (split-K, panel order)."""
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+
+
+def _randn(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(_DT[dtype])
+
+
+# (M, N, D_in, kept blocks, block size): ragged M and D_in, a ragged
+# channel tail (the stem's C=64 in one 128-block), KB > 1 non-contiguous
+GATHERED = [
+    (200, 512, 130, [1, 3], 128),
+    (96, 64, 27, [0], 128),
+    (1000, 44, 33, [1, 5], 8),
+    (4099, 256, 64, [0], 128),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,d,blocks,bs", GATHERED)
+def test_dx_gathered_kernel_matches_plain(cuda, m, n, d, blocks, bs, dtype):
+    dy, w = _randn(cuda, (m, n), dtype, 1), _randn(cuda, (d, n), dtype, 2)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    before = tgm.launches["dx_gathered"]
+    out = tgm.dx_gathered(dy, w, bidx, block_size=bs)
+    torch.cuda.synchronize()
+    assert tgm.launches["dx_gathered"] == before + 1
+    _close(out, tgm.dx_gathered_ref(dy, w, bidx, block_size=bs))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,d,blocks,bs", GATHERED)
+def test_dw_gathered_kernel_matches_plain(cuda, m, n, d, blocks, bs, dtype):
+    x, dy = _randn(cuda, (m, d), dtype, 3), _randn(cuda, (m, n), dtype, 4)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    before = tgm.launches["dw_gathered"]
+    out = tgm.dw_gathered(x, dy, bidx, block_size=bs)
+    torch.cuda.synchronize()
+    assert tgm.launches["dw_gathered"] == before + 1
+    _close(out, tgm.dw_gathered_ref(x, dy, bidx, block_size=bs))
+    full = tops.dw_gathered_scatter(x, dy, bidx, n, block_size=bs)
+    kept = {c for b in blocks for c in range(b * bs, min((b + 1) * bs, n))}
+    assert not full[:, sorted(set(range(n)) - kept)].any()  # dropped blocks exactly 0
+
+
+# (stride, padding, dilation, groups, C_in, C_out, block size, kept blocks)
+CONV = [
+    (1, 1, 1, 1, 6, 16, 4, [0, 2]),
+    (2, 1, 1, 1, 6, 10, 4, [0, 2]),  # stride 2, ragged channel tail
+    (1, 0, 2, 1, 6, 16, 4, [1, 3]),
+    (1, 1, 1, 2, 6, 16, 4, [0, 2]),  # groups 2, one block each
+    (2, 1, 2, 2, 6, 16, 4, [1, 2]),
+    (1, 1, 1, 1, 64, 64, 128, [0]),  # the main path's ragged C=64 block
+    (2, 1, 1, 1, 64, 256, 128, [1]),
+    (1, 1, 1, 1, 128, 512, 128, [0, 3]),  # KB=2 of 4, non-contiguous
+]
+
+
+def _conv_geometry(stride, padding, dilation, c_in, groups, b=2, h=9, k=3):
+    h_pad = h + 2 * padding
+    h_out = (h_pad - dilation * (k - 1) - 1) // stride + 1
+    return dict(b=b, h_pad=h_pad, h_out=h_out, cg=c_in // groups)
+
+
+def _dy2r(dev, b, h_out, c_out, bs, dtype, seed):
+    c_pad = c_out + (-c_out) % bs
+    dy = torch.zeros((b * h_out, h_out, c_pad), device=dev, dtype=_DT[dtype])
+    dy[..., :c_out] = _randn(dev, (b * h_out, h_out, c_out), dtype, seed)
+    return dy
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride,padding,dilation,groups,c_in,c_out,bs,blocks", CONV)
+def test_conv_dw_fused_kernel_matches_plain(cuda, stride, padding, dilation, groups, c_in,
+                                            c_out, bs, blocks, dtype):
+    g = _conv_geometry(stride, padding, dilation, c_in, groups)
+    xg = _randn(cuda, (g["b"] * g["h_pad"], groups, g["h_pad"], g["cg"]), dtype, 5)
+    dy2r = _dy2r(cuda, g["b"], g["h_out"], c_out, bs, dtype, 6)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    kw = dict(kh_dim=3, kw_dim=3, stride=(stride, stride), dilation=(dilation, dilation),
+              h_out=g["h_out"], block_size=bs)
+    before = tgm.launches["conv_dw_fused"]
+    out = tgm.conv_dw_fused(xg, dy2r, bidx, c_out=c_out, **kw)
+    torch.cuda.synchronize()
+    assert tgm.launches["conv_dw_fused"] == before + 1
+    _close(out, tgm.conv_dw_fused_ref(xg, dy2r, bidx, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride,padding,dilation,groups,c_in,c_out,bs,blocks", CONV)
+def test_conv_dx_fused_kernel_matches_plain(cuda, stride, padding, dilation, groups, c_in,
+                                            c_out, bs, blocks, dtype):
+    g = _conv_geometry(stride, padding, dilation, c_in, groups)
+    dy2r = _dy2r(cuda, g["b"], g["h_out"], c_out, bs, dtype, 7)
+    w2k = _randn(cuda, (3, 3, g["cg"], len(blocks) * bs), dtype, 8)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    kw = dict(b=g["b"], h_pad=g["h_pad"], w_pad=g["h_pad"], groups=groups,
+              stride=(stride, stride), dilation=(dilation, dilation), block_size=bs)
+    before = tgm.launches["conv_dx_fused"]
+    out = tgm.conv_dx_fused(dy2r, w2k, bidx, c_out=c_out, **kw)
+    torch.cuda.synchronize()
+    assert tgm.launches["conv_dx_fused"] == before + 1
+    _close(out, tgm.conv_dx_fused_ref(dy2r, w2k, bidx, **kw))
+
+
+def test_gathered_wrappers_raise_never_fall_back(cuda):
+    dy, w = _randn(cuda, (64, 128), "float32", 9), _randn(cuda, (32, 128), "float32", 10)
+    bidx = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):  # fp16 is not a kernel operand type
+        tgm.dx_gathered(dy.half(), w.half(), bidx)
+    with pytest.raises(TypeError):  # operands of two types
+        tgm.dx_gathered(dy, w.bfloat16(), bidx)
+    with pytest.raises(TypeError):
+        tgm.dw_gathered(dy, dy, bidx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.dx_gathered(dy.t().contiguous().t(), w, bidx)
+    with pytest.raises(ValueError):
+        tgm.dw_gathered(dy, dy.cpu(), bidx)
+    xg = _randn(cuda, (2 * 10, 1, 10, 6), "float32", 11)
+    dy2r = _randn(cuda, (2 * 8, 8, 8), "float32", 12)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.conv_dw_fused(xg[:, :, :, :3], dy2r, bidx, kh_dim=3, kw_dim=3, stride=(1, 1),
+                          dilation=(1, 1), h_out=8, block_size=8)
+    with pytest.raises(TypeError):
+        tgm.conv_dx_fused(dy2r, _randn(cuda, (3, 3, 6, 8), "bfloat16", 13), bidx, b=2,
+                          h_pad=10, w_pad=10, groups=1, stride=(1, 1), dilation=(1, 1),
+                          block_size=8)

@@ -88,7 +88,9 @@ def test_wrapper_refuses_other_devices():
 def test_build_is_keyed_by_source_hash():
     """One library per kernel source, named by its content hash, in the
     git-ignored build directory."""
-    assert build.sources() == ["paged_attention"]
+    assert build.sources() == [
+        "conv_dw_fused", "conv_dx_fused", "dw_gathered", "dx_gathered", "paged_attention",
+    ]
     path = build.lib_path("paged_attention")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("paged_attention-") and path.suffix == ".so"
