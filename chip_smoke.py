@@ -50,12 +50,31 @@ line) on any error:
    every loss finite, each gathered kernel launched the route table's
    count times 4, ``paged_attention`` not at all; then a profile of one
    dense and one sparse step;
-9. prints the card's line, the kernels' JSON line and, last, the device
+9. LM kernel phase: ``matmul`` at the 8 product shapes of a sparse
+   qwen2.5-3b step (B=8, S=128, ``paper_default(0.8)``: K kept = 410, 51,
+   2202), with the operands laid out as the backward hands them over
+   (``w_k.T`` and ``x2.T`` are transposed views), and ``importance`` at
+   the 3 cotangent shapes, bf16 and fp32, raw fp32 outputs within
+   1e-4 * max(1, max|plain|); times each kernel, its plain version and
+   one library call (``torch.matmul`` on the operands as given, whose
+   bf16 output rounding is its only difference; none computes
+   ``importance``), with the bound of each;
+10. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
+   depth 4, fp32 with TF32 off, through ``matmul``, the gather route and
+   the mask oracle: the same kept channels at every site, the same loss,
+   every gradient leaf within a relative L2 of 1e-4 between each pair;
+11. LM training phase: ``repro_torch.launch.train.run`` trains qwen2.5-3b
+   at full width and depth (bf16, B=8, S=128, channel granularity with
+   ``--use-pallas``) for 8 epoch-bar steps (steps 2, 3, 6, 7 sparse);
+   every loss finite, ``matmul`` launched the launch table's count times
+   4, no other kernel; then a profile of one dense and one sparse step;
+12. prints the card's line, the kernels' JSON line and, last, the device
    JSON line.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 from pathlib import Path
@@ -70,12 +89,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 L2_BYTES = 50 * 2**20
 KERNEL_TOL = 1e-4  # raw fp32 outputs: summation order only
 FP32_ROUTE_TOL = 1e-4  # fp32 params: the routes differ in summation order only
 BF16_NOISE_FACTOR = 1.5  # bf16 params: kernel route's distance to fp32 vs the gather route's
 TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summation order only
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
+LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
+LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
+LM_KERNELS = {  # kernel -> the TPU kernel it replaces
+    "matmul": "src/repro/kernels/gathered_matmul.py:383",
+    "importance": "src/repro/kernels/gathered_matmul.py:344",
+}
 GATHERED = {  # kernel -> the TPU kernel it replaces
     "dx_gathered": "src/repro/kernels/gathered_matmul.py:66",
     "dw_gathered": "src/repro/kernels/gathered_matmul.py:119",
@@ -627,7 +653,7 @@ def training_phase(tc, gm, pa, resnet, policy_mod):
         raise AssertionError(f"sparse steps {sparse}, expected [2, 3, 6, 7]")
     if not all(math.isfinite(v) for v in rec["losses"]):
         raise AssertionError(f"non-finite loss: {rec['losses']}")
-    expect = {k: per_step[k] * len(sparse) for k in GATHERED}
+    expect = {k: per_step.get(k, 0) * len(sparse) for k in gm.launches}  # matmul: none
     if launches != expect or out["launches"] != expect:
         raise AssertionError(f"kernel launches {launches} != route table x 4 {expect}")
     if pa.launches != pa_before:
@@ -682,6 +708,247 @@ def train_profile(tc, resnet, policy_mod, pipeline, adam):
     return out
 
 
+# ----------------------------------------------------------------------
+# ssProp LM training: matmul, importance and the qwen2.5-3b path
+# ----------------------------------------------------------------------
+
+
+def lm_policy(policy_mod):
+    """The LM path's sparse policy: ``paper_default(0.8)`` (channel
+    top-k) with ``use_pallas``."""
+    return dataclasses.replace(policy_mod.paper_default(LM_RATE), use_pallas=True)
+
+
+def lm_products(cfg, policy):
+    """``(name, A shape, B shape, A transposed, B transposed, launches a
+    sparse step)`` of every ``matmul`` product of a sparse step, as the
+    backward hands them over: dX = dy_k @ w_k.T, dW = x2.T @ dy_k."""
+    m = LM_BATCH * LM_SEQ
+    d, hd = cfg.d_model, cfg.head_dim
+    sites = {  # site -> (d_in, d_out, sites of this shape a layer)
+        "q, o": (d, cfg.n_heads * hd, 2), "k, v": (d, cfg.n_kv_heads * hd, 2),
+        "gate, up": (d, cfg.d_ff, 2), "down": (cfg.d_ff, d, 1),
+    }
+    out = []
+    for name, (d_in, d_out, per_layer) in sites.items():
+        k = policy.keep_count(d_out)
+        n = per_layer * cfg.n_layers
+        out.append((f"dX {name}", (m, k), (k, d_in), False, True, n))
+        out.append((f"dW {name}", (d_in, m), (m, k), True, False, n))
+    return out
+
+
+def _rotations(nbytes: int) -> int:
+    """Argument sets to cycle through so that the 50 MB L2 cannot hold
+    the next call's inputs."""
+    return max(2, min(64, math.ceil(3 * L2_BYTES / max(nbytes, 1))))
+
+
+def lm_kernel_phase(gm, lm, cfg, policy):
+    """``matmul`` and ``importance`` against their plain versions at
+    every shape of the LM path, bf16 and fp32; times and bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, max_err = [], dict.fromkeys(LM_KERNELS, 0.0)
+    products = lm_products(cfg, policy)
+    expect = lm.kernel_launches_per_step(cfg, policy)["matmul"]
+    if sum(p[-1] for p in products) != expect:
+        raise AssertionError(f"product table {products} != launch table {expect}")
+    for name, a_shape, b_shape, a_t, b_t, per_step in products:
+        for dtype in (torch.bfloat16, torch.float32):
+            def operands(a_shape=a_shape, b_shape=b_shape, a_t=a_t, b_t=b_t, dtype=dtype):
+                a = torch.randn(a_shape[::-1] if a_t else a_shape, generator=gen,
+                                device="cuda").to(dtype)
+                b = torch.randn(b_shape[::-1] if b_t else b_shape, generator=gen,
+                                device="cuda").to(dtype)
+                return (a.T if a_t else a, b.T if b_t else b)
+
+            args = operands()
+            out, ref = gm.matmul(*args), gm.matmul_ref(*args)
+            err = _check_close("matmul", out, ref, f"{name} {a_shape}x{b_shape} {dtype}")
+            max_err["matmul"] = max(max_err["matmul"], err)
+            (m, k), n = a_shape, b_shape[1]
+            it = args[0].element_size()
+            nbytes = (m * k + k * n) * it + m * n * 4
+            sets = [args] + [operands() for _ in range(_rotations(nbytes) - 1)]
+            ms = gpu_time_ms(gm.matmul, sets, 20)
+            plain_ms = gpu_time_ms(gm.matmul_ref, sets, 5)
+            library_ms = gpu_time_ms(torch.matmul, sets, 20)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 2 * m * n * k / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            row = dict(name="matmul", product=name, shape=f"A[{m},{k}]{'T' if a_t else ''} @ "
+                       f"B[{k},{n}]{'T' if b_t else ''}", dtype=str(dtype).replace("torch.", ""),
+                       launches_per_step=per_step, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       flops=2 * m * n * k, tflops=2 * m * n * k / ms / 1e9)
+            rows.append(row)
+            print("[lm-kernels] " + json.dumps(row))
+            del sets, args, out, ref
+    for n in (cfg.d_model, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff):
+        for dtype in (torch.bfloat16, torch.float32):
+            m = LM_BATCH * LM_SEQ
+            dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+            out = gm.importance(dy)
+            err = _check_close("importance", out, gm.importance_ref(dy), f"[{m}, {n}] {dtype}")
+            if not torch.equal(out, gm.importance(dy)):
+                raise AssertionError("importance does not repeat exactly")
+            max_err["importance"] = max(max_err["importance"], err)
+            nbytes = m * n * dy.element_size() + n * 4
+            sets = [(dy,)] + [(torch.randn((m, n), generator=gen, device="cuda").to(dtype),)
+                              for _ in range(_rotations(nbytes) - 1)]
+            ms = gpu_time_ms(gm.importance, sets, 50)
+            plain_ms = gpu_time_ms(gm.importance_ref, sets, 20)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n / FP32_FLOPS
+            row = dict(name="importance", shape=f"dY[{m},{n}]", dtype=str(dtype).replace(
+                "torch.", ""), launches_per_step=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", flops=2 * m * n)
+            rows.append(row)
+            print("[lm-kernels] " + json.dumps(row))
+            del sets, dy
+    print(f"[lm-kernels] matmul at {len(products)} products and importance at 3 shapes, bf16 "
+          f"and fp32: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}")
+    return rows, max_err
+
+
+def _lm_batch(pipeline, cfg, step=0, dev="cuda"):
+    pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(cfg.vocab, LM_SEQ, LM_BATCH, 0))
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+
+def lm_route_check(lm, steps, backward, policy_mod, pipeline, cfg):
+    """The loss and all parameter gradients of one sparse step of
+    qwen2.5-3b at full width and depth ``LM_ROUTE_DEPTH`` three ways:
+    through ``matmul``, the gather route and the mask oracle. fp32 with
+    TF32 off, so the routes differ in summation order only."""
+    cfg = dataclasses.replace(cfg, n_layers=LM_ROUTE_DEPTH, dtype="float32")
+    params = lm.init_params(cfg, 0, device="cuda")
+    batch = _lm_batch(pipeline, cfg)
+    kern = lm_policy(policy_mod)
+    routes = {"matmul": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    site_of = {layer[r][p]["w"].data_ptr(): f"layer_{li}/{r}/{p}"
+               for li, layer in enumerate(params["stack"]["layers"])
+               for r, projs in (("attn", "qkvo"), ("mlp", ("gate", "up", "down"))) for p in projs}
+    res = {}
+    for name, pol in routes.items():
+        with backward.record_selections() as log:
+            (loss, _), grads = steps.value_and_grad(
+                lambda p, pol=pol: lm.loss_fn(cfg, p, batch, pol), params)
+        torch.cuda.synchronize()
+        kept = {site_of[p]: s.idx for p, s in log}
+        res[name] = (loss.item(), _named_leaves(grads), kept)
+        del grads
+    sites = lm.site_names(cfg)[0]
+    if any(sorted(r[2]) != sorted(sites) for r in res.values()):
+        raise AssertionError("a route did not select at every site")
+    worst = {}
+    for a, b in (("matmul", "gather"), ("matmul", "mask"), ("gather", "mask")):
+        if res[a][0] != res[b][0]:
+            raise AssertionError(f"loss {a} {res[a][0]} != {b} {res[b][0]}")
+        flips = [s for s in sites if not torch.equal(res[a][2][s], res[b][2][s])]
+        bad, top = [], 0.0
+        for (path, ga), (_, gb) in zip(res[a][1], res[b][1], strict=True):
+            n = gb.float().norm().item()
+            rel = (ga.float() - gb.float()).norm().item() / n if n > 0 else ga.norm().item()
+            top = max(top, rel)
+            if rel > TRAIN_ROUTE_TOL:
+                bad.append(f"{path} {rel:.3e}")
+        worst[f"{a}_vs_{b}"] = top
+        if flips or bad:
+            raise AssertionError(f"{a} vs {b}: selection differs at {flips}; leaves over "
+                                 f"{TRAIN_ROUTE_TOL}: {bad}")
+    kept = {s: res["matmul"][2][s].numel() for s in sites[:7]}
+    print(f"[lm-route] {LM_ARCH} full width, depth {LM_ROUTE_DEPTH}, B={LM_BATCH} S={LM_SEQ}, "
+          f"fp32, one sparse step: the same kept channels at all {len(sites)} sites (kept a "
+          f"layer: {kept}); loss {res['matmul'][0]:.6f} on every route; "
+          f"{len(res['matmul'][1])} gradient leaves, worst relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {TRAIN_ROUTE_TOL})")
+    return worst
+
+
+def lm_training_phase(train, lm, gm, pa, policy_mod, cfg):
+    """The port's LM entry point, counted: 8 epoch-bar steps at full
+    width and depth."""
+    argv = ["--arch", LM_ARCH, "--steps", "8", "--steps-per-epoch", "2", "--global-batch",
+            str(LM_BATCH), "--seq-len", str(LM_SEQ), "--drop-rate", str(LM_RATE),
+            "--granularity", "channel", "--use-pallas", "--log-every", "1", "--device", "cuda"]
+    args = train.build_parser().parse_args(argv)
+    per_step = lm.kernel_launches_per_step(cfg, lm_policy(policy_mod))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pa_before = pa.launches
+    for k in gm.launches:
+        gm.launches[k] = 0
+    t0 = time.perf_counter()
+    out = train.run(args)
+    wall = time.perf_counter() - t0
+    launches = dict(gm.launches)
+    sparse = [i for i, r in enumerate(out["rates"]) if r > 0]
+    if sparse != [2, 3, 6, 7]:
+        raise AssertionError(f"sparse steps {sparse}, expected [2, 3, 6, 7]")
+    if not all(math.isfinite(v) for v in out["history"]):
+        raise AssertionError(f"non-finite loss: {out['history']}")
+    expect = dict.fromkeys(gm.launches, 0)
+    expect["matmul"] = per_step["matmul"] * len(sparse)
+    if launches != expect or out["launches"] != expect or per_step["matmul"] != 504:
+        raise AssertionError(f"kernel launches {launches} != launch table x 4 {expect}")
+    if pa.launches != pa_before:
+        raise AssertionError("the LM training phase launched paged_attention")
+    ms = [t * 1e3 for t in out["step_times"]]
+    dense_ms = sorted(ms[i] for i in range(8) if i not in sparse)
+    sparse_ms = sorted(ms[i] for i in sparse)
+    med = lambda v: (v[len(v) // 2 - 1] + v[len(v) // 2]) / 2  # noqa: E731
+    tokens = LM_BATCH * LM_SEQ
+    print(f"[lm-train] {LM_ARCH} full width and depth, bf16, B={LM_BATCH} S={LM_SEQ}: 8 steps "
+          f"in {wall:.2f} s; losses {[round(v, 4) for v in out['history']]}")
+    print(f"[lm-train] step ms {[round(v, 2) for v in ms]}; dense median {med(dense_ms):.2f} ms "
+          f"({tokens / med(dense_ms) * 1e3:.0f} tokens/s), sparse median {med(sparse_ms):.2f} ms "
+          f"({tokens / med(sparse_ms) * 1e3:.0f} tokens/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; matmul launches "
+          f"{launches['matmul']} = {per_step['matmul']} x {len(sparse)}")
+    return launches, dict(dense_ms=med(dense_ms), sparse_ms=med(sparse_ms))
+
+
+def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
+    """Where one dense and one sparse LM training step spend their time:
+    host wall over 3 runs, then one profiled run (device busy time and
+    the device items that take most of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = _lm_batch(pipeline, cfg)
+    params = lm.init_params(cfg, 0, device="cuda")
+    opt = adam.init(params)
+    ocfg = adam.AdamConfig(lr=2e-4, clip_norm=1.0)
+    out = {}
+    for name, pol in (("dense", policy_mod.DENSE), ("sparse", lm_policy(policy_mod))):
+        fn = steps.make_train_step(cfg, pol, ocfg)
+
+        def step():
+            _, _, m = fn(params, opt, batch)  # in place
+            return m["loss"].item()  # waits for the step
+
+        step()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"[lm-profile] {name} step: host wall {wall_ms:.2f} ms, device busy "
+              f"{busy_ms:.2f} ms in {sum(e.count for e in kernels)} kernels")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"[lm-profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+                  f"{e.key[:90]}")
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    del params, opt
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -698,6 +965,8 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train
     from repro_torch.launch import train_classifier as tc
     from repro_torch.models import model as lm
     from repro_torch.models import resnet
@@ -781,7 +1050,17 @@ def main() -> int:
     train_launches, train_ms = training_phase(tc, gm, pa, resnet, policy_mod)
     train_profile(tc, resnet, policy_mod, pipeline, adam)
 
-    # 9. result lines
+    # 9-11. ssProp LM training: kernels, routes, the entry point, a profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_rows, lm_err = lm_kernel_phase(gm, lm, cfg, lm_policy(policy_mod))
+    lm_rel = lm_route_check(lm, lm_steps, backward, policy_mod, pipeline, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_launches, lm_ms = lm_training_phase(train, lm, gm, pa, policy_mod, cfg)
+    lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
+
+    # 12. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
@@ -808,7 +1087,20 @@ def main() -> int:
             # one sparse step's launches of this kernel, at their shapes
             step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
         ))
+    for name, replaces in LM_KERNELS.items():
+        mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]
+        top = max(mine, key=lambda r: (r["flops"], r["ms"]))  # the main path's largest shape
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=lm_launches[name], max_abs_err=lm_err[name],
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"],
+            shape=" ".join(filter(None, (top.get("product"), top["shape"], "bfloat16"))),
+            # one sparse step's launches of this kernel (bf16, as the main path), at their shapes
+            step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
+        ))
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
+    print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

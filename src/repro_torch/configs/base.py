@@ -32,6 +32,7 @@ class ModelConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    attn_q_chunk: int = 1024  # full-sequence attention's query chunk (memory lever)
 
     def __post_init__(self):
         if self.head_dim == 0:

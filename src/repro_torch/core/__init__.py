@@ -9,16 +9,30 @@ The twin of ``repro.core``:
   ``sparse_conv2d`` / ``sparse_dense`` as ``torch.autograd.Function``s;
 * :mod:`~repro_torch.core.flops`      — the traffic model the conv
   routing gate reads;
-* :mod:`~repro_torch.core.policy`     — ``SsPropPolicy`` and its presets.
+* :mod:`~repro_torch.core.policy`     — ``SsPropPolicy``, its presets and
+  the per-site programs (``PolicyRules``, ``PolicyProgram``,
+  ``SitePolicies``).
 """
 from repro_torch.core.backward import ChannelSparseOp, channel_sparse_backward
 from repro_torch.core.conv import sparse_conv2d
 from repro_torch.core.dense import sparse_dense
-from repro_torch.core.policy import DENSE, SsPropPolicy, paper_default, policy_for, tpu_default
+from repro_torch.core.policy import (
+    DENSE,
+    PolicyProgram,
+    PolicyRules,
+    SitePolicies,
+    SsPropPolicy,
+    paper_default,
+    policy_for,
+    tpu_default,
+)
 
 __all__ = [
     "DENSE",
     "ChannelSparseOp",
+    "PolicyProgram",
+    "PolicyRules",
+    "SitePolicies",
     "SsPropPolicy",
     "channel_sparse_backward",
     "paper_default",

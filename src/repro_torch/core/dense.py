@@ -6,11 +6,15 @@ Forward is ``Y = X @ W (+ b)``; backward is the engine
 algebra. The canonical form (``use_pallas``, block granularity) goes
 through the gathered kernels ``dx_gathered`` / ``dw_gathered``.
 
-At channel granularity with ``use_pallas`` the JAX package runs its
-``matmul`` kernel on the gathered operands, and that kernel is not
-ported yet: the combination raises rather than fall back to
-``torch.matmul``. Without ``use_pallas``, ``torch.matmul`` is the JAX
-package's ``jnp.matmul``.
+At channel granularity with ``use_pallas`` the shrunk products run
+through the ``matmul`` kernel on the gathered operands, fp32 out, as the
+JAX package's do. Without ``use_pallas``, ``torch.matmul`` is the JAX
+package's ``jnp.matmul``, its output in the operands' dtype: that
+rounding difference between the two routes is the reference's own.
+
+Where no gradient is wanted (grad mode off, or no input requiring one,
+as in serving) ``sparse_dense`` is the plain ``x @ w (+ b)`` and does not
+enter the autograd Function.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.core import backward
 from repro_torch.core.policy import SsPropPolicy
+from repro_torch.kernels import ops as kops
 
 # frozen, so safe to share as the signature default
 _DEFAULT_POLICY = SsPropPolicy()
@@ -54,20 +59,17 @@ class _DenseOp(backward.ChannelSparseOp):
     def dw_full(self, dy_eff):
         return _mm(self._cast(self.x2).T, dy_eff)
 
-    def _no_matmul_kernel(self):
-        if self.policy.use_pallas:
-            raise NotImplementedError(
-                "matmul kernel not ported yet: channel-granularity sparse_dense with "
-                "use_pallas runs the JAX package's matmul kernel"
-            )
-
     def contract_gathered_dx(self, dy_k, sel):
-        self._no_matmul_kernel()
-        return _mm(dy_k, self._cast(self.w.index_select(1, sel.idx)).T)
+        w_k = self._cast(self.w.index_select(1, sel.idx))
+        if self.policy.use_pallas:
+            return kops.matmul(dy_k, w_k.T)
+        return _mm(dy_k, w_k.T)  # shrunk: 2*M*K*D_in
 
     def contract_gathered_dw(self, dy_k, sel):
-        self._no_matmul_kernel()
-        return _mm(self._cast(self.x2).T, dy_k)
+        x2 = self._cast(self.x2)
+        if self.policy.use_pallas:
+            return kops.matmul(x2.T, dy_k)
+        return _mm(x2.T, dy_k)  # shrunk: 2*M*D_in*K
 
     def canonical(self, dy_eff):
         return backward.CanonicalForm(
@@ -125,4 +127,8 @@ def sparse_dense(
       policy: the ssProp policy of this step.
       key: ``torch.Generator`` for ``selection="random"``.
     """
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b))):
+        y = _mm(x, w)
+        return y if b is None else y + b
     return _SparseDense.apply(x, w, b, policy, key)

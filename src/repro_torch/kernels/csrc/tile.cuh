@@ -1,10 +1,10 @@
-// Shared pieces of the four gathered-matmul kernels (dx_gathered.cu,
-// dw_gathered.cu, conv_dw_fused.cu, conv_dx_fused.cu): a 64x64 fp32 output
-// tile per block of 256 threads, 4x4 outputs a thread, fed from two
-// shared-memory panels of BK reduction steps. Each kernel fills the panels
-// with its own addressing (the kept-block gather, the im2col taps); the
-// multiply-add over a panel pair is the same everywhere, and so is the
-// fixed-order reduction of split-K partials.
+// Shared pieces of the five matmul-shaped kernels (dx_gathered.cu,
+// dw_gathered.cu, conv_dw_fused.cu, conv_dx_fused.cu, matmul.cu): a 64x64
+// fp32 output tile per block of 256 threads, 4x4 outputs a thread, fed from
+// two shared-memory panels of BK reduction steps. Each kernel fills the
+// panels with its own addressing (the kept-block gather, the im2col taps,
+// strided operands); the multiply-add over a panel pair is the same
+// everywhere, and so is the fixed-order reduction of split-K partials.
 //
 // Plain SIMT fp32 FMA: no tensor cores, no TMA, no pipelining. Operands are
 // fp32 or bf16 and are widened to fp32 on their way into shared memory.

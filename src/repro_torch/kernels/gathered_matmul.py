@@ -2,10 +2,11 @@
 
 The twin of ``repro.kernels.gathered_matmul``. The kernels are CUDA C++
 for Hopper (``csrc/dx_gathered.cu``, ``csrc/dw_gathered.cu``,
-``csrc/conv_dw_fused.cu``, ``csrc/conv_dx_fused.cu``; each source says
-how it is laid out); this module holds one wrapper per kernel, its plain
-PyTorch version (``*_ref``) and :data:`launches`, the number of times
-each wrapper launched its kernel.
+``csrc/conv_dw_fused.cu``, ``csrc/conv_dx_fused.cu``, ``csrc/matmul.cu``,
+``csrc/importance.cu``; each source says how it is laid out); this
+module holds one wrapper per kernel, its plain PyTorch version
+(``*_ref``) and :data:`launches`, the number of times each wrapper
+launched its kernel.
 
   * ``dx_gathered``  : dX[M, D_in]  = Σ_kb dY[:, blk] @ W[:, blk]ᵀ
   * ``dw_gathered``  : dWk[D_in, KB·bs] = Xᵀ @ dY[:, kept]  (compact)
@@ -13,6 +14,9 @@ each wrapper launched its kernel.
     im2col patch gather in the addressing
   * ``conv_dx_fused``: conv dX on the padded image ``[B·H_pad, G, W_pad,
     Cg]`` with the col2im scatter done as a gather
+  * ``matmul``       : A[M, K] @ B[K, N] in fp32, operands read through
+    their strides (the channel-granularity dense backward's products)
+  * ``importance``   : imp[N] = mean_M |dY[M, N]| in fp32
 
 Layouts are the JAX package's (``xg``, ``dy2r``, ``w2k``: see
 ``kernels/ops.py``). Unlike the TPU kernels these take unpadded
@@ -33,7 +37,10 @@ import torch
 from repro_torch.kernels import build
 
 # kernel launches by each wrapper (reset by whoever counts)
-launches = {"dx_gathered": 0, "dw_gathered": 0, "conv_dw_fused": 0, "conv_dx_fused": 0}
+launches = {
+    "dx_gathered": 0, "dw_gathered": 0, "conv_dw_fused": 0, "conv_dx_fused": 0,
+    "matmul": 0, "importance": 0,
+}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TARGET_BLOCKS = 8 * 132  # about eight resident blocks on each of the H100's 132 SMs
@@ -47,6 +54,8 @@ _ARGTYPES = {
     "dw_gathered": [_P] * 5 + [_I] * 7 + [_I, _P],
     "conv_dw_fused": [_P] * 5 + [_I] * 18 + [_L, _I, _P],
     "conv_dx_fused": [_P] * 4 + [_I] * 17 + [_I, _P],
+    "matmul": [_P] * 3 + [_I] * 3 + [_L] * 4 + [_I, _P],
+    "importance": [_P] * 3 + [_I] * 4 + [_I, _P],
 }
 _fns: dict[str, object] = {}
 
@@ -70,26 +79,28 @@ def _launch(name: str, device, *args) -> None:
     launches[name] += 1
 
 
-def _on_cuda(name: str, *tensors) -> bool:
+def _on_cuda(name: str, *ops, block_idx=None, contiguous: bool = True) -> bool:
     """True for CUDA operands, False for CPU ones; raises for anything
     else, and for what the kernel does not take."""
-    dev = tensors[0].device
+    dev = ops[0].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-    *ops, block_idx = tensors
     if ops[0].dtype not in _DTYPES or any(t.dtype != ops[0].dtype for t in ops):
         raise TypeError(
             f"{name}: dtypes {[str(t.dtype) for t in ops]}; the kernel takes operands "
             "all float32 or all bfloat16"
         )
-    if block_idx.dtype != torch.int32:
-        raise TypeError(f"{name}: block_idx must be int32, got {block_idx.dtype}")
+    tensors = ops
+    if block_idx is not None:
+        if block_idx.dtype != torch.int32:
+            raise TypeError(f"{name}: block_idx must be int32, got {block_idx.dtype}")
+        tensors = (*ops, block_idx)
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     return True
 
@@ -136,7 +147,7 @@ def dx_gathered_ref(dy, w, block_idx, *, block_size: int = 128) -> torch.Tensor:
 def dx_gathered(dy, w, block_idx, *, block_size: int = 128) -> torch.Tensor:
     """dX[M, D_in] from dY[M, N], W[D_in, N] and the kept block indices
     (int32, sorted), fp32."""
-    if not _on_cuda("dx_gathered", dy, w, block_idx):
+    if not _on_cuda("dx_gathered", dy, w, block_idx=block_idx):
         return dx_gathered_ref(dy, w, block_idx, block_size=block_size)
     m, n = dy.shape
     d_in, n2 = w.shape
@@ -167,7 +178,7 @@ def dw_gathered_ref(x, dy, block_idx, *, block_size: int = 128) -> torch.Tensor:
 def dw_gathered(x, dy, block_idx, *, block_size: int = 128) -> torch.Tensor:
     """Compact dW[D_in, KB*block_size] from X[M, D_in], dY[M, N]; the
     caller scatters it."""
-    if not _on_cuda("dw_gathered", x, dy, block_idx):
+    if not _on_cuda("dw_gathered", x, dy, block_idx=block_idx):
         return dw_gathered_ref(x, dy, block_idx, block_size=block_size)
     m, d_in = x.shape
     m2, n = dy.shape
@@ -244,7 +255,7 @@ def conv_dw_fused(
     real channel count, default ``C_pad``) lets the kernel skip the
     phantom channels of a ragged tail.
     """
-    if not _on_cuda("conv_dw_fused", xg, dy2r, block_idx):
+    if not _on_cuda("conv_dw_fused", xg, dy2r, block_idx=block_idx):
         return conv_dw_fused_ref(
             xg, dy2r, block_idx, kh_dim=kh_dim, kw_dim=kw_dim, stride=stride,
             dilation=dilation, h_out=h_out, block_size=block_size,
@@ -309,7 +320,7 @@ def conv_dx_fused(
     ``dxp [B*H_pad, G, W_pad, Cg]`` fp32; the caller slices the padding
     off. Pass ``arange(NB)`` and the full filter for the dense side of a
     mixed policy."""
-    if not _on_cuda("conv_dx_fused", dy2r, w2k, block_idx):
+    if not _on_cuda("conv_dx_fused", dy2r, w2k, block_idx=block_idx):
         return conv_dx_fused_ref(
             dy2r, w2k, block_idx, b=b, h_pad=h_pad, w_pad=w_pad, groups=groups,
             stride=stride, dilation=dilation, block_size=block_size,
@@ -328,5 +339,66 @@ def conv_dx_fused(
         out.data_ptr(), b, h_pad, groups, w_pad, cg, m2 // b, w_out, c_pad,
         c_pad if c_out is None else c_out, kh_dim, kw_dim, sh, sw, dh, dw, kb, block_size,
         int(dy2r.dtype == torch.bfloat16),
+    )
+    return out
+
+
+# ----------------------------------------------------------------------
+# A[M, K] @ B[K, N] in fp32
+# ----------------------------------------------------------------------
+
+
+def matmul_ref(a, b) -> torch.Tensor:
+    """Plain version: both operands widened to fp32, one product."""
+    return a.float() @ b.float()
+
+
+def matmul(a, b) -> torch.Tensor:
+    """A[M, K] @ B[K, N] -> [M, N] fp32. The operands may be any strided
+    2-D views (a transpose is read in place); both fp32 or both bf16."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul: a {tuple(a.shape)} and b {tuple(b.shape)}")
+    if not _on_cuda("matmul", a, b, contiguous=False):
+        return matmul_ref(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch(
+        "matmul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        *a.stride(), *b.stride(), int(a.dtype == torch.bfloat16),
+    )
+    return out
+
+
+# ----------------------------------------------------------------------
+# imp[N] = mean_M |dY|
+# ----------------------------------------------------------------------
+
+_IMP_COLS = 32  # channels an importance block takes (importance.cu)
+_IMP_MIN_ROWS = 64  # the least row chunk a block takes
+
+
+def importance_ref(dy) -> torch.Tensor:
+    """Plain version: mean of |dy| over rows, in fp32. dy [M, N] -> [N]."""
+    return dy.abs().float().mean(0)
+
+
+def importance(dy) -> torch.Tensor:
+    """Per-channel importance ``mean_M |dy|`` of dy [M, N] (contiguous,
+    fp32 or bf16) -> [N] fp32, divided by the true M."""
+    if dy.dim() != 2:
+        raise ValueError(f"importance: dy {tuple(dy.shape)} is not [M, N]")
+    if not _on_cuda("importance", dy):
+        return importance_ref(dy)
+    m, n = dy.shape
+    # rows cut into S chunks when the channels alone give too few blocks
+    s = max(1, min(_cdiv(m, _IMP_MIN_ROWS), _cdiv(_TARGET_BLOCKS // 2, _cdiv(n, _IMP_COLS))))
+    chunk = _cdiv(m, s)
+    s = _cdiv(m, chunk)
+    out = torch.empty((n,), dtype=torch.float32, device=dy.device)
+    partial = torch.empty((s, n) if s > 1 else (0,), dtype=torch.float32, device=dy.device)
+    _launch(
+        "importance", dy.device, dy.data_ptr(), partial.data_ptr(), out.data_ptr(), m, n, s,
+        chunk, int(dy.dtype == torch.bfloat16),
     )
     return out

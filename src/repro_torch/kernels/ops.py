@@ -144,6 +144,21 @@ def conv_dx_fused(
     return dx[:, :, ph0 : ph0 + h, pw0 : pw0 + w_dim]
 
 
+def matmul(a, b) -> torch.Tensor:
+    """A[M, K] @ B[K, N] -> fp32 through the ``matmul`` kernel. Operands
+    go to their promoted dtype; strided views (a transpose) are passed
+    as they are, and nothing is padded."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return gm.matmul(a.to(t), b.to(t))
+
+
+def importance(dy) -> torch.Tensor:
+    """Per-channel mean |dY| over all leading axes: dy [..., N] -> [N]
+    fp32, divided by the true row count (the JAX package's pad-and-rescale
+    is a TPU tiling artefact)."""
+    return gm.importance(dy.reshape(-1, dy.shape[-1]).contiguous())
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, qpos) -> torch.Tensor:
     """Per-slot causal attention reading K/V pages in place.
 

@@ -1,1 +1,1 @@
-"""Entry points: the serving and CNN-training CLIs and the step builders they drive."""
+"""Entry points: the serving, CNN-training and LM-training CLIs and the step functions they run."""

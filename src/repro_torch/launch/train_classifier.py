@@ -35,6 +35,7 @@ from repro_torch.core.policy import SsPropPolicy, paper_default
 from repro_torch.core.schedulers import drop_rate_for_step
 from repro_torch.data.pipeline import ImagePipeline, ImagePipelineConfig
 from repro_torch.kernels import gathered_matmul as gm
+from repro_torch.launch import steps
 from repro_torch.models import resnet
 from repro_torch.optim import adam
 
@@ -80,12 +81,9 @@ def value_and_grad(name: str, params, x, y, policy: SsPropPolicy):
     """(loss, grads): grads is a tree like ``params``; leaves the loss
     does not reach (the BatchNorm running statistics) get zeros, as
     ``jax.value_and_grad`` gives them."""
-    p = adam.tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss = loss_fn(name, p, x, y, policy)
-    leaves = adam.tree_leaves(p)
-    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, gs, strict=True)]
-    return loss.detach(), adam.tree_unflatten(p, grads)
+    (loss, _), grads = steps.value_and_grad(
+        lambda p: (loss_fn(name, p, x, y, policy), {}), params)
+    return loss, grads
 
 
 def train_step(name: str, params, opt, x, y, policy: SsPropPolicy, ocfg: adam.AdamConfig):

@@ -1,11 +1,18 @@
 """Shared model layers: plain functions on tensors and dict params.
 
-The twin of ``repro.models.layers`` for the dense decoder's serving
-path and the CNNs' convolutions. Parameters keep the JAX package's
-layouts (dense weights are ``[d_in, d_out]``, conv filters OIHW), so a
-JAX param tree converts array for array. ``dense_apply`` is forward
-only (the LM's sparse backward is not ported yet); ``conv_apply`` is
-the ssProp convolution (:func:`repro_torch.core.conv.sparse_conv2d`).
+The twin of ``repro.models.layers`` for the dense decoder (training and
+paged serving) and the CNNs' convolutions. Parameters keep the JAX
+package's layouts (dense weights are ``[d_in, d_out]``, conv filters
+OIHW), so a JAX param tree converts array for array. Every projection
+goes through :func:`dense_apply` (the ssProp linear layer,
+:func:`repro_torch.core.dense.sparse_dense`) and every convolution
+through :func:`conv_apply` (:func:`repro_torch.core.conv.sparse_conv2d`).
+
+Every call site carries a site name (``site=``): a plain
+:class:`~repro_torch.core.policy.SsPropPolicy` ignores it, while a
+:class:`~repro_torch.core.policy.SitePolicies` table gives each named
+site its own policy. Serving passes no policy (dense) and asks for no
+gradient, so its projections are plain matmuls.
 """
 from __future__ import annotations
 
@@ -15,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.conv import sparse_conv2d
-from repro_torch.core.policy import SsPropPolicy, policy_for
+from repro_torch.core.dense import sparse_dense
+from repro_torch.core.policy import DENSE, PolicyLike, policy_for
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import paged_attention_ref
 
@@ -34,11 +42,8 @@ def dense_init(gen, d_in, d_out, *, bias=False, dtype=torch.bfloat16, scale=None
     return p
 
 
-def dense_apply(p, x):
-    y = x @ p["w"]
-    if "b" in p:
-        y = y + p["b"]
-    return y
+def dense_apply(p, x, policy: PolicyLike = DENSE, key=None, site: str = ""):
+    return sparse_dense(x, p["w"], p.get("b"), policy=policy_for(policy, site), key=key)
 
 
 def conv2d_init(gen, c_out, c_in, k, *, bias=False, dtype=torch.float32, device="cuda"):
@@ -55,7 +60,7 @@ def conv2d_init(gen, c_out, c_in, k, *, bias=False, dtype=torch.float32, device=
 def conv_apply(
     p,
     x,
-    policy: SsPropPolicy,
+    policy: PolicyLike,
     *,
     stride=1,
     padding=0,
@@ -156,55 +161,88 @@ def paged_write_index(block_tables, positions, token_valid, block_size):
     return rows, cols, page[rows, cols], (logical % block_size)[rows, cols]
 
 
+def masked_attention(q, k, v, *, q_chunk: int = 1024):
+    """Full-sequence causal attention, blocked over query chunks of
+    ``q_chunk``.
+
+    q [B,S,H,D], k/v [B,S,KV,D] (GQA: each KV head serves H/KV query
+    heads). Scores and softmax in fp32, future positions masked at -1e30,
+    as the JAX package's ``masked_attention`` without a cache. Returns
+    [B,S,H,D] in q.dtype.
+    """
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    k_t = k.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 3, 1)  # [B,H,D,T]
+    v_h = v.float().repeat_interleave(h // kv, dim=2).transpose(1, 2)  # [B,H,T,D]
+    kv_pos = torch.arange(t, device=q.device)
+    outs = []
+    for c0 in range(0, s, q_chunk):
+        qc = q[:, c0 : c0 + q_chunk].float().transpose(1, 2)  # [B,H,qc,D]
+        scores = (qc @ k_t) * scale  # [B,H,qc,T]
+        q_pos = torch.arange(c0, c0 + qc.shape[2], device=q.device)
+        scores = scores.masked_fill(kv_pos[None, :] > q_pos[:, None], -1e30)
+        outs.append((torch.softmax(scores, dim=-1) @ v_h).transpose(1, 2))  # [B,qc,H,D]
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 def attn_apply(
     p,
     x,
     cfg,
+    policy: PolicyLike = DENSE,
     *,
-    qpos,
-    kv_cache,
-    block_tables,
     rope,
-    write_index,
+    qpos=None,
+    kv_cache=None,
+    block_tables=None,
+    write_index=None,
     paged_kernel=True,
+    site: str = "attn",
 ):
-    """Causal self-attention over the paged KV cache.
+    """Causal self-attention, full-sequence or over the paged KV cache.
 
-    x [B,S,d]; ``qpos [B,S]`` int32, each token's absolute position in
-    its slot. ``kv_cache`` = dict(k, v): one layer's page pool ``[n_pages,
-    bs, KV, D]`` shared by all slots; slot b's token at position p lives
-    in page ``block_tables[b, p // bs]`` at offset ``p % bs``. This step's
-    K/V are written **in place** into the pools (cast to the pool dtype)
-    at ``write_index`` (:func:`paged_write_index`, which leaves out the
-    invalid tokens). ``qpos``, ``rope`` (:func:`rope_angles` of the
-    positions) and ``write_index`` are the same at every layer of a step,
-    so the stack makes them once and passes them in.
+    x [B,S,d]; ``rope`` is :func:`rope_angles` of the tokens' positions,
+    the same at every layer of a step, so the stack makes it once. The
+    projections look their policies up as ``{site}/q`` ... ``{site}/o``.
 
-    ``paged_kernel=True`` (the default) attends through the
-    paged-attention kernel, which reads the pages in place;
+    Without ``kv_cache`` (training): causal :func:`masked_attention` over
+    the sequence itself.
+
+    With ``kv_cache`` = dict(k, v), one layer's page pool ``[n_pages, bs,
+    KV, D]`` shared by all slots (serving): ``qpos [B,S]`` int32 is each
+    token's absolute position in its slot; slot b's token at position p
+    lives in page ``block_tables[b, p // bs]`` at offset ``p % bs``. This
+    step's K/V are written **in place** into the pools (cast to the pool
+    dtype) at ``write_index`` (:func:`paged_write_index`, which leaves out
+    the invalid tokens). ``paged_kernel=True`` (the default) attends
+    through the paged-attention kernel, which reads the pages in place;
     ``paged_kernel=False`` takes the gather route, the kernel's plain
-    version :func:`~repro_torch.kernels.paged_attention.paged_attention_ref`
-    (K/V gathered through the clipped table, masked fp32 softmax).
+    version :func:`~repro_torch.kernels.paged_attention.paged_attention_ref`.
+
     Returns (out [B,S,d], kv_cache).
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = dense_apply(p["q"], x).reshape(b, s, cfg.n_heads, hd)
-    k = dense_apply(p["k"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense_apply(p["v"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = dense_apply(p["q"], x, policy, site=f"{site}/q").reshape(b, s, cfg.n_heads, hd)
+    k = dense_apply(p["k"], x, policy, site=f"{site}/k").reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense_apply(p["v"], x, policy, site=f"{site}/v").reshape(b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
 
-    k_pool, v_pool = kv_cache["k"], kv_cache["v"]
-    rows, cols, page, off = write_index
-    k_pool[page, off] = k[rows, cols].to(k_pool.dtype)
-    v_pool[page, off] = v[rows, cols].to(v_pool.dtype)
-    if paged_kernel:
-        out = kops.paged_attention(q, k_pool, v_pool, block_tables, qpos)
+    if kv_cache is None:
+        out = masked_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
     else:
-        out = paged_attention_ref(q, k_pool, v_pool, block_tables, qpos).to(q.dtype)
+        k_pool, v_pool = kv_cache["k"], kv_cache["v"]
+        rows, cols, page, off = write_index
+        k_pool[page, off] = k[rows, cols].to(k_pool.dtype)
+        v_pool[page, off] = v[rows, cols].to(v_pool.dtype)
+        if paged_kernel:
+            out = kops.paged_attention(q, k_pool, v_pool, block_tables, qpos)
+        else:
+            out = paged_attention_ref(q, k_pool, v_pool, block_tables, qpos).to(q.dtype)
     out = out.reshape(b, s, cfg.n_heads * hd)
-    return dense_apply(p["o"], out), kv_cache
+    return dense_apply(p["o"], out, policy, site=f"{site}/o"), kv_cache
 
 
 # ----------------------------------------------------------------------
@@ -225,13 +263,15 @@ def mlp_init(gen, d_model, d_ff, dtype=torch.bfloat16, gated: bool = True, devic
     }
 
 
-def mlp_apply(p, x, act: str):
+def mlp_apply(p, x, act: str, policy: PolicyLike = DENSE, site: str = "mlp"):
     try:
         fn = _ACTS[act]
     except KeyError:
         raise NotImplementedError(f"activation {act!r} is not ported yet") from None
-    h = fn(dense_apply(p["gate"], x)) * dense_apply(p["up"], x)
-    return dense_apply(p["down"], h)
+    h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate")) * dense_apply(
+        p["up"], x, policy, site=f"{site}/up"
+    )
+    return dense_apply(p["down"], h, policy, site=f"{site}/down")
 
 
 # ----------------------------------------------------------------------

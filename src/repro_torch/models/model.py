@@ -1,12 +1,19 @@
-"""Top-level LM: embeddings + stack + the per-slot decode API.
+"""Top-level LM: embeddings + stack + loss + the per-slot decode API.
 
-The twin of ``repro.models.model`` for serving the dense family:
+The twin of ``repro.models.model`` for the dense family:
 
   * ``init_params(cfg, seed, device)``          -> params
   * ``params_from_jax(cfg, tree, device)``      -> params from a JAX param tree
+  * ``site_names(cfg)``                         -> (sites, depth)
+  * ``forward(cfg, params, batch, policy)``     -> (logits fp32, aux)
+  * ``loss_fn(cfg, params, batch, policy)``     -> (loss, metrics)
+  * ``kernel_launches_per_step(cfg, policy)``   -> the kernels a train step launches
   * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device)``
   * ``decode_slots(cfg, params, tokens, cache, slot_pos, token_count, ...)``
   * ``reset_paged(cache, pages)``
+
+Batches are dicts of tensors: ``tokens [B,S]``, ``targets [B,S]`` and
+optionally ``loss_mask [B,S]``.
 
 Params are nested dicts of tensors in the JAX package's layouts, with
 the stack as a list of per-layer dicts instead of stacked arrays.
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import DENSE, PolicyLike, policy_for
 from repro_torch.models import layers, transformer
 
 
@@ -59,6 +67,58 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict[str, Any]:
         "final_norm": convert(tree["final_norm"]),
         "stack": {"layers": [convert(slot, li) for li in range(cfg.n_layers)]},
     }
+
+
+def site_names(cfg: ModelConfig):
+    """Every sparsifiable call site of this model and the depth negative
+    layer indices in rule patterns resolve against: ``(sites, depth)``,
+    the inputs of :meth:`~repro_torch.core.policy.PolicyProgram.resolve`."""
+    return transformer.stack_sites(cfg), cfg.n_layers
+
+
+def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
+    """Full-sequence forward. Returns (logits fp32 [B, S, V], aux loss);
+    the dense family has no auxiliary loss, so aux is 0."""
+    x = layers.embed_apply(params["embed"], batch["tokens"])
+    x, _ = transformer.stack_apply(params["stack"], x, cfg, policy)
+    x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
+    """Next-token cross-entropy (+0.01 aux), averaged over ``loss_mask``
+    (default: every token). Returns ``(total, {"ce", "aux"})``."""
+    logits, aux = forward(cfg, params, batch, policy)
+    targets = batch["targets"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
+def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, int]:
+    """Launches of each backward kernel in one training step under
+    ``policy`` (a plain policy or a step's table), site by site by the
+    engine's rules: a sparse site on the kernel route (``use_pallas``,
+    not ``mask_mode``) launches one dX product if ``sparsify_dx`` and one
+    dW product if ``sparsify_dw``, through ``matmul`` at channel
+    granularity and ``dx_gathered`` / ``dw_gathered`` at block
+    granularity. Every site's input needs a gradient (the embedding
+    table trains), so layer 0 launches its dX products too."""
+    n = {"matmul": 0, "dx_gathered": 0, "dw_gathered": 0}
+    for site in site_names(cfg)[0]:
+        p = policy_for(policy, site)
+        if not (p.active and p.use_pallas and not p.mask_mode):
+            continue
+        if p.granularity == "channel":
+            n["matmul"] += p.sparsify_dx + p.sparsify_dw
+        else:
+            n["dx_gathered"] += p.sparsify_dx
+            n["dw_gathered"] += p.sparsify_dw
+    return n
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int, dtype=None, device="cuda"):

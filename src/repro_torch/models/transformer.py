@@ -6,6 +6,13 @@ Python loop over a list of per-layer parameter dicts, and the paged
 cache is a list of per-layer page pools. The period abstraction is kept
 so that the families with heterogeneous layers can join later; only the
 dense family (one attention + MLP slot per period) is ported.
+
+Per-site policies: every projection carries a site name
+``layer_{li}/{attn,mlp}/{proj}`` (:func:`stack_sites`). A
+:class:`~repro_torch.core.policy.SitePolicies` table threads through
+:func:`stack_apply` like a plain policy and is scoped to each layer
+before the layer runs. The loop is the JAX package's unrolled path, so
+per-depth rules need nothing more (there is no ``scan_layers``).
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import DENSE, PolicyLike, SitePolicies
 from repro_torch.models import layers
 
 
@@ -36,6 +44,31 @@ def n_periods(cfg: ModelConfig) -> int:
     if cfg.n_layers % plen:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} not divisible by period {plen}")
     return cfg.n_layers // plen
+
+
+def slot_sites(cfg: ModelConfig, slot: Slot) -> tuple[str, ...]:
+    """Layer-relative site names of one period slot's projections."""
+    sites = ["attn/q", "attn/k", "attn/v", "attn/o"]
+    if slot.ffn == "mlp":
+        sites += ["mlp/up"] + (["mlp/gate"] if cfg.gated_mlp else []) + ["mlp/down"]
+    return tuple(sites)
+
+
+def stack_sites(cfg: ModelConfig) -> tuple[str, ...]:
+    """Every sparsifiable site of the decoder stack, ``layer_{li}/...``."""
+    slots = period_pattern(cfg)
+    return tuple(
+        f"layer_{li}/{s}"
+        for li in range(cfg.n_layers)
+        for s in slot_sites(cfg, slots[li % len(slots)])
+    )
+
+
+def _layer_scopes(policy: PolicyLike, n_layers: int):
+    """Per-layer policy tables (or the plain policy broadcast)."""
+    if not isinstance(policy, SitePolicies):
+        return [policy] * n_layers
+    return [policy.scoped(f"layer_{li}") for li in range(n_layers)]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -61,24 +94,25 @@ def _slot_apply(
     x,
     cfg: ModelConfig,
     slot: Slot,
+    policy: PolicyLike,
     *,
-    qpos,
-    cache,
-    block_tables,
     rope,
-    write_index,
+    qpos=None,
+    cache=None,
+    block_tables=None,
+    write_index=None,
     paged_kernel=True,
 ):
     h = layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     out, new_cache = layers.attn_apply(
-        p["attn"], h, cfg,
-        qpos=qpos, kv_cache=cache, block_tables=block_tables,
-        rope=rope, write_index=write_index, paged_kernel=paged_kernel,
+        p["attn"], h, cfg, policy,
+        rope=rope, qpos=qpos, kv_cache=cache, block_tables=block_tables,
+        write_index=write_index, paged_kernel=paged_kernel,
     )
     x = x + out
     if slot.ffn is not None:
         h2 = layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        x = x + layers.mlp_apply(p["mlp"], h2, cfg.act)
+        x = x + layers.mlp_apply(p["mlp"], h2, cfg.act, policy)
     return x, new_cache
 
 
@@ -114,19 +148,37 @@ def stack_apply(
     params,
     x,
     cfg: ModelConfig,
+    policy: PolicyLike = DENSE,
     *,
-    positions,
-    caches,
-    token_valid,
-    block_tables,
+    positions=None,
+    caches=None,
+    token_valid=None,
+    block_tables=None,
     paged_kernel=True,
 ):
-    """Run the stack over the paged cache: ``positions [B,S]`` are each
-    token's absolute position in its slot, ``token_valid [B,S]`` which
-    tokens are real. Returns (x, caches); the pools are written in place.
-    The int32 query positions, the RoPE angles and the page-write index
-    are the same at every layer, so they are made once here."""
+    """Run the stack. Returns (x, caches).
+
+    ``policy`` is a plain policy (every site) or a
+    :class:`~repro_torch.core.policy.SitePolicies` table over
+    :func:`stack_sites` names, scoped per layer here.
+
+    Without ``caches`` (training): the full causal sequence, RoPE at
+    ``arange(S)``. With ``caches`` (serving): the paged cache, where
+    ``positions [B,S]`` are each token's absolute position in its slot
+    and ``token_valid [B,S]`` marks the real tokens; the pools are
+    written in place. The int32 query positions, the RoPE angles and the
+    page-write index are the same at every layer, so they are made once
+    here.
+    """
     slots = period_pattern(cfg)
+    per_layer = _layer_scopes(policy, cfg.n_layers)
+    if caches is None:
+        rope = layers.rope_angles(
+            torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta
+        )
+        for li, p in enumerate(params["layers"]):
+            x, _ = _slot_apply(p, x, cfg, slots[li % len(slots)], per_layer[li], rope=rope)
+        return x, None
     qpos = positions.to(torch.int32).contiguous()
     rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     write_index = layers.paged_write_index(
@@ -134,8 +186,8 @@ def stack_apply(
     )
     for li, p in enumerate(params["layers"]):
         x, caches[li] = _slot_apply(
-            p, x, cfg, slots[li % len(slots)],
-            qpos=qpos, cache=caches[li], block_tables=block_tables,
-            rope=rope, write_index=write_index, paged_kernel=paged_kernel,
+            p, x, cfg, slots[li % len(slots)], per_layer[li],
+            rope=rope, qpos=qpos, cache=caches[li], block_tables=block_tables,
+            write_index=write_index, paged_kernel=paged_kernel,
         )
     return x, caches

@@ -5,9 +5,11 @@ The twin of ``repro.optim.adam`` over nested dicts/lists of tensors
 weight decay added to the update ``delta``, ``grad_norm`` measured
 before clipping. Functional on purpose (not a ``torch.optim``
 subclass): each step returns new params and state, so a step compares
-with the JAX package's one for one. The step count and the learning
-rate stay on the params' device, so a step reads nothing back to the
-host.
+with the JAX package's one for one. ``apply_updates(..., inplace=True)``
+does the same arithmetic, bit for bit, into the tensors it is given:
+at full width a functional step would hold two copies of the fp32
+moments at once. The step count and the learning rate stay on the
+params' device, so a step reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -110,11 +112,20 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), gn
 
 
-def apply_updates(cfg: AdamConfig, params, grads, state: AdamState):
-    """One Adam(W) step. Returns (new_params, new_state, metrics)."""
+def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: bool = False):
+    """One Adam(W) step. Returns (new_params, new_state, metrics).
+
+    ``inplace=True`` writes the clipped grads, the moments and the params
+    into the tensors passed in (none may require grad) and returns those
+    same trees; the numbers are the functional step's."""
     gn = global_norm(grads)
     if cfg.clip_norm > 0:
-        grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+        if inplace:
+            scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
+            for g in tree_leaves(grads):
+                g.mul_(scale)
+        else:
+            grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
     step = state.step + 1
     lr = lr_at(cfg, step)
     sf = step.float()
@@ -124,12 +135,17 @@ def apply_updates(cfg: AdamConfig, params, grads, state: AdamState):
 
     def upd(p, g, m, v):
         g32 = g.float()
-        m_n = b1 * m + (1 - b1) * g32
-        v_n = b2 * v + (1 - b2) * torch.square(g32)
+        if inplace:
+            m_n = m.mul_(b1).add_((1 - b1) * g32)
+            v_n = v.mul_(b2).add_((1 - b2) * torch.square(g32))
+        else:
+            m_n = b1 * m + (1 - b1) * g32
+            v_n = b2 * v + (1 - b2) * torch.square(g32)
         delta = (m_n / bc1) / (torch.sqrt(v_n / bc2) + cfg.eps)
         if cfg.weight_decay > 0:
             delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m_n, v_n
+        p_n = p.float() - lr * delta
+        return (p.copy_(p_n) if inplace else p_n.to(p.dtype)), m_n, v_n
 
     out = tree_map(upd, params, grads, state.m, state.v)  # (p, m, v) at each leaf
 

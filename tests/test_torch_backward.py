@@ -155,8 +155,6 @@ def test_conv_ragged_tail_matches_jax(use_pallas):
 @pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("granularity,bwd_dtype", CFGS)
 def test_sparse_dense_grads_match_jax(granularity, bwd_dtype, route):
-    if granularity == "channel" and route == "kernels":
-        route = "gather"  # channel + use_pallas is the matmul kernel: refused, below
     rng = np.random.default_rng(3)
     x = rng.standard_normal((16, 24)).astype(np.float32)
     w = (rng.standard_normal((24, 32)) * 0.2).astype(np.float32)
@@ -179,10 +177,13 @@ def test_sparse_dense_grads_match_jax(granularity, bwd_dtype, route):
 
 
 def test_sparse_dense_channel_kernel_route_raises():
-    x = torch.randn(8, 16, requires_grad=True)
-    w = torch.randn(16, 32, requires_grad=True)
+    """Channel granularity with ``use_pallas`` is the ``matmul`` kernel's
+    route: a tensor on neither the CPU nor a card reaches the kernel's
+    wrapper and raises there, never falling back to ``torch.matmul``."""
+    x = torch.zeros(8, 16, device="meta", requires_grad=True)
+    w = torch.zeros(16, 32, device="meta", requires_grad=True)
     pol = tpolicy.SsPropPolicy(0.5, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="matmul kernel not ported yet"):
+    with pytest.raises(ValueError, match="matmul runs on cpu or cuda"):
         (tdense(x, w, policy=pol) ** 2).sum().backward()
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-``paged_attention`` and the four gathered-matmul kernels of the ssProp
+``paged_attention``, the four gathered-matmul kernels of the ssProp
 backward (``dx_gathered``, ``dw_gathered``, ``conv_dw_fused``,
-``conv_dx_fused``).
+``conv_dx_fused``), and ``matmul`` and ``importance`` of the
+channel-granularity dense backward.
 
 Every test here is marked ``cuda``: it needs a CUDA card and skips
 without one (a CUDA kernel has no CPU mode). The file imports neither
@@ -226,3 +227,80 @@ def test_gathered_wrappers_raise_never_fall_back(cuda):
         tgm.conv_dx_fused(dy2r, _randn(cuda, (3, 3, 6, 8), "bfloat16", 13), bidx, b=2,
                           h_pad=10, w_pad=10, groups=1, stride=(1, 1), dilation=(1, 1),
                           block_size=8)
+
+
+# --- matmul and importance ----------------------------------------------
+
+# (M, K, N): ragged every way, K not a multiple of 16, and the main path's
+# qwen2.5-3b products (M = 1024 tokens; K = 410, 51, 2202 kept channels)
+MATMUL = [
+    (1, 1, 1), (200, 384, 130), (64, 51, 2048), (333, 17, 65),
+    (1024, 410, 2048), (1024, 2202, 2048), (2048, 1024, 51), (11008, 1024, 410),
+]
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", MATMUL)
+def test_matmul_kernel_matches_plain(cuda, m, k, n, dtype, layout):
+    """Operands as the backward hands them over: contiguous (``nn``), B a
+    transposed view (``nt``: ``w_k.T``), A a transposed view (``tn``:
+    ``x2.T``); raw fp32 outputs within 1e-4 * max(1, max|plain|)."""
+    a = _randn(cuda, (k, m) if layout == "tn" else (m, k), dtype, 14)
+    b = _randn(cuda, (n, k) if layout == "nt" else (k, n), dtype, 15)
+    a = a.T if layout == "tn" else a
+    b = b.T if layout == "nt" else b
+    before = tgm.launches["matmul"]
+    out = tops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert tgm.launches["matmul"] == before + 1
+    _close(out, tgm.matmul_ref(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n", [(1, 1), (300, 130), (7, 5000), (1024, 256), (1024, 2048),
+                                 (1024, 11008), (4099, 33)])
+def test_importance_kernel_matches_plain_and_repeats(cuda, m, n, dtype):
+    dy = _randn(cuda, (m, n), dtype, 16)
+    before = tgm.launches["importance"]
+    out = tgm.importance(dy)
+    torch.cuda.synchronize()
+    assert tgm.launches["importance"] == before + 1
+    _close(out, tgm.importance_ref(dy))
+    assert torch.equal(out, tgm.importance(dy))  # fixed summation order
+
+
+def test_matmul_and_importance_raise_never_fall_back(cuda):
+    a = _randn(cuda, (64, 32), "float32", 17)
+    with pytest.raises(TypeError):  # fp16 is not a kernel operand type
+        tgm.matmul(a.half(), a.T.half())
+    with pytest.raises(TypeError):  # operands of two types
+        tgm.matmul(a, a.T.bfloat16())
+    with pytest.raises(ValueError):  # one operand on the card, one on the CPU
+        tgm.matmul(a, a.T.cpu())
+    with pytest.raises(ValueError):
+        tgm.matmul(a, a)
+    with pytest.raises(TypeError):
+        tgm.importance(a.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.importance(a.T)
+
+
+def test_sparse_dense_channel_route_launches_matmul(cuda):
+    """Channel granularity with ``use_pallas`` on the card: one ``matmul``
+    launch a sparsified side, the gradients those of the gather route."""
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.core.dense import sparse_dense
+
+    x = _randn(cuda, (4, 32, 96), "float32", 18).requires_grad_(True)
+    w = _randn(cuda, (96, 200), "float32", 19).requires_grad_(True)
+    grads = {}
+    for use_pallas in (True, False):
+        pol = tpolicy.SsPropPolicy(0.8, use_pallas=use_pallas)
+        before = tgm.launches["matmul"]
+        gx, gw = torch.autograd.grad(sparse_dense(x, w, policy=pol).square().sum(), (x, w))
+        torch.cuda.synchronize()
+        assert tgm.launches["matmul"] == before + (2 if use_pallas else 0)
+        grads[use_pallas] = (gx, gw)
+    for a, b in zip(grads[True], grads[False], strict=True):
+        _close(a.float(), b.float())

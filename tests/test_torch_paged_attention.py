@@ -89,7 +89,8 @@ def test_build_is_keyed_by_source_hash():
     """One library per kernel source, named by its content hash, in the
     git-ignored build directory."""
     assert build.sources() == [
-        "conv_dw_fused", "conv_dx_fused", "dw_gathered", "dx_gathered", "paged_attention",
+        "conv_dw_fused", "conv_dx_fused", "dw_gathered", "dx_gathered", "importance", "matmul",
+        "paged_attention",
     ]
     path = build.lib_path("paged_attention")
     assert path.parent == build.BUILD_DIR

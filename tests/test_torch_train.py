@@ -62,8 +62,8 @@ def test_policy_twin():
                 dict(scheduler="epochbar")):
         with pytest.raises(ValueError):
             tpolicy.SsPropPolicy(**bad)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tpolicy.policy_for(jpolicy.SitePolicies(()), "stem")
+    with pytest.raises(TypeError, match="neither SsPropPolicy nor SitePolicies"):
+        tpolicy.policy_for(jpolicy.SitePolicies(()), "stem")  # the JAX package's table
 
 
 @pytest.mark.parametrize("name", sorted(jsched.SCHEDULES))
