@@ -27,7 +27,10 @@ line) on any error:
    1e-4 * max(1, max|plain|); dropped blocks exactly 0 after the scatter;
    times each kernel, its plain version and one library call
    (``matmul`` / ``conv2d_weight`` / ``conv2d_input`` on the kept
-   channels) at the fp32 main-path shapes, with the bound of each;
+   channels) at the fp32 main-path shapes, with the bound of each
+   (``conv_dw_fused`` runs fp32 as 3xTF32 on the tensor cores: its bound
+   is three TF32 products at 495 TFLOP/s, printed beside the fp32 FMA
+   bound), the variant that ran and its TFLOP/s;
 5. LM route check: one mixed prefill+decode ``decode_slots`` call of the
    full-width qwen2.5-3b (random bf16 weights) through the kernel route
    and the gather route, with bf16 params and an fp32 copy of them
@@ -53,12 +56,15 @@ line) on any error:
 9. LM kernel phase: ``matmul`` at the 8 product shapes of a sparse
    qwen2.5-3b step (B=8, S=128, ``paper_default(0.8)``: K kept = 410, 51,
    2202), with the operands laid out as the backward hands them over
-   (``w_k.T`` and ``x2.T`` are transposed views), and ``importance`` at
-   the 3 cotangent shapes, bf16 and fp32, raw fp32 outputs within
-   1e-4 * max(1, max|plain|); times each kernel, its plain version and
-   one library call (``torch.matmul`` on the operands as given, whose
-   bf16 output rounding is its only difference; none computes
-   ``importance``), with the bound of each;
+   (``w_k.T`` and ``x2.T`` are transposed views of buffers gathered at a
+   pitch of a multiple of 8, as ``gather_columns`` makes them), and
+   ``importance`` at the 3 cotangent shapes, bf16 and fp32, raw fp32
+   outputs within 1e-4 * max(1, max|plain|), no operand repacked; times
+   each kernel, its plain version and one library call (``torch.matmul``
+   on the operands as given, whose bf16 output rounding is its only
+   difference; none computes ``importance``), with the bound of each,
+   the variant (bf16: TMA + wgmma, with its split-K; fp32: SIMT) and its
+   TFLOP/s;
 10. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
    depth 4, fp32 with TF32 off, through ``matmul``, the gather route and
    the mask oracle: the same kept channels at every site, the same loss,
@@ -67,7 +73,9 @@ line) on any error:
    at full width and depth (bf16, B=8, S=128, channel granularity with
    ``--use-pallas``) for 8 epoch-bar steps (steps 2, 3, 6, 7 sparse);
    every loss finite, ``matmul`` launched the launch table's count times
-   4, no other kernel; then a profile of one dense and one sparse step;
+   4, no other kernel, no operand repacked; then a profile of one dense
+   and one sparse step, in which the bf16 tensor-core kernel carries all
+   504 ``matmul`` launches of the sparse step and the SIMT one none;
 12. prints the card's line, the kernels' JSON line and, last, the device
    JSON line.
 """
@@ -90,6 +98,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 L2_BYTES = 50 * 2**20
 KERNEL_TOL = 1e-4  # raw fp32 outputs: summation order only
 FP32_ROUTE_TOL = 1e-4  # fp32 params: the routes differ in summation order only
@@ -478,11 +487,13 @@ def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=1
     )
 
 
-def gathered_bound_ms(name, dims) -> tuple[float, str]:
+def gathered_bound_ms(name, dims, flops_per_s=FP32_FLOPS, passes=1) -> tuple[float, str]:
     """Least time for the work: each input the function needs read once
     (the kept channels of dY and W only), each output written once in
     fp32; 2 flops a multiply-add over the real kept channels at the fp32
-    rate (the kernels compute in fp32 whatever the operand type)."""
+    FMA rate (the SIMT kernels compute in fp32 whatever the operand
+    type), or ``passes`` products at another unit's rate (3xTF32: three
+    TF32 products at the tensor cores' 495 TFLOP/s)."""
     m, d, kr, it = dims["m"], dims["d"], dims["k_real"], dims["itemsize"]
     compact = d * dims["kb"] * dims["bs"] * 4
     image = dims["batch"] * dims["h_pad"] ** 2 * dims["c_in"]
@@ -492,7 +503,7 @@ def gathered_bound_ms(name, dims) -> tuple[float, str]:
         "conv_dw_fused": (image + m * kr) * it + compact,
         "conv_dx_fused": m * kr * it + d * dims["kb"] * dims["bs"] * it + image * 4,
     }[name] + 4 * dims["kb"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * d * kr / FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, passes * 2 * m * d * kr / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -528,11 +539,18 @@ def gathered_phase(gm, ops, resnet, policy_mod):
             library_ms = gpu_time_ms(case["library"], [lib, tuple(a.clone() for a in lib)], 20)
             bound_ms, bound_by = gathered_bound_ms(name, case["dims"])
             c_in, c_out, k, h_in, stride, kb = geo
+            flops = 2 * case["dims"]["m"] * case["dims"]["d"] * case["dims"]["k_real"]
             row = dict(name=name, shape=f"B={TRAIN_BATCH} C_in={c_in} C_out={c_out} k={k} "
                        f"H={h_in} stride={stride} KB={kb} blocks={case['blocks']}",
                        launches_per_step=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       flops=2 * case["dims"]["m"] * case["dims"]["d"] * case["dims"]["k_real"])
+                       flops=flops, tflops=flops / ms / 1e9, variant="simt fp32 FMA")
+            if name == "conv_dw_fused":
+                # fp32 work on the tensor cores as three TF32 products: the
+                # least time drops below the fp32 FMA bound, kept beside it
+                tc_ms, tc_by = gathered_bound_ms(name, case["dims"], TF32_FLOPS, passes=3)
+                row.update(variant="3xTF32 mma.sync", bound_ms=tc_ms, bound_by=tc_by,
+                           bound_fp32_fma_ms=bound_ms)
             rows.append(row)
             print("[gathered] " + json.dumps(row))
             del sets, case
@@ -753,13 +771,18 @@ def lm_kernel_phase(gm, lm, cfg, policy):
     expect = lm.kernel_launches_per_step(cfg, policy)["matmul"]
     if sum(p[-1] for p in products) != expect:
         raise AssertionError(f"product table {products} != launch table {expect}")
+    def stored(shape, dtype):
+        """A row-major buffer as the backward makes it: x2 contiguous; dy_k
+        and w_k gathered at a pitch of a multiple of 8 (``gather_columns``)."""
+        r, c = shape
+        return torch.randn((r, c + (-c) % 8), generator=gen, device="cuda").to(dtype)[:, :c]
+
+    repacks = gm.repacks["matmul"]
     for name, a_shape, b_shape, a_t, b_t, per_step in products:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(a_shape=a_shape, b_shape=b_shape, a_t=a_t, b_t=b_t, dtype=dtype):
-                a = torch.randn(a_shape[::-1] if a_t else a_shape, generator=gen,
-                                device="cuda").to(dtype)
-                b = torch.randn(b_shape[::-1] if b_t else b_shape, generator=gen,
-                                device="cuda").to(dtype)
+                a = stored(a_shape[::-1] if a_t else a_shape, dtype)
+                b = stored(b_shape[::-1] if b_t else b_shape, dtype)
                 return (a.T if a_t else a, b.T if b_t else b)
 
             args = operands()
@@ -775,10 +798,14 @@ def lm_kernel_phase(gm, lm, cfg, policy):
             library_ms = gpu_time_ms(torch.matmul, sets, 20)
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = 2 * m * n * k / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            bf16 = dtype == torch.bfloat16
+            variant = (f"wgmma+TMA 128x128, split-K S={gm.matmul_plan(m, n, k)[0]}" if bf16
+                       else "simt fp32 FMA 64x64")
             row = dict(name="matmul", product=name, shape=f"A[{m},{k}]{'T' if a_t else ''} @ "
                        f"B[{k},{n}]{'T' if b_t else ''}", dtype=str(dtype).replace("torch.", ""),
-                       launches_per_step=per_step, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                       variant=variant, launches_per_step=per_step, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        flops=2 * m * n * k, tflops=2 * m * n * k / ms / 1e9)
             rows.append(row)
@@ -806,8 +833,12 @@ def lm_kernel_phase(gm, lm, cfg, policy):
             rows.append(row)
             print("[lm-kernels] " + json.dumps(row))
             del sets, dy
+    if gm.repacks["matmul"] != repacks:
+        raise AssertionError(f"matmul repacked {gm.repacks['matmul'] - repacks} operands laid "
+                             "out as the backward lays them out")
     print(f"[lm-kernels] matmul at {len(products)} products and importance at 3 shapes, bf16 "
-          f"and fp32: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}")
+          f"and fp32: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}; "
+          "no operand repacked")
     return rows, max_err
 
 
@@ -881,10 +912,13 @@ def lm_training_phase(train, lm, gm, pa, policy_mod, cfg):
     pa_before = pa.launches
     for k in gm.launches:
         gm.launches[k] = 0
+    gm.repacks["matmul"] = 0
     t0 = time.perf_counter()
     out = train.run(args)
     wall = time.perf_counter() - t0
     launches = dict(gm.launches)
+    if gm.repacks["matmul"] != 0:
+        raise AssertionError(f"the LM path repacked {gm.repacks['matmul']} matmul operands")
     sparse = [i for i, r in enumerate(out["rates"]) if r > 0]
     if sparse != [2, 3, 6, 7]:
         raise AssertionError(f"sparse steps {sparse}, expected [2, 3, 6, 7]")
@@ -907,7 +941,7 @@ def lm_training_phase(train, lm, gm, pa, policy_mod, cfg):
           f"({tokens / med(dense_ms) * 1e3:.0f} tokens/s), sparse median {med(sparse_ms):.2f} ms "
           f"({tokens / med(sparse_ms) * 1e3:.0f} tokens/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; matmul launches "
-          f"{launches['matmul']} = {per_step['matmul']} x {len(sparse)}")
+          f"{launches['matmul']} = {per_step['matmul']} x {len(sparse)}, 0 operands repacked")
     return launches, dict(dense_ms=med(dense_ms), sparse_ms=med(sparse_ms))
 
 
@@ -944,7 +978,16 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"[lm-profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
                   f"{e.key[:90]}")
-        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+        variants = {v: [e for e in kernels if f"matmul_{v}_kernel" in e.key]
+                    for v in ("wgmma", "simt")}
+        count = {v: sum(e.count for e in es) for v, es in variants.items()}
+        ms = {v: sum(e.self_device_time_total for e in es) / 1e3 for v, es in variants.items()}
+        want = {"wgmma": 504 if name == "sparse" else 0, "simt": 0}
+        if count != want:
+            raise AssertionError(f"{name} step: matmul launches by variant {count} != {want}")
+        print(f"[lm-profile]   matmul by variant: wgmma {count['wgmma']} launches "
+              f"{ms['wgmma']:.3f} ms, simt {count['simt']} launches")
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, matmul_ms=ms["wgmma"])
     del params, opt
     return out
 
@@ -1086,6 +1129,8 @@ def main() -> int:
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["shape"],
             # one sparse step's launches of this kernel, at their shapes
             step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
+            variant=top["variant"], tflops=top["tflops"],
+            **{k: top[k] for k in ("bound_fp32_fma_ms",) if k in top},
         ))
     for name, replaces in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]
@@ -1098,6 +1143,7 @@ def main() -> int:
             shape=" ".join(filter(None, (top.get("product"), top["shape"], "bfloat16"))),
             # one sparse step's launches of this kernel (bf16, as the main path), at their shapes
             step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
+            **{k: top[k] for k in ("variant", "tflops") if k in top},
         ))
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")

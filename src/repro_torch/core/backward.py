@@ -113,6 +113,10 @@ class ChannelSparseOp:
         dx = self.dx_full(dy_eff) if self.need_dx else None
         return dx, self.dw_full(dy_eff)
 
+    def gather_cotangent(self, dy_eff: torch.Tensor, sel) -> torch.Tensor:
+        """The kept channels of the cotangent, ``dy_k``."""
+        return dy_eff.index_select(self.channel_axis % dy_eff.dim(), sel.idx)
+
     def contract_gathered_dx(self, dy_k: torch.Tensor, sel) -> torch.Tensor:
         raise NotImplementedError
 
@@ -227,7 +231,7 @@ def channel_sparse_backward(
                 dw2 = can.x2.T @ can.dy2
             return dx, can.dw_from(dw2), db
 
-    dy_k = dy_eff.index_select(ca, sel.idx)
+    dy_k = op.gather_cotangent(dy_eff, sel)
     if sel.valid is not None:
         vshape = [1] * dy.dim()
         vshape[ca] = sel.k

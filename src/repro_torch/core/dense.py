@@ -8,7 +8,9 @@ through the gathered kernels ``dx_gathered`` / ``dw_gathered``.
 
 At channel granularity with ``use_pallas`` the shrunk products run
 through the ``matmul`` kernel on the gathered operands, fp32 out, as the
-JAX package's do. Without ``use_pallas``, ``torch.matmul`` is the JAX
+JAX package's do; the operands are gathered into buffers whose row pitch
+is a multiple of 8 elements (``gather_columns``), so the kernel's TMA
+reads them in place. Without ``use_pallas``, ``torch.matmul`` is the JAX
 package's ``jnp.matmul``, its output in the operands' dtype: that
 rounding difference between the two routes is the reference's own.
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.core import backward
 from repro_torch.core.policy import SsPropPolicy
+from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.kernels import ops as kops
 
 # frozen, so safe to share as the signature default
@@ -59,10 +62,16 @@ class _DenseOp(backward.ChannelSparseOp):
     def dw_full(self, dy_eff):
         return _mm(self._cast(self.x2).T, dy_eff)
 
+    def gather_cotangent(self, dy_eff, sel):
+        if self.policy.use_pallas:  # row pitch a multiple of 8: the kernel's TMA reads it
+            return gm.gather_columns(dy_eff, sel.idx)
+        return super().gather_cotangent(dy_eff, sel)
+
     def contract_gathered_dx(self, dy_k, sel):
-        w_k = self._cast(self.w.index_select(1, sel.idx))
         if self.policy.use_pallas:
+            w_k = self._cast(gm.gather_columns(self.w, sel.idx))
             return kops.matmul(dy_k, w_k.T)
+        w_k = self._cast(self.w.index_select(1, sel.idx))
         return _mm(dy_k, w_k.T)  # shrunk: 2*M*K*D_in
 
     def contract_gathered_dw(self, dy_k, sel):

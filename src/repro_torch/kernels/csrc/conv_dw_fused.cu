@@ -12,52 +12,183 @@
 // B*H_out axis).
 //
 // What bounds it on this card: operations. ResNet-18's block_0 3x3 conv
-// (x [128, 64, 32, 32], 64 output channels) is 2 * 131072 * 576 * 64 =
-// 9.7 GFLOP, 0.14 ms at the fp32 67 TFLOP/s, against about 67 MB of x and dY
-// (0.02 ms at 3.35 TB/s): the patches reuse every image value Kh*Kw times.
-// The design:
+// (x [128, 64, 32, 32], 64 output channels) is a skinny product, a
+// 131072-long reduction onto a 576 x 64 output: 2 * 131072 * 576 * 64 =
+// 9.7 GFLOP against about 67 MB of x and dY (0.02 ms at 3.35 TB/s). On the
+// fp32 FMA units (67 TFLOP/s) that is 0.144 ms. The kernel runs it on the
+// tensor cores instead, and keeps fp32 accuracy with 3xTF32: each fp32
+// operand splits as x = big + small, big = tf32(x), small = tf32(x - big)
+// (cvt.rna), and the product accumulates small*big + big*small + big*big
+// in fp32 (the dropped small*small is below fp32's rounding). Plain TF32
+// keeps about 3 decimal digits and would miss the 1e-4 gates over a
+// 131072-long reduction. Three TF32 products at 495 TFLOP/s make the
+// bound of fp32-accurate work 3 * 9.7 GFLOP / 495 TFLOP/s = 0.059 ms.
+// bf16 operands take one bf16 product (fp32 accumulation). The design:
 //   * the output is a [Kh*Kw*Cg, KB*bs] matrix cut in 64x64 tiles; a column
 //     tile lies inside one kept block, so its group, and the image columns
-//     its rows read, are the same for the whole tile;
+//     its rows read, are the same for the whole tile; four warps take
+//     32x32 outputs each with mma.sync m16n8k8 (tf32, or bf16);
 //   * deterministic split-K over the B*H_out*W_out output positions (the
 //     TPU's sequential axis): block (column tile, row tile, s) loops over
-//     its chunk of positions in panels of 16, finds each position's image
-//     value for its row's tap by the oh*sh + kh*dh and ow*sw + kw*dw
-//     arithmetic (each position's (b, oh, ow) carried from panel to panel,
-//     never divided out in the loop), and writes a partial tile to a
+//     its chunk of positions in stages of 32, and writes a partial tile to a
 //     scratch [S, Kh*Kw*Cg, KB*bs]; a second kernel sums the S partials in
-//     a fixed order (no float atomics);
+//     a fixed order (no float atomics). The wrapper's plan
+//     (`gathered_matmul.py::conv_dw_plan`) fills one wave of 4 blocks an SM
+//     with the tiles that do work;
+//   * stages come through a 3-deep cp.async ring of 16-byte copies. Where a
+//     64-row tile lies inside one tap (Cg a multiple of 64, bs a multiple of
+//     64: every 3x3 conv of ResNet-18), each position's A row is 64
+//     contiguous channels of xg and its B row 64 contiguous kept channels
+//     of dy2r; each thread carries the (oh, ow) of its positions and their
+//     32-bit element offsets from stage to stage by constant increments,
+//     with no division in the loop, and positions past the chunk are
+//     zero-filled by the copy itself.
+//     Other geometries (small Cg, rows spanning taps; small bs) load the
+//     same ring element by element, in the same kernel;
 //   * the block loads block_idx[j] and reads that contiguous run of dy2r's
 //     channels (channels innermost, as _dy_rows lays them out); column tiles
 //     past the real channel count (the ragged tail's phantoms) write zeros
-//     without work;
-//   * fp32 FMA on 4x4 outputs a thread; no tensor cores yet, so the kernel
-//     takes several times the fp32 bound's 0.14 ms.
+//     without work.
+
+#include <stdint.h>
 
 #include "tile.cuh"
 
 namespace {
 
-using tile::BK;
-using tile::BM;
-using tile::BN;
-using tile::LD;
-using tile::THREADS;
+constexpr int BM = 64;        // output rows (tap, channel) a block
+constexpr int BN = 64;        // output columns (kept channels) a block
+constexpr int BK = 32;        // output positions a stage
+constexpr int STAGES = 3;     // cp.async ring depth
+constexpr int THREADS = 128;  // four warps, 32 x 32 outputs each
+constexpr int LDS = BM + 8;   // stage row (elements): 16-byte rows, conflict-free fragments
+static_assert(BM == BN, "the two operands' stages share one row length");
 
 struct Geom {
   int B, H_pad, G, W_pad, Cg, H_out, W_out, C_pad, c_valid;
   int Kh, Kw, sh, sw, dh, dw, KB, bs, bpg;
 };
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// One stage's products into the warp's 32x32 accumulators. Stages hold
+// a[k][m] and b[k][n] (k the position). Fragments of m16n8k8 with g =
+// lane/4, t = lane%4: A (m, k) at (g, t), (g+8, t), (g, t+4), (g+8, t+4);
+// B (k, n) at (t, g), (t+4, g).
+__device__ __forceinline__ void stage_mma(const float* a, const float* b, float (&acc)[2][4][4],
+                                          int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int k8 = 0; k8 < BK; k8 += 8) {
+    uint32_t a_big[2][4], a_small[2][4], b_big[4][2], b_small[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* p = a + (k8 + t) * LDS + wm + 16 * mi + g;
+      const float v[4] = {p[0], p[8], p[4 * LDS], p[4 * LDS + 8]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a_big[mi][q] = tf32(v[q]);
+        a_small[mi][q] = tf32(v[q] - __uint_as_float(a_big[mi][q]));
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const float* p = b + (k8 + t) * LDS + wn + 8 * ni + g;
+      const float v[2] = {p[0], p[4 * LDS]};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        b_big[ni][q] = tf32(v[q]);
+        b_small[ni][q] = tf32(v[q] - __uint_as_float(b_big[ni][q]));
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        mma_tf32(acc[mi][ni], a_small[mi], b_big[ni]);
+        mma_tf32(acc[mi][ni], a_big[mi], b_small[ni]);
+        mma_tf32(acc[mi][ni], a_big[mi], b_big[ni]);
+      }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// bf16: A (m, k) pairs at (g, 2t..2t+1), (g+8, 2t..2t+1); B (k, n) pair at
+// (2t..2t+1, g); lower k in the lower half.
+__device__ __forceinline__ void stage_mma(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                          float (&acc)[2][4][4], int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int k8 = 0; k8 < BK; k8 += 8) {
+    uint32_t af[2][2], bf[4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const __nv_bfloat16* p = a + (k8 + 2 * t) * LDS + wm + 16 * mi + g;
+      af[mi][0] = pack_bf16(p[0], p[LDS]);
+      af[mi][1] = pack_bf16(p[8], p[LDS + 8]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const __nv_bfloat16* p = b + (k8 + 2 * t) * LDS + wn + 8 * ni + g;
+      bf[ni] = pack_bf16(p[0], p[LDS]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 conv_dw_fused_kernel(const T* __restrict__ xg, const T* __restrict__ dy2r,
                      const int* __restrict__ bidx, float* __restrict__ partial, Geom g,
-                     long long chunk) {
-  __shared__ __align__(16) float a[BK][LD];  // patch panel, a[k][row p]
-  __shared__ __align__(16) float b[BK][LD];  // dY panel,    b[k][col n]
+                     long long chunk, int fast) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [STAGES][2][BK][LDS]: a then b
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
   const int ctpb = (g.bs + BN - 1) / BN;  // column tiles per kept block
   const int j = blockIdx.x / ctpb;
   const int o0 = (blockIdx.x % ctpb) * BN;
@@ -72,74 +203,132 @@ conv_dw_fused_kernel(const T* __restrict__ xg, const T* __restrict__ dy2r,
   const int grp = blk / g.bpg;
   float* part = partial + (long long)s * P * NC;
 
-  // loader slots: row/column tid % 64, panel steps tid / 64 + 4 i
-  const int lc = tid % BM;
-  const int lk = tid / BM;
-  const int p = p0 + lc;
-  const bool p_ok = p < P;
-  const int tap = p_ok ? p / g.Cg : 0;
-  const int c = p_ok ? p % g.Cg : 0;
-  const int kh_off = (tap / g.Kw) * g.dh;
-  const int kw_off = (tap % g.Kw) * g.dw;
-  const int o = o0 + lc;
-  const int ch = blk * g.bs + o;
-  const bool n_ok = o < g.bs && ch < g.c_valid;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int gq = lane / 4, tq = lane % 4;
+  float acc[2][4][4] = {};
 
-  // The output position r = (bb*H_out + oh)*W_out + ow of each of this
-  // thread's 4 panel steps, decoded once here and then carried forward by
-  // a panel (16 positions) at a time: no division in the loop.
-  long long rr[4], bb[4];
-  int oh[4], ow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rr[i] = rbeg + lk + 4 * i;
-    const long long row = rr[i] / g.W_out;
-    ow[i] = (int)(rr[i] - row * g.W_out);
-    bb[i] = row / g.H_out;
-    oh[i] = (int)(row - bb[i] * g.H_out);
-  }
-
-  float acc[4][4] = {};
   if (blk * g.bs + o0 < g.c_valid) {  // uniform: else every column is a phantom
-    for (long long r0 = rbeg; r0 < rend; r0 += BK) {
+    const int nk = rend > rbeg ? (int)((rend - rbeg + BK - 1) / BK) : 0;
+    // Fast loader: CPR 16-byte copies cover a 64-wide row; thread (lr, cc)
+    // takes copy cc of rows lr, lr + RPP, ...
+    constexpr int EPC = 16 / sizeof(T);
+    constexpr int CPR = BM / EPC;
+    constexpr int RPP = THREADS / CPR;
+    constexpr int PASSES = BK / RPP;
+    const int cc = tid % CPR, lr = tid / CPR;
+    const int tap = p0 / g.Cg;  // fast: the whole row tile lies in this tap
+    const int kh_off = (tap / g.Kw) * g.dh, kw_off = (tap % g.Kw) * g.dw;
+    const T* a_src = xg + grp * g.W_pad * g.Cg + kw_off * g.Cg + (p0 - tap * g.Cg) + cc * EPC;
+    const T* b_src = dy2r + blk * g.bs + o0 + cc * EPC;
+    // Element offsets into xg (fast: both tensors under 2^31 elements) of
+    // the next output column, row and image, and of BK positions = qb
+    // images + qh rows + qw columns, with the carries between them.
+    const int pix = g.G * g.W_pad * g.Cg;  // one padded image row, all groups
+    const int d_w = g.sw * g.Cg, d_h = g.sh * pix, d_b = g.H_pad * pix;
+    const int qw = BK % g.W_out, qh = (BK / g.W_out) % g.H_out;
+    const int step = qw * d_w + qh * d_h + (BK / (g.W_out * g.H_out)) * d_b;
+    const int wrap_w = d_h - g.W_out * d_w, wrap_h = d_b - g.H_out * d_h;
+    int rr[PASSES], oh[PASSES], ow[PASSES], a_off[PASSES];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float av = 0.f, bv = 0.f;
-        if (rr[i] < rend) {
-          if (p_ok) {
-            const long long ih = bb[i] * g.H_pad + oh[i] * g.sh + kh_off;
-            const long long iw = ow[i] * g.sw + kw_off;
-            av = tile::to_f32(xg[((ih * g.G + grp) * g.W_pad + iw) * g.Cg + c]);
+    for (int i = 0; i < PASSES; ++i) {
+      rr[i] = (int)rbeg + lr + RPP * i;
+      const int row = rr[i] / g.W_out;
+      ow[i] = rr[i] - row * g.W_out;
+      const int bb = row / g.H_out;
+      oh[i] = row - bb * g.H_out;
+      a_off[i] = bb * d_b + oh[i] * d_h + kh_off * pix + ow[i] * d_w;
+    }
+    // Generic loader: thread takes column lc of rows lk, lk + 2, ...
+    const int lc = tid % BM, lk = tid / BM;
+    const int p = p0 + lc;
+    const bool p_ok = p < P;
+    const int gtap = p_ok ? p / g.Cg : 0;
+    const int gc = p_ok ? p % g.Cg : 0;
+    const int gkh = (gtap / g.Kw) * g.dh, gkw = (gtap % g.Kw) * g.dw;
+    const int o = o0 + lc;
+    const int ch = blk * g.bs + o;
+    const bool n_ok = o < g.bs && ch < g.c_valid;
+
+    auto load = [&](int stage_it) {
+      T* sa = ring + (stage_it % STAGES) * 2 * BK * LDS;
+      T* sb = sa + BK * LDS;
+      const long long r0 = rbeg + (long long)stage_it * BK;
+      if (fast) {
+#pragma unroll
+        for (int i = 0; i < PASSES; ++i) {
+          const bool ok = rr[i] < rend;
+          cp_async16(sa + (lr + RPP * i) * LDS + cc * EPC, ok ? a_src + a_off[i] : xg, ok);
+          cp_async16(sb + (lr + RPP * i) * LDS + cc * EPC, ok ? b_src + rr[i] * g.C_pad : dy2r,
+                     ok);
+          rr[i] += BK;
+          a_off[i] += step;
+          ow[i] += qw;
+          if (ow[i] >= g.W_out) {
+            ow[i] -= g.W_out;
+            ++oh[i];
+            a_off[i] += wrap_w;
           }
-          if (n_ok) bv = tile::to_f32(dy2r[rr[i] * g.C_pad + ch]);
+          oh[i] += qh;
+          if (oh[i] >= g.H_out) {
+            oh[i] -= g.H_out;
+            a_off[i] += wrap_h;
+          }
         }
-        a[lk + 4 * i][lc] = av;
-        b[lk + 4 * i][lc] = bv;
-        rr[i] += BK;
-        ow[i] += BK;
-        while (ow[i] >= g.W_out) {
-          ow[i] -= g.W_out;
-          if (++oh[i] == g.H_out) {
-            oh[i] = 0;
-            ++bb[i];
+      } else {
+        for (int k = lk; k < BK; k += THREADS / BM) {
+          const long long r = r0 + k;
+          T av = T(0.f), bv = T(0.f);
+          if (r < rend) {
+            const long long row = r / g.W_out;
+            const int w = (int)(r - row * g.W_out);
+            const long long b_ = row / g.H_out;
+            const int h = (int)(row - b_ * g.H_out);
+            if (p_ok) {
+              const long long ih = b_ * g.H_pad + h * g.sh + gkh;
+              const long long iw = (long long)w * g.sw + gkw;
+              av = xg[((ih * g.G + grp) * g.W_pad + iw) * g.Cg + gc];
+            }
+            if (n_ok) bv = dy2r[r * g.C_pad + ch];
           }
+          sa[k * LDS + lc] = av;
+          sb[k * LDS + lc] = bv;
         }
       }
-      __syncthreads();
-      tile::fma_panels(a, b, acc, tx, ty);
-      __syncthreads();
-    }
-  }
+    };
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int pp = p0 + ty * 4 + i;
-    if (pp >= P) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int oo = o0 + tx * 4 + jj;
-      if (oo < g.bs) part[(long long)pp * NC + j * g.bs + oo] = acc[i][jj];
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < nk) load(st);
+      cp_async_commit();
     }
+    for (int it = 0; it < nk; ++it) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage it landed for all; every thread is done with stage it-1
+      if (it + STAGES - 1 < nk) load(it + STAGES - 1);
+      cp_async_commit();
+      const T* sa = ring + (it % STAGES) * 2 * BK * LDS;
+      stage_mma(sa, sa + BK * LDS, acc, wm, wn, gq, tq);
+    }
+    cp_async_wait<0>();
   }
+
+  // acc[mi][ni][2 hq + q] is output row wm + 16 mi + gq + 8 hq, column
+  // wn + 8 ni + 2 tq + q of the tile
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      const int pp = p0 + wm + 16 * mi + gq + 8 * hq;
+      if (pp >= P) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int oo = o0 + wn + 8 * ni + 2 * tq + q;
+          if (oo < g.bs) part[(long long)pp * NC + j * g.bs + oo] = acc[mi][ni][2 * hq + q];
+        }
+    }
 }
 
 template <typename T>
@@ -147,12 +336,24 @@ int launch(const void* xg, const void* dy2r, const void* bidx, void* partial, vo
            const Geom& g, int S, long long chunk, cudaStream_t st) {
   const int P = g.Kh * g.Kw * g.Cg;
   const int ctpb = (g.bs + BN - 1) / BN;
+  // every 64-row tile inside one tap, every column tile inside one block,
+  // 16-byte aligned rows: the contiguous cp.async loads
+  // and both tensors small enough for 32-bit element offsets
+  const long long x_elems = (long long)g.B * g.H_pad * g.G * g.W_pad * g.Cg;
+  const long long dy_elems = (long long)g.B * g.H_out * g.W_out * g.C_pad;
+  const int fast = g.Cg % BM == 0 && g.bs % BN == 0 &&
+                   reinterpret_cast<uintptr_t>(xg) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dy2r) % 16 == 0 && x_elems < (1ll << 31) &&
+                   dy_elems < (1ll << 31);
+  const int smem = STAGES * 2 * BK * LDS * (int)sizeof(T);
+  auto kernel = conv_dw_fused_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   float* dst = S == 1 ? static_cast<float*>(out) : static_cast<float*>(partial);
   const dim3 grid((unsigned)(g.KB * ctpb), (unsigned)((P + BM - 1) / BM), (unsigned)S);
-  conv_dw_fused_kernel<T><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(xg), static_cast<const T*>(dy2r), static_cast<const int*>(bidx),
-      dst, g, chunk);
-  cudaError_t e = cudaGetLastError();
+  kernel<<<grid, THREADS, smem, st>>>(static_cast<const T*>(xg), static_cast<const T*>(dy2r),
+                                      static_cast<const int*>(bidx), dst, g, chunk, fast);
+  e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return (int)e;
   const long long n = (long long)P * g.KB * g.bs;
   tile::reduce_splits<<<tile::reduce_blocks(n), 256, 0, st>>>(

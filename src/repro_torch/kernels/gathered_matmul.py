@@ -15,7 +15,10 @@ launched its kernel.
   * ``conv_dx_fused``: conv dX on the padded image ``[B·H_pad, G, W_pad,
     Cg]`` with the col2im scatter done as a gather
   * ``matmul``       : A[M, K] @ B[K, N] in fp32, operands read through
-    their strides (the channel-granularity dense backward's products)
+    their strides (the channel-granularity dense backward's products);
+    bf16 operands go through TMA and ``wgmma`` and need 16-byte row
+    pitches (:func:`gather_columns` makes them, :data:`repacks` counts
+    the views that had to be copied), fp32 ones through the SIMT tile
   * ``importance``   : imp[N] = mean_M |dY[M, N]| in fp32
 
 Layouts are the JAX package's (``xg``, ``dy2r``, ``w2k``: see
@@ -27,6 +30,14 @@ fp32 and returns fp32.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
 the kernel, or the wrapper raises.
+
+Tiles and plans: ``matmul``'s bf16 kernel takes 128x128 output tiles
+64 deep (:func:`matmul_plan` splits K where too few tiles fill the
+card); ``conv_dw_fused`` takes 64x64 tiles in 32-position stages on
+tensor cores (3xTF32 for fp32 operands, which :func:`matmul_tf32_terms`
+emulates; :func:`conv_dw_plan`); the others take ``tile.cuh``'s 64x64
+SIMT tile in 16-deep panels (:func:`_splits`). Every split-K sums its
+partials in a fixed order.
 """
 from __future__ import annotations
 
@@ -41,12 +52,18 @@ launches = {
     "dx_gathered": 0, "dw_gathered": 0, "conv_dw_fused": 0, "conv_dx_fused": 0,
     "matmul": 0, "importance": 0,
 }
+# operands a wrapper copied into an aligned buffer before launching
+repacks = {"matmul": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TARGET_BLOCKS = 8 * 132  # about eight resident blocks on each of the H100's 132 SMs
 _MIN_SPLIT_ROWS = 256  # the least reduction length a split-K block takes
 _BK = 16  # rows a kernel's panel takes (tile.cuh)
 _TILE = 64  # output tile edge (tile.cuh)
+_SMS = 132  # the H100's streaming multiprocessors
+_MM_TILE = 128  # matmul.cu's bf16 output tile edge
+_MM_BK = 64  # matmul.cu's bf16 stage depth
+_PITCH = 8  # TMA's 16-byte row pitch, in bf16 elements
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
@@ -54,7 +71,7 @@ _ARGTYPES = {
     "dw_gathered": [_P] * 5 + [_I] * 7 + [_I, _P],
     "conv_dw_fused": [_P] * 5 + [_I] * 18 + [_L, _I, _P],
     "conv_dx_fused": [_P] * 4 + [_I] * 17 + [_I, _P],
-    "matmul": [_P] * 3 + [_I] * 3 + [_L] * 4 + [_I, _P],
+    "matmul": [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I] * 3 + [_P],
     "importance": [_P] * 3 + [_I] * 4 + [_I, _P],
 }
 _fns: dict[str, object] = {}
@@ -215,6 +232,26 @@ def _col_groups(block_idx, c_pad, groups, block_size):
     return (block_idx.long() // bpg).repeat_interleave(block_size)
 
 
+_DW_SLOTS = 4 * _SMS  # conv_dw_fused.cu's resident blocks: 4 an SM (55 KB of ring each)
+_DW_BK = 32  # conv_dw_fused.cu's positions a stage
+_DW_MIN_ROWS = 256  # the least chunk of positions a split takes
+
+
+def conv_dw_plan(rows: int, p: int, kb: int, block_size: int, c_out: int) -> tuple[int, int]:
+    """(S, chunk) of ``conv_dw_fused``'s deterministic split-K over the
+    ``rows`` output positions: as many splits as fit the output tiles that
+    do work (64x64; the ragged tail block's phantom column tiles do none)
+    into one wave of resident blocks, none shorter than 256 positions;
+    chunks are whole 32-position stages."""
+    col_tiles = _cdiv(block_size, _TILE)
+    tail = c_out % block_size
+    phantom = col_tiles - _cdiv(tail, _TILE) if tail else 0
+    work = _cdiv(p, _TILE) * (kb * col_tiles - phantom)
+    s = max(1, min(_cdiv(rows, _DW_MIN_ROWS), _DW_SLOTS // max(work, 1)))
+    chunk = max(1, _cdiv(_cdiv(rows, s), _DW_BK)) * _DW_BK
+    return max(1, _cdiv(rows, chunk)), chunk
+
+
 def conv_dw_fused_ref(
     xg, dy2r, block_idx, *, kh_dim, kw_dim, stride, dilation, h_out,
     block_size: int = 128, c_out: int | None = None,
@@ -244,6 +281,27 @@ def conv_dw_fused_ref(
     return out
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on fp32 ``x``: round to the nearest value with
+    10 mantissa bits, ties away from zero (the low 13 bits cleared)."""
+    u = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(torch.float32)
+
+
+def matmul_tf32_terms(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """``a @ b`` as ``conv_dw_fused``'s tensor cores compute it for fp32
+    operands: each operand split as ``big + small`` (``big = tf32(x)``,
+    ``small = tf32(x - big)``), then ``small·big + big·small + big·big``
+    (``terms=3``, 3xTF32) or ``big·big`` alone (``terms=1``, plain TF32).
+    A product of two TF32 values is exact in fp32, so each term is an
+    fp32 product."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    if terms == 1:
+        return a_big @ b_big
+    return tf32_rna(a - a_big) @ b_big + a_big @ tf32_rna(b - b_big) + a_big @ b_big
+
+
 def conv_dw_fused(
     xg, dy2r, block_idx, *, kh_dim, kw_dim, stride, dilation, h_out,
     block_size: int = 128, c_out: int | None = None,
@@ -269,8 +327,7 @@ def conv_dw_fused(
         raise ValueError(f"conv_dw_fused: xg {tuple(xg.shape)}, dy2r {tuple(dy2r.shape)}")
     p = kh_dim * kw_dim * cg
     nc = kb * block_size
-    tiles = _cdiv(p, _TILE) * kb * _cdiv(block_size, _TILE)
-    s, chunk = _splits(m2 * w_out, tiles)
+    s, chunk = conv_dw_plan(m2 * w_out, p, kb, block_size, c_pad if c_out is None else c_out)
     out = torch.empty((kh_dim, kw_dim, cg, nc), dtype=torch.float32, device=xg.device)
     partial = torch.empty((s, p, nc) if s > 1 else (0,), dtype=torch.float32, device=xg.device)
     (sh, sw), (dh, dw) = stride, dilation
@@ -353,9 +410,53 @@ def matmul_ref(a, b) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def matmul_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(S, chunk) of the bf16 kernel's deterministic split-K: split s sums
+    K in ``[s*chunk, min(k, (s+1)*chunk))``. Splits only while the output
+    tiles times S fit on the 132 SMs (one block each), each split at least
+    two 64-deep stages; chunks are whole stages."""
+    tiles = _cdiv(m, _MM_TILE) * _cdiv(n, _MM_TILE)
+    s = max(1, min(_SMS // max(tiles, 1), _cdiv(k, 2 * _MM_BK)))
+    chunk = max(1, _cdiv(_cdiv(k, s), _MM_BK)) * _MM_BK
+    return max(1, _cdiv(k, chunk)), chunk
+
+
+def gather_columns(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t.index_select(-1, idx)`` for a row-major ``t``, as a view whose
+    row pitch is a multiple of 8 elements, as TMA wants: ``idx`` padded
+    with repeats of its last entry, the padding sliced off. The padding
+    columns lie past the view's width, so no kernel reads them."""
+    k = idx.numel()
+    pad = (-k) % _PITCH
+    if pad and k:
+        idx = torch.cat([idx, idx[-1:].expand(pad)])
+    return t.index_select(-1, idx)[..., :k]
+
+
+def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+    """``t`` and the strides the kernel reads it with. TMA reads a 2-D view
+    in place when it lies 16-byte aligned with one unit stride and the
+    other a multiple of 8 elements, at least the row length; any other
+    view is copied, counted in :data:`repacks`, into a row-major buffer
+    whose pitch is rounded up to 8."""
+    (r, c), (s0, s1) = t.shape, t.stride()
+    if t.data_ptr() % 16 == 0:
+        if s1 == 1 and s0 % _PITCH == 0 and s0 >= c:
+            return t, (s0, 1)
+        if s0 == 1 and s1 % _PITCH == 0 and s1 >= r:
+            return t, (1, s1)
+    buf = torch.empty((r, c + (-c) % _PITCH), dtype=t.dtype, device=t.device)
+    buf[:, :c] = t
+    repacks["matmul"] += 1
+    return buf[:, :c], (buf.shape[1], 1)
+
+
 def matmul(a, b) -> torch.Tensor:
     """A[M, K] @ B[K, N] -> [M, N] fp32. The operands may be any strided
-    2-D views (a transpose is read in place); both fp32 or both bf16."""
+    2-D views (a transpose is read in place); both fp32 or both bf16.
+    bf16 views that TMA cannot read (a row pitch that is not a multiple
+    of 8 elements, no unit stride) are copied first and counted in
+    :data:`repacks`."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: a {tuple(a.shape)} and b {tuple(b.shape)}")
     if not _on_cuda("matmul", a, b, contiguous=False):
@@ -363,9 +464,22 @@ def matmul(a, b) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if not (m and n and k):  # nothing to multiply (and no tensor map of an empty axis)
+        return out.zero_()
+    s, chunk, partial = 1, 0, out
+    bf16 = a.dtype == torch.bfloat16
+    if bf16:
+        a, sa = _tma_operand(a)
+        b, sb = _tma_operand(b)
+        strides = (*sa, *sb)
+        s, chunk = matmul_plan(m, n, k)
+        if s > 1:
+            partial = torch.empty((s, m, n), dtype=torch.float32, device=a.device)
+    else:
+        strides = (*a.stride(), *b.stride())
     _launch(
-        "matmul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        *a.stride(), *b.stride(), int(a.dtype == torch.bfloat16),
+        "matmul", a.device, a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        m, n, k, *strides, s, chunk, int(bf16),
     )
     return out
 

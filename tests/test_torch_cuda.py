@@ -205,6 +205,53 @@ def test_conv_dx_fused_kernel_matches_plain(cuda, stride, padding, dilation, gro
     _close(out, tgm.conv_dx_fused_ref(dy2r, w2k, bidx, **kw))
 
 
+# (stride, C_in, C_out, H, kept blocks): ResNet-18's 3x3 convs at B=4, one
+# per stage geometry (the stride-2 first conv of stages 2-4 too), on the
+# fast loads (64-row tiles inside one tap); C_out=64 is the ragged tail
+STAGES = [
+    (1, 64, 64, 32, [0]),
+    (2, 64, 128, 32, [0]),
+    (1, 128, 128, 16, [0]),
+    (2, 128, 256, 16, [1]),
+    (1, 256, 256, 8, [0, 1]),
+    (2, 256, 512, 8, [2]),
+    (1, 512, 512, 4, [0, 3]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride,c_in,c_out,h,blocks", STAGES)
+def test_conv_dw_fused_resnet_stages_match_plain_and_repeat(cuda, stride, c_in, c_out, h,
+                                                             blocks, dtype):
+    """The tensor-core kernel (3xTF32 for fp32) at each stage's geometry:
+    within 1e-4 * max(1, max|plain|) of the fp32 plain version, and the
+    same bits on a second call (fixed split-K order)."""
+    g = _conv_geometry(stride, 1, 1, c_in, 1, b=4, h=h)
+    xg = _randn(cuda, (g["b"] * g["h_pad"], 1, g["h_pad"], c_in), dtype, 20)
+    dy2r = _dy2r(cuda, g["b"], g["h_out"], c_out, 128, dtype, 21)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    kw = dict(kh_dim=3, kw_dim=3, stride=(stride, stride), dilation=(1, 1), h_out=g["h_out"],
+              block_size=128)
+    out = tgm.conv_dw_fused(xg, dy2r, bidx, c_out=c_out, **kw)
+    torch.cuda.synchronize()
+    _close(out, tgm.conv_dw_fused_ref(xg, dy2r, bidx, **kw))
+    assert torch.equal(out, tgm.conv_dw_fused(xg, dy2r, bidx, c_out=c_out, **kw))
+
+
+def test_conv_dw_fused_scatter_keeps_dropped_blocks_zero(cuda):
+    """The ragged C=64 block and KB=2 of 4: after the scatter the dropped
+    blocks are exactly 0 and the kept ones are not."""
+    x = _randn(cuda, (4, 128, 8, 8), "float32", 22)
+    dy = _randn(cuda, (4, 512, 8, 8), "float32", 23)
+    bidx = torch.tensor([1, 3], dtype=torch.int32, device=cuda)
+    dw = tops.conv_dw_fused_scatter(x, dy, bidx, kh=3, kw=3, stride=(1, 1),
+                                    padding=((1, 1), (1, 1)), dilation=(1, 1), groups=1)
+    torch.cuda.synchronize()
+    dropped = torch.cat([torch.arange(0, 128), torch.arange(256, 384)]).to(cuda)
+    kept = torch.cat([torch.arange(128, 256), torch.arange(384, 512)]).to(cuda)
+    assert not dw[:, dropped].any() and dw[:, kept].all()
+
+
 def test_gathered_wrappers_raise_never_fall_back(cuda):
     dy, w = _randn(cuda, (64, 128), "float32", 9), _randn(cuda, (32, 128), "float32", 10)
     bidx = torch.tensor([0], dtype=torch.int32, device=cuda)
@@ -257,6 +304,108 @@ def test_matmul_kernel_matches_plain(cuda, m, k, n, dtype, layout):
     _close(out, tgm.matmul_ref(a, b))
 
 
+def _aligned(dev, shape, dtype, seed):
+    """A row-major [R, C] view whose pitch is C rounded up to 8, as
+    ``gather_columns`` hands the backward's operands over."""
+    r, c = shape
+    buf = _randn(dev, (r, c + (-c) % 8), dtype, seed)
+    return buf[:, :c]
+
+
+# the eight products of a sparse qwen2.5-3b step (K kept = 410, 51, 2202 of
+# d_out; d_in = 2048 or 11008), at M = B*S = 256 tokens: (name, M, K, N)
+LM_PRODUCTS = [
+    ("dX q,o", 256, 410, 2048), ("dX k,v", 256, 51, 2048),
+    ("dX gate,up", 256, 2202, 2048), ("dX down", 256, 410, 11008),
+    ("dW q,o", 2048, 256, 410), ("dW k,v", 2048, 256, 51),
+    ("dW gate,up", 2048, 256, 2202), ("dW down", 11008, 256, 410),
+]
+
+
+def _lm_operands(dev, name, m, k, n, seed):
+    """The operands as the backward hands them over: dX = dy_k @ w_k.T,
+    dW = x2.T @ dy_k, with dy_k and w_k gathered at an aligned pitch."""
+    if name.startswith("dX"):
+        return _aligned(dev, (m, k), "bfloat16", seed), _aligned(dev, (n, k), "bfloat16",
+                                                                 seed + 1).T
+    return _randn(dev, (k, m), "bfloat16", seed).T, _aligned(dev, (k, n), "bfloat16", seed + 1)
+
+
+@pytest.mark.parametrize("name,m,k,n", LM_PRODUCTS)
+def test_matmul_lm_products_on_tensor_cores(cuda, name, m, k, n):
+    """bf16 through TMA + wgmma at the main path's products: no repack,
+    within 1e-4 * max(1, max|plain|), the same bits on a second call."""
+    a, b = _lm_operands(cuda, name, m, k, n, 24)
+    before, repacks = tgm.launches["matmul"], tgm.repacks["matmul"]
+    out = tgm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert tgm.launches["matmul"] == before + 1 and tgm.repacks["matmul"] == repacks
+    _close(out, tgm.matmul_ref(a, b))
+    assert torch.equal(out, tgm.matmul(a, b))
+
+
+@pytest.mark.parametrize("name,m,k,n", [p for p in LM_PRODUCTS if p[0].startswith("dW")])
+def test_matmul_split_k_at_full_m(cuda, name, m, k, n):
+    """dW at M = 1024 tokens: the planned split-K (S > 1 for k,v and q,o)
+    sums its partials in a fixed order, so the result repeats bit for bit."""
+    k = 1024
+    a, b = _lm_operands(cuda, name, m, k, n, 25)
+    s, chunk = tgm.matmul_plan(m, n, k)
+    assert (s > 1) == (name in ("dW q,o", "dW k,v"))
+    out = tgm.matmul(a, b)
+    torch.cuda.synchronize()
+    _close(out, tgm.matmul_ref(a, b))
+    assert torch.equal(out, tgm.matmul(a, b))
+
+
+@pytest.mark.parametrize("b_major", ["k", "n"])
+@pytest.mark.parametrize("a_major", ["k", "m"])
+@pytest.mark.parametrize("m,k,n", [(200, 136, 130), (64, 64, 64), (333, 72, 520)])
+def test_matmul_every_operand_major(cuda, m, k, n, a_major, b_major):
+    """A K-major ([M, K] rows) or M-major (a transposed view), B K-major
+    (a transposed view) or N-major ([K, N] rows), all aligned: the
+    descriptors of all four reach the right values, with no repack."""
+    a = _aligned(cuda, (m, k), "bfloat16", 26) if a_major == "k" else \
+        _aligned(cuda, (k, m), "bfloat16", 26).T
+    b = _aligned(cuda, (n, k), "bfloat16", 27).T if b_major == "k" else \
+        _aligned(cuda, (k, n), "bfloat16", 27)
+    repacks = tgm.repacks["matmul"]
+    out = tgm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert tgm.repacks["matmul"] == repacks
+    _close(out, tgm.matmul_ref(a, b))
+
+
+def test_matmul_repacks_unaligned_pitches(cuda):
+    """A pitch that is not a multiple of 8 (a plain ``index_select``), an
+    operand with no unit stride, or an unaligned start: copied once each,
+    counted, and the product still right."""
+    a = _randn(cuda, (300, 410), "bfloat16", 28)  # pitch 410
+    b = _randn(cuda, (410, 400), "bfloat16", 29)[:, ::2]  # no unit stride
+    c = _randn(cuda, (1, 300 * 136 + 1), "bfloat16", 30)[0, 1:].view(300, 136)  # offset 2 bytes
+    for x, y, copies in ((a, _aligned(cuda, (410, 64), "bfloat16", 31), 1),
+                         (_aligned(cuda, (300, 410), "bfloat16", 32), b, 1),
+                         (a, b, 2), (c.T, _aligned(cuda, (300, 72), "bfloat16", 33), 1)):
+        repacks = tgm.repacks["matmul"]
+        out = tgm.matmul(x, y)
+        torch.cuda.synchronize()
+        assert tgm.repacks["matmul"] == repacks + copies
+        _close(out, tgm.matmul_ref(x, y))
+
+
+def test_matmul_fp32_takes_the_simt_kernel_and_repacks_nothing(cuda):
+    """fp32 operands, transposed and unaligned views included, go to the
+    SIMT kernel as they are."""
+    a = _randn(cuda, (410, 300), "float32", 34).T
+    b = _randn(cuda, (410, 51), "float32", 35)
+    repacks = tgm.repacks["matmul"]
+    out = tgm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert tgm.repacks["matmul"] == repacks
+    _close(out, tgm.matmul_ref(a, b))
+    assert torch.equal(out, tgm.matmul(a, b))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,n", [(1, 1), (300, 130), (7, 5000), (1024, 256), (1024, 2048),
                                  (1024, 11008), (4099, 33)])
@@ -304,3 +453,20 @@ def test_sparse_dense_channel_route_launches_matmul(cuda):
         grads[use_pallas] = (gx, gw)
     for a, b in zip(grads[True], grads[False], strict=True):
         _close(a.float(), b.float())
+
+
+def test_sparse_dense_bf16_channel_route_reads_gathered_operands_in_place(cuda):
+    """bf16 at channel granularity with ``use_pallas``: the backward's
+    gathered operands reach the tensor-core kernel with aligned pitches
+    (no repack), at K = 410 of 512 kept channels (not a multiple of 8)."""
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.core.dense import sparse_dense
+
+    x = _randn(cuda, (4, 64, 256), "bfloat16", 36).requires_grad_(True)
+    w = _randn(cuda, (256, 512), "bfloat16", 37).requires_grad_(True)
+    pol = tpolicy.SsPropPolicy(0.2, use_pallas=True)
+    assert pol.keep_count(512) % 8 != 0
+    before, repacks = tgm.launches["matmul"], tgm.repacks["matmul"]
+    torch.autograd.grad(sparse_dense(x, w, policy=pol).float().square().sum(), (x, w))
+    torch.cuda.synchronize()
+    assert tgm.launches["matmul"] == before + 2 and tgm.repacks["matmul"] == repacks

@@ -233,3 +233,53 @@ def test_every_kernel_has_a_source():
              "importance"}
     assert names <= set(build.sources())
     assert set(tgm.launches) == names
+
+
+# --- conv_dw_fused's tensor-core arithmetic and split plan -------------
+
+
+def test_tf32_rna_rounds_half_away_from_zero():
+    """``cvt.rna.tf32``: 10 mantissa bits kept, the nearest value, ties away
+    from zero (where round-to-even would go down), exact values unchanged."""
+    e = 2.0**-10  # one TF32 unit in the last place at 1.0
+    x = torch.tensor([1.0, 1 + e / 2, 1 + e / 2 - 2**-23, -(1 + e / 2), 1 + e + e / 2, 3.5, -0.0])
+    want = [1.0, 1 + e, 1.0, -(1 + e), 1 + 2 * e, 3.5, -0.0]
+    assert tgm.tf32_rna(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(7).standard_normal(1000).astype(np.float32))
+    r = tgm.tf32_rna(y)
+    assert not (r.view(torch.int32) & 0x1FFF).any()  # the low 13 bits cleared
+    assert ((r - y).abs() <= y.abs() * 2.0**-11).all()  # within half a TF32 unit
+
+
+def test_3xtf32_holds_the_kernel_gate_where_1xtf32_misses_it():
+    """A block_0-like reduction (576 x 32768 @ 32768 x 64, seeded): the
+    3-term split stays within 1e-4 * max(1, max|plain|) of the fp32
+    product; plain TF32 (one term) does not, which is why the kernel
+    pays for three."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.standard_normal((576, 32768)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((32768, 64)).astype(np.float32))
+    plain = a @ b
+    limit = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (tgm.matmul_tf32_terms(a, b, terms=3) - plain).abs().max().item() <= limit
+    assert (tgm.matmul_tf32_terms(a, b, terms=1) - plain).abs().max().item() > limit
+
+
+# ResNet-18's fused 3x3 convs at B=128, 32x32: (positions R, rows P =
+# 9*C_in, kept blocks, C_out)
+DW_SITES = [
+    (131072, 576, 1, 64), (32768, 576, 1, 128), (32768, 1152, 1, 128),
+    (8192, 1152, 1, 256), (8192, 2304, 2, 256), (2048, 2304, 1, 512), (2048, 4608, 4, 512),
+]
+
+
+@pytest.mark.parametrize("rows,p,kb,c_out", DW_SITES)
+def test_conv_dw_plan_covers_the_positions_in_one_wave(rows, p, kb, c_out):
+    """Chunks of whole 32-position stages that cover every position once;
+    the working tiles times S fit the 4 x 132 resident blocks, or S = 1."""
+    s, chunk = tgm.conv_dw_plan(rows, p, kb, 128, c_out)
+    assert chunk % 32 == 0 and (s - 1) * chunk < rows <= s * chunk
+    col_tiles = kb * 2 - (1 if c_out % 128 else 0)
+    work = -(-p // 64) * col_tiles
+    assert s == 1 or s * work <= 4 * 132
+    assert s > 1 or work * 2 > 4 * 132 or rows <= 256

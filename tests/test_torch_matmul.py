@@ -95,6 +95,62 @@ def test_wrappers_refuse_other_devices_and_plain_versions_count_nothing():
     assert tgm.launches == before
 
 
+# the eight products of a sparse qwen2.5-3b step at M = B*S = 1024:
+# (name, M, K, N), with K kept = 410, 51, 2202 of d_out
+LM_PRODUCTS = [
+    ("dX q,o", 1024, 410, 2048), ("dX k,v", 1024, 51, 2048),
+    ("dX gate,up", 1024, 2202, 2048), ("dX down", 1024, 410, 11008),
+    ("dW q,o", 2048, 1024, 410), ("dW k,v", 2048, 1024, 51),
+    ("dW gate,up", 2048, 1024, 2202), ("dW down", 11008, 1024, 410),
+]
+
+
+@pytest.mark.parametrize("name,m,k,n", LM_PRODUCTS)
+def test_matmul_plan_at_the_lm_products(name, m, k, n):
+    """The split-K plan: every 128x128 output tile gets S chunks of whole
+    64-deep stages that cover K once; it splits only the products with
+    too few tiles for 132 SMs (dW k,v: 16 tiles; dW q,o: 64)."""
+    s, chunk = tgm.matmul_plan(m, n, k)
+    tiles = -(-m // 128) * -(-n // 128)
+    assert chunk % 64 == 0 and (s - 1) * chunk < k <= s * chunk
+    assert (s > 1) == (name in ("dW q,o", "dW k,v"))
+    assert s == 1 or tiles * s <= 132
+    assert tgm.matmul_plan(m, n, 0) == (1, 64)
+
+
+@pytest.mark.parametrize("k", [1, 7, 8, 51, 410, 2202])
+def test_gather_columns_has_the_values_of_index_select_at_an_aligned_pitch(k):
+    rng = np.random.default_rng(9)
+    t = torch.from_numpy(rng.standard_normal((6, 2300)).astype(np.float32))
+    idx = torch.from_numpy(np.sort(rng.choice(2300, k, replace=False)))
+    got = tgm.gather_columns(t, idx)
+    assert got.shape == (6, k) and got.stride(1) == 1 and got.stride(0) % 8 == 0
+    assert torch.equal(got, t.index_select(1, idx))
+
+
+def test_kernel_route_hands_matmul_aligned_operands(monkeypatch):
+    """At K = 410 kept channels (not a multiple of 8) the backward hands
+    ``matmul`` views that TMA reads in place: one unit stride, the other
+    a multiple of 8."""
+    seen = []
+    real = tops.matmul
+
+    def spy(a, b):
+        seen.extend([a, b])
+        return real(a, b)
+
+    monkeypatch.setattr(tops, "matmul", spy)
+    x = torch.randn(32, 96, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(96, 512, dtype=torch.bfloat16, requires_grad=True)
+    pol = tpolicy.SsPropPolicy(0.2, use_pallas=True)
+    assert pol.keep_count(512) == 410
+    tdense(x, w, policy=pol).float().square().sum().backward()
+    assert len(seen) == 4
+    for t in seen:
+        s0, s1 = t.stride()
+        assert (s1 == 1 and s0 % 8 == 0) or (s0 == 1 and s1 % 8 == 0), (tuple(t.shape), t.stride())
+
+
 # --- sparse_dense at channel granularity --------------------------------
 
 ROUTES = {"gather": {}, "matmul": {"use_pallas": True}, "mask": {"mask_mode": True}}
