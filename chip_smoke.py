@@ -25,12 +25,17 @@ line) on any error:
    table decides which), plus a KB=2-of-4 non-contiguous case and a
    groups=2 case, fp32 and bf16 operands, raw fp32 outputs within
    1e-4 * max(1, max|plain|); dropped blocks exactly 0 after the scatter;
-   times each kernel, its plain version and one library call
-   (``matmul`` / ``conv2d_weight`` / ``conv2d_input`` on the kept
-   channels) at the fp32 main-path shapes, with the bound of each
-   (``conv_dw_fused`` runs fp32 as 3xTF32 on the tensor cores: its bound
-   is three TF32 products at 495 TFLOP/s, printed beside the fp32 FMA
-   bound), the variant that ran and its TFLOP/s;
+   every kernel repeats bit for bit, and a digest of its outputs at the
+   main-path launches is printed (two trees whose kernels compute the
+   same bits print the same digests); times each
+   kernel, its plain version and one library call (``matmul`` /
+   ``conv2d_weight`` / ``conv2d_input`` on the kept channels) at the fp32
+   main-path shapes, with the bound of each (``conv_dw_fused``,
+   ``dw_gathered`` and ``conv_dx_fused`` run fp32 as 3xTF32 on the tensor
+   cores: their bound is three TF32 products at 495 TFLOP/s, printed
+   beside the fp32 FMA bound on the per-shape lines), the variant that
+   ran, the dW kernels' split-K and its TFLOP/s; then each kernel's sum
+   over a sparse step's launches beside the library's;
 5. LM route check: one mixed prefill+decode ``decode_slots`` call of the
    full-width qwen2.5-3b (random bf16 weights) through the kernel route
    and the gather route, with bf16 params and an fp32 copy of them
@@ -63,7 +68,7 @@ line) on any error:
    each kernel, its plain version and one library call (``torch.matmul``
    on the operands as given, whose bf16 output rounding is its only
    difference; none computes ``importance``), with the bound of each,
-   the variant (bf16: TMA + wgmma, with its split-K; fp32: SIMT) and its
+   the variant (bf16: TMA + wgmma, and its split-K; fp32: SIMT) and its
    TFLOP/s;
 10. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
    depth 4, fp32 with TF32 off, through ``matmul``, the gather route and
@@ -83,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 from pathlib import Path
@@ -110,6 +116,11 @@ LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
 LM_KERNELS = {  # kernel -> the TPU kernel it replaces
     "matmul": "src/repro/kernels/gathered_matmul.py:383",
     "importance": "src/repro/kernels/gathered_matmul.py:344",
+}
+TENSOR_CORE = {  # gathered kernels on the tensor cores -> their design
+    "conv_dw_fused": "3xTF32 mma.sync split-K",
+    "dw_gathered": "3xTF32 mma.sync split-K",
+    "conv_dx_fused": "3xTF32 mma.sync implicit GEMM, interior pixels",
 }
 GATHERED = {  # kernel -> the TPU kernel it replaces
     "dx_gathered": "src/repro/kernels/gathered_matmul.py:66",
@@ -472,18 +483,23 @@ def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=1
         else:
             w = rnd(c_out, c_in // groups, k, k)
             args = (dy2r, ops._compact_filters(w, bidx, bs), bidx)
-            plain_kw = dict(b=batch, h_pad=h_in + 2 * pad, w_pad=h_in + 2 * pad, groups=groups,
-                            stride=st, dilation=(1, 1), block_size=bs)
+            plain_kw = dict(b=batch, hw=(h_in, h_in), padding=pd, groups=groups, stride=st,
+                            dilation=(1, 1), block_size=bs)
             lib_args = (dy_k, w.index_select(0, real).contiguous())
             lib = lambda a, b: torch.nn.grad.conv2d_input(  # noqa: E731
                 (batch, c_in, h_in, h_in), b, a, st, pad, 1, groups)
         kw = dict(plain_kw, c_out=c_out)
+    splits = {  # the split-K of the tensor-core kernels' plans
+        "dw_gathered": lambda: gm.dw_plan(m, d, kb, bs, c_out)[0],
+        "conv_dw_fused": lambda: gm.conv_dw_plan(m, d // groups, kb, bs, c_out)[0],
+    }
     return dict(
         kernel=lambda *a: getattr(gm, name)(*a, **kw),
         plain=lambda *a: getattr(gm, f"{name}_ref")(*a, **plain_kw),
         args=args, library=lib, lib_args=lib_args, blocks=blocks,
-        dims=dict(m=m, d=d, k_real=len(real), kb=kb, bs=bs, c_in=c_in,
+        dims=dict(m=m, d=d, k_real=len(real), kb=kb, bs=bs, c_in=c_in, h=h_in,
                   h_pad=h_in + 2 * pad, batch=batch, itemsize=args[0].element_size()),
+        splits=splits[name]() if name in splits else None,
     )
 
 
@@ -496,12 +512,13 @@ def gathered_bound_ms(name, dims, flops_per_s=FP32_FLOPS, passes=1) -> tuple[flo
     TF32 products at the tensor cores' 495 TFLOP/s)."""
     m, d, kr, it = dims["m"], dims["d"], dims["k_real"], dims["itemsize"]
     compact = d * dims["kb"] * dims["bs"] * 4
-    image = dims["batch"] * dims["h_pad"] ** 2 * dims["c_in"]
+    image = dims["batch"] * dims["h_pad"] ** 2 * dims["c_in"]  # the padded input xg
+    interior = dims["batch"] * dims["h"] ** 2 * dims["c_in"]  # dX, the interior only
     nbytes = {
         "dx_gathered": (m * kr + d * kr) * it + m * d * 4,
         "dw_gathered": (m * d + m * kr) * it + compact,
         "conv_dw_fused": (image + m * kr) * it + compact,
-        "conv_dx_fused": m * kr * it + d * dims["kb"] * dims["bs"] * it + image * 4,
+        "conv_dx_fused": m * kr * it + d * dims["kb"] * dims["bs"] * it + interior * 4,
     }[name] + 4 * dims["kb"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, passes * 2 * m * d * kr / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -524,12 +541,16 @@ def gathered_phase(gm, ops, resnet, policy_mod):
     gen = torch.Generator(device="cuda").manual_seed(3)
     launches = main_path_launches(resnet, train_policy(policy_mod))
     rows, max_err = [], dict.fromkeys(GATHERED, 0.0)
+    digests = {name: hashlib.sha256() for name in GATHERED}  # outputs, in launch order
     for (name, geo), count in launches.items():
         for dtype in (torch.float32, torch.bfloat16):
             case = gathered_case(gm, ops, name, geo, dtype, gen)
             out, ref = case["kernel"](*case["args"]), case["plain"](*case["args"])
             err = _check_close(name, out, ref, f"at {geo} {dtype}")
             max_err[name] = max(max_err[name], err)
+            if not torch.equal(out, case["kernel"](*case["args"])):
+                raise AssertionError(f"{name} at {geo} {dtype}: two launches differ")
+            digests[name].update(out.cpu().numpy().tobytes())
             if dtype != torch.float32:
                 continue
             sets = [case["args"], tuple(a.clone() for a in case["args"])]
@@ -545,12 +566,12 @@ def gathered_phase(gm, ops, resnet, policy_mod):
                        launches_per_step=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                        flops=flops, tflops=flops / ms / 1e9, variant="simt fp32 FMA")
-            if name == "conv_dw_fused":
+            if name in TENSOR_CORE:
                 # fp32 work on the tensor cores as three TF32 products: the
                 # least time drops below the fp32 FMA bound, kept beside it
                 tc_ms, tc_by = gathered_bound_ms(name, case["dims"], TF32_FLOPS, passes=3)
-                row.update(variant="3xTF32 mma.sync", bound_ms=tc_ms, bound_by=tc_by,
-                           bound_fp32_fma_ms=bound_ms)
+                row.update(variant=TENSOR_CORE[name], splits=case["splits"], bound_ms=tc_ms,
+                           bound_by=tc_by, bound_fp32_fma_ms=bound_ms)
             rows.append(row)
             print("[gathered] " + json.dumps(row))
             del sets, case
@@ -561,7 +582,8 @@ def gathered_phase(gm, ops, resnet, policy_mod):
              ("conv_dx_fused", (512, 512, 3, 4, 1, 2), 1, [0, 2]),
              ("conv_dw_fused", (256, 512, 3, 8, 1, 2), 2, [1, 2]),
              ("conv_dx_fused", (256, 512, 3, 8, 1, 2), 2, [1, 2]),
-             ("conv_dw_fused", (128, 256, 3, 16, 2, 1), 2, [1])]
+             ("conv_dw_fused", (128, 256, 3, 16, 2, 1), 2, [1]),
+             ("conv_dx_fused", (128, 256, 3, 16, 2, 1), 2, [1])]
     for name, geo, groups, blocks in extra:
         for dtype in (torch.float32, torch.bfloat16):
             case = gathered_case(gm, ops, name, geo, dtype, gen, groups=groups, blocks=blocks)
@@ -569,7 +591,17 @@ def gathered_phase(gm, ops, resnet, policy_mod):
                                f"at {geo} groups={groups} blocks={blocks} {dtype}")
             max_err[name] = max(max_err[name], err)
     print(f"[gathered] {len(launches)} main-path shapes and {len(extra)} extra cases, fp32 and "
-          f"bf16: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}")
+          f"bf16: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}; "
+          f"each repeats bit for bit")
+    print("[gathered] output digests (sha256, fp32 and bf16 main-path launches): "
+          + json.dumps({name: h.hexdigest()[:16] for name, h in digests.items()}))
+    for name in GATHERED:  # one sparse step's launches of each kernel, fp32
+        mine = [r for r in rows if r["name"] == name]
+        step = sum(r["ms"] * r["launches_per_step"] for r in mine)
+        lib = sum(r["library_ms"] * r["launches_per_step"] for r in mine)
+        bound = sum(r["bound_ms"] * r["launches_per_step"] for r in mine)
+        print(f"[gathered] {name}: a sparse step's {sum(r['launches_per_step'] for r in mine)} "
+              f"launches {step:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms")
     x = torch.randn((TRAIN_BATCH, 256, 8, 8), generator=gen, device="cuda")
     dy = torch.randn((TRAIN_BATCH, 512, 8, 8), generator=gen, device="cuda")
     bidx = torch.tensor([1, 3], dtype=torch.int32, device="cuda")
@@ -799,11 +831,11 @@ def lm_kernel_phase(gm, lm, cfg, policy):
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = 2 * m * n * k / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
             bf16 = dtype == torch.bfloat16
-            variant = (f"wgmma+TMA 128x128, split-K S={gm.matmul_plan(m, n, k)[0]}" if bf16
-                       else "simt fp32 FMA 64x64")
+            variant = "wgmma+TMA 128x128, split-K" if bf16 else "simt fp32 FMA 64x64"
             row = dict(name="matmul", product=name, shape=f"A[{m},{k}]{'T' if a_t else ''} @ "
                        f"B[{k},{n}]{'T' if b_t else ''}", dtype=str(dtype).replace("torch.", ""),
-                       variant=variant, launches_per_step=per_step, max_abs_err=err, ms=ms,
+                       variant=variant, splits=gm.matmul_plan(m, n, k)[0] if bf16 else 1,
+                       launches_per_step=per_step, max_abs_err=err, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1130,7 +1162,6 @@ def main() -> int:
             # one sparse step's launches of this kernel, at their shapes
             step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
             variant=top["variant"], tflops=top["tflops"],
-            **{k: top[k] for k in ("bound_fp32_fma_ms",) if k in top},
         ))
     for name, replaces in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]

@@ -23,7 +23,8 @@
 // keeps about 3 decimal digits and would miss the 1e-4 gates over a
 // 131072-long reduction. Three TF32 products at 495 TFLOP/s make the
 // bound of fp32-accurate work 3 * 9.7 GFLOP / 495 TFLOP/s = 0.059 ms.
-// bf16 operands take one bf16 product (fp32 accumulation). The design:
+// bf16 operands take one bf16 product (fp32 accumulation); the copies,
+// the split and the stage products are mma.cuh's. The design:
 //   * the output is a [Kh*Kw*Cg, KB*bs] matrix cut in 64x64 tiles; a column
 //     tile lies inside one kept block, so its group, and the image columns
 //     its rows read, are the same for the whole tile; four warps take
@@ -52,6 +53,7 @@
 
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -69,117 +71,9 @@ struct Geom {
   int Kh, Kw, sh, sw, dh, dw, KB, bs, bpg;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-}
-
-// One stage's products into the warp's 32x32 accumulators. Stages hold
-// a[k][m] and b[k][n] (k the position). Fragments of m16n8k8 with g =
-// lane/4, t = lane%4: A (m, k) at (g, t), (g+8, t), (g, t+4), (g+8, t+4);
-// B (k, n) at (t, g), (t+4, g).
-__device__ __forceinline__ void stage_mma(const float* a, const float* b, float (&acc)[2][4][4],
-                                          int wm, int wn, int g, int t) {
-#pragma unroll
-  for (int k8 = 0; k8 < BK; k8 += 8) {
-    uint32_t a_big[2][4], a_small[2][4], b_big[4][2], b_small[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const float* p = a + (k8 + t) * LDS + wm + 16 * mi + g;
-      const float v[4] = {p[0], p[8], p[4 * LDS], p[4 * LDS + 8]};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a_big[mi][q] = tf32(v[q]);
-        a_small[mi][q] = tf32(v[q] - __uint_as_float(a_big[mi][q]));
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const float* p = b + (k8 + t) * LDS + wn + 8 * ni + g;
-      const float v[2] = {p[0], p[4 * LDS]};
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        b_big[ni][q] = tf32(v[q]);
-        b_small[ni][q] = tf32(v[q] - __uint_as_float(b_big[ni][q]));
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        mma_tf32(acc[mi][ni], a_small[mi], b_big[ni]);
-        mma_tf32(acc[mi][ni], a_big[mi], b_small[ni]);
-        mma_tf32(acc[mi][ni], a_big[mi], b_big[ni]);
-      }
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// bf16: A (m, k) pairs at (g, 2t..2t+1), (g+8, 2t..2t+1); B (k, n) pair at
-// (2t..2t+1, g); lower k in the lower half.
-__device__ __forceinline__ void stage_mma(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                                          float (&acc)[2][4][4], int wm, int wn, int g, int t) {
-#pragma unroll
-  for (int k8 = 0; k8 < BK; k8 += 8) {
-    uint32_t af[2][2], bf[4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* p = a + (k8 + 2 * t) * LDS + wm + 16 * mi + g;
-      af[mi][0] = pack_bf16(p[0], p[LDS]);
-      af[mi][1] = pack_bf16(p[8], p[LDS + 8]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* p = b + (k8 + 2 * t) * LDS + wn + 8 * ni + g;
-      bf[ni] = pack_bf16(p[0], p[LDS]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-  }
-}
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 4)
@@ -308,7 +202,8 @@ conv_dw_fused_kernel(const T* __restrict__ xg, const T* __restrict__ dy2r,
       if (it + STAGES - 1 < nk) load(it + STAGES - 1);
       cp_async_commit();
       const T* sa = ring + (it % STAGES) * 2 * BK * LDS;
-      stage_mma(sa, sa + BK * LDS, acc, wm, wn, gq, tq);
+      // stages hold a[k][m] and b[k][n], k the position
+      mma::stage_mma_km<BK>(sa, LDS, sa + BK * LDS, LDS, acc, wm, wn, gq, tq);
     }
     cp_async_wait<0>();
   }

@@ -12,8 +12,9 @@ launched its kernel.
   * ``dw_gathered``  : dWk[D_in, KB·bs] = Xᵀ @ dY[:, kept]  (compact)
   * ``conv_dw_fused``: compact conv dW ``[Kh, Kw, Cg, KB·bs]`` with the
     im2col patch gather in the addressing
-  * ``conv_dx_fused``: conv dX on the padded image ``[B·H_pad, G, W_pad,
-    Cg]`` with the col2im scatter done as a gather
+  * ``conv_dx_fused``: conv dX on the interior image ``[B·H, G, W, Cg]``
+    (the padding ring is never computed) with the col2im scatter done as
+    a gather
   * ``matmul``       : A[M, K] @ B[K, N] in fp32, operands read through
     their strides (the channel-granularity dense backward's products);
     bf16 operands go through TMA and ``wgmma`` and need 16-byte row
@@ -33,11 +34,13 @@ the kernel, or the wrapper raises.
 
 Tiles and plans: ``matmul``'s bf16 kernel takes 128x128 output tiles
 64 deep (:func:`matmul_plan` splits K where too few tiles fill the
-card); ``conv_dw_fused`` takes 64x64 tiles in 32-position stages on
-tensor cores (3xTF32 for fp32 operands, which :func:`matmul_tf32_terms`
-emulates; :func:`conv_dw_plan`); the others take ``tile.cuh``'s 64x64
-SIMT tile in 16-deep panels (:func:`_splits`). Every split-K sums its
-partials in a fixed order.
+card); ``conv_dw_fused``, ``dw_gathered`` and ``conv_dx_fused`` take
+64x64 tiles in 32-deep stages on the tensor cores (3xTF32 for fp32
+operands, which :func:`matmul_tf32_terms` emulates; ``csrc/mma.cuh``);
+:func:`conv_dw_plan` and :func:`dw_plan` plan the two dW kernels'
+split-K; ``dx_gathered`` and ``matmul``'s fp32 operands
+take ``tile.cuh``'s 64x64 SIMT tile. Every split-K sums its partials in
+a fixed order.
 """
 from __future__ import annotations
 
@@ -57,9 +60,8 @@ repacks = {"matmul": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TARGET_BLOCKS = 8 * 132  # about eight resident blocks on each of the H100's 132 SMs
-_MIN_SPLIT_ROWS = 256  # the least reduction length a split-K block takes
-_BK = 16  # rows a kernel's panel takes (tile.cuh)
-_TILE = 64  # output tile edge (tile.cuh)
+_TILE = 64  # output tile edge of the tensor-core kernels
+_STAGE = 32  # reduction steps a stage of the tensor-core kernels takes
 _SMS = 132  # the H100's streaming multiprocessors
 _MM_TILE = 128  # matmul.cu's bf16 output tile edge
 _MM_BK = 64  # matmul.cu's bf16 stage depth
@@ -70,7 +72,7 @@ _ARGTYPES = {
     "dx_gathered": [_P] * 4 + [_I] * 6 + [_P],
     "dw_gathered": [_P] * 5 + [_I] * 7 + [_I, _P],
     "conv_dw_fused": [_P] * 5 + [_I] * 18 + [_L, _I, _P],
-    "conv_dx_fused": [_P] * 4 + [_I] * 17 + [_I, _P],
+    "conv_dx_fused": [_P] * 4 + [_I] * 19 + [_I, _P],
     "matmul": [_P] * 4 + [_I] * 3 + [_L] * 4 + [_I] * 3 + [_P],
     "importance": [_P] * 3 + [_I] * 4 + [_I, _P],
 }
@@ -138,13 +140,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _splits(rows: int, tiles: int) -> tuple[int, int]:
-    """(S, chunk) of a deterministic split-K: enough splits that the
-    output tiles times S fill the card, none shorter than
-    ``_MIN_SPLIT_ROWS`` rows, chunks a whole number of panels."""
-    s = max(1, min(_cdiv(rows, _MIN_SPLIT_ROWS), _cdiv(_TARGET_BLOCKS, max(tiles, 1))))
-    chunk = _cdiv(_cdiv(rows, s), _BK) * _BK
-    return _cdiv(rows, chunk), chunk
+def _working_col_tiles(kb: int, block_size: int, c_out: int) -> int:
+    """64-wide column tiles of the compact output that hold a real
+    channel: the ragged tail block's phantom tiles do no work (counted as
+    if the tail were kept, the case of the stem, whose only block is the
+    tail)."""
+    col_tiles = _cdiv(block_size, _TILE)
+    tail = c_out % block_size
+    phantom = col_tiles - _cdiv(tail, _TILE) if tail else 0
+    return max(1, kb * col_tiles - phantom)
 
 
 # ----------------------------------------------------------------------
@@ -184,6 +188,31 @@ def dx_gathered(dy, w, block_idx, *, block_size: int = 128) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 
+_SPLIT_SLOTS = 4 * _SMS  # one wave of the dW kernels' split blocks: 4 an SM
+
+
+def _split_plan(rows: int, work: int, min_rows: int) -> tuple[int, int]:
+    """(S, chunk) of a dW kernel's deterministic split-K over ``rows``: as
+    many splits as fit ``work`` (the output tiles that do work) into one
+    wave of resident blocks, none shorter than ``min_rows``; chunks are
+    whole 32-row stages."""
+    s = max(1, min(_cdiv(rows, min_rows), _SPLIT_SLOTS // max(work, 1)))
+    chunk = max(1, _cdiv(_cdiv(rows, s), _STAGE)) * _STAGE
+    return max(1, _cdiv(rows, chunk)), chunk
+
+
+def dw_plan(m: int, d_in: int, kb: int, block_size: int, n: int) -> tuple[int, int]:
+    """(S, chunk) of ``dw_gathered``'s split-K over the ``m`` rows, none
+    shorter than 128 rows, so that the partials stay small. Work is
+    counted in 32-row halves of 64x64 tiles (two tiles an SM): the ragged
+    tail block's phantom column tiles do none, and a tile whose rows end
+    within its first half (the stem's D_in = 27) keeps two of its four
+    warps idle and counts half. Chunks of whole 32-row stages start on a
+    multiple of 8 rows (16 bytes of any row length, fp32 or bf16)."""
+    work = _cdiv(d_in, _TILE // 2) * _working_col_tiles(kb, block_size, n)
+    return _split_plan(m, work, 128)
+
+
 def dw_gathered_ref(x, dy, block_idx, *, block_size: int = 128) -> torch.Tensor:
     """Plain version: x [M, D_in], dy [M, N] -> compact [D_in, KB*bs]
     fp32 (column block j is channel block ``block_idx[j]``)."""
@@ -203,8 +232,7 @@ def dw_gathered(x, dy, block_idx, *, block_size: int = 128) -> torch.Tensor:
         raise ValueError(f"dw_gathered: x {tuple(x.shape)} and dy {tuple(dy.shape)}")
     kb = block_idx.shape[0]
     nc = kb * block_size
-    tiles = _cdiv(nc, _TILE) * _cdiv(d_in, _TILE)
-    s, chunk = _splits(m, tiles)
+    s, chunk = dw_plan(m, d_in, kb, block_size, n)
     out = torch.empty((d_in, nc), dtype=torch.float32, device=x.device)
     partial = torch.empty((s, d_in, nc) if s > 1 else (0,), dtype=torch.float32, device=x.device)
     _launch(
@@ -232,24 +260,12 @@ def _col_groups(block_idx, c_pad, groups, block_size):
     return (block_idx.long() // bpg).repeat_interleave(block_size)
 
 
-_DW_SLOTS = 4 * _SMS  # conv_dw_fused.cu's resident blocks: 4 an SM (55 KB of ring each)
-_DW_BK = 32  # conv_dw_fused.cu's positions a stage
-_DW_MIN_ROWS = 256  # the least chunk of positions a split takes
-
-
 def conv_dw_plan(rows: int, p: int, kb: int, block_size: int, c_out: int) -> tuple[int, int]:
-    """(S, chunk) of ``conv_dw_fused``'s deterministic split-K over the
-    ``rows`` output positions: as many splits as fit the output tiles that
-    do work (64x64; the ragged tail block's phantom column tiles do none)
-    into one wave of resident blocks, none shorter than 256 positions;
-    chunks are whole 32-position stages."""
-    col_tiles = _cdiv(block_size, _TILE)
-    tail = c_out % block_size
-    phantom = col_tiles - _cdiv(tail, _TILE) if tail else 0
-    work = _cdiv(p, _TILE) * (kb * col_tiles - phantom)
-    s = max(1, min(_cdiv(rows, _DW_MIN_ROWS), _DW_SLOTS // max(work, 1)))
-    chunk = max(1, _cdiv(_cdiv(rows, s), _DW_BK)) * _DW_BK
-    return max(1, _cdiv(rows, chunk)), chunk
+    """(S, chunk) of ``conv_dw_fused``'s split-K over the ``rows`` output
+    positions, none shorter than 256 positions; work is the 64x64 output
+    tiles that do work (the ragged tail block's phantom column tiles do
+    none)."""
+    return _split_plan(rows, _cdiv(p, _TILE) * _working_col_tiles(kb, block_size, c_out), 256)
 
 
 def conv_dw_fused_ref(
@@ -341,16 +357,19 @@ def conv_dw_fused(
 
 
 def conv_dx_fused_ref(
-    dy2r, w2k, block_idx, *, b, h_pad, w_pad, groups, stride, dilation,
+    dy2r, w2k, block_idx, *, b, hw, padding, groups, stride, dilation,
     block_size: int = 128, c_out: int | None = None,
 ) -> torch.Tensor:
     """Plain version: per group and tap, one fp32 einsum of the kept
     cotangent channels with the compact filter, added into a strided
-    slice of the padded image. Returns ``[B*H_pad, G, W_pad, Cg]``."""
+    slice of the padded image; then the interior. Returns ``[B*H, G, W,
+    Cg]``."""
     del c_out
     m2, w_out, c_pad = dy2r.shape
     kh_dim, kw_dim, cg, _ = w2k.shape
     h_out = m2 // b
+    (h, w), ((ph0, ph1), (pw0, pw1)) = hw, padding
+    h_pad, w_pad = h + ph0 + ph1, w + pw0 + pw1
     (sh, sw), (dh, dw) = stride, dilation
     dyk = dy2r.reshape(b, h_out, w_out, c_pad).index_select(
         3, _expand(block_idx, block_size)).float()
@@ -365,21 +384,23 @@ def conv_dx_fused_ref(
                 out[:, rows, gi, cols, :] += torch.einsum(
                     "bhwn,cn->bhwc", dyg, w2k[kh, kw].float()
                 )
-    return out.reshape(b * h_pad, groups, w_pad, cg)
+    return out[:, ph0:ph0 + h, :, pw0:pw0 + w].reshape(b * h, groups, w, cg)
 
 
 def conv_dx_fused(
-    dy2r, w2k, block_idx, *, b, h_pad, w_pad, groups, stride, dilation,
+    dy2r, w2k, block_idx, *, b, hw, padding, groups, stride, dilation,
     block_size: int = 128, c_out: int | None = None,
 ) -> torch.Tensor:
-    """Padded-image conv dX from the compact filter ``w2k [Kh, Kw, Cg,
-    KB*block_size]`` (kept blocks only, sorted by block). Returns
-    ``dxp [B*H_pad, G, W_pad, Cg]`` fp32; the caller slices the padding
-    off. Pass ``arange(NB)`` and the full filter for the dense side of a
-    mixed policy."""
+    """Conv dX on the interior image from the compact filter ``w2k [Kh,
+    Kw, Cg, KB*block_size]`` (kept blocks only, sorted by block). ``hw``
+    is the input's (H, W), ``padding`` its ``((lo, hi), (lo, hi))``.
+    Returns ``dx [B*H, G, W, Cg]`` fp32; the padding ring is never
+    computed. Pass ``arange(NB)`` and the full filter for the dense side
+    of a mixed policy. ``c_out`` (the real channel count, default
+    ``C_pad``) lets the kernel stop at the ragged tail's real channels."""
     if not _on_cuda("conv_dx_fused", dy2r, w2k, block_idx=block_idx):
         return conv_dx_fused_ref(
-            dy2r, w2k, block_idx, b=b, h_pad=h_pad, w_pad=w_pad, groups=groups,
+            dy2r, w2k, block_idx, b=b, hw=hw, padding=padding, groups=groups,
             stride=stride, dilation=dilation, block_size=block_size,
         )
     m2, w_out, c_pad = dy2r.shape
@@ -389,11 +410,12 @@ def conv_dx_fused(
         raise ValueError(
             f"conv_dx_fused: dy2r {tuple(dy2r.shape)}, w2k {tuple(w2k.shape)}, KB {kb}"
         )
-    out = torch.empty((b * h_pad, groups, w_pad, cg), dtype=torch.float32, device=dy2r.device)
+    (h, w), ((ph0, _), (pw0, _)) = hw, padding
+    out = torch.empty((b * h, groups, w, cg), dtype=torch.float32, device=dy2r.device)
     (sh, sw), (dh, dw) = stride, dilation
     _launch(
         "conv_dx_fused", dy2r.device, dy2r.data_ptr(), w2k.data_ptr(), block_idx.data_ptr(),
-        out.data_ptr(), b, h_pad, groups, w_pad, cg, m2 // b, w_out, c_pad,
+        out.data_ptr(), b, h, w, ph0, pw0, groups, cg, m2 // b, w_out, c_pad,
         c_pad if c_out is None else c_out, kh_dim, kw_dim, sh, sw, dh, dw, kb, block_size,
         int(dy2r.dtype == torch.bfloat16),
     )

@@ -3,8 +3,8 @@
 They keep the JAX package's contracts: the compact dW scattered into
 zeros over the kept blocks (dropped blocks exactly 0), the cotangent
 rows laid out by :func:`_dy_rows`, the group-blocked zero-padded image
-``xg``, the padded-image dX with the border sliced off, and the compact
-filter ``w2k`` gathered here with ``index_select``. Unlike the JAX
+``xg``, the conv dX in NCHW (the kernel computes the interior only),
+and the compact filter ``w2k`` gathered here with ``index_select``. Unlike the JAX
 package's, they pad no operand to tile multiples: the kernels mask
 ragged edges themselves. Kernel-side contracts live in
 :mod:`repro_torch.kernels.gathered_matmul` and
@@ -120,28 +120,26 @@ def conv_dx_fused(
 ) -> torch.Tensor:
     """Conv dX ``[B, C_in, H, W]`` (fp32) with the col2im in the kernel.
 
-    ``hw`` is the input's (H, W). The kernel writes the zero-padded
-    image; the border is sliced off here. The kept filter blocks are
-    gathered here (filters are small next to activations)."""
+    ``hw`` is the input's (H, W). The kernel computes the interior image
+    only (channels innermost); it is returned as an NCHW view of that
+    buffer, with no copy. The kept filter blocks are gathered here
+    (filters are small next to activations)."""
     dy, w = _same_dtype(dy, w)
     bidx = _i32(block_idx)
     b, c_out = dy.shape[:2]
     h, w_dim = hw
     cg = w.shape[1]
-    (ph0, ph1), (pw0, pw1) = padding
-    h_pad, w_pad = h + ph0 + ph1, w_dim + pw0 + pw1
     dy2r = _dy_rows(dy, block_size)
     w2k = _compact_filters(w, bidx, block_size)
-    dxp = gm.conv_dx_fused(
-        dy2r, w2k, bidx, b=b, h_pad=h_pad, w_pad=w_pad, groups=groups, stride=stride,
+    dx = gm.conv_dx_fused(
+        dy2r, w2k, bidx, b=b, hw=(h, w_dim), padding=padding, groups=groups, stride=stride,
         dilation=dilation, block_size=block_size, c_out=c_out,
-    )  # [B*H_pad, G, W_pad, Cg]
-    dx = (
-        dxp.reshape(b, h_pad, groups, w_pad, cg)
+    )  # [B*H, G, W, Cg]
+    return (
+        dx.reshape(b, h, groups, w_dim, cg)
         .permute(0, 2, 4, 1, 3)
-        .reshape(b, groups * cg, h_pad, w_pad)
+        .reshape(b, groups * cg, h, w_dim)
     )
-    return dx[:, :, ph0 : ph0 + h, pw0 : pw0 + w_dim]
 
 
 def matmul(a, b) -> torch.Tensor:

@@ -196,8 +196,10 @@ def test_conv_dx_fused_kernel_matches_plain(cuda, stride, padding, dilation, gro
     dy2r = _dy2r(cuda, g["b"], g["h_out"], c_out, bs, dtype, 7)
     w2k = _randn(cuda, (3, 3, g["cg"], len(blocks) * bs), dtype, 8)
     bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
-    kw = dict(b=g["b"], h_pad=g["h_pad"], w_pad=g["h_pad"], groups=groups,
-              stride=(stride, stride), dilation=(dilation, dilation), block_size=bs)
+    h = g["h_pad"] - 2 * padding
+    kw = dict(b=g["b"], hw=(h, h), padding=((padding, padding), (padding, padding)),
+              groups=groups, stride=(stride, stride), dilation=(dilation, dilation),
+              block_size=bs)
     before = tgm.launches["conv_dx_fused"]
     out = tgm.conv_dx_fused(dy2r, w2k, bidx, c_out=c_out, **kw)
     torch.cuda.synchronize()
@@ -238,6 +240,98 @@ def test_conv_dw_fused_resnet_stages_match_plain_and_repeat(cuda, stride, c_in, 
     assert torch.equal(out, tgm.conv_dw_fused(xg, dy2r, bidx, c_out=c_out, **kw))
 
 
+# ResNet-18's 3x3 dX sites of a sparse step at B=128 (stride, C_in, C_out,
+# H, kept blocks) and three at B=4 (few row tiles)
+DX_MAIN = [(s, ci, co, h, bl, 128) for s, ci, co, h, bl in STAGES] + [
+    (1, 512, 512, 4, [1], 4), (2, 256, 512, 8, [3], 4), (1, 64, 64, 32, [0], 4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride,c_in,c_out,h,blocks,b", DX_MAIN)
+def test_conv_dx_fused_resnet_shapes_match_plain_and_repeat(cuda, stride, c_in, c_out, h,
+                                                            blocks, b, dtype):
+    """The implicit GEMM on the tensor cores (3xTF32 for fp32) at each
+    stage's geometry: within 1e-4 * max(1, max|plain|) of the fp32 plain
+    version, one launch counted, the same bits on a second call."""
+    pads = ((1, 1), (1, 1))
+    h_out = (h + 2 - 3) // stride + 1
+    dy2r = _dy2r(cuda, b, h_out, c_out, 128, dtype, 40)
+    w2k = _randn(cuda, (3, 3, c_in, len(blocks) * 128), dtype, 41)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    kw = dict(b=b, hw=(h, h), padding=pads, groups=1, stride=(stride, stride), dilation=(1, 1),
+              block_size=128)
+    before = tgm.launches["conv_dx_fused"]
+    out = tgm.conv_dx_fused(dy2r, w2k, bidx, c_out=c_out, **kw)
+    torch.cuda.synchronize()
+    assert tgm.launches["conv_dx_fused"] == before + 1
+    assert out.shape == (b * h, 1, h, c_in)
+    _close(out, tgm.conv_dx_fused_ref(dy2r, w2k, bidx, **kw))
+    assert torch.equal(out, tgm.conv_dx_fused(dy2r, w2k, bidx, c_out=c_out, **kw))
+
+
+def test_conv_dx_fused_odd_channels_and_unequal_phases(cuda):
+    """Cg = 67 (odd: no paired stores, a ragged column tile), H = 9, W = 7
+    at stride 2 with an asymmetric padding (phases of four sizes), bs = 32
+    (16-byte copies, a 32-channel stage a block) and a ragged tail."""
+    pads = ((0, 1), (1, 0))
+    b, h, w, cg, c_out, bs = 3, 9, 7, 67, 80, 32
+    h_out = (h + 1 - 3) // 2 + 1
+    w_out = (w + 1 - 3) // 2 + 1
+    dy = torch.zeros((b * h_out, w_out, 96), device=cuda)
+    dy[..., :c_out] = _randn(cuda, (b * h_out, w_out, c_out), "float32", 42)
+    w2k = _randn(cuda, (3, 3, cg, 2 * bs), "float32", 43)
+    bidx = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    kw = dict(b=b, hw=(h, w), padding=pads, groups=1, stride=(2, 2), dilation=(1, 1),
+              block_size=bs)
+    out = tgm.conv_dx_fused(dy, w2k, bidx, c_out=c_out, **kw)
+    torch.cuda.synchronize()
+    _close(out, tgm.conv_dx_fused_ref(dy, w2k, bidx, **kw))
+
+
+# (M, D_in, N, kept blocks): dw_gathered at a sparse ResNet-18 step, B=128:
+# the stem (27 columns of X, 108-byte rows: slab copies; C=64 in one
+# 128-channel block) and the three 1x1 down convs
+DW_MAIN = [(131072, 27, 64, [0]), (32768, 64, 128, [0]), (8192, 128, 256, [1]),
+           (2048, 256, 512, [3])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d,n,blocks", DW_MAIN)
+def test_dw_gathered_resnet_shapes_match_plain_and_repeat(cuda, m, d, n, blocks, dtype):
+    """The tensor-core split-K at the main path's shapes (every one splits:
+    S > 1): within 1e-4 * max(1, max|plain|), one launch counted, the
+    same bits on a second call (fixed two-level sum of the partials)."""
+    x, dy = _randn(cuda, (m, d), dtype, 44), _randn(cuda, (m, n), dtype, 45)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    assert tgm.dw_plan(m, d, len(blocks), 128, n)[0] > 1
+    before = tgm.launches["dw_gathered"]
+    out = tgm.dw_gathered(x, dy, bidx)
+    torch.cuda.synchronize()
+    assert tgm.launches["dw_gathered"] == before + 1
+    _close(out, tgm.dw_gathered_ref(x, dy, bidx))
+    assert torch.equal(out, tgm.dw_gathered(x, dy, bidx))
+    if n < 128:  # the phantom columns of the ragged block: exactly 0
+        assert not out[:, n:].any() and out[:, :n].all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,offset", [(4099, 0), (4099, 1), (96, 0), (96, 1)])
+def test_dw_gathered_stem_rows_aligned_or_not(cuda, m, offset, dtype):
+    """D = 27: X at a 16-byte start (slab copies; M = 4099 ends mid-slab)
+    or one element past it (a chunk start that is not 16-byte aligned:
+    the element-wise loads); S > 1 and S = 1."""
+    buf = _randn(cuda, (m * 27 + offset,), dtype, 46)
+    x = buf[offset:].view(m, 27)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    dy = _randn(cuda, (m, 64), dtype, 47)
+    bidx = torch.tensor([0], dtype=torch.int32, device=cuda)
+    assert (tgm.dw_plan(m, 27, 1, 128, 64)[0] > 1) == (m > 128)
+    out = tgm.dw_gathered(x, dy, bidx)
+    torch.cuda.synchronize()
+    _close(out, tgm.dw_gathered_ref(x, dy, bidx))
+    assert torch.equal(out, tgm.dw_gathered(x, dy, bidx))
+
+
 def test_conv_dw_fused_scatter_keeps_dropped_blocks_zero(cuda):
     """The ragged C=64 block and KB=2 of 4: after the scatter the dropped
     blocks are exactly 0 and the kept ones are not."""
@@ -272,8 +366,8 @@ def test_gathered_wrappers_raise_never_fall_back(cuda):
                           dilation=(1, 1), h_out=8, block_size=8)
     with pytest.raises(TypeError):
         tgm.conv_dx_fused(dy2r, _randn(cuda, (3, 3, 6, 8), "bfloat16", 13), bidx, b=2,
-                          h_pad=10, w_pad=10, groups=1, stride=(1, 1), dilation=(1, 1),
-                          block_size=8)
+                          hw=(8, 8), padding=((1, 1), (1, 1)), groups=1, stride=(1, 1),
+                          dilation=(1, 1), block_size=8)
 
 
 # --- matmul and importance ----------------------------------------------

@@ -7,6 +7,8 @@ the JAX side runs its Pallas kernel in interpret mode
 handed to both packages. Tolerances as there: fp32 1e-4, bf16 2e-2
 (one bf16 rounding of each operand, fp32 sums in another order).
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -215,8 +217,8 @@ def test_wrappers_refuse_other_devices():
                           h_out=4, block_size=8)
     w2k = torch.zeros((3, 3, 2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
-        tgm.conv_dx_fused(dy2r, w2k, i, b=1, h_pad=6, w_pad=6, groups=1, stride=(1, 1),
-                          dilation=(1, 1), block_size=8)
+        tgm.conv_dx_fused(dy2r, w2k, i, b=1, hw=(4, 4), padding=((1, 1), (1, 1)), groups=1,
+                          stride=(1, 1), dilation=(1, 1), block_size=8)
 
 
 def test_plain_versions_count_no_launch():
@@ -233,6 +235,19 @@ def test_every_kernel_has_a_source():
              "importance"}
     assert names <= set(build.sources())
     assert set(tgm.launches) == names
+
+
+@pytest.mark.parametrize("name", sorted(tgm._ARGTYPES))
+def test_argtypes_match_the_c_entry_point(name):
+    """The ctypes signature each wrapper declares is the one its
+    ``extern "C" <name>_launch`` takes: pointers, ints, long longs in
+    order (a mismatch shows only as a TypeError on the card)."""
+    src = (build.CSRC / f"{name}.cu").read_text()
+    head = src[src.index(f'extern "C" int {name}_launch('):]
+    params = head[head.index("(") + 1:head.index(")")].split(",")
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    want = [kinds[" ".join(p.replace("const ", "").split()[:-1])] for p in params]
+    assert tgm._ARGTYPES[name] == want
 
 
 # --- conv_dw_fused's tensor-core arithmetic and split plan -------------
@@ -273,13 +288,219 @@ DW_SITES = [
 ]
 
 
+def _check_split_plan(plan, rows, work, min_rows):
+    """A dW kernel's split-K plan: chunks of whole 32-row stages that cover
+    every row once, none shorter than ``min_rows`` unless unsplit; the
+    working tiles times S fit one wave of 4 x 132 slots, and S = 1 only
+    where two splits would not fit or the rows are too few."""
+    s, chunk = plan
+    assert chunk % 32 == 0 and (s - 1) * chunk < rows <= s * chunk
+    assert s == 1 or s * work <= 4 * 132
+    assert s > 1 or work * 2 > 4 * 132 or rows <= min_rows
+    assert chunk >= min_rows or s == 1
+    return s, chunk
+
+
 @pytest.mark.parametrize("rows,p,kb,c_out", DW_SITES)
 def test_conv_dw_plan_covers_the_positions_in_one_wave(rows, p, kb, c_out):
-    """Chunks of whole 32-position stages that cover every position once;
-    the working tiles times S fit the 4 x 132 resident blocks, or S = 1."""
-    s, chunk = tgm.conv_dw_plan(rows, p, kb, 128, c_out)
-    assert chunk % 32 == 0 and (s - 1) * chunk < rows <= s * chunk
-    col_tiles = kb * 2 - (1 if c_out % 128 else 0)
-    work = -(-p // 64) * col_tiles
-    assert s == 1 or s * work <= 4 * 132
-    assert s > 1 or work * 2 > 4 * 132 or rows <= 256
+    """conv_dw_fused: 64x64 tiles over P = 9*C_in rows, the ragged tail's
+    phantom column tile doing no work; chunks of at least 256 positions."""
+    work = -(-p // 64) * (kb * 2 - (1 if c_out % 128 else 0))
+    _check_split_plan(tgm.conv_dw_plan(rows, p, kb, 128, c_out), rows, work, 256)
+
+
+def test_3xtf32_holds_the_gate_over_conv_dx_fuseds_reduction():
+    """conv_dx_fused's reduction is taps x kept channels, 1152 long at a
+    3x3 conv with 128 kept channels (seeded): 3xTF32 stays within 1e-4 *
+    max(1, max|plain|) of the fp32 product, plain TF32 does not."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.standard_normal((1024, 1152)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((1152, 64)).astype(np.float32))
+    plain = a.double() @ b.double()
+    limit = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (tgm.matmul_tf32_terms(a, b, terms=3).double() - plain).abs().max().item() <= limit
+    assert (tgm.matmul_tf32_terms(a, b, terms=1).double() - plain).abs().max().item() > limit
+
+
+# ResNet-18's 1x1 down convs and stem at B=128, 32x32 (rows M, D_in,
+# kept blocks, C_out): dw_gathered's main-path shapes
+DWG_SITES = [(131072, 27, 1, 64), (32768, 64, 1, 128), (8192, 128, 1, 256), (2048, 256, 1, 512)]
+
+
+@pytest.mark.parametrize("m,d,kb,n", DWG_SITES + [(200, 130, 2, 512), (96, 27, 1, 64),
+                                                  (4099, 27, 1, 64), (1000, 33, 2, 44)])
+def test_dw_plan_fills_one_wave_with_aligned_chunks(m, d, kb, n):
+    """Chunks of whole 32-row stages that cover every row once, each
+    starting on 16 bytes of X at any row length (a multiple of 8 rows);
+    only the working tiles get split blocks (the stem: one of its two
+    column tiles, and half its rows), and those times S fit two blocks
+    an SM (4 x 132 halves of tiles)."""
+    bs = 128 if n >= 64 else 8
+    col_tiles = kb * -(-bs // 64)
+    tail = n % bs
+    work = -(-d // 32) * (col_tiles - ((-(-bs // 64) - -(-tail // 64)) if tail else 0))
+    _, chunk = _check_split_plan(tgm.dw_plan(m, d, kb, bs, n), m, work, 128)
+    assert (chunk * d * 4) % 16 == 0 and (chunk * d * 2) % 16 == 0
+
+
+def test_dw_plan_gives_the_stems_phantom_tile_no_splits():
+    """The stem (C=64 in one 128-channel block): one working 64x64 tile,
+    so it takes twice the splits of a full block's two."""
+    s_stem, _ = tgm.dw_plan(131072, 27, 1, 128, 64)
+    s_full, _ = tgm.dw_plan(131072, 27, 1, 128, 128)
+    assert s_stem == 2 * s_full
+
+
+_ORDER_GEOMS = [
+    # (B, H, W, padding, stride, dilation)
+    (2, 9, 9, ((1, 1), (1, 1)), (1, 1), (1, 1)),
+    (2, 9, 7, ((1, 1), (1, 1)), (2, 2), (1, 1)),
+    (3, 8, 8, ((1, 1), (1, 1)), (2, 2), (1, 1)),
+    (2, 9, 9, ((0, 0), (0, 0)), (1, 1), (2, 2)),
+    (2, 9, 9, ((2, 2), (2, 2)), (2, 2), (2, 2)),
+    (1, 6, 6, ((0, 1), (0, 1)), (2, 2), (1, 1)),
+    (2, 5, 6, ((2, 0), (1, 1)), (2, 1), (1, 2)),
+]
+
+
+def conv_dx_phases(h, w, padding, stride):
+    """``(ih0, nh, iw0, nw)`` of each stride phase of the interior image, in
+    conv_dx_fused.cu's order (row residue outer; its ``phase_axis``): the
+    interior rows ``ih0 + i*sh`` (``i < nh``) are those with ``(ih + ph0)
+    % sh == ph``, and the same for the columns."""
+    (ph0, _), (pw0, _) = padding
+    sh, sw = stride
+
+    def axis(r, lo, s, n):
+        i0 = (r - lo) % s
+        return i0, (-(-(n - i0) // s) if i0 < n else 0)
+
+    return [(*axis(ph, ph0, sh, h), *axis(pw, pw0, sw, w))
+            for ph in range(sh) for pw in range(sw)]
+
+
+def conv_dx_taps(phase, kernel, dilation, stride):
+    """Taps ``(kh, kw)`` a pixel of residue ``phase = ((ih + ph0) % sh,
+    (iw + pw0) % sw)`` can receive, as conv_dx_fused.cu's ``nth_tap``
+    enumerates them: ``kh*dh`` congruent to the row residue modulo
+    ``sh``, and the same for the columns."""
+    (kh_dim, kw_dim), (dh, dw), (sh, sw) = kernel, dilation, stride
+    return [(kh, kw) for kh in range(kh_dim) for kw in range(kw_dim)
+            if (kh * dh) % sh == phase[0] and (kw * dw) % sw == phase[1]]
+
+
+def conv_dx_pixel_order(b, h, w, padding, stride):
+    """The output rows of conv_dx_fused's implicit GEMM, tile by tile, as
+    the kernel decodes them from the phases: each 64-row tile is a list
+    of interior pixels ``(b, ih, iw)`` (None for the padding rows that
+    end a phase), one phase's pixels in ``(b, ih, iw)`` order."""
+    sh, sw = stride
+    tiles = []
+    for ih0, nh, iw0, nw in conv_dx_phases(h, w, padding, stride):
+        pix = [(bb, ih0 + i * sh, iw0 + jw * sw)
+               for bb in range(b) for i in range(nh) for jw in range(nw)]
+        pix += [None] * ((-len(pix)) % 64)
+        tiles += [pix[t:t + 64] for t in range(0, len(pix), 64)]
+    return tiles
+
+
+@pytest.mark.parametrize("b,h,w,padding,stride,dilation", _ORDER_GEOMS)
+def test_conv_dx_pixel_order_matches_brute_force(b, h, w, padding, stride, dilation):
+    """The kernel's interior phase-major order, mirrored in Python: every
+    interior pixel exactly once, none of the padding ring; each 64-row
+    tile inside one phase, whose pixels all can receive the same taps
+    (brute force over every tap), and the phase's tap list is that set."""
+    (ph0, _), (pw0, _) = padding
+    tiles = conv_dx_pixel_order(b, h, w, padding, stride)
+    assert all(len(t) == 64 for t in tiles)
+    pix = [p for t in tiles for p in t if p is not None]
+    assert sorted(pix) == [(bb, i, j) for bb in range(b) for i in range(h) for j in range(w)]
+    sh, sw = stride
+
+    def taps(ih, iw):  # brute force: the taps whose output position is whole
+        return {(kh, kw) for kh in range(3) for kw in range(3)
+                if (ih + ph0 - kh * dilation[0]) % sh == 0
+                and (iw + pw0 - kw * dilation[1]) % sw == 0}
+
+    for t in tiles:
+        real = [p for p in t if p is not None]
+        assert real and t[:len(real)] == real  # padding rows only end a phase
+        phases = {((ih + ph0) % sh, (iw + pw0) % sw) for _, ih, iw in real}
+        assert len(phases) == 1
+        want = taps(*real[0][1:])
+        assert all(taps(ih, iw) == want for _, ih, iw in real)
+        assert set(conv_dx_taps(phases.pop(), (3, 3), dilation, stride)) == want
+    if stride == (2, 2) and dilation == (1, 1):  # a quarter of the taps on average
+        n = sum(len(conv_dx_taps((a, c), (3, 3), dilation, stride))
+                for a in range(2) for c in range(2))
+        assert n == 9
+
+
+# ResNet-18's 3x3 dX sites at B=128 (C_in, C_out, H, stride, KB)
+DX_SITES = [(64, 64, 32, 1, 1), (64, 128, 32, 2, 1), (128, 128, 16, 1, 1), (128, 256, 16, 2, 1),
+            (256, 256, 8, 1, 1), (256, 512, 8, 2, 1), (512, 512, 4, 1, 1)]
+
+
+@pytest.mark.parametrize("site", DX_SITES)
+def test_conv_dx_phases_pad_only_their_last_tile(site):
+    """At each main-path site the kernel's grid (row tiles of every phase)
+    covers the B*H*W interior pixels with less than one padded tile a
+    phase, and no tile of the padding ring: at stride 2 four phases of
+    H/2 x H/2 pixels each."""
+    c_in, c_out, h, stride, kb = site
+    phases = conv_dx_phases(h, h, ((1, 1), (1, 1)), (stride, stride))
+    assert len(phases) == stride * stride
+    assert sum(nh * nw for _, nh, _, nw in phases) == h * h
+    assert all(nh == nw == h // stride for _, nh, _, nw in phases)
+    rows = sum(-(-128 * nh * nw // 64) for _, nh, _, nw in phases)
+    assert 128 * h * h <= rows * 64 < 128 * h * h + 64 * stride * stride
+
+
+def _conv_dx_brute(dy2r, w2k, bidx, *, b, hw, padding, groups, stride, dilation, bs):
+    """The interior dX from its definition, one pixel and tap at a time."""
+    h, w = hw
+    (ph0, _), (pw0, _) = padding
+    (sh, sw), (dh, dw) = stride, dilation
+    kh_dim, kw_dim, cg, _ = w2k.shape
+    m2, w_out, c_pad = dy2r.shape
+    h_out = m2 // b
+    bpg = c_pad // bs // groups
+    out = np.zeros((b, h, groups, w, cg), np.float64)
+    for bb in range(b):
+        for ih in range(h):
+            for iw in range(w):
+                for kh in range(kh_dim):
+                    for kw in range(kw_dim):
+                        oh, rh = divmod(ih + ph0 - kh * dh, sh)
+                        ow, rw = divmod(iw + pw0 - kw * dw, sw)
+                        if rh or rw or not (0 <= oh < h_out and 0 <= ow < w_out):
+                            continue
+                        for j, blk in enumerate(bidx):
+                            dyv = dy2r[bb * h_out + oh, ow, blk * bs:(blk + 1) * bs]
+                            out[bb, ih, blk // bpg, iw] += w2k[kh, kw, :, j * bs:(j + 1) * bs] @ dyv
+    return out.reshape(b * h, groups, w, cg)
+
+
+@pytest.mark.parametrize("stride,padding,dilation,groups", [
+    (1, ((1, 1), (1, 1)), 1, 1), (2, ((1, 1), (1, 1)), 1, 1), (1, ((0, 0), (0, 0)), 2, 1),
+    (2, ((1, 1), (1, 1)), 2, 2), (2, ((0, 1), (0, 1)), 1, 1), (1, ((2, 0), (1, 1)), 1, 2),
+])
+def test_conv_dx_fused_returns_the_interior_image(stride, padding, dilation, groups):
+    """``gm.conv_dx_fused``'s contract: ``[B*H, G, W, Cg]``, the interior
+    image only, equal to the definition summed pixel by pixel."""
+    rng = np.random.default_rng(11)
+    b, h, w, cg, bs, k = 2, 7, 6, 3, 4, 3
+    (ph0, ph1), (pw0, pw1) = padding
+    h_out = (h + ph0 + ph1 - dilation * (k - 1) - 1) // stride + 1
+    w_out = (w + pw0 + pw1 - dilation * (k - 1) - 1) // stride + 1
+    c_pad = 16
+    bidx = np.asarray([0, 2] if groups == 1 else [1, 2], np.int32)
+    dy2r = rng.standard_normal((b * h_out, w_out, c_pad)).astype(np.float32)
+    w2k = rng.standard_normal((k, k, cg, len(bidx) * bs)).astype(np.float32)
+    kw = dict(b=b, hw=(h, w), padding=padding, groups=groups, stride=(stride, stride),
+              dilation=(dilation, dilation))
+    out = tgm.conv_dx_fused(torch.from_numpy(dy2r), torch.from_numpy(w2k),
+                            torch.from_numpy(bidx), block_size=bs, **kw)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (b * h, groups, w, cg)
+    want = _conv_dx_brute(dy2r, w2k, bidx, bs=bs, **kw)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-4, atol=1e-4)
