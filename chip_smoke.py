@@ -15,9 +15,12 @@ line) on any error:
 3. kernel phase: ``paged_attention`` against its plain PyTorch version at
    qwen2.5-3b head shapes (H=16, KV=2, D=128, bs=16, B=4, S in {1, 32},
    NB in {10, 128}; bf16 and fp32 queries over fp32 pools; bf16 pools
-   too), raw fp32 outputs held at rtol=atol=1e-4, plus the garbage-table
-   fence; times the kernel, the plain version and, as a yardstick only,
-   ``F.scaled_dot_product_attention`` on the gathered view;
+   too), raw fp32 outputs held at rtol=atol=1e-4, repeated bit for bit,
+   plus the garbage-table fence; times the kernel, the plain version and,
+   as a yardstick only, ``F.scaled_dot_product_attention`` on the
+   gathered view; prints each row's split-KV plan (row tile, splits) and
+   its bound beside the fp32 FMA bound, and times the 64-row tensor-core
+   rows on the SIMT 16-row tiles too;
 4. gathered-kernel phase: ``dx_gathered``, ``dw_gathered``,
    ``conv_dw_fused`` and ``conv_dx_fused`` against their plain versions
    at every shape a sparse ResNet-18 training step launches them with
@@ -26,14 +29,15 @@ line) on any error:
    groups=2 case, fp32 and bf16 operands, raw fp32 outputs within
    1e-4 * max(1, max|plain|); dropped blocks exactly 0 after the scatter;
    every kernel repeats bit for bit, and a digest of its outputs at the
-   main-path launches is printed (two trees whose kernels compute the
-   same bits print the same digests); times each
+   main-path launches is printed, with ``paged_attention``'s at the
+   kernel phase's cases (two trees whose kernels compute the same bits
+   print the same digests); times each
    kernel, its plain version and one library call (``matmul`` /
    ``conv2d_weight`` / ``conv2d_input`` on the kept channels) at the fp32
-   main-path shapes, with the bound of each (``conv_dw_fused``,
-   ``dw_gathered`` and ``conv_dx_fused`` run fp32 as 3xTF32 on the tensor
-   cores: their bound is three TF32 products at 495 TFLOP/s, printed
-   beside the fp32 FMA bound on the per-shape lines), the variant that
+   main-path shapes, with the bound of each (all four run fp32 as
+   3xTF32 on the tensor cores: their bound is three TF32 products at 495
+   TFLOP/s, printed beside the fp32 FMA bound on the per-shape lines),
+   the variant that
    ran, the dW kernels' split-K and its TFLOP/s; then each kernel's sum
    over a sparse step's launches beside the library's;
 5. LM route check: one mixed prefill+decode ``decode_slots`` call of the
@@ -118,6 +122,7 @@ LM_KERNELS = {  # kernel -> the TPU kernel it replaces
     "importance": "src/repro/kernels/gathered_matmul.py:344",
 }
 TENSOR_CORE = {  # gathered kernels on the tensor cores -> their design
+    "dx_gathered": "3xTF32 mma.sync, 3- or 4-stage cp.async ring",
     "conv_dw_fused": "3xTF32 mma.sync split-K",
     "dw_gathered": "3xTF32 mma.sync split-K",
     "conv_dx_fused": "3xTF32 mma.sync implicit GEMM, interior pixels",
@@ -171,10 +176,12 @@ def paged_case(gen, *, b, s, nb, qdt, pdt, kind, h=16, kv=2, d=128, bs=16, dev="
     return q, k, v, tables, qpos
 
 
-def paged_bound_ms(q, k, tables, qpos) -> tuple[float, str]:
+def paged_bound_ms(q, k, tables, qpos, tf32_terms=None) -> tuple[float, str]:
     """Least time for the work this input needs: each needed K/V page read
     once, q/tables/qpos read once, the fp32 output written once; QK and PV
-    at 2 flops a multiply-add over the visible keys, in fp32."""
+    at 2 flops a multiply-add over the visible keys, in fp32 at the FMA
+    rate, or, given ``tf32_terms = (qk, pv)``, as that many TF32 products
+    of each at the tensor cores' rate (the 64-row variant's arithmetic)."""
     b, s, h, d = q.shape
     _, bs, kv, _ = k.shape
     pages = ((qpos.max(dim=1).values // bs) + 1).clamp(max=tables.shape[1]).sum().item()
@@ -186,6 +193,8 @@ def paged_bound_ms(q, k, tables, qpos) -> tuple[float, str]:
     )
     flops = 4 * h * d * (qpos.long() + 1).sum().item()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    if tf32_terms is not None:
+        t_ops = flops / 2 * sum(tf32_terms) / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -202,12 +211,16 @@ def kernel_phase(pa, F):
 
     rows = []
     max_err = 0.0
+    digest = hashlib.sha256()  # outputs, in case order
     for c in cases:
         args = paged_case(gen, **c)
         out = pa.paged_attention(*args)
         torch.cuda.synchronize()
         ref = pa.paged_attention_ref(*args)
         torch.testing.assert_close(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        if not torch.equal(out, pa.paged_attention(*args)):
+            raise AssertionError(f"paged_attention at {c}: two launches differ")
+        digest.update(out.cpu().numpy().tobytes())
         err = (out - ref).abs().max().item()
         max_err = max(max_err, err)
 
@@ -237,12 +250,26 @@ def kernel_phase(pa, F):
             return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm, enable_gqa=True)
 
         library_ms = gpu_time_ms(sdpa, lib_sets, 20)
-        bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos)
+        fma_ms, fma_by = paged_bound_ms(q, k, tables, qpos)
+        plan = pa.paged_split_plan(b, s, h, k.shape[2], d, nb, bs)
+        bound_ms, bound_by = fma_ms, fma_by
+        simt16 = {}
+        if plan.row_tile == 64:  # TF32 products: an fp32 operand takes a second term
+            pool32 = k.dtype == torch.float32
+            terms = (1 + (q.dtype == torch.float32) + pool32, 2 + pool32)
+            bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, terms)
+            # the SIMT 16-row tiles these rows took before the tensor cores, timed beside
+            p16 = pa.paged_split_plan(b, s, h, k.shape[2], d, nb, bs, row_tile=16).splits
+            torch.testing.assert_close(pa.paged_attention(*args, row_tile=16), ref,
+                                       rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            simt16 = dict(simt16_ms=gpu_time_ms(
+                lambda *a: pa.paged_attention(*a, row_tile=16), sets, 100), simt16_splits=p16)
         row = dict(
             shape=f"B={b} S={s} H={h} KV={k.shape[2]} D={d} bs={bs} NB={nb} qpos={c['kind']}",
             q=str(c["qdt"]).replace("torch.", ""), pools=str(c["pdt"]).replace("torch.", ""),
+            variant=plan.variant, splits=plan.splits, row_tile=plan.row_tile,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, bound_fp32_fma_ms=fma_ms, **simt16,
         )
         rows.append(row)
         print("[kernel] " + json.dumps(row))
@@ -263,7 +290,8 @@ def kernel_phase(pa, F):
         bad_out, pa.paged_attention_ref(q, k, v, bad, qpos), rtol=KERNEL_TOL, atol=KERNEL_TOL
     )
     print("[kernel] garbage-table fence: identical output")
-    return rows, max_err
+    print(f"[kernel] {len(cases)} cases within rtol=atol={KERNEL_TOL}, each repeated bit for bit")
+    return rows, max_err, digest.hexdigest()[:16]
 
 
 def _cast(params, dtype):
@@ -534,10 +562,11 @@ def _check_close(name, out, ref, what) -> float:
     return err
 
 
-def gathered_phase(gm, ops, resnet, policy_mod):
+def gathered_phase(gm, ops, resnet, policy_mod, paged_digest):
     """Every gathered kernel against its plain version at the main path's
     shapes (fp32 and bf16) and at the extra cases; timings and bounds at
-    the fp32 main-path shapes."""
+    the fp32 main-path shapes. The digests line carries ``paged_digest``,
+    the kernel phase's, too."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     launches = main_path_launches(resnet, train_policy(policy_mod))
     rows, max_err = [], dict.fromkeys(GATHERED, 0.0)
@@ -593,8 +622,10 @@ def gathered_phase(gm, ops, resnet, policy_mod):
     print(f"[gathered] {len(launches)} main-path shapes and {len(extra)} extra cases, fp32 and "
           f"bf16: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}; "
           f"each repeats bit for bit")
-    print("[gathered] output digests (sha256, fp32 and bf16 main-path launches): "
-          + json.dumps({name: h.hexdigest()[:16] for name, h in digests.items()}))
+    print("[gathered] output digests (sha256, fp32 and bf16 main-path launches; "
+          "paged_attention: the kernel phase's cases): "
+          + json.dumps({**{name: h.hexdigest()[:16] for name, h in digests.items()},
+                        "paged_attention": paged_digest}))
     for name in GATHERED:  # one sparse step's launches of each kernel, fp32
         mine = [r for r in rows if r["name"] == name]
         step = sum(r["ms"] * r["launches_per_step"] for r in mine)
@@ -1067,10 +1098,10 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # 3. kernel phase
-    rows, max_err = kernel_phase(pa, F)
+    rows, max_err, paged_digest = kernel_phase(pa, F)
 
     # 4. gathered-kernel phase
-    g_rows, g_err = gathered_phase(gm, ops, resnet, policy_mod)
+    g_rows, g_err = gathered_phase(gm, ops, resnet, policy_mod, paged_digest)
 
     # 5. route check at full width
     cfg = get_config("qwen2.5-3b")

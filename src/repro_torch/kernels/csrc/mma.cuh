@@ -1,5 +1,6 @@
 // Shared pieces of the tensor-core kernels (conv_dw_fused.cu,
-// conv_dx_fused.cu, dw_gathered.cu): 16-byte cp.async copies into a
+// conv_dx_fused.cu, dw_gathered.cu, dx_gathered.cu; paged_attention.cu
+// takes the cp.async copies): 16-byte cp.async copies into a
 // shared-memory ring, the cvt.rna TF32 rounding of the 3xTF32 scheme, the
 // mma.sync m16n8k8 wrappers (tf32 and bf16), and the products of one
 // staged slice of the reduction into a warp's 32x32 accumulators, for the
@@ -7,7 +8,8 @@
 //   * stage_mma_km: a[k][m] and b[k][n], the reduction index outermost
 //     (the weight gradients: a stage is BK rows of the long axis);
 //   * stage_mma_mk: a[m][k] and b[n][k], the reduction index innermost
-//     (conv_dx_fused: a stage is BK channels of each pixel and filter).
+//     (conv_dx_fused: a stage is BK channels of each pixel and filter;
+//     dx_gathered: BK kept channels of each row of dY and of W).
 // fp32 operands run as 3xTF32: x = big + small with big = tf32(x) and
 // small = tf32(x - big) (cvt.rna), accumulating small*big + big*small +
 // big*big in fp32; the dropped small*small is below fp32's rounding.

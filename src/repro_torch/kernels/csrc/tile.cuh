@@ -1,12 +1,11 @@
 // Shared pieces of the matmul-shaped kernels. The SIMT tile: a 64x64 fp32
 // output tile per block of 256 threads, 4x4 outputs a thread, fed from two
-// shared-memory panels of BK reduction steps; dx_gathered.cu and
-// matmul.cu's fp32 variant fill the panels with their own addressing (the
-// kept-block gather, strided operands), and the multiply-add over a panel
-// pair is the same in both. Plain SIMT fp32 FMA: no tensor cores, no TMA,
-// no pipelining; operands fp32 or bf16, widened to fp32 on their way into
-// shared memory. The tensor-core kernels (conv_dw_fused.cu,
-// conv_dx_fused.cu, dw_gathered.cu) take their pieces from mma.cuh. The
+// shared-memory panels of BK reduction steps, which matmul.cu's fp32
+// variant fills through its operands' strides. Plain SIMT fp32 FMA: no
+// tensor cores, no TMA, no pipelining; operands fp32 or bf16, widened to
+// fp32 on their way into shared memory. The tensor-core kernels
+// (conv_dw_fused.cu, conv_dx_fused.cu, dw_gathered.cu, dx_gathered.cu)
+// take their pieces from mma.cuh. The
 // fixed-order reduction of split-K partials is shared by the split
 // kernels that sum their partials in series (matmul.cu's bf16 wgmma
 // variant, conv_dw_fused.cu; dw_gathered.cu's many splits take its own

@@ -34,13 +34,13 @@ the kernel, or the wrapper raises.
 
 Tiles and plans: ``matmul``'s bf16 kernel takes 128x128 output tiles
 64 deep (:func:`matmul_plan` splits K where too few tiles fill the
-card); ``conv_dw_fused``, ``dw_gathered`` and ``conv_dx_fused`` take
-64x64 tiles in 32-deep stages on the tensor cores (3xTF32 for fp32
-operands, which :func:`matmul_tf32_terms` emulates; ``csrc/mma.cuh``);
-:func:`conv_dw_plan` and :func:`dw_plan` plan the two dW kernels'
-split-K; ``dx_gathered`` and ``matmul``'s fp32 operands
-take ``tile.cuh``'s 64x64 SIMT tile. Every split-K sums its partials in
-a fixed order.
+card); ``conv_dw_fused``, ``dw_gathered``, ``conv_dx_fused`` and
+``dx_gathered`` take 64x64 tiles in 32-deep stages on the tensor cores
+(3xTF32 for fp32 operands, which :func:`matmul_tf32_terms` emulates;
+``csrc/mma.cuh``); :func:`conv_dw_plan` and :func:`dw_plan` plan the two
+dW kernels' split-K; the dX kernels write each output tile once.
+``matmul``'s fp32 operands take ``tile.cuh``'s 64x64 SIMT tile. Every
+split-K sums its partials in a fixed order.
 """
 from __future__ import annotations
 
@@ -306,16 +306,34 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_tf32_terms(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
-    """``a @ b`` as ``conv_dw_fused``'s tensor cores compute it for fp32
-    operands: each operand split as ``big + small`` (``big = tf32(x)``,
-    ``small = tf32(x - big)``), then ``small·big + big·small + big·big``
-    (``terms=3``, 3xTF32) or ``big·big`` alone (``terms=1``, plain TF32).
-    A product of two TF32 values is exact in fp32, so each term is an
-    fp32 product."""
+    """``a @ b`` as the tensor cores compute it for fp32 operands: each
+    operand split as ``big + small`` (``big = tf32(x)``, ``small = tf32(x
+    - big)``), then ``small·big + big·small + big·big`` (``terms=3``,
+    3xTF32, as the gathered kernels run), ``big·small + big·big``
+    (``terms=2``: ``a``'s small part dropped, exact where ``a`` is a TF32
+    or bf16 value) or ``big·big`` alone (``terms=1``, plain TF32). A
+    product of two TF32 values is exact in fp32, so each term is an fp32
+    product."""
+    if terms not in (1, 2, 3):
+        raise ValueError(f"terms must be 1, 2 or 3, got {terms}")
     a_big, b_big = tf32_rna(a), tf32_rna(b)
     if terms == 1:
         return a_big @ b_big
-    return tf32_rna(a - a_big) @ b_big + a_big @ tf32_rna(b - b_big) + a_big @ b_big
+    small_big = tf32_rna(a - a_big) @ b_big if terms == 3 else 0.0
+    return small_big + a_big @ tf32_rna(b - b_big) + a_big @ b_big
+
+
+def matmul_bf16_split(a: torch.Tensor, b: torch.Tensor, terms: int = 2) -> torch.Tensor:
+    """``a @ b`` on bf16 tensor cores for an fp32 ``a`` and a ``b`` whose
+    values are bf16: ``a`` split as ``hi + lo`` (``hi = bf16(a)``, ``lo =
+    bf16(a - hi)``), then ``hi·b + lo·b`` (``terms=2``) or ``hi·b`` alone
+    (``terms=1``), each product accumulated in fp32."""
+    if terms not in (1, 2):
+        raise ValueError(f"terms must be 1 or 2, got {terms}")
+    hi = a.to(torch.bfloat16).float()
+    if terms == 1:
+        return hi @ b.float()
+    return (a - hi).to(torch.bfloat16).float() @ b.float() + hi @ b.float()
 
 
 def conv_dw_fused(

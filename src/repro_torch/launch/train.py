@@ -42,6 +42,7 @@ from repro_torch.core.schedulers import make_schedule
 from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.precision import fp32_precision
 from repro_torch.models import model as lm
 from repro_torch.optim import adam
 
@@ -121,10 +122,18 @@ def _sync(device: torch.device) -> None:
 
 
 def run(args) -> dict:
-    """Train ``args.steps`` steps. Returns the loss, the scheduled drop
-    rate and the wall time of every step (the step ends in a device
-    sync), and the launches of each kernel over the run."""
+    """Train ``args.steps`` steps in full fp32 where the model is fp32
+    (TF32 off, as the JAX package computes). Returns the loss, the
+    scheduled drop rate and the wall time of every step (the step ends
+    in a device sync), the launches of each kernel over the run, and the
+    TF32 flags that were in force."""
     _refuse_unported(args)
+    with fp32_precision() as tf32:
+        out = _train(args)
+    return {**out, "tf32": tf32}
+
+
+def _train(args) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")

@@ -36,6 +36,7 @@ from repro_torch.core.schedulers import drop_rate_for_step
 from repro_torch.data.pipeline import ImagePipeline, ImagePipelineConfig
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps
+from repro_torch.launch.precision import fp32_precision
 from repro_torch.models import resnet
 from repro_torch.optim import adam
 
@@ -100,10 +101,17 @@ def _sync(device: torch.device) -> None:
 
 
 def run(args) -> dict:
-    """Train each mode from the same init. Returns per mode the losses,
-    the drop rate and wall time of every step (the step ends in a device
-    sync), and the eval accuracy at each epoch end; and the launches of
-    each gathered kernel over the whole run."""
+    """Train each mode from the same init, in full fp32 (TF32 off, as the
+    JAX package computes). Returns per mode the losses, the drop rate and
+    wall time of every step (the step ends in a device sync), and the
+    eval accuracy at each epoch end; the launches of each gathered kernel
+    over the whole run; and the TF32 flags that were in force."""
+    with fp32_precision() as tf32:
+        out = _train(args)
+    return {**out, "tf32": tf32}
+
+
+def _train(args) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")

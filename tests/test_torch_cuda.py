@@ -40,7 +40,8 @@ def _inputs(dev, *, b=4, s=3, h=16, kv=2, d=128, n_pages=24, bs=16, nb=6,
     v = rng.standard_normal((n_pages, bs, kv, d)).astype(np.float32)
     tables = rng.integers(0, n_pages, (b, nb)).astype(np.int32)
     t = nb * bs
-    offs = [7, 2 * bs, t - s, t // 2 + 3][:b]  # mid-page, page boundary, deep, middle
+    # mid-page, page boundary, deep, middle; no row before position 0
+    offs = [max(0, o) for o in (7, 2 * bs, t - s, t // 2 + 3)][:b]
     qpos = (np.asarray(offs)[:, None] + np.arange(s)).astype(np.int32)
     return (
         torch.from_numpy(q).to(dev, _DT[q_dtype]),
@@ -66,6 +67,61 @@ def test_kernel_matches_plain(cuda, q_dtype, pool_dtype, d, bs, s):
     assert tpa.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == args[0].shape
     torch.testing.assert_close(out, tpa.paged_attention_ref(*args), rtol=1e-4, atol=1e-4)
+
+
+_PAIRS = [("bfloat16", "float32"), ("float32", "float32"), ("bfloat16", "bfloat16"),
+          ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("forced", [False, True])
+@pytest.mark.parametrize("q_dtype,pool_dtype", _PAIRS)
+@pytest.mark.parametrize("nb", [1, 10, 128])
+@pytest.mark.parametrize("s", [1, 32])
+def test_split_kv_matches_plain_and_repeats(cuda, s, nb, q_dtype, pool_dtype, forced):
+    """qwen2.5-3b's heads (H=16, KV=2, D=128, 16-token pages) at decode
+    and at a 32-row prefill chunk, over 1, 10 and 128 pages a slot, with
+    the plan's splits or one forced: within rtol=atol=1e-4 of the plain
+    version, one launch counted, and the same bits on a second call."""
+    args = _inputs(cuda, s=s, nb=nb, n_pages=4 * nb, q_dtype=q_dtype, pool_dtype=pool_dtype,
+                   seed=23)
+    splits = 1 if forced else None
+    if not forced and nb > 1:
+        assert tpa.paged_split_plan(4, s, 16, 2, 128, nb, 16).splits > 1
+    before = tpa.launches
+    out = tpa.paged_attention(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    torch.testing.assert_close(out, tpa.paged_attention_ref(*args), rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, tpa.paged_attention(*args, splits=splits))
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("row_tile", [8, 16, 64])
+@pytest.mark.parametrize("s", [1, 7, 32])
+def test_every_row_tile_matches_plain_and_repeats(cuda, s, row_tile, d):
+    """Each variant at any row count and both head dims: the SIMT 8- and
+    16-row tiles and the 64-row tensor-core tiles, at their own plans,
+    over 10 pages."""
+    args = _inputs(cuda, s=s, d=d, nb=10, n_pages=40, seed=25)
+    out = tpa.paged_attention(*args, row_tile=row_tile)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tpa.paged_attention_ref(*args), rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, tpa.paged_attention(*args, row_tile=row_tile))
+
+
+@pytest.mark.parametrize("s", [1, 32])
+def test_more_splits_than_chunks_leave_empty_splits_out(cuda, s):
+    """Splits past a slot's last chunk see no key and contribute nothing:
+    40 splits over 10-page slots whose horizons hold 1 to 5 32-key chunks
+    give the plain version's output; more splits than the combine pass
+    stages are refused."""
+    args = _inputs(cuda, s=s, nb=10, n_pages=40, seed=24)
+    out = tpa.paged_attention(*args, splits=40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tpa.paged_attention_ref(*args), rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="splits"):
+        tpa.paged_attention(*args, splits=tpa.MAX_SPLITS + 1)
 
 
 def test_kernel_ignores_garbage_table_entries(cuda):
@@ -128,6 +184,43 @@ def test_dx_gathered_kernel_matches_plain(cuda, m, n, d, blocks, bs, dtype):
     torch.cuda.synchronize()
     assert tgm.launches["dx_gathered"] == before + 1
     _close(out, tgm.dx_gathered_ref(dy, w, bidx, block_size=bs))
+
+
+# (M, N, D_in, kept blocks): dx_gathered at a sparse ResNet-18 step, B=128:
+# the three 1x1 stride-2 down convs
+DX_DOWN = [(32768, 128, 64, [0]), (8192, 256, 128, [1]), (2048, 512, 256, [3])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,d,blocks", DX_DOWN)
+def test_dx_gathered_down_convs_match_plain_and_repeat(cuda, m, n, d, blocks, dtype):
+    """The tensor-core kernel at the main path's shapes: within 1e-4 *
+    max(1, max|plain|), one launch counted, the same bits on a second
+    call (each output written once, in a fixed order)."""
+    dy, w = _randn(cuda, (m, n), dtype, 48), _randn(cuda, (d, n), dtype, 49)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    before = tgm.launches["dx_gathered"]
+    out = tgm.dx_gathered(dy, w, bidx)
+    torch.cuda.synchronize()
+    assert tgm.launches["dx_gathered"] == before + 1
+    _close(out, tgm.dx_gathered_ref(dy, w, bidx))
+    assert torch.equal(out, tgm.dx_gathered(dy, w, bidx))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dx_gathered_operands_aligned_or_not(cuda, offset, dtype):
+    """dY and W at a 16-byte start (16-byte copies) or one element past
+    it (element loads), KB = 2 of 4 with the tail block ragged."""
+    m, n, d = 300, 500, 70
+    dy = _randn(cuda, (m * n + offset,), dtype, 50)[offset:].view(m, n)
+    w = _randn(cuda, (d * n + offset,), dtype, 51)[offset:].view(d, n)
+    assert (dy.data_ptr() % 16 == 0) == (offset == 0)
+    bidx = torch.tensor([1, 3], dtype=torch.int32, device=cuda)
+    out = tgm.dx_gathered(dy, w, bidx)
+    torch.cuda.synchronize()
+    _close(out, tgm.dx_gathered_ref(dy, w, bidx))
+    assert torch.equal(out, tgm.dx_gathered(dy, w, bidx))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -564,3 +657,23 @@ def test_sparse_dense_bf16_channel_route_reads_gathered_operands_in_place(cuda):
     torch.autograd.grad(sparse_dense(x, w, policy=pol).float().square().sum(), (x, w))
     torch.cuda.synchronize()
     assert tgm.launches["matmul"] == before + 2 and tgm.repacks["matmul"] == repacks
+
+
+def test_train_classifier_cli_runs_without_tf32_on_the_card(cuda):
+    """A CLI run on the card: TF32 off for matmuls and convolutions during
+    the run, as reported, and the caller's flags restored after it."""
+    from repro_torch.launch import train_classifier as tc
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        args = tc.build_parser().parse_args(
+            ["--batch", "4", "--image-size", "8", "--steps", "2", "--steps-per-epoch", "1",
+             "--granularity", "block", "--block-size", "32", "--use-pallas", "--mode",
+             "ssprop", "--device", "cuda"])
+        out = tc.run(args)
+        assert out["tf32"] == {"matmul": False, "cudnn": False}
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True

@@ -322,6 +322,20 @@ def test_3xtf32_holds_the_gate_over_conv_dx_fuseds_reduction():
     assert (tgm.matmul_tf32_terms(a, b, terms=1).double() - plain).abs().max().item() > limit
 
 
+def test_3xtf32_holds_the_gate_over_dx_gathereds_reduction():
+    """dx_gathered at block_2/down (dY [32768, 128 kept] @ W [64, 128]^T,
+    seeded normals as the smoke test draws them): over its K = 128
+    reduction 3xTF32 stays within 1e-4 * max(1, max|plain|) of the fp64
+    product, plain TF32 does not."""
+    rng = np.random.default_rng(10)
+    dy = torch.from_numpy(rng.standard_normal((32768, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    plain = dy.double() @ w.double().T
+    limit = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (tgm.matmul_tf32_terms(dy, w.T, terms=3).double() - plain).abs().max().item() <= limit
+    assert (tgm.matmul_tf32_terms(dy, w.T, terms=1).double() - plain).abs().max().item() > limit
+
+
 # ResNet-18's 1x1 down convs and stem at B=128, 32x32 (rows M, D_in,
 # kept blocks, C_out): dw_gathered's main-path shapes
 DWG_SITES = [(131072, 27, 1, 64), (32768, 64, 1, 128), (8192, 128, 1, 256), (2048, 256, 1, 512)]

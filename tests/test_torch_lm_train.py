@@ -342,6 +342,25 @@ def test_train_cli_on_cpu():
         ("cuda", ARCH, 8, 128, 2e-4, "channel", False)
 
 
+@pytest.mark.parametrize("before", [True, False])
+def test_train_cli_runs_in_fp32_and_restores_the_tf32_flags(before):
+    """TF32 off for the run's matmuls and convolutions, recorded in the
+    result, and the caller's flags restored afterwards."""
+    torch.backends.cuda.matmul.allow_tf32 = before
+    torch.backends.cudnn.allow_tf32 = before
+    try:
+        args = ttrain.build_parser().parse_args(
+            ["--device", "cpu", "--reduced", "--steps", "1", "--global-batch", "1",
+             "--seq-len", "8"])
+        out = ttrain.run(args)
+        assert out["tf32"] == {"matmul": False, "cudnn": False}
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+        assert torch.backends.cudnn.allow_tf32 is before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+
+
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--coord-dir", "x"], ["--world-size", "2"],
                                   ["--data-mesh", "2"], ["--model-mesh", "2"],
                                   ["--fail-at-step", "3"]])

@@ -294,6 +294,26 @@ def test_train_cli_on_cpu():
     assert tc.step_policy(defaults, 0.8) == tpolicy.paper_default(0.8)
 
 
+@pytest.mark.parametrize("before", [True, False])
+def test_train_cli_runs_in_fp32_and_restores_the_tf32_flags(before):
+    """The run pins TF32 off for matmuls and convolutions (the JAX package
+    computes in fp32), says so in its result, and hands the caller's
+    flags back; the flags are global in any build, so the CPU shows it."""
+    torch.backends.cuda.matmul.allow_tf32 = before
+    torch.backends.cudnn.allow_tf32 = before
+    try:
+        args = tc.build_parser().parse_args(
+            ["--device", "cpu", "--batch", "2", "--image-size", "8", "--steps", "1",
+             "--steps-per-epoch", "1", "--mode", "dense"])
+        out = tc.run(args)
+        assert out["tf32"] == {"matmul": False, "cudnn": False}
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+        assert torch.backends.cudnn.allow_tf32 is before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+
+
 def test_train_cli_wants_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda is allowed")
