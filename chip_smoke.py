@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives ``src/repro_torch`` (never the JAX package) through its serving
-path and its ssProp training path, and fails (non-zero exit, no result
+path and its ssProp training paths (ResNet-18, the DDPM UNet, qwen2.5-3b),
+and fails (non-zero exit, no result
 line) on any error:
 
 1. device check: needs CUDA; prints the card's name and power limit and
@@ -62,7 +63,27 @@ line) on any error:
    every loss finite, each gathered kernel launched the route table's
    count times 4, ``paged_attention`` not at all; then a profile of one
    dense and one sparse step;
-9. LM kernel phase: ``matmul`` at the 8 product shapes of a sparse
+9. DDPM kernel phase: the four gathered kernels against their plain
+   versions at every shape a sparse step of the paper's DDPM UNet
+   launches them with (CelebA task: B=128, 3x64x64, base 64, t_dim 256;
+   ``tpu_default(0.8)`` with ``use_pallas`` at 32-channel blocks: the 3x3
+   convs but the stem fused, the stem and the four 1x1 skips canonical),
+   fp32 and bf16, within 1e-4 * max(1, max|plain|), each repeated bit for
+   bit, with times, library times and bounds; exact zeros after the
+   scatter, and NaN in the 3-channel head's phantom channels leaving
+   ``conv_dx_fused``'s output bit for bit as it is;
+10. DDPM route check: the loss and every gradient leaf, biases included,
+   of one sparse step at full width (B=128) through the kernels, the
+   gather route and the mask oracle: the same kept blocks at all 22
+   sites (printed, kept/total), each leaf within a relative L2 of 1e-4;
+11. DDPM training phase: ``repro_torch.launch.train_ddpm.run`` trains the
+   UNet at the CelebA task (T=1000) for 8 epoch-bar steps (2, 3, 6, 7
+   sparse) and samples 4 images over the whole schedule; every loss and
+   sample finite, each gathered kernel launched the route table's count
+   times 4, ``paged_attention`` and ``matmul`` not at all; the backward
+   FLOPs ledger, block 32 beside block 128; then a profile of one dense
+   and one sparse step (12);
+13. LM kernel phase: ``matmul`` at the 8 product shapes of a sparse
    qwen2.5-3b step (B=8, S=128, ``paper_default(0.8)``: K kept = 410, 51,
    2202), with the operands laid out as the backward hands them over
    (``w_k.T`` and ``x2.T`` are transposed views of buffers gathered at a
@@ -74,18 +95,21 @@ line) on any error:
    difference; none computes ``importance``), with the bound of each,
    the variant (bf16: TMA + wgmma, and its split-K; fp32: SIMT) and its
    TFLOP/s;
-10. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
+14. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
    depth 4, fp32 with TF32 off, through ``matmul``, the gather route and
    the mask oracle: the same kept channels at every site, the same loss,
    every gradient leaf within a relative L2 of 1e-4 between each pair;
-11. LM training phase: ``repro_torch.launch.train.run`` trains qwen2.5-3b
+15. LM training phase: ``repro_torch.launch.train.run`` trains qwen2.5-3b
    at full width and depth (bf16, B=8, S=128, channel granularity with
    ``--use-pallas``) for 8 epoch-bar steps (steps 2, 3, 6, 7 sparse);
    every loss finite, ``matmul`` launched the launch table's count times
    4, no other kernel, no operand repacked; then a profile of one dense
    and one sparse step, in which the bf16 tensor-core kernel carries all
    504 ``matmul`` launches of the sparse step and the SIMT one none;
-12. prints the card's line, the kernels' JSON line and, last, the device
+16. prints the card's line, the kernels' JSON line (a gathered kernel's
+   ``launches`` is the sum of the ResNet-18 and DDPM training phases',
+   each in ``launches_by_path``; its times are at the ResNet path's
+   largest shape, the DDPM path's in ``ddpm``) and, last, the device
    JSON line.
 """
 from __future__ import annotations
@@ -117,6 +141,10 @@ TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summatio
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
 LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
 LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
+# the paper's CelebA generation task (configs/paper.py GENERATION["celeba"]),
+# the UNet at its full width; 32-channel blocks, so blocks really drop
+DDPM_BATCH, DDPM_IMAGE, DDPM_T = 128, (3, 64, 64), 1000
+DDPM_BASE, DDPM_TDIM, DDPM_BS = 64, 256, 32
 LM_KERNELS = {  # kernel -> the TPU kernel it replaces
     "matmul": "src/repro/kernels/gathered_matmul.py:383",
     "importance": "src/repro/kernels/gathered_matmul.py:344",
@@ -435,30 +463,40 @@ def train_policy(policy_mod):
     return dataclasses.replace(policy_mod.tpu_default(0.8), use_pallas=True)
 
 
-def main_path_launches(resnet, policy) -> dict:
-    """``(kernel, geometry) -> launches`` in one sparse ResNet-18 step,
-    from the route table; geometry is ``(C_in, C_out, k, H_in, stride,
-    KB)``. The stem's input needs no gradient: no dX kernel there."""
-    routes = resnet.backward_routes(RESNET, TRAIN_BATCH, TRAIN_IMAGE, policy)
-    strides = resnet.block_strides(RESNET)
+def launch_table(routes, convs, policy, expect) -> dict:
+    """``(kernel, geometry) -> launches`` in one sparse step, from a route
+    table; ``convs`` yields ``(site, C_in, C_out, k, H_in, stride)`` and
+    a geometry is ``(C_in, C_out, k, H_in, stride, KB)``. The stem's input
+    needs no gradient: no dX kernel there. The counts must sum to
+    ``expect``, the model's ``kernel_launches_per_step``."""
     kernels_of = {"fused": ("conv_dw_fused", "conv_dx_fused"),
                   "canonical": ("dw_gathered", "dx_gathered")}
     counts: dict = {}
-    for site, c_in, c_out, k, h_out, _ in resnet.iter_conv_shapes(RESNET, TRAIN_IMAGE):
-        if site == "stem" or site.endswith("conv2"):
-            stride = 1
-        else:
-            stride = strides[int(site.split("/")[0].split("_")[1])]
-        geo = (c_in, c_out, k, h_out * stride, stride, policy.keep_count(c_out))
+    for site, c_in, c_out, k, h_in, stride in convs:
+        geo = (c_in, c_out, k, h_in, stride, policy.keep_count(c_out))
         for name in kernels_of.get(routes[site], ()):
             if site == "stem" and name in ("dx_gathered", "conv_dx_fused"):
                 continue
             counts[(name, geo)] = counts.get((name, geo), 0) + 1
     per_kernel = {n: sum(c for (k, _), c in counts.items() if k == n) for n in GATHERED}
-    expect = resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE, policy)
     if per_kernel != expect:
         raise AssertionError(f"launch table {per_kernel} != kernel_launches_per_step {expect}")
     return counts
+
+
+def main_path_launches(resnet, policy) -> dict:
+    """:func:`launch_table` of one sparse ResNet-18 step."""
+    strides = resnet.block_strides(RESNET)
+    convs = []
+    for site, c_in, c_out, k, h_out, _ in resnet.iter_conv_shapes(RESNET, TRAIN_IMAGE):
+        if site == "stem" or site.endswith("conv2"):
+            stride = 1
+        else:
+            stride = strides[int(site.split("/")[0].split("_")[1])]
+        convs.append((site, c_in, c_out, k, h_out * stride, stride))
+    return launch_table(resnet.backward_routes(RESNET, TRAIN_BATCH, TRAIN_IMAGE, policy), convs,
+                        policy, resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE,
+                                                                policy))
 
 
 def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=128,
@@ -562,18 +600,16 @@ def _check_close(name, out, ref, what) -> float:
     return err
 
 
-def gathered_phase(gm, ops, resnet, policy_mod, paged_digest):
-    """Every gathered kernel against its plain version at the main path's
-    shapes (fp32 and bf16) and at the extra cases; timings and bounds at
-    the fp32 main-path shapes. The digests line carries ``paged_digest``,
-    the kernel phase's, too."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    launches = main_path_launches(resnet, train_policy(policy_mod))
+def kernel_rows(gm, ops, launches, gen, tag, *, bs=128, batch=TRAIN_BATCH):
+    """Each ``(kernel, geometry)`` of a launch table against its plain
+    version, fp32 and bf16, repeated bit for bit; times, the library call
+    and the bounds at fp32. Returns the rows, the max abs error of each
+    kernel and a sha256 of each kernel's outputs in launch order."""
     rows, max_err = [], dict.fromkeys(GATHERED, 0.0)
-    digests = {name: hashlib.sha256() for name in GATHERED}  # outputs, in launch order
+    digests = {name: hashlib.sha256() for name in GATHERED}
     for (name, geo), count in launches.items():
         for dtype in (torch.float32, torch.bfloat16):
-            case = gathered_case(gm, ops, name, geo, dtype, gen)
+            case = gathered_case(gm, ops, name, geo, dtype, gen, bs=bs, batch=batch)
             out, ref = case["kernel"](*case["args"]), case["plain"](*case["args"])
             err = _check_close(name, out, ref, f"at {geo} {dtype}")
             max_err[name] = max(max_err[name], err)
@@ -587,23 +623,44 @@ def gathered_phase(gm, ops, resnet, policy_mod, paged_digest):
             plain_ms = gpu_time_ms(case["plain"], sets, 5)
             lib = case["lib_args"]
             library_ms = gpu_time_ms(case["library"], [lib, tuple(a.clone() for a in lib)], 20)
-            bound_ms, bound_by = gathered_bound_ms(name, case["dims"])
+            # fp32 work on the tensor cores as three TF32 products: the
+            # least time drops below the fp32 FMA bound, kept beside it
+            fma_ms, _ = gathered_bound_ms(name, case["dims"])
+            bound_ms, bound_by = gathered_bound_ms(name, case["dims"], TF32_FLOPS, passes=3)
             c_in, c_out, k, h_in, stride, kb = geo
             flops = 2 * case["dims"]["m"] * case["dims"]["d"] * case["dims"]["k_real"]
-            row = dict(name=name, shape=f"B={TRAIN_BATCH} C_in={c_in} C_out={c_out} k={k} "
-                       f"H={h_in} stride={stride} KB={kb} blocks={case['blocks']}",
+            row = dict(name=name, shape=f"B={batch} C_in={c_in} C_out={c_out} k={k} H={h_in} "
+                       f"stride={stride} bs={bs} KB={kb} blocks={case['blocks']}",
                        launches_per_step=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       flops=flops, tflops=flops / ms / 1e9, variant="simt fp32 FMA")
-            if name in TENSOR_CORE:
-                # fp32 work on the tensor cores as three TF32 products: the
-                # least time drops below the fp32 FMA bound, kept beside it
-                tc_ms, tc_by = gathered_bound_ms(name, case["dims"], TF32_FLOPS, passes=3)
-                row.update(variant=TENSOR_CORE[name], splits=case["splits"], bound_ms=tc_ms,
-                           bound_by=tc_by, bound_fp32_fma_ms=bound_ms)
+                       bound_fp32_fma_ms=fma_ms, flops=flops, tflops=flops / ms / 1e9,
+                       variant=TENSOR_CORE[name], splits=case["splits"])
             rows.append(row)
-            print("[gathered] " + json.dumps(row))
-            del sets, case
+            print(f"{tag} " + json.dumps(row))
+            del sets, case, out, ref
+    return rows, max_err, {name: h.hexdigest()[:16] for name, h in digests.items()}
+
+
+def step_sums(rows, tag) -> None:
+    """Each kernel's time over one sparse step's launches, fp32, beside
+    the library's and the bound."""
+    for name in GATHERED:
+        mine = [r for r in rows if r["name"] == name]
+        step = sum(r["ms"] * r["launches_per_step"] for r in mine)
+        lib = sum(r["library_ms"] * r["launches_per_step"] for r in mine)
+        bound = sum(r["bound_ms"] * r["launches_per_step"] for r in mine)
+        print(f"{tag} {name}: a sparse step's {sum(r['launches_per_step'] for r in mine)} "
+              f"launches {step:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms")
+
+
+def gathered_phase(gm, ops, resnet, policy_mod, paged_digest):
+    """Every gathered kernel against its plain version at the main path's
+    shapes (fp32 and bf16) and at the extra cases; timings and bounds at
+    the fp32 main-path shapes. The digests line carries ``paged_digest``,
+    the kernel phase's, too."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    launches = main_path_launches(resnet, train_policy(policy_mod))
+    rows, max_err, digests = kernel_rows(gm, ops, launches, gen, "[gathered]")
     # the extra cases: KB=2 of 4 non-contiguous, groups=2; and exact zeros
     extra = [("dx_gathered", (256, 512, 1, 8, 2, 2), 1, [1, 3]),
              ("dw_gathered", (256, 512, 1, 8, 2, 2), 1, [1, 3]),
@@ -624,15 +681,8 @@ def gathered_phase(gm, ops, resnet, policy_mod, paged_digest):
           f"each repeats bit for bit")
     print("[gathered] output digests (sha256, fp32 and bf16 main-path launches; "
           "paged_attention: the kernel phase's cases): "
-          + json.dumps({**{name: h.hexdigest()[:16] for name, h in digests.items()},
-                        "paged_attention": paged_digest}))
-    for name in GATHERED:  # one sparse step's launches of each kernel, fp32
-        mine = [r for r in rows if r["name"] == name]
-        step = sum(r["ms"] * r["launches_per_step"] for r in mine)
-        lib = sum(r["library_ms"] * r["launches_per_step"] for r in mine)
-        bound = sum(r["bound_ms"] * r["launches_per_step"] for r in mine)
-        print(f"[gathered] {name}: a sparse step's {sum(r['launches_per_step'] for r in mine)} "
-              f"launches {step:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms")
+          + json.dumps({**digests, "paged_attention": paged_digest}))
+    step_sums(rows, "[gathered]")
     x = torch.randn((TRAIN_BATCH, 256, 8, 8), generator=gen, device="cuda")
     dy = torch.randn((TRAIN_BATCH, 512, 8, 8), generator=gen, device="cuda")
     bidx = torch.tensor([1, 3], dtype=torch.int32, device="cuda")
@@ -711,55 +761,89 @@ def training_route_check(tc, resnet, backward, policy_mod, pipeline):
     return worst
 
 
-def training_phase(tc, gm, pa, resnet, policy_mod):
-    """The port's training entry point, counted: 8 epoch-bar steps."""
-    argv = ["--model", RESNET, "--batch", str(TRAIN_BATCH), "--image-size", str(TRAIN_IMAGE[1]),
-            "--classes", "10", "--steps", "8", "--steps-per-epoch", "2", "--drop-rate", "0.8",
-            "--granularity", "block", "--block-size", "128", "--use-pallas", "--mode", "ssprop",
-            "--device", "cuda"]
-    args = tc.build_parser().parse_args(argv)
-    per_step = resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE,
-                                               train_policy(policy_mod))
-    pa_before = pa.launches
+def counted_cnn_run(tag, cli, argv, gm, pa, per_step, batch):
+    """One counted run of a CNN training CLI: the launch counts set to 0
+    just before ``cli.run`` and read just after. 8 epoch-bar steps (2, 3,
+    6, 7 sparse) with finite losses, each gathered kernel launched
+    ``per_step`` times a sparse step and no other kernel (``matmul``,
+    ``paged_attention``). Prints the step times; returns the run's result,
+    the launches and the dense and sparse step medians."""
+    args = cli.build_parser().parse_args(argv)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    pa_before = pa.launches
     for k in gm.launches:
         gm.launches[k] = 0
     t0 = time.perf_counter()
-    out = tc.run(args)
+    out = cli.run(args)
     wall = time.perf_counter() - t0
     launches = dict(gm.launches)
     rec = out["modes"]["ssprop"]
     sparse = [i for i, r in enumerate(rec["rates"]) if r > 0]
     if sparse != [2, 3, 6, 7]:
-        raise AssertionError(f"sparse steps {sparse}, expected [2, 3, 6, 7]")
+        raise AssertionError(f"{tag} sparse steps {sparse}, expected [2, 3, 6, 7]")
     if not all(math.isfinite(v) for v in rec["losses"]):
-        raise AssertionError(f"non-finite loss: {rec['losses']}")
+        raise AssertionError(f"{tag} non-finite loss: {rec['losses']}")
     expect = {k: per_step.get(k, 0) * len(sparse) for k in gm.launches}  # matmul: none
     if launches != expect or out["launches"] != expect:
-        raise AssertionError(f"kernel launches {launches} != route table x 4 {expect}")
+        raise AssertionError(f"{tag} kernel launches {launches} != route table x 4 {expect}")
     if pa.launches != pa_before:
-        raise AssertionError("the training phase launched paged_attention")
+        raise AssertionError(f"{tag} the training run launched paged_attention")
     ms = [t * 1e3 for t in rec["step_times"]]
-    dense_ms = sorted(ms[i] for i in range(8) if i not in sparse)
-    sparse_ms = sorted(ms[i] for i in sparse)
     med = lambda v: (v[len(v) // 2 - 1] + v[len(v) // 2]) / 2  # noqa: E731
-    print(f"[train] {RESNET} B={TRAIN_BATCH} {TRAIN_IMAGE}: 8 steps in {wall:.2f} s; losses "
-          f"{[round(v, 4) for v in rec['losses']]}; eval acc {rec['eval_acc']}")
-    print(f"[train] step ms {[round(v, 2) for v in ms]}; dense median {med(dense_ms):.2f} ms "
-          f"({TRAIN_BATCH / med(dense_ms) * 1e3:.0f} images/s), sparse median "
-          f"{med(sparse_ms):.2f} ms ({TRAIN_BATCH / med(sparse_ms) * 1e3:.0f} images/s); "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-          f"{launches} = {per_step} x 4")
-    return launches, dict(dense_ms=med(dense_ms), sparse_ms=med(sparse_ms))
+    dense_ms = med(sorted(ms[i] for i in range(8) if i not in sparse))
+    sparse_ms = med(sorted(ms[i] for i in sparse))
+    print(f"{tag} 8 steps in {wall:.2f} s; losses {[round(v, 4) for v in rec['losses']]}")
+    print(f"{tag} step ms {[round(v, 2) for v in ms]}; dense median {dense_ms:.2f} ms "
+          f"({batch / dense_ms * 1e3:.0f} images/s), sparse median {sparse_ms:.2f} ms "
+          f"({batch / sparse_ms * 1e3:.0f} images/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} = "
+          f"{per_step} x 4")
+    return out, launches, dict(dense_ms=dense_ms, sparse_ms=sparse_ms)
 
 
-def train_profile(tc, resnet, policy_mod, pipeline, adam):
-    """Where one dense and one sparse training step spend their time:
-    host wall over 3 runs, then one profiled run (device busy time and
-    the device items that take most of it)."""
+def training_phase(tc, gm, pa, resnet, policy_mod):
+    """The port's training entry point, counted (:func:`counted_cnn_run`)."""
+    argv = ["--model", RESNET, "--batch", str(TRAIN_BATCH), "--image-size", str(TRAIN_IMAGE[1]),
+            "--classes", "10", "--steps", "8", "--steps-per-epoch", "2", "--drop-rate", "0.8",
+            "--granularity", "block", "--block-size", "128", "--use-pallas", "--mode", "ssprop",
+            "--device", "cuda"]
+    per_step = resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE,
+                                               train_policy(policy_mod))
+    out, launches, meds = counted_cnn_run(f"[train] {RESNET} B={TRAIN_BATCH} {TRAIN_IMAGE}:", tc,
+                                          argv, gm, pa, per_step, TRAIN_BATCH)
+    print(f"[train] eval acc {out['modes']['ssprop']['eval_acc']}")
+    return launches, meds
+
+
+def profile_step(tag, name, step, top=10):
+    """Host wall of ``step`` (which waits for its work) over 3 runs after
+    a warm-up, then one profiled run: device busy time, the number of
+    kernels and the ``top`` device items. Returns (wall_ms, busy_ms, the
+    profiler's device items)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    step()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"{tag} {name} step: host wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms in "
+          f"{sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return wall_ms, busy_ms, kernels
+
+
+def train_profile(tc, resnet, policy_mod, pipeline, adam):
+    """Where one dense and one sparse training step spend their time
+    (:func:`profile_step`)."""
     x, y = training_batch(pipeline)
     ocfg = adam.AdamConfig()
     out = {}
@@ -768,24 +852,242 @@ def train_profile(tc, resnet, policy_mod, pipeline, adam):
         opt = adam.init(params)
 
         def step():
-            p, _, loss = tc.train_step(RESNET, params, opt, x, y, pol, ocfg)
+            _, _, loss = tc.train_step(RESNET, params, opt, x, y, pol, ocfg)
             return loss.item()  # waits for the step
 
-        step()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step()
-        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"[train-profile] {name} step: host wall {wall_ms:.2f} ms, device busy "
-              f"{busy_ms:.2f} ms in {sum(e.count for e in kernels)} kernels")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"[train-profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
-                  f"{e.key[:90]}")
+        wall_ms, busy_ms, _ = profile_step("[train-profile]", name, step)
         out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    return out
+
+
+# ----------------------------------------------------------------------
+# ssProp generation: the DDPM UNet through the four gathered kernels
+# ----------------------------------------------------------------------
+
+
+def ddpm_policy(policy_mod):
+    """The DDPM path's sparse policy: ``tpu_default(0.8)`` with
+    ``use_pallas`` at 32-channel blocks (at 128 every UNet site is one
+    block and a sparse step keeps everything)."""
+    return dataclasses.replace(policy_mod.tpu_default(0.8), block_size=DDPM_BS,
+                               use_pallas=True)
+
+
+def ddpm_path_launches(ddpm, policy) -> dict:
+    """:func:`launch_table` of one sparse DDPM step (every UNet conv has
+    stride 1)."""
+    convs = [(site, c_in, c_out, k, h, 1)
+             for site, c_in, c_out, k, h, _ in ddpm.iter_conv_shapes(DDPM_IMAGE, DDPM_BASE)]
+    return launch_table(ddpm.backward_routes(DDPM_BATCH, DDPM_IMAGE, policy, DDPM_BASE), convs,
+                        policy, ddpm.kernel_launches_per_step(DDPM_BATCH, DDPM_IMAGE, policy,
+                                                              DDPM_BASE))
+
+
+def ddpm_gathered_phase(gm, ops, ddpm, policy_mod):
+    """Every gathered kernel against its plain version at every shape a
+    sparse DDPM step (B=128, 3x64x64, base 64, block 32) launches it with,
+    fp32 and bf16, each repeated bit for bit; times and bounds at the fp32
+    shapes; exact zeros after the scatter; the 3-channel head's phantom
+    channels never read by ``conv_dx_fused``."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    launches = ddpm_path_launches(ddpm, ddpm_policy(policy_mod))
+    rows, max_err, digests = kernel_rows(gm, ops, launches, gen, "[ddpm-gathered]", bs=DDPM_BS,
+                                         batch=DDPM_BATCH)
+    print(f"[ddpm-gathered] {len(launches)} DDPM shapes, fp32 and bf16: within {KERNEL_TOL} x "
+          f"max(1, max|plain|); max abs err {max_err}; each repeats bit for bit")
+    print("[ddpm-gathered] output digests (sha256, fp32 and bf16): " + json.dumps(digests))
+    step_sums(rows, "[ddpm-gathered]")
+
+    # the longest reduction (up1/conv1: 524288 rows) against float64: the
+    # kernel's split-K chunks are capped so its error stays near the plain
+    # version's (tools/dw_split_error.py sweeps the cap)
+    x = torch.randn((DDPM_BATCH, 128, 64, 64), generator=gen, device="cuda")
+    dy = torch.randn((DDPM_BATCH, 64, 64, 64), generator=gen, device="cuda")
+    bidx = torch.tensor([1], dtype=torch.int32, device="cuda")
+    ref = torch.nn.grad.conv2d_weight(x.double(), (64, 128, 3, 3), dy.double(), 1, 1)[32:]
+    ref = ref.permute(1, 2, 3, 0).reshape(128 * 9, 32)
+    kern = ops.conv_dw_fused_scatter(x, dy, bidx, kh=3, kw=3, stride=(1, 1), padding=((1, 1),) * 2,
+                                     dilation=(1, 1), groups=1, block_size=DDPM_BS)[:, 32:]
+    plain = torch.nn.grad.conv2d_weight(x, (64, 128, 3, 3), dy, 1, 1)[32:]
+    plain = plain.permute(1, 2, 3, 0).reshape(128 * 9, 32)
+    errs = [(t.double() - ref).abs().max().item() for t in (kern, plain)]
+    print(f"[ddpm-gathered] conv_dw_fused at up1/conv1 against float64: kernel err {errs[0]:.4g} "
+          f"(plan {gm.conv_dw_plan(DDPM_BATCH * 64 * 64, 1152, 1, DDPM_BS, 64)}), cuDNN fp32 err "
+          f"{errs[1]:.4g}, gate {KERNEL_TOL * ref.abs().max().item():.4g}")
+    del x, dy, ref, kern, plain
+
+    # exact zeros after the scatter: 1 of 4 blocks at 128 channels, the
+    # 3-channel head (its one ragged block kept), 1 of 2 at the 1x1 up1/skip
+    pads = ((1, 1), (1, 1))
+    for c_in, c_out, h, blocks in ((128, 128, 16, [2]), (64, 3, 64, [0])):
+        x = torch.randn((DDPM_BATCH, c_in, h, h), generator=gen, device="cuda")
+        dy = torch.randn((DDPM_BATCH, c_out, h, h), generator=gen, device="cuda")
+        bidx = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+        dw2 = ops.conv_dw_fused_scatter(x, dy, bidx, kh=3, kw=3, stride=(1, 1), padding=pads,
+                                        dilation=(1, 1), groups=1, block_size=DDPM_BS)
+        kept = [c for b in blocks for c in range(b * DDPM_BS, min((b + 1) * DDPM_BS, c_out))]
+        dropped = sorted(set(range(c_out)) - set(kept))
+        torch.cuda.synchronize()
+        if dw2.shape != (c_in * 9, c_out) or dw2[:, dropped].any() or not dw2[:, kept].all():
+            raise AssertionError(f"conv_dw_fused_scatter at C_out={c_out}: dropped blocks not 0")
+    x = torch.randn((DDPM_BATCH * 64 * 64, 128), generator=gen, device="cuda")
+    dy = torch.randn((DDPM_BATCH * 64 * 64, 64), generator=gen, device="cuda")
+    bidx = torch.tensor([1], dtype=torch.int32, device="cuda")
+    dwg = ops.dw_gathered_scatter(x, dy, bidx, 64, block_size=DDPM_BS)
+    torch.cuda.synchronize()
+    if dwg[:, :DDPM_BS].any() or not dwg[:, DDPM_BS:].all():
+        raise AssertionError("dw_gathered_scatter at up1/skip: dropped block not exactly 0")
+    # the head: NaN in the phantom channels 3..31 of dY and the filters
+    # leaves conv_dx_fused's output bit for bit as it is with zeros there
+    dy2r = torch.zeros((DDPM_BATCH * 64, 64, DDPM_BS), device="cuda")
+    dy2r[..., :3] = torch.randn((DDPM_BATCH * 64, 64, 3), generator=gen, device="cuda")
+    w2k = torch.zeros((3, 3, 64, DDPM_BS), device="cuda")
+    w2k[..., :3] = torch.randn((3, 3, 64, 3), generator=gen, device="cuda")
+    bidx = torch.tensor([0], dtype=torch.int32, device="cuda")
+    kw = dict(b=DDPM_BATCH, hw=(64, 64), padding=pads, groups=1, stride=(1, 1),
+              dilation=(1, 1), block_size=DDPM_BS, c_out=3)
+    clean = gm.conv_dx_fused(dy2r, w2k, bidx, **kw)
+    dy2r[..., 3:], w2k[..., 3:] = float("nan"), float("nan")
+    poisoned = gm.conv_dx_fused(dy2r, w2k, bidx, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(clean).all() and torch.equal(clean, poisoned)):
+        raise AssertionError("conv_dx_fused read a phantom channel of the 3-channel head")
+    print("[ddpm-gathered] dropped blocks exactly 0 after the scatter (conv_dw_fused 1 of 4 at "
+          "128 ch. and the 3-channel head; dw_gathered 1 of 2 at up1/skip); conv_dx_fused's "
+          "output unchanged bit for bit with NaN in the head's phantom channels 3..31")
+    return rows, max_err
+
+
+def _ddpm_sites(params, ddpm):
+    """weight data_ptr -> DDPM conv site name."""
+    out = {}
+    for site in ddpm.site_names(DDPM_BASE)[0]:
+        node = params
+        for part in site.split("/"):
+            node = node[part]
+        out[node["w"].data_ptr()] = site
+    return out
+
+
+def _ddpm_batch(ddpm, pipeline, step=0, dev="cuda"):
+    pipe = pipeline.ImagePipeline(
+        pipeline.ImagePipelineConfig(DDPM_IMAGE, 10, DDPM_BATCH, seed=11), n_train=1024)
+    x0 = torch.from_numpy(pipe.batch_at(step)["images"]).to(dev)
+    t, noise = ddpm.draw_t_noise(torch.Generator(device=dev).manual_seed(1), x0, DDPM_T)
+    return x0, t, noise
+
+
+def ddpm_route_check(td, ddpm, backward, policy_mod, pipeline):
+    """The loss and all parameter gradients, biases included, of one
+    sparse step of the full-width DDPM UNet (base 64, t_dim 256, B=128,
+    3x64x64) three ways: through the kernels, the gather route and the
+    mask oracle, with the kept blocks of each site printed. fp32 with TF32
+    off, so the routes differ in summation order only."""
+    params = ddpm.init_params(0, channels=DDPM_IMAGE[0], base=DDPM_BASE, t_dim=DDPM_TDIM,
+                              device="cuda")
+    sched = ddpm.make_schedule(DDPM_T, device="cuda")
+    x0, t, noise = _ddpm_batch(ddpm, pipeline)
+    kern = ddpm_policy(policy_mod)
+    routes = {"kernels": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    site_of = _ddpm_sites(params, ddpm)
+    res = {}
+    for name, pol in routes.items():
+        with backward.record_selections() as log:
+            loss, grads = td.value_and_grad(params, sched, x0, t, noise, pol)
+        torch.cuda.synchronize()
+        kept = {site_of[p]: s.block_idx.tolist() for p, s in log}
+        res[name] = (loss.item(), _named_leaves(grads), kept)
+        del grads
+    sites = ddpm.site_names(DDPM_BASE)[0]
+    nblocks = {s: -(-co // DDPM_BS) for s, _, co, *_ in ddpm.iter_conv_shapes(DDPM_IMAGE, DDPM_BASE)}
+    for site in sites:
+        k = res["kernels"][2][site]
+        print(f"[ddpm-route] {site:12s} kept {len(k)}/{nblocks[site]} blocks: " + "  ".join(
+            f"{name} {res[name][2][site]}" for name in routes))
+    worst = {}
+    for a, b in (("kernels", "gather"), ("kernels", "mask"), ("gather", "mask")):
+        if res[a][0] != res[b][0]:
+            raise AssertionError(f"DDPM loss {a} {res[a][0]} != {b} {res[b][0]}")
+        if sorted(res[a][2]) != sorted(sites):
+            raise AssertionError(f"route {a} did not select at every DDPM site")
+        flips = [s for s in sites if res[a][2][s] != res[b][2][s]]
+        bad, top, top_path = [], 0.0, ""
+        for (path, ga), (_, gb) in zip(res[a][1], res[b][1], strict=True):
+            n = gb.norm().item()
+            rel = (ga - gb).norm().item() / n if n > 0 else ga.norm().item()
+            if rel >= top:
+                top, top_path = rel, path
+            if rel > TRAIN_ROUTE_TOL:
+                bad.append(f"{path} {rel:.3e}")
+        worst[f"{a}_vs_{b}"] = (top, top_path)
+        if flips or bad:
+            raise AssertionError(f"DDPM {a} vs {b}: selection flipped at {flips}; leaves over "
+                                 f"{TRAIN_ROUTE_TOL}: {bad}")
+    print(f"[ddpm-route] full width (base {DDPM_BASE}, t_dim {DDPM_TDIM}), B={DDPM_BATCH} "
+          f"{DDPM_IMAGE}, block {DDPM_BS}, one sparse step: the same kept blocks at all "
+          f"{len(sites)} sites; loss {res['kernels'][0]:.6f} on every route; "
+          f"{len(res['kernels'][1])} gradient leaves (biases included), worst relative L2 "
+          + ", ".join(f"{k} {v[0]:.3e} ({v[1]})" for k, v in worst.items())
+          + f" (limit {TRAIN_ROUTE_TOL})")
+    del params
+    return {k: v[0] for k, v in worst.items()}
+
+
+def ddpm_training_phase(td, gm, pa, ddpm, policy_mod):
+    """The port's generation entry point, counted (:func:`counted_cnn_run`):
+    8 epoch-bar steps at the paper's CelebA task, then 4 samples over the
+    whole schedule, which must be finite; and the backward-FLOPs ledger."""
+    import numpy as np
+
+    argv = ["--batch", str(DDPM_BATCH), "--size", str(DDPM_IMAGE[1]), "--channels",
+            str(DDPM_IMAGE[0]), "--timesteps", str(DDPM_T), "--base", str(DDPM_BASE), "--t-dim",
+            str(DDPM_TDIM), "--steps", "8", "--steps-per-epoch", "2", "--granularity", "block",
+            "--block-size", str(DDPM_BS), "--use-pallas", "--mode", "ssprop", "--out", "",
+            "--device", "cuda"]
+    pol = ddpm_policy(policy_mod)
+    if td.step_policy(td.build_parser().parse_args(argv), 0.8) != pol:
+        raise AssertionError(f"the DDPM CLI's sparse policy is not {pol}")
+    per_step = ddpm.kernel_launches_per_step(DDPM_BATCH, DDPM_IMAGE, pol, DDPM_BASE)
+    out, launches, meds = counted_cnn_run(
+        f"[ddpm-train] base {DDPM_BASE} B={DDPM_BATCH} {DDPM_IMAGE} T={DDPM_T}:", td, argv, gm,
+        pa, per_step, DDPM_BATCH)
+    s = out["samples"]
+    if s.shape != (4, *DDPM_IMAGE) or not np.isfinite(s).all():
+        raise AssertionError(f"DDPM samples {s.shape}, finite {np.isfinite(s).all()}")
+    print(f"[ddpm-train] sampling {DDPM_T} steps of 4 images: {out['sample_s']:.2f} s, range "
+          f"[{float(s.min()):.3f}, {float(s.max()):.3f}], all finite")
+    led = out["flops"]
+    at128 = ddpm.flops_per_iter(DDPM_BATCH, DDPM_IMAGE, DDPM_BASE,
+                                policy=dataclasses.replace(pol, block_size=128))[1]
+    save = lambda f: 100 * (1 - f / led["dense"])  # noqa: E731
+    print(f"[ddpm-flops] backward FLOPs/iter (the paper's Eq. 6-9, ddpm.flops_per_iter): dense "
+          f"{led['dense']}, nominal at the schedule-average rate {led['avg_rate']} "
+          f"{led['nominal']} ({save(led['nominal']):.2f}% saved); a sparse step at block "
+          f"{DDPM_BS} {led['policy']} ({save(led['policy']):.2f}% saved) beside block 128 "
+          f"{at128} ({save(at128):.2f}% saved)")
+    return launches, {**meds, "sample_s": out["sample_s"]}
+
+
+def ddpm_profile(td, ddpm, policy_mod, pipeline, adam):
+    """Where one dense and one sparse DDPM training step spend their time
+    (:func:`profile_step`)."""
+    sched = ddpm.make_schedule(DDPM_T, device="cuda")
+    x0, t, noise = _ddpm_batch(ddpm, pipeline)
+    ocfg = adam.adamw()
+    out = {}
+    for name, pol in (("dense", policy_mod.SsPropPolicy(0.0)), ("sparse", ddpm_policy(policy_mod))):
+        params = ddpm.init_params(0, channels=DDPM_IMAGE[0], base=DDPM_BASE, t_dim=DDPM_TDIM,
+                                  device="cuda")
+        opt = adam.init(params)
+
+        def step():
+            _, _, loss = td.train_step(params, opt, sched, x0, t, noise, pol, ocfg)
+            return loss.item()  # waits for the step
+
+        wall_ms, busy_ms, _ = profile_step("[ddpm-profile]", name, step)
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+        del params, opt
     return out
 
 
@@ -1009,12 +1311,8 @@ def lm_training_phase(train, lm, gm, pa, policy_mod, cfg):
 
 
 def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
-    """Where one dense and one sparse LM training step spend their time:
-    host wall over 3 runs, then one profiled run (device busy time and
-    the device items that take most of it)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one dense and one sparse LM training step spend their time
+    (:func:`profile_step`), and which ``matmul`` variant ran."""
     batch = _lm_batch(pipeline, cfg)
     params = lm.init_params(cfg, 0, device="cuda")
     opt = adam.init(params)
@@ -1027,20 +1325,7 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
             _, _, m = fn(params, opt, batch)  # in place
             return m["loss"].item()  # waits for the step
 
-        step()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step()
-        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"[lm-profile] {name} step: host wall {wall_ms:.2f} ms, device busy "
-              f"{busy_ms:.2f} ms in {sum(e.count for e in kernels)} kernels")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"[lm-profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
-                  f"{e.key[:90]}")
+        wall_ms, busy_ms, kernels = profile_step("[lm-profile]", name, step)
         variants = {v: [e for e in kernels if f"matmul_{v}_kernel" in e.key]
                     for v in ("wgmma", "simt")}
         count = {v: sum(e.count for e in es) for v, es in variants.items()}
@@ -1074,6 +1359,8 @@ def main() -> int:
     from repro_torch.launch import steps as lm_steps
     from repro_torch.launch import train
     from repro_torch.launch import train_classifier as tc
+    from repro_torch.launch import train_ddpm as td
+    from repro_torch.models import ddpm
     from repro_torch.models import model as lm
     from repro_torch.models import resnet
     from repro_torch.optim import adam
@@ -1156,7 +1443,20 @@ def main() -> int:
     train_launches, train_ms = training_phase(tc, gm, pa, resnet, policy_mod)
     train_profile(tc, resnet, policy_mod, pipeline, adam)
 
-    # 9-11. ssProp LM training: kernels, routes, the entry point, a profile
+    # 9-12. ssProp generation: the DDPM UNet's kernels, routes, the entry
+    # point, a profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_rows, d_err = ddpm_gathered_phase(gm, ops, ddpm, policy_mod)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddpm_rel = ddpm_route_check(td, ddpm, backward, policy_mod, pipeline)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddpm_launches, ddpm_ms = ddpm_training_phase(td, gm, pa, ddpm, policy_mod)
+    ddpm_profile(td, ddpm, policy_mod, pipeline, adam)
+
+    # 13-15. ssProp LM training: kernels, routes, the entry point, a profile
     gc.collect()
     torch.cuda.empty_cache()
     lm_rows, lm_err = lm_kernel_phase(gm, lm, cfg, lm_policy(policy_mod))
@@ -1166,7 +1466,7 @@ def main() -> int:
     lm_launches, lm_ms = lm_training_phase(train, lm, gm, pa, policy_mod, cfg)
     lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
 
-    # 12. result lines
+    # 16. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
@@ -1184,15 +1484,22 @@ def main() -> int:
     )]
     for name, replaces in GATHERED.items():
         mine = [r for r in g_rows if r["name"] == name]
-        top = max(mine, key=lambda r: r["flops"])  # the main path's largest shape
+        top = max(mine, key=lambda r: r["flops"])  # the ResNet path's largest shape
+        d_mine = [r for r in d_rows if r["name"] == name]
+        d_top = max(d_mine, key=lambda r: r["flops"])  # the DDPM path's largest shape
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=replaces, launches=train_launches[name], max_abs_err=g_err[name],
+            replaces=replaces, launches=train_launches[name] + ddpm_launches[name],
+            launches_by_path={RESNET: train_launches[name], "ddpm": ddpm_launches[name]},
+            max_abs_err=max(g_err[name], d_err[name]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["shape"],
             # one sparse step's launches of this kernel, at their shapes
             step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
             variant=top["variant"], tflops=top["tflops"],
+            ddpm={k: d_top[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by", "tflops")}
+            | {"step_ms": sum(r["ms"] * r["launches_per_step"] for r in d_mine)},
         ))
     for name, replaces in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]
@@ -1208,6 +1515,7 @@ def main() -> int:
             **{k: top[k] for k in ("variant", "tflops") if k in top},
         ))
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
+    print(f"[ddpm-train] route rel L2 {ddpm_rel}; step medians {ddpm_ms}")
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ continuous-batching engine, with ``paged_attention`` as a hand-written
 CUDA kernel; ssProp training of the ResNets through the channel-sparse
 backward engine, with the four gathered backward kernels
 (``dx_gathered``, ``dw_gathered``, ``conv_dw_fused``, ``conv_dx_fused``);
-and ssProp training of the dense LM at channel granularity, with the
+ssProp training of the paper's DDPM UNet through the same kernels, with
+the paper's backward-FLOPs ledger and task configs; and ssProp training
+of the dense LM at channel granularity, with the
 shrunk products in the ``matmul`` kernel. Every kernel is hand-written
 CUDA (``kernels/csrc/``), ``importance`` included.
 """

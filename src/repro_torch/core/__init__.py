@@ -7,8 +7,8 @@ The twin of ``repro.core``:
 * :mod:`~repro_torch.core.schedulers` — drop-rate schedules;
 * :mod:`~repro_torch.core.conv` / :mod:`~repro_torch.core.dense` —
   ``sparse_conv2d`` / ``sparse_dense`` as ``torch.autograd.Function``s;
-* :mod:`~repro_torch.core.flops`      — the traffic model the conv
-  routing gate reads;
+* :mod:`~repro_torch.core.flops`      — the paper's backward-FLOPs
+  model and the traffic model the conv routing gate reads;
 * :mod:`~repro_torch.core.policy`     — ``SsPropPolicy``, its presets and
   the per-site programs (``PolicyRules``, ``PolicyProgram``,
   ``SitePolicies``).

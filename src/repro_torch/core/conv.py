@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import backward
 from repro_torch.core import flops as FL
-from repro_torch.core.policy import SsPropPolicy
+from repro_torch.core.policy import PolicyLike, SsPropPolicy, policy_for
 
 # frozen, so safe to share as the signature default
 _DEFAULT_POLICY = SsPropPolicy()
@@ -157,6 +157,26 @@ def backward_route(
         if model(True) < model(False):
             return "fused"
     return "canonical" if groups == 1 else "gathered"
+
+
+def route_launches(routes: dict[str, str], policy: PolicyLike) -> dict[str, int]:
+    """Launches of each gathered kernel in one backward of the convs whose
+    routes (site -> :func:`backward_route`) are ``routes``, under a plain
+    policy or a per-site table. The fused route launches ``conv_dw_fused``
+    and ``conv_dx_fused``; the canonical one ``dw_gathered`` and
+    ``dx_gathered`` on the sides that its site's ``sparsify_*`` flags
+    shrink. A network's first conv, ``stem``, computes no dX."""
+    n = {"dx_gathered": 0, "dw_gathered": 0, "conv_dw_fused": 0, "conv_dx_fused": 0}
+    for site, route in routes.items():
+        pol = policy_for(policy, site)
+        need_dx = site != "stem"
+        if route == "fused":
+            n["conv_dw_fused"] += 1
+            n["conv_dx_fused"] += need_dx
+        elif route == "canonical":
+            n["dw_gathered"] += pol.sparsify_dw
+            n["dx_gathered"] += need_dx and pol.sparsify_dx
+    return n
 
 
 class _ConvOp(backward.ChannelSparseOp):

@@ -33,7 +33,9 @@
 //     operands K-contiguous: a dY stage is 64 pixel rows x 32 channels, a
 //     contiguous run of each row of dy2r (a pixel that gets no cotangent
 //     for the tap is the copy's zero fill), a W stage 64 columns c x 32
-//     kept channels of w2k, contiguous in o. Geometries where 16-byte
+//     kept channels of w2k, contiguous in o (a copy that straddles the
+//     ragged tail reads only its real channels and zero-fills the rest,
+//     so no channel past c_valid is read). Geometries where 16-byte
 //     copies do not apply (bs not a multiple of 16 bytes, unaligned
 //     operands) load the same ring element by element, in the same kernel;
 //   * every output element is written once, by one block (no float
@@ -201,17 +203,21 @@ conv_dx_fused_kernel(const T* __restrict__ dy2r, const T* __restrict__ w2k,
       const long long w_tap = (long long)(kh * g.Kw + kw) * g.Cg;
       if (fast) {
         const int oc = o0 + cc * EPC;
-        const bool kok = oc < kv;
+        // bytes of real channels in this copy: a copy that straddles the
+        // ragged tail (c_valid) zero-fills the phantom channels past it
+        const int kb = oc < kv ? min(EPC, kv - oc) * (int)sizeof(T) : 0;
         const T* a_src = dy2r + blk * g.bs + oc;
         const T* b_src = w2k + j * g.bs + oc;
 #pragma unroll
         for (int i = 0; i < PASSES; ++i) {
           const int row = lr + RPP * i;
-          const bool aok = kok && a_off[i] >= 0;
-          mma::cp_async16(sa + row * LDK + cc * EPC, aok ? a_src + a_off[i] : dy2r, aok);
+          const bool aok = kb > 0 && a_off[i] >= 0;
+          mma::cp_async16_n(sa + row * LDK + cc * EPC, aok ? a_src + a_off[i] : dy2r,
+                            aok ? kb : 0);
           const int c = c0 + row;
-          const bool bok = kok && c < g.Cg;
-          mma::cp_async16(sb + row * LDK + cc * EPC, bok ? b_src + (w_tap + c) * NC : w2k, bok);
+          const bool bok = kb > 0 && c < g.Cg;
+          mma::cp_async16_n(sb + row * LDK + cc * EPC, bok ? b_src + (w_tap + c) * NC : w2k,
+                            bok ? kb : 0);
         }
       } else {
         for (int e = tid; e < BM * BK; e += THREADS) {
@@ -301,7 +307,7 @@ int launch(const void* dy2r, const void* w2k, const void* bidx, void* out, const
 
 // Plain C entry point, loaded with ctypes. dy2r [B*H_out, W_out, C_pad] and
 // w2k [Kh, Kw, Cg, KB*bs] contiguous, both fp32 (bf16 = 0) or both bf16
-// (bf16 = 1); channels at or past c_valid are zeros and are skipped; bidx
+// (bf16 = 1); channels at or past c_valid are never read; bidx
 // [KB] int32, sorted; (ph0, pw0) the padding's leading offsets; out [B*H,
 // G, W, Cg] fp32, the interior image, every element written once. Returns
 // cudaGetLastError() of the launch.

@@ -191,12 +191,21 @@ def dx_gathered(dy, w, block_idx, *, block_size: int = 128) -> torch.Tensor:
 _SPLIT_SLOTS = 4 * _SMS  # one wave of the dW kernels' split blocks: 4 an SM
 
 
+_MAX_CHUNK = 4096  # rows a dW split accumulates at most
+
+
 def _split_plan(rows: int, work: int, min_rows: int) -> tuple[int, int]:
     """(S, chunk) of a dW kernel's deterministic split-K over ``rows``: as
     many splits as fit ``work`` (the output tiles that do work) into one
-    wave of resident blocks, none shorter than ``min_rows``; chunks are
-    whole 32-row stages."""
+    wave of resident blocks, none shorter than ``min_rows``, and more
+    where a chunk would pass ``_MAX_CHUNK`` rows; chunks are whole 32-row
+    stages. The cap bounds the error of the tensor cores' fp32
+    accumulation, which truncates, so that its error grows with the rows
+    one accumulator sums: at the DDPM's 64x64 convs (524288 rows) one
+    wave's 18080-row chunks missed the 1e-4 gate (``tools/dw_split_error.py``
+    measures it on the card)."""
     s = max(1, min(_cdiv(rows, min_rows), _SPLIT_SLOTS // max(work, 1)))
+    s = max(s, _cdiv(rows, _MAX_CHUNK))
     chunk = max(1, _cdiv(_cdiv(rows, s), _STAGE)) * _STAGE
     return max(1, _cdiv(rows, chunk)), chunk
 

@@ -16,7 +16,10 @@ image set, no augmentation), plus:
 
 Each step runs the forward pass, the channel-sparse backward and a
 functional Adam update; the epoch-bar schedule makes even epochs dense
-and odd ones sparse at ``--drop-rate``.
+and odd ones sparse at ``--drop-rate``. At the end the CLI prints the
+backward-FLOPs ledger (the paper's Eq. 6-9 over the model's layers):
+dense, ssProp at the schedule-average rate as the example prints it,
+and a sparse step under the policy in force at its real keep counts.
 
   PYTHONPATH=src python -m repro_torch.launch.train_classifier --model resnet18 \\
       --batch 128 --image-size 32 --steps 8 --steps-per-epoch 2 \\
@@ -32,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import SsPropPolicy, paper_default
-from repro_torch.core.schedulers import drop_rate_for_step
+from repro_torch.core.schedulers import average_rate, drop_rate_for_step
 from repro_torch.data.pipeline import ImagePipeline, ImagePipelineConfig
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps
@@ -72,6 +75,29 @@ def step_policy(args, rate: float) -> SsPropPolicy:
     )
 
 
+def flops_ledger(walk, args, target: float) -> dict:
+    """The backward FLOPs of one iteration (the paper's Eq. 6-9):
+    ``dense``; ``nominal``, ssProp at the epoch-bar schedule's average
+    rate ``avg_rate`` over the run (the example's line); and ``policy``,
+    one sparse step under :func:`step_policy` at ``target``, counted at
+    the engine's real keep counts. ``walk(drop_rate=..., policy=...)``
+    is a model's ``flops_per_iter`` with its shape bound."""
+    avg = average_rate("epoch_bar", total_steps=args.steps,
+                       steps_per_epoch=args.steps_per_epoch, target=target)
+    dense, nominal = walk(drop_rate=avg)
+    _, sparse = walk(policy=step_policy(args, target))
+    return {"dense": dense, "avg_rate": avg, "nominal": nominal, "policy": sparse}
+
+
+def print_ledger(led: dict, args) -> None:
+    d, s, p = led["dense"], led["nominal"], led["policy"]
+    print(f"backward FLOPs/iter: dense {d / 1e9:.2f}B -> ssprop {s / 1e9:.2f}B "
+          f"({100 * (1 - s / d):.1f}% saved at schedule-average rate {led['avg_rate']:.2f})")
+    print(f"backward FLOPs of a sparse step ({args.granularity}, block {args.block_size}, "
+          f"use_pallas {args.use_pallas}, real keep counts): {p / 1e9:.2f}B "
+          f"({100 * (1 - p / d):.1f}% saved)")
+
+
 def loss_fn(name: str, params, x, y, policy: SsPropPolicy) -> torch.Tensor:
     """Mean cross-entropy of the ResNet's logits."""
     logp = F.log_softmax(resnet.forward(name, params, x, policy), dim=-1)
@@ -105,10 +131,15 @@ def run(args) -> dict:
     JAX package computes). Returns per mode the losses, the drop rate and
     wall time of every step (the step ends in a device sync), and the
     eval accuracy at each epoch end; the launches of each gathered kernel
-    over the whole run; and the TF32 flags that were in force."""
+    over the whole run; the TF32 flags that were in force; and the
+    backward-FLOPs ledger (:func:`flops_ledger`)."""
     with fp32_precision() as tf32:
         out = _train(args)
-    return {**out, "tf32": tf32}
+    image = (3, args.image_size, args.image_size)
+    led = flops_ledger(
+        lambda **kw: resnet.flops_per_iter(args.model, args.batch, image, **kw),
+        args, args.drop_rate)
+    return {**out, "tf32": tf32, "flops": led}
 
 
 def _train(args) -> dict:
@@ -168,6 +199,7 @@ def main():
         final = rec["eval_acc"][-1] if rec["eval_acc"] else float("nan")
         print(f"{mode:7s} steps={len(rec['losses'])} wall={t:.1f}s final_eval_acc={final:.3f}")
     print("[train] gathered-kernel launches:", res["launches"])
+    print_ledger(res["flops"], args)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,10 @@ and so through the channel-sparse backward engine. BatchNorm runs on
 batch statistics with the biased variance; the statistics it computes
 are discarded, as in the JAX package.
 
-Beside the model: :func:`backward_routes` and
-:func:`kernel_launches_per_step`, which say which backward route each
-conv takes under a policy, and so how many times a training step
-launches each gathered kernel.
+Beside the model: :func:`flops_per_iter`, the paper's backward-FLOPs
+walk; :func:`backward_routes` and :func:`kernel_launches_per_step`,
+which say which backward route each conv takes under a policy, and so
+how many times a training step launches each gathered kernel.
 """
 from __future__ import annotations
 
@@ -20,8 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv import backward_route
-from repro_torch.core.policy import DENSE, SsPropPolicy
+from repro_torch.core import flops as FL
+from repro_torch.core.conv import backward_route, route_launches
+from repro_torch.core.policy import DENSE, PolicyLike, SsPropPolicy
 from repro_torch.models import layers
 
 LAYOUTS = {
@@ -279,6 +280,37 @@ def iter_conv_shapes(name: str, image: tuple[int, int, int]):
             bi += 1
 
 
+def flops_per_iter(
+    name: str,
+    batch: int,
+    image: tuple[int, int, int],
+    drop_rate: float = 0.0,
+    policy: PolicyLike | None = None,
+) -> tuple[int, int]:
+    """``(dense, ssprop)`` backward FLOPs of one iteration from the
+    paper's Eq. 6/7 model, over :func:`iter_conv_shapes` (each conv and
+    the BatchNorm after it). The ssProp count is the nominal Eq. 9 at
+    ``drop_rate``; with ``policy`` (a plain policy or a
+    :class:`~repro_torch.core.policy.SitePolicies` table over
+    :func:`site_names`) it counts each conv at its own site's real keep
+    count instead."""
+    dense = sparse = 0
+    for site, c_in, c_out, k, h_out, w_out in iter_conv_shapes(name, image):
+        dense += FL.conv_backward_flops(batch, h_out, w_out, c_in, c_out, k)
+        if policy is not None:
+            sparse += FL.conv_backward_flops_site(
+                batch, h_out, w_out, c_in, c_out, k, policy, site
+            )
+        else:
+            sparse += FL.conv_backward_flops_ssprop(
+                batch, h_out, w_out, c_in, c_out, k, drop_rate
+            )
+        bn = FL.batchnorm_backward_flops(batch, h_out, w_out, c_out)
+        dense += bn
+        sparse += bn
+    return dense, sparse
+
+
 def backward_routes(
     name: str, batch: int, image: tuple[int, int, int], policy: SsPropPolicy
 ) -> dict[str, str]:
@@ -296,15 +328,7 @@ def kernel_launches_per_step(
     name: str, batch: int, image: tuple[int, int, int], policy: SsPropPolicy
 ) -> dict[str, int]:
     """Launches of each gathered kernel in one training step under
-    ``policy``, from :func:`backward_routes`. The stem's input (the
-    image) needs no gradient, so the stem launches no dX kernel."""
-    n = {"dx_gathered": 0, "dw_gathered": 0, "conv_dw_fused": 0, "conv_dx_fused": 0}
-    for site, route in backward_routes(name, batch, image, policy).items():
-        need_dx = site != "stem"
-        if route == "fused":
-            n["conv_dw_fused"] += 1
-            n["conv_dx_fused"] += need_dx
-        elif route == "canonical":
-            n["dw_gathered"] += policy.sparsify_dw
-            n["dx_gathered"] += need_dx and policy.sparsify_dx
-    return n
+    ``policy`` (:func:`repro_torch.core.conv.route_launches` of
+    :func:`backward_routes`); the stem's input, the image, needs no
+    gradient."""
+    return route_launches(backward_routes(name, batch, image, policy), policy)

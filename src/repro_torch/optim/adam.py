@@ -153,3 +153,9 @@ def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: 
         return tree_map(lambda _, o: o[i], params, out)
 
     return pick(0), AdamState(step, pick(1), pick(2)), {"grad_norm": gn, "lr": lr}
+
+
+def adamw(cfg: AdamConfig | None = None) -> AdamConfig:
+    """The paper's generation-task optimizer (AdamW, default params):
+    ``cfg`` if given, else lr 1e-3 with decoupled weight decay 1e-2."""
+    return cfg or AdamConfig(lr=1e-3, weight_decay=1e-2)

@@ -677,3 +677,179 @@ def test_train_classifier_cli_runs_without_tf32_on_the_card(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True
+
+
+# --- the DDPM UNet's shapes: block 32 and the 3-channel head -------------
+
+# (C_in, C_out, H, kept blocks) of 3x3 sites of a sparse DDPM step (base 64,
+# 3x64x64, block 32), at B=8: the 3-channel head (a ragged block of 3 of 32),
+# up1/conv1 (1 of 2 kept), up3/conv1 (C_in 256, 1 of 4), down2/conv1
+DDPM_CONV = [(64, 3, 64, [0]), (128, 64, 64, [1]), (256, 128, 16, [3]), (64, 128, 32, [2])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,c_out,h,blocks", DDPM_CONV)
+def test_conv_kernels_at_ddpm_shapes_block_32(cuda, c_in, c_out, h, blocks, dtype):
+    """conv_dw_fused and conv_dx_fused at block 32: within 1e-4 * max(1,
+    max|plain|), the same bits on a second call, one launch each; after
+    the scatter the dropped blocks of dW are exactly 0."""
+    b, bs = 8, 32
+    g = _conv_geometry(1, 1, 1, c_in, 1, b=b, h=h)
+    xg = _randn(cuda, (b * g["h_pad"], 1, g["h_pad"], c_in), dtype, 60)
+    dy2r = _dy2r(cuda, b, h, c_out, bs, dtype, 61)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    kw = dict(kh_dim=3, kw_dim=3, stride=(1, 1), dilation=(1, 1), h_out=h, block_size=bs)
+    before = dict(tgm.launches)
+    dw = tgm.conv_dw_fused(xg, dy2r, bidx, c_out=c_out, **kw)
+    w2k = _randn(cuda, (3, 3, c_in, len(blocks) * bs), dtype, 62)
+    w2k[..., c_out:] = 0  # the ragged head's phantom filters, as _compact_filters pads them
+    dkw = dict(b=b, hw=(h, h), padding=((1, 1), (1, 1)), groups=1, stride=(1, 1),
+               dilation=(1, 1), block_size=bs)
+    dx = tgm.conv_dx_fused(dy2r, w2k, bidx, c_out=c_out, **dkw)
+    torch.cuda.synchronize()
+    assert tgm.launches["conv_dw_fused"] == before["conv_dw_fused"] + 1
+    assert tgm.launches["conv_dx_fused"] == before["conv_dx_fused"] + 1
+    _close(dw, tgm.conv_dw_fused_ref(xg, dy2r, bidx, **kw))
+    _close(dx, tgm.conv_dx_fused_ref(dy2r, w2k, bidx, **dkw))
+    assert torch.equal(dw, tgm.conv_dw_fused(xg, dy2r, bidx, c_out=c_out, **kw))
+    assert torch.equal(dx, tgm.conv_dx_fused(dy2r, w2k, bidx, c_out=c_out, **dkw))
+    x = _randn(cuda, (b, c_in, h, h), dtype, 63)
+    dy = _randn(cuda, (b, c_out, h, h), dtype, 64)
+    full = tops.conv_dw_fused_scatter(x, dy, bidx, kh=3, kw=3, stride=(1, 1),
+                                      padding=((1, 1), (1, 1)), dilation=(1, 1), groups=1,
+                                      block_size=bs)
+    torch.cuda.synchronize()
+    kept = [c for blk in blocks for c in range(blk * bs, min((blk + 1) * bs, c_out))]
+    dropped = sorted(set(range(c_out)) - set(kept))
+    assert full.shape == (c_in * 9, c_out)
+    assert not full[:, dropped].any() and full[:, kept].all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_dx_fused_reads_no_channel_past_the_ragged_head(cuda, dtype):
+    """The 3-channel head at block 32: NaN in dY's and the filters'
+    phantom channels 3..31 leave dX bit for bit as with zeros there (the
+    16-byte copy that straddles channel 3 reads the real channels only)."""
+    b, h, c_in, c_out, bs = 4, 64, 64, 3, 32
+    dy2r = _dy2r(cuda, b, h, c_out, bs, dtype, 65)
+    w2k = _randn(cuda, (3, 3, c_in, bs), dtype, 66)
+    w2k[..., c_out:] = 0
+    bidx = torch.tensor([0], dtype=torch.int32, device=cuda)
+    kw = dict(b=b, hw=(h, h), padding=((1, 1), (1, 1)), groups=1, stride=(1, 1),
+              dilation=(1, 1), block_size=bs, c_out=c_out)
+    clean = tgm.conv_dx_fused(dy2r, w2k, bidx, **kw)
+    dy2r[..., c_out:] = float("nan")
+    w2k[..., c_out:] = float("nan")
+    poisoned = tgm.conv_dx_fused(dy2r, w2k, bidx, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean).all() and torch.equal(clean, poisoned)
+
+
+# (M, C_out, D_in, kept blocks) of the 1x1 skips of a sparse DDPM step at
+# B=128 and block 32 (down2, up3, up2, up1: M up to 524288 rows), and the
+# stem's dW (27 columns of X, C=64)
+DDPM_GATHERED = [(131072, 128, 64, [2]), (32768, 128, 256, [0]), (131072, 64, 256, [1]),
+                 (524288, 64, 128, [0]), (524288, 64, 27, [1])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,d,blocks", DDPM_GATHERED)
+def test_gathered_kernels_at_ddpm_skips_block_32(cuda, m, n, d, blocks, dtype):
+    """dx_gathered (not at the stem: its input needs no gradient) and
+    dw_gathered at the DDPM's canonical sites, block 32: within 1e-4 *
+    max(1, max|plain|), the same bits on a second call, dropped blocks of
+    the scattered dW exactly 0."""
+    bs = 32
+    dy, x = _randn(cuda, (m, n), dtype, 67), _randn(cuda, (m, d), dtype, 68)
+    bidx = torch.tensor(blocks, dtype=torch.int32, device=cuda)
+    if d != 27:
+        w = _randn(cuda, (d, n), dtype, 69)
+        out = tgm.dx_gathered(dy, w, bidx, block_size=bs)
+        torch.cuda.synchronize()
+        _close(out, tgm.dx_gathered_ref(dy, w, bidx, block_size=bs))
+        assert torch.equal(out, tgm.dx_gathered(dy, w, bidx, block_size=bs))
+    out = tgm.dw_gathered(x, dy, bidx, block_size=bs)
+    torch.cuda.synchronize()
+    _close(out, tgm.dw_gathered_ref(x, dy, bidx, block_size=bs))
+    assert torch.equal(out, tgm.dw_gathered(x, dy, bidx, block_size=bs))
+    full = tops.dw_gathered_scatter(x, dy, bidx, n, block_size=bs)
+    kept = [c for blk in blocks for c in range(blk * bs, (blk + 1) * bs)]
+    assert not full[:, sorted(set(range(n)) - set(kept))].any() and full[:, kept].all()
+
+
+def test_ddpm_sparse_step_routes_agree_on_the_card(cuda):
+    """One sparse DDPM step at full width (base 64, t_dim 256, 3x64x64),
+    B=8, block 32, fp32 with TF32 off: the kernel route launches each
+    gathered kernel as the route table says; it keeps the same blocks as
+    the gather and mask routes at every site, and every gradient leaf,
+    biases included, is within a relative L2 of 1e-4 of theirs."""
+    import dataclasses
+
+    from repro_torch.core import backward as tbackward
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.launch import train_ddpm as td
+    from repro_torch.launch.precision import fp32_precision
+    from repro_torch.models import ddpm
+    from repro_torch.optim import adam as tadam
+
+    image, b = (3, 64, 64), 8
+    params = ddpm.init_params(0, channels=3, base=64, t_dim=256, device=cuda)
+    sched = ddpm.make_schedule(1000, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x0 = torch.randn((b, *image), generator=gen, device=cuda)
+    t, noise = ddpm.draw_t_noise(gen, x0, 1000)
+    kern = dataclasses.replace(tpolicy.tpu_default(0.8), block_size=32, use_pallas=True)
+    routes = {"kernel": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    res = {}
+    with fp32_precision():
+        for name, pol in routes.items():
+            before = dict(tgm.launches)
+            with tbackward.record_selections() as log:
+                loss, grads = td.value_and_grad(params, sched, x0, t, noise, pol)
+            torch.cuda.synchronize()
+            launched = {k: tgm.launches[k] - before[k] for k in ddpm.kernel_launches_per_step(
+                b, image, kern)}
+            res[name] = (loss.item(), tadam.tree_leaves(grads), [s.block_idx for _, s in log],
+                         launched)
+    assert res["kernel"][3] == ddpm.kernel_launches_per_step(b, image, kern)
+    assert sum(res["gather"][3].values()) == sum(res["mask"][3].values()) == 0
+    for other in ("gather", "mask"):
+        assert res["kernel"][0] == res[other][0]
+        assert len(res["kernel"][2]) == len(ddpm.site_names(64)[0])
+        for a, c in zip(res["kernel"][2], res[other][2], strict=True):
+            assert torch.equal(a, c)
+        for a, c in zip(res["kernel"][1], res[other][1], strict=True):
+            assert ((a - c).norm() / c.norm()).item() <= 1e-4
+
+
+def test_train_ddpm_cli_runs_without_tf32_on_the_card(cuda):
+    """A DDPM CLI run on the card through the kernels: TF32 off during
+    the run, as reported, the caller's flags restored; finite losses and
+    samples; the gathered kernels launched the route table's count at
+    each sparse step."""
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.launch import train_ddpm as td
+    from repro_torch.models import ddpm
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        args = td.build_parser().parse_args(
+            ["--batch", "4", "--size", "16", "--channels", "3", "--timesteps", "20",
+             "--steps", "4", "--steps-per-epoch", "1", "--granularity", "block",
+             "--block-size", "32", "--use-pallas", "--mode", "ssprop", "--out", "",
+             "--device", "cuda"])
+        out = td.run(args)
+        assert out["tf32"] == {"matmul": False, "cudnn": False}
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+    rec = out["modes"]["ssprop"]
+    assert np.isfinite(rec["losses"]).all() and np.isfinite(out["samples"]).all()
+    per_step = ddpm.kernel_launches_per_step(
+        4, (3, 16, 16), td.step_policy(args, 0.8), base=16)
+    assert td.step_policy(args, 0.8) == tpolicy.SsPropPolicy(
+        0.8, granularity="block", block_size=32, use_pallas=True, target_rate=0.8)
+    assert {k: out["launches"][k] for k in per_step} == {k: 2 * v for k, v in per_step.items()}

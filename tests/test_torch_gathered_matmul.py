@@ -309,6 +309,25 @@ def test_conv_dw_plan_covers_the_positions_in_one_wave(rows, p, kb, c_out):
     _check_split_plan(tgm.conv_dw_plan(rows, p, kb, 128, c_out), rows, work, 256)
 
 
+# the DDPM UNet's dW sites at B=128, 3x64x64, block 32 (rows, P or D_in,
+# kept blocks, C_out): 524288-row reductions, where one wave's chunks
+# would pass the cap
+DDPM_DW_SITES = [(524288, 1152, 1, 64), (524288, 576, 1, 64), (524288, 576, 1, 3),
+                 (131072, 1152, 1, 128), (131072, 2304, 1, 64)]
+
+
+@pytest.mark.parametrize("rows,p,kb,c_out", DDPM_DW_SITES)
+def test_dw_plans_cap_the_rows_one_accumulator_sums(rows, p, kb, c_out):
+    """Where one wave's chunks would pass 4096 rows, both dW plans split
+    further: chunks of whole 32-row stages, at most 4096 rows, covering
+    every row once, and no more splits than the cap needs."""
+    for plan, d in ((tgm.conv_dw_plan, p), (tgm.dw_plan, p // 9)):
+        s, chunk = plan(rows, d, kb, 32, c_out)
+        assert chunk % 32 == 0 and chunk <= 4096 and (s - 1) * chunk < rows <= s * chunk
+        assert chunk < 4096 or s == -(-rows // 4096)  # capped: just enough splits
+    assert tgm.conv_dw_plan(524288, 1152, 1, 32, 64) == (128, 4096)  # was (29, 18080)
+
+
 def test_3xtf32_holds_the_gate_over_conv_dx_fuseds_reduction():
     """conv_dx_fused's reduction is taps x kept channels, 1152 long at a
     3x3 conv with 128 kept channels (seeded): 3xTF32 stays within 1e-4 *

@@ -30,6 +30,9 @@ def _port_modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.build" in mods
+    for m in ("repro_torch.models.ddpm", "repro_torch.launch.train_ddpm",
+              "repro_torch.configs.paper", "repro_torch.core.flops"):
+        assert m in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
