@@ -21,7 +21,10 @@ line) on any error:
    as a yardstick only, ``F.scaled_dot_product_attention`` on the
    gathered view; prints each row's split-KV plan (row tile, splits) and
    its bound beside the fp32 FMA bound, and times the 64-row tensor-core
-   rows on the SIMT 16-row tiles too;
+   rows on the SIMT 16-row tiles too; then, outside the digest, the
+   speculative verify chunks: S = 5 (spec_k = 4: 40 rows a KV head, the
+   16-row tile) at NB=10 and 128, S = 8 (64 rows, the TF32 tile), and one
+   engine step's mix of prefill, verify and decode rows at S = 32;
 4. gathered-kernel phase: ``dx_gathered``, ``dw_gathered``,
    ``conv_dw_fused`` and ``conv_dx_fused`` against their plain versions
    at every shape a sparse ResNet-18 training step launches them with
@@ -49,11 +52,26 @@ line) on any error:
    profile of one decode step and one mixed step (host wall time, device
    busy time, the kernels that take most of it); then the serving CLI on
    the reduced config through both routes, whose greedy token streams
-   must be identical;
+   must be identical; then the reduced fp32 config through the engine
+   API: 6 sampled requests on the kernel and the gather route, under swap
+   preemption, speculating 4 tokens with a 1-layer drafter (10 verify
+   rows a KV head: the 16-row tile), through the contiguous engine and
+   the lock-step oracle, every stream identical;
 6. serve phase: ``repro_torch.launch.serve.run`` serves 8 Poisson-arriving
    requests (prompt 128, gen 32) through 4 slots of the paged engine at
    full width; every request must get exactly 32 tokens in the
    vocabulary, and the kernel must have launched once per layer per step;
+   then ``serve_features_phase``, the rest of serving at full width with
+   the same bf16 params, then with an fp32 copy of them: the requests
+   sampled (temperature 0.8, top-k 50, top-p 0.95) through the paged
+   engine, through a 24-page pool (swap preemptions), speculating 4
+   tokens self-drafted and with a full-width 4-layer drafter, through the
+   contiguous engine and the lock-step baseline; every page back and
+   zero, the kernel launched once a layer a target step, verify steps at
+   width 5 on the 16-row tile, acceptance, swaps, tokens/s, p50/p99 step
+   time, and the share of tokens equal to the sampled paged run's (at
+   least 0.9 in fp32; the bf16 shares are printed: bf16 runs whose steps
+   round otherwise part after a few tokens);
 7. training-route check: the loss and every gradient of one sparse step
    of the full-width ResNet-18 (B=128, 3x32x32) through the kernels, the
    gather route and the mask oracle, each leaf within a relative L2 of
@@ -92,7 +110,8 @@ line) on any error:
    outputs within 1e-4 * max(1, max|plain|), no operand repacked; times
    each kernel, its plain version and one library call (``torch.matmul``
    on the operands as given, whose bf16 output rounding is its only
-   difference; none computes ``importance``), with the bound of each,
+   difference; for ``importance`` ``torch.linalg.vector_norm`` of order
+   1 over the rows in fp32, over M), with the bound of each,
    the variant (bf16: TMA + wgmma, and its split-K; fp32: SIMT) and its
    TFLOP/s;
 14. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
@@ -108,7 +127,9 @@ line) on any error:
    504 ``matmul`` launches of the sparse step and the SIMT one none;
 16. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases',
-   each in ``launches_by_path``; its times are at the ResNet path's
+   ``paged_attention``'s the serve phase's and the paged runs' of
+   ``serve_features_phase``, each in ``launches_by_path``, with the verify
+   chunk's times in ``verify``; its times are at the ResNet path's
    largest shape, the DDPM path's in ``ddpm``) and, last, the device
    JSON line.
 """
@@ -124,6 +145,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -198,6 +220,8 @@ def paged_case(gen, *, b, s, nb, qdt, pdt, kind, h=16, kv=2, d=128, bs=16, dev="
     tables = torch.randperm(n_pages, generator=gen, device=dev).reshape(b, nb).to(torch.int32)
     if kind == "mixed":  # mid-page, page boundary, deep, middle
         offs = [7, 2 * bs, t - s, t // 2 + 3]
+    elif kind == "engine":  # a prefill chunk, a verify chunk, a decode token, another verify
+        offs = [t - 64, t - 40, t - 33, t // 2 - 20]
     else:  # every slot near 2048 tokens (NB=128)
         offs = [t - s, t - s - 3, t - s - 8, t - s - 17]
     qpos = (torch.tensor(offs[:b], device=dev)[:, None] + torch.arange(s, device=dev)).to(torch.int32)
@@ -226,6 +250,70 @@ def paged_bound_ms(q, k, tables, qpos, tf32_terms=None) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_row(pa, F, c, args):
+    """One ``paged_attention`` case: held against the plain version at
+    KERNEL_TOL and repeated bit for bit; the kernel, the plain version and
+    SDPA on the gathered view timed; its bound and split plan. Returns
+    (row, output)."""
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_ref(*args)
+    torch.testing.assert_close(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+    if not torch.equal(out, pa.paged_attention(*args)):
+        raise AssertionError(f"paged_attention at {c}: two launches differ")
+    err = (out - ref).abs().max().item()
+
+    # timing: enough copies of the pools that they overflow L2
+    q, k, v, tables, qpos = args
+    pool_bytes = 2 * k.numel() * k.element_size()
+    n_copies = max(2, min(64, math.ceil(3 * L2_BYTES / pool_bytes)))
+    sets = [(q, k.clone(), v.clone(), tables, qpos) for _ in range(n_copies)]
+    ms = gpu_time_ms(pa.paged_attention, sets, 100)
+    plain_ms = gpu_time_ms(pa.paged_attention_ref, sets, 20)
+    # yardstick: SDPA over the pages already gathered (the gather untimed)
+    b, s, h, d = q.shape
+    nb, bs = tables.shape[1], k.shape[1]
+    tl = tables.long()
+    mask = (torch.arange(nb * bs, device="cuda")[None, None, :] <= qpos.long()[:, :, None])[:, None]
+    lib_sets = [
+        (
+            q.float().transpose(1, 2),
+            kc[tl].reshape(b, nb * bs, -1, d).transpose(1, 2).float().contiguous(),
+            vc[tl].reshape(b, nb * bs, -1, d).transpose(1, 2).float().contiguous(),
+            mask,
+        )
+        for _, kc, vc, _, _ in sets
+    ]
+
+    def sdpa(qq, kk, vv, mm):
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm, enable_gqa=True)
+
+    library_ms = gpu_time_ms(sdpa, lib_sets, 20)
+    fma_ms, fma_by = paged_bound_ms(q, k, tables, qpos)
+    plan = pa.paged_split_plan(b, s, h, k.shape[2], d, nb, bs)
+    bound_ms, bound_by = fma_ms, fma_by
+    simt16 = {}
+    if plan.row_tile == 64:  # TF32 products: an fp32 operand takes a second term
+        pool32 = k.dtype == torch.float32
+        terms = (1 + (q.dtype == torch.float32) + pool32, 2 + pool32)
+        bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, terms)
+        # the SIMT 16-row tiles these rows took before the tensor cores, timed beside
+        p16 = pa.paged_split_plan(b, s, h, k.shape[2], d, nb, bs, row_tile=16).splits
+        torch.testing.assert_close(pa.paged_attention(*args, row_tile=16), ref,
+                                   rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        simt16 = dict(simt16_ms=gpu_time_ms(
+            lambda *a: pa.paged_attention(*a, row_tile=16), sets, 100), simt16_splits=p16)
+    row = dict(
+        shape=f"B={b} S={s} H={h} KV={k.shape[2]} D={d} bs={bs} NB={nb} qpos={c['kind']}",
+        q=str(c["qdt"]).replace("torch.", ""), pools=str(c["pdt"]).replace("torch.", ""),
+        variant=plan.variant, splits=plan.splits, row_tile=plan.row_tile,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bound_fp32_fma_ms=fma_ms, **simt16,
+    )
+    del sets, lib_sets
+    return row, out
+
+
 def kernel_phase(pa, F):
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -242,66 +330,11 @@ def kernel_phase(pa, F):
     digest = hashlib.sha256()  # outputs, in case order
     for c in cases:
         args = paged_case(gen, **c)
-        out = pa.paged_attention(*args)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_ref(*args)
-        torch.testing.assert_close(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)
-        if not torch.equal(out, pa.paged_attention(*args)):
-            raise AssertionError(f"paged_attention at {c}: two launches differ")
+        row, out = paged_row(pa, F, c, args)
         digest.update(out.cpu().numpy().tobytes())
-        err = (out - ref).abs().max().item()
-        max_err = max(max_err, err)
-
-        # timing: enough copies of the pools that they overflow L2
-        q, k, v, tables, qpos = args
-        pool_bytes = 2 * k.numel() * k.element_size()
-        n_copies = max(2, min(64, math.ceil(3 * L2_BYTES / pool_bytes)))
-        sets = [(q, k.clone(), v.clone(), tables, qpos) for _ in range(n_copies)]
-        ms = gpu_time_ms(pa.paged_attention, sets, 100)
-        plain_ms = gpu_time_ms(pa.paged_attention_ref, sets, 20)
-        # yardstick: SDPA over the pages already gathered (the gather untimed)
-        b, s, h, d = q.shape
-        nb, bs = tables.shape[1], k.shape[1]
-        tl = tables.long()
-        mask = (torch.arange(nb * bs, device="cuda")[None, None, :] <= qpos.long()[:, :, None])[:, None]
-        lib_sets = [
-            (
-                q.float().transpose(1, 2),
-                kc[tl].reshape(b, nb * bs, -1, d).transpose(1, 2).float().contiguous(),
-                vc[tl].reshape(b, nb * bs, -1, d).transpose(1, 2).float().contiguous(),
-                mask,
-            )
-            for _, kc, vc, _, _ in sets
-        ]
-
-        def sdpa(qq, kk, vv, mm):
-            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mm, enable_gqa=True)
-
-        library_ms = gpu_time_ms(sdpa, lib_sets, 20)
-        fma_ms, fma_by = paged_bound_ms(q, k, tables, qpos)
-        plan = pa.paged_split_plan(b, s, h, k.shape[2], d, nb, bs)
-        bound_ms, bound_by = fma_ms, fma_by
-        simt16 = {}
-        if plan.row_tile == 64:  # TF32 products: an fp32 operand takes a second term
-            pool32 = k.dtype == torch.float32
-            terms = (1 + (q.dtype == torch.float32) + pool32, 2 + pool32)
-            bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, terms)
-            # the SIMT 16-row tiles these rows took before the tensor cores, timed beside
-            p16 = pa.paged_split_plan(b, s, h, k.shape[2], d, nb, bs, row_tile=16).splits
-            torch.testing.assert_close(pa.paged_attention(*args, row_tile=16), ref,
-                                       rtol=KERNEL_TOL, atol=KERNEL_TOL)
-            simt16 = dict(simt16_ms=gpu_time_ms(
-                lambda *a: pa.paged_attention(*a, row_tile=16), sets, 100), simt16_splits=p16)
-        row = dict(
-            shape=f"B={b} S={s} H={h} KV={k.shape[2]} D={d} bs={bs} NB={nb} qpos={c['kind']}",
-            q=str(c["qdt"]).replace("torch.", ""), pools=str(c["pdt"]).replace("torch.", ""),
-            variant=plan.variant, splits=plan.splits, row_tile=plan.row_tile,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bound_fp32_fma_ms=fma_ms, **simt16,
-        )
+        max_err = max(max_err, row["max_abs_err"])
         rows.append(row)
         print("[kernel] " + json.dumps(row))
-        del sets, lib_sets
 
     # garbage table entries past every slot's horizon: clipped and fenced
     q, k, v, tables, _ = paged_case(gen, b=4, s=1, nb=10, qdt=bf16, pdt=f32, kind="mixed")
@@ -318,8 +351,30 @@ def kernel_phase(pa, F):
         bad_out, pa.paged_attention_ref(q, k, v, bad, qpos), rtol=KERNEL_TOL, atol=KERNEL_TOL
     )
     print("[kernel] garbage-table fence: identical output")
-    print(f"[kernel] {len(cases)} cases within rtol=atol={KERNEL_TOL}, each repeated bit for bit")
-    return rows, max_err, digest.hexdigest()[:16]
+
+    # speculative verify chunks (1 + spec_k rows a slot), outside the
+    # digest so that the earlier cases' digest stays comparable
+    vgen = torch.Generator(device="cuda").manual_seed(6)
+    verify = [
+        dict(b=4, s=5, nb=10, qdt=bf16, pdt=f32, kind="mixed"),  # k=4: 40 rows, 16-row tile
+        dict(b=4, s=5, nb=10, qdt=f32, pdt=f32, kind="mixed"),
+        dict(b=4, s=5, nb=128, qdt=bf16, pdt=f32, kind="deep"),
+        dict(b=4, s=8, nb=10, qdt=bf16, pdt=f32, kind="mixed"),  # k=7: 64 rows, TF32 tile
+        # one engine step at the prefill width: prefill, verify and decode rows together
+        dict(b=4, s=32, nb=10, qdt=bf16, pdt=f32, kind="engine"),
+    ]
+    v_rows = []
+    for c in verify:
+        row, _ = paged_row(pa, F, c, paged_case(vgen, **c))
+        row["verify_rows"] = c["s"] * 8
+        max_err = max(max_err, row["max_abs_err"])
+        v_rows.append(row)
+        print("[kernel-verify] " + json.dumps(row))
+    if v_rows[0]["row_tile"] != 16 or v_rows[3]["row_tile"] != 64:
+        raise AssertionError(f"verify chunks took tiles {[r['row_tile'] for r in v_rows]}")
+    print(f"[kernel] {len(cases)} + {len(verify)} verify cases within rtol=atol={KERNEL_TOL}, "
+          "each repeated bit for bit")
+    return rows, v_rows, max_err, digest.hexdigest()[:16]
 
 
 def _cast(params, dtype):
@@ -407,6 +462,216 @@ def reduced_streams_agree(serve):
     if kernel.shape != (4, 8) or not (kernel == gather).all():
         raise AssertionError(f"reduced serve: kernel route {kernel.tolist()} != gather {gather.tolist()}")
     print(f"[route] reduced serve, 4 requests: kernel and gather streams identical {kernel[0].tolist()}")
+
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)  # the sampled runs' controls
+SPEC_K = 4
+SHARE_MIN = 0.9  # full width, fp32: least share of tokens equal to the sampled paged run's
+
+
+def _engine_run(S, cfg, params, reqs, dev="cuda", draft=None, **skw):
+    """Serve ``reqs`` through a fresh engine; returns (engine, rid -> tokens)."""
+    kw = dict(draft_cfg=draft[0], draft_params=draft[1]) if draft else {}
+    eng = S.ContinuousBatchingEngine(cfg, params, S.ServeConfig(**skw), device=dev, **kw)
+    for r in reqs:
+        eng.submit(r)
+    return eng, eng.run()
+
+
+def _pages_back_and_zero(eng, what):
+    if eng.slots.allocator.n_free != eng.slots.n_blocks:
+        raise AssertionError(f"{what}: {eng.slots.n_blocks - eng.slots.allocator.n_free} pages "
+                             "not back in the pool")
+    if any(layer["k"].any() or layer["v"].any() for layer in eng.slots.cache):
+        raise AssertionError(f"{what}: a freed page does not read zero")
+
+
+def reduced_features_agree(lm, S, get_config):
+    """The reduced fp32 qwen2.5-3b on the card (2 layers, G = 2, D = 32):
+    6 sampled requests through the paged engine on the kernel and the
+    gather route, under swap preemption, speculating 4 tokens with a
+    1-layer drafter (10 verify rows a KV head: the 16-row tile), through
+    the contiguous engine, and each request through the lock-step oracle:
+    every stream identical."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    dcfg = cfg.reduced(n_layers=1)
+    params, dparams = lm.init_params(cfg, 0, "cuda"), lm.init_params(dcfg, 1, "cuda")
+
+    def wl():
+        return S.poisson_workload(cfg, n_requests=6, arrival_rate=2.0, prompt_len=(3, 7),
+                                  gen_len=(8, 12), seed=5, **SAMPLED)
+
+    base = dict(max_slots=3, max_seq=24, prefill_chunk=8, decode_widths=(1, SPEC_K + 1))
+    paged = dict(base, block_size=4)
+    runs = {
+        "paged kernel": dict(paged, attn_kernel=True),
+        "paged gather": dict(paged, attn_kernel=False),
+        "swap kernel": dict(paged, n_blocks=9, preempt="swap"),
+        "swap gather": dict(paged, n_blocks=9, preempt="swap", attn_kernel=False),
+        "spec kernel": dict(paged, n_blocks=9, spec_k=SPEC_K),
+        "spec gather": dict(paged, n_blocks=9, spec_k=SPEC_K, attn_kernel=False),
+        "contiguous": dict(base),
+    }
+    outs, notes = {}, {}
+    for name, skw in runs.items():
+        draft = (dcfg, dparams) if "spec" in name else None
+        eng, outs[name] = _engine_run(S, cfg, params, wl(), draft=draft, **skw)
+        st = eng.stats()
+        notes[name] = (st["swap_preemptions"], st["spec_accepted"], st["spec_proposed"])
+        if "swap" in name and not st["swap_preemptions"]:
+            raise AssertionError(f"reduced {name}: the pool never pressured")
+    outs["lockstep"] = {r.rid: S.generate_reference(cfg, params, r.prompt, r.max_new_tokens,
+                                                    max_seq=24, sampling=r.sampling)
+                        for r in wl()}
+    ref = outs["paged kernel"]
+    for name, out in outs.items():
+        for rid in ref:
+            if not (out[rid].shape == ref[rid].shape and (out[rid] == ref[rid]).all()):
+                raise AssertionError(f"reduced serve: {name} rid {rid} {out[rid].tolist()} != "
+                                     f"paged kernel {ref[rid].tolist()}")
+    print(f"[route] reduced serve, 6 sampled requests: {len(outs)} runs identical (paged "
+          f"kernel/gather, swap, spec_k={SPEC_K} with a 1-layer drafter, contiguous, lock-step); "
+          f"(swaps, accepted, proposed) {notes}; first stream {ref[0].tolist()}")
+
+
+def _feature_runs(cfg, lm, pa, ops, S, params, dparams, tag):
+    """The runs of :func:`serve_features_phase` at one precision of the
+    params; returns (rid -> tokens per run, summaries, paged launches)."""
+    reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=128, gen_len=32, seed=0,
+                   uniform_prompts=True, **SAMPLED)
+
+    def wl():
+        return S.poisson_workload(cfg, **reqs_kw)
+
+    base = dict(max_slots=4, max_seq=160, prefill_chunk=32)
+    paged = dict(base, block_size=16)
+    dcfg = dataclasses.replace(cfg, n_layers=4)
+    runs = {
+        "sampled": (dict(paged), None),
+        "swap": (dict(paged, n_blocks=24, preempt="swap"), None),
+        "spec self": (dict(paged, spec_k=SPEC_K, decode_widths=(1, 4, SPEC_K + 1)), None),
+        "spec 4-layer": (dict(paged, spec_k=SPEC_K, decode_widths=(1, 4, SPEC_K + 1)),
+                         (dcfg, dparams)),
+        "continuous": (dict(base), None),
+    }
+    real = ops.paged_attention
+    widths: dict[int, int] = {}
+
+    def recording(q, *a):  # the chunk widths the kernel is called at
+        widths[q.shape[1]] = widths.get(q.shape[1], 0) + 1
+        return real(q, *a)
+
+    outs, summary, launches = {}, {}, 0
+    for name, (skw, draft) in runs.items():
+        widths.clear()
+        ops.paged_attention = recording
+        pa.launches = 0
+        try:
+            t0 = time.perf_counter()
+            eng, outs[name] = _engine_run(S, cfg, params, wl(), draft=draft, **skw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.paged_attention = real
+        n = pa.launches
+        st = eng.stats()
+        step_ms = [t * 1e3 for t in eng.step_times]
+        summary[name] = dict(
+            steps=st["compute_steps"], launches=n, widths=dict(sorted(widths.items())),
+            preemptions=st["preemptions"], swaps=st["swap_preemptions"],
+            swapped_bytes=st["swapped_bytes"], spec_proposed=st["spec_proposed"],
+            spec_accepted=st["spec_accepted"], acceptance=st["acceptance_rate"],
+            draft_steps=st["draft_steps"], tokens_per_s=st["tokens_per_s"],
+            generated_per_s=st["generated_tokens"] / max(st["wall_s"], 1e-9),
+            p50_ms=float(np.percentile(step_ms, 50)), p99_ms=float(np.percentile(step_ms, 99)),
+            wall_s=wall,
+        )
+        if eng.serve_cfg.paged:
+            if n != cfg.n_layers * st["compute_steps"]:
+                raise AssertionError(f"{tag} {name}: kernel launches {n} != {cfg.n_layers} x "
+                                     f"{st['compute_steps']} steps")
+            launches += n
+            _pages_back_and_zero(eng, f"{tag} {name}")
+        elif n:
+            raise AssertionError(f"{tag} {name}: the contiguous engine launched the paged kernel")
+        if name == "swap" and not (st["swap_preemptions"] and st["swapped_bytes"]):
+            raise AssertionError(f"{tag} swap run: no swap preemption {st}")
+        if skw.get("spec_k"):
+            if not st["spec_proposed"]:
+                raise AssertionError(f"{tag} {name}: nothing proposed")
+            if SPEC_K + 1 not in widths:
+                raise AssertionError(f"{tag} {name}: no verify step at width {SPEC_K + 1}: {widths}")
+        del eng
+        torch.cuda.empty_cache()
+        print(f"[serve-features] {tag} {name}: " + json.dumps(summary[name]))
+
+    t0 = time.perf_counter()
+    lock = {}
+    for wave in S.lockstep_waves(wl(), base["max_slots"]):
+        out = S.generate_lockstep(cfg, params, np.stack([r.prompt for r in wave]),
+                                  [r.max_new_tokens for r in wave], max_seq=base["max_seq"],
+                                  sampling=[r.sampling for r in wave])
+        lock.update({r.rid: t for r, t in zip(wave, out["tokens"], strict=True)})
+    outs["lockstep"] = lock
+    summary["lockstep"] = dict(wall_s=time.perf_counter() - t0)
+
+    ref = outs["sampled"]
+    gen = np.stack([ref[r] for r in sorted(ref)])
+    if gen.shape != (8, 32) or gen.min() < 0 or gen.max() >= cfg.vocab:
+        raise AssertionError(f"{tag} sampled run: tokens {gen.shape} in {gen.min()}..{gen.max()}")
+    for name, out in outs.items():
+        if name != "sampled":
+            other = np.stack([out[r] for r in sorted(ref)])
+            summary[name]["share_equal"] = float((other == gen).mean())
+    return outs, summary, launches
+
+
+def serve_features_phase(cfg, lm, pa, ops, S, params):
+    """The rest of serving at full width and depth (qwen2.5-3b, the serve
+    phase's bf16 params, fp32 caches): 8 sampled requests (temperature
+    0.8, top-k 50, top-p 0.95, a seed each; prompt 128, gen 32, 4 slots)
+    through the paged engine; through a pool too small for them (swap
+    preemption); speculating 4 tokens self-drafted and with a full-width
+    4-layer drafter (random, so that it rejects); through the contiguous
+    engine; and through the lock-step baseline. Checks every page back
+    and zero, ``paged_attention`` launched once a layer a target step of
+    each paged run, the verify steps at width 5 on the 16-row tile.
+
+    Then the same runs with an exact fp32 copy of the params, and the
+    share of tokens equal to the sampled paged run's. With bf16 params a
+    step whose shapes or attention route differ rounds its bf16
+    activations otherwise, 36 layers of random weights grow that into
+    logits a few percent apart (``route_check``), and a sampled stream
+    leaves the other at the first draw that flips: the bf16 shares are
+    printed as measured. In fp32 the runs differ in summation order only,
+    and every share must reach SHARE_MIN. Returns the launches of the
+    paged runs, the summaries by precision and the verify step's plan."""
+    dcfg = dataclasses.replace(cfg, n_layers=4)
+    dparams = lm.init_params(dcfg, 1, "cuda")
+    summaries, launches = {}, 0
+    for tag in ("bfloat16", "float32"):
+        p = params if tag == "bfloat16" else _cast(params, torch.float32)
+        dp = dparams if tag == "bfloat16" else _cast(dparams, torch.float32)
+        _, summaries[tag], n = _feature_runs(cfg, lm, pa, ops, S, p, dp, tag)
+        launches += n
+        del p, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dparams
+    plan = pa.paged_split_plan(4, SPEC_K + 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 10, 16)
+    g = cfg.n_heads // cfg.n_kv_heads
+    print(f"[serve-features] verify step (S={SPEC_K + 1}, {(SPEC_K + 1) * g} rows a KV head): "
+          f"{plan.variant}")
+    if plan.row_tile != 16:
+        raise AssertionError(f"the verify step takes the {plan.row_tile}-row tile")
+    shares = {tag: {k: v["share_equal"] for k, v in summ.items() if "share_equal" in v}
+              for tag, summ in summaries.items()}
+    print(f"[serve-features] tokens equal to the sampled paged run's: {json.dumps(shares)} "
+          f"(float32 limit {SHARE_MIN})")
+    low = {k: v for k, v in shares["float32"].items() if v < SHARE_MIN}
+    if low:
+        raise AssertionError(f"fp32 full-width runs part from the sampled one: {low}")
+    return launches, summaries, plan
 
 
 def step_profile(cfg, lm, params, dev="cuda"):
@@ -1127,6 +1392,12 @@ def _rotations(nbytes: int) -> int:
     return max(2, min(64, math.ceil(3 * L2_BYTES / max(nbytes, 1))))
 
 
+def importance_library(dy):
+    """One library call for ``importance``'s function: the column L1 norm
+    accumulated in fp32, over the rows."""
+    return torch.linalg.vector_norm(dy, 1, dim=0, dtype=torch.float32) / dy.shape[0]
+
+
 def lm_kernel_phase(gm, lm, cfg, policy):
     """``matmul`` and ``importance`` against their plain versions at
     every shape of the LM path, bf16 and fp32; times and bounds."""
@@ -1190,10 +1461,11 @@ def lm_kernel_phase(gm, lm, cfg, policy):
                               for _ in range(_rotations(nbytes) - 1)]
             ms = gpu_time_ms(gm.importance, sets, 50)
             plain_ms = gpu_time_ms(gm.importance_ref, sets, 20)
+            library_ms = gpu_time_ms(importance_library, sets, 50)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n / FP32_FLOPS
             row = dict(name="importance", shape=f"dY[{m},{n}]", dtype=str(dtype).replace(
                 "torch.", ""), launches_per_step=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations", flops=2 * m * n)
             rows.append(row)
             print("[lm-kernels] " + json.dumps(row))
@@ -1344,7 +1616,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
         return 1
-    import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
@@ -1355,6 +1626,7 @@ def main() -> int:
     from repro_torch.kernels import gathered_matmul as gm
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch import serve as serve_pkg
     from repro_torch.launch import serve
     from repro_torch.launch import steps as lm_steps
     from repro_torch.launch import train
@@ -1385,7 +1657,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # 3. kernel phase
-    rows, max_err, paged_digest = kernel_phase(pa, F)
+    rows, v_rows, max_err, paged_digest = kernel_phase(pa, F)
 
     # 4. gathered-kernel phase
     g_rows, g_err = gathered_phase(gm, ops, resnet, policy_mod, paged_digest)
@@ -1398,9 +1670,9 @@ def main() -> int:
     print(f"[route] init_params full width in {time.perf_counter() - t0:.1f} s")
     route_rel = route_check(cfg, lm, params)
     step_profile(cfg, lm, params)
-    del params
     torch.cuda.empty_cache()
     reduced_streams_agree(serve)
+    reduced_features_agree(lm, serve_pkg, get_config)
 
     # 6. serve phase: the port's entry point, counted
     argv = ["--arch", "qwen2.5-3b", "--batch", "4", "--requests", "8",
@@ -1433,6 +1705,14 @@ def main() -> int:
           f"paged_attention launches {launches} = {cfg.n_layers} x {steps}")
     print("[serve] first request tokens:", gen[0][:16].tolist())
     del out
+    torch.cuda.empty_cache()
+
+    # 6b. the rest of serving at full width: sampling, swap, speculation,
+    # the contiguous cache and the lock-step baseline, counted
+    feat_launches, feat_summary, verify_plan = serve_features_phase(
+        cfg, lm, pa, ops, serve_pkg, params)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 7. training-route check at full width
@@ -1471,16 +1751,22 @@ def main() -> int:
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
                 and r["q"] == "bfloat16" and r["pools"] == "float32")
+    vrow = v_rows[0]  # a k=4 verify chunk of the main path's slots, the 16-row tile
     kernels = [dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
-        launches=launches, max_abs_err=max_err,
+        launches=launches + feat_launches,
+        launches_by_path={"serve": launches, "serve_features": feat_launches},
+        max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         shape=head["shape"] + " q=bfloat16 pools=float32",
         step_ms=cfg.n_layers * head["ms"],  # one engine step: a launch a layer
         route_rel_l2_fp32=route_rel["fp32"],
+        verify={k: vrow[k] for k in ("shape", "variant", "splits", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+        | {"plan": verify_plan.variant},
     )]
     for name, replaces in GATHERED.items():
         mine = [r for r in g_rows if r["name"] == name]
@@ -1517,6 +1803,7 @@ def main() -> int:
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[ddpm-train] route rel L2 {ddpm_rel}; step medians {ddpm_ms}")
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")
+    print(f"[serve-features] {json.dumps(feat_summary)}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

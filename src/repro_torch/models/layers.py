@@ -146,7 +146,7 @@ def attn_init(gen, cfg, dtype=torch.bfloat16, device="cuda"):
 
 def paged_write_index(block_tables, positions, token_valid, block_size):
     """Where this step's real tokens go in a page pool: ``(rows, cols,
-    page, off)``, so that token ``[rows[i], cols[i]]`` is written at
+    (page, off))``, so that token ``[rows[i], cols[i]]`` is written at
     ``pool[page[i], off[i]]``. The token at absolute position p of slot
     b sits in page ``block_tables[b, p // block_size]`` (block index
     clipped to the table, as the JAX package does) at offset ``p %
@@ -158,7 +158,18 @@ def paged_write_index(block_tables, positions, token_valid, block_size):
     blk = torch.clamp(logical // block_size, 0, block_tables.shape[1] - 1)
     page = torch.gather(block_tables.long(), 1, blk)  # [B,S]
     rows, cols = token_valid.nonzero(as_tuple=True)
-    return rows, cols, page[rows, cols], (logical % block_size)[rows, cols]
+    return rows, cols, (page[rows, cols], (logical % block_size)[rows, cols])
+
+
+def slot_write_index(positions, token_valid, t):
+    """Where this step's real tokens go in a contiguous cache ``[B, t,
+    KV, hd]``: ``(rows, cols, (rows, tgt))``, so that token ``[rows[i],
+    cols[i]]`` is written at ``cache[rows[i], tgt[i]]``, its absolute
+    position. Invalid tokens and positions past the cache are left out,
+    as the JAX package's out-of-range ``mode="drop"`` scatter does."""
+    keep = token_valid & (positions < t)
+    rows, cols = keep.nonzero(as_tuple=True)
+    return rows, cols, (rows, positions.long()[rows, cols])
 
 
 def masked_attention(q, k, v, *, q_chunk: int = 1024):
@@ -200,7 +211,7 @@ def attn_apply(
     paged_kernel=True,
     site: str = "attn",
 ):
-    """Causal self-attention, full-sequence or over the paged KV cache.
+    """Causal self-attention, full-sequence or over a KV cache.
 
     x [B,S,d]; ``rope`` is :func:`rope_angles` of the tokens' positions,
     the same at every layer of a step, so the stack makes it once. The
@@ -209,16 +220,25 @@ def attn_apply(
     Without ``kv_cache`` (training): causal :func:`masked_attention` over
     the sequence itself.
 
-    With ``kv_cache`` = dict(k, v), one layer's page pool ``[n_pages, bs,
-    KV, D]`` shared by all slots (serving): ``qpos [B,S]`` int32 is each
-    token's absolute position in its slot; slot b's token at position p
-    lives in page ``block_tables[b, p // bs]`` at offset ``p % bs``. This
-    step's K/V are written **in place** into the pools (cast to the pool
-    dtype) at ``write_index`` (:func:`paged_write_index`, which leaves out
-    the invalid tokens). ``paged_kernel=True`` (the default) attends
-    through the paged-attention kernel, which reads the pages in place;
-    ``paged_kernel=False`` takes the gather route, the kernel's plain
-    version :func:`~repro_torch.kernels.paged_attention.paged_attention_ref`.
+    With ``kv_cache`` = dict(k, v) (serving), ``qpos [B,S]`` int32 is each
+    token's absolute position in its slot, and this step's K/V are
+    written **in place** (cast to the cache dtype) at ``write_index``,
+    which leaves out the invalid tokens:
+
+    * with ``block_tables``, the paged layout: ``kv_cache`` is one
+      layer's page pool ``[n_pages, bs, KV, D]`` shared by all slots, and
+      slot b's token at position p lives in page ``block_tables[b, p //
+      bs]`` at offset ``p % bs`` (``write_index`` from
+      :func:`paged_write_index`). ``paged_kernel=True`` (the default)
+      attends through the paged-attention kernel, which reads the pages
+      in place; ``paged_kernel=False`` takes the gather route, the
+      kernel's plain version
+      :func:`~repro_torch.kernels.paged_attention.paged_attention_ref`;
+    * without, the contiguous layout: ``kv_cache`` is ``[B, T, KV, D]``,
+      one row set a slot (``write_index`` from :func:`slot_write_index`).
+      Attention is the plain per-slot causal one, as in the JAX package,
+      which computes this route outside any kernel: the cache read as a
+      pool of B pages of T tokens, slot b's table ``[b]``.
 
     Returns (out [B,S,d], kv_cache).
     """
@@ -234,10 +254,13 @@ def attn_apply(
         out = masked_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
     else:
         k_pool, v_pool = kv_cache["k"], kv_cache["v"]
-        rows, cols, page, off = write_index
-        k_pool[page, off] = k[rows, cols].to(k_pool.dtype)
-        v_pool[page, off] = v[rows, cols].to(v_pool.dtype)
-        if paged_kernel:
+        rows, cols, dest = write_index
+        k_pool[dest] = k[rows, cols].to(k_pool.dtype)
+        v_pool[dest] = v[rows, cols].to(v_pool.dtype)
+        if block_tables is None:
+            tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
+            out = paged_attention_ref(q, k_pool, v_pool, tables, qpos).to(q.dtype)
+        elif paged_kernel:
             out = kops.paged_attention(q, k_pool, v_pool, block_tables, qpos)
         else:
             out = paged_attention_ref(q, k_pool, v_pool, block_tables, qpos).to(q.dtype)

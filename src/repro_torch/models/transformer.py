@@ -2,10 +2,11 @@
 
 The JAX package stacks each period-slot's parameters ``[n_periods, ...]``
 and scans over periods. PyTorch runs eagerly, so here the stack is a
-Python loop over a list of per-layer parameter dicts, and the paged
-cache is a list of per-layer page pools. The period abstraction is kept
-so that the families with heterogeneous layers can join later; only the
-dense family (one attention + MLP slot per period) is ported.
+Python loop over a list of per-layer parameter dicts, and a decode
+cache (paged or contiguous) is a list of per-layer K/V pairs. The period
+abstraction is kept so that the families with heterogeneous layers can
+join later; only the dense family (one attention + MLP slot per period)
+is ported.
 
 Per-site policies: every projection carries a site name
 ``layer_{li}/{attn,mlp}/{proj}`` (:func:`stack_sites`). A
@@ -128,13 +129,14 @@ def stack_init(gen, cfg: ModelConfig, device):
     }
 
 
-def stack_cache_init(cfg: ModelConfig, n_pages, block_size, dtype=torch.bfloat16, *, device="cuda"):
-    """Paged decode cache: one ``{"k", "v"}`` page pool
-    ``[n_pages, block_size, KV, hd]`` per layer. Page id *p* addresses
-    the same pool index at every layer, so one block table serves the
-    whole stack."""
+def stack_cache_init(cfg: ModelConfig, lead, rows, dtype=torch.bfloat16, *, device="cuda"):
+    """Decode cache: one ``{"k", "v"}`` pair ``[lead, rows, KV, hd]`` per
+    layer. Paged, ``lead`` is the page count and ``rows`` the block size:
+    page id *p* addresses the same pool index at every layer, so one
+    block table serves the whole stack. Contiguous, ``lead`` is the slot
+    count and ``rows`` ``max_seq``: slot b owns row set b."""
     period_pattern(cfg)
-    shape = (n_pages, block_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (lead, rows, cfg.n_kv_heads, cfg.head_dim)
     return [
         {
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -163,12 +165,13 @@ def stack_apply(
     :func:`stack_sites` names, scoped per layer here.
 
     Without ``caches`` (training): the full causal sequence, RoPE at
-    ``arange(S)``. With ``caches`` (serving): the paged cache, where
-    ``positions [B,S]`` are each token's absolute position in its slot
-    and ``token_valid [B,S]`` marks the real tokens; the pools are
-    written in place. The int32 query positions, the RoPE angles and the
-    page-write index are the same at every layer, so they are made once
-    here.
+    ``arange(S)``. With ``caches`` (serving): ``positions [B,S]`` are each
+    token's absolute position in its slot and ``token_valid [B,S]`` marks
+    the real tokens; the cache is written in place. With
+    ``block_tables`` it is the paged cache, without them the contiguous
+    one (lock-step decode passes every row the same positions). The
+    int32 query positions, the RoPE angles and the write index are the
+    same at every layer, so they are made once here.
     """
     slots = period_pattern(cfg)
     per_layer = _layer_scopes(policy, cfg.n_layers)
@@ -181,9 +184,12 @@ def stack_apply(
         return x, None
     qpos = positions.to(torch.int32).contiguous()
     rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    write_index = layers.paged_write_index(
-        block_tables, positions, token_valid, caches[0]["k"].shape[1]
-    )
+    if block_tables is None:
+        write_index = layers.slot_write_index(positions, token_valid, caches[0]["k"].shape[1])
+    else:
+        write_index = layers.paged_write_index(
+            block_tables, positions, token_valid, caches[0]["k"].shape[1]
+        )
     for li, p in enumerate(params["layers"]):
         x, caches[li] = _slot_apply(
             p, x, cfg, slots[li % len(slots)], per_layer[li],

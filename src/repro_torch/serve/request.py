@@ -11,11 +11,22 @@ The engine owns the transitions; this module holds the record and its
 bookkeeping (slot, prefill progress, generated tokens, sampling
 parameters, per-token step/latency traces).
 
-**Preemption** is **recompute** (:meth:`Request.preempt`): the cache is
-dropped and :attr:`Request.context` (prompt plus every generated token
-but the newest) is prefilled again on re-admission, which is bit-exact
-for greedy requests. Host swap, the strategy that keeps sampled requests
-exact, is not ported yet.
+**Sampling** is data on the request (:class:`SamplingParams`):
+temperature 0 is greedy; > 0 samples with top-k / top-p from the
+request's PRNG lane. The lane is stateless: the token emitted at cache
+position ``p`` draws under ``fold_in(key_data(seed), p)``, so the stream
+is a pure function of (seed, position), whatever the chunking, slot,
+batch or preemptions.
+
+**Preemption** (paged engine) has two strategies:
+
+* **recompute** (:meth:`Request.preempt`) — the cache is dropped and
+  :attr:`Request.context` (prompt plus every generated token but the
+  newest) is prefilled again on re-admission. Exact for greedy requests
+  only, so it raises for a sampled one;
+* **swap** (:meth:`Request.preempt_swap`) — the engine stages the slot's
+  pages on the host and restores them on re-admission; positions are
+  kept, so the stream is the same. Exact for any request.
 """
 from __future__ import annotations
 
@@ -63,6 +74,13 @@ class SamplingParams:
         """Greedy decode — deterministic without a PRNG lane."""
         return self.temperature == 0.0
 
+    def key_data(self) -> np.ndarray:
+        """The request's base PRNG lane as raw ``uint32[2]`` key data,
+        the layout of ``jax.random.PRNGKey(seed)`` (high word, low word)."""
+        return np.array(
+            [(self.seed >> 32) & 0xFFFFFFFF, self.seed & 0xFFFFFFFF], np.uint32
+        )
+
 
 @dataclasses.dataclass
 class Request:
@@ -75,6 +93,8 @@ class Request:
       arrival: engine tick at which the request becomes visible to
         admission.
       sampling: per-request :class:`SamplingParams` (greedy default).
+      no_spec: opt out of speculative decoding — one token a step even
+        when the engine speculates (the stream is the same either way).
     """
 
     rid: int
@@ -82,15 +102,18 @@ class Request:
     max_new_tokens: int
     arrival: int = 0
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    no_spec: bool = False
 
     # --- engine-owned lifecycle state ---
     state: str = WAITING
     slot: int = -1
     prefilled: int = 0  # context tokens already fed to the model
     generated: list[int] = dataclasses.field(default_factory=list)
-    preemptions: int = 0
+    preemptions: int = 0  # times evicted back to WAITING (paged engine)
     # recompute context after a preemption (None = plain prompt)
     _resume: np.ndarray | None = None
+    # host-swapped cache state (SwappedSlot) awaiting re-admission
+    swap: object | None = None
     # traces (engine ticks / seconds) for latency accounting
     first_token_step: int = -1
     finish_step: int = -1
@@ -133,7 +156,8 @@ class Request:
         if not self.sampling.greedy:
             raise RuntimeError(
                 f"request {self.rid}: recompute preemption of a sampled request "
-                f"(temperature={self.sampling.temperature}) is not bit-exact"
+                f"(temperature={self.sampling.temperature}) is not bit-exact: use "
+                "swap preemption (ServeConfig.preempt='swap' or 'auto')"
             )
         if self.generated:
             self._resume = np.concatenate(
@@ -145,6 +169,23 @@ class Request:
         self.slot = -1
         self.prefilled = 0
         self.preemptions += 1
+
+    def preempt_swap(self, swapped) -> None:
+        """Evict back to WAITING with the cache **swapped** to the host.
+        ``swapped`` is the :class:`~repro_torch.serve.cache.SwappedSlot`
+        the engine got from ``swap_out``; prefill progress and positions
+        are kept, so re-admission restores the exact device state. Exact
+        for greedy and sampled requests alike."""
+        self.swap = swapped
+        self.state = WAITING
+        self.slot = -1
+        self.preemptions += 1
+
+    def resume_from_swap(self) -> None:
+        """Called by the engine after ``swap_in``: drop the host bundle
+        and return to the state the request was evicted in."""
+        self.swap = None
+        self.state = DECODE if self.remaining_prompt == 0 else PREFILL
 
     def tokens(self) -> np.ndarray:
         return np.asarray(self.generated, np.int32)

@@ -10,9 +10,10 @@ scheduler packs work into the batch under a token budget:
 
 Admission is FIFO by (arrival, rid), and under the paged cache also
 gated on the free-page count: a request is admitted only while the pool
-holds enough free pages for its prefill context, and a shortfall blocks
-the whole queue. Generation growth is not reserved; the engine preempts
-the youngest running request when the pool runs dry.
+holds enough free pages for its prefill context (for a swapped-out
+request, the page count of its staged cache), and a shortfall blocks the
+whole queue. Generation growth is not reserved; the engine preempts the
+youngest running request when the pool runs dry.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from repro_torch.serve.request import Request
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine/scheduler configuration (the same fields and checks as the
-    JAX package's; the engine says which values it does not run yet).
+    JAX package's, but for ``attn_kernel``'s default).
 
     Attributes:
       max_slots: batch capacity B — concurrent requests in flight.
@@ -39,13 +40,20 @@ class ServeConfig:
       decode_widths: extra step widths below ``prefill_chunk``; a step
         runs at the smallest width that fits its largest chunk.
       attn_kernel: attend through the paged-attention kernel (pages read
-        in place; the default) instead of the per-layer gather. Unlike the
-        JAX package's, it defaults to on and is not checked against
-        ``block_size``: the paged cache is the only one ported, and the
-        engine refuses the contiguous one.
-      preempt: pool-exhaustion eviction strategy: "recompute", "swap" or
-        "auto" (swap sampled requests, recompute greedy ones).
-      spec_k: draft tokens proposed per decode slot (0 = off).
+        in place) instead of the per-layer gather. Requires the paged
+        cache. Unlike the JAX package's it defaults to the cache: ``None``
+        resolves to on with the paged cache, off with the contiguous one.
+      preempt: pool-exhaustion eviction strategy (paged cache):
+        "recompute" re-prefills the victim's token history (exact for
+        greedy requests only, which ``Request.preempt`` enforces), "swap"
+        stages its pages on the host, "auto" (default) swaps sampled
+        requests and recomputes greedy ones.
+      spec_k: draft tokens proposed per decode slot (speculative
+        decoding; 0 = off). A decoding slot is planned a ``1 + spec_k``
+        chunk (the last committed token and k proposals), verified in one
+        step; the stream is the same as with ``spec_k = 0``. The chunk
+        must fit a step width (``spec_k + 1 <= prefill_chunk``); add
+        ``spec_k + 1`` to ``decode_widths`` to run it unpadded.
     """
 
     max_slots: int
@@ -55,7 +63,7 @@ class ServeConfig:
     block_size: int = 0
     n_blocks: int = 0
     decode_widths: tuple[int, ...] = (1, 4)
-    attn_kernel: bool = True
+    attn_kernel: bool | None = None
     preempt: str = "auto"
     spec_k: int = 0
 
@@ -72,6 +80,13 @@ class ServeConfig:
             raise ValueError("n_blocks must be >= 0 (0 = default pool)")
         if self.n_blocks and not self.block_size:
             raise ValueError("n_blocks requires block_size > 0")
+        if self.attn_kernel is None:
+            object.__setattr__(self, "attn_kernel", self.block_size > 0)
+        if self.attn_kernel and not self.block_size:
+            raise ValueError(
+                "attn_kernel requires the paged cache (block_size > 0): "
+                "the kernel addresses K/V through the block table"
+            )
         if any(w < 1 for w in self.decode_widths):
             raise ValueError("decode_widths must be >= 1")
         if len(set(self.decode_widths)) != len(self.decode_widths):
@@ -143,8 +158,9 @@ class Scheduler:
 
         ``waiting`` must be sorted by (arrival, rid); returns the prefix
         to admit. With the paged cache, ``n_free_blocks`` gates each
-        candidate on the pages its prefill context needs, debited as
-        candidates are accepted; the first shortfall stops admission.
+        candidate on the pages it needs up front (its prefill context, or
+        a swapped-out request's staged page count), debited as candidates
+        are accepted; the first shortfall stops admission.
         """
         out = []
         blocks = n_free_blocks
@@ -152,7 +168,10 @@ class Scheduler:
             if len(out) >= n_free or req.arrival > clock:
                 break
             if self.cfg.paged and blocks is not None:
-                need = -(-req.context_len // self.cfg.block_size)
+                if req.swap is not None:
+                    need = req.swap.n_pages
+                else:
+                    need = -(-req.context_len // self.cfg.block_size)
                 if need > blocks:
                     break
                 blocks -= need
@@ -165,6 +184,10 @@ class Scheduler:
         Decode slots first (round-robin, so a budget smaller than the
         decode count rotates fairly), then prefill chunks by arrival
         order. Slots that don't fit this step's budget are left out.
+
+        With ``spec_k > 0`` a decoding slot is planned ``1 + spec_k``
+        tokens, clamped to its remaining generation budget, to 1 for a
+        ``no_spec`` request, and to the step budget.
         """
         budget = self.cfg.budget
         plan: dict[int, int] = {}
@@ -180,8 +203,13 @@ class Scheduler:
         for s in decoding:
             if budget < 1:
                 break
-            plan[s] = 1
-            budget -= 1
+            req = by_slot[s]
+            n = 1
+            if self.cfg.spec_k and not req.no_spec:
+                remaining = req.max_new_tokens - len(req.generated)
+                n = 1 + max(0, min(self.cfg.spec_k, remaining - 1))
+            plan[s] = min(n, budget)
+            budget -= plan[s]
         for s in prefilling:
             if budget < 1:
                 break

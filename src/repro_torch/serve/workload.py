@@ -1,6 +1,6 @@
 """Synthetic serving workloads: staggered (Poisson) arrivals with
-heterogeneous prompt/generation lengths. The port's own copy of
-``repro.serve.workload.poisson_workload``: the same seed gives the same
+heterogeneous prompt/generation lengths, and a long-tail mix. The port's
+own copy of ``repro.serve.workload``: the same seed gives the same
 requests in both packages."""
 from __future__ import annotations
 
@@ -68,4 +68,37 @@ def poisson_workload(
                 sampling=sp,
             )
         )
+    return reqs
+
+
+def longtail_workload(
+    cfg: ModelConfig,
+    *,
+    n_requests: int,
+    arrival_rate: float = 1.0,
+    prompt_len=(4, 8),  # int or (lo, hi) inclusive
+    gen_short=(3, 6),  # generation range of the short majority
+    gen_long=(24, 32),  # generation range of the long tail
+    tail_frac: float = 0.2,  # share of requests in the tail
+    seed: int = 0,
+    uniform_prompts: bool = False,
+) -> list[Request]:
+    """Long-tail workload: about ``1 - tail_frac`` short requests and a
+    few long ones. A contiguous cache budgets every slot for the tail's
+    worst case; the paged cache spends pages only on the tail requests
+    that grow. The same seed gives the JAX package's requests."""
+    rng = np.random.default_rng(seed)
+    reqs = poisson_workload(
+        cfg,
+        n_requests=n_requests,
+        arrival_rate=arrival_rate,
+        prompt_len=prompt_len,
+        gen_len=gen_short,
+        seed=seed,
+        uniform_prompts=uniform_prompts,
+    )
+    n_tail = max(1, int(round(tail_frac * n_requests)))
+    glo, ghi = (gen_long, gen_long) if isinstance(gen_long, int) else gen_long
+    for i in rng.choice(n_requests, size=n_tail, replace=False):
+        reqs[i].max_new_tokens = int(rng.integers(glo, ghi + 1))
     return reqs

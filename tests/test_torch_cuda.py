@@ -853,3 +853,108 @@ def test_train_ddpm_cli_runs_without_tf32_on_the_card(cuda):
     assert td.step_policy(args, 0.8) == tpolicy.SsPropPolicy(
         0.8, granularity="block", block_size=32, use_pallas=True, target_rate=0.8)
     assert {k: out["launches"][k] for k in per_step} == {k: 2 * v for k, v in per_step.items()}
+
+
+# ----------------------------------------------------------------------
+# serving: speculative verify chunks through paged_attention, sampling
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", _PAIRS)
+@pytest.mark.parametrize("s,kv,d,tile", [(5, 2, 128, 16), (8, 2, 128, 64), (5, 2, 32, 16)])
+def test_paged_attention_at_verify_shapes(cuda, s, kv, d, tile, q_dtype, pool_dtype):
+    """A verify chunk of ``spec_k + 1`` rows a slot: qwen2.5-3b (G = 8) at
+    k = 4 puts 40 rows a KV head on the 16-row SIMT tile, at k = 7 64 rows
+    on the TF32 tile; the reduced config (G = 2, D = 32) at k = 4 10 rows
+    on the 16-row tile. Within rtol=atol=1e-4 of the plain version and
+    the same bits on a second call."""
+    h = 16 if d == 128 else 4
+    args = _inputs(cuda, s=s, h=h, kv=kv, d=d, nb=10, n_pages=40, q_dtype=q_dtype,
+                   pool_dtype=pool_dtype, seed=26)
+    assert tpa.paged_split_plan(4, s, h, kv, d, 10, 16).row_tile == tile
+    before = tpa.launches
+    out = tpa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    torch.testing.assert_close(out, tpa.paged_attention_ref(*args), rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, tpa.paged_attention(*args))
+
+
+@pytest.mark.parametrize("s", [5, 8])
+def test_paged_attention_mixes_verify_decode_and_prefill_rows(cuda, s):
+    """One engine step's call: a prefill chunk from 0, a verify chunk deep
+    in the cache, a decode token and an idle slot, each row at its own
+    position (the rows past a slot's count are the padding the engine
+    ignores, computed all the same)."""
+    q, k, v, tables, _ = _inputs(cuda, s=s, nb=10, n_pages=40, seed=27)
+    starts = torch.tensor([0, 37, 100, 0], dtype=torch.int32, device=cuda)
+    qpos = (starts[:, None] + torch.arange(s, device=cuda)).to(torch.int32)
+    out = tpa.paged_attention(q, k, v, tables, qpos)
+    torch.cuda.synchronize()
+    ref = tpa.paged_attention_ref(q, k, v, tables, qpos)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, tpa.paged_attention(q, k, v, tables, qpos))
+
+
+def test_prng_on_the_card_gives_the_cpu_bits(cuda):
+    """Threefry in int64 words gives the same bits on the card as on the
+    CPU (the CPU ones are jax.random's, tests/test_torch_sampling.py)."""
+    from repro_torch.core import prng
+
+    rng = np.random.default_rng(8)
+    keys = torch.from_numpy(rng.integers(0, 2**32, (64, 2), dtype=np.uint64).astype(np.int64))
+    data = torch.from_numpy(rng.integers(0, 2**31, 64))
+    assert torch.equal(prng.fold_in(keys.to(cuda), data.to(cuda)).cpu(), prng.fold_in(keys, data))
+    assert torch.equal(prng.random_bits(keys.to(cuda), 1000).cpu(), prng.random_bits(keys, 1000))
+    u = prng.uniform(keys.to(cuda), 1000, float(np.finfo(np.float32).tiny), 1.0).cpu()
+    assert torch.equal(u, prng.uniform(keys, 1000, float(np.finfo(np.float32).tiny), 1.0))
+
+
+def test_sampled_swapping_speculative_engine_on_the_card(cuda):
+    """Reduced qwen2.5-3b, fp32, on the card: sampled requests through a
+    pool that forces swap preemption, speculating 4 tokens with a 1-layer
+    drafter (10 verify rows a KV head: the 16-row tile). The kernel route,
+    the gather route and the lock-step oracle give identical streams; the
+    kernel launches once a layer a target step; every page is freed and
+    zero."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as tlm
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        ServeConfig,
+        generate_reference,
+        poisson_workload,
+    )
+
+    cfg = get_config("qwen2.5-3b").reduced()
+    dcfg = cfg.reduced(n_layers=1)
+    params = tlm.init_params(cfg, 0, cuda)
+    dparams = tlm.init_params(dcfg, 1, cuda)
+
+    def wl():
+        return poisson_workload(cfg, n_requests=6, arrival_rate=2.0, prompt_len=(3, 7),
+                                gen_len=(8, 12), seed=5, temperature=0.8, top_k=50, top_p=0.95)
+
+    outs = {}
+    for kernel in (True, False):
+        eng = ContinuousBatchingEngine(
+            cfg, params,
+            ServeConfig(max_slots=3, max_seq=24, prefill_chunk=8, decode_widths=(1, 5),
+                        block_size=4, n_blocks=9, spec_k=4, attn_kernel=kernel),
+            device=cuda, draft_cfg=dcfg, draft_params=dparams,
+        )
+        for r in wl():
+            eng.submit(r)
+        before = tpa.launches
+        outs[kernel] = eng.run()
+        st = eng.stats()
+        assert st["swap_preemptions"] > 0 and st["spec_proposed"] > 0
+        assert tpa.launches - before == (cfg.n_layers * st["compute_steps"] if kernel else 0)
+        assert eng.slots.allocator.n_free == eng.slots.n_blocks
+        assert not any(layer["k"].any() or layer["v"].any() for layer in eng.slots.cache)
+    assert tpa.paged_split_plan(3, 5, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 6, 4).row_tile == 16
+    for r in wl():
+        ref = generate_reference(cfg, params, r.prompt, r.max_new_tokens, max_seq=24,
+                                 sampling=r.sampling, device=cuda)
+        np.testing.assert_array_equal(outs[True][r.rid], ref)
+        np.testing.assert_array_equal(outs[False][r.rid], ref)

@@ -22,7 +22,7 @@ from repro.serve import poisson_workload as jax_poisson_workload
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models import model as tlm
-from repro_torch.serve import ContinuousBatchingEngine, Request, SamplingParams, ServeConfig
+from repro_torch.serve import ContinuousBatchingEngine, Request, ServeConfig
 from repro_torch.serve import poisson_workload
 
 ARCH = "qwen2.5-3b"
@@ -191,30 +191,24 @@ def test_engine_streams_match_jax(model, jax_streams, workload, route):
         assert not layer["k"].any() and not layer["v"].any()
 
 
-@pytest.mark.parametrize("unported", [
-    dict(block_size=0),
-    dict(block_size=4, spec_k=1),
-    dict(block_size=4, preempt="swap"),
-])
-def test_engine_refuses_unported_modes(model, unported):
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec", "vlm"])
+def test_engine_refuses_unported_families(model, family):
+    """Only the dense family is ported: an engine over any other raises
+    when it lays out its cache, paged or contiguous."""
     _, cfg, _, _, params = model
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ContinuousBatchingEngine(
-            cfg, params, ServeConfig(max_slots=2, max_seq=MAX_SEQ, **unported),
-            device="cpu",
-        )
+    other = dataclasses.replace(cfg, family=family)
+    for skw in (dict(block_size=4), {}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            ContinuousBatchingEngine(
+                other, params, ServeConfig(max_slots=2, max_seq=MAX_SEQ, **skw), device="cpu",
+            )
 
 
-def test_engine_refuses_sampled_requests(model):
-    _, cfg, _, _, params = model
-    eng = ContinuousBatchingEngine(
-        cfg, params, ServeConfig(max_slots=2, max_seq=MAX_SEQ, block_size=4),
-        device="cpu",
-    )
-    req = Request(rid=0, prompt=np.arange(3), max_new_tokens=2,
-                  sampling=SamplingParams(temperature=0.7))
+@pytest.mark.parametrize("mesh", [("--data-mesh", "2"), ("--model-mesh", "2")])
+def test_cli_refuses_meshes(mesh):
+    args = tserve.build_parser().parse_args(["--reduced", "--device", "cpu", *mesh])
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.submit(req)
+        tserve.run(args)
 
 
 def test_engine_defaults_to_the_kernel_route(model, monkeypatch):
