@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives ``src/repro_torch`` (never the JAX package) through its serving
-path and its ssProp training paths (ResNet-18, the DDPM UNet, qwen2.5-3b),
-and fails (non-zero exit, no result
-line) on any error:
+path and its ssProp training paths (ResNet-18, the DDPM UNet, qwen2.5-3b,
+mamba2-1.3b), the other decoder-only families (mamba2-1.3b and kimi-k2
+serving at full width, the reduced configs of the seven archs beside
+qwen2.5-3b), and fails (non-zero exit, no result line) on any error:
 
 1. device check: needs CUDA; prints the card's name and power limit and
    turns TF32 off for float32 matmuls and convolutions;
@@ -24,7 +25,10 @@ line) on any error:
    rows on the SIMT 16-row tiles too; then, outside the digest, the
    speculative verify chunks: S = 5 (spec_k = 4: 40 rows a KV head, the
    16-row tile) at NB=10 and 128, S = 8 (64 rows, the TF32 tile), and one
-   engine step's mix of prefill, verify and decode rows at S = 32;
+   engine step's mix of prefill, verify and decode rows at S = 32; then
+   kimi-k2's heads (H=64, KV=8, D=112, which the kernel tiles at 128):
+   decode at NB=10 and 128, a 32-row prefill chunk, a spec_k=4 verify
+   chunk, fp32 queries, bf16 pools;
 4. gathered-kernel phase: ``dx_gathered``, ``dw_gathered``,
    ``conv_dw_fused`` and ``conv_dx_fused`` against their plain versions
    at every shape a sparse ResNet-18 training step launches them with
@@ -125,11 +129,38 @@ line) on any error:
    4, no other kernel, no operand repacked; then a profile of one dense
    and one sparse step, in which the bf16 tensor-core kernel carries all
    504 ``matmul`` launches of the sparse step and the SIMT one none;
-16. prints the card's line, the kernels' JSON line (a gathered kernel's
+16. SSM training: the loss and every gradient leaf of one sparse step of
+   mamba2-1.3b at full width and depth 4 (fp32, B=2, S=512) through
+   ``matmul``, the gather route and the mask oracle, the same kept
+   channels; then ``repro_torch.launch.train.run`` trains mamba2-1.3b at
+   full width and depth (48 layers, bf16, B=4, S=512: two 256-token SSD
+   chunks) for 8 epoch-bar steps: every loss finite, ``matmul`` launched
+   the launch table's 192 times 4, dense and sparse step medians,
+   tokens/s and peak memory;
+17. SSM serving: mamba2-1.3b at full width and depth serves 8 sampled
+   requests (prompt 128, gen 32, 4 slots) through the paged engine, a
+   pool small enough to swap, self-drafted speculation (k=4), the
+   contiguous engine and the lock-step baseline, bf16 and an fp32 copy;
+   the arch has no attention layer, so no kernel runs (checked); every
+   page back, every SSM row zero, the fp32 shares of tokens equal to the
+   paged run's at least 0.9;
+18. MoE serving: kimi-k2 at full width (384 experts, top-8, a shared
+   expert, d 7168, heads of 112), depth cut from 61 to 1, bf16 weights:
+   8 requests through the paged engine on the kernel route (the kernel
+   at head_dim 112) and the gather route; the share of tokens equal
+   between them at least 0.9; tokens/s, p50 and p99 step, peak memory;
+19. the reduced fp32 configs of the seven new archs: the three-route
+   training check (each routed expert's own kept channels, ``matmul``
+   launches equal to the table) and identical greedy and sampled streams through
+   the paged engine on both routes, swap, speculation with a
+   one-period drafter, the contiguous engine and the lock-step oracle;
+20. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases',
-   ``paged_attention``'s the serve phase's and the paged runs' of
-   ``serve_features_phase``, each in ``launches_by_path``, with the verify
-   chunk's times in ``verify``; its times are at the ResNet path's
+   ``paged_attention``'s the serve phase's, the paged runs' of
+   ``serve_features_phase`` and the kimi-k2 serve phase's, ``matmul``'s
+   the qwen2.5-3b and mamba2-1.3b training phases', each in
+   ``launches_by_path``, with the verify chunk's times in ``verify`` and
+   kimi-k2's decode in ``d112``; its times are at the ResNet path's
    largest shape, the DDPM path's in ``ddpm``) and, last, the device
    JSON line.
 """
@@ -212,6 +243,8 @@ def gpu_time_ms(fn, arg_sets, iters) -> float:
 
 
 def paged_case(gen, *, b, s, nb, qdt, pdt, kind, h=16, kv=2, d=128, bs=16, dev="cuda"):
+    """q, pools, a shuffled table and the qpos of one ``paged_attention``
+    case (qwen2.5-3b's heads by default)."""
     n_pages = b * nb
     t = nb * bs
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(qdt)
@@ -374,7 +407,28 @@ def kernel_phase(pa, F):
         raise AssertionError(f"verify chunks took tiles {[r['row_tile'] for r in v_rows]}")
     print(f"[kernel] {len(cases)} + {len(verify)} verify cases within rtol=atol={KERNEL_TOL}, "
           "each repeated bit for bit")
-    return rows, v_rows, max_err, digest.hexdigest()[:16]
+
+    # kimi-k2's heads: D=112 (tiled at 128), 64 query heads over 8 KV heads
+    kgen = torch.Generator(device="cuda").manual_seed(7)
+    kimi = dict(h=64, kv=8, d=112)
+    d112 = [
+        dict(b=4, s=1, nb=10, qdt=bf16, pdt=f32, kind="mixed", **kimi),  # decode
+        dict(b=4, s=1, nb=128, qdt=bf16, pdt=f32, kind="deep", **kimi),
+        dict(b=4, s=32, nb=10, qdt=bf16, pdt=f32, kind="mixed", **kimi),  # prefill chunk
+        dict(b=4, s=5, nb=10, qdt=bf16, pdt=f32, kind="mixed", **kimi),  # spec_k=4 verify
+        dict(b=4, s=1, nb=10, qdt=f32, pdt=f32, kind="mixed", **kimi),
+        dict(b=4, s=32, nb=10, qdt=f32, pdt=bf16, kind="mixed", **kimi),
+    ]
+    k_rows = []
+    for c in d112:
+        row, _ = paged_row(pa, F, c, paged_case(kgen, **c))
+        max_err = max(max_err, row["max_abs_err"])
+        k_rows.append(row)
+        print("[kernel-112] " + json.dumps(row))
+    print(f"[kernel-112] {len(d112)} cases at kimi-k2's heads (D=112 tiled at "
+          f"{pa.padded_dim(112)}, chunks of {pa.chunk_keys(112)} keys) within rtol=atol="
+          f"{KERNEL_TOL}, each repeated bit for bit")
+    return rows, v_rows, k_rows, max_err, digest.hexdigest()[:16]
 
 
 def _cast(params, dtype):
@@ -482,8 +536,8 @@ def _pages_back_and_zero(eng, what):
     if eng.slots.allocator.n_free != eng.slots.n_blocks:
         raise AssertionError(f"{what}: {eng.slots.n_blocks - eng.slots.allocator.n_free} pages "
                              "not back in the pool")
-    if any(layer["k"].any() or layer["v"].any() for layer in eng.slots.cache):
-        raise AssertionError(f"{what}: a freed page does not read zero")
+    if any(t.any() for layer in eng.slots.cache for t in layer.values()):
+        raise AssertionError(f"{what}: a freed page or SSM row does not read zero")
 
 
 def reduced_features_agree(lm, S, get_config):
@@ -674,7 +728,7 @@ def serve_features_phase(cfg, lm, pa, ops, S, params):
     return launches, summaries, plan
 
 
-def step_profile(cfg, lm, params, dev="cuda"):
+def step_profile(cfg, lm, params, dev="cuda", tag="[profile]"):
     """Where one step of the main path spends its time: a decode step
     (4 slots, 1 token each) and a mixed step (two prefill chunks of 32,
     two decodes) at 10 pages a slot through the kernel route. Host wall
@@ -709,10 +763,10 @@ def step_profile(cfg, lm, params, dev="cuda"):
             run()
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"[profile] {name} step (B={b} C={c} NB={nb}): host wall {wall_ms:.3f} ms, "
+        print(f"{tag} {name} step (B={b} C={c} NB={nb}): host wall {wall_ms:.3f} ms, "
               f"device busy {busy_ms:.3f} ms in {sum(e.count for e in kernels)} kernels")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+            print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
         out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
     return out
 
@@ -1612,6 +1666,387 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
     return out
 
 
+# ----------------------------------------------------------------------
+# the decoder-only families: mamba2 training and serving, kimi-k2
+# serving, the reduced configs of the seven new archs
+# ----------------------------------------------------------------------
+
+SSM_ARCH, SSM_BATCH, SSM_SEQ = "mamba2-1.3b", 4, 512  # two 256-token SSD chunks
+MOE_ARCH, MOE_DEPTH = "kimi-k2-1t-a32b", 1  # full width; 61 layers cut to 1
+NEW_ARCHS = ("nemotron-4-15b", "deepseek-67b", "mistral-large-123b",
+             "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-1.3b",
+             "jamba-1.5-large-398b")
+EXPERT_SITES = ("moe/gate", "moe/up", "moe/down")
+
+
+def _median(v):
+    v = sorted(v)
+    return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2
+
+
+def _site_of(params, cfg):
+    """Weight pointer -> (site, expert or None) of every sparse site."""
+    out = {}
+    for li, layer in enumerate(params["stack"]["layers"]):
+        for role in ("attn", "mlp", "ssm", "moe"):
+            for name, p in layer.get(role, {}).items():
+                site = f"layer_{li}/{role}/{name}"
+                if role == "moe" and name in ("gate", "up", "down"):
+                    for e in range(cfg.n_experts):
+                        out[p[e].data_ptr()] = (site, e)
+                elif role == "moe" and name == "shared":
+                    for proj, w in p.items():
+                        out[w["w"].data_ptr()] = (f"{site}/{proj}", None)
+                elif isinstance(p, dict) and "w" in p:
+                    out[p["w"].data_ptr()] = (site, None)
+    return out
+
+
+def family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, batch, seq, tag):
+    """The loss and every gradient leaf of one sparse step (0.8, channel
+    top-k) three ways: through ``matmul``, the gather route and the mask
+    oracle, fp32 with TF32 off. The same kept channels at every site (a
+    routed expert's own), the same loss, every leaf within
+    TRAIN_ROUTE_TOL of the others, and the kernel route's ``matmul``
+    launches equal to the launch table's."""
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device="cuda")
+    pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(cfg.vocab, seq, batch, 0))
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(0).items()}
+    kern = lm_policy(policy_mod)
+    routes = {"matmul": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    site_of = _site_of(params, cfg)
+    res, launches = {}, 0
+    for name, pol in routes.items():
+        before = gm.launches["matmul"]
+        with backward.record_selections() as log:
+            (loss, metrics), grads = steps.value_and_grad(
+                lambda p, pol=pol: lm.loss_fn(cfg, p, b, pol), params)
+        torch.cuda.synchronize()
+        if name == "matmul":
+            launches = gm.launches["matmul"] - before
+        res[name] = (loss.item(), _named_leaves(grads), {site_of[p]: s.idx for p, s in log},
+                     float(metrics["aux"]))
+        del grads
+    expect = lm.kernel_launches_per_step(cfg, kern)["matmul"]
+    if launches != expect:
+        raise AssertionError(f"{tag}: matmul launches {launches} != launch table {expect}")
+    n_sel = sum(cfg.n_experts if s.split("/", 1)[1] in EXPERT_SITES else 1
+                for s in lm.site_names(cfg)[0])
+    worst, worst_leaf = {}, {}
+    for a, c in (("matmul", "gather"), ("matmul", "mask"), ("gather", "mask")):
+        if sorted(res[a][2], key=str) != sorted(res[c][2], key=str) or len(res[a][2]) != n_sel:
+            raise AssertionError(f"{tag} {a} vs {c}: selected at {len(res[a][2])} / "
+                                 f"{len(res[c][2])} sites, expected {n_sel}")
+        if abs(res[a][0] - res[c][0]) > TRAIN_ROUTE_TOL * abs(res[c][0]):
+            raise AssertionError(f"{tag} loss {a} {res[a][0]} != {c} {res[c][0]}")
+        flips = [k for k in res[a][2] if not torch.equal(res[a][2][k], res[c][2][k])]
+        bad, top, top_path = [], 0.0, ""
+        for (path, ga), (_, gb) in zip(res[a][1], res[c][1], strict=True):
+            n = gb.float().norm().item()
+            rel = (ga.float() - gb.float()).norm().item() / n if n > 0 else ga.norm().item()
+            if rel > top:
+                top, top_path = rel, path
+            if rel > TRAIN_ROUTE_TOL:
+                bad.append(f"{path} {rel:.3e}")
+        worst[f"{a}_vs_{c}"] = top
+        worst_leaf[f"{a}_vs_{c}"] = top_path
+        if flips or bad:
+            raise AssertionError(f"{tag} {a} vs {c}: selection differs at {flips[:5]}; leaves "
+                                 f"over {TRAIN_ROUTE_TOL}: {bad[:5]}")
+    print(f"{tag} {cfg.name} d={cfg.d_model} depth {cfg.n_layers}, B={batch} S={seq}, fp32, one "
+          f"sparse step: the same kept channels at all {n_sel} selections; loss "
+          f"{res['matmul'][0]:.6f}, aux {res['matmul'][3]:.6f}; {len(res['matmul'][1])} leaves, "
+          "worst relative L2 " + ", ".join(f"{k} {v:.3e} ({worst_leaf[k]})"
+                                           for k, v in worst.items())
+          + f" (limit {TRAIN_ROUTE_TOL}); matmul launches {launches} = the table's; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del params
+    return worst, launches
+
+
+def ssm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
+    """Where one dense and one sparse mamba2-1.3b training step (full
+    width and depth, bf16, B=4, S=512) spend their time
+    (:func:`profile_step`)."""
+    pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(cfg.vocab, SSM_SEQ, SSM_BATCH, 0))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(0).items()}
+    params = lm.init_params(cfg, 0, device="cuda")
+    opt = adam.init(params)
+    ocfg = adam.AdamConfig(lr=2e-4, clip_norm=1.0)
+    out = {}
+    for name, pol in (("dense", policy_mod.DENSE), ("sparse", lm_policy(policy_mod))):
+        fn = steps.make_train_step(cfg, pol, ocfg)
+
+        def step():
+            _, _, m = fn(params, opt, batch)  # in place
+            return m["loss"].item()  # waits for the step
+
+        wall_ms, busy_ms, _ = profile_step("[ssm-profile]", name, step)
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    del params, opt
+    return out
+
+
+def ssm_training_phase(train, lm, steps, backward, gm, pa, policy_mod, pipeline, get_config):
+    """mamba2-1.3b at full width and depth (48 layers, d 2048, d_inner
+    4096, state 128, 64 SSM heads): first a route check at depth 4 in
+    fp32, then the port's LM entry point for 8 epoch-bar steps (2, 3, 6,
+    7 sparse) on bf16 params, B=4, S=512 (two 256-token SSD chunks, so
+    the cross-chunk recurrence runs), ``paper_default(0.8)`` with
+    ``--use-pallas``. Every loss finite, ``matmul`` launched the launch
+    table's count x 4, ``paged_attention`` not at all."""
+    cfg = get_config(SSM_ARCH)
+    rcfg = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    worst, _ = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, rcfg, 2,
+                                  SSM_SEQ, "[ssm-route]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", SSM_ARCH, "--steps", "8", "--steps-per-epoch", "2", "--global-batch",
+            str(SSM_BATCH), "--seq-len", str(SSM_SEQ), "--drop-rate", str(LM_RATE),
+            "--granularity", "channel", "--use-pallas", "--log-every", "1", "--device", "cuda"]
+    per_step = lm.kernel_launches_per_step(cfg, lm_policy(policy_mod))
+    torch.cuda.reset_peak_memory_stats()
+    pa_before, mm_before = pa.launches, gm.launches["matmul"]
+    t0 = time.perf_counter()
+    out = train.run(train.build_parser().parse_args(argv))
+    wall = time.perf_counter() - t0
+    launches = gm.launches["matmul"] - mm_before
+    sparse = [i for i, r in enumerate(out["rates"]) if r > 0]
+    if sparse != [2, 3, 6, 7]:
+        raise AssertionError(f"sparse steps {sparse}, expected [2, 3, 6, 7]")
+    if not all(math.isfinite(v) for v in out["history"]):
+        raise AssertionError(f"non-finite loss: {out['history']}")
+    if launches != per_step["matmul"] * 4 or per_step["matmul"] != 2 * 2 * cfg.n_layers:
+        raise AssertionError(f"matmul launches {launches} != {per_step['matmul']} x 4")
+    if pa.launches != pa_before:
+        raise AssertionError("the SSM training phase launched paged_attention")
+    ms = [t * 1e3 for t in out["step_times"]]
+    dense_ms = _median([ms[i] for i in range(8) if i not in sparse])
+    sparse_ms = _median([ms[i] for i in sparse])
+    tokens = SSM_BATCH * SSM_SEQ
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[ssm-train] {SSM_ARCH} full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, {cfg.n_ssm_heads} "
+          f"heads), bf16, B={SSM_BATCH} S={SSM_SEQ}: 8 steps in {wall:.2f} s; losses "
+          f"{[round(v, 4) for v in out['history']]}")
+    print(f"[ssm-train] step ms {[round(v, 2) for v in ms]}; dense median {dense_ms:.2f} ms "
+          f"({tokens / dense_ms * 1e3:.0f} tokens/s), sparse median {sparse_ms:.2f} ms "
+          f"({tokens / sparse_ms * 1e3:.0f} tokens/s); peak memory {peak:.2f} GiB; matmul "
+          f"launches {launches} = {per_step['matmul']} x 4")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.optim import adam
+
+    prof = ssm_profile(lm, steps, adam, policy_mod, pipeline, cfg)
+    return launches, dict(dense_ms=dense_ms, sparse_ms=sparse_ms, peak_gib=peak,
+                          route_worst=worst, profile=prof)
+
+
+def _family_runs(S, cfg, params, tag, runs, reqs_kw, pa, lock_seq):
+    """Each named run of ``runs`` (ServeConfig fields, drafter) through a
+    fresh engine, then, given ``lock_seq``, the lock-step baseline (in
+    waves when the prompts are one length, else request by request);
+    returns (rid -> tokens per run, summaries, paged_attention launches of
+    the paged runs)."""
+    def wl():
+        return S.poisson_workload(cfg, **reqs_kw)
+
+    outs, summary, launches = {}, {}, 0
+    for name, (skw, draft) in runs.items():
+        pa.launches = 0
+        t0 = time.perf_counter()
+        eng, outs[name] = _engine_run(S, cfg, params, wl(), draft=draft, **skw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        step_ms = [t * 1e3 for t in eng.step_times]
+        n = pa.launches
+        summary[name] = dict(
+            steps=st["compute_steps"], launches=n, swaps=st["swap_preemptions"],
+            swapped_bytes=st["swapped_bytes"], spec_proposed=st["spec_proposed"],
+            spec_accepted=st["spec_accepted"], tokens_per_s=st["tokens_per_s"],
+            p50_ms=float(np.percentile(step_ms, 50)), p99_ms=float(np.percentile(step_ms, 99)),
+            wall_s=wall,
+        )
+        if eng.serve_cfg.paged:
+            _pages_back_and_zero(eng, f"{tag} {name}")
+            n_attn = sum(1 for layer in eng.slots.cache if "k" in layer)
+            want = n_attn * st["compute_steps"] if eng.serve_cfg.attn_kernel else 0
+            if n != want:
+                raise AssertionError(f"{tag} {name}: paged_attention launches {n} != {want}")
+            launches += n
+        if "swap" in name and not (st["swap_preemptions"] and st["swapped_bytes"]):
+            raise AssertionError(f"{tag} {name}: no swap preemption {st}")
+        if skw.get("spec_k") and not st["spec_proposed"]:
+            raise AssertionError(f"{tag} {name}: nothing proposed")
+        del eng
+        torch.cuda.empty_cache()
+        print(f"{tag} {name}: " + json.dumps(summary[name]))
+    if lock_seq:
+        t0 = time.perf_counter()
+        lock, reqs = {}, wl()
+        if len({r.prompt_len for r in reqs}) == 1:
+            for wave in S.lockstep_waves(reqs, runs[next(iter(runs))][0]["max_slots"]):
+                out = S.generate_lockstep(cfg, params, np.stack([r.prompt for r in wave]),
+                                          [r.max_new_tokens for r in wave], max_seq=lock_seq,
+                                          sampling=[r.sampling for r in wave])
+                lock.update({r.rid: t for r, t in zip(wave, out["tokens"], strict=True)})
+        else:
+            lock = {r.rid: S.generate_reference(cfg, params, r.prompt, r.max_new_tokens,
+                                                max_seq=lock_seq, sampling=r.sampling)
+                    for r in reqs}
+        outs["lockstep"] = lock
+        print(f"{tag} lockstep: wall {time.perf_counter() - t0:.2f} s")
+    return outs, summary, launches
+
+
+def _shares(outs, ref_name):
+    ref = outs[ref_name]
+    gen = np.stack([ref[r] for r in sorted(ref)])
+    return {name: float((np.stack([o[r] for r in sorted(ref)]) == gen).mean())
+            for name, o in outs.items() if name != ref_name}
+
+
+def ssm_serve_phase(lm, pa, S, get_config):
+    """mamba2-1.3b serves at full width and depth: 8 sampled Poisson
+    requests (prompt 128, gen 32) through 4 slots of the paged engine,
+    the paged engine with a pool small enough to swap, speculating 4
+    tokens self-drafted, the contiguous engine and the lock-step
+    baseline, with bf16 params and an fp32 copy. The arch has no
+    attention layer, so no kernel runs: the phase holds the engine's SSM
+    state (reset, swap, the speculative commit) at full size. The fp32
+    shares of tokens equal to the paged run's must reach SHARE_MIN."""
+    cfg = get_config(SSM_ARCH)
+    params = lm.init_params(cfg, 0, "cuda")
+    reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=128, gen_len=32, seed=0,
+                   uniform_prompts=True, **SAMPLED)
+    base = dict(max_slots=4, max_seq=160, prefill_chunk=32)
+    paged = dict(base, block_size=16)
+    runs = {
+        "paged": (dict(paged), None),
+        "swap": (dict(paged, n_blocks=24, preempt="swap"), None),
+        "spec self": (dict(paged, spec_k=SPEC_K, decode_widths=(1, 4, SPEC_K + 1)), None),
+        "contiguous": (dict(base), None),
+    }
+    shares, summaries = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for tag in ("bfloat16", "float32"):
+        p = params if tag == "bfloat16" else _cast(params, torch.float32)
+        outs, summaries[tag], n = _family_runs(S, cfg, p, f"[ssm-serve] {tag}", runs, reqs_kw,
+                                               pa, base["max_seq"])
+        if n:
+            raise AssertionError(f"[ssm-serve] an attention-free arch launched paged_attention {n}x")
+        shares[tag] = _shares(outs, "paged")
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[ssm-serve] {SSM_ARCH} has no attention layer: no kernel runs on this path "
+          f"(paged_attention launched 0 times); tokens equal to the paged run's: "
+          f"{json.dumps(shares)} (float32 limit {SHARE_MIN}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    low = {k: v for k, v in shares["float32"].items() if v < SHARE_MIN}
+    if low:
+        raise AssertionError(f"[ssm-serve] fp32 runs part from the paged one: {low}")
+    del params
+    return summaries, shares
+
+
+def moe_serve_phase(lm, pa, S, get_config):
+    """kimi-k2-1t-a32b at full width (384 experts, top-8, a shared expert,
+    d 7168, 64/8 heads of 112, vocab 163840), depth cut from 61 to 1, bf16
+    weights (the experts drawn directly in bf16): 8 requests (prompt 128,
+    gen 32) through 4 slots of the paged engine on the kernel route (the
+    kernel at head_dim 112) and on the gather route; MoE decode at full
+    capacity. The share of tokens equal between the routes must reach
+    SHARE_MIN; tokens/s, p50 and p99 step and peak memory printed."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_DEPTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _named_leaves(params))
+    print(f"[moe-serve] {MOE_ARCH} depth {MOE_DEPTH}: {n_params / 1e9:.2f} B params "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB bf16) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=128, gen_len=32, seed=0,
+                   uniform_prompts=True)
+    paged = dict(max_slots=4, max_seq=160, prefill_chunk=32, block_size=16)
+    runs = {"kernel": (dict(paged), None), "gather": (dict(paged, attn_kernel=False), None)}
+    outs, summary, launches = _family_runs(S, cfg, params, "[moe-serve]", runs, reqs_kw, pa, 0)
+    share = _shares(outs, "kernel")["gather"]
+    gen = np.stack([outs["kernel"][r] for r in sorted(outs["kernel"])])
+    if gen.shape != (8, 32) or gen.min() < 0 or gen.max() >= cfg.vocab:
+        raise AssertionError(f"[moe-serve] tokens {gen.shape} in {gen.min()}..{gen.max()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[moe-serve] kernel route: {summary['kernel']['tokens_per_s']:.1f} tokens/s, step "
+          f"p50 {summary['kernel']['p50_ms']:.2f} ms p99 {summary['kernel']['p99_ms']:.2f} ms; "
+          f"tokens equal between the kernel and gather routes {share:.4f} (limit {SHARE_MIN}); "
+          f"peak memory {peak:.2f} GiB; paged_attention launches {launches} at head_dim "
+          f"{cfg.head_dim}")
+    if share < SHARE_MIN:
+        raise AssertionError(f"[moe-serve] the routes part: share {share} < {SHARE_MIN}")
+    prof = step_profile(cfg, lm, params, tag="[moe-profile]")  # as the serve phase's steps
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(summary["kernel"], share=share, peak_gib=peak,
+                          gather=summary["gather"], profile=prof)
+
+
+def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S, get_config):
+    """The reduced fp32 config of each of the seven new archs on the card:
+    (i) the training route check (``family_route_check``, B=2 S=24), and
+    (ii) 6 requests, greedy and then sampled, through the paged engine on
+    the kernel and the gather route, under swap preemption, speculating 4
+    tokens with a one-period drafter (one layer; two for llama4's and
+    jamba's periods), through the contiguous engine and the lock-step
+    oracle: every stream identical."""
+    out = {}
+    for arch in NEW_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        worst, _ = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, 2, 24,
+                                      "[family-route]")
+        dcfg = cfg.reduced(n_layers=len(lm.transformer.period_pattern(cfg)))
+        params, dparams = lm.init_params(cfg, 0, "cuda"), lm.init_params(dcfg, 1, "cuda")
+        base = dict(max_slots=3, max_seq=24, prefill_chunk=8, decode_widths=(1, SPEC_K + 1))
+        paged = dict(base, block_size=4)
+        runs = {
+            "paged kernel": (dict(paged), None),
+            "paged gather": (dict(paged, attn_kernel=False), None),
+            "swap": (dict(paged, n_blocks=9, preempt="swap"), None),
+            "spec": (dict(paged, n_blocks=12, spec_k=SPEC_K), (dcfg, dparams)),
+            "contiguous": (dict(base), None),
+        }
+        first = {}
+        for kind, controls in (("greedy", {}), ("sampled", SAMPLED)):
+            reqs_kw = dict(n_requests=6, arrival_rate=2.0, prompt_len=(3, 7), gen_len=(8, 12),
+                           seed=5, **controls)
+            outs, _, _ = _family_runs(S, cfg, params, f"[family-serve] {arch} {kind}", runs,
+                                      reqs_kw, pa, base["max_seq"])
+            ref = outs["paged kernel"]
+            for name, o in outs.items():
+                for rid in ref:
+                    if not (o[rid].shape == ref[rid].shape and (o[rid] == ref[rid]).all()):
+                        raise AssertionError(f"[family-serve] {arch} {kind} {name} rid {rid} "
+                                             f"{o[rid].tolist()} != paged kernel "
+                                             f"{ref[rid].tolist()}")
+            first[kind] = ref[0].tolist()
+        print(f"[family-serve] {arch} reduced: {len(outs)} runs identical, greedy and sampled "
+              f"(paged kernel/gather, swap, spec_k={SPEC_K} with a {dcfg.n_layers}-layer "
+              f"drafter, contiguous, lock-step) in {time.perf_counter() - t0:.1f} s; first "
+              f"streams {first}")
+        out[arch] = worst
+        del params, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -1657,7 +2092,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # 3. kernel phase
-    rows, v_rows, max_err, paged_digest = kernel_phase(pa, F)
+    rows, v_rows, k_rows, max_err, paged_digest = kernel_phase(pa, F)
 
     # 4. gathered-kernel phase
     g_rows, g_err = gathered_phase(gm, ops, resnet, policy_mod, paged_digest)
@@ -1746,18 +2181,34 @@ def main() -> int:
     lm_launches, lm_ms = lm_training_phase(train, lm, gm, pa, policy_mod, cfg)
     lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
 
+    # 17-20. the decoder-only families: mamba2 trains and serves at full
+    # width, kimi-k2 serves at full width (depth 1), the seven reduced
+    # configs' routes and streams
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_launches, ssm_ms = ssm_training_phase(train, lm, lm_steps, backward, gm, pa, policy_mod,
+                                              pipeline, get_config)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, ssm_shares = ssm_serve_phase(lm, pa, serve_pkg, get_config)
+    moe_launches, moe_summary = moe_serve_phase(lm, pa, serve_pkg, get_config)
+    fam_rel = families_reduced_phase(lm, lm_steps, backward, policy_mod, pipeline, gm, pa,
+                                     serve_pkg, get_config)
+
     # 16. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
                 and r["q"] == "bfloat16" and r["pools"] == "float32")
     vrow = v_rows[0]  # a k=4 verify chunk of the main path's slots, the 16-row tile
+    k_head = k_rows[0]  # kimi-k2's decode step: D=112, bf16 queries over fp32 pools
     kernels = [dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
-        launches=launches + feat_launches,
-        launches_by_path={"serve": launches, "serve_features": feat_launches},
+        launches=launches + feat_launches + moe_launches,
+        launches_by_path={"serve": launches, "serve_features": feat_launches,
+                          "moe_serve": moe_launches},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -1767,6 +2218,8 @@ def main() -> int:
         verify={k: vrow[k] for k in ("shape", "variant", "splits", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         | {"plan": verify_plan.variant},
+        d112={k: k_head[k] for k in ("shape", "variant", "splits", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by", "max_abs_err")},
     )]
     for name, replaces in GATHERED.items():
         mine = [r for r in g_rows if r["name"] == name]
@@ -1790,9 +2243,13 @@ def main() -> int:
     for name, replaces in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]
         top = max(mine, key=lambda r: (r["flops"], r["ms"]))  # the main path's largest shape
+        path_launches = {LM_ARCH: lm_launches[name]}
+        if name == "matmul":
+            path_launches[SSM_ARCH] = ssm_launches
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=replaces, launches=lm_launches[name], max_abs_err=lm_err[name],
+            replaces=replaces, launches=sum(path_launches.values()),
+            launches_by_path=path_launches, max_abs_err=lm_err[name],
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=" ".join(filter(None, (top.get("product"), top["shape"], "bfloat16"))),
@@ -1803,6 +2260,10 @@ def main() -> int:
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[ddpm-train] route rel L2 {ddpm_rel}; step medians {ddpm_ms}")
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")
+    print(f"[ssm-train] {json.dumps(ssm_ms)}")
+    print(f"[ssm-serve] shares {json.dumps(ssm_shares)}")
+    print(f"[moe-serve] {json.dumps(moe_summary)}")
+    print(f"[family-route] worst relative L2 {json.dumps(fam_rel)}")
     print(f"[serve-features] {json.dumps(feat_summary)}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -161,7 +161,7 @@ def channel_sparse_backward(
     op: ChannelSparseOp,
     dy: torch.Tensor,
     *,
-    key: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
     has_bias: bool = False,
 ):
     """Run the ssProp backward pipeline for one op.

@@ -316,7 +316,7 @@ def sparse_conv2d(
     dilation: int | Sequence[int] = 1,
     groups: int = 1,
     policy: SsPropPolicy = _DEFAULT_POLICY,
-    key: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """2-D convolution (NCHW) with ssProp scheduled-sparse backward.
 
@@ -327,7 +327,8 @@ def sparse_conv2d(
       stride / padding / dilation / groups: as in the JAX package
         (padding: an int, ``(lo, hi)`` pairs, or "SAME"/"VALID").
       policy: ssProp policy.
-      key: ``torch.Generator`` for ``selection="random"``.
+      key: ``[2]`` int64 JAX key data (``core/prng.py``), only needed for
+        ``selection="random"``.
     """
     stride = _norm_pair(stride)
     dilation = _norm_pair(dilation)

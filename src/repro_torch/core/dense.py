@@ -125,7 +125,7 @@ def sparse_dense(
     b: torch.Tensor | None = None,
     *,
     policy: SsPropPolicy = _DEFAULT_POLICY,
-    key: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Linear layer with ssProp scheduled-sparse backward.
 
@@ -134,7 +134,8 @@ def sparse_dense(
       w: ``[D_in, D_out]`` weights.
       b: optional ``[D_out]`` bias.
       policy: the ssProp policy of this step.
-      key: ``torch.Generator`` for ``selection="random"``.
+      key: ``[2]`` int64 JAX key data (``core/prng.py``), only needed for
+        ``selection="random"``.
     """
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b))):

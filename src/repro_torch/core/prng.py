@@ -1,10 +1,13 @@
-"""The parts of ``jax.random`` the serving engine draws from, bit for bit.
+"""The parts of ``jax.random`` the port draws from, bit for bit.
 
 Not a twin of a module of ``repro``: the JAX package takes these from
 JAX itself (``jax.random.fold_in`` and ``jax.random.categorical`` in
-``repro.launch.steps.sample_tokens``). The port reproduces them in torch
-integer arithmetic so that a sampled token stream here is the same
-stream as the JAX engine's, not only one from the same distribution.
+``repro.launch.steps.sample_tokens``; ``jax.random.permutation`` in
+``repro.core.sparsity`` for random selection; ``jax.random.split`` and
+``jax.random.bernoulli`` in ``repro.models.resnet``'s dropout). The port
+reproduces them in torch integer arithmetic so that a sampled token
+stream, a random channel selection or a dropout mask here is the JAX
+package's own, not only one from the same distribution.
 
 What is reproduced (jax 0.9.0, the default threefry PRNG with
 ``jax_threefry_partitionable = True``):
@@ -22,10 +25,19 @@ What is reproduced (jax 0.9.0, the default threefry PRNG with
   [1, 2), minus 1, scaled into ``[minval, maxval)`` and clamped below at
   ``minval``;
 * :func:`gumbel` — ``-log(-log(uniform(tiny, 1)))`` (JAX's "low" mode);
-* :func:`categorical` — ``argmax(logits + gumbel)`` along the last axis.
+* :func:`categorical` — ``argmax(logits + gumbel)`` along the last axis;
+* :func:`split` — key ``i`` of ``num`` is ``threefry2x32(key, (0, i))``
+  (the partitionable split, the same hash as ``fold_in(key, i)``);
+* :func:`bernoulli` — ``uniform(key, shape) < p``, ``p`` a float32 (the
+  "low" mode);
+* :func:`permutation` — ``jax.random.permutation(key, n)``: ``ceil(3 ln n
+  / ln(2^32 - 1))`` rounds (two past n = 1625), each splitting the key
+  and stably sorting by 32-bit :func:`random_bits` of the subkey.
 
-Every function is vectorised over rows: ``keys [B, 2]`` (one raw key a
-row, uint32 words held in int64), ``data [B]``, and ``n`` columns a row.
+The samplers are vectorised over rows: ``keys [B, 2]`` (one raw key a
+row, uint32 words held in int64), ``data [B]``, and ``n`` columns a row;
+:func:`key`, :func:`split`, :func:`bernoulli` and :func:`permutation`
+take one ``[2]`` key, as their JAX counterparts take one key.
 Words are int64 tensors masked to 32 bits, which gives the same bits on
 the CPU and on the card. The float steps (``log``) round as the device's
 ``log`` does, so a Gumbel draw may differ from JAX's in its last bit.
@@ -110,3 +122,38 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     largest perturbed logit)."""
     g = gumbel(keys.to(logits.device), logits.shape[-1])
     return torch.argmax(g + logits, dim=-1)
+
+
+def key(seed: int, device="cpu") -> torch.Tensor:
+    """``jax.random.key_data(jax.random.PRNGKey(seed))`` of a seed in
+    ``[0, 2^64)``: ``[2]`` int64 words (high word, low word)."""
+    return torch.tensor([(seed >> 32) & MASK32, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def split(key_: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: ``[2]`` -> ``[num, 2]`` int64 keys."""
+    k = key_words(key_)
+    idx = torch.arange(num, dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(idx), idx)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bernoulli(key_: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` with a Python float ``p``
+    (taken as a float32, as JAX takes it): a bool tensor of ``shape``."""
+    n = int(np.prod(shape))
+    u = uniform(key_[None], n)[0]
+    return (u < torch.tensor(np.float32(p), device=u.device)).reshape(tuple(shape))
+
+
+def permutation(key_: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a shuffle of ``arange(n)``,
+    ``[n]`` int64."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=key_.device)
+    k = key_words(key_)
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub[None], n)[0], stable=True).indices
+        x = x[order]
+    return x

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.policy import SsPropPolicy
 
 
@@ -62,12 +63,14 @@ def select_topk_channels(
     k: int,
     *,
     selection: str = "topk",
-    key: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Indices of the K most important channels, sorted ascending.
 
-    ``selection="random"`` picks K channels uniformly at random from
-    ``key`` (a ``torch.Generator``; it cannot reproduce ``jax.random``).
+    ``selection="random"`` reproduces the paper's Fig. 2(b) ablation: the
+    first K of ``jax.random.permutation(key, C)``, drawn bit for bit by
+    :func:`repro_torch.core.prng.permutation` from ``key``, a ``[2]``
+    int64 tensor of JAX key data (:func:`repro_torch.core.prng.key`).
     """
     c = imp.shape[0]
     if not 0 < k <= c:
@@ -76,8 +79,8 @@ def select_topk_channels(
         idx = torch.topk(imp, k).indices
     elif selection == "random":
         if key is None:
-            raise ValueError("selection='random' requires a torch.Generator key")
-        idx = torch.randperm(c, generator=key, device=key.device)[:k].to(imp.device)
+            raise ValueError("selection='random' requires a PRNG key")
+        idx = prng.permutation(key.to(imp.device), c)[:k]
     else:
         raise ValueError(f"bad selection {selection!r}")
     return torch.sort(idx).values
@@ -89,7 +92,7 @@ def select_topk_blocks(
     k_blocks: int,
     *,
     selection: str = "topk",
-    key: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Indices of the K most important channel *blocks*, sorted ascending."""
     bimp = block_importance(imp, block_size)
@@ -108,7 +111,7 @@ def select(
     *,
     channel_axis: int = -1,
     n_shards: int = 1,
-    key: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
 ) -> Selection:
     """Policy-driven selection in its full structured form."""
     c = dy.shape[channel_axis % dy.dim()]

@@ -62,9 +62,19 @@ namespace {
 
 constexpr int TPR = 16;             // SIMT: threads cooperating on one row
 constexpr int STAGES = 2;           // cp.async ring depth
-constexpr int CHUNK_VALUES = 4096;  // CK * D: keys a chunk times the head dim
+constexpr int CHUNK_VALUES = 4096;  // CK * pad_dim(D): keys a chunk times the tiled head dim
 constexpr int MMA_ROWS = 64;        // tensor-core row tile: four warps of 16 rows
 constexpr float NEG = -1e30f;       // the Pallas kernel's running-max seed
+
+// The width a head dim is tiled at in shared memory and registers: the
+// next power of two (112 -> 128; 32 and 128 as they are). Loads, stores
+// and the QK/PV loops cover the real D; the lanes past it are never read
+// into a result. Chunks hold CHUNK_VALUES / pad_dim(D) keys at every D.
+constexpr int pad_dim(int d) {
+  int p = 1;
+  while (p < d) p *= 2;
+  return p;
+}
 
 struct Geom {
   int B, S, H, KV, n_pages, bs, bs_shift, NB, P;  // bs_shift: log2(bs), or -1
@@ -137,19 +147,20 @@ __device__ __forceinline__ void split_range(const int* qpos_b, const Geom& g, in
 }
 
 // Chunk c0 / CK of K and V (keys [c0, c0 + CK), those at or past k_hi as
-// zeros) into ks[CK][DK] and vs[CK][DK], 16-byte copies spread over the
-// block's THREADS.
+// zeros) into ks[CK][DK] and vs[CK][DK], 16-byte copies of the real D
+// spread over the block's THREADS.
 template <typename TKV, int D, int CK, int DK, int THREADS>
 __device__ __forceinline__ void load_chunk(TKV* ks, TKV* vs, const TKV* k_pool,
                                            const TKV* v_pool, const int* tbl, int c0,
                                            int k_hi, int kvh, const Geom& g) {
   constexpr int EPC = 16 / sizeof(TKV);
   constexpr int CPK = D / EPC;  // copies a key row
-  constexpr int COPIES = CK * CPK / THREADS;
-  static_assert(CK * CPK % THREADS == 0, "copies");
+  constexpr int COPIES = (CK * CPK + THREADS - 1) / THREADS;
+  static_assert(D * sizeof(TKV) % 16 == 0, "a key row is whole 16-byte copies");
 #pragma unroll
   for (int u = 0; u < COPIES; ++u) {
     const int e = threadIdx.x + THREADS * u;
+    if (CK * CPK % THREADS != 0 && e >= CK * CPK) break;
     const int i = e / CPK, piece = e % CPK;
     const int t = c0 + i;
     const bool ok = t < k_hi;
@@ -168,9 +179,10 @@ template <typename TKV, int D, int ROWS>
 struct Tile {
   static constexpr bool MMA = ROWS == MMA_ROWS;
   static constexpr int THREADS = MMA ? 128 : ROWS * TPR;
-  static constexpr int CK = CHUNK_VALUES / D;  // keys a chunk: 32 at D=128
-  static constexpr int DK = D + 16 / (int)sizeof(TKV);  // K/V smem row: 16-byte multiple
-  static constexpr int DQ = D + 4;                       // q smem row (fp32)
+  static constexpr int DP = pad_dim(D);          // the tiled width: 128 at D=112
+  static constexpr int CK = CHUNK_VALUES / DP;  // keys a chunk: 32 at D=112 and 128
+  static constexpr int DK = DP + 16 / (int)sizeof(TKV);  // K/V smem row: 16-byte multiple
+  static constexpr int DQ = DP + 4;                       // q smem row (fp32)
   static constexpr int SP = CK + 1;                      // SIMT: padded probability row
   static constexpr size_t kv_bytes = sizeof(TKV) * (size_t)STAGES * 2 * CK * DK;
   static constexpr size_t smem_bytes =
@@ -201,10 +213,11 @@ paged_attn_simt(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                 float* __restrict__ part, Geom g) {
   using T = Tile<TKV, D, ROWS>;
   constexpr int THREADS = T::THREADS, CK = T::CK, DK = T::DK, DQ = T::DQ, SP = T::SP;
-  constexpr int KPT = CK / TPR;        // keys a thread scores
-  constexpr int VW = D >= 64 ? 4 : 2;  // PV: values per shared-memory read
-  constexpr int NV = D / TPR / VW;     // PV: reads per key and thread
-  static_assert(CK % TPR == 0 && D % (TPR * VW) == 0, "tile");
+  constexpr int DP = T::DP;
+  constexpr int KPT = CK / TPR;         // keys a thread scores
+  constexpr int VW = DP >= 64 ? 4 : 2;  // PV: values per shared-memory read
+  constexpr int NV = DP / TPR / VW;     // PV: reads per key and thread (columns past D unused)
+  static_assert(CK % TPR == 0 && DP % (TPR * VW) == 0 && D % VW == 0, "tile");
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
   TKV* kv_s = reinterpret_cast<TKV*>(smem_raw);  // [STAGES][2][CK][DK]: K then V
@@ -330,6 +343,7 @@ paged_attn_simt(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
     const int col = VW * (sub + TPR * n);
+    if (D != DP && col >= D) continue;  // a padded column
     if constexpr (VW == 4) {
       *reinterpret_cast<float4*>(o + col) = make_float4(
           acc[4 * n] * inv, acc[4 * n + 1] * inv, acc[4 * n + 2] * inv, acc[4 * n + 3] * inv);
@@ -364,7 +378,8 @@ paged_attn_mma(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   using T = Tile<TKV, D, MMA_ROWS>;
   constexpr int THREADS = T::THREADS, CK = T::CK, DK = T::DK, DQ = T::DQ;
   constexpr int NT = CK / 8;  // 8-key tiles of a chunk
-  constexpr int DT = D / 8;   // 8-column tiles of the output
+  constexpr int DT = D / 8;   // 8-column tiles of the output (the real D)
+  static_assert(D % 8 == 0, "8-column tiles");
   constexpr bool Q_SMALL = std::is_same<TQ, float>::value;    // q has a small part
   constexpr bool KV_SMALL = std::is_same<TKV, float>::value;  // K, V have one
 
@@ -384,26 +399,25 @@ paged_attn_mma(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   const int* tbl = tables + (size_t)b * g.NB;
 
   {  // q rows into shared memory, fp32 (dead rows zero), all loads in flight at once
-    constexpr int QV = MMA_ROWS * D / 4 / THREADS;
-    constexpr int RPU = THREADS / (D / 4);  // rows a pass covers
-    static_assert(THREADS % (D / 4) == 0, "q loader");
-    const int c = tid % (D / 4), r0 = tid / (D / 4);
-    const int row = row0 + r0;  // first row; pass u takes row + RPU*u
-    int s_idx = row / G, gh = row % G;
+    constexpr int C4 = D / 4;                    // float4s a row
+    constexpr int QV = MMA_ROWS * C4 / THREADS;  // float4s a thread
+    static_assert(MMA_ROWS * C4 % THREADS == 0, "q loader");
     float4 v[QV];
 #pragma unroll
     for (int u = 0; u < QV; ++u) {
+      const int e = tid + THREADS * u;
+      const int row = row0 + e / C4;
       v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row + RPU * u < SG) {
-        const size_t id = (size_t)(b * g.S + s_idx) * g.H + kvh * G + gh;
-        v[u] = load4(q + id * D + 4 * c);
+      if (row < SG) {
+        const size_t id = (size_t)(b * g.S + row / G) * g.H + kvh * G + row % G;
+        v[u] = load4(q + id * D + 4 * (e % C4));
       }
-      gh += RPU;  // next pass: RPU rows on (G may be smaller than RPU)
-      while (gh >= G) gh -= G, ++s_idx;
     }
 #pragma unroll
-    for (int u = 0; u < QV; ++u)
-      *reinterpret_cast<float4*>(q_s + (r0 + RPU * u) * DQ + 4 * c) = v[u];
+    for (int u = 0; u < QV; ++u) {
+      const int e = tid + THREADS * u;
+      *reinterpret_cast<float4*>(q_s + (e / C4) * DQ + 4 * (e % C4)) = v[u];
+    }
   }
   int c_lo, c_hi, k_hi;
   split_range<THREADS>(qpos + b * g.S, g, CK, red, c_lo, c_hi, k_hi);
@@ -623,8 +637,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   return (int)cudaGetLastError();
 }
 
-// Head dims of the ported configs: qwen2.5-3b (128) and its reduced twin
-// (32); row tiles of 8 (decode), 16 or 64 (tensor cores) query rows.
+// Head dims of the ported configs: qwen2.5-3b and the dense and MoE archs
+// (128), kimi-k2 (112, tiled at 128) and the reduced configs (32); row
+// tiles of 8 (decode), 16 or 64 (tensor cores) query rows.
 template <typename TQ, typename TKV>
 int launch_d(int D, int rows, const void* q, const void* k, const void* v, const void* t,
              const void* p, void* o, void* part, const Geom& g, cudaStream_t st) {
@@ -633,6 +648,9 @@ int launch_d(int D, int rows, const void* q, const void* k, const void* v, const
   PAGED_LAUNCH(32, 8)
   PAGED_LAUNCH(32, 16)
   PAGED_LAUNCH(32, 64)
+  PAGED_LAUNCH(112, 8)
+  PAGED_LAUNCH(112, 16)
+  PAGED_LAUNCH(112, 64)
   PAGED_LAUNCH(128, 8)
   PAGED_LAUNCH(128, 16)
   PAGED_LAUNCH(128, 64)
@@ -646,7 +664,7 @@ int launch_d(int D, int rows, const void* q, const void* k, const void* v, const
 // [n_pages,bs,KV,D] fp32 or bf16; tables [B,NB] and qpos [B,S] int32; out:
 // [B,S,H,D] fp32. All contiguous, 16-byte aligned. rows: the row tile (8,
 // 16, or 64 for the tensor cores); chunk: keys a chunk, which must be
-// CHUNK_VALUES / D; P: the splits, at most COMBINE_MAX_P; part [P, B*S*H,
+// CHUNK_VALUES / pad_dim(D); P: the splits, at most COMBINE_MAX_P; part [P, B*S*H,
 // D + 4] fp32 is the partials' scratch (unused when P == 1). Returns
 // cudaGetLastError() of the last launch (0 on success), or -1 for a head
 // dim, row tile, chunk or split count it was not built for.
@@ -656,7 +674,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
                                       int n_pages, int bs, int NB, int rows, int chunk, int P,
                                       int q_bf16, int kv_bf16, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || chunk != CHUNK_VALUES / D || P < 1 || P > COMBINE_MAX_P || bs <= 0) return -1;
+  if (D <= 0 || chunk != CHUNK_VALUES / pad_dim(D) || P < 1 || P > COMBINE_MAX_P || bs <= 0) return -1;
   const int shift = (bs & (bs - 1)) == 0 ? __builtin_ctz(bs) : -1;
   const Geom g{B, S, H, KV, n_pages, bs, shift, NB, P, scale};
   if (q_bf16 && kv_bf16)

@@ -13,7 +13,7 @@ at logical position ``t = j*bs + i`` is visible to query row ``s`` iff
 softmax in fp32; the output is fp32 ``[B, S, H, D]``.
 
 Split-KV: the kernel spreads each slot's keys over ``P`` blocks of each
-(slot, KV head, row tile), in whole chunks of ``4096 // D`` keys; each
+(slot, KV head, row tile), in whole chunks of :func:`chunk_keys` keys; each
 writes fp32 partials ``(m, l, acc)`` and a second pass combines them in
 split order. :func:`paged_split_plan` picks the row tile and ``P`` from
 the shapes alone (the qpos are on the device, and reading them would
@@ -39,9 +39,10 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# head dims of the ported configs: qwen2.5-3b (128) and its reduced twin (32)
-_HEAD_DIMS = (32, 128)
-_CHUNK_VALUES = 4096  # keys a chunk times the head dim (paged_attention.cu)
+# head dims of the ported configs: the reduced ones (32), kimi-k2 (112) and
+# qwen2.5-3b with the other dense and MoE archs (128)
+_HEAD_DIMS = (32, 112, 128)
+_CHUNK_VALUES = 4096  # keys a chunk times the tiled head dim (paged_attention.cu)
 _SMS = 132  # the H100's streaming multiprocessors
 _GRID_TARGET = 2 * _SMS  # blocks a split grid aims at: about two waves
 _MMA_ROWS = 64  # the tensor-core variant's row tile (four warps of 16 rows)
@@ -52,9 +53,15 @@ MAX_SPLITS = 1024  # the combine pass stages every split's (m, l) of a row in sh
 _fn = None  # the loaded entry point, its signature declared
 
 
+def padded_dim(head_dim: int) -> int:
+    """The width the kernel tiles a head dim at: the next power of two
+    (112 -> 128). Loads and stores cover the real head dim."""
+    return 1 << (head_dim - 1).bit_length()
+
+
 def chunk_keys(head_dim: int) -> int:
-    """Keys in one of the kernel's chunks: 32 at D=128, 128 at D=32."""
-    return _CHUNK_VALUES // head_dim
+    """Keys in one of the kernel's chunks: 32 at D=112 and 128, 128 at D=32."""
+    return _CHUNK_VALUES // padded_dim(head_dim)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -123,8 +123,9 @@ def _sync(device: torch.device) -> None:
 
 def run(args) -> dict:
     """Train ``args.steps`` steps in full fp32 where the model is fp32
-    (TF32 off, as the JAX package computes). Returns the loss, the
-    scheduled drop rate and the wall time of every step (the step ends
+    (TF32 off, as the JAX package computes). Returns the loss, the MoE
+    load-balance loss (``aux``, 0 without MoE layers), the scheduled drop
+    rate and the wall time of every step (the step ends
     in a device sync), the launches of each kernel over the run, and the
     TF32 flags that were in force."""
     _refuse_unported(args)
@@ -156,7 +157,7 @@ def _train(args) -> dict:
     params = lm.init_params(cfg, args.seed, device=device)
     opt_state = adam.init(params)
     before = dict(gm.launches)
-    history, rates, step_times = [], [], []
+    history, aux, rates, step_times = [], [], [], []
     for step in range(args.steps):
         table = resolved.policies_for_step(step)
         fn = steps_lib.make_train_step(cfg, table, opt_cfg)
@@ -169,12 +170,15 @@ def _train(args) -> dict:
         _sync(device)
         dt = time.perf_counter() - t0
         history.append(loss)
+        aux.append(float(metrics["aux"]))
         rates.append(rate)
         step_times.append(dt)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"[train] step {step:5d} rate={rate:.2f} loss={loss:.4f} ({dt * 1e3:.0f} ms)")
+            print(f"[train] step {step:5d} rate={rate:.2f} loss={loss:.4f} aux={aux[-1]:.4f} "
+                  f"({dt * 1e3:.0f} ms)")
     return {
         "history": history,
+        "aux": aux,
         "final_loss": history[-1] if history else None,
         "rates": rates,
         "step_times": step_times,

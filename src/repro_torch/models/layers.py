@@ -1,6 +1,6 @@
 """Shared model layers: plain functions on tensors and dict params.
 
-The twin of ``repro.models.layers`` for the dense decoder (training and
+The twin of ``repro.models.layers`` for the decoder stacks (training and
 paged serving) and the CNNs' convolutions. Parameters keep the JAX
 package's layouts (dense weights are ``[d_in, d_out]``, conv filters
 OIHW), so a JAX param tree converts array for array. Every projection
@@ -272,28 +272,36 @@ def attn_apply(
 # MLP
 # ----------------------------------------------------------------------
 
-_ACTS = {"silu": F.silu}
+# ``jax.nn.gelu`` defaults to the tanh approximation
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
 
 
 def mlp_init(gen, d_model, d_ff, dtype=torch.bfloat16, gated: bool = True, device="cuda"):
-    if not gated:
-        raise NotImplementedError("only the gated MLP is ported yet")
+    """The gated MLP ``{"up", "gate", "down"}``, or without ``gate`` the
+    2-matrix one (nemotron's relu2)."""
     kw = dict(dtype=dtype, device=device)
-    return {
-        "up": dense_init(gen, d_model, d_ff, **kw),
-        "gate": dense_init(gen, d_model, d_ff, **kw),
-        "down": dense_init(gen, d_ff, d_model, **kw),
-    }
+    p = {"up": dense_init(gen, d_model, d_ff, **kw)}
+    if gated:
+        p["gate"] = dense_init(gen, d_model, d_ff, **kw)
+    p["down"] = dense_init(gen, d_ff, d_model, **kw)
+    return p
 
 
 def mlp_apply(p, x, act: str, policy: PolicyLike = DENSE, site: str = "mlp"):
-    try:
-        fn = _ACTS[act]
-    except KeyError:
-        raise NotImplementedError(f"activation {act!r} is not ported yet") from None
-    h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate")) * dense_apply(
-        p["up"], x, policy, site=f"{site}/up"
-    )
+    """``down(act(gate(x)) * up(x))``, or ``down(act(up(x)))`` for the
+    non-gated MLP (params without ``gate``); sites ``{site}/up``,
+    ``{site}/gate``, ``{site}/down``."""
+    fn = _ACTS[act]
+    if "gate" in p:
+        h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate")) * dense_apply(
+            p["up"], x, policy, site=f"{site}/up"
+        )
+    else:
+        h = fn(dense_apply(p["up"], x, policy, site=f"{site}/up"))
     return dense_apply(p["down"], h, policy, site=f"{site}/down")
 
 

@@ -1,6 +1,7 @@
 """Top-level LM: embeddings + stack + loss + the per-slot decode API.
 
-The twin of ``repro.models.model`` for the dense family:
+The twin of ``repro.models.model`` for the decoder-only families (dense,
+moe, ssm, hybrid):
 
   * ``init_params(cfg, seed, device)``          -> params
   * ``params_from_jax(cfg, tree, device)``      -> params from a JAX param tree
@@ -9,7 +10,7 @@ The twin of ``repro.models.model`` for the dense family:
   * ``loss_fn(cfg, params, batch, policy)``     -> (loss, metrics)
   * ``kernel_launches_per_step(cfg, policy)``   -> the kernels a train step launches
   * ``init_cache(cfg, batch, max_seq, dtype, device)``   -> the contiguous cache
-  * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device)``
+  * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device, batch=)``
   * ``decode_slots(cfg, params, tokens, cache, slot_pos, token_count, ...)``
   * ``decode_step(cfg, params, tokens, cache, pos)``      -> lock-step decode
   * ``commit_spec_cache(cache, keep)``
@@ -20,7 +21,10 @@ Batches are dicts of tensors: ``tokens [B,S]``, ``targets [B,S]`` and
 optionally ``loss_mask [B,S]``.
 
 Params are nested dicts of tensors in the JAX package's layouts, with
-the stack as a list of per-layer dicts instead of stacked arrays.
+the stack as a list of per-layer dicts instead of stacked arrays. A
+decode cache is a list of per-layer dicts: ``{"k", "v"}`` for an
+attention layer (paged: a page pool; contiguous: rows a slot),
+``{"conv", "state"}`` for a Mamba layer (a row a slot either way).
 """
 from __future__ import annotations
 
@@ -55,21 +59,22 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict[str, Any]:
     """The port's params from a JAX param tree whose leaves are numpy
-    arrays (``jax.tree.map(np.asarray, params)``). The dense family has
-    one slot per period, so layer ``li`` is
-    ``tree["stack"]["slots"][0][...][li]``."""
-    transformer.period_pattern(cfg)
-    slot = tree["stack"]["slots"][0]
+    arrays (``jax.tree.map(np.asarray, params)``). The JAX package stacks
+    each period slot's leaves ``[n_periods, ...]``, so layer ``i * plen +
+    j`` is ``tree["stack"]["slots"][j][...][i]``."""
+    plen = len(transformer.period_pattern(cfg))
+    slots = tree["stack"]["slots"]
 
-    def convert(node, li=None):
+    def convert(node, pi=None):
         if isinstance(node, dict):
-            return {k: convert(v, li) for k, v in node.items()}
-        return _tensor(node if li is None else np.asarray(node)[li], device)
+            return {k: convert(v, pi) for k, v in node.items()}
+        return _tensor(node if pi is None else np.asarray(node)[pi], device)
 
     return {
         "embed": convert(tree["embed"]),
         "final_norm": convert(tree["final_norm"]),
-        "stack": {"layers": [convert(slot, li) for li in range(cfg.n_layers)]},
+        "stack": {"layers": [convert(slots[li % plen], li // plen)
+                             for li in range(cfg.n_layers)]},
     }
 
 
@@ -81,13 +86,13 @@ def site_names(cfg: ModelConfig):
 
 
 def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
-    """Full-sequence forward. Returns (logits fp32 [B, S, V], aux loss);
-    the dense family has no auxiliary loss, so aux is 0."""
+    """Full-sequence forward. Returns (logits fp32 [B, S, V], aux loss):
+    the MoE layers' load-balance losses summed (0 without MoE layers)."""
     x = layers.embed_apply(params["embed"], batch["tokens"])
-    x, _ = transformer.stack_apply(params["stack"], x, cfg, policy)
+    x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
@@ -103,6 +108,9 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
+_EXPERT_SITES = ("moe/gate", "moe/up", "moe/down")  # a launch a product an expert
+
+
 def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, int]:
     """Launches of each backward kernel in one training step under
     ``policy`` (a plain policy or a step's table), site by site by the
@@ -111,33 +119,44 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, 
     dW product if ``sparsify_dw``, through ``matmul`` at channel
     granularity and ``dx_gathered`` / ``dw_gathered`` at block
     granularity. Every site's input needs a gradient (the embedding
-    table trains), so layer 0 launches its dX products too."""
+    table trains), so layer 0 launches its dX products too. The routed
+    experts' sites (``moe/gate``, ``moe/up``, ``moe/down``) launch their
+    products once an expert."""
     n = {"matmul": 0, "dx_gathered": 0, "dw_gathered": 0}
     for site in site_names(cfg)[0]:
         p = policy_for(policy, site)
         if not (p.active and p.use_pallas and not p.mask_mode):
             continue
+        per = cfg.n_experts if site.split("/", 1)[1] in _EXPERT_SITES else 1
         if p.granularity == "channel":
-            n["matmul"] += p.sparsify_dx + p.sparsify_dw
+            n["matmul"] += per * (p.sparsify_dx + p.sparsify_dw)
         else:
-            n["dx_gathered"] += p.sparsify_dx
-            n["dw_gathered"] += p.sparsify_dw
+            n["dx_gathered"] += per * p.sparsify_dx
+            n["dw_gathered"] += per * p.sparsify_dw
     return n
 
 
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda"):
-    """Contiguous decode cache: per layer K/V rows ``[batch, max_seq, KV,
-    hd]``, one row set per slot."""
+    """Contiguous decode cache: per attention layer K/V rows ``[batch,
+    max_seq, KV, hd]``, one row set per slot; per SSM layer its conv
+    window and state, a row per slot."""
     dt = dtype or getattr(torch, cfg.dtype)
     return transformer.stack_cache_init(cfg, batch, max_seq, dt, device=device)
 
 
-def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int, dtype=None, device="cuda"):
-    """Paged decode cache: per layer a K/V page pool ``[n_blocks,
-    block_size, KV, hd]`` (the dense family keeps no per-slot state, so
-    unlike the JAX package's it takes no batch size)."""
+def init_paged_cache(
+    cfg: ModelConfig, n_blocks: int, block_size: int, dtype=None, device="cuda", *, batch: int = 0
+):
+    """Paged decode cache: per attention layer a K/V page pool
+    ``[n_blocks, block_size, KV, hd]``; per SSM layer its conv window and
+    state for ``batch`` slots (the JAX package's first argument, here a
+    keyword: a stack without SSM layers keeps no per-slot state)."""
     dt = dtype or getattr(torch, cfg.dtype)
-    return transformer.stack_cache_init(cfg, n_blocks, block_size, dt, device=device)
+    if batch < 1 and any(s.mixer == "ssm" for s in transformer.period_pattern(cfg)):
+        raise ValueError(f"{cfg.name}: a paged cache of SSM layers needs the slot count (batch=)")
+    return transformer.stack_cache_init(cfg, batch, block_size, dt, n_pages=n_blocks,
+                                        device=device)
 
 
 def decode_slots(
@@ -174,19 +193,20 @@ def decode_slots(
     cache)``; ``all_logits=True`` returns the whole chunk's ``[B, C, V]``
     (the speculative verifier compares every position). Rows with
     ``token_count == 0`` carry garbage logits the caller must ignore.
-    ``spec_states`` is the JAX package's switch for per-position SSM
-    states; the dense family has none, so it changes nothing here.
+    ``spec_states=True`` makes each SSM layer's cache entry the
+    per-position stacks (``conv [B, C, ...]`` / ``state [B, C, ...]``),
+    so that :func:`commit_spec_cache` can select the state as of an
+    accepted prefix; K/V are position-addressed and unchanged.
     """
-    del spec_states
     b, c = tokens.shape
     ar = torch.arange(c, device=tokens.device)
     positions = slot_pos.long()[:, None] + ar[None, :]  # [B, C]
     valid = ar[None, :] < token_count.long()[:, None]  # [B, C]
     x = layers.embed_apply(params["embed"], tokens)
-    x, cache = transformer.stack_apply(
+    x, cache, _ = transformer.stack_apply(
         params["stack"], x, cfg,
         positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
-        paged_kernel=paged_kernel,
+        paged_kernel=paged_kernel, spec_states=spec_states,
     )
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if all_logits:
@@ -204,7 +224,8 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos: int)
     ``dynamic_update_slice``; the rows and the mask are the same).
     Returns (logits [B, V] at the last position, cache)."""
     b, s = tokens.shape
-    t = cache[0]["k"].shape[1]
+    kv = transformer.kv_layers(cache)
+    t = cache[kv[0]]["k"].shape[1] if kv else pos + s
     if pos + s > t:
         raise ValueError(f"decode_step writes positions {pos}..{pos + s - 1} past max_seq {t}")
     dev = tokens.device
@@ -214,13 +235,19 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos: int)
 
 
 def commit_spec_cache(cache, keep: torch.Tensor):
-    """Collapse a speculative step's cache to the accepted prefix
-    (``keep [B]`` tokens a slot). The JAX package selects the SSM states
-    at the accepted position here; the dense family keeps only K/V,
-    which are position-addressed (rejected writes lie past the committed
-    position, fenced by the causal mask until overwritten), so the cache
-    passes through unchanged."""
-    del keep
+    """Collapse a ``spec_states=True`` cache to the accepted prefix, in
+    the list: ``keep [B]`` is how many of the chunk's tokens each slot
+    consumed. An SSM layer's stacks ``[B, C, ...]`` become the state at
+    position ``clip(keep - 1, 0)`` (a slot with ``keep == 0`` reads
+    position 0, which equals the pre-step state since invalid positions
+    are frozen). K/V are position-addressed (rejected writes lie past the
+    committed position, fenced by the causal mask until overwritten) and
+    pass through."""
+    idx = torch.clamp(keep.long() - 1, min=0)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    for li, layer in enumerate(cache):
+        if "state" in layer:
+            cache[li] = {k: t[rows, idx.to(t.device)] for k, t in layer.items()}
     return cache
 
 
@@ -229,48 +256,73 @@ def _indices(mask, device) -> torch.Tensor:
     return torch.as_tensor(np.flatnonzero(np.asarray(mask)), dtype=torch.long, device=device)
 
 
-def reset_slots(cache, free_mask) -> None:
-    """Zero the contiguous cache rows of the slots in ``free_mask [B]``
-    (a host bool array), in place, at every layer."""
-    idx = _indices(free_mask, cache[0]["k"].device)
+def _zero_rows(cache, mask, leaves) -> None:
+    """Zero, in place, the rows in the host bool ``mask`` of every
+    layer's ``leaves`` (the leading axis: slots or pages)."""
+    held = [(layer, [k for k in leaves if k in layer]) for layer in cache]
+    held = [(layer, names) for layer, names in held if names]
+    if not held:
+        return
+    idx = _indices(mask, held[0][0][held[0][1][0]].device)
     if not len(idx):
         return
-    for layer in cache:
-        layer["k"][idx] = 0
-        layer["v"][idx] = 0
+    for layer, names in held:
+        for k in names:
+            layer[k][idx] = 0
+
+
+def reset_slots(cache, free_mask) -> None:
+    """Zero the contiguous cache rows of the slots in ``free_mask [B]``
+    (a host bool array), in place, at every layer: K/V rows and SSM
+    states (which carry no position to mask by)."""
+    _zero_rows(cache, free_mask, ("k", "v", "conv", "state"))
 
 
 def reset_paged(cache, slot_mask, page_mask) -> None:
-    """Zero freed state in a paged cache, in place: the pages in
-    ``page_mask [n_blocks]`` at every layer. ``slot_mask [B]`` names the
-    slots whose per-slot state to clear; the dense family keeps none, so
-    pages are all there is."""
-    del slot_mask
-    idx = _indices(page_mask, cache[0]["k"].device)
-    if not len(idx):
-        return
-    for layer in cache:
-        layer["k"][idx] = 0
-        layer["v"][idx] = 0
+    """Zero freed state in a paged cache, in place: the K/V pages in
+    ``page_mask [n_blocks]`` and the SSM rows of the slots in ``slot_mask
+    [B]``, at every layer."""
+    _zero_rows(cache, page_mask, ("k", "v"))
+    _zero_rows(cache, slot_mask, ("conv", "state"))
 
 
 def swap_out_slot(cache, slot: int, pages):
-    """One slot's swappable state of a paged cache: per layer the K/V of
-    its ``pages`` (``[n_pages, bs, KV, hd]`` copies, on the cache's
-    device). The bundle plus the slot's position restores the request's
-    device state exactly. ``slot`` would pick the per-slot state, which
-    the dense family does not have."""
-    del slot
-    idx = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=cache[0]["k"].device)
-    return [{k: layer[k].index_select(0, idx) for k in ("k", "v")} for layer in cache]
+    """One slot's swappable state of a paged cache, per layer: the K/V of
+    its ``pages`` (``[n_pages, bs, KV, hd]`` copies) or its SSM row
+    (``conv`` / ``state`` copies), on the cache's device. The bundle plus
+    the slot's position restores the request's device state exactly."""
+    out = []
+    for layer in cache:
+        if "k" in layer:
+            idx = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=layer["k"].device)
+            out.append({k: layer[k].index_select(0, idx) for k in ("k", "v")})
+        else:
+            out.append({k: t[slot].clone() for k, t in layer.items()})
+    return out
 
 
 def swap_in_slot(cache, data, slot: int, pages) -> None:
     """Write a :func:`swap_out_slot` bundle back into a paged cache, in
-    place, at the freshly allocated ``pages`` (the ids may differ from
-    swap-out time: page contents are position-addressed within a page)."""
-    del slot
-    idx = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=cache[0]["k"].device)
+    place: K/V at the freshly allocated ``pages`` (the ids may differ from
+    swap-out time: page contents are position-addressed within a page),
+    SSM rows at ``slot``."""
     for layer, saved in zip(cache, data, strict=True):
-        for k in ("k", "v"):
-            layer[k][idx] = saved[k].to(device=layer[k].device, dtype=layer[k].dtype)
+        where = slot
+        if "k" in layer:
+            where = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=layer["k"].device)
+        for k, t in layer.items():
+            t[where] = saved[k].to(device=t.device, dtype=t.dtype)
+
+
+def ssm_snapshot(cache):
+    """Copies of the SSM layers' states (``{layer: {"conv", "state"}}``):
+    what a proposal round must restore, since K/V rows past a position
+    are fenced by the mask but a recurrent state is not."""
+    return {li: {k: t.clone() for k, t in layer.items()}
+            for li, layer in enumerate(cache) if "state" in layer}
+
+
+def ssm_restore(cache, snap) -> None:
+    """Put an :func:`ssm_snapshot` back into ``cache``."""
+    for li, layer in snap.items():
+        cache[li] = layer

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import flops as FL
+from repro_torch.core import prng
 from repro_torch.core.conv import backward_route, route_launches
 from repro_torch.core.policy import DENSE, PolicyLike, SsPropPolicy
 from repro_torch.models import layers
@@ -218,10 +219,13 @@ def forward(
     train: bool = True,
     small_stem: bool = True,
     dropout_rate: float = 0.0,
-    dropout_key: torch.Generator | None = None,
+    dropout_key: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """x [B, C, H, W] -> logits [B, num_classes]. Dropout after each
-    block draws from the ``torch.Generator`` ``dropout_key``."""
+    block draws as the JAX package does, from ``dropout_key`` (``[2]``
+    int64 JAX key data): ``dk, sub = split(dk)``, then ``bernoulli(sub,
+    1 - rate, h.shape)`` (:mod:`repro_torch.core.prng`), so a key gives
+    the JAX package's masks bit for bit."""
     kind, _ = LAYOUTS[name]
     stem_stride = 1 if small_stem else 2
     stem_pad = 1 if small_stem else 3
@@ -231,15 +235,16 @@ def forward(
     h = F.relu(h)
     if not small_stem:
         h = _max_pool_same(h)
+    dk = dropout_key
     for bi, (blk, stride) in enumerate(zip(params["blocks"], block_strides(name), strict=True)):
         apply = _basic_apply if kind == "basic" else _bottleneck_apply
         h = apply(blk, h, stride, policy, train, f"block_{bi}")
         if dropout_rate > 0.0 and train:
-            if dropout_key is None:
-                raise ValueError("dropout needs a torch.Generator dropout_key")
-            u = torch.rand(h.shape, generator=dropout_key, device=dropout_key.device)
-            keep = (u.to(h.device) < 1.0 - dropout_rate).to(h.dtype)
-            h = h * keep / (1.0 - dropout_rate)
+            if dk is None:
+                raise ValueError("dropout needs a dropout_key")
+            dk, sub = prng.split(dk.to(h.device))
+            keep = prng.bernoulli(sub, 1.0 - dropout_rate, h.shape)
+            h = h * keep.to(h.dtype) / (1.0 - dropout_rate)
     h = h.mean(dim=(2, 3))
     return h @ params["head"]["w"] + params["head"]["b"]
 

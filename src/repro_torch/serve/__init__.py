@@ -14,7 +14,8 @@ Layout::
   lockstep.py   the static lock-step baseline and parity oracle
   workload.py   Poisson and long-tail workload generators
 
-The dense family only; the other families are not ported yet.
+The decoder-only families (dense, moe, ssm, hybrid); an encoder-decoder
+or VLM config raises "not ported yet" when its cache is laid out.
 """
 from repro_torch.serve.cache import (
     BlockAllocator,

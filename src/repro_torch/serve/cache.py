@@ -2,20 +2,23 @@
 
 The twin of ``repro.serve.cache``. Two memory planes:
 
-* :class:`SlotCacheManager` — the contiguous layout: per layer K/V rows
-  ``[B, max_seq, KV, hd]``, so slot *b* owns ``max_seq`` rows whatever
-  its request's length.
+* :class:`SlotCacheManager` — the contiguous layout: per attention
+  layer K/V rows ``[B, max_seq, KV, hd]``, so slot *b* owns ``max_seq``
+  rows whatever its request's length.
 * :class:`PagedCacheManager` — the paged layout: K/V live in a global
-  pool of fixed-size **pages** (per layer ``[n_blocks, block_size, KV,
-  hd]``) handed out by a :class:`BlockAllocator`; each slot maps logical
-  block *l* to a physical page through its row of the **block table**
-  (``[B, blocks_per_slot]`` int32). KV memory is then proportional to
-  actual sequence length.
+  pool of fixed-size **pages** (per attention layer ``[n_blocks,
+  block_size, KV, hd]``) handed out by a :class:`BlockAllocator`; each
+  slot maps logical block *l* to a physical page through its row of the
+  **block table** (``[B, blocks_per_slot]`` int32). KV memory is then
+  proportional to actual sequence length.
+
+Either way an SSM layer keeps its conv window and state as a row per
+slot (``[B, ...]``), cleared when the slot gets a new occupant.
 
 Both own the cache, the free lists and the host-side per-slot positions.
 Freed state is **zeroed before reuse**. The paged manager also supports
 **swap preemption**: :meth:`PagedCacheManager.swap_out` stages one
-slot's pages in host memory (:class:`SwappedSlot`, pinned when the cache
+slot's pages and SSM rows in host memory (:class:`SwappedSlot`, pinned when the cache
 is on the card) and :meth:`PagedCacheManager.swap_in` restores them into
 fresh pages — the eviction that stays exact for sampled requests.
 """
@@ -36,13 +39,14 @@ from repro_torch.models import model as lm
 class SwappedSlot:
     """One slot's cache state staged on the host by
     :meth:`PagedCacheManager.swap_out`: ``data`` mirrors the cache (per
-    layer the K/V of the slot's pages, ``[n_pages, bs, KV, hd]`` host
-    tensors), ``pos`` the slot's write position at eviction, ``n_pages``
-    the page count to allocate again at swap-in."""
+    attention layer the K/V of the slot's pages, ``[n_pages, bs, KV, hd]``
+    host tensors; per SSM layer the slot's conv window and state), ``pos``
+    the slot's write position at eviction, ``n_pages`` the page count to
+    allocate again at swap-in."""
 
     pos: int
     n_pages: int
-    data: Any  # list of per-layer {"k", "v"} host tensors
+    data: Any  # list of per-layer {"k", "v"} or {"conv", "state"} host tensors
 
     @property
     def nbytes(self) -> int:
@@ -205,7 +209,8 @@ class PagedCacheManager:
         self.block_size = block_size
         self.n_blocks = n_blocks
         self.blocks_per_slot = -(-max_seq // block_size)
-        self.cache = lm.init_paged_cache(cfg, n_blocks, block_size, dtype=dtype, device=device)
+        self.cache = lm.init_paged_cache(cfg, n_blocks, block_size, dtype=dtype, device=device,
+                                         batch=n_slots)
         self.pos = np.zeros((n_slots,), np.int32)
         self.block_tables = np.zeros((n_slots, self.blocks_per_slot), np.int32)
         self.n_table_blocks = np.zeros((n_slots,), np.int32)
@@ -290,14 +295,13 @@ class PagedCacheManager:
         self._zero(slots=[], pages=pages)
 
     def reset(self, slots: Iterable[int]) -> None:
-        """Zero the per-slot state of ``slots``. Pages are zeroed at
-        :meth:`free` already; this keeps :class:`SlotCacheManager`'s
-        admission-time interface."""
+        """Zero the per-slot state (the SSM rows) of ``slots``. Pages are
+        zeroed at :meth:`free` already."""
         self._zero(slots=list(slots), pages=[])
 
     def swap_out(self, slot: int) -> SwappedSlot:
-        """Stage ``slot``'s pages on the host and release the slot and
-        its pages (zeroed, as at :meth:`free`). The returned bundle
+        """Stage ``slot``'s pages and SSM rows on the host and release the
+        slot and its pages (zeroed, as at :meth:`free`). The returned bundle
         restores the exact device state through :meth:`swap_in`; the
         position is kept, so the per-position PRNG lane of a sampled
         request draws the same stream."""
@@ -337,6 +341,6 @@ class PagedCacheManager:
         lm.reset_paged(self.cache, slot_mask, page_mask)
 
     def page_view(self, page: int) -> list[torch.Tensor]:
-        """Host copies of one page's K and V at every layer (tests and
-        debugging)."""
-        return [layer[k][page].cpu() for layer in self.cache for k in ("k", "v")]
+        """Host copies of one page's K and V at every attention layer
+        (tests and debugging)."""
+        return [layer[k][page].cpu() for layer in self.cache if "k" in layer for k in ("k", "v")]

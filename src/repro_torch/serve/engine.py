@@ -1,6 +1,6 @@
 """The continuous-batching engine: slot-scheduled, sampling-safe serving.
 
-The twin of ``repro.serve.engine`` for the dense family. One engine
+The twin of ``repro.serve.engine`` for the decoder-only families. One engine
 iteration (:meth:`ContinuousBatchingEngine.step`):
 
 1. **admission** — freed slots go to arrived waiting requests (FIFO;
@@ -38,9 +38,11 @@ past the first mismatch. The stream is the one ``spec_k = 0`` gives.
 
 The JAX drafter proposes on a functional snapshot of its cache and drops
 it. The port's drafter cache is written in place, so after a proposal
-round only its positions are rolled back: the proposals' K/V stay in the
-rows past the synced position, where the per-slot causal mask fences
-them until the next catch-up overwrites them.
+round its positions are rolled back and its SSM states restored from a
+copy taken before the round: the proposals' K/V stay in the rows past
+the synced position, where the per-slot causal mask fences them until
+the next catch-up overwrites them, while a recurrent state has no
+position to fence by.
 
 ``block_size > 0`` selects the paged cache (attention through the
 paged-attention kernel by default); ``block_size == 0`` the contiguous
@@ -58,6 +60,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import model as lm
 from repro_torch.serve import request as rq
 from repro_torch.serve.cache import PagedCacheManager, SlotCacheManager
 from repro_torch.serve.scheduler import Scheduler, ServeConfig
@@ -331,8 +334,9 @@ class ContinuousBatchingEngine:
         2. **propose** — ``k-1`` width-1 steps, each feeding the previous
            proposal, give ``d2..dk``; slots that want fewer freeze.
         3. **roll back** — the drafter's positions return to the synced
-           ones. The proposal K/V stay in the rows past them, fenced by
-           the causal mask; the next catch-up overwrites them with
+           ones and its SSM states to their copies from before step 2.
+           The proposal K/V stay in the rows past the positions, fenced
+           by the causal mask; the next catch-up overwrites them with
            whatever the target accepted.
         """
         spec_slots = [
@@ -375,6 +379,7 @@ class ContinuousBatchingEngine:
         for s in spec_slots:
             self._draft_sync[s] = len(hist[s])
         synced_pos = self._draft.pos.copy()
+        synced_ssm = lm.ssm_snapshot(self._draft.cache)
         for _ in range(max(plan[s] - 1 for s in spec_slots) - 1):
             live = [s for s in spec_slots if len(proposals[s]) < plan[s] - 1]
             if not live:
@@ -388,6 +393,7 @@ class ContinuousBatchingEngine:
             for s in live:
                 proposals[s].append(int(nxt[s]))
         self._draft.pos = synced_pos
+        lm.ssm_restore(self._draft.cache, synced_ssm)
         return proposals
 
     # ------------------------------------------------------------------

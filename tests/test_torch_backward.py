@@ -26,6 +26,7 @@ from repro.core import sparse_dense as jdense
 from repro.core import sparsity as jsparsity
 from repro_torch.core import backward as tbackward
 from repro_torch.core import policy as tpolicy
+from repro_torch.core import prng as tprng
 from repro_torch.core import sparsity as tsparsity
 from repro_torch.core.conv import sparse_conv2d as tconv
 from repro_torch.core.dense import sparse_dense as tdense
@@ -67,10 +68,8 @@ def test_selection_matches_jax(gran, bs, c):
 
 def test_random_selection_properties():
     imp = torch.rand(40)
-    a = tsparsity.select_topk_channels(imp, 7, selection="random",
-                                       key=torch.Generator().manual_seed(3))
-    b = tsparsity.select_topk_channels(imp, 7, selection="random",
-                                       key=torch.Generator().manual_seed(3))
+    a = tsparsity.select_topk_channels(imp, 7, selection="random", key=tprng.key(3))
+    b = tsparsity.select_topk_channels(imp, 7, selection="random", key=tprng.key(3))
     assert torch.equal(a, b) and len(set(a.tolist())) == 7
     assert torch.equal(a, torch.sort(a).values) and 0 <= a.min() and a.max() < 40
     with pytest.raises(ValueError, match="requires"):

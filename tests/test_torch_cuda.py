@@ -958,3 +958,91 @@ def test_sampled_swapping_speculative_engine_on_the_card(cuda):
                                  sampling=r.sampling, device=cuda)
         np.testing.assert_array_equal(outs[True][r.rid], ref)
         np.testing.assert_array_equal(outs[False][r.rid], ref)
+
+
+# ----------------------------------------------------------------------
+# the decoder-only families: paged_attention at kimi-k2's head dim 112,
+# the reduced configs' training routes, random draws on the card
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", _PAIRS)
+@pytest.mark.parametrize("s,nb,splits", [(1, 10, None), (1, 128, None), (32, 10, None),
+                                         (5, 10, None), (8, 10, 1), (3, 6, 3)])
+def test_paged_attention_at_head_dim_112(cuda, s, nb, splits, q_dtype, pool_dtype):
+    """kimi-k2's heads (64 query heads over 8 KV heads of 112, tiled at
+    128): decode, a deep decode, a prefill chunk on the TF32 tile, a
+    spec_k=4 verify chunk, forced splits. Within rtol=atol=1e-4 of the
+    plain version, the same bits on a second call, one launch counted."""
+    args = _inputs(cuda, s=s, h=64, kv=8, d=112, nb=nb, n_pages=4 * nb, q_dtype=q_dtype,
+                   pool_dtype=pool_dtype, seed=31)
+    assert tpa.chunk_keys(112) == 32 and tpa.padded_dim(112) == 128
+    before = tpa.launches
+    out = tpa.paged_attention(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    torch.testing.assert_close(out, tpa.paged_attention_ref(*args), rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, tpa.paged_attention(*args, splits=splits))
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "llama4-maverick-400b-a17b",
+                                  "kimi-k2-1t-a32b", "mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_reduced_family_routes_agree_on_the_card(cuda, arch):
+    """One sparse step of the reduced fp32 config through ``matmul``, the
+    gather route and the mask oracle: the same kept channels (each
+    routed expert its own), every gradient leaf within 1e-4, ``matmul``
+    launched the launch table's count."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import backward, policy
+    from repro_torch.launch import steps
+    from repro_torch.models import model as lm
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(arch).reduced()
+        params = lm.init_params(cfg, 0, cuda)
+        rng = np.random.default_rng(3)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)).to(cuda)
+                 for k in ("tokens", "targets")}
+        kern = dataclasses.replace(policy.paper_default(0.8), use_pallas=True)
+        res = {}
+        for name, pol in (("matmul", kern), ("gather", dataclasses.replace(kern, use_pallas=False)),
+                          ("mask", dataclasses.replace(kern, mask_mode=True))):
+            before = tgm.launches["matmul"]
+            with backward.record_selections() as log:
+                (loss, _), grads = steps.value_and_grad(
+                    lambda p, pol=pol: lm.loss_fn(cfg, p, batch, pol), params)
+            torch.cuda.synchronize()
+            res[name] = (float(loss), grads, [s.idx.cpu() for _, s in log],
+                         tgm.launches["matmul"] - before)
+        assert res["matmul"][3] == lm.kernel_launches_per_step(cfg, kern)["matmul"]
+        for other in ("gather", "mask"):
+            assert abs(res["matmul"][0] - res[other][0]) <= 1e-4 * abs(res[other][0])
+            assert sorted(map(tuple, map(torch.Tensor.tolist, res["matmul"][2]))) == sorted(
+                map(tuple, map(torch.Tensor.tolist, res[other][2])))
+            from repro_torch.optim import adam
+
+            for a, b in zip(adam.tree_leaves(res["matmul"][1]), adam.tree_leaves(res[other][1]),
+                            strict=True):
+                n = b.float().norm()
+                rel = float((a.float() - b.float()).norm() / n) if n > 0 else float(a.norm())
+                assert rel <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_random_draws_on_the_card_give_the_cpu_bits(cuda):
+    """``split``, ``bernoulli`` and ``permutation`` (two sort rounds at
+    2000) give the same values on the card as on the CPU, where they are
+    ``jax.random``'s (tests/test_torch_random_draws.py)."""
+    from repro_torch.core import prng
+
+    for seed in (0, 7, 123456789):
+        k = prng.key(seed)
+        assert torch.equal(prng.split(k.to(cuda), 3).cpu(), prng.split(k, 3))
+        assert torch.equal(prng.permutation(k.to(cuda), 2000).cpu(), prng.permutation(k, 2000))
+        assert torch.equal(prng.bernoulli(k.to(cuda), 0.7, (4, 64, 8, 8)).cpu(),
+                           prng.bernoulli(k, 0.7, (4, 64, 8, 8)))

@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.build" in mods
     for m in ("repro_torch.models.ddpm", "repro_torch.launch.train_ddpm",
               "repro_torch.configs.paper", "repro_torch.core.flops",
-              "repro_torch.core.prng", "repro_torch.serve.lockstep"):
+              "repro_torch.core.prng", "repro_torch.serve.lockstep",
+              "repro_torch.models.ssm", "repro_torch.models.moe",
+              "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.mamba2_1_3b"):
         assert m in mods
     code = (
         "import sys\n"

@@ -227,6 +227,33 @@ def test_main_path_plans():
     assert tpa.paged_split_plan(4, 32, 16, 2, 128, 128, 16).splits == 8
 
 
+def test_kimi_k2_head_dim_112_plans():
+    """kimi-k2's heads (H=64, KV=8, D=112): the kernel tiles D at 128 and
+    takes chunks of 4096 / 128 = 32 keys, as at D=128. Decode takes 8-row
+    tiles and 5 splits of a 160-token slot (160 blocks), a 32-row
+    prefill chunk four 64-row tiles a KV head and 2 splits (256 blocks),
+    a spec_k=4 verify chunk the 16-row tile."""
+    assert [tpa.padded_dim(d) for d in (32, 112, 128)] == [32, 128, 128]
+    assert [tpa.chunk_keys(d) for d in (32, 112, 128)] == [128, 32, 32]
+    dec = tpa.paged_split_plan(4, 1, 64, 8, 112, 10, 16)
+    assert (dec.row_tile, dec.row_tiles, dec.splits, dec.chunk) == (8, 1, 5, 32)
+    pre = tpa.paged_split_plan(4, 32, 64, 8, 112, 10, 16)
+    assert (pre.row_tile, pre.row_tiles, pre.splits) == (64, 4, 2)
+    assert tpa.paged_split_plan(4, 5, 64, 8, 112, 10, 16).row_tile == 16
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_split_kv_mirror_at_head_dim_112_matches_jax(splits):
+    """The split-KV partials and combine at D=112 in chunks of 32 keys
+    equal the Pallas kernel (interpret mode), fp32, rtol = atol = 1e-5."""
+    b, s, h, kv, d, bs, nb = 2, 2, 8, 1, 112, 16, 6
+    q, k, v, tables, qpos = _case(
+        33, b=b, s=s, h=h, kv=kv, d=d, n_pages=b * nb, bs=bs, nb=nb, offs=[40, 93])
+    out = split_kv_mirror(*(torch.from_numpy(a) for a in (q, k, v, tables, qpos)),
+                          splits=splits, chunk=tpa.chunk_keys(d))
+    np.testing.assert_allclose(out.numpy(), _jax(q, k, v, tables, qpos), rtol=1e-5, atol=1e-5)
+
+
 # --- the arithmetic of QK^T and PV on the tensor cores, emulated -------
 
 

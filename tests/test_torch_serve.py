@@ -65,7 +65,7 @@ def test_config_twins_jax(reduce):
     assert cfg.padded_vocab == jcfg.padded_vocab
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "no-such-arch"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "no-such-arch"])
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config(arch)
@@ -191,10 +191,10 @@ def test_engine_streams_match_jax(model, jax_streams, workload, route):
         assert not layer["k"].any() and not layer["v"].any()
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_engine_refuses_unported_families(model, family):
-    """Only the dense family is ported: an engine over any other raises
-    when it lays out its cache, paged or contiguous."""
+    """The encoder-decoder and VLM families are not ported: an engine over
+    either raises when it lays out its cache, paged or contiguous."""
     _, cfg, _, _, params = model
     other = dataclasses.replace(cfg, family=family)
     for skw in (dict(block_size=4), {}):

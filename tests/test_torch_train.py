@@ -24,6 +24,7 @@ from repro.data import pipeline as jpipe
 from repro.models import resnet as jresnet
 from repro.optim import adam as jadam
 from repro_torch.core import flops as tflops
+from repro_torch.core import prng as tprng
 from repro_torch.core import policy as tpolicy
 from repro_torch.core import schedulers as tsched
 from repro_torch.data import pipeline as tpipe
@@ -231,7 +232,7 @@ def test_dropout_properties():
     _, pt = _resnet_pair("resnet18")
     x = torch.randn(2, 3, 8, 8)
     run = lambda s: tresnet.forward(  # noqa: E731
-        "resnet18", pt, x, dropout_rate=0.5, dropout_key=torch.Generator().manual_seed(s))
+        "resnet18", pt, x, dropout_rate=0.5, dropout_key=tprng.key(s))
     with torch.no_grad():
         a, b, c = run(0), run(0), run(1)
         plain = tresnet.forward("resnet18", pt, x)
