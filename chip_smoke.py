@@ -7,7 +7,9 @@ Drives ``src/repro_torch`` (never the JAX package) through its serving
 path and its ssProp training paths (ResNet-18, the DDPM UNet, qwen2.5-3b,
 mamba2-1.3b), the other decoder-only families (mamba2-1.3b and kimi-k2
 serving at full width, the reduced configs of the seven archs beside
-qwen2.5-3b), and fails (non-zero exit, no result line) on any error:
+qwen2.5-3b), the encoder-decoder and VLM families (whisper-large-v3 and
+paligemma-3b serving and training at full width and depth), and fails
+(non-zero exit, no result line) on any error:
 
 1. device check: needs CUDA; prints the card's name and power limit and
    turns TF32 off for float32 matmuls and convolutions;
@@ -28,7 +30,10 @@ qwen2.5-3b), and fails (non-zero exit, no result line) on any error:
    engine step's mix of prefill, verify and decode rows at S = 32; then
    kimi-k2's heads (H=64, KV=8, D=112, which the kernel tiles at 128):
    decode at NB=10 and 128, a 32-row prefill chunk, a spec_k=4 verify
-   chunk, fp32 queries, bf16 pools;
+   chunk, fp32 queries, bf16 pools; then (``[kernel-64]``,
+   ``[kernel-256]``) whisper's heads (H = KV = 20, D=64) and paligemma's
+   (H=8, KV=1, D=256) at the same four cases, bf16 and fp32 queries over
+   fp32 pools; every row within 1e-4 * max(1, max|plain|) too;
 4. gathered-kernel phase: ``dx_gathered``, ``dw_gathered``,
    ``conv_dw_fused`` and ``conv_dx_fused`` against their plain versions
    at every shape a sparse ResNet-18 training step launches them with
@@ -149,20 +154,52 @@ qwen2.5-3b), and fails (non-zero exit, no result line) on any error:
    8 requests through the paged engine on the kernel route (the kernel
    at head_dim 112) and the gather route; the share of tokens equal
    between them at least 0.9; tokens/s, p50 and p99 step, peak memory;
-19. the reduced fp32 configs of the seven new archs: the three-route
-   training check (each routed expert's own kept channels, ``matmul``
-   launches equal to the table) and identical greedy and sampled streams through
-   the paged engine on both routes, swap, speculation with a
+19. the reduced fp32 configs of the seven new archs and of whisper and
+   paligemma: the three-route training check (each routed expert's own
+   kept channels, ``matmul`` launches equal to the table; the frames or
+   patches in the batch) and identical greedy and sampled streams
+   through the paged engine on both routes, swap, speculation with a
    one-period drafter, the contiguous engine and the lock-step oracle;
-20. prints the card's line, the kernels' JSON line (a gathered kernel's
+20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width
+   and depth (32 encoder + 32 decoder layers, d 1280, vocab 51866), 8
+   sampled Poisson requests, each with its ``[1500, 1280]`` frames from
+   the workload (prompt 16, gen 64, 4 slots, 16-token pages) through the
+   paged engine on the kernel and the gather route, a 12-page pool
+   (swaps), self-drafted speculation (k=4), the contiguous engine and
+   the lock-step baseline, bf16 and an fp32 copy: ``paged_attention``
+   launched at D=64 once a layer a target step, every page back and
+   zero, tokens/s, p50/p99 step, the encoder's time a call, peak memory,
+   the shares of tokens equal to the paged kernel run's (fp32 at least
+   0.9); a profile of a decode and a mixed step;
+21. VLM serving (``[vlm-serve]``): paligemma-3b at full width and depth
+   (18 layers, d 2048, d_ff 16384, vocab 257216), the same runs (prompt
+   128, gen 32, ``max_seq`` with room for the 256 patches, a 24-page
+   pool), ``paged_attention`` at D=256;
+22. encdec and VLM training (``[encdec-kernels]``, ``[vlm-kernels]``,
+   ``[encdec-train]``, ``[vlm-train]``): ``matmul`` against its plain
+   version, within 1e-4 x max(1, max|plain|), bf16 and fp32, at every
+   product of each arch's sparse training step (whisper's encoder and
+   cross K/V rows B x 1500, paligemma's B x (256 + 128)), with its time,
+   bound, plain and library times; the route check at full width, depth 2, fp32 (kernel / gather / mask:
+   the same kept channels, every leaf within 1e-4), then
+   ``make_train_step`` at full width and depth, bf16, Adam 2e-4,
+   ``paper_default(0.8)`` with ``use_pallas``: whisper B=2 S=128 with
+   frames ``[2, 1500, 1280]``, paligemma B=8 S=128 with patches ``[8,
+   256, 2048]`` (numpy, from the seed); a warm-up and 3 timed dense and
+   sparse steps, ``matmul`` launched ``kernel_launches_per_step`` times
+   a sparse step, tokens/s, peak memory;
+23. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases',
    ``paged_attention``'s the serve phase's, the paged runs' of
-   ``serve_features_phase`` and the kimi-k2 serve phase's, ``matmul``'s
-   the qwen2.5-3b and mamba2-1.3b training phases', each in
-   ``launches_by_path``, with the verify chunk's times in ``verify`` and
-   kimi-k2's decode in ``d112``; its times are at the ResNet path's
-   largest shape, the DDPM path's in ``ddpm``) and, last, the device
-   JSON line.
+   ``serve_features_phase``, the kimi-k2, whisper and paligemma serve
+   phases', ``matmul``'s the qwen2.5-3b, mamba2-1.3b, whisper and
+   paligemma training phases', each in ``launches_by_path``, with the
+   verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
+   whisper's in ``d64`` and paligemma's in ``d256``; ``matmul``'s
+   ``max_abs_err`` covers the qwen2.5-3b, whisper and paligemma products,
+   the latter two also in ``by_arch``; its times are at the ResNet
+   path's largest shape, the DDPM path's in ``ddpm``) and,
+   last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -295,6 +332,9 @@ def paged_row(pa, F, c, args):
     if not torch.equal(out, pa.paged_attention(*args)):
         raise AssertionError(f"paged_attention at {c}: two launches differ")
     err = (out - ref).abs().max().item()
+    gate = KERNEL_TOL * max(1.0, ref.abs().max().item())
+    if err > gate:
+        raise AssertionError(f"paged_attention at {c}: max abs error {err} > {gate}")
 
     # timing: enough copies of the pools that they overflow L2
     q, k, v, tables, qpos = args
@@ -428,7 +468,34 @@ def kernel_phase(pa, F):
     print(f"[kernel-112] {len(d112)} cases at kimi-k2's heads (D=112 tiled at "
           f"{pa.padded_dim(112)}, chunks of {pa.chunk_keys(112)} keys) within rtol=atol="
           f"{KERNEL_TOL}, each repeated bit for bit")
-    return rows, v_rows, k_rows, max_err, digest.hexdigest()[:16]
+
+    # whisper's heads (H = KV = 20, D = 64: one live row in an 8-row decode
+    # tile) and paligemma's (8 query heads on one KV head, D = 256: chunks
+    # of 16 keys); decode at NB=10 and 128, a 32-row prefill chunk, a
+    # spec_k=4 verify chunk; bf16 and fp32 queries over fp32 pools; at
+    # D=64 a 64-row chunk on the TF32 tile too
+    new_dims = {}
+    for d, (h, kv), seed in ((64, (20, 20), 8), (256, (8, 1), 9)):
+        ngen = torch.Generator(device="cuda").manual_seed(seed)
+        heads = dict(h=h, kv=kv, d=d)
+        cases_d = [dict(b=4, s=s, nb=nb, qdt=qdt, pdt=f32, kind=kind, **heads)
+                   for qdt in (bf16, f32)
+                   for s, nb, kind in ((1, 10, "mixed"), (1, 128, "deep"), (32, 10, "mixed"),
+                                       (5, 10, "mixed"))]
+        if d == 64:  # G = 1 takes the TF32 tile from 64 rows: fp32 q over fp32 and
+            # over bf16 pools, the one D=64 instantiation ptxas spills in
+            cases_d += [dict(b=4, s=64, nb=10, qdt=f32, pdt=pdt, kind="mixed", **heads)
+                        for pdt in (f32, bf16)]
+        new_dims[d] = []
+        for c in cases_d:
+            row, _ = paged_row(pa, F, c, paged_case(ngen, **c))
+            max_err = max(max_err, row["max_abs_err"])
+            new_dims[d].append(row)
+            print(f"[kernel-{d}] " + json.dumps(row))
+        print(f"[kernel-{d}] {len(cases_d)} cases at H={h} KV={kv} D={d} (chunks of "
+              f"{pa.chunk_keys(d)} keys) within {KERNEL_TOL} x max(1, max|plain|), each repeated "
+              "bit for bit")
+    return rows, v_rows, k_rows, new_dims, max_err, digest.hexdigest()[:16]
 
 
 def _cast(params, dtype):
@@ -728,12 +795,13 @@ def serve_features_phase(cfg, lm, pa, ops, S, params):
     return launches, summaries, plan
 
 
-def step_profile(cfg, lm, params, dev="cuda", tag="[profile]"):
+def step_profile(cfg, lm, params, dev="cuda", tag="[profile]", enc_out=None):
     """Where one step of the main path spends its time: a decode step
     (4 slots, 1 token each) and a mixed step (two prefill chunks of 32,
-    two decodes) at 10 pages a slot through the kernel route. Host wall
-    time per step over 5 runs, then one profiled run: device busy time
-    and the kernels that take most of it."""
+    two decodes) at 10 pages a slot through the kernel route (``enc_out``:
+    the slots' encoder outputs, encdec). Host wall time per step over 5
+    runs, then one profiled run: device busy time and the kernels that
+    take most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -751,7 +819,7 @@ def step_profile(cfg, lm, params, dev="cuda", tag="[profile]"):
 
         def run():
             logits, _ = lm.decode_slots(cfg, params, tokens, cache, pos_t, cnt_t,
-                                        block_tables=tables, paged_kernel=True)
+                                        enc_out=enc_out, block_tables=tables, paged_kernel=True)
             return logits.argmax(-1).cpu()  # the engine's read-back, which waits
 
         run()
@@ -1421,20 +1489,36 @@ def lm_policy(policy_mod):
     return dataclasses.replace(policy_mod.paper_default(LM_RATE), use_pallas=True)
 
 
-def lm_products(cfg, policy):
+def lm_products(lm, cfg, policy, batch=LM_BATCH, seq=LM_SEQ):
     """``(name, A shape, B shape, A transposed, B transposed, launches a
-    sparse step)`` of every ``matmul`` product of a sparse step, as the
-    backward hands them over: dX = dy_k @ w_k.T, dW = x2.T @ dy_k."""
-    m = LM_BATCH * LM_SEQ
-    d, hd = cfg.d_model, cfg.head_dim
-    sites = {  # site -> (d_in, d_out, sites of this shape a layer)
-        "q, o": (d, cfg.n_heads * hd, 2), "k, v": (d, cfg.n_kv_heads * hd, 2),
-        "gate, up": (d, cfg.d_ff, 2), "down": (cfg.d_ff, d, 1),
-    }
+    sparse step)`` of every ``matmul`` product of a sparse step of
+    ``batch`` x ``seq`` tokens, as the backward hands them over: dX =
+    dy_k @ w_k.T, dW = x2.T @ dy_k, one of each a site, sites of one
+    shape together. A site's rows are the tokens its input holds: the
+    encoder's sites and the cross-attention's K/V take ``enc_seq`` frames
+    a sequence, a vlm's sites the patch prefix and the text."""
+    d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dims = {"q": (d, h * hd), "k": (d, kv * hd), "v": (d, kv * hd), "o": (h * hd, d),
+            "up": (d, cfg.d_ff), "gate": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
+    groups: dict[tuple, list] = {}  # (rows, d_in, d_out) -> [site kinds, sites]
+    for site in lm.site_names(cfg)[0]:
+        parts = site.split("/")
+        enc = parts[0] == "enc"
+        kind = "/".join(parts[2:] if enc else parts[1:])
+        proj = parts[-1]
+        if enc or (parts[-2] == "cross" and proj in ("k", "v")):
+            rows = batch * cfg.enc_seq
+        else:
+            rows = batch * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
+        g = groups.setdefault((rows, *dims[proj]), [[], 0])
+        kind = f"enc {kind}" if enc else kind
+        if kind not in g[0]:
+            g[0].append(kind)
+        g[1] += 1
     out = []
-    for name, (d_in, d_out, per_layer) in sites.items():
+    for (m, d_in, d_out), (kinds, n) in groups.items():
         k = policy.keep_count(d_out)
-        n = per_layer * cfg.n_layers
+        name = ", ".join(kinds)
         out.append((f"dX {name}", (m, k), (k, d_in), False, True, n))
         out.append((f"dW {name}", (d_in, m), (m, k), True, False, n))
     return out
@@ -1452,12 +1536,13 @@ def importance_library(dy):
     return torch.linalg.vector_norm(dy, 1, dim=0, dtype=torch.float32) / dy.shape[0]
 
 
-def lm_kernel_phase(gm, lm, cfg, policy):
-    """``matmul`` and ``importance`` against their plain versions at
-    every shape of the LM path, bf16 and fp32; times and bounds."""
+def lm_kernel_phase(gm, lm, cfg, policy, batch=LM_BATCH, seq=LM_SEQ, tag="[lm-kernels]"):
+    """``matmul`` against its plain version at every shape of a sparse
+    training step of ``cfg`` (``batch`` x ``seq`` tokens), bf16 and fp32,
+    and on the LM path ``importance`` too; times and bounds."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows, max_err = [], dict.fromkeys(LM_KERNELS, 0.0)
-    products = lm_products(cfg, policy)
+    products = lm_products(lm, cfg, policy, batch, seq)
     expect = lm.kernel_launches_per_step(cfg, policy)["matmul"]
     if sum(p[-1] for p in products) != expect:
         raise AssertionError(f"product table {products} != launch table {expect}")
@@ -1490,7 +1575,8 @@ def lm_kernel_phase(gm, lm, cfg, policy):
             t_ops = 2 * m * n * k / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
             bf16 = dtype == torch.bfloat16
             variant = "wgmma+TMA 128x128, split-K" if bf16 else "simt fp32 FMA 64x64"
-            row = dict(name="matmul", product=name, shape=f"A[{m},{k}]{'T' if a_t else ''} @ "
+            row = dict(name="matmul", arch=cfg.name, product=name,
+                       shape=f"A[{m},{k}]{'T' if a_t else ''} @ "
                        f"B[{k},{n}]{'T' if b_t else ''}", dtype=str(dtype).replace("torch.", ""),
                        variant=variant, splits=gm.matmul_plan(m, n, k)[0] if bf16 else 1,
                        launches_per_step=per_step, max_abs_err=err, ms=ms,
@@ -1499,9 +1585,9 @@ def lm_kernel_phase(gm, lm, cfg, policy):
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        flops=2 * m * n * k, tflops=2 * m * n * k / ms / 1e9)
             rows.append(row)
-            print("[lm-kernels] " + json.dumps(row))
+            print(f"{tag} " + json.dumps(row))
             del sets, args, out, ref
-    for n in (cfg.d_model, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff):
+    for n in (cfg.d_model, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff) if cfg.name == LM_ARCH else ():
         for dtype in (torch.bfloat16, torch.float32):
             m = LM_BATCH * LM_SEQ
             dy = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
@@ -1527,9 +1613,9 @@ def lm_kernel_phase(gm, lm, cfg, policy):
     if gm.repacks["matmul"] != repacks:
         raise AssertionError(f"matmul repacked {gm.repacks['matmul'] - repacks} operands laid "
                              "out as the backward lays them out")
-    print(f"[lm-kernels] matmul at {len(products)} products and importance at 3 shapes, bf16 "
-          f"and fp32: within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}; "
-          "no operand repacked")
+    print(f"{tag} {cfg.name} B={batch} S={seq}: matmul at {len(products)} products"
+          f"{' and importance at 3 shapes' if cfg.name == LM_ARCH else ''}, bf16 and fp32: "
+          f"within {KERNEL_TOL} x max(1, max|plain|); max abs err {max_err}; no operand repacked")
     return rows, max_err
 
 
@@ -1685,12 +1771,15 @@ def _median(v):
 
 
 def _site_of(params, cfg):
-    """Weight pointer -> (site, expert or None) of every sparse site."""
+    """Weight pointer -> (site, expert or None) of every sparse site (the
+    encoder's ``enc/layer_{i}/...`` and the cross-decoder's too)."""
     out = {}
-    for li, layer in enumerate(params["stack"]["layers"]):
-        for role in ("attn", "mlp", "ssm", "moe"):
+    stacks = ([("", params["stack"]["layers"])] if "stack" in params else
+              [("enc/", params["encoder"]["layers"]), ("", params["decoder"]["layers"])])
+    for prefix, li, layer in [(x, i, t) for x, ts in stacks for i, t in enumerate(ts)]:
+        for role in ("attn", "mlp", "ssm", "moe", "self", "cross"):
             for name, p in layer.get(role, {}).items():
-                site = f"layer_{li}/{role}/{name}"
+                site = f"{prefix}layer_{li}/{role}/{name}"
                 if role == "moe" and name in ("gate", "up", "down"):
                     for e in range(cfg.n_experts):
                         out[p[e].data_ptr()] = (site, e)
@@ -1702,17 +1791,33 @@ def _site_of(params, cfg):
     return out
 
 
+def _stub_inputs(cfg, batch, seed=0):
+    """The stubbed frontends' inputs of a training batch, standard normal
+    from ``seed`` (numpy): an encdec model's ``frames [B, enc_seq, d]``,
+    a vlm's ``patches [B, n_patches, d]``; nothing for the others."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        shape, key = (batch, cfg.enc_seq, cfg.d_model), "frames"
+    elif cfg.family == "vlm":
+        shape, key = (batch, cfg.n_patches, cfg.d_model), "patches"
+    else:
+        return {}
+    return {key: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda")}
+
+
 def family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, batch, seq, tag):
     """The loss and every gradient leaf of one sparse step (0.8, channel
     top-k) three ways: through ``matmul``, the gather route and the mask
     oracle, fp32 with TF32 off. The same kept channels at every site (a
     routed expert's own), the same loss, every leaf within
     TRAIN_ROUTE_TOL of the others, and the kernel route's ``matmul``
-    launches equal to the launch table's."""
+    launches equal to the launch table's. An encdec or vlm batch carries
+    its frames or patches (:func:`_stub_inputs`)."""
     t0 = time.perf_counter()
     params = lm.init_params(cfg, 0, device="cuda")
     pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(cfg.vocab, seq, batch, 0))
     b = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(0).items()}
+    b.update(_stub_inputs(cfg, batch))
     kern = lm_policy(policy_mod)
     routes = {"matmul": kern, "gather": dataclasses.replace(kern, use_pallas=False),
               "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
@@ -1871,6 +1976,8 @@ def _family_runs(S, cfg, params, tag, runs, reqs_kw, pa, lock_seq):
             p50_ms=float(np.percentile(step_ms, 50)), p99_ms=float(np.percentile(step_ms, 99)),
             wall_s=wall,
         )
+        if eng.encode_times:  # encdec: the encoder's seconds a call, at admission
+            summary[name]["encoder_ms"] = [t * 1e3 for t in eng.encode_times]
         if eng.serve_cfg.paged:
             _pages_back_and_zero(eng, f"{tag} {name}")
             n_attn = sum(1 for layer in eng.slots.cache if "k" in layer)
@@ -1888,15 +1995,19 @@ def _family_runs(S, cfg, params, tag, runs, reqs_kw, pa, lock_seq):
     if lock_seq:
         t0 = time.perf_counter()
         lock, reqs = {}, wl()
+        encdec = cfg.family == "encdec"
         if len({r.prompt_len for r in reqs}) == 1:
             for wave in S.lockstep_waves(reqs, runs[next(iter(runs))][0]["max_slots"]):
-                out = S.generate_lockstep(cfg, params, np.stack([r.prompt for r in wave]),
-                                          [r.max_new_tokens for r in wave], max_seq=lock_seq,
-                                          sampling=[r.sampling for r in wave])
+                out = S.generate_lockstep(
+                    cfg, params, np.stack([r.prompt for r in wave]),
+                    [r.max_new_tokens for r in wave], max_seq=lock_seq,
+                    frames=np.stack([r.frames for r in wave]) if encdec else None,
+                    sampling=[r.sampling for r in wave])
                 lock.update({r.rid: t for r, t in zip(wave, out["tokens"], strict=True)})
         else:
             lock = {r.rid: S.generate_reference(cfg, params, r.prompt, r.max_new_tokens,
-                                                max_seq=lock_seq, sampling=r.sampling)
+                                                max_seq=lock_seq, frames=r.frames,
+                                                sampling=r.sampling)
                     for r in reqs}
         outs["lockstep"] = lock
         print(f"{tag} lockstep: wall {time.perf_counter() - t0:.2f} s")
@@ -1943,7 +2054,8 @@ def ssm_serve_phase(lm, pa, S, get_config):
         del p
         gc.collect()
         torch.cuda.empty_cache()
-    print(f"[ssm-serve] {SSM_ARCH} has no attention layer: no kernel runs on this path "
+    print(f"[ssm-serve] {SSM_ARCH} (depth {cfg.n_layers}) has no attention layer: no kernel "
+          "runs on this path "
           f"(paged_attention launched 0 times); tokens equal to the paged run's: "
           f"{json.dumps(shares)} (float32 limit {SHARE_MIN}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2007,7 +2119,7 @@ def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S,
     jamba's periods), through the contiguous engine and the lock-step
     oracle: every stream identical."""
     out = {}
-    for arch in NEW_ARCHS:
+    for arch in NEW_ARCHS + (ENCDEC_ARCH, VLM_ARCH):
         t0 = time.perf_counter()
         cfg = get_config(arch).reduced()
         worst, _ = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, 2, 24,
@@ -2047,6 +2159,178 @@ def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S,
         torch.cuda.empty_cache()
     return out
 
+# ----------------------------------------------------------------------
+# the encoder-decoder (whisper-large-v3) and VLM (paligemma-3b) families
+# ----------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "paligemma-3b"
+# training batches: B, S decoder tokens (+ frames [B, 1500, 1280] / patches [B, 256, 2048])
+XFAMILY_TRAIN = {ENCDEC_ARCH: (2, 128), VLM_ARCH: (8, 128)}
+XFAMILY_ROUTE = (2, 32)  # B, S of the route check (full width, depth 2, fp32)
+XFAMILY_STEPS = 3  # timed dense and sparse steps each, after a warm-up of each
+
+
+def xfamily_serve_phase(arch, tag, lm, pa, S, get_config):
+    """An encdec or vlm arch serves at full width and depth: 8 sampled
+    Poisson requests (whisper: prompt 16, gen 64, each with its
+    ``[1500, 1280]`` frames from the workload; paligemma: prompt 128,
+    gen 32; 4 slots, 16-token pages, ``max_seq`` with room for the
+    patches as the CLI's) through the paged engine on the kernel and the
+    gather route, a pool small enough to swap, speculating 4 tokens
+    self-drafted, the contiguous engine and the lock-step baseline, with
+    bf16 params and an fp32 copy. ``paged_attention`` launched once a
+    layer a target step of each kernel-route run (at the arch's head
+    dim); every page back and zero; the fp32 shares of tokens equal to
+    the paged kernel run's at least SHARE_MIN (bf16 printed). Whisper's
+    encoder runs once an admission (twice when self-drafting): its time
+    a call, as the engines record it, is printed. Returns (launches,
+    summary)."""
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _named_leaves(params))
+    print(f"{tag} {arch}: {n_params / 1e9:.3f} B params built in {time.perf_counter() - t0:.1f} s "
+          f"(depth {cfg.n_layers}{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''},"
+          f" d {cfg.d_model}, H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.head_dim})")
+    prompt, gen, pool = (16, 64, 12) if cfg.family == "encdec" else (128, 32, 24)
+    reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=prompt, gen_len=gen, seed=0,
+                   uniform_prompts=True, **SAMPLED)
+    base = dict(max_slots=4, max_seq=prompt + gen + cfg.n_patches, prefill_chunk=16 if
+                cfg.family == "encdec" else 32)
+    paged = dict(base, block_size=16)
+    runs = {
+        "paged kernel": (dict(paged), None),
+        "paged gather": (dict(paged, attn_kernel=False), None),
+        "swap": (dict(paged, n_blocks=pool, preempt="swap"), None),
+        "spec self": (dict(paged, spec_k=SPEC_K, decode_widths=(1, 4, SPEC_K + 1)), None),
+        "contiguous": (dict(base), None),
+    }
+    summaries, shares, enc, launches = {}, {}, {}, 0
+    for prec in ("bfloat16", "float32"):
+        p = params if prec == "bfloat16" else _cast(params, torch.float32)
+        outs, summaries[prec], n = _family_runs(S, cfg, p, f"{tag} {prec}", runs, reqs_kw,
+                                                pa, base["max_seq"])
+        for name in ("paged kernel", "swap", "spec self"):
+            if not summaries[prec][name]["launches"]:
+                raise AssertionError(f"{tag} {prec} {name}: paged_attention never launched")
+        launches += n
+        ref = outs["paged kernel"]
+        gen_tok = np.stack([ref[r] for r in sorted(ref)])
+        if gen_tok.shape != (8, gen) or gen_tok.min() < 0 or gen_tok.max() >= cfg.vocab:
+            raise AssertionError(f"{tag} {prec}: tokens {gen_tok.shape} in "
+                                 f"{gen_tok.min()}..{gen_tok.max()}")
+        shares[prec] = _shares(outs, "paged kernel")
+        if cfg.family == "encdec":
+            enc_ms = [t for run in summaries[prec].values() for t in run["encoder_ms"]]
+            enc[prec] = dict(calls=len(enc_ms), median_ms=_median(enc_ms), max_ms=max(enc_ms))
+        del p, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k = summaries["bfloat16"]["paged kernel"]
+    print(f"{tag} {arch} bf16 paged kernel route: {k['tokens_per_s']:.1f} tokens/s, step p50 "
+          f"{k['p50_ms']:.2f} ms p99 {k['p99_ms']:.2f} ms; paged_attention launches {launches} at "
+          f"head_dim {cfg.head_dim} (H={cfg.n_heads}, KV={cfg.n_kv_heads}); peak memory "
+          f"{peak:.2f} GiB" + (f"; encoder a call (1500 frames, 32 layers): {json.dumps(enc)}"
+                               if enc else ""))
+    print(f"{tag} tokens equal to the paged kernel run's: {json.dumps(shares)} (float32 limit "
+          f"{SHARE_MIN})")
+    low = {name: v for name, v in shares["float32"].items() if v < SHARE_MIN}
+    if low:
+        raise AssertionError(f"{tag} fp32 runs part from the paged kernel one: {low}")
+    prof = step_profile(cfg, lm, params, tag=f"{tag.rstrip(']')}-profile]",
+                        enc_out=_enc_rows(cfg, lm, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(k, shares=shares, encoder=enc, peak_gib=peak, profile=prof,
+                          fp32=summaries["float32"]["paged kernel"])
+
+
+def _enc_rows(cfg, lm, params, b=4):
+    """Encoder outputs for ``b`` slots (encdec; ``None`` otherwise), from
+    seeded frames, for a profiled decode step."""
+    if cfg.family != "encdec":
+        return None
+    frames = np.random.default_rng(3).standard_normal((b, cfg.enc_seq, cfg.d_model))
+    return lm.encode_frames(cfg, params, frames, "cuda")
+
+
+def xfamily_training_phase(arch, tag, lm, steps, adam, backward, gm, pa, policy_mod, pipeline,
+                           get_config):
+    """An encdec or vlm arch trains at full width and depth through
+    ``make_train_step`` (bf16 params, Adam 2e-4 with the LM CLI's clip,
+    ``paper_default(0.8)`` with ``use_pallas`` at channel granularity):
+    whisper B=2 S=128 with frames ``[2, 1500, 1280]``, paligemma B=8
+    S=128 with patches ``[8, 256, 2048]``, both from the seed with numpy
+    (the training CLI's token pipeline gives neither). A warm-up dense
+    and sparse step, then XFAMILY_STEPS of each timed: every loss finite,
+    ``matmul`` launched ``kernel_launches_per_step`` times a sparse step
+    and never in a dense one, ``paged_attention`` not at all. First the
+    route check at depth 2 in fp32 (:func:`family_route_check`)."""
+    cfg = get_config(arch)
+    rcfg = dataclasses.replace(cfg, n_layers=2, n_enc_layers=min(cfg.n_enc_layers, 2),
+                               dtype="float32")
+    worst, _ = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, rcfg,
+                                  *XFAMILY_ROUTE, tag.replace("-train]", "-route]"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, seq = XFAMILY_TRAIN[arch]
+    pipe = pipeline.TokenPipeline(pipeline.TokenPipelineConfig(cfg.vocab, seq, b, 0))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(0).items()}
+    batch.update(_stub_inputs(cfg, b))
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, 0, device="cuda")
+    opt = adam.init(params)
+    ocfg = adam.AdamConfig(lr=2e-4, clip_norm=1.0)
+    sparse_pol = lm_policy(policy_mod)
+    per_step = lm.kernel_launches_per_step(cfg, sparse_pol)["matmul"]
+    pa_before = pa.launches
+    ms, losses, launches = {}, [], 0
+    for name, pol in (("dense", policy_mod.DENSE), ("sparse", sparse_pol)):
+        fn = steps.make_train_step(cfg, pol, ocfg)
+        ms[name] = []
+        for i in range(1 + XFAMILY_STEPS):
+            before = gm.launches["matmul"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = fn(params, opt, batch)  # in place
+            losses.append(m["loss"].item())  # waits for the step
+            dt = (time.perf_counter() - t0) * 1e3
+            n = gm.launches["matmul"] - before
+            if n != (per_step if name == "sparse" else 0):
+                raise AssertionError(f"{tag} {name} step: matmul launches {n} != "
+                                     f"{per_step if name == 'sparse' else 0}")
+            launches += n
+            if i:
+                ms[name].append(dt)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag} non-finite loss: {losses}")
+    if pa.launches != pa_before:
+        raise AssertionError(f"{tag} launched paged_attention")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = b * seq
+    med = {k: _median(v) for k, v in ms.items()}
+    stub = {ENCDEC_ARCH: f"frames [{b}, {cfg.enc_seq}, {cfg.d_model}]",
+            VLM_ARCH: f"patches [{b}, {cfg.n_patches}, {cfg.d_model}]"}[arch]
+    print(f"{tag} {arch} full width and depth, bf16, B={b} S={seq} + {stub}: losses "
+          f"{[round(v, 4) for v in losses]}; step ms dense {[round(v, 2) for v in ms['dense']]}, "
+          f"sparse {[round(v, 2) for v in ms['sparse']]}")
+    print(f"{tag} dense median {med['dense']:.2f} ms ({tokens / med['dense'] * 1e3:.0f} "
+          f"tokens/s), sparse median {med['sparse']:.2f} ms ({tokens / med['sparse'] * 1e3:.0f} "
+          f"tokens/s); peak memory {peak:.2f} GiB; matmul launches {launches} = {per_step} "
+          f"(kernel_launches_per_step) x {1 + XFAMILY_STEPS} sparse steps")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(dense_ms=med["dense"], sparse_ms=med["sparse"], peak_gib=peak,
+                          per_step=per_step, route_worst=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -2072,6 +2356,11 @@ def main() -> int:
     from repro_torch.models import resnet
     from repro_torch.optim import adam
 
+    t_start = time.perf_counter()
+
+    def lap(name):  # where the script's time goes, phase by phase
+        print(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # 1. device check
     card = smi()
     print(f"[device] {card}")
@@ -2091,12 +2380,15 @@ def main() -> int:
             if "Used" in line or "error" in line.lower() or "warning" in line.lower():
                 print(f"[build] {name}: {line.strip()}")
 
+    lap("build")
     # 3. kernel phase
-    rows, v_rows, k_rows, max_err, paged_digest = kernel_phase(pa, F)
+    rows, v_rows, k_rows, new_dims, max_err, paged_digest = kernel_phase(pa, F)
 
+    lap("kernel")
     # 4. gathered-kernel phase
     g_rows, g_err = gathered_phase(gm, ops, resnet, policy_mod, paged_digest)
 
+    lap("gathered")
     # 5. route check at full width
     cfg = get_config("qwen2.5-3b")
     t0 = time.perf_counter()
@@ -2109,6 +2401,7 @@ def main() -> int:
     reduced_streams_agree(serve)
     reduced_features_agree(lm, serve_pkg, get_config)
 
+    lap("route")
     # 6. serve phase: the port's entry point, counted
     argv = ["--arch", "qwen2.5-3b", "--batch", "4", "--requests", "8",
             "--prompt-len", "128", "--gen", "32", "--prefill-chunk", "32",
@@ -2142,6 +2435,7 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
 
+    lap("serve")
     # 6b. the rest of serving at full width: sampling, swap, speculation,
     # the contiguous cache and the lock-step baseline, counted
     feat_launches, feat_summary, verify_plan = serve_features_phase(
@@ -2150,6 +2444,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("serve-features")
     # 7. training-route check at full width
     train_rel = training_route_check(tc, resnet, backward, policy_mod, pipeline)
     torch.cuda.empty_cache()
@@ -2158,6 +2453,7 @@ def main() -> int:
     train_launches, train_ms = training_phase(tc, gm, pa, resnet, policy_mod)
     train_profile(tc, resnet, policy_mod, pipeline, adam)
 
+    lap("train")
     # 9-12. ssProp generation: the DDPM UNet's kernels, routes, the entry
     # point, a profile
     gc.collect()
@@ -2171,6 +2467,7 @@ def main() -> int:
     ddpm_launches, ddpm_ms = ddpm_training_phase(td, gm, pa, ddpm, policy_mod)
     ddpm_profile(td, ddpm, policy_mod, pipeline, adam)
 
+    lap("ddpm")
     # 13-15. ssProp LM training: kernels, routes, the entry point, a profile
     gc.collect()
     torch.cuda.empty_cache()
@@ -2181,6 +2478,7 @@ def main() -> int:
     lm_launches, lm_ms = lm_training_phase(train, lm, gm, pa, policy_mod, cfg)
     lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
 
+    lap("lm-train")
     # 17-20. the decoder-only families: mamba2 trains and serves at full
     # width, kimi-k2 serves at full width (depth 1), the seven reduced
     # configs' routes and streams
@@ -2195,7 +2493,27 @@ def main() -> int:
     fam_rel = families_reduced_phase(lm, lm_steps, backward, policy_mod, pipeline, gm, pa,
                                      serve_pkg, get_config)
 
-    # 16. result lines
+    lap("families")
+    # 20-22. the encoder-decoder and VLM families at full width and depth:
+    # serving (paged_attention at head dims 64 and 256), then training
+    enc_launches, enc_summary = xfamily_serve_phase(ENCDEC_ARCH, "[encdec-serve]", lm, pa,
+                                                    serve_pkg, get_config)
+    vlm_launches, vlm_summary = xfamily_serve_phase(VLM_ARCH, "[vlm-serve]", lm, pa, serve_pkg,
+                                                    get_config)
+    # matmul against its plain version at every product of both archs'
+    # sparse training steps (the encoder's 1500-frame rows, the cross K/V,
+    # the patch prefix), bf16 and fp32
+    x_rows = {arch: lm_kernel_phase(gm, lm, get_config(arch), lm_policy(policy_mod),
+                                    *XFAMILY_TRAIN[arch], tag=tag)
+              for arch, tag in ((ENCDEC_ARCH, "[encdec-kernels]"), (VLM_ARCH, "[vlm-kernels]"))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    xtrain = {arch: xfamily_training_phase(arch, tag, lm, lm_steps, adam, backward, gm, pa,
+                                           policy_mod, pipeline, get_config)
+              for arch, tag in ((ENCDEC_ARCH, "[encdec-train]"), (VLM_ARCH, "[vlm-train]"))}
+
+    lap("encdec-vlm")
+    # 23. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
@@ -2206,9 +2524,10 @@ def main() -> int:
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
-        launches=launches + feat_launches + moe_launches,
+        launches=launches + feat_launches + moe_launches + enc_launches + vlm_launches,
         launches_by_path={"serve": launches, "serve_features": feat_launches,
-                          "moe_serve": moe_launches},
+                          "moe_serve": moe_launches, "encdec_serve": enc_launches,
+                          "vlm_serve": vlm_launches},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -2220,6 +2539,10 @@ def main() -> int:
         | {"plan": verify_plan.variant},
         d112={k: k_head[k] for k in ("shape", "variant", "splits", "ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by", "max_abs_err")},
+        # whisper's and paligemma's decode (NB=10, bf16 q over fp32 pools)
+        **{f"d{d}": {k: new_dims[d][0][k] for k in (
+            "shape", "variant", "splits", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for d in (64, 256)},
     )]
     for name, replaces in GATHERED.items():
         mine = [r for r in g_rows if r["name"] == name]
@@ -2243,19 +2566,27 @@ def main() -> int:
     for name, replaces in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]
         top = max(mine, key=lambda r: (r["flops"], r["ms"]))  # the main path's largest shape
-        path_launches = {LM_ARCH: lm_launches[name]}
+        path_launches, err, by_arch = {LM_ARCH: lm_launches[name]}, lm_err[name], {}
         if name == "matmul":
             path_launches[SSM_ARCH] = ssm_launches
+            path_launches.update({arch: xtrain[arch][0] for arch in xtrain})
+            err = max([err] + [e[name] for _, e in x_rows.values()])
+            # whisper's and paligemma's sparse steps: the worst error, and
+            # one step's launches at their shapes (bf16)
+            by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
+                r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
+                for arch, (xr, e) in x_rows.items()}
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, launches=sum(path_launches.values()),
-            launches_by_path=path_launches, max_abs_err=lm_err[name],
+            launches_by_path=path_launches, max_abs_err=err,
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=" ".join(filter(None, (top.get("product"), top["shape"], "bfloat16"))),
             # one sparse step's launches of this kernel (bf16, as the main path), at their shapes
             step_ms=sum(r["ms"] * r["launches_per_step"] for r in mine),
             **{k: top[k] for k in ("variant", "tflops") if k in top},
+            **({"by_arch": by_arch} if by_arch else {}),
         ))
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[ddpm-train] route rel L2 {ddpm_rel}; step medians {ddpm_ms}")
@@ -2265,6 +2596,9 @@ def main() -> int:
     print(f"[moe-serve] {json.dumps(moe_summary)}")
     print(f"[family-route] worst relative L2 {json.dumps(fam_rel)}")
     print(f"[serve-features] {json.dumps(feat_summary)}")
+    print(f"[encdec-serve] {json.dumps(enc_summary)}")
+    print(f"[vlm-serve] {json.dumps(vlm_summary)}")
+    print(f"[xfamily-train] {json.dumps({a: v[1] for a, v in xtrain.items()})}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@ that the ported families read, with the same names, defaults and
 derived values (``head_dim``, ``padded_vocab``, ``is_moe``, ``is_ssm``,
 ``d_inner``, ``n_ssm_heads``, ``param_count()``,
 ``active_param_count()``, ``reduced()``), so a config here and the one
-of the same arch there describe the same model. The decoder-only
-families are ported (dense, moe, ssm, hybrid); the encoder-decoder and
-VLM fields come with those families.
+of the same arch there describe the same model. Every family of the JAX
+package is ported: dense, moe, ssm, hybrid, the encoder-decoder (the
+encoder's depth and fixed length) and the VLM (its patch prefix).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ class ModelConfig:
     """Architecture description."""
 
     name: str
-    family: str  # dense | moe | hybrid | ssm (encdec and vlm are not ported yet)
+    family: str  # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,7 +30,7 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     act: str = "silu"  # silu | gelu | relu2
-    gated_mlp: bool = True  # False: the 2-matrix MLP (nemotron's relu2)
+    gated_mlp: bool = True  # False: the 2-matrix MLP (nemotron's relu2, whisper)
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
 
@@ -49,6 +49,13 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 256
     attn_every: int = 0  # hybrid: one attention layer per this many (jamba 8)
+
+    # encoder-decoder
+    n_enc_layers: int = 0
+    enc_seq: int = 0  # fixed encoder length (whisper: 1500 frames)
+
+    # VLM
+    n_patches: int = 0  # prefix length of the stub patch embeddings
 
     dtype: str = "bfloat16"
     attn_q_chunk: int = 1024  # full-sequence attention's query chunk (memory lever)
@@ -108,6 +115,7 @@ class ModelConfig:
                 total += per_moe
             else:
                 total += per_mlp
+        total += self.n_enc_layers * (per_attn + per_mlp)
         return int(total)
 
     def active_param_count(self) -> int:
@@ -125,7 +133,8 @@ class ModelConfig:
     def reduced(self, **overrides) -> ModelConfig:
         """A tiny same-family variant for CPU tests, the JAX package's cut:
         d 128, 2 layers (4 with ``attn_every=2`` for hybrids), at most 4
-        experts of which top-2, state 16, head dim 32, chunk 16, fp32."""
+        experts of which top-2, state 16, head dim 32, chunk 16, at most 2
+        encoder layers of 32 frames and 8 patches, fp32."""
         small = dict(
             n_layers=min(self.n_layers, 4 if self.attn_every else 2),
             d_model=128,
@@ -140,6 +149,9 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16),
             ssm_headdim=32 if self.ssm_state else self.ssm_headdim,
             ssm_chunk=16,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            enc_seq=min(self.enc_seq, 32) if self.enc_seq else 0,
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
             attn_every=min(self.attn_every, 2) if self.attn_every else 0,
             dtype="float32",
         )

@@ -44,6 +44,13 @@
 //     PV three (two over bf16 pools). P stays in registers: the score
 //     accumulator of an 8-key tile is the A operand of PV under the key
 //     order (2t, 2t+1) -> (t, t+4), which V's fragments follow too.
+//     At D=256 a thread holds 32 x 4 fp32 accumulators and a chunk is
+//     16 keys (two key tiles); the q rows are staged in batches of at
+//     most 16 vector loads a thread so that the prologue needs no more
+//     registers than the main loop;
+//   * whisper's heads (H = KV = 20, D=64) leave one live row in an 8-row
+//     decode tile (G = 1); paligemma's (8 heads on one KV head, D=256)
+//     fill it, and its grid of B blocks splits by the plan.
 // Masked keys contribute exactly 0 everywhere.
 //
 // Semantics (identical to the Pallas kernel): a key at logical position
@@ -180,7 +187,7 @@ struct Tile {
   static constexpr bool MMA = ROWS == MMA_ROWS;
   static constexpr int THREADS = MMA ? 128 : ROWS * TPR;
   static constexpr int DP = pad_dim(D);          // the tiled width: 128 at D=112
-  static constexpr int CK = CHUNK_VALUES / DP;  // keys a chunk: 32 at D=112 and 128
+  static constexpr int CK = CHUNK_VALUES / DP;  // keys a chunk: 64 at D=64, 32 at 112 and 128, 16 at 256
   static constexpr int DK = DP + 16 / (int)sizeof(TKV);  // K/V smem row: 16-byte multiple
   static constexpr int DQ = DP + 4;                       // q smem row (fp32)
   static constexpr int SP = CK + 1;                      // SIMT: padded probability row
@@ -398,25 +405,29 @@ paged_attn_mma(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   const int row0 = blockIdx.y * MMA_ROWS;  // rows s*G + g within (b, kvh)
   const int* tbl = tables + (size_t)b * g.NB;
 
-  {  // q rows into shared memory, fp32 (dead rows zero), all loads in flight at once
+  {  // q rows into shared memory, fp32 (dead rows zero), up to 16 loads in flight at once
     constexpr int C4 = D / 4;                    // float4s a row
     constexpr int QV = MMA_ROWS * C4 / THREADS;  // float4s a thread
-    static_assert(MMA_ROWS * C4 % THREADS == 0, "q loader");
-    float4 v[QV];
+    constexpr int QB = QV < 16 ? QV : 16;        // a batch: 64 registers at most (D=256: 2)
+    static_assert(MMA_ROWS * C4 % THREADS == 0 && QV % QB == 0, "q loader");
 #pragma unroll
-    for (int u = 0; u < QV; ++u) {
-      const int e = tid + THREADS * u;
-      const int row = row0 + e / C4;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < SG) {
-        const size_t id = (size_t)(b * g.S + row / G) * g.H + kvh * G + row % G;
-        v[u] = load4(q + id * D + 4 * (e % C4));
+    for (int u0 = 0; u0 < QV; u0 += QB) {
+      float4 v[QB];
+#pragma unroll
+      for (int u = 0; u < QB; ++u) {
+        const int e = tid + THREADS * (u0 + u);
+        const int row = row0 + e / C4;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < SG) {
+          const size_t id = (size_t)(b * g.S + row / G) * g.H + kvh * G + row % G;
+          v[u] = load4(q + id * D + 4 * (e % C4));
+        }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < QV; ++u) {
-      const int e = tid + THREADS * u;
-      *reinterpret_cast<float4*>(q_s + (e / C4) * DQ + 4 * (e % C4)) = v[u];
+      for (int u = 0; u < QB; ++u) {
+        const int e = tid + THREADS * (u0 + u);
+        *reinterpret_cast<float4*>(q_s + (e / C4) * DQ + 4 * (e % C4)) = v[u];
+      }
     }
   }
   int c_lo, c_hi, k_hi;
@@ -638,8 +649,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
 }
 
 // Head dims of the ported configs: qwen2.5-3b and the dense and MoE archs
-// (128), kimi-k2 (112, tiled at 128) and the reduced configs (32); row
-// tiles of 8 (decode), 16 or 64 (tensor cores) query rows.
+// (128), kimi-k2 (112, tiled at 128), whisper (64), paligemma (256) and
+// the reduced configs (32); row tiles of 8 (decode), 16 or 64 (tensor
+// cores) query rows.
 template <typename TQ, typename TKV>
 int launch_d(int D, int rows, const void* q, const void* k, const void* v, const void* t,
              const void* p, void* o, void* part, const Geom& g, cudaStream_t st) {
@@ -648,12 +660,18 @@ int launch_d(int D, int rows, const void* q, const void* k, const void* v, const
   PAGED_LAUNCH(32, 8)
   PAGED_LAUNCH(32, 16)
   PAGED_LAUNCH(32, 64)
+  PAGED_LAUNCH(64, 8)
+  PAGED_LAUNCH(64, 16)
+  PAGED_LAUNCH(64, 64)
   PAGED_LAUNCH(112, 8)
   PAGED_LAUNCH(112, 16)
   PAGED_LAUNCH(112, 64)
   PAGED_LAUNCH(128, 8)
   PAGED_LAUNCH(128, 16)
   PAGED_LAUNCH(128, 64)
+  PAGED_LAUNCH(256, 8)
+  PAGED_LAUNCH(256, 16)
+  PAGED_LAUNCH(256, 64)
 #undef PAGED_LAUNCH
   return -1;
 }

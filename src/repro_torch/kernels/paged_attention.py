@@ -39,9 +39,10 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# head dims of the ported configs: the reduced ones (32), kimi-k2 (112) and
-# qwen2.5-3b with the other dense and MoE archs (128)
-_HEAD_DIMS = (32, 112, 128)
+# head dims of the ported configs: the reduced ones (32), whisper (64),
+# kimi-k2 (112), qwen2.5-3b with the other dense and MoE archs (128) and
+# paligemma (256)
+_HEAD_DIMS = (32, 64, 112, 128, 256)
 _CHUNK_VALUES = 4096  # keys a chunk times the tiled head dim (paged_attention.cu)
 _SMS = 132  # the H100's streaming multiprocessors
 _GRID_TARGET = 2 * _SMS  # blocks a split grid aims at: about two waves
@@ -60,7 +61,8 @@ def padded_dim(head_dim: int) -> int:
 
 
 def chunk_keys(head_dim: int) -> int:
-    """Keys in one of the kernel's chunks: 32 at D=112 and 128, 128 at D=32."""
+    """Keys in one of the kernel's chunks: 128 at D=32, 64 at D=64, 32 at
+    D=112 and 128, 16 at D=256."""
     return _CHUNK_VALUES // padded_dim(head_dim)
 
 

@@ -109,7 +109,7 @@ def run(args) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     n_requests = args.requests or args.batch
-    max_seq = args.prompt_len + args.gen
+    max_seq = args.prompt_len + args.gen + cfg.n_patches  # the JAX CLI's room for the patches
 
     params = lm.init_params(cfg, args.seed, device)
     reqs = poisson_workload(
@@ -137,6 +137,7 @@ def run(args) -> dict:
                 np.stack([r.prompt for r in wave]),
                 [r.max_new_tokens for r in wave],
                 max_seq=max_seq,
+                frames=np.stack([r.frames for r in wave]) if cfg.family == "encdec" else None,
                 sampling=[r.sampling for r in wave],
                 device=device,
             )

@@ -194,14 +194,16 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     """One lock-step decode step over the contiguous cache.
 
     state = {"tokens": [B,1] int32, "pos": int (every row's write
-    position), "cache": the contiguous cache, optional sampling tensors
-    "rng" [B,2] / "temps" / "top_ks" / "top_ps" (absent -> greedy)}.
+    position), "cache": the contiguous cache, "enc_out" [B, enc_seq, d]
+    (encdec), optional sampling tensors "rng" [B,2] / "temps" /
+    "top_ks" / "top_ps" (absent -> greedy)}.
     Returns the new state: ``tokens`` the next tokens ``[B,1]``, ``pos``
     advanced by one, the cache written in place. The draw folds by
     ``pos``, the position of the token whose logits these are."""
 
     def serve_step(params, state):
-        logits, cache = lm.decode_step(cfg, params, state["tokens"], state["cache"], state["pos"])
+        logits, cache = lm.decode_step(cfg, params, state["tokens"], state["cache"], state["pos"],
+                                       enc_out=state.get("enc_out"))
         fold = torch.full((logits.shape[0],), state["pos"], dtype=torch.int64,
                           device=logits.device)
         nxt = _emit_tokens(logits, state, fold)[:, None]
@@ -217,7 +219,8 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
     slot; 0 = idle), "pos": [B] int32 (per-slot cache offsets), "cache":
     the paged cache (a list of per-layer pools) or the contiguous one,
     "block_tables": [B, NB] int32 with the paged cache (absent with the
-    contiguous one), optional per-slot sampling tensors "rng" [B,2] /
+    contiguous one), "enc_out" [B, enc_seq, d] each slot's encoder output
+    (encdec), optional per-slot sampling tensors "rng" [B,2] /
     "temps" / "top_ks" / "top_ps" (absent -> greedy argmax)}.
     ``paged_kernel`` (default) attends over the paged cache through the
     paged-attention kernel; ``paged_kernel=False`` gathers the pages.
@@ -244,7 +247,7 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
         tokens, count, pos = state["tokens"], state["count"], state["pos"]
         if not spec:
             logits, new_cache = lm.decode_slots(
-                cfg, params, tokens, state["cache"], pos, count,
+                cfg, params, tokens, state["cache"], pos, count, enc_out=state.get("enc_out"),
                 block_tables=state.get("block_tables"), paged_kernel=paged_kernel,
             )
             nxt = _emit_tokens(logits, state, pos.long() + count.long() - 1)
@@ -252,7 +255,7 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
 
         b, c = tokens.shape
         logits, new_cache = lm.decode_slots(
-            cfg, params, tokens, state["cache"], pos, count,
+            cfg, params, tokens, state["cache"], pos, count, enc_out=state.get("enc_out"),
             block_tables=state.get("block_tables"), paged_kernel=paged_kernel,
             all_logits=True, spec_states=True,
         )

@@ -172,14 +172,15 @@ def slot_write_index(positions, token_valid, t):
     return rows, cols, (rows, positions.long()[rows, cols])
 
 
-def masked_attention(q, k, v, *, q_chunk: int = 1024):
-    """Full-sequence causal attention, blocked over query chunks of
-    ``q_chunk``.
+def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024):
+    """Full-sequence attention, blocked over query chunks of ``q_chunk``.
 
-    q [B,S,H,D], k/v [B,S,KV,D] (GQA: each KV head serves H/KV query
-    heads). Scores and softmax in fp32, future positions masked at -1e30,
-    as the JAX package's ``masked_attention`` without a cache. Returns
-    [B,S,H,D] in q.dtype.
+    q [B,S,H,D], k/v [B,T,KV,D] (GQA: each KV head serves H/KV query
+    heads). Scores and softmax in fp32; with ``causal`` (the decoder's
+    self-attention) future positions are masked at -1e30, without it
+    (the encoder, cross-attention) every key is seen, as the JAX
+    package's ``masked_attention`` without a cache. Returns [B,S,H,D] in
+    q.dtype.
     """
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -191,8 +192,9 @@ def masked_attention(q, k, v, *, q_chunk: int = 1024):
     for c0 in range(0, s, q_chunk):
         qc = q[:, c0 : c0 + q_chunk].float().transpose(1, 2)  # [B,H,qc,D]
         scores = (qc @ k_t) * scale  # [B,H,qc,T]
-        q_pos = torch.arange(c0, c0 + qc.shape[2], device=q.device)
-        scores = scores.masked_fill(kv_pos[None, :] > q_pos[:, None], -1e30)
+        if causal:
+            q_pos = torch.arange(c0, c0 + qc.shape[2], device=q.device)
+            scores = scores.masked_fill(kv_pos[None, :] > q_pos[:, None], -1e30)
         outs.append((torch.softmax(scores, dim=-1) @ v_h).transpose(1, 2))  # [B,qc,H,D]
     return torch.cat(outs, dim=1).to(q.dtype)
 
@@ -204,21 +206,29 @@ def attn_apply(
     policy: PolicyLike = DENSE,
     *,
     rope,
+    causal=True,
     qpos=None,
     kv_cache=None,
     block_tables=None,
     write_index=None,
     paged_kernel=True,
+    x_kv=None,
     site: str = "attn",
 ):
-    """Causal self-attention, full-sequence or over a KV cache.
+    """Self- or cross-attention, full-sequence or over a KV cache.
 
     x [B,S,d]; ``rope`` is :func:`rope_angles` of the tokens' positions,
-    the same at every layer of a step, so the stack makes it once. The
-    projections look their policies up as ``{site}/q`` ... ``{site}/o``.
+    the same at every layer of a step, so the stack makes it once, or
+    ``None`` for no rotation. The projections look their policies up as
+    ``{site}/q`` ... ``{site}/o`` ("attn" in the decoder stack and the
+    encoder, "self" / "cross" in the cross-decoder).
 
-    Without ``kv_cache`` (training): causal :func:`masked_attention` over
-    the sequence itself.
+    ``x_kv [B,T,d]`` makes it cross-attention: K/V are projections of
+    ``x_kv``, unrotated and uncached, every key seen (the JAX package's
+    ``x_kv`` with ``use_rope=False``, which the cross-decoder passes).
+
+    Without ``kv_cache`` (training, the encoder): :func:`masked_attention`
+    over the sequence itself, causal or not by ``causal``.
 
     With ``kv_cache`` = dict(k, v) (serving), ``qpos [B,S]`` int32 is each
     token's absolute position in its slot, and this step's K/V are
@@ -244,14 +254,18 @@ def attn_apply(
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
+    src = x if x_kv is None else x_kv
+    t = src.shape[1]
     q = dense_apply(p["q"], x, policy, site=f"{site}/q").reshape(b, s, cfg.n_heads, hd)
-    k = dense_apply(p["k"], x, policy, site=f"{site}/k").reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense_apply(p["v"], x, policy, site=f"{site}/v").reshape(b, s, cfg.n_kv_heads, hd)
-    q = apply_rope(q, rope)
-    k = apply_rope(k, rope)
+    k = dense_apply(p["k"], src, policy, site=f"{site}/k").reshape(b, t, cfg.n_kv_heads, hd)
+    v = dense_apply(p["v"], src, policy, site=f"{site}/v").reshape(b, t, cfg.n_kv_heads, hd)
+    if rope is not None:
+        q = apply_rope(q, rope)
+        if x_kv is None:
+            k = apply_rope(k, rope)
 
     if kv_cache is None:
-        out = masked_attention(q, k, v, q_chunk=cfg.attn_q_chunk)
+        out = masked_attention(q, k, v, causal=causal and x_kv is None, q_chunk=cfg.attn_q_chunk)
     else:
         k_pool, v_pool = kv_cache["k"], kv_cache["v"]
         rows, cols, dest = write_index

@@ -1,7 +1,7 @@
 """Top-level LM: embeddings + stack + loss + the per-slot decode API.
 
-The twin of ``repro.models.model`` for the decoder-only families (dense,
-moe, ssm, hybrid):
+The twin of ``repro.models.model`` for every family (dense, moe, ssm,
+hybrid, encdec, vlm):
 
   * ``init_params(cfg, seed, device)``          -> params
   * ``params_from_jax(cfg, tree, device)``      -> params from a JAX param tree
@@ -13,18 +13,26 @@ moe, ssm, hybrid):
   * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device, batch=)``
   * ``decode_slots(cfg, params, tokens, cache, slot_pos, token_count, ...)``
   * ``decode_step(cfg, params, tokens, cache, pos)``      -> lock-step decode
+  * ``encode(cfg, params, frames)``             -> the encoder's output (encdec)
+  * ``encode_frames(cfg, params, frames, device)`` -> the same from numpy frames
   * ``commit_spec_cache(cache, keep)``
   * ``reset_slots(cache, free_mask)`` / ``reset_paged(cache, slot_mask, page_mask)``
   * ``swap_out_slot(cache, slot, pages)`` / ``swap_in_slot(cache, data, slot, pages)``
 
 Batches are dicts of tensors: ``tokens [B,S]``, ``targets [B,S]`` and
-optionally ``loss_mask [B,S]``.
+optionally ``loss_mask [B,S]``; a vlm batch adds ``patches [B,
+n_patches, d_model]`` (the stubbed vision frontend's output), an encdec
+batch ``frames [B, enc_seq, d_model]`` (the stubbed audio frontend's).
 
 Params are nested dicts of tensors in the JAX package's layouts, with
-the stack as a list of per-layer dicts instead of stacked arrays. A
-decode cache is a list of per-layer dicts: ``{"k", "v"}`` for an
-attention layer (paged: a page pool; contiguous: rows a slot),
-``{"conv", "state"}`` for a Mamba layer (a row a slot either way).
+each stack as a list of per-layer dicts instead of stacked arrays: the
+decoder-only families' ``stack``, the encdec family's ``encoder``,
+``enc_norm`` and ``decoder``. A decode cache is a list of per-layer
+dicts: ``{"k", "v"}`` for an attention layer (the cross-decoder's
+self-attention among them; paged: a page pool; contiguous: rows a
+slot), ``{"conv", "state"}`` for a Mamba layer (a row a slot either
+way). The encoder's output is not cached here: the serving engine keeps
+it a slot, and the cross-attention projects its K/V at every step.
 """
 from __future__ import annotations
 
@@ -43,11 +51,17 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict[str, Any]:
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
     dt = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {
+    params = {
         "embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt, device=device),
         "final_norm": layers.rmsnorm_init(cfg.d_model, dt, device=device),
-        "stack": transformer.stack_init(gen, cfg, device),
     }
+    if cfg.family == "encdec":
+        params["encoder"] = transformer.encoder_init(gen, cfg, device)
+        params["enc_norm"] = layers.rmsnorm_init(cfg.d_model, dt, device=device)
+        params["decoder"] = transformer.cross_decoder_init(gen, cfg, device)
+    else:
+        params["stack"] = transformer.stack_init(gen, cfg, device)
+    return params
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -61,38 +75,86 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict[str, Any]:
     """The port's params from a JAX param tree whose leaves are numpy
     arrays (``jax.tree.map(np.asarray, params)``). The JAX package stacks
     each period slot's leaves ``[n_periods, ...]``, so layer ``i * plen +
-    j`` is ``tree["stack"]["slots"][j][...][i]``."""
-    plen = len(transformer.period_pattern(cfg))
-    slots = tree["stack"]["slots"]
+    j`` is ``tree["stack"]["slots"][j][...][i]``; the encdec family's
+    ``encoder`` and ``decoder`` leaves are stacked ``[n_layers, ...]``."""
 
     def convert(node, pi=None):
         if isinstance(node, dict):
             return {k: convert(v, pi) for k, v in node.items()}
         return _tensor(node if pi is None else np.asarray(node)[pi], device)
 
-    return {
-        "embed": convert(tree["embed"]),
-        "final_norm": convert(tree["final_norm"]),
-        "stack": {"layers": [convert(slots[li % plen], li // plen)
-                             for li in range(cfg.n_layers)]},
-    }
+    out = {"embed": convert(tree["embed"]), "final_norm": convert(tree["final_norm"])}
+    if cfg.family == "encdec":
+        out["encoder"] = {"layers": [convert(tree["encoder"], i)
+                                     for i in range(cfg.n_enc_layers)]}
+        out["enc_norm"] = convert(tree["enc_norm"])
+        out["decoder"] = {"layers": [convert(tree["decoder"], i) for i in range(cfg.n_layers)]}
+        return out
+    plen = len(transformer.period_pattern(cfg))
+    slots = tree["stack"]["slots"]
+    out["stack"] = {"layers": [convert(slots[li % plen], li // plen)
+                               for li in range(cfg.n_layers)]}
+    return out
 
 
 def site_names(cfg: ModelConfig):
     """Every sparsifiable call site of this model and the depth negative
     layer indices in rule patterns resolve against: ``(sites, depth)``,
-    the inputs of :meth:`~repro_torch.core.policy.PolicyProgram.resolve`."""
-    return transformer.stack_sites(cfg), cfg.n_layers
+    the inputs of :meth:`~repro_torch.core.policy.PolicyProgram.resolve`.
+    The encdec family's are the encoder's (``enc/layer_{i}/...``) and then
+    the cross-decoder's."""
+    if cfg.family == "encdec":
+        sites = transformer.encoder_sites(cfg) + transformer.cross_decoder_sites(cfg)
+    else:
+        sites = transformer.stack_sites(cfg)
+    return sites, cfg.n_layers
+
+
+def _embed_inputs(cfg, params, batch):
+    """Token embeddings, with the VLM's patch prefix in front."""
+    x = layers.embed_apply(params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
 
 
 def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
     """Full-sequence forward. Returns (logits fp32 [B, S, V], aux loss):
-    the MoE layers' load-balance losses summed (0 without MoE layers)."""
-    x = layers.embed_apply(params["embed"], batch["tokens"])
-    x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy)
+    the MoE layers' load-balance losses summed (0 without MoE layers).
+
+    vlm: the patches go in front of the tokens, and their positions are
+    cut off after the final norm, so a token at index i sits at position
+    ``n_patches + i`` and the logits are the tokens' alone. encdec: the
+    encoder runs over ``frames`` (in the params' dtype), its output
+    normed, and the cross-decoder attends to it."""
+    x = _embed_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "encdec":
+        enc = encode(cfg, params, batch["frames"].to(x.dtype), policy)
+        x, _ = transformer.cross_decoder_apply(params["decoder"], x, enc, cfg, policy)
+    else:
+        x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches :]
     logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab)
     return logits, aux
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, policy: PolicyLike = DENSE):
+    """The encdec family's encoder pass: ``frames [B, enc_seq, d]`` ->
+    the normed encoder output the cross-decoder attends to (serving runs
+    it once a request, at admission)."""
+    enc = transformer.encoder_apply(params["encoder"], frames, cfg, policy)
+    return layers.rmsnorm_apply(params["enc_norm"], enc, cfg.norm_eps)
+
+
+def encode_frames(cfg: ModelConfig, params, frames: np.ndarray, device) -> torch.Tensor:
+    """:func:`encode` of numpy ``frames [B, enc_seq, d]`` (a request's, as
+    the workload draws them): on ``device`` in ``cfg.dtype``, no grad."""
+    x = torch.from_numpy(np.asarray(frames, np.float32)).to(device)
+    with torch.no_grad():
+        return encode(cfg, params, x.to(getattr(torch, cfg.dtype)))
 
 
 def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
@@ -119,7 +181,8 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, 
     dW product if ``sparsify_dw``, through ``matmul`` at channel
     granularity and ``dx_gathered`` / ``dw_gathered`` at block
     granularity. Every site's input needs a gradient (the embedding
-    table trains), so layer 0 launches its dX products too. The routed
+    table and the norms' scales train), so layer 0 launches its dX
+    products too, the encoder's first layer among them. The routed
     experts' sites (``moe/gate``, ``moe/up``, ``moe/down``) launch their
     products once an expert."""
     n = {"matmul": 0, "dx_gathered": 0, "dw_gathered": 0}
@@ -167,6 +230,7 @@ def decode_slots(
     slot_pos: torch.Tensor,  # [B]: per-slot cache write position
     token_count: torch.Tensor,  # [B]: real tokens per slot (0 = idle slot)
     *,
+    enc_out: torch.Tensor | None = None,  # [B, enc_seq, d] (encdec)
     block_tables: torch.Tensor | None = None,  # [B, NB] int32 (paged cache)
     paged_kernel: bool = True,
     all_logits: bool = False,
@@ -197,17 +261,31 @@ def decode_slots(
     per-position stacks (``conv [B, C, ...]`` / ``state [B, C, ...]``),
     so that :func:`commit_spec_cache` can select the state as of an
     accepted prefix; K/V are position-addressed and unchanged.
+
+    encdec: ``enc_out`` is each slot's encoder output (:func:`encode`),
+    which every layer's cross-attention reads. vlm: the tokens alone, at
+    the positions they are given; no patch prefix is fed, as in the JAX
+    package's decode.
     """
     b, c = tokens.shape
     ar = torch.arange(c, device=tokens.device)
     positions = slot_pos.long()[:, None] + ar[None, :]  # [B, C]
     valid = ar[None, :] < token_count.long()[:, None]  # [B, C]
     x = layers.embed_apply(params["embed"], tokens)
-    x, cache, _ = transformer.stack_apply(
-        params["stack"], x, cfg,
-        positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
-        paged_kernel=paged_kernel, spec_states=spec_states,
-    )
+    if cfg.family == "encdec":
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: an encdec decode step needs enc_out")
+        x, cache = transformer.cross_decoder_apply(
+            params["decoder"], x, enc_out, cfg,
+            positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
+            paged_kernel=paged_kernel,
+        )
+    else:
+        x, cache, _ = transformer.stack_apply(
+            params["stack"], x, cfg,
+            positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
+            paged_kernel=paged_kernel, spec_states=spec_states,
+        )
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if all_logits:
         return layers.unembed_apply(params["embed"], x, valid=cfg.vocab), cache
@@ -217,11 +295,13 @@ def decode_slots(
     return logits, cache
 
 
-def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos: int):
+def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos: int, *,
+                enc_out: torch.Tensor | None = None):
     """One lock-step decode step over the contiguous cache: every row
     writes its ``S`` tokens at ``pos .. pos + S - 1``. The uniform-position
     case of :func:`decode_slots` (the JAX package writes it with one
     ``dynamic_update_slice``; the rows and the mask are the same).
+    ``enc_out``: the rows' encoder outputs (encdec).
     Returns (logits [B, V] at the last position, cache)."""
     b, s = tokens.shape
     kv = transformer.kv_layers(cache)
@@ -231,7 +311,7 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos: int)
     dev = tokens.device
     slot_pos = torch.full((b,), pos, dtype=torch.int32, device=dev)
     count = torch.full((b,), s, dtype=torch.int32, device=dev)
-    return decode_slots(cfg, params, tokens, cache, slot_pos, count)
+    return decode_slots(cfg, params, tokens, cache, slot_pos, count, enc_out=enc_out)
 
 
 def commit_spec_cache(cache, keep: torch.Tensor):

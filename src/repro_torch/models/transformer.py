@@ -1,4 +1,4 @@
-"""Decoder stack for the decoder-only families (twin of ``repro.models.transformer``).
+"""The decoder stack, the encoder and the cross-decoder (twin of ``repro.models.transformer``).
 
 Layer heterogeneity (Jamba's attention:Mamba interleave, MoE on every
 other layer) follows the JAX package's **period** abstraction: the layer
@@ -8,7 +8,11 @@ and scans over periods. PyTorch runs eagerly, so here the stack is a
 Python loop over a list of per-layer parameter dicts (layer ``i`` is
 slot ``i % period_len``), and a decode cache is a list of per-layer
 dicts: K/V for an attention layer, the conv window and SSM state for a
-Mamba layer. The encoder-decoder and VLM families are not ported yet.
+Mamba layer. The VLM family is a dense stack (its patch prefix is the
+model's, :mod:`repro_torch.models.model`); the encoder-decoder family
+(whisper) runs :func:`encoder_apply`, a non-causal attention + MLP stack
+over the frames, then :func:`cross_decoder_apply`, whose layers attend to
+themselves through the K/V cache and then to the encoder's output.
 
 Per-site policies: every projection carries a site name
 ``layer_{li}/{role}/{proj}`` (:func:`stack_sites`). A
@@ -28,7 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import DENSE, PolicyLike, SitePolicies
 from repro_torch.models import layers, moe, ssm
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +97,24 @@ def stack_sites(cfg: ModelConfig) -> tuple[str, ...]:
         for li, slot in enumerate(layer_slots(cfg))
         for s in slot_sites(cfg, slot)
     )
+
+
+def _mlp_sites(cfg) -> tuple[str, ...]:
+    return ("mlp/up",) + (("mlp/gate",) if cfg.gated_mlp else ()) + ("mlp/down",)
+
+
+def encoder_sites(cfg: ModelConfig) -> tuple[str, ...]:
+    """The encoder's sites, ``enc/layer_{i}/...``."""
+    per = ("attn/q", "attn/k", "attn/v", "attn/o") + _mlp_sites(cfg)
+    return tuple(f"enc/layer_{i}/{s}" for i in range(cfg.n_enc_layers) for s in per)
+
+
+def cross_decoder_sites(cfg: ModelConfig) -> tuple[str, ...]:
+    """The cross-decoder's sites: self- and cross-attention, then the MLP."""
+    per = tuple(
+        f"{role}/{proj}" for role in ("self", "cross") for proj in ("q", "k", "v", "o")
+    ) + _mlp_sites(cfg)
+    return tuple(f"layer_{li}/{s}" for li in range(cfg.n_layers) for s in per)
 
 
 def _layer_scopes(policy: PolicyLike, n_layers: int):
@@ -200,6 +222,19 @@ def kv_layers(caches) -> list[int]:
     return [li for li, c in enumerate(caches) if "k" in c]
 
 
+def _decode_geometry(cfg, caches, positions, token_valid, block_tables):
+    """What every attention layer of a decode step shares: the int32 query
+    positions, the RoPE angles and the K/V write index."""
+    qpos = positions.to(torch.int32).contiguous()
+    rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    rows = caches[kv_layers(caches)[0]]["k"].shape[1]
+    if block_tables is None:
+        write_index = layers.slot_write_index(positions, token_valid, rows)
+    else:
+        write_index = layers.paged_write_index(block_tables, positions, token_valid, rows)
+    return qpos, rope, write_index
+
+
 def stack_apply(
     params,
     x,
@@ -247,15 +282,9 @@ def stack_apply(
             aux = aux + a
         return x, None, aux
     qpos = rope = write_index = None
-    kv = kv_layers(caches)
-    if kv:
-        qpos = positions.to(torch.int32).contiguous()
-        rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        rows = caches[kv[0]]["k"].shape[1]
-        if block_tables is None:
-            write_index = layers.slot_write_index(positions, token_valid, rows)
-        else:
-            write_index = layers.paged_write_index(block_tables, positions, token_valid, rows)
+    if kv_layers(caches):
+        qpos, rope, write_index = _decode_geometry(cfg, caches, positions, token_valid,
+                                                   block_tables)
     for li, p in enumerate(params["layers"]):
         x, caches[li], a = _slot_apply(
             p, x, cfg, slots[li], per_layer[li],
@@ -265,3 +294,119 @@ def stack_apply(
         )
         aux = aux + a
     return x, caches, aux
+
+
+# ----------------------------------------------------------------------
+# encoder (whisper): a non-causal attention + MLP stack
+# ----------------------------------------------------------------------
+
+
+def encoder_init(gen, cfg: ModelConfig, device):
+    """Per-layer encoder params: ``{"layers": [{"norm1", "attn", "norm2",
+    "mlp"}, ...]}``, ``n_enc_layers`` of them."""
+    dt = _dtype(cfg)
+
+    def one():
+        return {
+            "norm1": layers.rmsnorm_init(cfg.d_model, dt, device=device),
+            "attn": layers.attn_init(gen, cfg, dt, device=device),
+            "norm2": layers.rmsnorm_init(cfg.d_model, dt, device=device),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, gated=cfg.gated_mlp,
+                                   device=device),
+        }
+
+    return {"layers": [one() for _ in range(cfg.n_enc_layers)]}
+
+
+def encoder_apply(params, x, cfg: ModelConfig, policy: PolicyLike = DENSE):
+    """The encoder over ``x [B, enc_seq, d]``: per layer non-causal
+    self-attention (RoPE at ``arange(enc_seq)``, as the JAX package's
+    default positions) and the MLP, pre-norm residual. A
+    :class:`~repro_torch.core.policy.SitePolicies` table is scoped to
+    ``enc`` and then to each layer."""
+    enc = policy.scoped("enc") if isinstance(policy, SitePolicies) else policy
+    per_layer = _layer_scopes(enc, cfg.n_enc_layers)
+    rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
+                              cfg.rope_theta)
+    for p, pol in zip(params["layers"], per_layer, strict=True):
+        a, _ = layers.attn_apply(p["attn"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
+                                 cfg, pol, rope=rope, causal=False)
+        x = x + a
+        x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                                 cfg.act, pol)
+    return x
+
+
+# ----------------------------------------------------------------------
+# cross-decoder (whisper): self-attention, cross-attention, MLP
+# ----------------------------------------------------------------------
+
+
+def cross_decoder_init(gen, cfg: ModelConfig, device):
+    """Per-layer decoder params: ``{"layers": [{"norm1", "self", "norm_x",
+    "cross", "norm2", "mlp"}, ...]}``."""
+    dt = _dtype(cfg)
+
+    def one():
+        return {
+            "norm1": layers.rmsnorm_init(cfg.d_model, dt, device=device),
+            "self": layers.attn_init(gen, cfg, dt, device=device),
+            "norm_x": layers.rmsnorm_init(cfg.d_model, dt, device=device),
+            "cross": layers.attn_init(gen, cfg, dt, device=device),
+            "norm2": layers.rmsnorm_init(cfg.d_model, dt, device=device),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, gated=cfg.gated_mlp,
+                                   device=device),
+        }
+
+    return {"layers": [one() for _ in range(cfg.n_layers)]}
+
+
+def cross_decoder_apply(
+    params,
+    x,
+    enc_out,
+    cfg: ModelConfig,
+    policy: PolicyLike = DENSE,
+    *,
+    positions=None,
+    caches=None,
+    token_valid=None,
+    block_tables=None,
+    paged_kernel=True,
+):
+    """Run the cross-decoder over ``x [B,S,d]`` and the encoder's output
+    ``enc_out [B, enc_seq, d]``. Returns (x, caches).
+
+    Each layer: causal self-attention with RoPE (sites ``self/...``),
+    then cross-attention over ``enc_out`` without RoPE or cache (sites
+    ``cross/...``; its K/V are projected from ``enc_out`` at every call,
+    as in the JAX package), then the MLP. Without ``caches`` (training)
+    the self-attention runs over the sequence; with them (serving) it
+    writes and reads the per-layer K/V cache, paged or contiguous, as
+    :func:`stack_apply`'s attention layers do."""
+    per_layer = _layer_scopes(policy, cfg.n_layers)
+    if caches is None:
+        rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
+                                  cfg.rope_theta)
+        qpos = write_index = None
+    else:
+        qpos, rope, write_index = _decode_geometry(cfg, caches, positions, token_valid,
+                                                   block_tables)
+    for li, (p, pol) in enumerate(zip(params["layers"], per_layer, strict=True)):
+        a, cache = layers.attn_apply(
+            p["self"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps), cfg, pol,
+            rope=rope, qpos=qpos, kv_cache=None if caches is None else caches[li],
+            block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
+            site="self",
+        )
+        if caches is not None:
+            caches[li] = cache
+        x = x + a
+        c, _ = layers.attn_apply(
+            p["cross"], layers.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), cfg, pol,
+            rope=None, x_kv=enc_out, site="cross",
+        )
+        x = x + c
+        x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                                 cfg.act, pol)
+    return x, caches

@@ -14,8 +14,10 @@ Layout::
   lockstep.py   the static lock-step baseline and parity oracle
   workload.py   Poisson and long-tail workload generators
 
-The decoder-only families (dense, moe, ssm, hybrid); an encoder-decoder
-or VLM config raises "not ported yet" when its cache is laid out.
+Every family: the decoder-only ones (dense, moe, ssm, hybrid), the VLM
+(its gemma decoder; no patches are fed at decode, as in the JAX engine)
+and the encoder-decoder (the encoder runs once at each admission, and
+the engine keeps its output a slot for the cross-attention).
 """
 from repro_torch.serve.cache import (
     BlockAllocator,

@@ -1,12 +1,15 @@
 """The continuous-batching engine: slot-scheduled, sampling-safe serving.
 
-The twin of ``repro.serve.engine`` for the decoder-only families. One engine
+The twin of ``repro.serve.engine``, for every family. One engine
 iteration (:meth:`ContinuousBatchingEngine.step`):
 
 1. **admission** — freed slots go to arrived waiting requests (FIFO;
    under the paged cache also gated on free pages); each new occupant's
-   slot state is zeroed. A request returning from a **swap** preemption
-   has its staged pages restored instead of prefilling again;
+   slot state is zeroed and, for the encoder-decoder family, the encoder
+   runs over its frames into the slot's row of ``enc_out`` (again for a
+   request coming back from any preemption). A request returning from a
+   **swap** preemption has its staged pages restored instead of
+   prefilling again;
 2. **planning** — the :class:`~repro_torch.serve.scheduler.Scheduler`
    packs decode tokens (1 per running slot, ``1 + spec_k`` when
    speculating) and chunked-prefill tokens under the token budget. With
@@ -42,7 +45,8 @@ round its positions are rolled back and its SSM states restored from a
 copy taken before the round: the proposals' K/V stay in the rows past
 the synced position, where the per-slot causal mask fences them until
 the next catch-up overwrites them, while a recurrent state has no
-position to fence by.
+position to fence by. An encoder-decoder drafter keeps its own per-slot
+encoder output, made at admission from the request's frames.
 
 ``block_size > 0`` selects the paged cache (attention through the
 paged-attention kernel by default); ``block_size == 0`` the contiguous
@@ -166,7 +170,33 @@ class ContinuousBatchingEngine:
         self.draft_steps = 0  # drafter model invocations
         self.padded_tokens = 0  # B × width summed over compute steps
         self.step_times: list[float] = []
+        self.encode_times: list[float] = []  # encdec: seconds an encoder call
         self._occupancy_sum = 0
+        # encdec: each slot's encoder output, written at admission (and
+        # the drafter's own when speculating)
+        self.enc_out = self._draft_enc_out = None
+        if cfg.family == "encdec":
+            self.enc_out = self._enc_rows(cfg)
+            if self._spec:
+                self._draft_enc_out = self._enc_rows(self.draft_cfg)
+
+    def _enc_rows(self, cfg: ModelConfig) -> torch.Tensor:
+        return torch.zeros((self.serve_cfg.max_slots, cfg.enc_seq, cfg.d_model),
+                           dtype=getattr(torch, cfg.dtype), device=self.device)
+
+    def _encode(self, cfg: ModelConfig, params, frames: np.ndarray) -> torch.Tensor:
+        """One request's encoder output, ``[enc_seq, d]`` in ``cfg.dtype``;
+        its seconds, the device's work included, go to ``encode_times``."""
+        self._sync()
+        t0 = time.perf_counter()
+        out = lm.encode_frames(cfg, params, frames[None], self.device)[0]
+        self._sync()
+        self.encode_times.append(time.perf_counter() - t0)
+        return out
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -193,6 +223,8 @@ class ContinuousBatchingEngine:
                     f"request {req.rid}: needs {need_blocks} pages, pool "
                     f"has {self.serve_cfg.total_blocks}"
                 )
+        if self.cfg.family == "encdec" and req.frames is None:
+            raise ValueError(f"request {req.rid}: encdec family needs frames")
         self._known_rids.add(req.rid)
         req.state = rq.WAITING
         self.waiting.append(req)
@@ -216,6 +248,11 @@ class ContinuousBatchingEngine:
             new_slots.append(slot)
             if req.swap is not None:
                 swapped_in.append(req)
+            if self.enc_out is not None:
+                self.enc_out[slot] = self._encode(self.cfg, self.params, req.frames)
+            if self._draft_enc_out is not None:
+                self._draft_enc_out[slot] = self._encode(self.draft_cfg, self.draft_params,
+                                                         req.frames)
         self.slots.reset(new_slots)  # clear the previous occupants' state
         if self._draft is not None:
             # drafter state is advisory: every new occupant starts from a
@@ -316,6 +353,8 @@ class ContinuousBatchingEngine:
             "cache": self._draft.cache,
             **self._sampling_state(self.by_slot),
         }
+        if self._draft_enc_out is not None:
+            state["enc_out"] = self._draft_enc_out
         nxt, new_state = self._draft_step_fn(self.draft_params, state)
         self._draft.cache = new_state["cache"]
         self._draft.pos = self._draft.pos + count
@@ -457,6 +496,8 @@ class ContinuousBatchingEngine:
             state["is_spec"] = torch.from_numpy(is_spec).to(dev)
         if self.serve_cfg.paged:
             state["block_tables"] = torch.from_numpy(self.slots.block_tables.copy()).to(dev)
+        if self.enc_out is not None:
+            state["enc_out"] = self.enc_out
         t0 = time.perf_counter()
         # reading the tokens back to the host waits for the device, so
         # dt covers the step's device work, not just its enqueue

@@ -33,13 +33,15 @@ def generate_lockstep(
     gen_lens: Sequence[int],  # per-request generation lengths
     *,
     max_seq: int,
+    frames: np.ndarray | None = None,  # [B, enc_seq, d_model] (encdec)
     cache_dtype=torch.float32,
     sampling: Sequence[SamplingParams] | None = None,
     device="cuda",
 ) -> dict[str, object]:
     """Lock-step decode of one static batch (greedy by default;
     ``sampling``, one :class:`SamplingParams` a request, samples through
-    the engine's per-position lanes).
+    the engine's per-position lanes). An encdec batch needs ``frames``,
+    encoded once before the first step.
 
     Returns a dict with ``tokens`` (per-request arrays, each cut to its
     gen_len), ``steps`` (model invocations: P-1 teacher steps +
@@ -66,6 +68,10 @@ def generate_lockstep(
         if len(sampling) != b:
             raise ValueError(f"sampling has {len(sampling)} entries for batch {b}")
         state.update(steps_lib.sampling_state(sampling, device))
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("encdec lock-step needs frames")
+        state["enc_out"] = lm.encode_frames(cfg, params, frames, device)
 
     t0 = time.perf_counter()
     for t in range(1, p):
@@ -99,6 +105,7 @@ def generate_reference(
     gen_len: int,
     *,
     max_seq: int,
+    frames: np.ndarray | None = None,  # [enc_seq, d_model] (encdec)
     cache_dtype=torch.float32,
     sampling: SamplingParams | None = None,
     device="cuda",
@@ -107,7 +114,8 @@ def generate_reference(
     ``sampling``): the per-request oracle the engine must reproduce."""
     out = generate_lockstep(
         cfg, params, np.asarray(prompt, np.int32)[None], [gen_len],
-        max_seq=max_seq, cache_dtype=cache_dtype,
+        max_seq=max_seq, frames=None if frames is None else np.asarray(frames)[None],
+        cache_dtype=cache_dtype,
         sampling=None if sampling is None else [sampling], device=device,
     )
     return out["tokens"][0]

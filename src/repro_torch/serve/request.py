@@ -92,6 +92,8 @@ class Request:
       max_new_tokens: generation budget (>= 1).
       arrival: engine tick at which the request becomes visible to
         admission.
+      frames: optional ``[enc_seq, d_model]`` encoder input (encdec
+        families); encoded once at admission.
       sampling: per-request :class:`SamplingParams` (greedy default).
       no_spec: opt out of speculative decoding — one token a step even
         when the engine speculates (the stream is the same either way).
@@ -101,6 +103,7 @@ class Request:
     prompt: np.ndarray
     max_new_tokens: int
     arrival: int = 0
+    frames: np.ndarray | None = None
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     no_spec: bool = False
 

@@ -30,10 +30,11 @@ def poisson_workload(
     generation lengths draw uniformly from their ranges.
     ``uniform_prompts=True`` fixes every prompt at ``prompt_len``'s max.
     ``temperature`` > 0 makes every request sampled under a per-request
-    seed drawn from the workload generator.
+    seed drawn from the workload generator. An encdec request gets
+    ``frames [enc_seq, d_model]`` fp32, standard normal draws taken
+    right after its prompt (before its seed), so every later draw is the
+    JAX package's too.
     """
-    if cfg.family == "encdec":
-        raise NotImplementedError("encdec workloads (encoder frames) are not ported yet")
     rng = np.random.default_rng(seed)
 
     def _range(v):
@@ -51,6 +52,9 @@ def poisson_workload(
         p = int(rng.integers(plo, phi + 1))
         g = int(rng.integers(glo, ghi + 1))
         prompt = rng.integers(0, cfg.vocab, size=p).astype(np.int32)
+        frames = None
+        if cfg.family == "encdec":
+            frames = rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(np.float32)
         sp = SamplingParams()
         if temperature > 0:
             sp = SamplingParams(
@@ -65,6 +69,7 @@ def poisson_workload(
                 prompt=prompt,
                 max_new_tokens=g,
                 arrival=int(arrivals[i]),
+                frames=frames,
                 sampling=sp,
             )
         )

@@ -96,13 +96,13 @@ def test_split_kv_matches_plain_and_repeats(cuda, s, nb, q_dtype, pool_dtype, fo
     assert torch.equal(out, tpa.paged_attention(*args, splits=splits))
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("row_tile", [8, 16, 64])
 @pytest.mark.parametrize("s", [1, 7, 32])
 def test_every_row_tile_matches_plain_and_repeats(cuda, s, row_tile, d):
-    """Each variant at any row count and both head dims: the SIMT 8- and
-    16-row tiles and the 64-row tensor-core tiles, at their own plans,
-    over 10 pages."""
+    """Each variant at any row count and every power-of-two head dim: the
+    SIMT 8- and 16-row tiles and the 64-row tensor-core tiles, at their
+    own plans, over 10 pages."""
     args = _inputs(cuda, s=s, d=d, nb=10, n_pages=40, seed=25)
     out = tpa.paged_attention(*args, row_tile=row_tile)
     torch.cuda.synchronize()
@@ -143,9 +143,40 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         tpa.paged_attention(q, k, v, tables.t().contiguous().t(), qpos)
     with pytest.raises(ValueError):
         tpa.paged_attention(q, k.cpu(), v.cpu(), tables, qpos)
-    q64, k64, v64, _, _ = _inputs(cuda, d=64)  # no ported config has head_dim 64
+    q96, k96, v96, _, _ = _inputs(cuda, d=96)  # no ported config has head_dim 96
     with pytest.raises(ValueError, match="head_dim"):
-        tpa.paged_attention(q64, k64, v64, tables, qpos)
+        tpa.paged_attention(q96, k96, v96, tables, qpos)
+
+
+# whisper's heads (H = KV = 20, D = 64: one query row a KV head at decode)
+# and paligemma's (H = 8 over one KV head, D = 256: chunks of 16 keys)
+_NEW_HEADS = {"whisper": (20, 20, 64), "paligemma": (8, 1, 256)}
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", _PAIRS)
+@pytest.mark.parametrize("nb", [10, 128])
+@pytest.mark.parametrize("s", [1, 5, 32])
+@pytest.mark.parametrize("heads", sorted(_NEW_HEADS))
+def test_new_head_dims_match_plain_and_repeat(cuda, heads, s, nb, q_dtype, pool_dtype):
+    """D=64 and D=256 at the two archs' head shapes, at decode, a
+    spec_k=4 verify chunk and a 32-token prefill chunk, over 10 and 128
+    pages a slot, every q/pool dtype pair, at the plan's tile and splits:
+    within rtol=atol=1e-4 of the plain version and 1e-4 * max(1,
+    max|plain|), one launch counted, the same bits on a second call, and
+    no more splits than the combine pass stages."""
+    h, kv, d = _NEW_HEADS[heads]
+    args = _inputs(cuda, s=s, h=h, kv=kv, d=d, nb=nb, n_pages=4 * nb, q_dtype=q_dtype,
+                   pool_dtype=pool_dtype, seed=26)
+    plan = tpa.paged_split_plan(4, s, h, kv, d, nb, 16)
+    assert plan.chunk == 4096 // d and 1 <= plan.splits <= tpa.MAX_SPLITS
+    before = tpa.launches
+    out = tpa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    ref = tpa.paged_attention_ref(*args)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    assert torch.equal(out, tpa.paged_attention(*args))
 
 
 # --- the gathered-matmul kernels of the ssProp backward ---------------

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs.registry import get_config as jget
 from repro.data import pipeline as jpipe
 from repro.models import model as jlm
@@ -101,10 +102,12 @@ def _batch(cfg):
 
 
 def test_registry_ports_every_decoder_arch():
-    assert sorted(ARCH_IDS) == sorted(NEW_ARCHS + ("qwen2.5-3b",))
-    for arch in ("whisper-large-v3", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tget(arch)
+    """The port's registry holds the JAX registry's arch list, in its
+    order: the decoder-only archs and the encoder-decoder and VLM ones."""
+    assert ARCH_IDS == JAX_ARCH_IDS
+    assert set(NEW_ARCHS + ("qwen2.5-3b", "whisper-large-v3", "paligemma-3b")) == set(ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert tget(arch).name == jget(arch).name
 
 
 @pytest.mark.parametrize("reduce", [False, True])

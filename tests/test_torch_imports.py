@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.configs.paper", "repro_torch.core.flops",
               "repro_torch.core.prng", "repro_torch.serve.lockstep",
               "repro_torch.models.ssm", "repro_torch.models.moe",
-              "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.mamba2_1_3b"):
+              "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.mamba2_1_3b",
+              "repro_torch.configs.whisper_large_v3", "repro_torch.configs.paligemma_3b"):
         assert m in mods
     code = (
         "import sys\n"

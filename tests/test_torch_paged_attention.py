@@ -57,6 +57,20 @@ def test_paged_attention_matches_jax(dtype, h, kv, s):
     np.testing.assert_allclose(out_t, out_j, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("h,kv,d", [(20, 20, 64), (8, 1, 256)])
+def test_plain_version_at_whisper_and_paligemma_heads_matches_jax(h, kv, d):
+    """The plain version at whisper's heads (H = KV = 20, D = 64) and
+    paligemma's (8 query heads on one KV head, D = 256), 16-token pages,
+    a decode row and a 3-row chunk a slot, against the Pallas kernel in
+    interpret mode; fp32, summation order only."""
+    b, n_pages, bs_pg, nb = 2, 8, 16, 4
+    for s, offs in ((1, (9, 50)), (3, (16, 40))):
+        q, k_pool, v_pool, tables = _case(22 + s, b, s, h, kv, d, n_pages, bs_pg, nb)
+        qpos = np.stack([np.arange(s) + off for off in offs]).astype(np.int32)
+        out_j, out_t, _ = _both(q, k_pool, v_pool, tables, qpos, "float32")
+        np.testing.assert_allclose(out_t, out_j, rtol=1e-5, atol=1e-5)
+
+
 def test_paged_attention_ignores_garbage_table_entries():
     """Entries past the causal horizon may be stale or out of range (999,
     -7): they are clipped, then fenced, so the output is unchanged — and

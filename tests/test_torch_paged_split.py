@@ -168,6 +168,9 @@ def test_split_ranges_tile_the_keys_in_whole_chunks(n_keys, splits, chunk):
     (4, 1, 16, 2, 128, 10, 16), (4, 1, 16, 2, 128, 128, 16), (4, 32, 16, 2, 128, 10, 16),
     (4, 32, 16, 2, 128, 128, 16), (1, 1, 16, 2, 128, 1, 16), (64, 1, 16, 2, 128, 128, 16),
     (2, 12, 4, 2, 32, 4, 4), (8, 1, 4, 4, 32, 3, 8), (2, 5, 16, 2, 128, 6, 8),
+    (4, 1, 20, 20, 64, 10, 16), (4, 32, 20, 20, 64, 128, 16), (4, 5, 20, 20, 64, 10, 16),
+    (4, 1, 8, 1, 256, 10, 16), (4, 1, 8, 1, 256, 128, 16), (4, 32, 8, 1, 256, 10, 16),
+    (4, 5, 8, 1, 256, 128, 16),
 ])
 def test_split_plan_fills_the_card_with_a_bounded_grid(b, s, h, kv, d, nb, bs):
     """Row tiles of 8 at decode width, 64 (tensor cores) from 64 rows on,
@@ -249,6 +252,46 @@ def test_split_kv_mirror_at_head_dim_112_matches_jax(splits):
     b, s, h, kv, d, bs, nb = 2, 2, 8, 1, 112, 16, 6
     q, k, v, tables, qpos = _case(
         33, b=b, s=s, h=h, kv=kv, d=d, n_pages=b * nb, bs=bs, nb=nb, offs=[40, 93])
+    out = split_kv_mirror(*(torch.from_numpy(a) for a in (q, k, v, tables, qpos)),
+                          splits=splits, chunk=tpa.chunk_keys(d))
+    np.testing.assert_allclose(out.numpy(), _jax(q, k, v, tables, qpos), rtol=1e-5, atol=1e-5)
+
+
+def test_whisper_and_paligemma_head_dim_plans():
+    """whisper's heads (H = KV = 20, D = 64: chunks of 64 keys) decode one
+    query row a KV head on the 8-row tile, 80 blocks split in three over
+    160-token slots; a spec_k=4 verify chunk takes 8-row tiles too (5
+    rows), a 32-row prefill chunk 16-row tiles. paligemma's (H = 8 over
+    KV = 1, D = 256: chunks of 16 keys) decode 8 rows on the 8-row tile,
+    4 blocks split ten ways (66 over 128 pages, within the combine
+    pass's bound); a 32-row prefill chunk (256 rows) takes four 64-row
+    tensor-core tiles, a verify chunk (40 rows) three 16-row ones."""
+    assert [tpa.padded_dim(d) for d in (64, 256)] == [64, 256]
+    assert [tpa.chunk_keys(d) for d in (64, 256)] == [64, 16]
+    dec = tpa.paged_split_plan(4, 1, 20, 20, 64, 10, 16)
+    assert (dec.row_tile, dec.row_tiles, dec.splits, dec.chunk) == (8, 1, 3, 64)
+    assert tpa.paged_split_plan(4, 5, 20, 20, 64, 10, 16).row_tile == 8
+    pre = tpa.paged_split_plan(4, 32, 20, 20, 64, 10, 16)
+    assert (pre.row_tile, pre.row_tiles, pre.splits) == (16, 2, 1)
+    dec = tpa.paged_split_plan(4, 1, 8, 1, 256, 10, 16)
+    assert (dec.row_tile, dec.row_tiles, dec.splits, dec.chunk) == (8, 1, 10, 16)
+    deep = tpa.paged_split_plan(4, 1, 8, 1, 256, 128, 16)
+    assert deep.splits == 66 <= tpa.MAX_SPLITS
+    pre = tpa.paged_split_plan(4, 32, 8, 1, 256, 10, 16)
+    assert (pre.row_tile, pre.row_tiles, pre.splits) == (64, 4, 10)
+    ver = tpa.paged_split_plan(4, 5, 8, 1, 256, 10, 16)
+    assert (ver.row_tile, ver.row_tiles) == (16, 3)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("h,kv,d", [(20, 20, 64), (8, 1, 256)])
+def test_split_kv_mirror_at_head_dims_64_and_256_matches_jax(h, kv, d, splits):
+    """The split-KV partials and combine at whisper's and paligemma's head
+    shapes, in chunks of 4096 / D keys (64 and 16), equal the Pallas
+    kernel (interpret mode), fp32, rtol = atol = 1e-5."""
+    b, s, bs, nb = 2, 2, 16, 6
+    q, k, v, tables, qpos = _case(
+        34, b=b, s=s, h=h, kv=kv, d=d, n_pages=b * nb, bs=bs, nb=nb, offs=[40, 93])
     out = split_kv_mirror(*(torch.from_numpy(a) for a in (q, k, v, tables, qpos)),
                           splits=splits, chunk=tpa.chunk_keys(d))
     np.testing.assert_allclose(out.numpy(), _jax(q, k, v, tables, qpos), rtol=1e-5, atol=1e-5)
