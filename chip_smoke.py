@@ -5,7 +5,8 @@
 
 Drives ``src/repro_torch`` (never the JAX package) through its serving
 path and its ssProp training paths (ResNet-18, the DDPM UNet, qwen2.5-3b,
-mamba2-1.3b), the other decoder-only families (mamba2-1.3b and kimi-k2
+mamba2-1.3b; qwen2.5-3b also through a checkpoint, a crash and a resume,
+and as a 2-rank fleet), the other decoder-only families (mamba2-1.3b and kimi-k2
 serving at full width, the reduced configs of the seven archs beside
 qwen2.5-3b), the encoder-decoder and VLM families (whisper-large-v3 and
 paligemma-3b serving and training at full width and depth), and fails
@@ -134,6 +135,23 @@ paligemma-3b serving and training at full width and depth), and fails
    4, no other kernel, no operand repacked; then a profile of one dense
    and one sparse step, in which the bf16 tensor-core kernel carries all
    504 ``matmul`` launches of the sparse step and the SIMT one none;
+15b. fault-tolerant LM training (``[ckpt]``): ``train.run`` on qwen2.5-3b
+   at full width, depth cut 36 -> 4 (a save holds ~6.2 GB), bf16, B=8,
+   S=128, ``--use-pallas``, 6 steps of 2-step epochs, ``--ckpt-every 3
+   --fail-at-step 4``: it saves step 3 (the JAX package's format, written
+   on a thread from pinned host copies), crashes once, resumes from 3
+   (the restored params, m and v equal to the saved snapshot by sha256),
+   replays sparse step 3 through ``matmul`` (launched the launch table's
+   count for each of the 3 sparse steps run) and saves step 6; the same
+   run twice without checkpoints must agree bit for bit (the step is
+   deterministic on the card), and the resumed losses with theirs;
+   prints the free space, the bytes a save
+   writes, the blocking snapshot time, the write and restore times and
+   GB/s. Then ``[fleet]``: two ranks of ``python -m
+   repro_torch.launch.train --reduced`` on the one card under
+   ``--coord-dir`` / ``--world-size 2`` write a sharded checkpoint (a
+   shard a rank, the leader's manifest), and one process resumes from it:
+   its losses equal the fleet's after the checkpoint;
 16. SSM training: the loss and every gradient leaf of one sparse step of
    mamba2-1.3b at full width and depth 4 (fp32, B=2, S=512) through
    ``matmul``, the gather route and the mask oracle, the same kept
@@ -143,8 +161,8 @@ paligemma-3b serving and training at full width and depth), and fails
    the launch table's 192 times 4, dense and sparse step medians,
    tokens/s and peak memory;
 17. SSM serving: mamba2-1.3b at full width and depth serves 8 sampled
-   requests (prompt 128, gen 32, 4 slots) through the paged engine, a
-   pool small enough to swap, self-drafted speculation (k=4), the
+   requests (prompt 32, gen 32, 4 slots) through the paged engine, a
+   10-page pool (small enough to swap), self-drafted speculation (k=4), the
    contiguous engine and the lock-step baseline, bf16 and an fp32 copy;
    the arch has no attention layer, so no kernel runs (checked); every
    page back, every SSM row zero, the fp32 shares of tokens equal to the
@@ -193,7 +211,8 @@ paligemma-3b serving and training at full width and depth), and fails
    ``paged_attention``'s the serve phase's, the paged runs' of
    ``serve_features_phase``, the kimi-k2, whisper and paligemma serve
    phases', ``matmul``'s the qwen2.5-3b, mamba2-1.3b, whisper and
-   paligemma training phases', each in ``launches_by_path``, with the
+   paligemma training phases' and the resumed run's of ``[ckpt]``
+   (``lm_resume``), each in ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
    whisper's in ``d64`` and paligemma's in ``d256``; ``matmul``'s
    ``max_abs_err`` covers the qwen2.5-3b, whisper and paligemma products,
@@ -203,12 +222,15 @@ paligemma-3b serving and training at full width and depth), and fails
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import gc
 import hashlib
 import json
 import math
+import os
 from pathlib import Path
+import shutil
 import subprocess
 import sys
 import time
@@ -1753,6 +1775,254 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
 
 
 # ----------------------------------------------------------------------
+# fault-tolerant LM training: checkpoint, crash and resume; the fleet
+# ----------------------------------------------------------------------
+
+CKPT_DEPTH = 4  # qwen2.5-3b at full width, 36 layers cut to 4: a save holds ~6.2 GB
+CKPT_DIR = ROOT / "build" / "ckpt_smoke"  # git-ignored, inside the checkout; removed after
+FLEET_TIMEOUT_S = 300  # one rank process, start to exit
+FLEET_SEQ = 64  # the fleet's reduced runs: B=LM_BATCH, S=64
+
+
+def _same_files(a: Path, b: Path) -> bool:
+    """Whether two step directories hold the same files, byte for byte."""
+    names = sorted(f.name for f in a.iterdir())
+    if names != sorted(f.name for f in b.iterdir()):
+        return False
+    for name in names:
+        with open(a / name, "rb") as fa, open(b / name, "rb") as fb:
+            while True:
+                x, y = fa.read(1 << 26), fb.read(1 << 26)
+                if x != y:
+                    return False
+                if not x:
+                    break
+    return True
+
+
+def _save_line(sv) -> str:
+    gb = sv["bytes"] / 1e9
+    return (f"step {sv['step']}: blocking snapshot {sv['snapshot_s']:.3f} s ({gb / sv['snapshot_s']:.2f} "
+            f"GB/s): pinned allocation {sv['alloc_s']:.3f} s, device-to-host copies "
+            f"{sv['copy_s']:.3f} s ({gb / sv['copy_s']:.2f} GB/s); background write into the "
+            f"page cache (no fsync) {sv['write_s']:.3f} s ({gb / sv['write_s']:.2f} GB/s)")
+
+
+def ckpt_phase(train, lm, gm, adam, policy_mod, ckpt_lib):
+    """The port's fault-tolerant LM path on the card: ``train.run`` on
+    qwen2.5-3b at full width, depth ``CKPT_DEPTH`` (the CLI's
+    ``get_config`` cut for the phase: the JAX CLI has no depth flag),
+    bf16, B=8 S=128, ``paper_default(0.8)`` with ``--use-pallas``, 6 steps
+    of 2-step epochs (2, 3 sparse), a checkpoint every 3, a crash
+    injected at step 4: it saves step 3, restarts, resumes from 3, replays
+    step 3 (sparse, through ``matmul``) and saves step 6. Beside it, the
+    same run uninterrupted, once without checkpoints and once with them.
+    The two must agree bit for bit (the step is deterministic on the
+    card: the embedding's accumulating backward and the compact-dW
+    ``index_add_`` included), and so must the resumed run's losses, the
+    last occurrence of each step. The crashed run's checkpoints equal the
+    uninterrupted run's byte for byte: at step 3 the state it saved, at
+    step 6 the params, m and v it reached from the restored state.
+    Returns (matmul launches of the crashed run, a summary)."""
+    get_config = train.get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=CKPT_DEPTH)
+    argv = ["--arch", LM_ARCH, "--steps", "6", "--steps-per-epoch", "2", "--global-batch",
+            str(LM_BATCH), "--seq-len", str(LM_SEQ), "--drop-rate", str(LM_RATE),
+            "--granularity", "channel", "--use-pallas", "--log-every", "1", "--device", "cuda"]
+    per_step = lm.kernel_launches_per_step(cfg, lm_policy(policy_mod))["matmul"]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    crash_dir, whole_dir = CKPT_DIR / "crash", CKPT_DIR / "whole"
+    crash_dir.mkdir(parents=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    print(f"[ckpt] {LM_ARCH} full width, depth {CKPT_DEPTH}: checkpoint dir {CKPT_DIR}, "
+          f"{free / 1e9:.1f} GB free")
+
+    def run(*extra):
+        return train.run(train.build_parser().parse_args(argv + list(extra)))
+
+    train.get_config = lambda arch: dataclasses.replace(get_config(arch), n_layers=CKPT_DEPTH)
+    try:
+        plain = run()
+        whole = run("--ckpt-dir", str(whole_dir), "--ckpt-every", "3")
+        for k in gm.launches:
+            gm.launches[k] = 0
+        t0 = time.perf_counter()
+        out = run("--ckpt-dir", str(crash_dir), "--ckpt-every", "3", "--fail-at-step", "4")
+        wall = time.perf_counter() - t0
+        launches = dict(gm.launches)
+    finally:
+        train.get_config = get_config
+    if out["steps"] != [0, 1, 2, 3, 3, 4, 5]:
+        raise AssertionError(f"[ckpt] steps run {out['steps']}: no restart, or no resume at 3")
+    if [r["step"] for r in out["ckpt"]["restores"]] != [3]:
+        raise AssertionError(f"[ckpt] restores {out['ckpt']['restores']}, expected one of step 3")
+    for name, o, d in (("crashed", out, crash_dir), ("uninterrupted", whole, whole_dir)):
+        if [sv["step"] for sv in o["ckpt"]["saves"]] != [3, 6] or ckpt_lib.list_steps(
+                str(d)) != [3, 6]:
+            raise AssertionError(f"[ckpt] the {name} run's saves {o['ckpt']['saves']}")
+    n_sparse = sum(1 for r in out["rates"] if r > 0)
+    expect = dict.fromkeys(gm.launches, 0)
+    expect["matmul"] = per_step * n_sparse
+    if n_sparse != 3 or launches != expect or out["launches"] != expect:
+        raise AssertionError(f"[ckpt] launches {launches} != {per_step} x {n_sparse} sparse "
+                             "steps run (2, 3 and the replayed 3)")
+    a, b = plain["history"], whole["history"]
+    last = dict(zip(out["steps"], out["history"], strict=True))
+    resumed = [last[i] for i in range(6)]
+    if a != b:
+        raise AssertionError(f"[ckpt] two uninterrupted runs differ: {a} / {b}")
+    if resumed != a:
+        raise AssertionError(f"[ckpt] resumed losses {resumed} != uninterrupted {a}")
+    for step in (3, 6):
+        name = f"step_{step:08d}"
+        if not _same_files(crash_dir / name, whole_dir / name):
+            raise AssertionError(f"[ckpt] the crashed run's {name} differs from the "
+                                 "uninterrupted run's")
+    # the file read alone: step 3 to host tensors, timed
+    params = lm.init_params(cfg, 0, device="cuda")
+    opt = adam.init(params)
+    like = ckpt_lib.like_of({k: lm.jax_layout(cfg, t, ckpt_lib.Stacked)
+                             for k, t in (("params", params), ("m", opt.m), ("v", opt.v))})
+    del params, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = ckpt_lib._flatten(ckpt_lib.restore(str(crash_dir), 3, like))[0]
+    rs = time.perf_counter() - t0
+    n_tensors = len(host)
+    del host
+    step_dir = crash_dir / "step_00000003"
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    saves = out["ckpt"]["saves"]
+    total_rs = out["ckpt"]["restores"][0]["s"]
+    print(f"[ckpt] {smi()}: {wall:.1f} s for the crashed run; steps run {out['steps']}; "
+          f"restart and 'resumed from step 3'; its step-3 and step-6 checkpoints ({n_tensors} "
+          "tensors: params, m, v) equal the uninterrupted run's byte for byte")
+    print(f"[ckpt] a save writes {nbytes / 1e9:.3f} GB ({saves[0]['bytes'] / 1e9:.3f} GB of "
+          f"tensors); restore (file to host tensors) {rs:.3f} s ({nbytes / rs / 1e9:.2f} GB/s), "
+          f"to the card in the run {total_rs:.3f} s ({nbytes / total_rs / 1e9:.2f} GB/s)")
+    for name, o in (("crashed", out), ("uninterrupted", whole)):
+        for sv in o["ckpt"]["saves"]:
+            print(f"[ckpt] {name} run's save at {_save_line(sv)}")
+    print(f"[ckpt] matmul launches {launches['matmul']} = {per_step} x {n_sparse} sparse steps "
+          "run (2, 3, replayed 3)")
+    print(f"[ckpt] determinism: two uninterrupted runs agree bit for bit, losses {a}; so do "
+          "the resumed run's (the last occurrence of each step)")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches["matmul"], dict(
+        losses=a, save_gb=nbytes / 1e9, restore_s=rs, restore_to_card_s=total_rs,
+        saves=[{k: sv[k] for k in ("step", "snapshot_s", "alloc_s", "copy_s", "write_s")}
+               for sv in saves + whole["ckpt"]["saves"]])
+
+
+def _fleet_cmd(coord, ckpt_dir, rank, world):
+    return [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+            "--arch", LM_ARCH, "--reduced", "--use-pallas", "--steps", "6",
+            "--steps-per-epoch", "4", "--global-batch", str(LM_BATCH), "--seq-len", str(FLEET_SEQ),
+            "--log-every", "1", "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "4",
+            "--coord-dir", str(coord), "--world-size", str(world), "--rank", str(rank),
+            "--hb-interval", "0.5", "--hb-timeout", "60", "--commit-timeout", "120",
+            "--rejoin-timeout", "120"]
+
+
+def _fleet_run(cmds: dict[str, list[str]], where: Path) -> dict[str, str]:
+    """Run the commands at once, each its own process with its log;
+    every one must exit 0 within ``FLEET_TIMEOUT_S``. Returns the logs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs, logs = {}, {}
+    try:
+        for name, cmd in cmds.items():
+            with open(where / f"{name}.log", "w") as f:
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                               stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        for name, p in procs.items():
+            rc = p.wait(timeout=max(deadline - time.monotonic(), 1))
+            logs[name] = (where / f"{name}.log").read_text()
+            if rc != 0:
+                raise AssertionError(f"[fleet] {name} exited {rc}: {logs[name][-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return logs
+
+
+def _loss_log(coord: Path, rank: int) -> dict[int, float]:
+    out = {}
+    for line in (coord / "loss" / f"rank_{rank:05d}.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        out[rec["step"]] = rec["loss"]  # a replayed step: the last occurrence
+    return out
+
+
+def _launches(log: str) -> dict:
+    line = next(ln for ln in log.splitlines() if ln.startswith("[train] kernel launches:"))
+    return ast.literal_eval(line.split(":", 1)[1].strip())
+
+
+def fleet_phase(gm, lm, policy_mod, get_config):
+    """Two ranks of ``python -m repro_torch.launch.train --reduced`` on the
+    one card, as subprocesses, under ``--coord-dir`` and ``--world-size
+    2`` with ``--ckpt-dir`` (compute replicated, as in the reference): 6
+    steps of 4-step epochs (4, 5 sparse), a sharded checkpoint at step 4
+    (a shard a rank, the manifest the leader committed). Then one process
+    resumes from it (a reshaped fleet of 1) and runs steps 4-5; its
+    losses must equal the fleet's there, and the two ranks' each other,
+    bit for bit. Every process launched ``matmul`` the launch table's
+    count for each sparse step it ran. First, ``matmul`` against its
+    plain version at every product of the reduced config's sparse step
+    (B=8, S=64: small shapes that no tile divides). Returns a summary,
+    with those rows and their worst error."""
+    cfg = get_config(LM_ARCH).reduced()
+    k_rows, k_err = lm_kernel_phase(gm, lm, cfg, lm_policy(policy_mod), LM_BATCH, FLEET_SEQ,
+                                    tag="[fleet-kernels]")
+    root = CKPT_DIR / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    coord, ckpt_dir, solo = root / "coord", root / "ckpt", root / "solo"
+    for d in (coord, solo):
+        d.mkdir(parents=True)
+    per_step = lm.kernel_launches_per_step(cfg, lm_policy(policy_mod))["matmul"]
+    t0 = time.perf_counter()
+    logs = _fleet_run({f"rank{r}": _fleet_cmd(coord, ckpt_dir, r, 2) for r in (0, 1)}, root)
+    t_fleet = time.perf_counter() - t0
+    step_dir = ckpt_dir / "step_00000004"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    shards = sorted(f.name for f in step_dir.iterdir() if f.name.startswith("shard_"))
+    if not ((step_dir / "COMMITTED").exists() and manifest["format"] == "sharded"
+            and manifest["ranks"] == [0, 1] and shards == ["shard_0.msgpack", "shard_1.msgpack"]):
+        raise AssertionError(f"[fleet] step 4 is not a committed 2-rank sharded checkpoint: "
+                             f"{manifest.get('format')} {manifest.get('ranks')} {shards}")
+    t0 = time.perf_counter()
+    logs.update(_fleet_run({"solo": _fleet_cmd(solo, ckpt_dir, 0, 1)}, root))
+    t_solo = time.perf_counter() - t0
+    if "resumed from step 4" not in logs["solo"]:
+        raise AssertionError("[fleet] the single process did not resume from step 4")
+    fleet = [_loss_log(coord, r) for r in (0, 1)]
+    resumed = _loss_log(solo, 0)
+    if sorted(resumed) != [4, 5] or any(sorted(f) != list(range(6)) for f in fleet):
+        raise AssertionError(f"[fleet] steps logged {[sorted(f) for f in fleet]} / {sorted(resumed)}")
+    pairs = [([fleet[1][s] for s in range(6)], [fleet[0][s] for s in range(6)]),
+             ([resumed[s] for s in (4, 5)], [fleet[0][s] for s in (4, 5)])]
+    for got, want in pairs:
+        if got != want:
+            raise AssertionError(f"[fleet] losses {got} != {want}")
+    counts = {name: _launches(log)["matmul"] for name, log in logs.items()}
+    want = {"rank0": 2 * per_step, "rank1": 2 * per_step, "solo": 2 * per_step}
+    if counts != want:
+        raise AssertionError(f"[fleet] matmul launches {counts} != {want}")
+    print(f"[fleet] 2 ranks of the reduced {LM_ARCH} on one card: 6 steps in {t_fleet:.1f} s "
+          f"(processes included), a committed sharded checkpoint at step 4 ({shards}, "
+          f"{len(manifest['keys'])} tensors); one process resumed from it in {t_solo:.1f} s; "
+          f"losses {[round(fleet[0][s], 6) for s in range(6)]} on both ranks, the resumed "
+          f"run's at 4-5 equal bit for bit; matmul launches {counts} = {per_step} x 2 sparse steps each")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return dict(fleet_s=t_fleet, solo_s=t_solo, launches=counts, kernel_rows=k_rows,
+                kernel_err=k_err)
+
+
+# ----------------------------------------------------------------------
 # the decoder-only families: mamba2 training and serving, kimi-k2
 # serving, the reduced configs of the seven new archs
 # ----------------------------------------------------------------------
@@ -2023,22 +2293,25 @@ def _shares(outs, ref_name):
 
 def ssm_serve_phase(lm, pa, S, get_config):
     """mamba2-1.3b serves at full width and depth: 8 sampled Poisson
-    requests (prompt 128, gen 32) through 4 slots of the paged engine,
-    the paged engine with a pool small enough to swap, speculating 4
-    tokens self-drafted, the contiguous engine and the lock-step
-    baseline, with bf16 params and an fp32 copy. The arch has no
+    requests (prompt 32 in two 16-token prefill chunks, gen 32) through
+    4 slots of the paged engine, the paged engine with a pool small
+    enough to swap, speculating 4 tokens self-drafted, the contiguous
+    engine and the lock-step baseline, with bf16 params and an fp32 copy. The arch has no
     attention layer, so no kernel runs: the phase holds the engine's SSM
     state (reset, swap, the speculative commit) at full size. The fp32
     shares of tokens equal to the paged run's must reach SHARE_MIN."""
     cfg = get_config(SSM_ARCH)
     params = lm.init_params(cfg, 0, "cuda")
-    reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=128, gen_len=32, seed=0,
+    # prompt 32: the per-position recurrence makes a prompt 32 x 48
+    # sequential layer steps, the phase's time; two 16-token chunks, so the
+    # second starts from the SSM state the first left in the cache
+    reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=32, gen_len=32, seed=0,
                    uniform_prompts=True, **SAMPLED)
-    base = dict(max_slots=4, max_seq=160, prefill_chunk=32)
+    base = dict(max_slots=4, max_seq=64, prefill_chunk=16)
     paged = dict(base, block_size=16)
     runs = {
         "paged": (dict(paged), None),
-        "swap": (dict(paged, n_blocks=24, preempt="swap"), None),
+        "swap": (dict(paged, n_blocks=10, preempt="swap"), None),
         "spec self": (dict(paged, spec_k=SPEC_K, decode_widths=(1, 4, SPEC_K + 1)), None),
         "contiguous": (dict(base), None),
     }
@@ -2346,6 +2619,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch import serve as serve_pkg
+    from repro_torch.checkpoint import ckpt as ckpt_lib
     from repro_torch.launch import serve
     from repro_torch.launch import steps as lm_steps
     from repro_torch.launch import train
@@ -2479,6 +2753,16 @@ def main() -> int:
     lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
 
     lap("lm-train")
+    # 15b. fault-tolerant LM training: save, crash, resume and replay through
+    # the entry point (counted), then a 2-rank fleet's sharded checkpoint
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_launches, ckpt_summary = ckpt_phase(train, lm, gm, adam, policy_mod, ckpt_lib)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_summary = fleet_phase(gm, lm, policy_mod, get_config)
+
+    lap("ckpt-fleet")
     # 17-20. the decoder-only families: mamba2 trains and serves at full
     # width, kimi-k2 serves at full width (depth 1), the seven reduced
     # configs' routes and streams
@@ -2568,14 +2852,18 @@ def main() -> int:
         top = max(mine, key=lambda r: (r["flops"], r["ms"]))  # the main path's largest shape
         path_launches, err, by_arch = {LM_ARCH: lm_launches[name]}, lm_err[name], {}
         if name == "matmul":
+            path_launches["lm_resume"] = resume_launches
             path_launches[SSM_ARCH] = ssm_launches
             path_launches.update({arch: xtrain[arch][0] for arch in xtrain})
-            err = max([err] + [e[name] for _, e in x_rows.values()])
-            # whisper's and paligemma's sparse steps: the worst error, and
-            # one step's launches at their shapes (bf16)
+            # whisper's and paligemma's sparse steps, and the fleet's reduced
+            # qwen2.5-3b (B=8, S=64): the worst error, and one step's
+            # launches at their shapes (bf16)
+            more = x_rows | {f"{LM_ARCH} reduced (fleet)": (fleet_summary["kernel_rows"],
+                                                            fleet_summary["kernel_err"])}
+            err = max([err] + [e[name] for _, e in more.values()])
             by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
                 r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
-                for arch, (xr, e) in x_rows.items()}
+                for arch, (xr, e) in more.items()}
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, launches=sum(path_launches.values()),
@@ -2591,6 +2879,8 @@ def main() -> int:
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[ddpm-train] route rel L2 {ddpm_rel}; step medians {ddpm_ms}")
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")
+    print(f"[ckpt] {json.dumps(ckpt_summary)}")
+    print(f"[fleet] {json.dumps({k: v for k, v in fleet_summary.items() if k != 'kernel_rows'})}")
     print(f"[ssm-train] {json.dumps(ssm_ms)}")
     print(f"[ssm-serve] shares {json.dumps(ssm_shares)}")
     print(f"[moe-serve] {json.dumps(moe_summary)}")

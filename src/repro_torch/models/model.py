@@ -5,6 +5,8 @@ hybrid, encdec, vlm):
 
   * ``init_params(cfg, seed, device)``          -> params
   * ``params_from_jax(cfg, tree, device)``      -> params from a JAX param tree
+  * ``jax_layout(cfg, params, stack)``          -> the JAX layout of params (or of an Adam
+    moment tree), each stack of per-layer tensors made one leaf by ``stack``
   * ``site_names(cfg)``                         -> (sites, depth)
   * ``forward(cfg, params, batch, policy)``     -> (logits fp32, aux)
   * ``loss_fn(cfg, params, batch, policy)``     -> (loss, metrics)
@@ -36,6 +38,7 @@ it a slot, and the cross-attention projects its K/V at every step.
 """
 from __future__ import annotations
 
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -65,6 +68,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict[str, Any]:
 
 
 def _tensor(a, device) -> torch.Tensor:
+    """A fresh tensor on ``device`` with the values of a torch tensor or a
+    numpy array (a writable copy either way)."""
+    if isinstance(a, torch.Tensor):
+        return torch.empty(a.shape, dtype=a.dtype, device=device).copy_(a)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # numpy has no bf16: widen exactly, then narrow
         return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
@@ -72,16 +79,21 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict[str, Any]:
-    """The port's params from a JAX param tree whose leaves are numpy
-    arrays (``jax.tree.map(np.asarray, params)``). The JAX package stacks
-    each period slot's leaves ``[n_periods, ...]``, so layer ``i * plen +
-    j`` is ``tree["stack"]["slots"][j][...][i]``; the encdec family's
-    ``encoder`` and ``decoder`` leaves are stacked ``[n_layers, ...]``."""
+    """The port's params from a tree in the JAX package's layout whose
+    leaves are numpy arrays (``jax.tree.map(np.asarray, params)``) or
+    torch host tensors (a restored checkpoint's, bf16 among them); an
+    Adam moment tree converts the same way. The JAX package stacks each
+    period slot's leaves ``[n_periods, ...]``, so layer ``i * plen + j``
+    is ``tree["stack"]["slots"][j][...][i]``; the encdec family's
+    ``encoder`` and ``decoder`` leaves are stacked ``[n_layers, ...]``.
+    Every leaf is copied into a fresh tensor on ``device``, a layer at a
+    time."""
 
     def convert(node, pi=None):
         if isinstance(node, dict):
             return {k: convert(v, pi) for k, v in node.items()}
-        return _tensor(node if pi is None else np.asarray(node)[pi], device)
+        a = node if isinstance(node, torch.Tensor) else np.asarray(node)
+        return _tensor(a if pi is None else a[pi], device)
 
     out = {"embed": convert(tree["embed"]), "final_norm": convert(tree["final_norm"])}
     if cfg.family == "encdec":
@@ -94,6 +106,32 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict[str, Any]:
     slots = tree["stack"]["slots"]
     out["stack"] = {"layers": [convert(slots[li % plen], li // plen)
                                for li in range(cfg.n_layers)]}
+    return out
+
+
+def jax_layout(cfg: ModelConfig, tree, stack: Callable[[list], Any]) -> dict[str, Any]:
+    """The inverse of :func:`params_from_jax`'s layout change: the port's
+    params (or an Adam moment tree of the same structure) in the JAX
+    package's layout and key names. Each stacked leaf is ``stack`` of the
+    list of the port's per-layer tensors: ``torch.stack`` makes the
+    stacked tensor; a checkpoint passes a lazy leaf that its snapshot
+    stacks on the host, a layer at a time, never on the device."""
+
+    def stacked(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stacked([layer[k] for layer in layers]) for k in first}
+        return stack(layers)
+
+    out = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    if cfg.family == "encdec":
+        out["encoder"] = stacked(tree["encoder"]["layers"])
+        out["enc_norm"] = tree["enc_norm"]
+        out["decoder"] = stacked(tree["decoder"]["layers"])
+        return out
+    plen = len(transformer.period_pattern(cfg))
+    layers = tree["stack"]["layers"]
+    out["stack"] = {"slots": [stacked(layers[j::plen]) for j in range(plen)]}
     return out
 
 

@@ -101,6 +101,14 @@ def init(params) -> AdamState:
     )
 
 
+def restored(step: int, m, v) -> AdamState:
+    """The state a run resumes from a checkpoint: the restored moments and
+    the checkpoint's step as the step count (bias correction reads it),
+    on the moments' device."""
+    dev = tree_leaves(m)[0].device
+    return AdamState(torch.tensor(step, dtype=torch.int32, device=dev), m, v)
+
+
 def global_norm(tree) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))

@@ -1,8 +1,10 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor ``msgpack`` or
+``ml_dtypes`` (the card's machine has neither).
 
-A subprocess in which ``import jax`` and ``import repro`` fail imports
-every module of ``repro_torch``; an AST scan of the port's sources and
-of ``chip_smoke.py`` finds no import of either.
+A subprocess in which ``import jax``, ``import repro``, ``import
+msgpack`` and ``import ml_dtypes`` fail imports every module of
+``repro_torch``; an AST scan of the port's sources and of
+``chip_smoke.py`` finds no import of any of them.
 """
 import ast
 import os
@@ -14,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _port_modules():
@@ -35,16 +37,18 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.prng", "repro_torch.serve.lockstep",
               "repro_torch.models.ssm", "repro_torch.models.moe",
               "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.mamba2_1_3b",
-              "repro_torch.configs.whisper_large_v3", "repro_torch.configs.paligemma_3b"):
+              "repro_torch.configs.whisper_large_v3", "repro_torch.configs.paligemma_3b",
+              "repro_torch.checkpoint.codec", "repro_torch.checkpoint.ckpt",
+              "repro_torch.dist.fault", "repro_torch.dist.compat", "repro_torch.dist"):
         assert m in mods
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )

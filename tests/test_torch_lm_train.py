@@ -361,13 +361,25 @@ def test_train_cli_runs_in_fp32_and_restores_the_tf32_flags(before):
         torch.backends.cudnn.allow_tf32 = True
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--coord-dir", "x"], ["--world-size", "2"],
-                                  ["--data-mesh", "2"], ["--model-mesh", "2"],
-                                  ["--fail-at-step", "3"]])
+@pytest.mark.parametrize("flag", [["--data-mesh", "2"], ["--model-mesh", "2"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     args = ttrain.build_parser().parse_args(["--device", "cpu", "--reduced", *flag])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttrain.run(args)
+
+
+def test_train_cli_takes_a_reference_command_line_with_no_scan_layers():
+    """The reference's per-site example (``--no-scan-layers`` with a
+    per-depth rule) parses and runs; the flag changes nothing, since the
+    port always unrolls the stack."""
+    argv = ["--arch", ARCH, "--reduced", "--steps", "3", "--steps-per-epoch", "1",
+            "--global-batch", "2", "--seq-len", "16", "--no-scan-layers",
+            "--rules", "layer_{0,-1}/*=dense;*/attn/*=0.5;*=0.8"]
+    out = ttrain.run(ttrain.build_parser().parse_args(["--device", "cpu", *argv]))
+    ref = ttrain.run(ttrain.build_parser().parse_args(
+        ["--device", "cpu", *[a for a in argv if a != "--no-scan-layers"]]))
+    assert out["steps"] == [0, 1, 2] and out["rates"] == [0.0, 0.8, 0.0]
+    assert out["history"] == ref["history"]
 
 
 def test_train_cli_wants_a_card():
