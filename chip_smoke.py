@@ -9,8 +9,10 @@ mamba2-1.3b; qwen2.5-3b also through a checkpoint, a crash and a resume,
 and as a 2-rank fleet), the other decoder-only families (mamba2-1.3b and kimi-k2
 serving at full width, the reduced configs of the seven archs beside
 qwen2.5-3b), the encoder-decoder and VLM families (whisper-large-v3 and
-paligemma-3b serving and training at full width and depth), and fails
-(non-zero exit, no result line) on any error:
+paligemma-3b serving and training at full width and depth), sharded
+selection (ResNet-18 under a TP-sharded selection, grouped convs,
+qwen2.5-3b under the JAX dryrun's TP policies, the MoE archs' DP-local
+dispatch), and fails (non-zero exit, no result line) on any error:
 
 1. device check: needs CUDA; prints the card's name and power limit and
    turns TF32 off for float32 matmuls and convolutions;
@@ -86,6 +88,23 @@ paligemma-3b serving and training at full width and depth), and fails
    of the full-width ResNet-18 (B=128, 3x32x32) through the kernels, the
    gather route and the mask oracle, each leaf within a relative L2 of
    1e-4 of the others, with each site's kept blocks printed per route;
+   then ``[shard-route]``: the same step (same params and batch) under
+   ``tpu_default(0.8)`` with ``tp_shards=2`` on the three routes: the
+   same kept channels at every site, as many in each shard, each leaf
+   within 1e-4, and the kernel route's launches equal to the route table
+   of ``backward_route`` under the sharded selection (the 64- and
+   128-channel sites' shard blocks shrink below 128: no ``block_idx``,
+   the gathered VJP; the 256- and 512-channel sites keep 128-channel
+   blocks: ``conv_dx_fused`` / ``conv_dw_fused`` at 3x3, ``dx_gathered``
+   / ``dw_gathered`` at the 1x1 downs); then ``[grouped]``:
+   ``sparse_conv2d`` with groups (G=2 at 256 channels, G=4 at 512, G=2
+   at 64; B=128, ``tpu_default(0.8)`` at 64-channel blocks,
+   ``use_pallas``) on the three routes: each group keeping as many
+   channels, the same on every route, dX and dW within 1e-4; the fused
+   kernels launched once each at the first two (block-diagonally), none
+   at the third (gathered: 64 is not a multiple of 2 x 64); each fused
+   kernel against its plain version at the kept blocks, timed beside
+   ``conv2d_weight`` / ``conv2d_input`` with ``groups`` and its bound;
 8. training phase: ``repro_torch.launch.train_classifier.run`` trains
    ResNet-18 for 8 epoch-bar steps (2 a epoch: steps 2, 3, 6, 7 sparse);
    every loss finite, each gathered kernel launched the route table's
@@ -128,6 +147,10 @@ paligemma-3b serving and training at full width and depth), and fails
    depth 4, fp32 with TF32 off, through ``matmul``, the gather route and
    the mask oracle: the same kept channels at every site, the same loss,
    every gradient leaf within a relative L2 of 1e-4 between each pair;
+   then ``[tp-lm]``: the same step under the JAX dryrun's ``ssprop_tp``
+   (``tpu_default(0.8)`` with ``tp_shards=16``) through the TP fast path
+   and the mask oracle: the same kept channels, ``k_loc`` in each of the
+   16 shards, each leaf within 1e-4, no kernel launched;
 15. LM training phase: ``repro_torch.launch.train.run`` trains qwen2.5-3b
    at full width and depth (bf16, B=8, S=128, channel granularity with
    ``--use-pallas``) for 8 epoch-bar steps (steps 2, 3, 6, 7 sparse);
@@ -135,6 +158,14 @@ paligemma-3b serving and training at full width and depth), and fails
    4, no other kernel, no operand repacked; then a profile of one dense
    and one sparse step, in which the bf16 tensor-core kernel carries all
    504 ``matmul`` launches of the sparse step and the SIMT one none;
+   then, on the profile's full-depth params and Adam state, ``[tp-lm]``:
+   each projection's kept channels under 16 shards against global
+   selection with ``dense_backward_contraction_bounds``, 4 timed
+   ``make_train_step`` steps and a profile of ``ssprop_tp`` and of
+   ``opt`` (plus a bf16 backward), no kernel launched, and
+   ``compress_tree`` at 1 % over one ``ssprop_tp`` step's gradients (its
+   time, the bytes against the full gradients', grad == kept + residual
+   exactly at every leaf);
 15b. fault-tolerant LM training (``[ckpt]``): ``train.run`` on qwen2.5-3b
    at full width, depth cut 36 -> 4 (a save holds ~6.2 GB), bf16, B=8,
    S=128, ``--use-pallas``, 6 steps of 2-step epochs, ``--ckpt-every 3
@@ -178,6 +209,11 @@ paligemma-3b serving and training at full width and depth), and fails
    patches in the batch) and identical greedy and sampled streams
    through the paged engine on both routes, swap, speculation with a
    one-period drafter, the contiguous engine and the lock-step oracle;
+   then ``[moe-grouped]``: kimi-k2's, llama4-maverick's and jamba's
+   reduced configs with ``moe_dp_groups=2`` on the three training routes
+   (the same kept channels for every site, expert and group), ``matmul``
+   launched the launch table's count (2 x experts x products on the
+   expert sites), each MoE layer's ``aux_loss`` and ``dropped`` printed;
 20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width
    and depth (32 encoder + 32 decoder layers, d 1280, vocab 51866), 8
    sampled Poisson requests, each with its ``[1500, 1280]`` frames from
@@ -207,12 +243,15 @@ paligemma-3b serving and training at full width and depth), and fails
    sparse steps, ``matmul`` launched ``kernel_launches_per_step`` times
    a sparse step, tokens/s, peak memory;
 23. prints the card's line, the kernels' JSON line (a gathered kernel's
-   ``launches`` is the sum of the ResNet-18 and DDPM training phases',
+   ``launches`` is the sum of the ResNet-18 and DDPM training phases'
+   and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
+   fused kernels' ``grouped`` key holding the G=2 case's times),
    ``paged_attention``'s the serve phase's, the paged runs' of
    ``serve_features_phase``, the kimi-k2, whisper and paligemma serve
    phases', ``matmul``'s the qwen2.5-3b, mamba2-1.3b, whisper and
-   paligemma training phases' and the resumed run's of ``[ckpt]``
-   (``lm_resume``), each in ``launches_by_path``, with the
+   paligemma training phases', the resumed run's of ``[ckpt]``
+   (``lm_resume``) and ``[moe-grouped]``'s kernel routes, each in
+   ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
    whisper's in ``d64`` and paligemma's in ``d256``; ``matmul``'s
    ``max_abs_err`` covers the qwen2.5-3b, whisper and paligemma products,
@@ -964,15 +1003,16 @@ def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=1
             lib = lambda a, b: torch.nn.grad.conv2d_input(  # noqa: E731
                 (batch, c_in, h_in, h_in), b, a, st, pad, 1, groups)
         kw = dict(plain_kw, c_out=c_out)
+    dg = d // groups  # the reduction of one output channel: (C_in / G) * k * k
     splits = {  # the split-K of the tensor-core kernels' plans
         "dw_gathered": lambda: gm.dw_plan(m, d, kb, bs, c_out)[0],
-        "conv_dw_fused": lambda: gm.conv_dw_plan(m, d // groups, kb, bs, c_out)[0],
+        "conv_dw_fused": lambda: gm.conv_dw_plan(m, dg, kb, bs, c_out)[0],
     }
     return dict(
         kernel=lambda *a: getattr(gm, name)(*a, **kw),
         plain=lambda *a: getattr(gm, f"{name}_ref")(*a, **plain_kw),
         args=args, library=lib, lib_args=lib_args, blocks=blocks,
-        dims=dict(m=m, d=d, k_real=len(real), kb=kb, bs=bs, c_in=c_in, h=h_in,
+        dims=dict(m=m, d=dg, k_real=len(real), kb=kb, bs=bs, c_in=c_in, h=h_in,
                   h_pad=h_in + 2 * pad, batch=batch, itemsize=args[0].element_size()),
         splits=splits[name]() if name in splits else None,
     )
@@ -1009,16 +1049,20 @@ def _check_close(name, out, ref, what) -> float:
     return err
 
 
-def kernel_rows(gm, ops, launches, gen, tag, *, bs=128, batch=TRAIN_BATCH):
+def kernel_rows(gm, ops, launches, gen, tag, *, bs=128, batch=TRAIN_BATCH, groups=1,
+                blocks=None):
     """Each ``(kernel, geometry)`` of a launch table against its plain
     version, fp32 and bf16, repeated bit for bit; times, the library call
-    and the bounds at fp32. Returns the rows, the max abs error of each
-    kernel and a sha256 of each kernel's outputs in launch order."""
+    and the bounds at fp32. ``groups`` and ``blocks`` (geometry -> kept
+    blocks) go to :func:`gathered_case`. Returns the rows, the max abs
+    error of each kernel and a sha256 of each kernel's outputs in launch
+    order."""
     rows, max_err = [], dict.fromkeys(GATHERED, 0.0)
     digests = {name: hashlib.sha256() for name in GATHERED}
     for (name, geo), count in launches.items():
         for dtype in (torch.float32, torch.bfloat16):
-            case = gathered_case(gm, ops, name, geo, dtype, gen, bs=bs, batch=batch)
+            case = gathered_case(gm, ops, name, geo, dtype, gen, bs=bs, batch=batch,
+                                 groups=groups, blocks=(blocks or {}).get(geo))
             out, ref = case["kernel"](*case["args"]), case["plain"](*case["args"])
             err = _check_close(name, out, ref, f"at {geo} {dtype}")
             max_err[name] = max(max_err[name], err)
@@ -1039,7 +1083,8 @@ def kernel_rows(gm, ops, launches, gen, tag, *, bs=128, batch=TRAIN_BATCH):
             c_in, c_out, k, h_in, stride, kb = geo
             flops = 2 * case["dims"]["m"] * case["dims"]["d"] * case["dims"]["k_real"]
             row = dict(name=name, shape=f"B={batch} C_in={c_in} C_out={c_out} k={k} H={h_in} "
-                       f"stride={stride} bs={bs} KB={kb} blocks={case['blocks']}",
+                       f"stride={stride}" + (f" groups={groups}" if groups > 1 else "")
+                       + f" bs={bs} KB={kb} blocks={case['blocks']}",
                        launches_per_step=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                        bound_fp32_fma_ms=fma_ms, flops=flops, tflops=flops / ms / 1e9,
@@ -1123,21 +1168,29 @@ def training_batch(pipeline, dev="cuda"):
     return torch.from_numpy(b["images"]).to(dev), torch.from_numpy(b["labels"]).long().to(dev)
 
 
-def training_route_check(tc, resnet, backward, policy_mod, pipeline):
-    """The loss and all parameter gradients of one sparse step (0.8) of
-    the full-width ResNet-18 three ways: through the kernels, the gather
-    route (the conv VJP on the kept filters) and the mask oracle. All
-    fp32 with TF32 off, so the routes differ in summation order only."""
-    params = resnet.init_params(RESNET, 0, 10, device="cuda")
-    x, y = training_batch(pipeline)
-    kern = train_policy(policy_mod)
-    routes = {"kernels": kern, "gather": dataclasses.replace(kern, use_pallas=False),
-              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+def _resnet_sites(params) -> dict:
+    """Weight pointer -> ResNet-18 site name."""
     site_of = {params["stem"]["w"].data_ptr(): "stem"}
     for bi, blk in enumerate(params["blocks"]):
         for key, site in (("conv1", "conv1"), ("conv2", "conv2"), ("down_conv", "down")):
             if key in blk:
                 site_of[blk[key]["w"].data_ptr()] = f"block_{bi}/{site}"
+    return site_of
+
+
+def training_route_check(tc, resnet, backward, policy_mod, pipeline):
+    """The loss and all parameter gradients of one sparse step (0.8) of
+    the full-width ResNet-18 three ways: through the kernels, the gather
+    route (the conv VJP on the kept filters) and the mask oracle. All
+    fp32 with TF32 off, so the routes differ in summation order only.
+    Returns the worst relative L2s, and the params and batch for
+    :func:`shard_route_phase`."""
+    params = resnet.init_params(RESNET, 0, 10, device="cuda")
+    x, y = training_batch(pipeline)
+    kern = train_policy(policy_mod)
+    routes = {"kernels": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    site_of = _resnet_sites(params)
     res = {}
     for name, pol in routes.items():
         with backward.record_selections() as log:
@@ -1167,7 +1220,177 @@ def training_route_check(tc, resnet, backward, policy_mod, pipeline):
     print(f"[train-route] full width, B={TRAIN_BATCH}, one sparse step: loss {res['kernels'][0]:.6f} "
           f"on every route; {len(res['kernels'][1])} gradient leaves, worst relative L2 "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {TRAIN_ROUTE_TOL})")
+    return worst, (params, x, y)
+
+
+# ----------------------------------------------------------------------
+# sharded selection: TP-balanced blocks and grouped convs on the kernels
+# ----------------------------------------------------------------------
+
+SHARD_TP = 2  # [shard-route]: the TP degree of ResNet-18's selection
+GROUPED_BS = 64  # [grouped]: the block size (128 would leave one block a group)
+GROUPED_CASES = [  # x, w, groups: fused, fused, gathered (64 is not a multiple of 2 x 64)
+    ((128, 256, 8, 8), (256, 128, 3, 3), 2),
+    ((128, 512, 4, 4), (512, 128, 3, 3), 4),
+    ((128, 64, 32, 32), (64, 32, 3, 3), 2),
+]
+
+
+def _compare_routes(res, tag) -> dict:
+    """``res[route] = (loss, [(path, grad)], {site: Selection})``: the same
+    loss and kept channels on every route, every leaf within
+    TRAIN_ROUTE_TOL (relative L2) of the others'. Returns the worst
+    relative L2 of each pair."""
+    names = list(res)
+    worst = {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            if abs(res[a][0] - res[b][0]) > TRAIN_ROUTE_TOL * abs(res[b][0]):
+                raise AssertionError(f"{tag} loss {a} {res[a][0]} != {b} {res[b][0]}")
+            if sorted(res[a][2]) != sorted(res[b][2]):
+                raise AssertionError(f"{tag} {a} vs {b}: selections at different sites")
+            flips = [k for k in res[a][2] if not torch.equal(res[a][2][k].idx, res[b][2][k].idx)]
+            bad, top = [], 0.0
+            for (path, ga), (_, gb) in zip(res[a][1], res[b][1], strict=True):
+                n = gb.float().norm().item()
+                rel = (ga.float() - gb.float()).norm().item() / n if n > 0 else ga.norm().item()
+                top = max(top, rel)
+                if rel > TRAIN_ROUTE_TOL:
+                    bad.append(f"{path} {rel:.3e}")
+            worst[f"{a}_vs_{b}"] = top
+            if flips or bad:
+                raise AssertionError(f"{tag} {a} vs {b}: selection differs at {flips[:5]}; "
+                                     f"leaves over {TRAIN_ROUTE_TOL}: {bad[:5]}")
     return worst
+
+
+def _balanced(sel, c, shards, tag) -> list[int]:
+    """Kept channels in each of ``shards`` contiguous groups; all equal."""
+    per = torch.bincount(sel.idx // (c // shards), minlength=shards).tolist()
+    if len(set(per)) != 1 or sum(per) != sel.k:
+        raise AssertionError(f"{tag} unbalanced selection: {per} a shard")
+    return per
+
+
+def shard_route_phase(tc, resnet, backward, sparsity, policy_mod, gm, params, x, y):
+    """``[shard-route]``: one sparse step of the full-width ResNet-18
+    (B=128, 3x32x32, the params and batch of the training-route check)
+    under ``tpu_default(0.8)`` with ``tp_shards=2`` through the kernels,
+    the gather route and the mask oracle: the same kept channels at
+    every site, the same number in each shard, every leaf within
+    TRAIN_ROUTE_TOL, and the kernel route's launches equal to the route
+    table's (``backward_route`` under the sharded selection: a site whose
+    shard block shrank below 128 carries no ``block_idx`` and takes the
+    gathered VJP). Returns the worst relative L2s and the launches."""
+    t0 = time.perf_counter()
+    kern = dataclasses.replace(train_policy(policy_mod), tp_shards=SHARD_TP)
+    routes = {"kernels": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    site_of = _resnet_sites(params)
+    res, launches = {}, {}
+    for name, pol in routes.items():
+        before = dict(gm.launches)
+        with backward.record_selections() as log:
+            loss, grads = tc.value_and_grad(RESNET, params, x, y, pol)
+        torch.cuda.synchronize()
+        launched = {k: gm.launches[k] - before[k] for k in before}
+        if name == "kernels":
+            launches = launched
+        elif any(launched.values()):
+            raise AssertionError(f"[shard-route] the {name} route launched {launched}")
+        res[name] = (loss.item(), _named_leaves(grads), {site_of[p]: s for p, s in log})
+        del grads
+    expect = resnet.kernel_launches_per_step(RESNET, TRAIN_BATCH, TRAIN_IMAGE, kern)
+    if launches != {**dict.fromkeys(launches, 0), **expect}:
+        raise AssertionError(f"[shard-route] launches {launches} != the route table's {expect}")
+    table = resnet.backward_routes(RESNET, TRAIN_BATCH, TRAIN_IMAGE, kern)
+    unsharded = dataclasses.replace(kern, tp_shards=0)
+    for site, _, c_out, _, _, _ in resnet.iter_conv_shapes(RESNET, TRAIN_IMAGE):
+        sel = res["kernels"][2][site]
+        per = _balanced(sel, c_out, SHARD_TP, f"[shard-route] {site}")
+        _, bs_loc = sparsity.shard_select_width(c_out, kern, SHARD_TP)
+        blocks = None if sel.block_idx is None else sel.block_idx.tolist()
+        if (blocks is None) != (table[site] == "gathered"):
+            raise AssertionError(f"[shard-route] {site}: block_idx {blocks}, route {table[site]}")
+        print(f"[shard-route] {site:15s} C_out={c_out}: shard block {bs_loc}, kept {sel.k} "
+              f"({per} a shard; unsharded {min(c_out, unsharded.keep_count(c_out) * 128)}), "
+              f"block_idx {blocks}, route {table[site]}")
+    worst = _compare_routes(res, "[shard-route]")
+    print(f"[shard-route] {RESNET} full width, B={TRAIN_BATCH}, tp_shards={SHARD_TP}, one sparse "
+          f"step: loss {res['kernels'][0]:.6f}; the same kept channels at all "
+          f"{len(res['kernels'][2])} sites, balanced; {len(res['kernels'][1])} leaves, worst "
+          "relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limit {TRAIN_ROUTE_TOL}); launches {expect} = the route table's; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return worst, launches
+
+
+def grouped_phase(gm, ops, conv, backward, policy_mod):
+    """``[grouped]``: ``sparse_conv2d`` with ``groups`` under
+    ``tpu_default(0.8)`` at 64-channel blocks with ``use_pallas``, at the
+    three GROUPED_CASES, through the kernels, the gather route and the
+    mask oracle: each group keeps as many channels as the others, the
+    same on every route, dX and dW within TRAIN_ROUTE_TOL. The kernel
+    route launches ``conv_dx_fused`` and ``conv_dw_fused`` once each where
+    ``backward_route`` says "fused" and nothing where it says
+    "gathered". Then each fused kernel against its plain version at the
+    kept blocks (fp32 and bf16, repeated bit for bit) with its time, the
+    library's (``conv2d_weight`` / ``conv2d_input`` with ``groups`` on the
+    kept filters) and its bound. Returns the launches, the kernel rows and
+    the worst errors."""
+    t0 = time.perf_counter()
+    kern = dataclasses.replace(policy_mod.tpu_default(0.8), block_size=GROUPED_BS,
+                               use_pallas=True)
+    routes = {"kernels": kern, "gather": dataclasses.replace(kern, use_pallas=False),
+              "mask": dataclasses.replace(kern, use_pallas=False, mask_mode=True)}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    total = dict.fromkeys(GATHERED, 0)
+    rows, max_err = [], dict.fromkeys(GATHERED, 0.0)
+    for x_shape, w_shape, groups in GROUPED_CASES:
+        b, c_in, h, _ = x_shape
+        c_out, k = w_shape[0], w_shape[2]
+        tag = f"[grouped] x{list(x_shape)} w{list(w_shape)} G={groups}"
+        route = conv.backward_route(kern, batch=b, h_out=h, w_out=h, c_in=c_in, c_out=c_out,
+                                    kh=k, kw=k, groups=groups)
+        x = torch.randn(x_shape, generator=gen, device="cuda")
+        w = torch.randn(w_shape, generator=gen, device="cuda") / math.sqrt(w_shape[1] * k * k)
+        res = {}
+        for name, pol in routes.items():
+            xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            before = dict(gm.launches)
+            with backward.record_selections() as log:
+                loss = 0.5 * (conv.sparse_conv2d(xt, wt, padding=k // 2, groups=groups,
+                                                 policy=pol) ** 2).mean()
+                loss.backward()
+            torch.cuda.synchronize()
+            launched = {n: c for n in before if (c := gm.launches[n] - before[n])}
+            want = ({"conv_dx_fused": 1, "conv_dw_fused": 1}
+                    if name == "kernels" and route == "fused" else {})
+            if launched != want:
+                raise AssertionError(f"{tag} {name} route ({route}) launched {launched} != {want}")
+            for n, c in launched.items():
+                total[n] += c
+            if name == "kernels":
+                kernel_launched = launched
+            res[name] = (loss.item(), [("dx", xt.grad), ("dw", wt.grad)], {"conv": log[0][1]})
+        sel = res["kernels"][2]["conv"]
+        per = _balanced(sel, c_out, groups, tag)
+        worst = _compare_routes(res, tag)
+        blocks = None if sel.block_idx is None else sel.block_idx.tolist()
+        print(f"{tag}: route {route}, kept {sel.k}/{c_out} ({per} a group), block_idx {blocks}; "
+              "worst relative L2 " + ", ".join(f"{n} {v:.3e}" for n, v in worst.items())
+              + f"; kernel route's launches {kernel_launched}")
+        if route == "fused":
+            geo = (c_in, c_out, k, h, 1, len(blocks))
+            r, e, _ = kernel_rows(gm, ops, {("conv_dw_fused", geo): 1, ("conv_dx_fused", geo): 1},
+                                  gen, "[grouped]", bs=GROUPED_BS, batch=b, groups=groups,
+                                  blocks={geo: blocks})
+            rows += r
+            max_err = {n: max(max_err[n], e[n]) for n in max_err}
+        del x, w, res
+    print(f"[grouped] {len(GROUPED_CASES)} cases, launches {total}; max abs err {max_err}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total, rows, max_err
 
 
 def counted_cnn_run(tag, cli, argv, gm, pa, per_step, batch):
@@ -1650,7 +1873,9 @@ def lm_route_check(lm, steps, backward, policy_mod, pipeline, cfg):
     """The loss and all parameter gradients of one sparse step of
     qwen2.5-3b at full width and depth ``LM_ROUTE_DEPTH`` three ways:
     through ``matmul``, the gather route and the mask oracle. fp32 with
-    TF32 off, so the routes differ in summation order only."""
+    TF32 off, so the routes differ in summation order only. Returns the
+    worst relative L2s, and the config, params, batch and site names for
+    :func:`tp_lm_route_check`."""
     cfg = dataclasses.replace(cfg, n_layers=LM_ROUTE_DEPTH, dtype="float32")
     params = lm.init_params(cfg, 0, device="cuda")
     batch = _lm_batch(pipeline, cfg)
@@ -1694,7 +1919,7 @@ def lm_route_check(lm, steps, backward, policy_mod, pipeline, cfg):
           f"layer: {kept}); loss {res['matmul'][0]:.6f} on every route; "
           f"{len(res['matmul'][1])} gradient leaves, worst relative L2 "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {TRAIN_ROUTE_TOL})")
-    return worst
+    return worst, (cfg, params, batch, site_of)
 
 
 def lm_training_phase(train, lm, gm, pa, policy_mod, cfg):
@@ -1746,7 +1971,9 @@ def lm_training_phase(train, lm, gm, pa, policy_mod, cfg):
 
 def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
     """Where one dense and one sparse LM training step spend their time
-    (:func:`profile_step`), and which ``matmul`` variant ran."""
+    (:func:`profile_step`), and which ``matmul`` variant ran. Returns the
+    profile, and the full-depth params, Adam state and batch for
+    :func:`tp_lm_phase`."""
     batch = _lm_batch(pipeline, cfg)
     params = lm.init_params(cfg, 0, device="cuda")
     opt = adam.init(params)
@@ -1770,7 +1997,141 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
         print(f"[lm-profile]   matmul by variant: wgmma {count['wgmma']} launches "
               f"{ms['wgmma']:.3f} ms, simt {count['simt']} launches")
         out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, matmul_ms=ms["wgmma"])
-    del params, opt
+    return out, [params, opt, batch]
+
+
+# ----------------------------------------------------------------------
+# TP-local selection on qwen2.5-3b: the dryrun's two TP policies
+# ----------------------------------------------------------------------
+
+TP_SHARDS = 16  # the production mesh's model axis (launch/mesh.py)
+TP_STEPS = 4  # timed steps a policy, after a warm-up
+COMPRESS_RATIO = 0.01
+
+
+def tp_policies(policy_mod) -> dict:
+    """The JAX dryrun's ``ssprop_tp`` (``tpu_default(0.8)`` with the model
+    axis as ``tp_shards``) and ``opt`` (plus a bf16 backward)."""
+    tp = dataclasses.replace(policy_mod.tpu_default(LM_RATE), tp_shards=TP_SHARDS)
+    return {"ssprop_tp": tp, "opt": dataclasses.replace(tp, bwd_dtype="bfloat16")}
+
+
+def tp_lm_route_check(lm, steps, backward, policy_mod, gm, cfg, params, batch, site_of):
+    """``[tp-lm]`` route check: one sparse step of qwen2.5-3b at full width
+    and depth 4, fp32 (the LM route check's params and batch), under
+    ``ssprop_tp`` through the TP fast path and the mask oracle: the same
+    kept channels at every site, ``k_loc`` of them in each of the 16
+    shards, every leaf within TRAIN_ROUTE_TOL, and no kernel launched
+    (the fast path is plain ``einsum``, before any kernel)."""
+    t0 = time.perf_counter()
+    tp = tp_policies(policy_mod)["ssprop_tp"]
+    res = {}
+    for name, pol in (("tp", tp), ("mask", dataclasses.replace(tp, mask_mode=True))):
+        before = dict(gm.launches)
+        with backward.record_selections() as log:
+            (loss, _), grads = steps.value_and_grad(
+                lambda p, pol=pol: lm.loss_fn(cfg, p, batch, pol), params)
+        torch.cuda.synchronize()
+        if gm.launches != before:
+            raise AssertionError(f"[tp-lm] the {name} route launched a kernel")
+        res[name] = (loss.item(), _named_leaves(grads), {site_of[p]: s for p, s in log})
+        del grads
+    for site, sel in res["tp"][2].items():
+        if sel.n_shards != TP_SHARDS:
+            raise AssertionError(f"[tp-lm] {site}: {sel.n_shards} shards")
+        _balanced(sel, lm.site_out_dim(cfg, site), TP_SHARDS, f"[tp-lm] {site}")
+    worst = _compare_routes(res, "[tp-lm]")
+    print(f"[tp-lm] {LM_ARCH} full width, depth {cfg.n_layers}, B={LM_BATCH} S={LM_SEQ}, fp32, "
+          f"ssprop_tp (tp_shards={TP_SHARDS}): the TP fast path and the mask oracle keep the "
+          f"same channels at all {len(res['tp'][2])} sites, k_loc a shard; loss "
+          f"{res['tp'][0]:.6f}; worst relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (limit {TRAIN_ROUTE_TOL}); 0 kernel launches; {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def tp_lm_phase(lm, steps, adam, compression, flops, sparsity, policy_mod, gm, cfg, state,
+                lm_ms):
+    """``[tp-lm]`` at full depth: each projection's kept channels under 16
+    shards against global selection, with the contraction FLOPs of each
+    route; then ``TP_STEPS`` timed ``make_train_step`` steps of each TP
+    policy (bf16, B=8, S=128, the profile's params and Adam state) beside
+    ``[lm-train]``'s dense and sparse medians, and a profile of each
+    (:func:`profile_step`); then ``compress_tree`` at
+    1 % over one ``ssprop_tp`` step's gradients: its time, the bytes
+    against the full gradients', and grad == kept + residual exactly.
+    ``state`` is the list ``[params, Adam state, batch]``; it is emptied,
+    so that the Adam state is freed before the compression."""
+    t0 = time.perf_counter()
+    params, opt, batch = state
+    state.clear()
+    pols = tp_policies(policy_mod)
+    glob = dataclasses.replace(pols["ssprop_tp"], tp_shards=0)
+    m = LM_BATCH * LM_SEQ
+    d, hd = cfg.d_model, cfg.head_dim
+    dims = {"q": (d, cfg.n_heads * hd), "k": (d, cfg.n_kv_heads * hd),
+            "v": (d, cfg.n_kv_heads * hd), "o": (cfg.n_heads * hd, d),
+            "gate": (d, cfg.d_ff), "up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
+    for proj, (d_in, d_out) in dims.items():
+        tp = pols["ssprop_tp"]
+        print(f"[tp-lm] {proj:4s} D_in={d_in} D_out={d_out}: kept "
+              f"{flops.gather_width(d_out, tp, TP_SHARDS)} under {TP_SHARDS} shards "
+              f"(shard block {sparsity.shard_select_width(d_out, tp, TP_SHARDS)[1]}) against "
+              f"{flops.kept_channels(d_out, glob)} global; contraction FLOPs: TP fast path "
+              f"{flops.dense_backward_contraction_bounds(m, d_in, d_out, tp)[0]}, global "
+              f"{flops.dense_backward_contraction_bounds(m, d_in, d_out, glob)[0]}, dense "
+              f"{flops.dense_backward_contraction_bounds(m, d_in, d_out, policy_mod.DENSE)[0]}")
+    ocfg = adam.AdamConfig(lr=2e-4, clip_norm=1.0)
+    tokens = m
+    out = {}
+    for name, pol in pols.items():
+        fn = steps.make_train_step(cfg, pol, ocfg)
+        before = dict(gm.launches)
+        times, losses = [], []
+        for i in range(1 + TP_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, _, met = fn(params, opt, batch)  # in place
+            losses.append(met["loss"].item())  # waits for the step
+            if i:
+                times.append((time.perf_counter() - t1) * 1e3)
+        if gm.launches != before or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[tp-lm] {name}: launches {gm.launches} (before {before}), "
+                                 f"losses {losses}")
+        print(f"[tp-lm] {name}: {TP_STEPS} steps at full width and depth, bf16, B={LM_BATCH} "
+              f"S={LM_SEQ}: median {_median(times):.2f} ms ({tokens / _median(times) * 1e3:.0f} "
+              f"tokens/s) against [lm-train]'s dense {lm_ms['dense_ms']:.2f} and sparse "
+              f"{lm_ms['sparse_ms']:.2f} ms; step ms {[round(v, 2) for v in times]}; losses "
+              f"{[round(v, 4) for v in losses]}; 0 kernel launches")
+        _, busy_ms, _ = profile_step("[tp-lm-profile]", name,
+                                     lambda fn=fn: fn(params, opt, batch)[2]["loss"].item())
+        out[name] = dict(median_ms=_median(times), ms=times, tokens_per_s=tokens /
+                         _median(times) * 1e3, busy_ms=busy_ms, losses=losses)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    (_, _), grads = steps.value_and_grad(
+        lambda p: lm.loss_fn(cfg, p, batch, pols["ssprop_tp"]), params)
+    residual = compression.init_residual(grads)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kept, residual = compression.compress_tree(grads, residual, ratio=COMPRESS_RATIO)
+    torch.cuda.synchronize()
+    c_ms = (time.perf_counter() - t1) * 1e3
+    leaves = list(zip(adam.tree_leaves(grads), adam.tree_leaves(kept),
+                      adam.tree_leaves(residual), strict=True))
+    bad = [i for i, (g, c, r) in enumerate(leaves)
+           if not torch.equal(c.float() + r.float(), g.float())]
+    if bad:
+        raise AssertionError(f"[tp-lm] grad != kept + residual at leaves {bad[:5]}")
+    full = sum(g.numel() * g.element_size() for g, _, _ in leaves)
+    wire = compression.compressed_bytes(grads, COMPRESS_RATIO)
+    out["compress"] = dict(ms=c_ms, full_bytes=full, compressed_bytes=wire, leaves=len(leaves))
+    print(f"[tp-lm] compress_tree(ratio={COMPRESS_RATIO}) over one ssprop_tp step's "
+          f"{len(leaves)} gradient leaves: {c_ms:.2f} ms; {full} bytes -> {wire} on the wire "
+          f"({wire / full:.4f}); grad == kept + residual exactly at every leaf; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del grads, kept, residual, leaves
     return out
 
 
@@ -2101,14 +2462,17 @@ def family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, batch
         torch.cuda.synchronize()
         if name == "matmul":
             launches = gm.launches["matmul"] - before
-        res[name] = (loss.item(), _named_leaves(grads), {site_of[p]: s.idx for p, s in log},
-                     float(metrics["aux"]))
+        kept, seen = {}, {}
+        for p, s in log:  # a (site, expert) selects once a dispatch group
+            n = seen[site_of[p]] = seen.get(site_of[p], -1) + 1
+            kept[(*site_of[p], n)] = s.idx
+        res[name] = (loss.item(), _named_leaves(grads), kept, float(metrics["aux"]))
         del grads
     expect = lm.kernel_launches_per_step(cfg, kern)["matmul"]
     if launches != expect:
         raise AssertionError(f"{tag}: matmul launches {launches} != launch table {expect}")
-    n_sel = sum(cfg.n_experts if s.split("/", 1)[1] in EXPERT_SITES else 1
-                for s in lm.site_names(cfg)[0])
+    n_sel = sum(cfg.n_experts * max(1, cfg.moe_dp_groups)
+                if s.split("/", 1)[1] in EXPERT_SITES else 1 for s in lm.site_names(cfg)[0])
     worst, worst_leaf = {}, {}
     for a, c in (("matmul", "gather"), ("matmul", "mask"), ("gather", "mask")):
         if sorted(res[a][2], key=str) != sorted(res[c][2], key=str) or len(res[a][2]) != n_sel:
@@ -2432,6 +2796,58 @@ def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S,
         torch.cuda.empty_cache()
     return out
 
+MOE_ARCHS = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b")
+MOE_GROUPS = 2  # [moe-grouped]: the dispatch groups (a mesh's data shards)
+
+
+def moe_grouped_phase(lm, steps, backward, policy_mod, pipeline, gm, get_config):
+    """``[moe-grouped]``: the reduced fp32 MoE configs with
+    ``moe_dp_groups=2`` (B=2, S=24: 24 tokens a group), one sparse step
+    through ``matmul``, the gather route and the mask oracle
+    (:func:`family_route_check`: the same kept channels for every
+    (site, expert, group), every leaf within TRAIN_ROUTE_TOL); ``matmul``
+    launched the launch table's count, G x experts x products on the
+    expert sites and the ungrouped count on the others; each MoE layer's
+    ``aux_loss`` and ``dropped`` printed. Returns the worst relative L2s
+    and the launches of each arch."""
+    moe_mod = lm.transformer.moe
+    real = moe_mod.moe_apply
+    out, launches = {}, {}
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch).reduced(), moe_dp_groups=MOE_GROUPS)
+        metrics = []
+
+        def spy(*a, **kw):
+            y, m = real(*a, **kw)
+            metrics.append((m["aux_loss"].item(), m["dropped"].item()))
+            return y, m
+
+        moe_mod.moe_apply = spy
+        try:
+            worst, n = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, 2,
+                                          24, "[moe-grouped]")
+        finally:
+            moe_mod.moe_apply = real
+        kern = lm_policy(policy_mod)
+        plain = lm.kernel_launches_per_step(dataclasses.replace(cfg, moe_dp_groups=0),
+                                            kern)["matmul"]
+        n_moe = sum(s.endswith("/moe/gate") for s in lm.site_names(cfg)[0])
+        expert = n_moe * 3 * 2 * cfg.n_experts * MOE_GROUPS
+        if n != plain + expert * (MOE_GROUPS - 1) // MOE_GROUPS:
+            raise AssertionError(f"[moe-grouped] {arch}: matmul {n} != {plain} ungrouped + "
+                                 f"{expert * (MOE_GROUPS - 1) // MOE_GROUPS} more expert launches")
+        print(f"[moe-grouped] {arch} G={MOE_GROUPS}: matmul launches {n} = {expert} on the "
+              f"expert sites ({MOE_GROUPS} x {cfg.n_experts} experts x 3 x 2 products x {n_moe} "
+              f"layers) + {n - expert} elsewhere (ungrouped table {plain}); kernel route's "
+              f"(aux_loss, dropped) a MoE layer {metrics[:n_moe]}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        out[arch], launches[arch] = worst, n
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 # ----------------------------------------------------------------------
 # the encoder-decoder (whisper-large-v3) and VLM (paligemma-3b) families
 # ----------------------------------------------------------------------
@@ -2612,7 +3028,10 @@ def main() -> int:
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core import backward
+    from repro_torch.core import conv
+    from repro_torch.core import flops
     from repro_torch.core import policy as policy_mod
+    from repro_torch.core import sparsity
     from repro_torch.data import pipeline
     from repro_torch.kernels import build
     from repro_torch.kernels import gathered_matmul as gm
@@ -2629,6 +3048,7 @@ def main() -> int:
     from repro_torch.models import model as lm
     from repro_torch.models import resnet
     from repro_torch.optim import adam
+    from repro_torch.optim import compression
 
     t_start = time.perf_counter()
 
@@ -2719,8 +3139,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("serve-features")
-    # 7. training-route check at full width
-    train_rel = training_route_check(tc, resnet, backward, policy_mod, pipeline)
+    # 7. training-route check at full width; then the same step under a
+    # TP-sharded selection, and grouped convs, on the kernels
+    train_rel, resnet_state = training_route_check(tc, resnet, backward, policy_mod, pipeline)
+    t_shard = time.perf_counter()
+    shard_rel, shard_launches = shard_route_phase(tc, resnet, backward, sparsity, policy_mod, gm,
+                                                  *resnet_state)
+    del resnet_state
+    torch.cuda.empty_cache()
+    grouped_launches, grouped_rows, grouped_err = grouped_phase(gm, ops, conv, backward,
+                                                                policy_mod)
+    new_phase_s = {"shard-route+grouped": time.perf_counter() - t_shard}
     torch.cuda.empty_cache()
 
     # 8. training phase: the port's entry point, counted; then a profile
@@ -2746,11 +3175,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_rows, lm_err = lm_kernel_phase(gm, lm, cfg, lm_policy(policy_mod))
-    lm_rel = lm_route_check(lm, lm_steps, backward, policy_mod, pipeline, cfg)
+    lm_rel, lm_state = lm_route_check(lm, lm_steps, backward, policy_mod, pipeline, cfg)
+    t_tp = time.perf_counter()
+    tp_rel = tp_lm_route_check(lm, lm_steps, backward, policy_mod, gm, *lm_state)
+    new_phase_s["tp-lm route"] = time.perf_counter() - t_tp
+    del lm_state
     gc.collect()
     torch.cuda.empty_cache()
     lm_launches, lm_ms = lm_training_phase(train, lm, gm, pa, policy_mod, cfg)
-    lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
+    _, lm_state = lm_profile(lm, lm_steps, adam, policy_mod, pipeline, cfg)
+    t_tp = time.perf_counter()
+    tp_summary = tp_lm_phase(lm, lm_steps, adam, compression, flops, sparsity, policy_mod, gm,
+                             cfg, lm_state, lm_ms)
+    new_phase_s["tp-lm steps"] = time.perf_counter() - t_tp
+    gc.collect()
+    torch.cuda.empty_cache()
 
     lap("lm-train")
     # 15b. fault-tolerant LM training: save, crash, resume and replay through
@@ -2776,6 +3215,12 @@ def main() -> int:
     moe_launches, moe_summary = moe_serve_phase(lm, pa, serve_pkg, get_config)
     fam_rel = families_reduced_phase(lm, lm_steps, backward, policy_mod, pipeline, gm, pa,
                                      serve_pkg, get_config)
+    t_moe = time.perf_counter()
+    moe_rel, moe_grouped_launches = moe_grouped_phase(lm, lm_steps, backward, policy_mod,
+                                                      pipeline, gm, get_config)
+    new_phase_s["moe-grouped"] = time.perf_counter() - t_moe
+    print(f"[time] sharded-selection phases {json.dumps(new_phase_s)}: "
+          f"{sum(new_phase_s.values()):.1f} s together")
 
     lap("families")
     # 20-22. the encoder-decoder and VLM families at full width and depth:
@@ -2833,11 +3278,14 @@ def main() -> int:
         top = max(mine, key=lambda r: r["flops"])  # the ResNet path's largest shape
         d_mine = [r for r in d_rows if r["name"] == name]
         d_top = max(d_mine, key=lambda r: r["flops"])  # the DDPM path's largest shape
+        by_path = {RESNET: train_launches[name], "ddpm": ddpm_launches[name],
+                   f"{RESNET}_tp{SHARD_TP}": shard_launches[name],
+                   "grouped": grouped_launches[name]}
+        g_top = [r for r in grouped_rows if r["name"] == name][:1]  # G=2, 256 channels
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=replaces, launches=train_launches[name] + ddpm_launches[name],
-            launches_by_path={RESNET: train_launches[name], "ddpm": ddpm_launches[name]},
-            max_abs_err=max(g_err[name], d_err[name]),
+            replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(g_err[name], d_err[name], grouped_err[name]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["shape"],
             # one sparse step's launches of this kernel, at their shapes
@@ -2846,6 +3294,9 @@ def main() -> int:
             ddpm={k: d_top[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                                         "bound_by", "tflops")}
             | {"step_ms": sum(r["ms"] * r["launches_per_step"] for r in d_mine)},
+            **({"grouped": {k: g_top[0][k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "tflops")}}
+               if g_top else {}),
         ))
     for name, replaces in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["name"] == name and r["dtype"] == "bfloat16"]
@@ -2853,6 +3304,7 @@ def main() -> int:
         path_launches, err, by_arch = {LM_ARCH: lm_launches[name]}, lm_err[name], {}
         if name == "matmul":
             path_launches["lm_resume"] = resume_launches
+            path_launches["moe_grouped"] = sum(moe_grouped_launches.values())
             path_launches[SSM_ARCH] = ssm_launches
             path_launches.update({arch: xtrain[arch][0] for arch in xtrain})
             # whisper's and paligemma's sparse steps, and the fleet's reduced
@@ -2885,6 +3337,13 @@ def main() -> int:
     print(f"[ssm-serve] shares {json.dumps(ssm_shares)}")
     print(f"[moe-serve] {json.dumps(moe_summary)}")
     print(f"[family-route] worst relative L2 {json.dumps(fam_rel)}")
+    print(f"[shard-route] worst relative L2 {json.dumps(shard_rel)}; launches "
+          f"{json.dumps(shard_launches)}")
+    print(f"[grouped] launches {json.dumps(grouped_launches)}; max abs err "
+          f"{json.dumps(grouped_err)}")
+    print(f"[tp-lm] route worst relative L2 {json.dumps(tp_rel)}; {json.dumps(tp_summary)}")
+    print(f"[moe-grouped] worst relative L2 {json.dumps(moe_rel)}; matmul launches "
+          f"{json.dumps(moe_grouped_launches)}")
     print(f"[serve-features] {json.dumps(feat_summary)}")
     print(f"[encdec-serve] {json.dumps(enc_summary)}")
     print(f"[vlm-serve] {json.dumps(vlm_summary)}")

@@ -38,7 +38,13 @@ so only the pages of those pieces are read), assembles each tensor in
 index space on the host and lands it on ``device``. A shard file
 required by the request but missing on disk is a hard, actionable error.
 The reference's placement of the restored leaves by ``shardings`` on a
-mesh has no counterpart yet: meshes are not ported.
+mesh has no counterpart yet: device meshes are not ported.
+
+**Mesh-shaped plans.** :func:`plan_from_specs` gives each host the
+pieces its devices would hold on a mesh of a given shape under given
+partition specs (``dist/sharding.py``), so ``save_sharded(plan=...)``
+writes a checkpoint laid out as that mesh's per-host shards, as the JAX
+package's ``Array.addressable_shards`` does.
 """
 from __future__ import annotations
 
@@ -384,6 +390,63 @@ def make_shard_plan(items, ranks: Sequence[int]) -> Plan:
             )
             pieces.append(Piece(r, idx))
         plan[key] = pieces
+    return plan
+
+
+def plan_from_specs(items, specs, mesh_shape: dict[str, int], ranks: Sequence[int]) -> Plan:
+    """The pieces each host's devices own on a mesh, without allocating.
+
+    The mesh is ``mesh_shape`` (ordered axis -> size, devices enumerated
+    row-major); hosts are ``ranks``, each holding an equal contiguous
+    block of devices; each leaf's partition spec (``specs``, aligned
+    with ``items``, repaired with ``fit_spec`` against the mesh first)
+    says which index block each device holds. A block held by several
+    hosts is written by exactly one (a crc32 pick among its holders), so
+    the pieces cover every tensor exactly once."""
+    from repro_torch.dist.sharding import fit_spec
+
+    ranks = sorted(ranks)
+    n_hosts = len(ranks)
+    axis_names = list(mesh_shape)
+    sizes = [int(mesh_shape[a]) for a in axis_names]
+    n_dev = 1
+    for s in sizes:
+        n_dev *= s
+    if n_dev % n_hosts:
+        raise ValueError(f"{n_dev} mesh devices not divisible by {n_hosts} hosts")
+    per_host = n_dev // n_hosts
+
+    def device_coords(d: int) -> dict[str, int]:
+        out = {}
+        for name, size in zip(reversed(axis_names), reversed(sizes), strict=True):
+            out[name] = d % size
+            d //= size
+        return out
+
+    plan: Plan = {}
+    for (key, leaf), spec in zip(items, specs, strict=True):
+        shape = tuple(int(d) for d in leaf.shape)
+        spec = fit_spec(spec, shape, mesh_shape)
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        holders: dict[tuple[tuple[int, int], ...], set] = {}  # block -> hosts holding it
+        for d in range(n_dev):
+            coords = device_coords(d)
+            idx = []
+            for dim, entry in zip(shape, entries, strict=True):
+                if entry is None:
+                    idx.append((0, dim))
+                    continue
+                nblk, blk = 1, 0
+                for a in entry if isinstance(entry, tuple) else (entry,):
+                    nblk *= mesh_shape[a]
+                    blk = blk * mesh_shape[a] + coords[a]
+                per = dim // nblk
+                idx.append((blk * per, (blk + 1) * per))
+            holders.setdefault(tuple(idx), set()).add(ranks[d // per_host])
+        plan[key] = [
+            Piece(_owner(f"{key}{idx}", sorted(hosts)), idx)
+            for idx, hosts in sorted(holders.items())
+        ]
     return plan
 
 

@@ -41,7 +41,7 @@ class ModelConfig:
     moe_every: int = 1  # MoE on layers where layer % moe_every == moe_offset
     moe_offset: int = 0
     capacity_factor: float = 1.25
-    moe_dp_groups: int = 0  # >0: DP-local dispatch (meshes; not ported yet)
+    moe_dp_groups: int = 0  # >0: DP-local MoE dispatch in that many token groups
 
     # SSM / hybrid
     ssm_state: int = 0

@@ -7,14 +7,19 @@ op-independent stage:
 
   1. ``bwd_dtype`` casting of the output cotangent,
   2. importance → policy-driven channel/block selection (with the
-     ragged-tail ``valid`` mask),
+     ragged-tail ``valid`` mask, and the shard-balanced selection of
+     ``tp_shards`` and grouped convs),
   3. the ``mask_mode`` oracle (same selection, materialized as a mask
      over a full-size contraction),
   4. the gathered route: gather of the kept channels, shrunk
      contraction, compact dW scattered into zeros by accumulation,
-  5. the kernel route (``use_pallas`` + block granularity): the fused
-     conv kernels when the op takes them, else the canonical 2-D form
-     through ``dx_gathered`` / ``dw_gathered_scatter``.
+  5. the TP fast path: a sharded selection with both sides sparsified
+     goes to the op's ``tp_contract`` when it has one (dense), before
+     the kernel route, as in the JAX package,
+  6. the kernel route (``use_pallas`` + block granularity, a selection
+     with ``block_idx``): the fused conv kernels when the op takes them,
+     else the canonical 2-D form through ``dx_gathered`` /
+     ``dw_gathered_scatter``.
 
 Eager PyTorch has no dead-code elimination, so an op whose input needs
 no gradient (a network's first conv) says so with ``need_dx=False`` and
@@ -81,7 +86,7 @@ class ChannelSparseOp:
 
     Ops implement the one-sided contractions (``dx_full``, ``dw_full``,
     ``contract_gathered_dx``, ``contract_gathered_dw``) and optionally
-    ``canonical`` and ``fused_backward``.
+    ``canonical``, ``fused_backward`` and ``tp_contract``.
     """
 
     c_out: int
@@ -137,6 +142,12 @@ class ChannelSparseOp:
         """Optional fused kernel path: (dX, dW) in the op's shapes and
         accumulation dtype, or None to fall through to the canonical
         form. Checked first on the kernel route."""
+        return None
+
+    def tp_contract(self, dy_eff, sel):
+        """Optional sharded fast path: (dX, full dW) from the per-shard
+        selection (dX None when ``need_dx`` is False), or None to take
+        the generic routes."""
         return None
 
 
@@ -206,6 +217,12 @@ def channel_sparse_backward(
         db = dy_eff.sum(dim=reduce_axes)
         if sdw:
             db = db * sparsity.keep_mask((c,), sel.idx, channel_axis=0, dtype=dy_eff.dtype)
+
+    if sel.shard_idx is not None and sdx and sdw:
+        fast = op.tp_contract(dy_eff, sel)
+        if fast is not None:
+            dx, dw = fast
+            return dx, dw, db
 
     if policy.use_pallas and policy.granularity == "block" and sel.block_idx is not None:
         fused = op.fused_backward(dy_eff, sel, sdx, sdw)

@@ -15,17 +15,25 @@ linear algebra:
   ``fuse_im2col``): ``kernels/ops.py::conv_dx_fused`` /
   ``conv_dw_fused_scatter`` address the im2col patches inside the
   kernels, behind the same 1×1 exclusion, groups check and bytes gate
-  (:func:`backward_route`) as the JAX package,
+  (:func:`backward_route`) as the JAX package. Grouped convs ride the
+  same kernels in block-diagonal form whenever each group holds whole
+  blocks,
 * **canonical (im2col) lowering**: ``kernels/im2col.py`` columnizes the
-  conv for ``dx_gathered`` / ``dw_gathered_scatter``.
+  conv for ``dx_gathered`` / ``dw_gathered_scatter`` (``groups == 1``).
+
+Grouped convs, and ``tp_shards`` policies, select a balanced top-k per
+channel group (``sparsity.selection_shards``): a gathered grouped conv stays
+well-formed only when every group keeps the same number of channels.
+Such a selection reaches the kernels through its regrouped
+``block_idx`` whenever its shard-local block is the policy's; a shrunk
+shard block carries none and takes the gathered route.
 
 String padding is resolved to explicit ``(lo, hi)`` pairs up front, as
 ``jax.lax.padtype_to_pads`` does: "SAME" at stride 2 pads
 asymmetrically, which ``F.conv2d`` cannot express, so such a conv pads
 the input with ``F.pad`` first. The first conv of a network (whose
 input needs no gradient) computes no dX, as ``jit`` drops it in the JAX
-package. Grouped convs and ``tp_shards`` need the sharded selection,
-which is not ported yet.
+package.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import backward
 from repro_torch.core import flops as FL
+from repro_torch.core import sparsity
 from repro_torch.core.policy import PolicyLike, SsPropPolicy, policy_for
 
 # frozen, so safe to share as the signature default
@@ -132,10 +141,13 @@ def backward_route(
     * ``"canonical"``: im2col, then ``dx_gathered`` / ``dw_gathered``;
     * ``"gathered"``: the VJP on the kept filters.
 
-    The fused route needs ``fuse_im2col``, a filter larger than 1×1,
-    whole blocks per group, and the traffic model to find the fused
-    kernels moving fewer bytes than the materialized patch buffers (the
-    JAX package's gate, ``conv.py:159-184`` there).
+    The kernel routes need a selection with ``block_idx``: a sharded one
+    (``sparsity.selection_shards`` > 1) whose shard-local block was shrunk
+    below the policy's carries none. The fused route needs
+    ``fuse_im2col``, a filter larger than 1×1, whole blocks per group,
+    and the traffic model to find the fused kernels moving fewer bytes
+    than the materialized patch buffers (the JAX package's gate,
+    ``conv.py:159-184`` there).
     """
     if not policy.active or not (policy.sparsify_dx or policy.sparsify_dw):
         return "full"
@@ -144,6 +156,9 @@ def backward_route(
     if not (policy.use_pallas and policy.granularity == "block"):
         return "gathered"
     bs = policy.block_size
+    n_shards = sparsity.selection_shards(policy, c_out, groups)
+    if n_shards > 1 and sparsity.shard_select_width(c_out, policy, n_shards)[1] != bs:
+        return "gathered"
     if (
         policy.fuse_im2col
         and not (kh == kw == 1)
@@ -196,12 +211,7 @@ class _ConvOp(backward.ChannelSparseOp):
         self.c_out = w.shape[0]
 
     def selection_shards(self, policy: SsPropPolicy) -> int:
-        s = 1
-        if policy.tp_shards > 1 and self.c_out % policy.tp_shards == 0:
-            s = policy.tp_shards
-        if self.groups > 1 and (s < self.groups or s % self.groups != 0):
-            s = self.groups
-        return s
+        return sparsity.selection_shards(policy, self.c_out, self.groups)
 
     def _operands(self, w, dy):
         x, w = self._cast(self.x), self._cast(w)

@@ -10,7 +10,10 @@ At channel granularity with ``use_pallas`` the shrunk products run
 through the ``matmul`` kernel on the gathered operands, fp32 out, as the
 JAX package's do; the operands are gathered into buffers whose row pitch
 is a multiple of 8 elements (``gather_columns``), so the kernel's TMA
-reads them in place. Without ``use_pallas``, ``torch.matmul`` is the JAX
+reads them in place. A ``tp_shards`` selection with both sides
+sparsified takes the TP fast path (:meth:`_DenseOp.tp_contract`) before
+any kernel, in plain ``torch.einsum``, as the JAX package computes it
+outside any Pallas kernel. Without ``use_pallas``, ``torch.matmul`` is the JAX
 package's ``jnp.matmul``, its output in the operands' dtype: that
 rounding difference between the two routes is the reference's own.
 
@@ -24,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.core import backward
+from repro_torch.core import backward, sparsity
 from repro_torch.core.policy import SsPropPolicy
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.kernels import ops as kops
@@ -52,9 +55,7 @@ class _DenseOp(backward.ChannelSparseOp):
         self.c_out = w.shape[1]
 
     def selection_shards(self, policy: SsPropPolicy) -> int:
-        if policy.tp_shards > 1 and self.c_out % policy.tp_shards == 0:
-            return policy.tp_shards
-        return 1
+        return sparsity.selection_shards(policy, self.c_out)
 
     def dx_full(self, dy_eff):
         return _mm(dy_eff, self._cast(self.w).T)
@@ -88,6 +89,26 @@ class _DenseOp(backward.ChannelSparseOp):
             dx_from=lambda dx2: dx2,
             dw_from=lambda dw2: dw2,
         )
+
+    def tp_contract(self, dy_eff, sel):
+        # The gather stays on the shard-local channel axis ([M, S, c_loc]),
+        # where a TP-sharded dY needs no all-gather; dX contracts over
+        # (shard, kept) as the row-parallel matmul does.
+        m = dy_eff.shape[0]
+        d_in = self.w.shape[0]
+        s, c_loc = sel.n_shards, self.c_out // sel.n_shards
+        k = sel.k_loc
+        idx = sel.shard_idx[None]  # [1, S, k]
+        dy_k = dy_eff.reshape(m, s, c_loc).gather(2, idx.expand(m, s, k))  # [M, S, k]
+        w_k = self.w.reshape(d_in, s, c_loc).gather(2, idx.expand(d_in, s, k))  # [D_in, S, k]
+        # operands in dY's dtype, contracted in the accumulation dtype
+        # (``preferred_element_type`` in the JAX package)
+        acc = lambda t: t.to(dy_k.dtype).to(self._acc)  # noqa: E731
+        dx2 = torch.einsum("msk,dsk->md", acc(dy_k), acc(w_k)) if self.need_dx else None
+        dw_k = torch.einsum("md,msk->dsk", acc(self.x2), acc(dy_k))
+        dw = torch.zeros((d_in, s, c_loc), dtype=dw_k.dtype, device=dw_k.device)
+        dw.scatter_(2, idx.expand(d_in, s, k), dw_k)
+        return dx2, dw.reshape(d_in, self.c_out)
 
 
 class _SparseDense(torch.autograd.Function):

@@ -15,6 +15,11 @@ same ledger); the ``*_site`` functions take a plain policy or a
 resolved :class:`~repro_torch.core.policy.SitePolicies` table and the
 call site's name. The model walks (``models/resnet.py::flops_per_iter``,
 ``models/ddpm.py::flops_per_iter``) sum them over a network.
+:func:`conv_backward_contraction_bounds` and
+:func:`dense_backward_contraction_bounds` count only the products each
+route runs, the TP fast path and grouped convs included; the sharded
+widths come from :func:`repro_torch.core.sparsity.shard_select_width`,
+the selection's own sizing.
 
 **Traffic.** :func:`kept_channels`, :func:`conv_backward_bytes_policy`
 and :func:`conv_backward_bytes_breakdown`, line for line: the model of
@@ -25,6 +30,7 @@ are later work.
 """
 from __future__ import annotations
 
+from repro_torch.core import sparsity
 from repro_torch.core.policy import PolicyLike, SsPropPolicy, policy_for
 
 # ----------------------------------------------------------------------
@@ -100,23 +106,6 @@ def dense_backward_flops_ssprop(
     return int(f)
 
 
-def _shard_select_width(c: int, policy: SsPropPolicy, n_shards: int) -> tuple[int, int]:
-    """``(k_loc, bs_loc)`` of sharded selection over ``C`` channels: the
-    per-shard gathered width and the shard-local block size (halved
-    until it tiles the shard; 1 for channel granularity). The sizing
-    half of the JAX package's ``sparsity.shard_select_width``; the
-    port's engine does not shard selection yet."""
-    c_loc = c // n_shards
-    if policy.granularity == "block":
-        bs = policy.block_size
-        while bs > 1 and (c_loc < bs or c_loc % bs):
-            bs //= 2
-        nblocks_loc = c_loc // bs
-        k_total = max(1, int(round((1.0 - policy.drop_rate) * (c // bs))))
-        return max(1, min(nblocks_loc, k_total // n_shards)) * bs, bs
-    return max(1, policy.keep_count(c) // n_shards), 1
-
-
 def gather_width(c_out: int, policy: SsPropPolicy, n_shards: int = 1) -> int:
     """The engine's gathered contraction width (``Selection.k``).
 
@@ -126,7 +115,7 @@ def gather_width(c_out: int, policy: SsPropPolicy, n_shards: int = 1) -> int:
     selection keeps ``k_loc`` channels per shard with a shard-local
     block size."""
     if n_shards > 1:
-        k_loc, _ = _shard_select_width(c_out, policy, n_shards)
+        k_loc, _ = sparsity.shard_select_width(c_out, policy, n_shards)
         return n_shards * k_loc
     if policy.granularity == "channel":
         return policy.keep_count(c_out)
@@ -199,6 +188,148 @@ def dense_backward_flops_policy(
     if bias:
         f += m * (kept if sdw else d_out)
     return int(f + m * d_out)
+
+
+def _conv_fused_route(
+    bt: int, h_out: int, w_out: int, c_in: int, c_out: int, k: int,
+    policy: SsPropPolicy, groups: int,
+) -> bool:
+    """The JAX package's fused-route gate, as its FLOPs model reads it:
+    ``fuse_im2col``, a filter larger than 1×1, whole blocks per group and
+    the traffic model's minimum (a shrunk shard block is not looked at
+    here, as there)."""
+    if not (
+        policy.active
+        and policy.use_pallas
+        and policy.granularity == "block"
+        and policy.fuse_im2col
+        and k > 1
+    ):
+        return False
+    if groups > 1 and c_out % (groups * policy.block_size) != 0:
+        return False
+    fus = conv_backward_bytes_policy(
+        bt, h_out, w_out, c_in, c_out, k, policy, fused=True, groups=groups
+    )
+    mat = conv_backward_bytes_policy(
+        bt, h_out, w_out, c_in, c_out, k, policy, fused=False, groups=groups
+    )
+    return fus < mat
+
+
+def conv_backward_contraction_bounds(
+    bt: int,
+    h_out: int,
+    w_out: int,
+    c_in: int,
+    c_out: int,
+    k: int,
+    policy: SsPropPolicy,
+    *,
+    groups: int = 1,
+    h_pad: int | None = None,
+) -> tuple[int, int]:
+    """``(lo, hi)`` contraction FLOPs of one conv backward, the JAX
+    package's count of what each route runs (its program auditor's
+    bounds): the products only, no bias reduction or importance pass.
+    Groups-aware (``N_g = (C_in/G)*K²``), TP-sharded widths from
+    :func:`gather_width`.
+
+    ``lo == hi`` except on the fused route, whose TPU dX kernel sweeps
+    every padded-image row and masks invalid taps: ``lo`` is the dW
+    kernel alone, ``hi`` adds the dX grid's full ``B*H_pad`` sweep
+    (``h_pad`` defaults to ``H_out + K - 1``). The kernel routes count
+    the JAX package's 128-padded tiles, as the ledger does."""
+    m = bt * h_out * w_out
+    cg = c_in // groups
+    n_g = cg * k * k
+    full_side = 2 * m * n_g * c_out
+    sdx, sdw = policy.sparsify_dx, policy.sparsify_dw
+    if not policy.active or not (sdx or sdw) or policy.mask_mode:
+        return (2 * full_side, 2 * full_side)
+
+    width = gather_width(c_out, policy, sparsity.selection_shards(policy, c_out, groups))
+    gathered_side = 2 * m * n_g * width
+
+    if policy.use_pallas and policy.granularity == "block":
+        bs = policy.block_size
+        nb = -(-c_out // bs)
+        if _conv_fused_route(bt, h_out, w_out, c_in, c_out, k, policy, groups):
+            if h_pad is None:
+                h_pad = h_out + k - 1
+            kept_dx = width if sdx else nb * bs
+            kept_dw = width if sdw else nb * bs
+            dw_term = 2 * m * n_g * kept_dw
+            dx_hi = 2 * (bt * h_pad * w_out) * n_g * kept_dx
+            return (int(dw_term), int(dx_hi + dw_term))
+        if groups == 1:
+            # canonical kernels over 128-padded tiles; a dense side is an
+            # unpadded matmul; im2col and col2im are convs with K²
+            # identity output channels, 2*M*N*K² FLOPs each
+            n = c_in * k * k
+            m_pad = _roundup(m, 128)
+            n_pad = _roundup(n, 128)
+            gathered_pad = 2 * m_pad * n_pad * width
+            dx_term = gathered_pad if sdx else full_side
+            dw_term = gathered_pad if sdw else full_side
+            im2col_term = 2 * (2 * m * n * k * k)
+            t = int(dx_term + dw_term + im2col_term)
+            return (t, t)
+        # grouped without the fused route: the gathered VJP below
+
+    dx_term = gathered_side if sdx else full_side
+    dw_term = gathered_side if sdw else full_side
+    t = int(dx_term + dw_term)
+    return (t, t)
+
+
+def dense_backward_contraction_bounds(
+    m: int, d_in: int, d_out: int, policy: SsPropPolicy
+) -> tuple[int, int]:
+    """``(lo, hi)`` contraction FLOPs of one dense backward (always
+    ``lo == hi``), route by route as the engine takes them:
+
+    * inactive / mask_mode: two full ``2*M*D_in*D_out`` products,
+    * the TP fast path (``tp_shards`` divides ``D_out``, both sides
+      sparsified): two unpadded shard-local einsums, before any kernel,
+    * ``use_pallas`` block: the gathered sides at 128-padded tiles, a
+      dense side unpadded,
+    * ``use_pallas`` channel: every operand dim padded to 128 (the JAX
+      package's ``matmul`` tiles),
+    * the gather route: unpadded products at :func:`gather_width`.
+    """
+    full_side = 2 * m * d_in * d_out
+    sdx, sdw = policy.sparsify_dx, policy.sparsify_dw
+    if not policy.active or not (sdx or sdw) or policy.mask_mode:
+        return (2 * full_side, 2 * full_side)
+
+    n_shards = sparsity.selection_shards(policy, d_out)
+    width = gather_width(d_out, policy, n_shards)
+    gathered_side = 2 * m * d_in * width
+
+    if n_shards > 1 and sdx and sdw:
+        t = int(2 * gathered_side)
+        return (t, t)
+    if policy.use_pallas:
+        if policy.granularity == "block":
+            m_pad = _roundup(m, 128)
+            d_pad = _roundup(d_in, 128)
+            gathered_pad = 2 * m_pad * d_pad * width
+            dx_term = gathered_pad if sdx else full_side
+            dw_term = gathered_pad if sdw else full_side
+        else:
+            padded = (
+                2 * _roundup(m, 128) * _roundup(d_in, 128) * _roundup(width, 128)
+            )
+            dx_term = padded if sdx else full_side
+            dw_term = padded if sdw else full_side
+        t = int(dx_term + dw_term)
+        return (t, t)
+
+    dx_term = gathered_side if sdx else full_side
+    dw_term = gathered_side if sdw else full_side
+    t = int(dx_term + dw_term)
+    return (t, t)
 
 
 def conv_backward_flops_site(

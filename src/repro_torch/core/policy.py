@@ -51,7 +51,9 @@ class SsPropPolicy:
       fuse_im2col: with ``use_pallas`` on a conv site, address im2col
         patches inside the fused kernels instead of materializing the
         ``[M, C_in*Kh*Kw]`` patch buffer first.
-      tp_shards: >0: per-shard balanced top-k (not ported yet).
+      tp_shards: >1: per-shard balanced top-k over that many contiguous
+        channel groups (TP-local selection; dense sites take the TP fast
+        path when both sides are sparsified).
       bwd_dtype: ``"bfloat16"``: backward contractions in bf16.
       seed: RNG seed for ``selection="random"``.
     """

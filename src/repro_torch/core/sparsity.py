@@ -6,8 +6,10 @@ other axis (in fp32); the top-K channels (or contiguous blocks of
 ``block_size`` channels) keep their gradients. Returned indices are
 **sorted ascending**, as in the JAX package.
 
-Only the unsharded selection is ported: ``n_shards > 1`` (per-shard
-balanced top-k for ``tp_shards`` and grouped convs) raises.
+``n_shards > 1`` selects a balanced top-k within each of that many
+contiguous equal channel groups: the form of TP-local selection
+(``tp_shards``) and of grouped convs, whose gathered contraction stays
+well-formed only when every group keeps the same number of channels.
 """
 from __future__ import annotations
 
@@ -30,14 +32,20 @@ class Selection(NamedTuple):
     zero the phantom slots and scatters accumulate. ``valid is None``
     means every slot is real. ``block_idx`` holds the kept block indices
     (int32, sorted) when the selection was block-granular: the form the
-    gathered kernels take. (The JAX package's per-shard fields belong to
-    the sharded selection, which is not ported.)
+    gathered kernels take. A sharded selection fills it too whenever each
+    shard's channel count and kept width are multiples of the policy's
+    block size (the shard-local blocks then tile whole global blocks).
+    ``shard_idx [n_shards, k_loc]`` / ``k_loc`` / ``n_shards`` carry the
+    per-shard form (within-shard indices) of a sharded selection.
     """
 
     idx: torch.Tensor
     k: int
     valid: torch.Tensor | None = None
     block_idx: torch.Tensor | None = None
+    shard_idx: torch.Tensor | None = None
+    k_loc: int = 0
+    n_shards: int = 1
 
 
 def channel_importance(dy: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
@@ -113,12 +121,28 @@ def select(
     n_shards: int = 1,
     key: torch.Tensor | None = None,
 ) -> Selection:
-    """Policy-driven selection in its full structured form."""
-    c = dy.shape[channel_axis % dy.dim()]
+    """Policy-driven selection in its full structured form.
+
+    ``n_shards > 1`` partitions the channel axis into that many
+    contiguous equal groups and selects a balanced top-k within each
+    (:func:`select_indices_per_shard`); ``idx`` is then the sorted global
+    indices of all shards' kept channels."""
+    axis = channel_axis % dy.dim()
+    c = dy.shape[axis]
     if n_shards > 1:
-        raise NotImplementedError(
-            "sharded selection (tp_shards, grouped convs) is not ported yet"
-        )
+        dy2 = torch.movedim(dy, axis, -1).reshape(-1, c)
+        shard_idx, k_loc = select_indices_per_shard(dy2, policy, n_shards, key=key)
+        c_loc = c // n_shards
+        offs = torch.arange(n_shards, device=dy.device)[:, None] * c_loc
+        flat = torch.sort((shard_idx + offs).reshape(-1)).values
+        block_idx = None
+        bs = policy.block_size
+        if policy.granularity == "block" and c_loc % bs == 0 and k_loc % bs == 0:
+            # the shard block was not shrunk: the sorted channel indices
+            # regroup into whole kept blocks, the kernels' form
+            block_idx = (flat.reshape(-1, bs)[:, 0] // bs).to(torch.int32)
+        return Selection(idx=flat, k=n_shards * k_loc, block_idx=block_idx,
+                         shard_idx=shard_idx, k_loc=k_loc, n_shards=n_shards)
     imp = channel_importance(dy, channel_axis)
     if policy.granularity == "channel":
         k = policy.keep_count(c)
@@ -156,3 +180,94 @@ def keep_mask(
     shape = [1] * len(dy_shape)
     shape[axis] = c
     return flat.reshape(shape).to(dtype)
+
+
+def select_indices(
+    dy: torch.Tensor,
+    policy: SsPropPolicy,
+    *,
+    channel_axis: int = -1,
+    key: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """``(sorted channel indices, K)`` of :func:`select`: block
+    granularity gives the kept blocks' channels, tail phantoms clamped to
+    ``C-1`` (safe for a keep-mask; gathers use :func:`select`)."""
+    sel = select(dy, policy, channel_axis=channel_axis, key=key)
+    return sel.idx, sel.k
+
+
+def selection_shards(policy: SsPropPolicy, c_out: int, groups: int = 1) -> int:
+    """How many contiguous channel groups an op's selection balances
+    over: the policy's ``tp_shards`` where it divides ``C_out`` (else 1),
+    and a conv's ``groups`` where that is not a multiple of them (per-group
+    balance is structural for a gathered grouped conv)."""
+    s = policy.tp_shards if policy.tp_shards > 1 and c_out % policy.tp_shards == 0 else 1
+    if groups > 1 and (s < groups or s % groups != 0):
+        s = groups
+    return s
+
+
+def shard_select_width(c: int, policy: SsPropPolicy, n_shards: int) -> tuple[int, int]:
+    """``(k_loc, bs_loc)`` of sharded selection over ``C`` channels: the
+    channels each shard keeps and the shard-local block size (halved
+    until it tiles the shard; 1 at channel granularity). The sizing half
+    of :func:`select_indices_per_shard`, which the FLOPs model
+    (``core/flops.py``) reads too, so both count the same widths."""
+    c_loc = c // n_shards
+    if policy.granularity == "block":
+        bs = policy.block_size
+        while bs > 1 and (c_loc < bs or c_loc % bs):
+            bs //= 2
+        nblocks_loc = c_loc // bs
+        k_total = max(1, int(round((1.0 - policy.drop_rate) * (c // bs))))
+        return max(1, min(nblocks_loc, k_total // n_shards)) * bs, bs
+    return max(1, policy.keep_count(c) // n_shards), 1
+
+
+def select_indices_per_shard(
+    dy2: torch.Tensor,
+    policy: SsPropPolicy,
+    tp_shards: int,
+    *,
+    key: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, int]:
+    """Top-k within each of ``tp_shards`` contiguous channel groups of
+    ``dy2 [M, C]``: ``(idx [tp_shards, k_loc] of within-shard channel
+    indices, sorted, k_loc)``.
+
+    As in the JAX package, the block branch takes the top-k of block
+    importance whatever ``policy.selection`` says, and channel ``random``
+    takes the top-k of ``jax.random.uniform(key, [S, c_loc])`` noise,
+    drawn bit for bit by :func:`repro_torch.core.prng.uniform`."""
+    c = dy2.shape[1]
+    if c % tp_shards:
+        raise ValueError(f"{c} channels do not split into {tp_shards} shards")
+    c_loc = c // tp_shards
+    imp = channel_importance(dy2, -1).reshape(tp_shards, c_loc)
+    k_loc, bs = shard_select_width(c, policy, tp_shards)
+    if policy.granularity == "block":
+        bimp = imp.reshape(tp_shards, c_loc // bs, bs).mean(-1)
+        bidx = torch.sort(torch.topk(bimp, k_loc // bs, dim=-1).indices, dim=-1).values
+        offs = torch.arange(bs, device=bidx.device)
+        return (bidx[:, :, None] * bs + offs).reshape(tp_shards, -1), k_loc
+    if policy.selection == "random":
+        if key is None:
+            raise ValueError("random selection requires key")
+        imp = prng.uniform(key.to(imp.device)[None], tp_shards * c_loc)[0].reshape(
+            tp_shards, c_loc)
+    idx = torch.topk(imp, k_loc, dim=-1).indices
+    return torch.sort(idx, dim=-1).values, k_loc
+
+
+def mask_grad(
+    dy: torch.Tensor,
+    policy: SsPropPolicy,
+    *,
+    channel_axis: int = -1,
+    key: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Zero out the dropped channels of ``dy`` (mask-mode sparsification)."""
+    if not policy.active:
+        return dy
+    idx, _ = select_indices(dy, policy, channel_axis=channel_axis, key=key)
+    return dy * keep_mask(dy.shape, idx, channel_axis=channel_axis, dtype=dy.dtype)

@@ -1,7 +1,52 @@
-"""Distributed training layer: fault tolerance and the file-based process group.
+"""Distributed training layer: sharding rules + fault tolerance.
 
-The twin of ``repro.dist``'s fault-tolerance half. Its sharding rules
-(``repro.dist.sharding``) wait for meshes, which are not ported yet.
+The twin of ``repro.dist``. ``repro_torch.dist.sharding`` holds the
+partition-spec rules that the JAX package's train / dryrun / serve paths
+share. Specs are assigned by parameter *name* over a param tree in the
+JAX package's layout and then repaired against a concrete mesh shape by
+:func:`sharding.fit_spec`, so one rule table covers every registry
+architecture at every mesh size. Turning the specs into placements on a
+device mesh (DTensor placements over a ``DeviceMesh``) is the next
+slice's; here the specs drive :func:`repro_torch.checkpoint.ckpt.plan_from_specs`.
+
+Sharding rule table (tensor → mesh axis placement):
+
+  ===========================  ==========================  ============
+  tensor                       shape                       spec
+  ===========================  ==========================  ============
+  embed table                  [V, d]                      ("model", -)
+  attn q/k/v kernel            [np, d, H*hd]               (-, -, "model")
+  attn o kernel                [np, H*hd, d]               (-, "model", -)
+  mlp up/gate kernel           [np, d, ff]                 (-, -, "model")
+  mlp down kernel              [np, ff, d]                 (-, "model", -)
+  MoE expert gate/up           [np, E, d, ff]              (-, "model", -, -)
+  MoE expert down              [np, E, ff, d]              (-, "model", -, -)
+  ssm in_proj kernel           [np, d, X]                  (-, -, "model")
+  ssm out_proj kernel          [np, di, d]                 (-, "model", -)
+  norms / biases / router      any                         replicated
+  batch inputs                 [B, ...]                    (dp, -, ...)
+  KV cache k/v                 [np, B, T, KV, hd]          (-, dp, -, "model", -)
+    (seq_shard=True moves "model" to the T dim for long decode)
+  paged KV pool k/v            [np, NB, bs, KV, hd]        (-, -, -, "model", -)
+    (paged=True: page axis replicated — block tables index the
+     pool globally, so dp-sharding pages would make every gather
+     a collective; block tables themselves are replicated)
+  swap-staged KV pages         [np, n, bs, KV, hd]         (-, -, -, "model", -)
+  swap-staged ssm state row    [np, H, N, P]               (-, "model", -, -)
+  swap-staged conv row         [np, K-1, C]                (-, -, "model")
+    (``swap_specs``: host-staged swap-preemption bundles land
+     laid out like the pool they scatter into)
+  ===========================  ==========================  ============
+
+``dp`` is the data-parallel axis group — ``("pod", "data")`` on the
+multi-pod mesh, ``"data"`` otherwise. Any placement whose dim is not
+divisible by the mesh axis size is relocated by ``fit_spec`` to the
+nearest divisible free dim (ties prefer the later dim), falling back to
+replication when no dim is legal. A *tuple* of axes whose product does
+not divide its dim is split jointly: the largest divisible sub-tuple
+stays put and the leftover axes relocate one by one (the multi-pod
+``("pod", "data")`` batch split at ``batch < dp_size`` keeps ``pod``
+on batch and moves ``data`` to the seq dim).
 
 ``repro_torch.dist.compat`` provides ``initialize()`` — the
 ``jax.distributed``-style multi-process entry point, coordinated

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sparsity
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
 from repro_torch.models import layers, transformer
 
@@ -211,6 +212,20 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
 _EXPERT_SITES = ("moe/gate", "moe/up", "moe/down")  # a launch a product an expert
 
 
+def site_out_dim(cfg: ModelConfig, site: str) -> int:
+    """The output width (``D_out``, the selected axis) of a site's product."""
+    proj = site.rsplit("/", 1)[1]
+    if proj == "q":
+        return cfg.n_heads * cfg.head_dim
+    if proj in ("k", "v"):
+        return cfg.n_kv_heads * cfg.head_dim
+    if proj in ("o", "down", "out_proj"):
+        return cfg.d_model
+    if proj == "in_proj":
+        return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+    return cfg.d_ff * (cfg.n_shared_experts if "/shared/" in site else 1)  # up, gate
+
+
 def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, int]:
     """Launches of each backward kernel in one training step under
     ``policy`` (a plain policy or a step's table), site by site by the
@@ -222,13 +237,21 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, 
     table and the norms' scales train), so layer 0 launches its dX
     products too, the encoder's first layer among them. The routed
     experts' sites (``moe/gate``, ``moe/up``, ``moe/down``) launch their
-    products once an expert."""
+    products once an expert, and with ``moe_dp_groups`` = G once a
+    (group, expert) pair (a step whose B*S tokens the G groups divide,
+    else the ungrouped dispatch runs). A site whose ``tp_shards`` divides
+    its output width, both sides sparsified, takes the TP fast path and
+    launches nothing."""
     n = {"matmul": 0, "dx_gathered": 0, "dw_gathered": 0}
+    experts = cfg.n_experts * max(1, cfg.moe_dp_groups)
     for site in site_names(cfg)[0]:
         p = policy_for(policy, site)
         if not (p.active and p.use_pallas and not p.mask_mode):
             continue
-        per = cfg.n_experts if site.split("/", 1)[1] in _EXPERT_SITES else 1
+        if p.sparsify_dx and p.sparsify_dw and sparsity.selection_shards(
+                p, site_out_dim(cfg, site)) > 1:
+            continue
+        per = experts if site.split("/", 1)[1] in _EXPERT_SITES else 1
         if p.granularity == "channel":
             n["matmul"] += per * (p.sparsify_dx + p.sparsify_dw)
         else:

@@ -13,6 +13,12 @@ at a time whenever the policy of the site is active and a gradient is
 wanted (with ``use_pallas`` the shrunk products of each expert are their
 own ``matmul`` launches); otherwise the experts run as one batched
 product.
+
+``dp_groups > 0`` dispatches within that many token groups (the data
+shards of a mesh): every sort, scatter and combine carries a leading
+``[G]`` axis, the capacity is per group, and each (group, expert) pair
+runs its own ``sparse_dense`` products, as the JAX package vmaps its
+expert FFN over both axes.
 """
 from __future__ import annotations
 
@@ -57,9 +63,13 @@ def _expert_ffn(gate_w, up_w, down_w, xb, act, pols):
     selects over its own cotangent, as the JAX package's vmap does."""
     fn = layers._ACTS[act]
 
-    def product(x, w, pol):
+    def product(x, w, pol):  # x [..., E, cap, d_in] @ w [E, d_in, d_out]
         if pol.active and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            return torch.stack([sparse_dense(x[i], w[i], policy=pol) for i in range(w.shape[0])])
+            xs = x.reshape(-1, *x.shape[-3:])
+            out = torch.stack([
+                torch.stack([sparse_dense(xg[i], w[i], policy=pol) for i in range(w.shape[0])])
+                for xg in xs])
+            return out.reshape(*x.shape[:-1], w.shape[-1])
         t = torch.promote_types(x.dtype, w.dtype)
         return torch.matmul(x.to(t), w.to(t))
 
@@ -71,7 +81,8 @@ def _expert_policies(policy: PolicyLike):
     return tuple(policy_for(policy, f"moe/{s}") for s in ("gate", "up", "down"))
 
 
-def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = False):
+def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = False,
+              dp_groups: int = 0):
     """x [B, S, d] -> ([B, S, d], {"aux_loss", "dropped"}).
 
     Router in fp32; ``top_k`` weights renormalised; the Switch
@@ -82,10 +93,11 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     be dropped); overflow zeroed and counted in ``dropped``; the combine a
     scatter to ``order`` in fp32; plus the shared expert.
 
-    ``moe_dp_groups > 0`` (DP-local dispatch for meshes) is not ported.
+    ``dp_groups`` with ``B*S % dp_groups == 0`` and not ``full_capacity``
+    takes the DP-local dispatch (:func:`_moe_apply_grouped`).
     """
-    if cfg.moe_dp_groups and not full_capacity:
-        raise NotImplementedError("DP-local MoE dispatch (moe_dp_groups) is not ported yet")
+    if dp_groups and (x.shape[0] * x.shape[1]) % dp_groups == 0 and not full_capacity:
+        return _moe_apply_grouped(p, x, cfg, policy, dp_groups)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
     tokens = b * s
@@ -136,6 +148,72 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     )
     contrib = contrib.reshape(tokens, k, d) * topw[..., None]
     y = contrib.sum(dim=1).to(x.dtype)
+
+    if "shared" in p:
+        y = y + layers.mlp_apply(p["shared"], xf, cfg.act, policy, site="moe/shared")
+
+    frac_dropped = 1.0 - keep.float().mean()
+    return y.reshape(b, s, d), {"aux_loss": aux_loss, "dropped": frac_dropped}
+
+
+def _moe_apply_grouped(p, x, cfg, policy: PolicyLike, groups: int):
+    """DP-local dispatch: :func:`moe_apply` within ``groups`` token
+    groups, every index op carrying a leading ``[G]`` axis. The router is
+    a plain fp32 product (the JAX package's ``einsum``); the capacity is
+    ``max(1, int(T/G*k/E * capacity_factor))`` a group; ``aux_loss`` and
+    ``dropped`` are taken over all groups."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_topk
+    tokens = b * s
+    g = groups
+    tg = tokens // g
+    xf = x.reshape(g, tg, d)
+    dev = x.device
+
+    logits = xf.float() @ p["router"]["w"].float()  # [G, tg, E]
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)  # [G, tg, k]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+    me = probs.mean((0, 1))
+    ce = torch.bincount(topi.reshape(-1), minlength=e).float() / (tokens * k)
+    aux_loss = e * torch.sum(me * ce)
+
+    cap = max(1, int(tg * k / e * cfg.capacity_factor))
+    flat_e = topi.reshape(g, tg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)  # [G, tg*k]
+    sorted_e = flat_e.gather(1, order)
+    sorted_tok = order // k
+    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
+    grp_start = torch.searchsorted(sorted_e, experts, side="left")  # [G, E]
+    counts = torch.searchsorted(sorted_e, experts, side="right") - grp_start
+    pos = torch.arange(tg * k, device=dev)[None, :] - grp_start.gather(1, sorted_e)
+    keep = pos < cap
+    pos_c = torch.clamp(pos, max=cap - 1)
+
+    # one scatter in the JAX package: within a group, the overflow's
+    # clamped duplicates of slot cap-1 land on it and the last one wins;
+    # write exactly those last writers (see moe_apply)
+    gidx = torch.arange(g, device=dev)[:, None].expand(g, tg * k)
+    last = (pos < cap - 1) | (pos == counts.gather(1, sorted_e) - 1)
+    src = torch.where(keep[..., None], torch.take_along_dim(xf, sorted_tok[..., None], dim=1),
+                      torch.zeros((), dtype=x.dtype, device=dev))
+    buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=dev).index_put(
+        (gidx[last], sorted_e[last], pos_c[last]), src[last]
+    )
+
+    # every (group, expert) pair its own sparse products
+    out_buf = _expert_ffn(p["gate"], p["up"], p["down"], buf, cfg.act,
+                          _expert_policies(policy))  # [G, E, cap, d]
+
+    gathered = out_buf[gidx, sorted_e, pos_c]  # [G, tg*k, d]
+    gathered = torch.where(keep[..., None], gathered, torch.zeros((), dtype=gathered.dtype,
+                                                                   device=dev))
+    contrib = torch.zeros((g, tg * k, d), dtype=torch.float32, device=dev).index_put(
+        (gidx, order), gathered.float()
+    )
+    contrib = contrib.reshape(g, tg, k, d) * topw[..., None]
+    y = contrib.sum(dim=2).to(x.dtype)
 
     if "shared" in p:
         y = y + layers.mlp_apply(p["shared"], xf, cfg.act, policy, site="moe/shared")

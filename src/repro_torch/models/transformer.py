@@ -180,7 +180,8 @@ def _slot_apply(
     if slot.ffn is not None:
         h2 = layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if slot.ffn == "moe":
-            out2, metrics = moe.moe_apply(p["moe"], h2, cfg, policy, full_capacity=cache is not None)
+            out2, metrics = moe.moe_apply(p["moe"], h2, cfg, policy, full_capacity=cache is not None,
+                                          dp_groups=cfg.moe_dp_groups)
             aux = metrics["aux_loss"]
         else:
             out2 = layers.mlp_apply(p["mlp"], h2, cfg.act, policy)

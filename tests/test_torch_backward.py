@@ -186,14 +186,25 @@ def test_sparse_dense_channel_kernel_route_raises():
         (tdense(x, w, policy=pol) ** 2).sum().backward()
 
 
-def test_sharded_selection_raises():
-    x = torch.randn(2, 4, 6, 6, requires_grad=True)
-    w = torch.randn(8, 2, 3, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconv(x, w, groups=2, padding=1, policy=tpolicy.SsPropPolicy(0.5)).sum().backward()
-    w1 = torch.randn(8, 4, 3, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconv(x, w1, policy=tpolicy.SsPropPolicy(0.5, tp_shards=2)).sum().backward()
+@pytest.mark.parametrize("groups,tp_shards", [(2, 0), (1, 2)])
+def test_sharded_selection_raises(groups, tp_shards):
+    """The two sharded selections, a grouped conv and a ``tp_shards``
+    policy, raise nothing and give the JAX package's gradients, each
+    shard keeping the same number of channels."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 4, 6, 6)).astype(np.float32)
+    w = rng.standard_normal((8, 4 // groups, 3, 3)).astype(np.float32)
+    w *= (1.5 ** rng.permutation(8)).astype(np.float32)[:, None, None, None]
+    jpol = jpolicy.SsPropPolicy(0.5, tp_shards=tp_shards)
+    tpol = tpolicy.SsPropPolicy(0.5, tp_shards=tp_shards)
+    gj = jax.grad(lambda x, w: (jconv(x, w, groups=groups, padding=1, policy=jpol) ** 2).mean(),
+                  argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt, wt = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+    (tconv(xt, wt, groups=groups, padding=1, policy=tpol) ** 2).mean().backward()
+    for a, r in zip((xt.grad, wt.grad), gj, strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **_tols(""))
+    kept = (wt.grad.abs().sum((1, 2, 3)) != 0).reshape(2, 4).sum(1)
+    assert kept.tolist() == [2, 2]
 
 
 @pytest.mark.parametrize("stride,padding,dilation", GEOMS)

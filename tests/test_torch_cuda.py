@@ -1077,3 +1077,84 @@ def test_random_draws_on_the_card_give_the_cpu_bits(cuda):
         assert torch.equal(prng.permutation(k.to(cuda), 2000).cpu(), prng.permutation(k, 2000))
         assert torch.equal(prng.bernoulli(k.to(cuda), 0.7, (4, 64, 8, 8)).cpu(),
                            prng.bernoulli(k, 0.7, (4, 64, 8, 8)))
+
+
+# ----------------------------------------------------------------------
+# sharded selection: grouped convs and TP-balanced blocks on the kernels
+# ----------------------------------------------------------------------
+
+
+def _conv_routes_on_the_card(cuda, x_shape, w_shape, groups, pol, padding):
+    """One ``sparse_conv2d`` backward on the kernel, gather and mask
+    routes, fp32 with TF32 off: ``(kept channels, grads, kernel launches)``
+    a route."""
+    import dataclasses
+
+    from repro_torch.core import backward as tbackward
+    from repro_torch.core.conv import sparse_conv2d
+    from repro_torch.launch.precision import fp32_precision
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(x_shape, generator=gen, device=cuda)
+    w = torch.randn(w_shape, generator=gen, device=cuda) * 0.05
+    w *= (1.02 ** torch.randperm(w_shape[0], generator=gen, device=cuda))[:, None, None, None]
+    res = {}
+    with fp32_precision():
+        for name, p in (("kernel", pol), ("gather", dataclasses.replace(pol, use_pallas=False)),
+                        ("mask", dataclasses.replace(pol, use_pallas=False, mask_mode=True))):
+            xt, wt = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            before = dict(tgm.launches)
+            with tbackward.record_selections() as log:
+                y = sparse_conv2d(xt, wt, padding=padding, groups=groups, policy=p)
+                (0.5 * (y**2).mean()).backward()
+            torch.cuda.synchronize()
+            res[name] = (log[0][1].idx.cpu(), (xt.grad, wt.grad),
+                         {k: tgm.launches[k] - before[k] for k in before})
+    return res
+
+
+def _assert_routes_agree(res):
+    for other in ("gather", "mask"):
+        assert torch.equal(res["kernel"][0], res[other][0])
+        for a, c in zip(res["kernel"][1], res[other][1], strict=True):
+            assert ((a - c).norm() / c.norm()).item() <= 1e-4
+        assert not any(res[other][2].values())
+
+
+@pytest.mark.parametrize("x_shape,w_shape,groups", [
+    ((16, 256, 8, 8), (256, 128, 3, 3), 2), ((16, 512, 4, 4), (512, 128, 3, 3), 4)])
+def test_grouped_conv_takes_the_fused_kernels_on_the_card(cuda, x_shape, w_shape, groups):
+    """A grouped conv at 64-channel blocks: each group keeps 1 of its 2
+    blocks, the fused kernels run once each, block-diagonally, and agree
+    with the gather route and the mask oracle."""
+    import dataclasses
+
+    from repro_torch.core import policy as tpolicy
+
+    pol = dataclasses.replace(tpolicy.tpu_default(0.8), block_size=64, use_pallas=True)
+    res = _conv_routes_on_the_card(cuda, x_shape, w_shape, groups, pol, 1)
+    kept = res["kernel"][0]
+    assert len(kept) == groups * 64
+    assert (torch.bincount(kept // (w_shape[0] // groups), minlength=groups) == 64).all()
+    assert res["kernel"][2]["conv_dx_fused"] == 1 and res["kernel"][2]["conv_dw_fused"] == 1
+    _assert_routes_agree(res)
+
+
+@pytest.mark.parametrize("k", [3, 1])
+def test_tp_balanced_block_idx_on_the_card(cuda, k):
+    """``tp_shards=2`` at 512 channels and 128-channel blocks: one block a
+    shard (2 of 4, against 1 of 4 unsharded), regrouped into ``block_idx``;
+    the 3x3 conv takes the fused kernels, the 1x1 one the canonical
+    ``dx_gathered`` / ``dw_gathered``, and both agree with the other
+    routes."""
+    import dataclasses
+
+    from repro_torch.core import policy as tpolicy
+
+    pol = dataclasses.replace(tpolicy.tpu_default(0.8), tp_shards=2, use_pallas=True)
+    res = _conv_routes_on_the_card(cuda, (32, 256, 4, 4), (512, 256, k, k), 1, pol, k // 2)
+    kept = res["kernel"][0]
+    assert len(kept) == 256 and (torch.bincount(kept // 256, minlength=2) == 128).all()
+    names = ("conv_dx_fused", "conv_dw_fused") if k == 3 else ("dx_gathered", "dw_gathered")
+    assert {n: c for n, c in res["kernel"][2].items() if c} == dict.fromkeys(names, 1)
+    _assert_routes_agree(res)

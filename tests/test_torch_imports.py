@@ -39,7 +39,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.configs.mamba2_1_3b",
               "repro_torch.configs.whisper_large_v3", "repro_torch.configs.paligemma_3b",
               "repro_torch.checkpoint.codec", "repro_torch.checkpoint.ckpt",
-              "repro_torch.dist.fault", "repro_torch.dist.compat", "repro_torch.dist"):
+              "repro_torch.dist.fault", "repro_torch.dist.compat", "repro_torch.dist",
+              "repro_torch.dist.sharding", "repro_torch.launch.mesh",
+              "repro_torch.optim.compression"):
         assert m in mods
     code = (
         "import sys\n"
