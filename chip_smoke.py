@@ -2807,28 +2807,18 @@ def moe_grouped_phase(lm, steps, backward, policy_mod, pipeline, gm, get_config)
     (:func:`family_route_check`: the same kept channels for every
     (site, expert, group), every leaf within TRAIN_ROUTE_TOL); ``matmul``
     launched the launch table's count, G x experts x products on the
-    expert sites and the ungrouped count on the others; each MoE layer's
-    ``aux_loss`` and ``dropped`` printed. Returns the worst relative L2s
-    and the launches of each arch."""
+    expert sites and the ungrouped count on the others; then each MoE
+    layer's grouped dispatch (``moe_apply``, called on its own) on a
+    seeded N(0, 1) input of the step's shape, its ``aux_loss`` and
+    ``dropped`` printed. Returns the worst relative L2s and the launches
+    of each arch."""
     moe_mod = lm.transformer.moe
-    real = moe_mod.moe_apply
     out, launches = {}, {}
     for arch in MOE_ARCHS:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch).reduced(), moe_dp_groups=MOE_GROUPS)
-        metrics = []
-
-        def spy(*a, **kw):
-            y, m = real(*a, **kw)
-            metrics.append((m["aux_loss"].item(), m["dropped"].item()))
-            return y, m
-
-        moe_mod.moe_apply = spy
-        try:
-            worst, n = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, 2,
-                                          24, "[moe-grouped]")
-        finally:
-            moe_mod.moe_apply = real
+        worst, n = family_route_check(lm, steps, backward, policy_mod, pipeline, gm, cfg, 2, 24,
+                                      "[moe-grouped]")
         kern = lm_policy(policy_mod)
         plain = lm.kernel_launches_per_step(dataclasses.replace(cfg, moe_dp_groups=0),
                                             kern)["matmul"]
@@ -2839,9 +2829,24 @@ def moe_grouped_phase(lm, steps, backward, policy_mod, pipeline, gm, get_config)
                                  f"{expert * (MOE_GROUPS - 1) // MOE_GROUPS} more expert launches")
         print(f"[moe-grouped] {arch} G={MOE_GROUPS}: matmul launches {n} = {expert} on the "
               f"expert sites ({MOE_GROUPS} x {cfg.n_experts} experts x 3 x 2 products x {n_moe} "
-              f"layers) + {n - expert} elsewhere (ungrouped table {plain}); kernel route's "
-              f"(aux_loss, dropped) a MoE layer {metrics[:n_moe]}; "
+              f"layers) + {n - expert} elsewhere (ungrouped table {plain})")
+        params = lm.init_params(cfg, 0, device="cuda")
+        metrics = []
+        for lp in params["stack"]["layers"]:
+            if "moe" in lp:
+                gen = torch.Generator(device="cuda").manual_seed(len(metrics))
+                x = torch.randn((2, 24, cfg.d_model), generator=gen, device="cuda",
+                                dtype=lp["moe"]["gate"].dtype)
+                with torch.no_grad():
+                    _, m = moe_mod.moe_apply(lp["moe"], x, cfg, kern, dp_groups=MOE_GROUPS)
+                metrics.append((round(m["aux_loss"].item(), 6), round(m["dropped"].item(), 6)))
+        if len(metrics) != n_moe:
+            raise AssertionError(f"[moe-grouped] {arch}: {len(metrics)} MoE layers, "
+                                 f"expected {n_moe}")
+        print(f"[moe-grouped] {arch}: (aux_loss, dropped) of each MoE layer's grouped dispatch "
+              f"on a seeded N(0, 1) input [2, 24, {cfg.d_model}]: {metrics}; "
               f"{time.perf_counter() - t0:.1f} s")
+        del params
         out[arch], launches[arch] = worst, n
         gc.collect()
         torch.cuda.empty_cache()

@@ -121,57 +121,9 @@ def _conv_dw(x, w_shape, dy, stride, pads: Pads, dilation, groups):
     )
 
 
-def backward_route(
-    policy: SsPropPolicy,
-    *,
-    batch: int,
-    h_out: int,
-    w_out: int,
-    c_in: int,
-    c_out: int,
-    kh: int,
-    kw: int,
-    groups: int = 1,
-) -> str:
-    """The contraction the engine runs for one conv's backward:
-
-    * ``"full"``: a dense step (the conv's own VJP);
-    * ``"mask"``: the mask-mode oracle;
-    * ``"fused"``: the fused kernels ``conv_dx_fused`` / ``conv_dw_fused``;
-    * ``"canonical"``: im2col, then ``dx_gathered`` / ``dw_gathered``;
-    * ``"gathered"``: the VJP on the kept filters.
-
-    The kernel routes need a selection with ``block_idx``: a sharded one
-    (``sparsity.selection_shards`` > 1) whose shard-local block was shrunk
-    below the policy's carries none. The fused route needs
-    ``fuse_im2col``, a filter larger than 1×1, whole blocks per group,
-    and the traffic model to find the fused kernels moving fewer bytes
-    than the materialized patch buffers (the JAX package's gate,
-    ``conv.py:159-184`` there).
-    """
-    if not policy.active or not (policy.sparsify_dx or policy.sparsify_dw):
-        return "full"
-    if policy.mask_mode:
-        return "mask"
-    if not (policy.use_pallas and policy.granularity == "block"):
-        return "gathered"
-    bs = policy.block_size
-    n_shards = sparsity.selection_shards(policy, c_out, groups)
-    if n_shards > 1 and sparsity.shard_select_width(c_out, policy, n_shards)[1] != bs:
-        return "gathered"
-    if (
-        policy.fuse_im2col
-        and not (kh == kw == 1)
-        and not (groups > 1 and c_out % (groups * bs) != 0)
-    ):
-        def model(fused):
-            return FL.conv_backward_bytes_policy(
-                batch, h_out, w_out, c_in, c_out, kh, policy, fused=fused, groups=groups
-            )
-
-        if model(True) < model(False):
-            return "fused"
-    return "canonical" if groups == 1 else "gathered"
+# the route decision lives with the traffic model it reads, so that the
+# FLOPs bounds count the same route the engine takes
+backward_route = FL.conv_backward_route
 
 
 def route_launches(routes: dict[str, str], policy: PolicyLike) -> dict[str, int]:

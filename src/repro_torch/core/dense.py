@@ -12,8 +12,9 @@ JAX package's do; the operands are gathered into buffers whose row pitch
 is a multiple of 8 elements (``gather_columns``), so the kernel's TMA
 reads them in place. A ``tp_shards`` selection with both sides
 sparsified takes the TP fast path (:meth:`_DenseOp.tp_contract`) before
-any kernel, in plain ``torch.einsum``, as the JAX package computes it
-outside any Pallas kernel. Without ``use_pallas``, ``torch.matmul`` is the JAX
+any kernel, as two plain products in the operands' dtype with results in
+the accumulation dtype, as the JAX package computes it outside any Pallas
+kernel. Without ``use_pallas``, ``torch.matmul`` is the JAX
 package's ``jnp.matmul``, its output in the operands' dtype: that
 rounding difference between the two routes is the reference's own.
 
@@ -40,6 +41,18 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted dtype, as ``jnp.matmul`` promotes."""
     t = torch.promote_types(a.dtype, b.dtype)
     return a.to(t) @ b.to(t)
+
+
+def _mm_acc(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """``a @ b`` on operands of one dtype, accumulated and returned in
+    ``acc`` (``preferred_element_type`` in the JAX package). On the card a
+    bf16 product stays a bf16 GEMM with an fp32 result; on the CPU the
+    operands are widened, which leaves each product exact."""
+    if a.dtype == acc:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=acc)
+    return a.to(acc) @ b.to(acc)
 
 
 class _DenseOp(backward.ChannelSparseOp):
@@ -96,18 +109,18 @@ class _DenseOp(backward.ChannelSparseOp):
         # (shard, kept) as the row-parallel matmul does.
         m = dy_eff.shape[0]
         d_in = self.w.shape[0]
-        s, c_loc = sel.n_shards, self.c_out // sel.n_shards
-        k = sel.k_loc
+        s, k = sel.shard_idx.shape
+        c_loc = self.c_out // s
         idx = sel.shard_idx[None]  # [1, S, k]
         dy_k = dy_eff.reshape(m, s, c_loc).gather(2, idx.expand(m, s, k))  # [M, S, k]
         w_k = self.w.reshape(d_in, s, c_loc).gather(2, idx.expand(d_in, s, k))  # [D_in, S, k]
-        # operands in dY's dtype, contracted in the accumulation dtype
-        # (``preferred_element_type`` in the JAX package)
-        acc = lambda t: t.to(dy_k.dtype).to(self._acc)  # noqa: E731
-        dx2 = torch.einsum("msk,dsk->md", acc(dy_k), acc(w_k)) if self.need_dx else None
-        dw_k = torch.einsum("md,msk->dsk", acc(self.x2), acc(dy_k))
+        dy2 = dy_k.reshape(m, s * k)
+        dx2 = None
+        if self.need_dx:  # "msk,dsk->md"
+            dx2 = _mm_acc(dy2, w_k.to(dy2.dtype).reshape(d_in, s * k).T, self._acc)
+        dw_k = _mm_acc(self.x2.to(dy2.dtype).T, dy2, self._acc)  # "md,msk->dsk"
         dw = torch.zeros((d_in, s, c_loc), dtype=dw_k.dtype, device=dw_k.device)
-        dw.scatter_(2, idx.expand(d_in, s, k), dw_k)
+        dw.scatter_(2, idx.expand(d_in, s, k), dw_k.reshape(d_in, s, k))
         return dx2, dw.reshape(d_in, self.c_out)
 
 

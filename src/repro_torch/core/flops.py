@@ -190,31 +190,58 @@ def dense_backward_flops_policy(
     return int(f + m * d_out)
 
 
-def _conv_fused_route(
-    bt: int, h_out: int, w_out: int, c_in: int, c_out: int, k: int,
-    policy: SsPropPolicy, groups: int,
-) -> bool:
-    """The JAX package's fused-route gate, as its FLOPs model reads it:
-    ``fuse_im2col``, a filter larger than 1×1, whole blocks per group and
-    the traffic model's minimum (a shrunk shard block is not looked at
-    here, as there)."""
-    if not (
-        policy.active
-        and policy.use_pallas
-        and policy.granularity == "block"
-        and policy.fuse_im2col
-        and k > 1
+def conv_backward_route(
+    policy: SsPropPolicy,
+    *,
+    batch: int,
+    h_out: int,
+    w_out: int,
+    c_in: int,
+    c_out: int,
+    kh: int,
+    kw: int,
+    groups: int = 1,
+) -> str:
+    """The contraction the engine runs for one conv's backward:
+
+    * ``"full"``: a dense step (the conv's own VJP);
+    * ``"mask"``: the mask-mode oracle;
+    * ``"fused"``: the fused kernels ``conv_dx_fused`` / ``conv_dw_fused``;
+    * ``"canonical"``: im2col, then ``dx_gathered`` / ``dw_gathered``;
+    * ``"gathered"``: the VJP on the kept filters.
+
+    The kernel routes need a selection with ``block_idx``: a sharded one
+    (``sparsity.selection_shards`` > 1) whose shard-local block was shrunk
+    below the policy's carries none. The fused route needs
+    ``fuse_im2col``, a filter larger than 1×1, whole blocks per group,
+    and the traffic model to find the fused kernels moving fewer bytes
+    than the materialized patch buffers (the JAX package's gate,
+    ``conv.py:159-184`` there). ``core/conv.py`` routes by this function
+    and :func:`conv_backward_contraction_bounds` counts by it.
+    """
+    if not policy.active or not (policy.sparsify_dx or policy.sparsify_dw):
+        return "full"
+    if policy.mask_mode:
+        return "mask"
+    if not (policy.use_pallas and policy.granularity == "block"):
+        return "gathered"
+    bs = policy.block_size
+    n_shards = sparsity.selection_shards(policy, c_out, groups)
+    if n_shards > 1 and sparsity.shard_select_width(c_out, policy, n_shards)[1] != bs:
+        return "gathered"
+    if (
+        policy.fuse_im2col
+        and not (kh == kw == 1)
+        and not (groups > 1 and c_out % (groups * bs) != 0)
     ):
-        return False
-    if groups > 1 and c_out % (groups * policy.block_size) != 0:
-        return False
-    fus = conv_backward_bytes_policy(
-        bt, h_out, w_out, c_in, c_out, k, policy, fused=True, groups=groups
-    )
-    mat = conv_backward_bytes_policy(
-        bt, h_out, w_out, c_in, c_out, k, policy, fused=False, groups=groups
-    )
-    return fus < mat
+        def model(fused):
+            return conv_backward_bytes_policy(
+                batch, h_out, w_out, c_in, c_out, kh, policy, fused=fused, groups=groups
+            )
+
+        if model(True) < model(False):
+            return "fused"
+    return "canonical" if groups == 1 else "gathered"
 
 
 def conv_backward_contraction_bounds(
@@ -229,11 +256,14 @@ def conv_backward_contraction_bounds(
     groups: int = 1,
     h_pad: int | None = None,
 ) -> tuple[int, int]:
-    """``(lo, hi)`` contraction FLOPs of one conv backward, the JAX
-    package's count of what each route runs (its program auditor's
-    bounds): the products only, no bias reduction or importance pass.
-    Groups-aware (``N_g = (C_in/G)*K²``), TP-sharded widths from
-    :func:`gather_width`.
+    """``(lo, hi)`` contraction FLOPs of one conv backward on the route
+    :func:`conv_backward_route` names, counted as the JAX package counts
+    each route (its program auditor's bounds): the products only, no bias
+    reduction or importance pass. Groups-aware (``N_g = (C_in/G)*K²``),
+    TP-sharded widths from :func:`gather_width`. One difference: where a
+    sharded selection's shard-local block shrank, both engines run the
+    gathered VJP, which is what this counts; the JAX package's model
+    (``_conv_fused_route`` there) counts the kernel route.
 
     ``lo == hi`` except on the fused route, whose TPU dX kernel sweeps
     every padded-image row and masks invalid taps: ``lo`` is the dW
@@ -250,32 +280,30 @@ def conv_backward_contraction_bounds(
 
     width = gather_width(c_out, policy, sparsity.selection_shards(policy, c_out, groups))
     gathered_side = 2 * m * n_g * width
-
-    if policy.use_pallas and policy.granularity == "block":
-        bs = policy.block_size
-        nb = -(-c_out // bs)
-        if _conv_fused_route(bt, h_out, w_out, c_in, c_out, k, policy, groups):
-            if h_pad is None:
-                h_pad = h_out + k - 1
-            kept_dx = width if sdx else nb * bs
-            kept_dw = width if sdw else nb * bs
-            dw_term = 2 * m * n_g * kept_dw
-            dx_hi = 2 * (bt * h_pad * w_out) * n_g * kept_dx
-            return (int(dw_term), int(dx_hi + dw_term))
-        if groups == 1:
-            # canonical kernels over 128-padded tiles; a dense side is an
-            # unpadded matmul; im2col and col2im are convs with K²
-            # identity output channels, 2*M*N*K² FLOPs each
-            n = c_in * k * k
-            m_pad = _roundup(m, 128)
-            n_pad = _roundup(n, 128)
-            gathered_pad = 2 * m_pad * n_pad * width
-            dx_term = gathered_pad if sdx else full_side
-            dw_term = gathered_pad if sdw else full_side
-            im2col_term = 2 * (2 * m * n * k * k)
-            t = int(dx_term + dw_term + im2col_term)
-            return (t, t)
-        # grouped without the fused route: the gathered VJP below
+    route = conv_backward_route(policy, batch=bt, h_out=h_out, w_out=w_out, c_in=c_in,
+                                c_out=c_out, kh=k, kw=k, groups=groups)
+    if route == "fused":
+        if h_pad is None:
+            h_pad = h_out + k - 1
+        nb = -(-c_out // policy.block_size)
+        kept_dx = width if sdx else nb * policy.block_size
+        kept_dw = width if sdw else nb * policy.block_size
+        dw_term = 2 * m * n_g * kept_dw
+        dx_hi = 2 * (bt * h_pad * w_out) * n_g * kept_dx
+        return (int(dw_term), int(dx_hi + dw_term))
+    if route == "canonical":
+        # canonical kernels over 128-padded tiles; a dense side is an
+        # unpadded matmul; im2col and col2im are convs with K²
+        # identity output channels, 2*M*N*K² FLOPs each
+        n = c_in * k * k
+        m_pad = _roundup(m, 128)
+        n_pad = _roundup(n, 128)
+        gathered_pad = 2 * m_pad * n_pad * width
+        dx_term = gathered_pad if sdx else full_side
+        dw_term = gathered_pad if sdw else full_side
+        im2col_term = 2 * (2 * m * n * k * k)
+        t = int(dx_term + dw_term + im2col_term)
+        return (t, t)
 
     dx_term = gathered_side if sdx else full_side
     dw_term = gathered_side if sdw else full_side

@@ -35,8 +35,10 @@ class Selection(NamedTuple):
     gathered kernels take. A sharded selection fills it too whenever each
     shard's channel count and kept width are multiples of the policy's
     block size (the shard-local blocks then tile whole global blocks).
-    ``shard_idx [n_shards, k_loc]`` / ``k_loc`` / ``n_shards`` carry the
-    per-shard form (within-shard indices) of a sharded selection.
+    ``shard_idx [n_shards, k_loc]`` carries the per-shard form
+    (within-shard indices) of a sharded selection; ``n_shards`` and
+    ``k_loc`` read its shape (1 and 0 unsharded, as the JAX package's
+    fields default).
     """
 
     idx: torch.Tensor
@@ -44,8 +46,14 @@ class Selection(NamedTuple):
     valid: torch.Tensor | None = None
     block_idx: torch.Tensor | None = None
     shard_idx: torch.Tensor | None = None
-    k_loc: int = 0
-    n_shards: int = 1
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.shard_idx is None else self.shard_idx.shape[0]
+
+    @property
+    def k_loc(self) -> int:
+        return 0 if self.shard_idx is None else self.shard_idx.shape[1]
 
 
 def channel_importance(dy: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
@@ -141,8 +149,7 @@ def select(
             # the shard block was not shrunk: the sorted channel indices
             # regroup into whole kept blocks, the kernels' form
             block_idx = (flat.reshape(-1, bs)[:, 0] // bs).to(torch.int32)
-        return Selection(idx=flat, k=n_shards * k_loc, block_idx=block_idx,
-                         shard_idx=shard_idx, k_loc=k_loc, n_shards=n_shards)
+        return Selection(idx=flat, k=n_shards * k_loc, block_idx=block_idx, shard_idx=shard_idx)
     imp = channel_importance(dy, channel_axis)
     if policy.granularity == "channel":
         k = policy.keep_count(c)

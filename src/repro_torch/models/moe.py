@@ -14,11 +14,12 @@ wanted (with ``use_pallas`` the shrunk products of each expert are their
 own ``matmul`` launches); otherwise the experts run as one batched
 product.
 
-``dp_groups > 0`` dispatches within that many token groups (the data
-shards of a mesh): every sort, scatter and combine carries a leading
-``[G]`` axis, the capacity is per group, and each (group, expert) pair
-runs its own ``sparse_dense`` products, as the JAX package vmaps its
-expert FFN over both axes.
+Every sort, scatter and combine carries a leading ``[G]`` axis of token
+groups. ``dp_groups > 0`` dispatches within that many groups (the data
+shards of a mesh), each with its own capacity, and each (group, expert)
+pair runs its own ``sparse_dense`` products, as the JAX package vmaps its
+expert FFN over both axes; the ungrouped dispatch is the one-group case
+(the JAX package keeps two copies of the body, the port one).
 """
 from __future__ import annotations
 
@@ -94,35 +95,39 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     scatter to ``order`` in fp32; plus the shared expert.
 
     ``dp_groups`` with ``B*S % dp_groups == 0`` and not ``full_capacity``
-    takes the DP-local dispatch (:func:`_moe_apply_grouped`).
+    dispatches within that many token groups of ``T/G`` tokens, each with
+    its own capacity ``max(1, int(T/G*k/E * capacity_factor))``; otherwise
+    there is one group. ``aux_loss`` and ``dropped`` are taken over all
+    groups.
     """
-    if dp_groups and (x.shape[0] * x.shape[1]) % dp_groups == 0 and not full_capacity:
-        return _moe_apply_grouped(p, x, cfg, policy, dp_groups)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
     tokens = b * s
-    xf = x.reshape(tokens, d)
+    g = dp_groups if dp_groups and tokens % dp_groups == 0 and not full_capacity else 1
+    tg = tokens // g
+    xf = x.reshape(g, tg, d)
     dev = x.device
 
-    logits = layers.dense_apply(p["router"], xf.float(), DENSE)
-    probs = torch.softmax(logits, dim=-1)  # [T, E]
-    topw, topi = torch.topk(probs, k, dim=-1)  # [T, k]
+    logits = layers.dense_apply(p["router"], x.reshape(tokens, d).float(), DENSE)
+    probs = torch.softmax(logits, dim=-1).reshape(g, tg, e)
+    topw, topi = torch.topk(probs, k, dim=-1)  # [G, tg, k]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
     # ---- load-balance aux (Switch-style) ----
-    me = probs.mean(0)
-    counts = torch.bincount(topi.reshape(-1), minlength=e)  # [E]
-    ce = counts.float() / (tokens * k)
+    me = probs.mean((0, 1))
+    ce = torch.bincount(topi.reshape(-1), minlength=e).float() / (tokens * k)
     aux_loss = e * torch.sum(me * ce)
 
-    # ---- sort-based dispatch ----
-    cap = tokens if full_capacity else max(1, int(tokens * k / e * cfg.capacity_factor))
-    flat_e = topi.reshape(-1)  # [T*k]
-    order = torch.argsort(flat_e, stable=True)  # group by expert
-    sorted_e = flat_e[order]
+    # ---- sort-based dispatch, within each group ----
+    cap = tokens if full_capacity else max(1, int(tg * k / e * cfg.capacity_factor))
+    flat_e = topi.reshape(g, tg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)  # group by expert
+    sorted_e = flat_e.gather(1, order)
     sorted_tok = order // k  # source token of each slot
-    grp_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev), side="left")
-    pos = torch.arange(tokens * k, device=dev) - grp_start[sorted_e]
+    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
+    grp_start = torch.searchsorted(sorted_e, experts, side="left")  # [G, E]
+    counts = torch.searchsorted(sorted_e, experts, side="right") - grp_start
+    pos = torch.arange(tg * k, device=dev)[None, :] - grp_start.gather(1, sorted_e)
     keep = pos < cap
     pos_c = torch.clamp(pos, max=cap - 1)
 
@@ -131,69 +136,6 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     # it and the last write wins (XLA's scatter, in sorted order): the
     # slot holds a dropped entry's zeros when its expert overflows. Write
     # exactly those last writers, whose indices are unique.
-    last = (pos < cap - 1) | (pos == counts[sorted_e] - 1)
-    src = torch.where(keep[:, None], xf[sorted_tok], torch.zeros((), dtype=x.dtype, device=dev))
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev).index_put(
-        (sorted_e[last], pos_c[last]), src[last]
-    )
-
-    out_buf = _expert_ffn(p["gate"], p["up"], p["down"], buf, cfg.act, _expert_policies(policy))
-
-    # ---- combine ----
-    gathered = out_buf[sorted_e, pos_c]  # [T*k, d]
-    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=gathered.dtype,
-                                                                device=dev))
-    contrib = torch.zeros((tokens * k, d), dtype=torch.float32, device=dev).index_copy(
-        0, order, gathered.float()
-    )
-    contrib = contrib.reshape(tokens, k, d) * topw[..., None]
-    y = contrib.sum(dim=1).to(x.dtype)
-
-    if "shared" in p:
-        y = y + layers.mlp_apply(p["shared"], xf, cfg.act, policy, site="moe/shared")
-
-    frac_dropped = 1.0 - keep.float().mean()
-    return y.reshape(b, s, d), {"aux_loss": aux_loss, "dropped": frac_dropped}
-
-
-def _moe_apply_grouped(p, x, cfg, policy: PolicyLike, groups: int):
-    """DP-local dispatch: :func:`moe_apply` within ``groups`` token
-    groups, every index op carrying a leading ``[G]`` axis. The router is
-    a plain fp32 product (the JAX package's ``einsum``); the capacity is
-    ``max(1, int(T/G*k/E * capacity_factor))`` a group; ``aux_loss`` and
-    ``dropped`` are taken over all groups."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.moe_topk
-    tokens = b * s
-    g = groups
-    tg = tokens // g
-    xf = x.reshape(g, tg, d)
-    dev = x.device
-
-    logits = xf.float() @ p["router"]["w"].float()  # [G, tg, E]
-    probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(probs, k, dim=-1)  # [G, tg, k]
-    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-
-    me = probs.mean((0, 1))
-    ce = torch.bincount(topi.reshape(-1), minlength=e).float() / (tokens * k)
-    aux_loss = e * torch.sum(me * ce)
-
-    cap = max(1, int(tg * k / e * cfg.capacity_factor))
-    flat_e = topi.reshape(g, tg * k)
-    order = torch.argsort(flat_e, dim=1, stable=True)  # [G, tg*k]
-    sorted_e = flat_e.gather(1, order)
-    sorted_tok = order // k
-    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
-    grp_start = torch.searchsorted(sorted_e, experts, side="left")  # [G, E]
-    counts = torch.searchsorted(sorted_e, experts, side="right") - grp_start
-    pos = torch.arange(tg * k, device=dev)[None, :] - grp_start.gather(1, sorted_e)
-    keep = pos < cap
-    pos_c = torch.clamp(pos, max=cap - 1)
-
-    # one scatter in the JAX package: within a group, the overflow's
-    # clamped duplicates of slot cap-1 land on it and the last one wins;
-    # write exactly those last writers (see moe_apply)
     gidx = torch.arange(g, device=dev)[:, None].expand(g, tg * k)
     last = (pos < cap - 1) | (pos == counts.gather(1, sorted_e) - 1)
     src = torch.where(keep[..., None], torch.take_along_dim(xf, sorted_tok[..., None], dim=1),
@@ -206,6 +148,7 @@ def _moe_apply_grouped(p, x, cfg, policy: PolicyLike, groups: int):
     out_buf = _expert_ffn(p["gate"], p["up"], p["down"], buf, cfg.act,
                           _expert_policies(policy))  # [G, E, cap, d]
 
+    # ---- combine ----
     gathered = out_buf[gidx, sorted_e, pos_c]  # [G, tg*k, d]
     gathered = torch.where(keep[..., None], gathered, torch.zeros((), dtype=gathered.dtype,
                                                                    device=dev))

@@ -1158,3 +1158,45 @@ def test_tp_balanced_block_idx_on_the_card(cuda, k):
     names = ("conv_dx_fused", "conv_dw_fused") if k == 3 else ("dx_gathered", "dw_gathered")
     assert {n: c for n, c in res["kernel"][2].items() if c} == dict.fromkeys(names, 1)
     _assert_routes_agree(res)
+
+
+def test_tp_fast_path_runs_bf16_products_with_fp32_results_on_the_card(cuda):
+    """The TP fast path's products keep bf16 operands and return fp32
+    (``torch.mm`` with ``out_dtype``), within fp32 rounding of the
+    widened operands' product; a bf16 ``sparse_dense`` under
+    ``tp_shards=4`` at 1024 channels keeps the same channels as on the CPU (operands
+    widened there) and its gradients agree to bf16 rounding."""
+    import dataclasses
+
+    from repro_torch.core import dense as tdense_mod
+    from repro_torch.core import policy as tpolicy
+
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((256, 384), np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((384, 160), np.float32)).to(cuda, torch.bfloat16)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = tdense_mod._mm_acc(a, b.T.contiguous().T, torch.float32)
+        ref = a.float() @ b.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert out.dtype == torch.float32
+    assert ((out - ref).norm() / ref.norm()).item() <= 1e-6
+
+    pol = dataclasses.replace(tpolicy.tpu_default(0.8), tp_shards=4)
+    x = rng.standard_normal((64, 96), np.float32)
+    w = rng.standard_normal((96, 1024), np.float32) / 10
+    dy = rng.standard_normal((64, 1024), np.float32) * rng.random(1024, np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xt = torch.from_numpy(x).to(dev, torch.bfloat16).requires_grad_()
+        wt = torch.from_numpy(w).to(dev, torch.bfloat16).requires_grad_()
+        tdense_mod.sparse_dense(xt, wt, policy=pol).backward(
+            torch.from_numpy(dy).to(dev, torch.bfloat16))
+        grads[str(dev)] = (xt.grad.float().cpu(), wt.grad.float().cpu())
+    (dxc, dwc), (dxg, dwg) = grads["cpu"], grads["cuda"]
+    assert torch.equal(dwc.abs().sum(0) != 0, dwg.abs().sum(0) != 0)
+    assert int((dwg.abs().sum(0) != 0).sum()) == 4 * 128  # 1 of 2 blocks a shard
+    for g, c in ((dxg, dxc), (dwg, dwc)):
+        assert ((g - c).norm() / c.norm()).item() <= 4e-3

@@ -340,6 +340,26 @@ BOUND_POLICIES = [
 ]
 
 
+def _jax_conv_bounds(args, jp, groups=1, **kw):
+    """The JAX package's contraction bounds of the route its engine runs.
+    The engine takes a kernel route only with a selection's ``block_idx``
+    (``repro/core/backward.py:237``), which a sharded selection whose
+    shard-local block shrank does not carry, so that conv runs the
+    gathered VJP; the JAX package's FLOPs model still counts the kernel
+    route there (its ``_conv_fused_route`` does not look at the shard
+    block). For such a conv the expectation is that model's count of the
+    gather route, which the same policy without ``use_pallas`` gives."""
+    c_out = args[4]
+    n = jp.tp_shards if jp.tp_shards > 1 and c_out % jp.tp_shards == 0 else 1
+    if groups > 1 and (n < groups or n % groups != 0):
+        n = groups  # the JAX package's ``_ConvOp.selection_shards``
+    if jp.use_pallas and jp.granularity == "block" and n > 1:
+        dy = jnp.asarray(np.random.default_rng(0).random((2, c_out), np.float32))
+        if jsparsity.select(dy, jp, channel_axis=1, n_shards=n).block_idx is None:
+            jp = dataclasses.replace(jp, use_pallas=False)
+    return jflops.conv_backward_contraction_bounds(*args, jp, groups=groups, **kw)
+
+
 @pytest.mark.parametrize("kw", BOUND_POLICIES, ids=range(len(BOUND_POLICIES)))
 def test_contraction_bounds_match_jax(kw):
     jp, tp = jpolicy.SsPropPolicy(**kw), tpolicy.SsPropPolicy(**kw)
@@ -349,9 +369,9 @@ def test_contraction_bounds_match_jax(kw):
             if args[3] % groups:
                 continue
             assert tflops.conv_backward_contraction_bounds(*args, tp, groups=groups) == \
-                jflops.conv_backward_contraction_bounds(*args, jp, groups=groups), (args, groups)
+                _jax_conv_bounds(args, jp, groups=groups), (args, groups)
         assert tflops.conv_backward_contraction_bounds(*args, tp, h_pad=11) == \
-            jflops.conv_backward_contraction_bounds(*args, jp, h_pad=11)
+            _jax_conv_bounds(args, jp, h_pad=11)
     for m, d_in, d_out in [(64, 48, 128), (1024, 2048, 11008), (1024, 2048, 256), (30, 7, 130)]:
         assert tflops.dense_backward_contraction_bounds(m, d_in, d_out, tp) == \
             jflops.dense_backward_contraction_bounds(m, d_in, d_out, jp), (m, d_in, d_out)
