@@ -6,7 +6,8 @@
 Drives ``src/repro_torch`` (never the JAX package) through its serving
 path and its ssProp training paths (ResNet-18, the DDPM UNet, qwen2.5-3b,
 mamba2-1.3b; qwen2.5-3b also through a checkpoint, a crash and a resume,
-and as a 2-rank fleet), the other decoder-only families (mamba2-1.3b and kimi-k2
+and as a 2-rank fleet; on 1x2 and 2x1 device meshes and serving on a
+model mesh of 2, a rank a process), the other decoder-only families (mamba2-1.3b and kimi-k2
 serving at full width, the reduced configs of the seven archs beside
 qwen2.5-3b), the encoder-decoder and VLM families (whisper-large-v3 and
 paligemma-3b serving and training at full width and depth), sharded
@@ -158,9 +159,10 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    4, no other kernel, no operand repacked; then a profile of one dense
    and one sparse step, in which the bf16 tensor-core kernel carries all
    504 ``matmul`` launches of the sparse step and the SIMT one none;
-   then, on the profile's full-depth params and Adam state, ``[tp-lm]``:
-   each projection's kept channels under 16 shards against global
-   selection with ``dense_backward_contraction_bounds``, 4 timed
+   then, on the profile's params and Adam state cut to 12 layers (PR 23:
+   room for the mesh phases), ``[tp-lm]``: each projection's kept
+   channels under 16 shards against global selection with
+   ``dense_backward_contraction_bounds``, 4 timed
    ``make_train_step`` steps and a profile of ``ssprop_tp`` and of
    ``opt`` (plus a bf16 backward), no kernel launched, and
    ``compress_tree`` at 1 % over one ``ssprop_tp`` step's gradients (its
@@ -183,6 +185,25 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    ``--coord-dir`` / ``--world-size 2`` write a sharded checkpoint (a
    shard a rank, the leader's manifest), and one process resumes from it:
    its losses equal the fleet's after the checkpoint;
+15c. device meshes (``[mesh-train]``, ``[mesh-serve]``): ``train.run``
+   on qwen2.5-3b at full width, depth 4, fp32 with TF32 off, B=8 S=128,
+   ``paper_default(0.8)`` with ``--use-pallas``, 3 steps (dense, sparse,
+   sparse) at 1x1 in this process, and ``serve.run`` at full width and
+   depth, fp32; then one spawn of two rank processes on the card over
+   gloo runs the training CLI's rank body on a 1x2 and a 2x1 mesh: losses
+   within 1e-4 relative of 1x1, the share of (step, site) kept sets equal
+   to 1x1's, each rank's ``matmul`` launches equal to
+   ``kernel_launches_per_step``'s, every one of those launches held to
+   the plain version on its own operands (1e-4 x max(1, max|plain|));
+   then 3 timed bf16 steps at 1x2 (step ms, each rank's device busy ms,
+   the collectives' calls and bytes a step, their ms from a second run
+   with each synced), the warm-up step's products checked alike and the
+   row-parallel ``layer_0/attn/o`` dY equal bit for bit on both model
+   ranks; then the serving CLI's rank body at full width and depth on a
+   model mesh of 2 (the serve phase's 8 requests), fp32 and bf16:
+   ``paged_attention`` 36 launches a step on each rank, the fp32 share of
+   tokens equal to the 1x1 fp32 run's at least 0.9 (bf16's against the
+   serve phase's, printed), tokens/s and p50/p99;
 16. SSM training: the loss and every gradient leaf of one sparse step of
    mamba2-1.3b at full width and depth 4 (fp32, B=2, S=512) through
    ``matmul``, the gather route and the mask oracle, the same kept
@@ -191,7 +212,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    chunks) for 8 epoch-bar steps: every loss finite, ``matmul`` launched
    the launch table's 192 times 4, dense and sparse step medians,
    tokens/s and peak memory;
-17. SSM serving: mamba2-1.3b at full width and depth serves 8 sampled
+17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 24 since PR
+   23, serves 8 sampled
    requests (prompt 32, gen 32, 4 slots) through the paged engine, a
    10-page pool (small enough to swap), self-drafted speculation (k=4), the
    contiguous engine and the lock-step baseline, bf16 and an fp32 copy;
@@ -214,8 +236,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    (the same kept channels for every site, expert and group), ``matmul``
    launched the launch table's count (2 x experts x products on the
    expert sites), each MoE layer's ``aux_loss`` and ``dropped`` printed;
-20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width
-   and depth (32 encoder + 32 decoder layers, d 1280, vocab 51866), 8
+20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width,
+   depth cut to 16 encoder + 16 decoder layers of 32 + 32 since PR 23
+   (d 1280, vocab 51866), 8
    sampled Poisson requests, each with its ``[1500, 1280]`` frames from
    the workload (prompt 16, gen 64, 4 slots, 16-token pages) through the
    paged engine on the kernel and the gather route, a 12-page pool
@@ -250,12 +273,14 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    ``serve_features_phase``, the kimi-k2, whisper and paligemma serve
    phases', ``matmul``'s the qwen2.5-3b, mamba2-1.3b, whisper and
    paligemma training phases', the resumed run's of ``[ckpt]``
-   (``lm_resume``) and ``[moe-grouped]``'s kernel routes, each in
+   (``lm_resume``), ``[moe-grouped]``'s kernel routes and every rank's
+   of ``[mesh-train]`` (``mesh_train``; ``paged_attention``'s
+   ``mesh_serve``), each in
    ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
    whisper's in ``d64`` and paligemma's in ``d256``; ``matmul``'s
-   ``max_abs_err`` covers the qwen2.5-3b, whisper and paligemma products,
-   the latter two also in ``by_arch``; its times are at the ResNet
+   ``max_abs_err`` covers the qwen2.5-3b, whisper and paligemma products
+   and the mesh ranks', the latter three also in ``by_arch``; its times are at the ResNet
    path's largest shape, the DDPM path's in ``ddpm``) and,
    last, the device JSON line.
 """
@@ -2005,6 +2030,7 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
 # ----------------------------------------------------------------------
 
 TP_SHARDS = 16  # the production mesh's model axis (launch/mesh.py)
+TP_DEPTH = 12  # [tp-lm]'s timed steps: 36 layers cut to 12, room for the mesh phases
 TP_STEPS = 4  # timed steps a policy, after a warm-up
 COMPRESS_RATIO = 0.01
 
@@ -2052,11 +2078,12 @@ def tp_lm_route_check(lm, steps, backward, policy_mod, gm, cfg, params, batch, s
 
 def tp_lm_phase(lm, steps, adam, compression, flops, sparsity, policy_mod, gm, cfg, state,
                 lm_ms):
-    """``[tp-lm]`` at full depth: each projection's kept channels under 16
-    shards against global selection, with the contraction FLOPs of each
-    route; then ``TP_STEPS`` timed ``make_train_step`` steps of each TP
-    policy (bf16, B=8, S=128, the profile's params and Adam state) beside
-    ``[lm-train]``'s dense and sparse medians, and a profile of each
+    """``[tp-lm]``: each projection's kept channels under 16 shards against
+    global selection, with the contraction FLOPs of each route; then
+    ``TP_STEPS`` timed ``make_train_step`` steps of each TP policy (bf16,
+    B=8, S=128, the profile's params and Adam state cut to ``TP_DEPTH``
+    layers) beside ``[lm-train]``'s full-depth dense and sparse medians,
+    and a profile of each
     (:func:`profile_step`); then ``compress_tree`` at
     1 % over one ``ssprop_tp`` step's gradients: its time, the bytes
     against the full gradients', and grad == kept + residual exactly.
@@ -2065,6 +2092,11 @@ def tp_lm_phase(lm, steps, adam, compression, flops, sparsity, policy_mod, gm, c
     t0 = time.perf_counter()
     params, opt, batch = state
     state.clear()
+    cfg = dataclasses.replace(cfg, n_layers=TP_DEPTH)
+    for tree in (params, opt.m, opt.v):
+        del tree["stack"]["layers"][TP_DEPTH:]
+    gc.collect()
+    torch.cuda.empty_cache()
     pols = tp_policies(policy_mod)
     glob = dataclasses.replace(pols["ssprop_tp"], tp_shards=0)
     m = LM_BATCH * LM_SEQ
@@ -2098,9 +2130,9 @@ def tp_lm_phase(lm, steps, adam, compression, flops, sparsity, policy_mod, gm, c
         if gm.launches != before or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"[tp-lm] {name}: launches {gm.launches} (before {before}), "
                                  f"losses {losses}")
-        print(f"[tp-lm] {name}: {TP_STEPS} steps at full width and depth, bf16, B={LM_BATCH} "
-              f"S={LM_SEQ}: median {_median(times):.2f} ms ({tokens / _median(times) * 1e3:.0f} "
-              f"tokens/s) against [lm-train]'s dense {lm_ms['dense_ms']:.2f} and sparse "
+        print(f"[tp-lm] {name}: {TP_STEPS} steps at full width, depth {cfg.n_layers}, bf16, "
+              f"B={LM_BATCH} S={LM_SEQ}: median {_median(times):.2f} ms ({tokens / _median(times) * 1e3:.0f} "
+              f"tokens/s) against [lm-train]'s full-depth dense {lm_ms['dense_ms']:.2f} and sparse "
               f"{lm_ms['sparse_ms']:.2f} ms; step ms {[round(v, 2) for v in times]}; losses "
               f"{[round(v, 4) for v in losses]}; 0 kernel launches")
         _, busy_ms, _ = profile_step("[tp-lm-profile]", name,
@@ -2384,11 +2416,308 @@ def fleet_phase(gm, lm, policy_mod, get_config):
 
 
 # ----------------------------------------------------------------------
+# device meshes: qwen2.5-3b trains on data x model and serves on model,
+# a rank a process over gloo (the ranks share the one card)
+# ----------------------------------------------------------------------
+
+MESH_DEPTH = 4  # [mesh-train]: full width, 36 layers cut to 4 (two ranks share the card)
+MESH_STEPS = 3  # a dense step, then two sparse ones (--scheduler bar)
+MESH_SHAPES = ((1, 2), (2, 1))  # (data, model) beside 1x1
+MESH_LOSS_TOL = 1e-4  # fp32, TF32 off: summation order only
+MESH_TIMEOUT_S = 300  # one mesh run, spawn to exit
+MESH_PROBE = "layer_0/attn/o"  # the row-parallel site whose dY must agree bit for bit
+MESH_SERVE_MODEL = 2  # [mesh-serve]: 8 q heads on 1 KV head a rank
+
+
+def _mesh_train_argv(data, model):
+    return ["--arch", LM_ARCH, "--steps", str(MESH_STEPS), "--scheduler", "bar",
+            "--global-batch", str(LM_BATCH), "--seq-len", str(LM_SEQ), "--drop-rate", str(LM_RATE),
+            "--granularity", "channel", "--use-pallas", "--log-every", "1", "--device", "cuda",
+            "--data-mesh", str(data), "--model-mesh", str(model)]
+
+
+def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, probe):
+    """Every mesh run of ``[mesh-train]`` and ``[mesh-serve]``, in one
+    spawn of two ranks on the card: the training CLI's rank body
+    (``train.run_rank``, fp32, the kept channels collected) on this 1x2
+    mesh and on a 2x1 mesh over the same ranks, then
+    :func:`mesh_timed_steps` in bf16 at 1x2, then the serving CLI's rank
+    body (``serve.serve_rank``) once a config of ``serve_cfgs``. Every
+    ``matmul`` launch of the fp32 runs and of the bf16 warm-up step is
+    held against its plain version on the same operands
+    (``gathered_matmul.observe_matmul``). Returns (the CLI's dict of each
+    training layout, every rank's bf16 timings, each config's serving
+    dict, every rank's product checks, the ranks' wall of each part)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full fp32
+    checks = {}  # 'layout dtype' -> [products, worst error, largest limit, first miss]
+
+    def checker(layout):
+        def check(a, b, out):
+            ref = gm.matmul_ref(a, b)
+            err = (out - ref).abs().max().item()
+            limit = KERNEL_TOL * max(1.0, ref.abs().max().item())
+            c = checks.setdefault(f"{layout} {str(a.dtype).replace('torch.', '')}",
+                                  [0, 0.0, 0.0, None])
+            c[0] += 1
+            c[1] = max(c[1], err)
+            c[2] = max(c[2], limit)
+            if err > limit and c[3] is None:
+                c[3] = f"A{tuple(a.shape)} @ B{tuple(b.shape)}: {err} > {limit}"
+        return check
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    walls, train_outs = {}, {}
+    for layout, argv in train_argvs.items():
+        t0 = time.perf_counter()
+        m = mesh if layout == "1x2" else mesh_lib.make_host_mesh(2, 1, "cuda")
+        with gm.observe_matmul(checker(layout)):
+            train_outs[layout] = train.run_rank(m, train.build_parser().parse_args(argv), cfg,
+                                                ("kept",))
+        free()
+        walls[layout] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = mesh_timed_steps(mesh, dataclasses.replace(cfg, dtype="bfloat16"), policy, steps,
+                             probe, checker("1x2"))
+    free()
+    walls["1x2 bf16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    args = serve.build_parser().parse_args(serve_argv)
+    served = []
+    for c in serve_cfgs:
+        served.append(serve.serve_rank(mesh, args, c))
+        free()
+    walls["serve"] = time.perf_counter() - t0
+    every = [None] * mesh.world
+    dist.all_gather_object(every, {"rank": mesh.rank, "checks": checks})
+    return train_outs, timed, served, every, walls
+
+
+def mesh_timed_steps(mesh, cfg, policy, steps, probe, check):
+    """One rank's timed steps: its shards of ``cfg``'s params (seed 0),
+    ``make_train_step`` on the mesh, a warm-up step (its ``matmul``
+    launches held to their plain version by ``check``, and ``probe``'s
+    dY, a row-parallel site, recorded to compare the model ranks' bits),
+    then ``steps`` steps timed (host wall, each ending in a device sync;
+    the collectives' calls and bytes counted), one profiled (the rank's
+    device busy time) and one with every collective timed
+    (``parallel.timed_collectives``: the device synchronised around each,
+    so its wall is the collective's own; gloo stages CUDA tensors through
+    host memory). Returns every rank's numbers (rank 0 gathers them)."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import backward
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.dist import parallel
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adam
+
+    params = lm.init_params(cfg, 0, device=mesh.device)
+    specs = lm.mesh_specs(cfg, params, mesh.shape)
+    local = shd.shard_tree(params, specs, mesh)
+    del params
+    torch.cuda.empty_cache()
+    sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
+    opt = adam.init(local)
+    step = steps_lib.make_train_step(cfg, policy, adam.AdamConfig(lr=2e-4, clip_norm=1.0),
+                                     mesh=mesh, sharded=sharded)
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab, LM_SEQ, LM_BATCH, 0))
+    rows = LM_BATCH // mesh.data
+    r0 = mesh.data_rank * rows
+    batches = [{k: torch.from_numpy(v[r0:r0 + rows]).cuda() for k, v in pipe.batch_at(i).items()}
+               for i in range(steps)]
+
+    def run(i):
+        return step(local, opt, batches[i % steps])[2]["loss"].item()  # waits for the step
+
+    with backward.record_cotangents([probe]) as dys, gm.observe_matmul(check):
+        run(0)
+    every = parallel.all_gather(dys[probe][None], mesh.model_group, mesh.model, dim=0)
+    dy_spread = float((every - every[:1]).abs().max())
+    wall = []
+    parallel.counters.update(calls=0, bytes=0, s=0.0)
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(i)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    calls, nbytes = parallel.counters["calls"] // steps, parallel.counters["bytes"] // steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    parallel.counters.update(calls=0, bytes=0, s=0.0)
+    with parallel.timed_collectives():
+        t0 = time.perf_counter()
+        run(1)
+        synced_ms = (time.perf_counter() - t0) * 1e3
+    mine = dict(rank=mesh.rank, step_ms=wall, busy_ms=busy_ms, dy_spread=dy_spread,
+                coll_ms=parallel.counters["s"] * 1e3, coll_calls=calls,
+                coll_bytes=nbytes, synced_step_ms=synced_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out = [None] * mesh.world
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, gen16, card):
+    """``[mesh-train]`` and ``[mesh-serve]``: in this process ``train.run``
+    on qwen2.5-3b at full width, depth ``MESH_DEPTH``, fp32 with TF32 off,
+    B=8 S=128, ``paper_default(0.8)`` with ``--use-pallas``, 3 steps
+    (dense, sparse, sparse) at 1x1, and ``serve.run`` at full width and
+    depth, fp32, the ``[serve]`` phase's 8 Poisson requests (prompt 128,
+    gen 32); then :func:`mesh_ranks` in two ranks on the card over gloo.
+    Training: the 1x2 and 2x1 losses within ``MESH_LOSS_TOL`` of 1x1's,
+    the share of (step, site) kept sets equal to 1x1's, each rank's
+    launches equal to the launch table's, every ``matmul`` product within
+    ``KERNEL_TOL`` of its plain version, the bf16 1x2 steps' times and
+    the probe site's dY equal on both model ranks. Serving on
+    ``--model-mesh 2``, fp32 and bf16: each rank launches
+    ``paged_attention`` 36 times a step; the share of tokens equal to the
+    1x1 run's (fp32 at least ``SHARE_MIN``; bf16 against the ``[serve]``
+    phase's, printed); tokens/s and p50/p99 step. Returns (``matmul``
+    launches of the training runs, every rank's; ``paged_attention``
+    launches of the mesh serving; the worst product error; the two
+    summaries)."""
+    from repro_torch.launch.mesh import run_on_mesh
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_DEPTH, dtype="float32")
+    policy = lm_policy(policy_mod)
+    per_step = lm.kernel_launches_per_step(cfg, policy)
+    t0 = time.perf_counter()
+    for k in gm.launches:
+        gm.launches[k] = 0
+    one = train.run(train.build_parser().parse_args(_mesh_train_argv(1, 1)), cfg=cfg,
+                    collect=("kept",))
+    n_sparse = sum(1 for r in one["rates"] if r > 0)
+    expect = dict.fromkeys(gm.launches, 0) | {"matmul": per_step["matmul"] * n_sparse}
+    if n_sparse != 2 or dict(gm.launches) != expect:
+        raise AssertionError(f"[mesh-train] 1x1 launches {dict(gm.launches)} != {expect}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh-train] {LM_ARCH} full width, depth {MESH_DEPTH}, fp32, B={LM_BATCH} "
+          f"S={LM_SEQ}: 1x1 losses {one['history']} in {time.perf_counter() - t0:.1f} s")
+    base = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    one32 = serve.run(serve.build_parser().parse_args(serve_argv),
+                      cfg=dataclasses.replace(base, dtype="float32"))["generated"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh-serve] 1x1 fp32 run {time.perf_counter() - t0:.1f} s")
+
+    dtypes = ("float32", "bfloat16")
+    t0 = time.perf_counter()
+    outs, ranks, served, checks, walls = run_on_mesh(
+        mesh_ranks, 1, 2, "cuda", {f"{d}x{m}": _mesh_train_argv(d, m) for d, m in MESH_SHAPES},
+        serve_argv + ["--model-mesh", str(MESH_SERVE_MODEL)], cfg,
+        [dataclasses.replace(base, dtype=dt) for dt in dtypes], policy, MESH_STEPS, MESH_PROBE,
+        timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    print(f"[mesh] one spawn of 2 ranks, {wall:.1f} s spawn to exit; rank 0's parts (s): "
+          + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+
+    # training
+    mesh_launches = expect["matmul"]  # 1x1's, then every rank's
+    summary = {"1x1_losses": one["history"]}
+    sites = [(st, s) for st in one["kept"] for s in one["kept"][st]]
+    for layout, out in outs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["history"], one["history"], strict=True))
+        share = sum(out["kept"][st].get(s) == one["kept"][st][s] for st, s in sites) / len(sites)
+        got = [r["matmul"] for r in out["launches_by_rank"]]
+        want = [r["matmul"] for r in out["launch_table_by_rank"]]
+        if not all(math.isfinite(v) for v in out["history"]) or rel > MESH_LOSS_TOL:
+            raise AssertionError(f"[mesh-train] {layout} losses {out['history']} vs 1x1 "
+                                 f"{one['history']}: rel {rel:.3g} > {MESH_LOSS_TOL}")
+        if got != want or any(sum(v for k, v in r.items() if k != "matmul")
+                              for r in out["launches_by_rank"]):
+            raise AssertionError(f"[mesh-train] {layout} launches "
+                                 f"{out['launches_by_rank']} != the table's {want}")
+        mesh_launches += sum(got)
+        differ = [f"step {st} {s}: {len(set(out['kept'][st][s]) ^ set(one['kept'][st][s])) // 2} "
+                  f"of {len(one['kept'][st][s])} swapped" for st, s in sites
+                  if out["kept"][st].get(s) != one["kept"][st][s]]
+        summary[layout] = dict(loss_rel=rel, kept_share=share, kept_differ=differ,
+                               matmul_by_rank=got, wall_s=walls[layout])
+        print(f"[mesh-train] {layout}: losses {out['history']} (max rel {rel:.3g} of 1x1); "
+              f"kept sets equal to 1x1's at {share:.4f} of {len(sites)} (step, site), differing "
+              f"at {differ}; matmul launches by rank {got} = the table's {want}")
+    worst = 0.0
+    for r in checks:
+        for what, (n, err, limit, miss) in sorted(r["checks"].items()):
+            if miss is not None:
+                raise AssertionError(f"[mesh-train] rank {r['rank']} {what} matmul {miss}")
+            worst = max(worst, err)
+        print(f"[mesh-train] rank {r['rank']} matmul products against the plain version on "
+              "the same operands (layout dtype: products, max abs err, largest limit): "
+              + json.dumps(r["checks"]))
+    for r in checks:  # every launch of the fp32 runs and of one bf16 step was checked
+        i = r["rank"]
+        want = {f"{layout} float32": out["launches_by_rank"][i]["matmul"]
+                for layout, out in outs.items()}
+        want["1x2 bfloat16"] = outs["1x2"]["launch_table_by_rank"][i]["matmul"] // 2
+        got = {w: r["checks"].get(w, [0])[0] for w in want}
+        if got != want:
+            raise AssertionError(f"[mesh-train] rank {i} products checked {got} != launched {want}")
+    summary["matmul_checks"] = {f"rank {r['rank']}": r["checks"] for r in checks}
+    for r in ranks:
+        if r["dy_spread"] != 0.0:
+            raise AssertionError(f"[mesh-train] {MESH_PROBE}'s dY differs over the model ranks "
+                                 f"by {r['dy_spread']}")
+        print(f"[mesh-train] 1x2 bf16 rank {r['rank']} ({card}): sparse step ms "
+              f"{[round(v, 2) for v in r['step_ms']]}, device busy {r['busy_ms']:.2f} ms a step; "
+              f"{r['coll_calls']} collectives, {r['coll_bytes'] / 1e6:.1f} MB a step; in a "
+              f"second run with each synced, collectives {r['coll_ms']:.2f} ms of a "
+              f"{r['synced_step_ms']:.2f} ms step; peak {r['peak_gib']:.2f} GiB; {MESH_PROBE} dY "
+              f"spread over model ranks {r['dy_spread']}")
+    summary["1x2_bf16"] = ranks
+
+    # serving
+    serve_launches, serve_summary = 0, {}
+    for dtype, ref, out in zip(dtypes, (one32, gen16), served, strict=True):
+        gen, steps = out["generated"], out["steps"]
+        share = float((gen == ref).mean())
+        got = [r["paged_attention"] for r in out["launches_by_rank"]]
+        if gen.shape != ref.shape or got != [base.n_layers * steps] * MESH_SERVE_MODEL:
+            raise AssertionError(f"[mesh-serve] {dtype}: {gen.shape}, launches by rank {got} != "
+                                 f"{base.n_layers} x {steps} steps each")
+        if dtype == "float32" and share < SHARE_MIN:
+            raise AssertionError(f"[mesh-serve] fp32 share {share:.4f} < {SHARE_MIN}")
+        ms = np.asarray(out["step_times"]) * 1e3
+        st = out["stats"]
+        serve_summary[dtype] = dict(share=share, tokens_per_s=st["tokens_per_s"],
+                                    generated_per_s=out["tokens_per_s"],
+                                    p50_ms=float(np.percentile(ms, 50)),
+                                    p99_ms=float(np.percentile(ms, 99)), steps=steps)
+        serve_launches += sum(got)
+        print(f"[mesh-serve] model={MESH_SERVE_MODEL} {dtype} ({card}): {steps} steps, "
+              f"{st['tokens_per_s']:.1f} tokens/s, {out['tokens_per_s']:.1f} generated/s; step p50 "
+              f"{serve_summary[dtype]['p50_ms']:.2f} ms p99 {serve_summary[dtype]['p99_ms']:.2f} "
+              f"ms; share of tokens equal to 1x1's {share:.4f}; paged_attention launches by rank "
+              f"{got} = {base.n_layers} x {steps}")
+    serve_summary["wall_s"] = walls["serve"]
+    return mesh_launches, serve_launches, worst, summary, serve_summary
+
+
+# ----------------------------------------------------------------------
 # the decoder-only families: mamba2 training and serving, kimi-k2
 # serving, the reduced configs of the seven new archs
 # ----------------------------------------------------------------------
 
 SSM_ARCH, SSM_BATCH, SSM_SEQ = "mamba2-1.3b", 4, 512  # two 256-token SSD chunks
+SSM_SERVE_DEPTH = 24  # [ssm-serve]: 48 layers cut to 24 (PR 23: the script had passed 1000 s)
 MOE_ARCH, MOE_DEPTH = "kimi-k2-1t-a32b", 1  # full width; 61 layers cut to 1
 NEW_ARCHS = ("nemotron-4-15b", "deepseek-67b", "mistral-large-123b",
              "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-1.3b",
@@ -2656,7 +2985,7 @@ def _shares(outs, ref_name):
 
 
 def ssm_serve_phase(lm, pa, S, get_config):
-    """mamba2-1.3b serves at full width and depth: 8 sampled Poisson
+    """mamba2-1.3b serves at full width, depth ``SSM_SERVE_DEPTH``: 8 sampled Poisson
     requests (prompt 32 in two 16-token prefill chunks, gen 32) through
     4 slots of the paged engine, the paged engine with a pool small
     enough to swap, speculating 4 tokens self-drafted, the contiguous
@@ -2664,9 +2993,9 @@ def ssm_serve_phase(lm, pa, S, get_config):
     attention layer, so no kernel runs: the phase holds the engine's SSM
     state (reset, swap, the speculative commit) at full size. The fp32
     shares of tokens equal to the paged run's must reach SHARE_MIN."""
-    cfg = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_SERVE_DEPTH)
     params = lm.init_params(cfg, 0, "cuda")
-    # prompt 32: the per-position recurrence makes a prompt 32 x 48
+    # prompt 32: the per-position recurrence makes a prompt 32 x depth
     # sequential layer steps, the phase's time; two 16-token chunks, so the
     # second starts from the SSM state the first left in the cache
     reqs_kw = dict(n_requests=8, arrival_rate=0.5, prompt_len=32, gen_len=32, seed=0,
@@ -2860,12 +3189,16 @@ def moe_grouped_phase(lm, steps, backward, policy_mod, pipeline, gm, get_config)
 ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "paligemma-3b"
 # training batches: B, S decoder tokens (+ frames [B, 1500, 1280] / patches [B, 256, 2048])
 XFAMILY_TRAIN = {ENCDEC_ARCH: (2, 128), VLM_ARCH: (8, 128)}
+# the serving phases' depths: whisper's 32 decoder and 32 encoder layers cut
+# to 16 each (PR 23: the script's last phase had passed 1000 s)
+XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 16}
 XFAMILY_ROUTE = (2, 32)  # B, S of the route check (full width, depth 2, fp32)
 XFAMILY_STEPS = 3  # timed dense and sparse steps each, after a warm-up of each
 
 
 def xfamily_serve_phase(arch, tag, lm, pa, S, get_config):
-    """An encdec or vlm arch serves at full width and depth: 8 sampled
+    """An encdec or vlm arch serves at full width and depth (whisper's
+    cut as ``XFAMILY_SERVE_DEPTH`` says): 8 sampled
     Poisson requests (whisper: prompt 16, gen 64, each with its
     ``[1500, 1280]`` frames from the workload; paligemma: prompt 128,
     gen 32; 4 slots, 16-token pages, ``max_seq`` with room for the
@@ -2880,6 +3213,9 @@ def xfamily_serve_phase(arch, tag, lm, pa, S, get_config):
     a call, as the engines record it, is printed. Returns (launches,
     summary)."""
     cfg = get_config(arch)
+    if arch in XFAMILY_SERVE_DEPTH:
+        d = XFAMILY_SERVE_DEPTH[arch]
+        cfg = dataclasses.replace(cfg, n_layers=d, n_enc_layers=min(cfg.n_enc_layers, d))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2929,7 +3265,8 @@ def xfamily_serve_phase(arch, tag, lm, pa, S, get_config):
     print(f"{tag} {arch} bf16 paged kernel route: {k['tokens_per_s']:.1f} tokens/s, step p50 "
           f"{k['p50_ms']:.2f} ms p99 {k['p99_ms']:.2f} ms; paged_attention launches {launches} at "
           f"head_dim {cfg.head_dim} (H={cfg.n_heads}, KV={cfg.n_kv_heads}); peak memory "
-          f"{peak:.2f} GiB" + (f"; encoder a call (1500 frames, 32 layers): {json.dumps(enc)}"
+          f"{peak:.2f} GiB" + (f"; encoder a call (1500 frames, {cfg.n_enc_layers} layers): "
+                               f"{json.dumps(enc)}"
                                if enc else ""))
     print(f"{tag} tokens equal to the paged kernel run's: {json.dumps(shares)} (float32 limit "
           f"{SHARE_MIN})")
@@ -3131,6 +3468,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"paged_attention launches {launches} = {cfg.n_layers} x {steps}")
     print("[serve] first request tokens:", gen[0][:16].tolist())
+    serve_argv, serve_gen = list(argv), gen
     del out
     torch.cuda.empty_cache()
 
@@ -3207,6 +3545,19 @@ def main() -> int:
     fleet_summary = fleet_phase(gm, lm, policy_mod, get_config)
 
     lap("ckpt-fleet")
+    # 15c. device meshes: qwen2.5-3b trains on 1x2 and 2x1 and serves on a
+    # model mesh of 2, a rank a process, against the 1x1 runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mesh = time.perf_counter()
+    (mesh_train_launches, mesh_serve_launches, mesh_err, mesh_train_summary,
+     mesh_serve_summary) = mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv,
+                                      serve_gen, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] mesh phases {time.perf_counter() - t_mesh:.1f} s together")
+
+    lap("mesh")
     # 17-20. the decoder-only families: mamba2 trains and serves at full
     # width, kimi-k2 serves at full width (depth 1), the seven reduced
     # configs' routes and streams
@@ -3258,10 +3609,11 @@ def main() -> int:
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
-        launches=launches + feat_launches + moe_launches + enc_launches + vlm_launches,
+        launches=(launches + feat_launches + moe_launches + enc_launches + vlm_launches
+                  + mesh_serve_launches),
         launches_by_path={"serve": launches, "serve_features": feat_launches,
                           "moe_serve": moe_launches, "encdec_serve": enc_launches,
-                          "vlm_serve": vlm_launches},
+                          "vlm_serve": vlm_launches, "mesh_serve": mesh_serve_launches},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -3309,6 +3661,7 @@ def main() -> int:
         path_launches, err, by_arch = {LM_ARCH: lm_launches[name]}, lm_err[name], {}
         if name == "matmul":
             path_launches["lm_resume"] = resume_launches
+            path_launches["mesh_train"] = mesh_train_launches
             path_launches["moe_grouped"] = sum(moe_grouped_launches.values())
             path_launches[SSM_ARCH] = ssm_launches
             path_launches.update({arch: xtrain[arch][0] for arch in xtrain})
@@ -3317,10 +3670,13 @@ def main() -> int:
             # launches at their shapes (bf16)
             more = x_rows | {f"{LM_ARCH} reduced (fleet)": (fleet_summary["kernel_rows"],
                                                             fleet_summary["kernel_err"])}
-            err = max([err] + [e[name] for _, e in more.values()])
+            err = max([err, mesh_err] + [e[name] for _, e in more.values()])
             by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
                 r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
                 for arch, (xr, e) in more.items()}
+            # every product of the mesh ranks' sparse steps, on its own operands
+            by_arch["mesh_train"] = dict(max_abs_err=mesh_err, products=sum(
+                c[0] for r in mesh_train_summary["matmul_checks"].values() for c in r.values()))
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, launches=sum(path_launches.values()),
@@ -3353,6 +3709,8 @@ def main() -> int:
     print(f"[encdec-serve] {json.dumps(enc_summary)}")
     print(f"[vlm-serve] {json.dumps(vlm_summary)}")
     print(f"[xfamily-train] {json.dumps({a: v[1] for a, v in xtrain.items()})}")
+    print(f"[mesh-train] {json.dumps(mesh_train_summary)}")
+    print(f"[mesh-serve] {json.dumps(mesh_serve_summary)}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

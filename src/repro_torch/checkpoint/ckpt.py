@@ -37,14 +37,18 @@ only the shard files containing pieces of the keys in ``like`` (mapped,
 so only the pages of those pieces are read), assembles each tensor in
 index space on the host and lands it on ``device``. A shard file
 required by the request but missing on disk is a hard, actionable error.
-The reference's placement of the restored leaves by ``shardings`` on a
-mesh has no counterpart yet: device meshes are not ported.
+On a device mesh the training driver restores the full leaves and each
+rank keeps its placement's slices (``dist/sharding.py::shard_tree``).
 
 **Mesh-shaped plans.** :func:`plan_from_specs` gives each host the
 pieces its devices would hold on a mesh of a given shape under given
 partition specs (``dist/sharding.py``), so ``save_sharded(plan=...)``
 writes a checkpoint laid out as that mesh's per-host shards, as the JAX
-package's ``Array.addressable_shards`` does.
+package's ``Array.addressable_shards`` does. On a device mesh each rank
+is one host of one device: :class:`AsyncCheckpointer` given a ``plan``
+over the mesh's ranks writes each rank's pieces from its local shards
+(:func:`write_local_shard`), and rank 0 commits the manifest, so the
+checkpoint is the JAX package's sharded format.
 """
 from __future__ import annotations
 
@@ -111,6 +115,12 @@ def _flatten(tree) -> tuple[list[tuple[str, Any]], Any]:
 
     walk(tree, "")
     return items, tree
+
+
+def leaf_items(tree) -> list[tuple[str, Any]]:
+    """``[(keystr path, leaf)]`` of a tree, in the order a checkpoint
+    stores its keys (the order :func:`plan_from_specs` reads its specs in)."""
+    return _flatten(tree)[0]
 
 
 def _unflatten(like, leaves: Sequence[Any]):
@@ -237,6 +247,12 @@ class AsyncCheckpointer:
     committed step. Reassign ``.ranks`` after a membership change; the
     next save's plan spans the new fleet.
 
+    **Mesh mode**: given ``plan`` (``plan_from_specs`` over the mesh's
+    ranks) and ``like`` (the full state's tree of ``meta`` tensors), the
+    tree a rank saves holds its local shards: each rank writes the pieces
+    the plan gives it (:func:`write_local_shard`) and the leader commits
+    the manifest of ``like``'s shapes.
+
     ``last_stats`` holds the last save's step, bytes of tensor data on
     this rank, blocking snapshot seconds (``snapshot_s``: the host
     buffers' allocation ``alloc_s`` and the copies into them ``copy_s``)
@@ -253,8 +269,12 @@ class AsyncCheckpointer:
         rank: int = 0,
         ranks: Sequence[int] | None = None,
         commit_timeout_s: float = 60.0,
+        plan: Plan | None = None,
+        like=None,
     ):
         self.ckpt_dir = ckpt_dir
+        self.plan = plan
+        self.like_items = None if like is None else _flatten(like)[0]
         self.keep = keep
         self.rank = rank
         self.ranks = list(ranks) if ranks is not None else None
@@ -281,7 +301,18 @@ class AsyncCheckpointer:
     def _run(self, step, host, ranks):
         t0 = time.perf_counter()
         try:
-            if ranks is not None and len(ranks) > 1:
+            if self.plan is not None:
+                self.last_path = write_local_shard(
+                    self.ckpt_dir, step, host, rank=self.rank, plan=self.plan
+                )
+                if self.rank == min(ranks):
+                    write_sharded_manifest(
+                        self.ckpt_dir, step, self.like_items, plan=self.plan, ranks=ranks
+                    )
+                    commit_sharded(
+                        self.ckpt_dir, step, timeout_s=self.commit_timeout_s, keep=self.keep
+                    )
+            elif ranks is not None and len(ranks) > 1:
                 plan = make_shard_plan(host, ranks)
                 self.last_path = write_shard(
                     self.ckpt_dir, step, host, rank=self.rank, plan=plan
@@ -519,6 +550,30 @@ def write_shard(ckpt_dir: str, step: int, host_items, *, rank: int, plan: Plan) 
             dict(_encode(arr[p.slices()].contiguous()), index=[list(se) for se in p.index])
             for p in own
         ]
+    shard_path = os.path.join(path, _shard_name(rank))
+    tmp = f"{shard_path}.tmp.{os.getpid()}"
+    _dump_file(tmp, payload)
+    os.replace(tmp, shard_path)
+    return shard_path
+
+
+def write_local_shard(ckpt_dir: str, step: int, local_items, *, rank: int, plan: Plan) -> str:
+    """Write a mesh rank's pieces from its local shards (crash-atomic).
+    On a mesh of one device a host, the one piece of a leaf the plan gives
+    ``rank`` is the block the rank holds, so its data is the local tensor
+    itself (``local_items``: host tensors). Returns the shard path."""
+    path = _step_dir(ckpt_dir, step)
+    os.makedirs(path, exist_ok=True)
+    payload: dict[str, list[dict[str, Any]]] = {}
+    for key, loc in local_items:
+        own = [p for p in plan.get(key, ()) if p.shard == rank]
+        if not own:
+            continue
+        (piece,) = own
+        if tuple(e - s for s, e in piece.index) != tuple(loc.shape):
+            raise ValueError(f"{key}: rank {rank} holds {tuple(loc.shape)}, its piece is "
+                             f"{piece.index}")
+        payload[key] = [dict(_encode(loc.contiguous()), index=[list(se) for se in piece.index])]
     shard_path = os.path.join(path, _shard_name(rank))
     tmp = f"{shard_path}.tmp.{os.getpid()}"
     _dump_file(tmp, payload)

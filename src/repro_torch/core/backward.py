@@ -38,19 +38,36 @@ from repro_torch.core import sparsity
 from repro_torch.core.policy import SsPropPolicy
 
 _selection_log: list | None = None
+_cotangent_log: tuple[frozenset, dict] | None = None  # (the sites wanted, their dY)
 
 
 @contextlib.contextmanager
 def record_selections() -> Iterator[list]:
     """Within the block, every sparse backward appends
     ``(weight.data_ptr(), Selection)`` to the list it yields: how a
-    caller sees which channels each site kept."""
+    caller sees which channels each site kept. On a mesh the key is the
+    site's name, and the selection the rank's (local channel indices)."""
     global _selection_log
     prev, _selection_log = _selection_log, []
     try:
         yield _selection_log
     finally:
         _selection_log = prev
+
+
+@contextlib.contextmanager
+def record_cotangents(sites) -> Iterator[dict]:
+    """Within the block, the sparse backward of each mesh site named in
+    ``sites`` stores a copy of its output gradient (the rank's piece, as
+    the selection reads it) under that name in the dict it yields; a
+    site's first backward in the block is kept."""
+    global _cotangent_log
+    prev, log = _cotangent_log, {}
+    _cotangent_log = (frozenset(sites), log)
+    try:
+        yield log
+    finally:
+        _cotangent_log = prev
 
 
 @dataclasses.dataclass
@@ -174,12 +191,18 @@ def channel_sparse_backward(
     *,
     key: torch.Tensor | None = None,
     has_bias: bool = False,
+    mesh=None,
 ):
     """Run the ssProp backward pipeline for one op.
 
     Returns ``(dX, dW, db)`` in accumulation dtype (callers cast back to
     their parameter dtypes); ``db`` is None when ``has_bias`` is False,
     ``dX`` when ``op.need_dx`` is False.
+
+    ``mesh`` (a ``dist/parallel.py::SiteMesh``) makes ``dy`` one mesh
+    rank's piece of the site's output gradient: the selection is then
+    :func:`~repro_torch.core.sparsity.select_on_mesh`, the one-device
+    run's channels restricted to the rank's columns.
     """
     ca = op.channel_axis % dy.dim()
     c = op.c_out
@@ -193,11 +216,18 @@ def channel_sparse_backward(
         db = dy_eff.sum(dim=reduce_axes) if has_bias else None
         return dx, dw, db
 
-    sel = sparsity.select(
-        dy_eff, policy, channel_axis=ca, n_shards=op.selection_shards(policy), key=key
-    )
+    if mesh is None:
+        sel = sparsity.select(
+            dy_eff, policy, channel_axis=ca, n_shards=op.selection_shards(policy), key=key
+        )
+    else:
+        if _cotangent_log is not None and mesh.site in _cotangent_log[0]:
+            _cotangent_log[1].setdefault(mesh.site, dy_eff.detach().clone())
+        sel = sparsity.select_on_mesh(
+            dy_eff, policy, mesh, n_shards=op.selection_shards(policy), key=key
+        )
     if _selection_log is not None:
-        _selection_log.append((op.w.data_ptr(), sel))
+        _selection_log.append((op.w.data_ptr() if mesh is None else mesh.site, sel))
 
     if policy.mask_mode:
         # The oracle: identical selection, zeroed channels, full-size

@@ -82,7 +82,7 @@ class _DenseOp(backward.ChannelSparseOp):
         return super().gather_cotangent(dy_eff, sel)
 
     def contract_gathered_dx(self, dy_k, sel):
-        if self.policy.use_pallas:
+        if self.policy.use_pallas and sel.k:
             w_k = self._cast(gm.gather_columns(self.w, sel.idx))
             return kops.matmul(dy_k, w_k.T)
         w_k = self._cast(self.w.index_select(1, sel.idx))
@@ -90,7 +90,7 @@ class _DenseOp(backward.ChannelSparseOp):
 
     def contract_gathered_dw(self, dy_k, sel):
         x2 = self._cast(self.x2)
-        if self.policy.use_pallas:
+        if self.policy.use_pallas and sel.k:
             return kops.matmul(x2.T, dy_k)
         return _mm(x2.T, dy_k)  # shrunk: 2*M*D_in*K
 
@@ -126,30 +126,30 @@ class _DenseOp(backward.ChannelSparseOp):
 
 class _SparseDense(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, policy, key):
+    def forward(ctx, x, w, b, policy, key, mesh):
         y = _mm(x, w)
         if b is not None:
             y = y + b
         ctx.save_for_backward(x, w)
-        ctx.conf = (policy, key, b is not None)
+        ctx.conf = (policy, key, b is not None, mesh)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        policy, key, has_bias = ctx.conf
+        policy, key, has_bias, mesh = ctx.conf
         d_in, d_out = w.shape
         lead = x.shape[:-1]
         m = math.prod(lead)
         op = _DenseOp(x.reshape(m, d_in), w, policy, need_dx=ctx.needs_input_grad[0])
         dx2, dw, db = backward.channel_sparse_backward(
-            policy, op, dy.reshape(m, d_out), key=key, has_bias=has_bias
+            policy, op, dy.reshape(m, d_out), key=key, has_bias=has_bias, mesh=mesh
         )
         return (
             None if dx2 is None else dx2.reshape(*lead, d_in).to(x.dtype),
             dw.to(w.dtype),
             db.to(dy.dtype) if has_bias else None,
-            None, None,
+            None, None, None,
         )
 
 
@@ -160,6 +160,7 @@ def sparse_dense(
     *,
     policy: SsPropPolicy = _DEFAULT_POLICY,
     key: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Linear layer with ssProp scheduled-sparse backward.
 
@@ -170,9 +171,13 @@ def sparse_dense(
       policy: the ssProp policy of this step.
       key: ``[2]`` int64 JAX key data (``core/prng.py``), only needed for
         ``selection="random"``.
+      mesh: on a device mesh, the site's ``dist/parallel.py::SiteMesh``:
+        ``x``/``w``/``dy`` are then this rank's pieces, and the selection
+        is the one-device run's (``channel_sparse_backward``). A rank whose
+        columns hold no kept channel computes zeros and launches nothing.
     """
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b))):
         y = _mm(x, w)
         return y if b is None else y + b
-    return _SparseDense.apply(x, w, b, policy, key)
+    return _SparseDense.apply(x, w, b, policy, key, mesh)

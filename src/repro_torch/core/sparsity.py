@@ -138,10 +138,25 @@ def select(
     axis = channel_axis % dy.dim()
     c = dy.shape[axis]
     if n_shards > 1:
-        dy2 = torch.movedim(dy, axis, -1).reshape(-1, c)
-        shard_idx, k_loc = select_indices_per_shard(dy2, policy, n_shards, key=key)
+        imp = channel_importance(torch.movedim(dy, axis, -1).reshape(-1, c), -1)
+    else:
+        imp = channel_importance(dy, channel_axis)
+    return select_from_importance(imp, policy, n_shards=n_shards, key=key)
+
+
+def select_from_importance(
+    imp: torch.Tensor,
+    policy: SsPropPolicy,
+    *,
+    n_shards: int = 1,
+    key: torch.Tensor | None = None,
+) -> Selection:
+    """:func:`select`'s decision from the channel importance ``imp [C]``."""
+    c = imp.shape[0]
+    if n_shards > 1:
+        shard_idx, k_loc = _per_shard(imp, policy, n_shards, key=key)
         c_loc = c // n_shards
-        offs = torch.arange(n_shards, device=dy.device)[:, None] * c_loc
+        offs = torch.arange(n_shards, device=imp.device)[:, None] * c_loc
         flat = torch.sort((shard_idx + offs).reshape(-1)).values
         block_idx = None
         bs = policy.block_size
@@ -150,7 +165,6 @@ def select(
             # regroup into whole kept blocks, the kernels' form
             block_idx = (flat.reshape(-1, bs)[:, 0] // bs).to(torch.int32)
         return Selection(idx=flat, k=n_shards * k_loc, block_idx=block_idx, shard_idx=shard_idx)
-    imp = channel_importance(dy, channel_axis)
     if policy.granularity == "channel":
         k = policy.keep_count(c)
         idx = select_topk_channels(imp, k, selection=policy.selection, key=key)
@@ -169,6 +183,65 @@ def select(
         idx=idx, k=k_blocks * policy.block_size, valid=valid,
         block_idx=bidx.to(torch.int32),
     )
+
+
+def select_on_mesh(
+    dy: torch.Tensor,
+    policy: SsPropPolicy,
+    site_mesh,
+    *,
+    n_shards: int = 1,
+    key: torch.Tensor | None = None,
+) -> Selection:
+    """The one-device run's selection, taken by one rank of a mesh from its
+    piece ``dy [M_loc, C_loc]`` of the site's output gradient.
+
+    ``site_mesh`` (``dist/parallel.py::SiteMesh``) averages the importance
+    over the data ranks' rows first, so every data rank keeps the same
+    channels. A site whose output channels are not split over ``model``
+    then selects as one device does (``n_shards`` the op's). A
+    column-parallel site (``site_mesh.col``, this rank holding columns
+    ``[r*C_loc, (r+1)*C_loc)`` of ``C``):
+
+    * with ``tp_shards`` a multiple ``t * model`` that divides ``C``, the
+      shards are the ranks' own: a balanced top-k over the rank's ``t``
+      local shards, no collective (``t = 1``: one plain top-k of the
+      global per-shard width, which takes the kernel route);
+    * otherwise the importance is all-gathered over ``model``, the
+      full-width selection taken, and this rank keeps the kept channels in
+      its range, shifted to local indices: ``k`` differs from rank to
+      rank, possibly 0. Tail phantoms are dropped. ``block_idx`` is kept
+      only where the local indices are whole blocks of ``block_size``
+      (else the gathered route runs: a block that straddles two ranks is
+      no whole block on either).
+    """
+    c_loc = dy.shape[-1]
+    imp = site_mesh.data_mean(channel_importance(dy, -1))
+    if not site_mesh.col:
+        return select_from_importance(imp, policy, n_shards=n_shards, key=key)
+    m, r = site_mesh.model, site_mesh.model_rank
+    c, tp, bs = c_loc * m, policy.tp_shards, policy.block_size
+    whole = policy.granularity == "block" and c_loc % bs == 0  # the rank's columns tile blocks
+    if tp > 1 and c % tp == 0 and tp % m == 0:
+        t = tp // m
+        shard_idx, k_loc = _per_shard(imp, policy, t, key=key, part=(r * t, tp))
+        if t > 1:
+            offs = torch.arange(t, device=imp.device)[:, None] * (c_loc // t)
+            flat = torch.sort((shard_idx + offs).reshape(-1)).values
+            return Selection(idx=flat, k=t * k_loc, shard_idx=shard_idx)
+        idx = shard_idx[0]
+        block_idx = (idx.reshape(-1, bs)[:, 0] // bs).to(torch.int32) if whole else None
+        return Selection(idx=idx, k=k_loc, block_idx=block_idx)
+    full = select_from_importance(site_mesh.gather_model(imp), policy,
+                                  n_shards=selection_shards(policy, c), key=key)
+    idx = full.idx if full.valid is None else full.idx[full.valid]
+    lo = r * c_loc
+    idx = idx[(idx >= lo) & (idx < lo + c_loc)] - lo
+    block_idx = None
+    if whole and full.block_idx is not None:
+        b, nb = full.block_idx, c_loc // bs
+        block_idx = b[(b >= r * nb) & (b < (r + 1) * nb)] - r * nb
+    return Selection(idx=idx, k=len(idx), block_idx=block_idx)
 
 
 def keep_mask(
@@ -249,19 +322,29 @@ def select_indices_per_shard(
     c = dy2.shape[1]
     if c % tp_shards:
         raise ValueError(f"{c} channels do not split into {tp_shards} shards")
-    c_loc = c // tp_shards
-    imp = channel_importance(dy2, -1).reshape(tp_shards, c_loc)
-    k_loc, bs = shard_select_width(c, policy, tp_shards)
+    return _per_shard(channel_importance(dy2, -1), policy, tp_shards, key=key)
+
+
+def _per_shard(imp, policy, n, *, key=None, part=None):
+    """:func:`select_indices_per_shard` from the importance ``imp [C]`` of
+    ``n`` shards. ``part = (first, S)``: these are shards ``first ..
+    first+n-1`` of ``S`` (a mesh rank's local shards), sized as ``S``
+    shards of the whole, the random branch drawing the whole's noise and
+    taking their rows."""
+    first, total = part or (0, n)
+    c_loc = imp.shape[0] // n
+    imp = imp.reshape(n, c_loc)
+    k_loc, bs = shard_select_width(c_loc * total, policy, total)
     if policy.granularity == "block":
-        bimp = imp.reshape(tp_shards, c_loc // bs, bs).mean(-1)
+        bimp = imp.reshape(n, c_loc // bs, bs).mean(-1)
         bidx = torch.sort(torch.topk(bimp, k_loc // bs, dim=-1).indices, dim=-1).values
         offs = torch.arange(bs, device=bidx.device)
-        return (bidx[:, :, None] * bs + offs).reshape(tp_shards, -1), k_loc
+        return (bidx[:, :, None] * bs + offs).reshape(n, -1), k_loc
     if policy.selection == "random":
         if key is None:
             raise ValueError("random selection requires key")
-        imp = prng.uniform(key.to(imp.device)[None], tp_shards * c_loc)[0].reshape(
-            tp_shards, c_loc)
+        imp = prng.uniform(key.to(imp.device)[None], total * c_loc)[0].reshape(
+            total, c_loc)[first:first + n]
     idx = torch.topk(imp, k_loc, dim=-1).indices
     return torch.sort(idx, dim=-1).values, k_loc
 

@@ -5,9 +5,13 @@ partition-spec rules that the JAX package's train / dryrun / serve paths
 share. Specs are assigned by parameter *name* over a param tree in the
 JAX package's layout and then repaired against a concrete mesh shape by
 :func:`sharding.fit_spec`, so one rule table covers every registry
-architecture at every mesh size. Turning the specs into placements on a
-device mesh (DTensor placements over a ``DeviceMesh``) is the next
-slice's; here the specs drive :func:`repro_torch.checkpoint.ckpt.plan_from_specs`.
+architecture at every mesh size. On a device mesh
+(``launch/mesh.py``) a fitted spec gives each rank a block of a leaf,
+and :func:`sharding.shard_tree` / :func:`sharding.gather_tree` give each
+rank its local shards and the full tensors back; the specs also drive
+:func:`repro_torch.checkpoint.ckpt.plan_from_specs`.
+``repro_torch.dist.parallel`` holds the collectives of a step on the
+mesh, each an ``autograd.Function`` with its backward written out.
 
 Sharding rule table (tensor → mesh axis placement):
 

@@ -1,0 +1,341 @@
+"""The collectives of a step on a ``data x model`` mesh.
+
+The reference partitions one program with GSPMD, so its mesh step
+computes what its one-device step computes. The port runs one process a
+rank (``launch/mesh.py``) and writes the collectives out, each an
+``autograd.Function`` with its backward, on plain local tensors (the
+hand-written kernels and the ssProp ``autograd.Function`` s take plain
+tensors):
+
+* :func:`copy_to_model` — identity forward, all-reduce over ``model``
+  backward: the input of every column-parallel product (q/k/v/up/gate),
+  whose input gradient is a partial sum over the rank's columns;
+* :func:`reduce_from_model` — all-reduce forward, identity backward: the
+  output of every row-parallel product (o/down);
+* :func:`slice_for_model` — this rank's columns of a replicated leaf (the
+  QKV biases), its gradient all-gathered back to the full width, so every
+  rank holds the same full gradient;
+* :func:`gather_from_model` — gather-on-use of a leaf whose spec does not
+  line up with heads (k/v at half a KV head a rank): all-gathered over
+  ``model``; its gradient, replicated by then, is sliced back to this
+  rank's piece;
+* :func:`vocab_embed` and :func:`vocab_cross_entropy` — the vocab-parallel
+  embedding lookup and the cross-entropy over the tied unembedding's
+  local logits;
+* :func:`sum_over_data` — the masked mean's numerator and denominator,
+  summed over ``data``.
+
+Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used: gloo runs
+those three on CUDA tensors (checked on the H100 machine's torch 2.11).
+A ``None`` mesh, or an axis of size 1, makes each of these the plain
+one-process op.
+
+:data:`counters` counts the calls to :func:`all_reduce` and
+:func:`all_gather` and the bytes each rank sends into them; within
+:func:`timed_collectives` each is also bracketed by device syncs and its
+wall time added to ``counters["s"]`` (a run apart from the timed one:
+the syncs stall the stream).
+"""
+from __future__ import annotations
+
+from collections.abc import Iterator
+import contextlib
+import time
+
+import torch
+import torch.distributed as dist
+
+# the step's collectives on this rank (reset by whoever reads them)
+counters = {"calls": 0, "bytes": 0, "s": 0.0}
+_timed = False
+
+
+@contextlib.contextmanager
+def timed_collectives() -> Iterator[None]:
+    """Within the block every collective syncs the device before and after
+    and adds its wall to ``counters["s"]``."""
+    global _timed
+    prev, _timed = _timed, True
+    try:
+        yield
+    finally:
+        _timed = prev
+
+
+def _collective(fn, t: torch.Tensor, *args, **kwargs) -> None:
+    counters["calls"] += 1
+    counters["bytes"] += t.numel() * t.element_size()
+    if not _timed:
+        fn(*args, **kwargs)
+        return
+    sync = torch.cuda.synchronize if t.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    fn(*args, **kwargs)
+    sync()
+    counters["s"] += time.perf_counter() - t0
+
+# ----------------------------------------------------------------------
+# raw collectives (no autograd)
+# ----------------------------------------------------------------------
+
+
+def all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """``t`` summed (or ``op``) over ``group``, in place; returned."""
+    _collective(dist.all_reduce, t, t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group, n: int, dim: int = -1) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` concatenated along ``dim`` in rank order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    _collective(dist.all_gather, t, parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def broadcast_object(obj, src: int = 0):
+    """A small picklable ``obj`` from global rank ``src`` to every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def barrier(mesh) -> None:
+    """Every rank waits for every other (an all-reduce of one element)."""
+    all_reduce(torch.zeros(1, device=mesh.device), None)
+
+
+def _model_live(mesh) -> bool:
+    return mesh is not None and mesh.model > 1
+
+
+def _data_live(mesh) -> bool:
+    return mesh is not None and mesh.data > 1
+
+
+# ----------------------------------------------------------------------
+# autograd Functions
+# ----------------------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh.model_group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.contiguous().clone(), mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SliceForModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        n = t.shape[-1] // mesh.model
+        return t[..., mesh.model_rank * n:(mesh.model_rank + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh.model_group, ctx.mesh.model, dim=-1), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_gather(t, mesh.model_group, mesh.model, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1] // ctx.mesh.model
+        r = ctx.mesh.model_rank
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(), mesh.data_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over ``model``."""
+    return _CopyToModel.apply(x, mesh) if _model_live(mesh) else x
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over ``model``; the gradient passed through."""
+    return _ReduceFromModel.apply(x, mesh) if _model_live(mesh) else x
+
+
+def slice_for_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's equal share of ``t``'s last dim; the gradient
+    all-gathered over ``model`` to the full width."""
+    return _SliceForModel.apply(t, mesh) if _model_live(mesh) else t
+
+
+def gather_from_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The ``model`` ranks' ``t`` concatenated along the last dim; the
+    gradient (the same on every rank) sliced back to this rank's part."""
+    return _GatherFromModel.apply(t, mesh) if _model_live(mesh) else t
+
+
+def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over ``data``; the gradient passed through (each rank's
+    share of a global sum gets the sum's gradient)."""
+    return _SumOverData.apply(x, mesh) if _data_live(mesh) else x
+
+
+def vocab_range(v_loc: int, mesh) -> tuple[int, int]:
+    """The global ids ``[lo, hi)`` of this rank's vocabulary rows."""
+    r = mesh.model_rank if _model_live(mesh) else 0
+    return r * v_loc, (r + 1) * v_loc
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """The vocab-parallel lookup: rows of ``table [V/model, d]`` for the
+    tokens this rank holds, zeros for the others, summed over ``model``.
+    The gradient reaches the local rows only."""
+    if not _model_live(mesh):
+        return table[tokens.long()]
+    lo, hi = vocab_range(table.shape[0], mesh)
+    ids = tokens.long() - lo
+    inside = (ids >= 0) & (ids < hi - lo)
+    x = table[ids.clamp(0, hi - lo - 1)].masked_fill(~inside[..., None], 0)
+    return reduce_from_model(x, mesh)
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, targets, valid, mesh):
+        v_loc = logits.shape[-1]
+        lo, hi = vocab_range(v_loc, mesh)
+        logits = logits.float()
+        if valid is not None and valid < hi:
+            logits = logits.clone()
+            logits[..., max(valid - lo, 0):] = -1e30
+        m = logits.amax(dim=-1)
+        if _model_live(mesh):
+            all_reduce(m, mesh.model_group, dist.ReduceOp.MAX)
+        e = torch.exp(logits - m[..., None])
+        s = e.sum(dim=-1)
+        t = targets.long() - lo
+        inside = (t >= 0) & (t < v_loc)
+        tc = t.clamp(0, v_loc - 1)
+        pick = torch.gather(logits, -1, tc[..., None])[..., 0] * inside
+        if _model_live(mesh):
+            all_reduce(s, mesh.model_group)
+            all_reduce(pick, mesh.model_group)
+        ctx.save_for_backward(e, s, tc, inside)
+        return torch.log(s) + m - pick
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, tc, inside = ctx.saved_tensors
+        d = e * (g / s)[..., None]
+        d.scatter_add_(-1, tc[..., None], -(g * inside)[..., None])
+        return d, None, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, valid, mesh):
+    """Per-token ``-log softmax(logits)[target]`` where ``logits [..., V/model]``
+    are this rank's vocabulary columns: the max, the sum of exps and the
+    target's logit all-reduced over ``model``. Ids ``>= valid`` (the
+    padded vocabulary) are masked to -1e30 in the shard that holds them.
+    The result is the same on every model rank."""
+    return _VocabCrossEntropy.apply(logits, targets, valid, mesh)
+
+
+def gather_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The full ``[..., V]`` logits from each rank's columns, in vocab
+    order (serving: every rank samples from the whole row)."""
+    if not _model_live(mesh):
+        return logits
+    return all_gather(logits, mesh.model_group, mesh.model, dim=-1)
+
+
+# ----------------------------------------------------------------------
+# the step's reductions
+# ----------------------------------------------------------------------
+
+
+class SiteMesh:
+    """How one ssProp site (named ``site``) sees the mesh: its importance
+    is averaged over ``data`` (each rank holds its rows of dY), and
+    ``col`` says that its output channels are split over ``model`` (a
+    column-parallel product), so that a global selection gathers the
+    importance first."""
+
+    def __init__(self, mesh, col: bool, site: str = ""):
+        self.mesh = mesh
+        self.col = col and _model_live(mesh)
+        self.site = site
+
+    @property
+    def model(self) -> int:
+        return self.mesh.model if self.col else 1
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.model_rank if self.col else 0
+
+    def data_mean(self, imp: torch.Tensor) -> torch.Tensor:
+        """The row mean over every data rank's rows (equal row counts)."""
+        if not _data_live(self.mesh):
+            return imp
+        return all_reduce(imp.clone(), self.mesh.data_group) / self.mesh.data
+
+    def gather_model(self, imp: torch.Tensor) -> torch.Tensor:
+        """The full channel vector from each model rank's columns."""
+        return all_gather(imp, self.mesh.model_group, self.mesh.model, dim=0)
+
+
+def sum_grads_over_data(grads, mesh) -> None:
+    """Sum every gradient leaf over ``data``, in place, one all-reduce a
+    dtype (the leaves flattened into one buffer)."""
+    if not _data_live(mesh):
+        return
+    from repro_torch.optim.adam import tree_leaves
+
+    leaves = tree_leaves(grads)
+    for dt in sorted({t.dtype for t in leaves}, key=str):
+        group = [t for t in leaves if t.dtype == dt]
+        flat = torch.cat([t.reshape(-1) for t in group])
+        all_reduce(flat, mesh.data_group)
+        off = 0
+        for t in group:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+def global_norm(tree, sharded, mesh) -> torch.Tensor:
+    """The global L2 norm of a tree of local shards: the squares of leaves
+    split over ``model`` (``sharded``, a tree of bools like ``tree``)
+    summed over ``model``, replicated leaves counted once."""
+    from repro_torch.optim.adam import tree_leaves
+
+    leaves, flags = tree_leaves(tree), tree_leaves(sharded)
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    split = torch.stack([s for s, f in zip(sq, flags, strict=True) if f] or [zero]).sum()
+    rep = torch.stack([s for s, f in zip(sq, flags, strict=True) if not f] or [zero]).sum()
+    if _model_live(mesh):
+        all_reduce(split, mesh.model_group)
+    return torch.sqrt(split + rep)

@@ -1,7 +1,7 @@
 """Partition-spec rules over param, batch and cache trees (the rules, not
 the placements).
 
-The mesh-independent half of ``repro.dist.sharding``. Specs are given
+The twin of ``repro.dist.sharding``. Specs are given
 by parameter *name* (the dict keys on a leaf's path; list indices are
 skipped, as the JAX package skips ``SequenceKey``) over trees in the JAX
 package's layout (``models/model.py::jax_layout``: period-stacked
@@ -9,7 +9,11 @@ package's layout (``models/model.py::jax_layout``: period-stacked
 and repaired against a mesh shape (an ordered ``{axis: size}`` mapping,
 ``launch/mesh.py``) by :func:`fit_spec`, so one rule table covers every
 architecture at every mesh size. See ``repro_torch/dist/__init__.py`` for
-the table. Turning a spec into a placement on a device mesh is not here.
+the table. On a device mesh (``launch/mesh.py::Mesh``) a fitted spec
+gives each rank a block of a leaf (:func:`local_index`):
+:func:`shard_tree` gives each rank its local shards, and
+:func:`gather_tree` the full tensors back by an all-gather of each split
+dim.
 
 A tree's leaves are anything with a ``shape`` (tensors, meta tensors,
 the checkpoint's ``Stacked``); ``None`` is an empty subtree.
@@ -18,6 +22,8 @@ from __future__ import annotations
 
 from collections.abc import Sequence
 from typing import Any
+
+import torch
 
 from repro_torch.launch.mesh import axis_sizes, dp_axes
 
@@ -227,3 +233,74 @@ def block_table_spec() -> Spec:
     """Block tables are small int32 host state, replicated everywhere
     (every shard of the pool needs the whole logical-to-physical map)."""
     return replicated()
+
+
+# ----------------------------------------------------------------------
+# placements on a device mesh
+# ----------------------------------------------------------------------
+
+
+def local_index(spec: Sequence, shape: Sequence[int], mesh) -> tuple[slice, ...]:
+    """The slice of a ``shape`` tensor that ``mesh``'s rank holds under the
+    fitted ``spec``: the rank's block of each dim an axis splits."""
+    sizes = axis_sizes(mesh)
+    idx = []
+    for i, d in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        if e is None:
+            idx.append(slice(None))
+            continue
+        nblk, blk = 1, 0
+        for a in e if isinstance(e, tuple) else (e,):
+            nblk *= sizes[a]
+            blk = blk * sizes[a] + mesh.coord(a)
+        per = d // nblk
+        idx.append(slice(blk * per, (blk + 1) * per))
+    return tuple(idx)
+
+
+def is_split(spec: Sequence, axis: str = "model") -> bool:
+    """Does the fitted ``spec`` split a dim over ``axis``?"""
+    return any(e == axis or (isinstance(e, tuple) and axis in e) for e in spec)
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Each leaf's local shard on this rank (a fresh contiguous tensor):
+    the :func:`local_index` block of the rank's own copy of the full
+    leaf, so nothing moves between ranks."""
+
+    def one(leaf, spec):
+        return leaf[local_index(spec, leaf.shape, mesh)].clone(
+            memory_format=torch.contiguous_format)
+
+    return map_specs(one, tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The full tensors of a tree of local shards, on every rank: an
+    all-gather of each split dim over its axes, the inner axis of a
+    combined entry first."""
+    from repro_torch.dist import parallel
+
+    groups = {"data": (mesh.data_group, mesh.data), "model": (mesh.model_group, mesh.model)}
+
+    def one(loc, spec):
+        out = loc
+        for i, e in enumerate(spec):
+            for axis in reversed(e if isinstance(e, tuple) else (e,) if e else ()):
+                group, n = groups[axis]
+                if n > 1:
+                    out = parallel.all_gather(out, group, n, dim=i)
+        return out
+
+    return map_specs(one, tree, specs)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (dicts and lists) and a tree of
+    :class:`Spec` of the same structure; ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_specs(fn, v, s) for v, s in zip(tree, specs, strict=True)]
+    return None if tree is None else fn(tree, specs)

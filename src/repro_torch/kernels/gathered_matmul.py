@@ -6,7 +6,8 @@ for Hopper (``csrc/dx_gathered.cu``, ``csrc/dw_gathered.cu``,
 ``csrc/importance.cu``; each source says how it is laid out); this
 module holds one wrapper per kernel, its plain PyTorch version
 (``*_ref``) and :data:`launches`, the number of times each wrapper
-launched its kernel.
+launched its kernel; :func:`observe_matmul` shows a caller each
+``matmul`` launch's operands and output.
 
   * ``dx_gathered``  : dX[M, D_in]  = Σ_kb dY[:, blk] @ W[:, blk]ᵀ
   * ``dw_gathered``  : dWk[D_in, KB·bs] = Xᵀ @ dY[:, kept]  (compact)
@@ -44,6 +45,8 @@ split-K sums its partials in a fixed order.
 """
 from __future__ import annotations
 
+from collections.abc import Callable, Iterator
+import contextlib
 import ctypes
 
 import torch
@@ -57,6 +60,7 @@ launches = {
 }
 # operands a wrapper copied into an aligned buffer before launching
 repacks = {"matmul": 0}
+_matmul_observer: Callable | None = None
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TARGET_BLOCKS = 8 * 132  # about eight resident blocks on each of the H100's 132 SMs
@@ -454,6 +458,20 @@ def conv_dx_fused(
 # ----------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def observe_matmul(fn: Callable) -> Iterator[None]:
+    """Within the block, each launch of the ``matmul`` kernel calls
+    ``fn(a, b, out)`` with the operands the wrapper was given and the
+    kernel's output, once the launch is queued (how a caller holds the
+    products of a run against the plain version)."""
+    global _matmul_observer
+    prev, _matmul_observer = _matmul_observer, fn
+    try:
+        yield
+    finally:
+        _matmul_observer = prev
+
+
 def matmul_ref(a, b) -> torch.Tensor:
     """Plain version: both operands widened to fp32, one product."""
     return a.float() @ b.float()
@@ -515,6 +533,7 @@ def matmul(a, b) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if not (m and n and k):  # nothing to multiply (and no tensor map of an empty axis)
         return out.zero_()
+    given = (a, b)
     s, chunk, partial = 1, 0, out
     bf16 = a.dtype == torch.bfloat16
     if bf16:
@@ -530,6 +549,8 @@ def matmul(a, b) -> torch.Tensor:
         "matmul", a.device, a.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(),
         m, n, k, *strides, s, chunk, int(bf16),
     )
+    if _matmul_observer is not None:
+        _matmul_observer(*given, out)
     return out
 
 

@@ -1,14 +1,39 @@
-"""Mesh shapes: the mesh-independent half of ``repro.launch.mesh``.
+"""Mesh shapes and device meshes over ``torch.distributed`` (twin of
+``repro.launch.mesh``).
 
 A mesh shape is an ordered mapping of axis name to size (``{"data": 16,
 "model": 16}``), the duck type the JAX package's shape-only ``_DictMesh``
 stands for: :func:`dp_axes` / :func:`dp_size` read a mapping or any
 object with a ``shape`` mapping, and ``dist/sharding.py`` repairs specs
-against one. Building a device mesh over real cards is not here.
+against one.
+
+The reference drives every device of a ``jax.make_mesh`` from one
+process. The port is multi-controller: one OS process a rank.
+:func:`run_on_mesh` spawns the ``data x model`` ranks and returns rank
+0's result, and in each rank :func:`make_host_mesh` builds the
+``("data", "model")`` mesh, devices enumerated row-major as JAX
+enumerates them (rank ``r`` is at ``(r // model, r % model)``) and rank
+``r`` on ``cuda:{r % device_count}``.
+
+The backend follows one rule (:func:`backend_for`): NCCL when each rank
+has a card of its own, gloo when ranks share a card (NCCL refuses two
+ranks on one device) or run on the CPU. :class:`Mesh` holds the two axis
+process groups itself, made by ``new_group`` for every backend, and
+``dist/sharding.py`` places tensors from the specs by index arithmetic
+(a ``DeviceMesh`` of device type ``cuda`` over gloo groups does not run
+DTensor on torch 2.11: its ranks die in a segfault).
 """
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping
+import dataclasses
+import os
+import pickle
+import tempfile
+import time
+from typing import Any
+
+import torch
 
 
 def axis_sizes(mesh) -> Mapping[str, int]:
@@ -36,3 +61,151 @@ def dp_size(mesh) -> int:
     for a in dp_axes(shape):
         n *= shape[a]
     return n
+
+
+def backend_for(device: torch.device, world: int) -> str:
+    """NCCL when every rank has a card of its own, else gloo (ranks that
+    share a card, or the CPU)."""
+    if device.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """Rank ``r``'s device: ``cuda:{r % device_count}``, or the CPU."""
+    if device.type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank's view of a ``data x model`` mesh: the sizes, this rank's
+    coordinates, its device, the backend and the process group of each
+    axis (the ranks that share this rank's other coordinate). ``prefix``
+    is the scope of the site names a layer records (``layer_{li}/``,
+    :meth:`scoped`)."""
+
+    data: int
+    model: int
+    rank: int
+    device: torch.device
+    backend: str
+    data_group: Any
+    model_group: Any
+    prefix: str = ""
+
+    def scoped(self, prefix: str) -> Mesh:
+        return dataclasses.replace(self, prefix=prefix)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    def coord(self, axis: str) -> int:
+        return self.data_rank if axis == "data" else self.model_rank
+
+
+def make_host_mesh(data: int, model: int, device) -> Mesh:
+    """The ``("data", "model")`` mesh over the ranks of the initialised
+    default process group (``data * model`` of them), and its two axis
+    groups. Every rank calls it, in the same order as every other
+    collective."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"a {data}x{model} mesh needs {data * model} ranks, not {world}")
+    rank = dist.get_rank()
+    device = torch.device(device)
+    backend = dist.get_backend()
+    grid = torch.arange(world).reshape(data, model)
+    dev = rank_device(device, rank)
+    # every rank creates every group, in one order, as new_group requires
+    data_group = model_group = None
+    for j in range(model):
+        g = dist.new_group(grid[:, j].tolist())
+        if rank % model == j:
+            data_group = g
+    for i in range(data):
+        g = dist.new_group(grid[i].tolist())
+        if rank // model == i:
+            model_group = g
+    return Mesh(data, model, rank, dev, backend, data_group, model_group)
+
+
+def _rank_main(rank, world, data, model, device, store_path, out_path, fn, args):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dev = rank_device(torch.device(device), rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend_for(torch.device(device), world)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            **({"device_id": dev} if backend == "nccl" else {}))
+    try:
+        mesh = make_host_mesh(data, model, device)
+        out = fn(mesh, *args)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_on_mesh(fn: Callable, data: int, model: int, device, *args,
+                timeout_s: float | None = None) -> Any:
+    """Run ``fn(mesh, *args)`` in each of ``data * model`` spawned ranks
+    (``spawn``: CUDA cannot fork) rendezvoused through a ``FileStore`` in
+    a temporary directory, and return rank 0's result. ``fn`` and
+    ``args`` must pickle. The kernels are built here, once, before any
+    rank starts. A rank that raises ends the run (the others are
+    terminated) and its traceback is raised here; past ``timeout_s`` every
+    rank is terminated and ``TimeoutError`` raised."""
+    import torch.multiprocessing as mp
+
+    device = torch.device(device)
+    world = data * model
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")
+        from repro_torch.kernels import build
+
+        build.build_all()
+    backend = backend_for(device, world)
+    share = "" if backend == "nccl" or device.type == "cpu" else (
+        f", {world} ranks on {torch.cuda.device_count()} card(s)")
+    print(f"[mesh] data={data} model={model} ranks={world} backend={backend} "
+          f"device={device.type}{share}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="mesh-") as td:
+        out_path = os.path.join(td, "rank0.pkl")
+        ctx = mp.start_processes(
+            _rank_main,
+            args=(world, data, model, str(device), os.path.join(td, "store"), out_path, fn, args),
+            nprocs=world, join=False, start_method="spawn",
+        )
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        while not ctx.join(timeout=0.2):
+            if deadline is not None and time.monotonic() > deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+                for p in ctx.processes:
+                    p.join(10)
+                raise TimeoutError(f"a {data}x{model} mesh run passed {timeout_s} s")
+        with open(out_path, "rb") as f:
+            return pickle.load(f)

@@ -26,12 +26,27 @@ one chunk: the stream is the same, the step count drops.
 JAX CLI does, and the full-width config cut to n layers without it
 (the JAX CLI reduces the widths there too, which gives the drafter a
 512-token vocabulary the target's tokens overflow). 0 (the default)
-self-drafts with the target. Meshes (``--data-mesh`` / ``--model-mesh``
-> 1) are not ported yet and raise.
+self-drafts with the target.
+
+``--model-mesh M`` serves on a model mesh: the one command spawns M
+ranks, one process each (``launch/mesh.py::run_on_mesh``; NCCL when each
+rank has a card, gloo when they share one or run on the CPU). Each rank
+holds its shards of the params and its KV heads of the paged pool (or
+the contiguous cache) and runs ``paged_attention`` on them; the engine's
+host state is the same on every rank, which every step keeps in
+lock-step, since each rank draws every token from the same full row of
+logits (all-gathered over the vocabulary). Rank 0's result is returned.
+Still refused, each naming its ROADMAP item: ``--data-mesh > 1`` (the
+reference replicates the page pool over ``data``), a model size that does
+not divide the KV heads, the lock-step baseline engine, and the
+non-dense families.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --requests 8 --prompt-len 128 --gen 32 --prefill-chunk 32 \
       --arrival-rate 0.5 --temperature 0.8 --top-k 50 --top-p 0.95
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --batch 2 --requests 4 --prompt-len 12 --gen 8 --prefill-chunk 4 \
+      --block-size 4 --model-mesh 2
 """
 from __future__ import annotations
 
@@ -41,7 +56,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.configs.registry import get_config
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import run_on_mesh
 from repro_torch.models import model as lm
 from repro_torch.serve import (
     ContinuousBatchingEngine,
@@ -94,24 +112,64 @@ def build_parser():
     return ap
 
 
-def run(args) -> dict:
+def _refuse_unported(args, cfg) -> None:
+    """The mesh combinations serving does not run yet, each with the
+    ROADMAP item that ports it."""
+    if args.data_mesh * args.model_mesh == 1:
+        return
+    unported = {
+        "--data-mesh > 1 (the reference replicates the page pool over data)": args.data_mesh > 1,
+        f"the {cfg.family} family on a mesh": cfg.family != "dense",
+        f"a model mesh of {args.model_mesh} that does not divide {cfg.n_kv_heads} KV heads":
+            cfg.n_kv_heads % args.model_mesh != 0,
+        "the lock-step engine on a mesh": args.engine == "lockstep",
+    }
+    asked = [what for what, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
+
+
+def _mesh_params(cfg, params, mesh):
+    """This rank's shards of ``params`` (the full tree is freed)."""
+    local = shd.shard_tree(params, lm.mesh_specs(cfg, params, mesh.shape), mesh)
+    del params
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return local
+
+
+def run(args, *, cfg=None, timeout_s: float | None = None) -> dict:
     """Serve a Poisson workload with random weights. Returns the JAX
     CLI's result keys (the generated tokens ``[requests, gen]``, steps,
     times, throughput and, for the engines, slot use, preemptions and
     speculation), plus the engine's whole ``stats`` and its per-step
-    times."""
+    times. On a model mesh, rank 0's, plus every rank's kernel launches
+    (``launches_by_rank``). ``cfg`` serves another config than the
+    ``--arch`` one (a dtype cut: the CLI has no flag for it); ``timeout_s``
+    bounds a mesh run."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")
-    if args.data_mesh * args.model_mesh != 1:
-        raise NotImplementedError("meshes (--data-mesh/--model-mesh > 1) are not ported yet")
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+    _refuse_unported(args, cfg)
+    if args.model_mesh > 1:
+        return run_on_mesh(serve_rank, 1, args.model_mesh, device, args, cfg, timeout_s=timeout_s)
+    return serve_rank(None, args, cfg)
+
+
+def serve_rank(mesh, args, cfg) -> dict:
+    """Serve on this process's device, or as one rank of a model mesh
+    (what :func:`run` spawns)."""
+    device = torch.device(args.device) if mesh is None else mesh.device
     n_requests = args.requests or args.batch
     max_seq = args.prompt_len + args.gen + cfg.n_patches  # the JAX CLI's room for the patches
 
     params = lm.init_params(cfg, args.seed, device)
+    if mesh is not None:
+        params = _mesh_params(cfg, params, mesh)
     reqs = poisson_workload(
         cfg,
         n_requests=n_requests,
@@ -162,6 +220,9 @@ def run(args) -> dict:
         draft_cfg = (cfg.reduced(n_layers=args.draft_layers) if args.reduced
                      else dataclasses.replace(cfg, n_layers=args.draft_layers))
         draft_params = lm.init_params(draft_cfg, args.seed + 1, device)
+        if mesh is not None:
+            draft_params = _mesh_params(draft_cfg, draft_params, mesh)
+    before = pa.launches
     engine = ContinuousBatchingEngine(
         cfg,
         params,
@@ -179,6 +240,7 @@ def run(args) -> dict:
         device=device,
         draft_cfg=draft_cfg,
         draft_params=draft_params,
+        mesh=mesh,
     )
     for r in reqs:
         engine.submit(r)
@@ -201,7 +263,14 @@ def run(args) -> dict:
               "swap_preemptions", "recompute_preemptions", "spec_proposed", "spec_accepted",
               "acceptance_rate", "draft_steps"):
         out[k] = stats[k]
-    return dict(out, stats=stats, step_times=list(engine.step_times))
+    out = dict(out, stats=stats, step_times=list(engine.step_times))
+    if mesh is not None:
+        from repro_torch.dist import parallel
+
+        n = torch.tensor([pa.launches - before], dtype=torch.int64, device=device)
+        every = parallel.all_gather(n, mesh.model_group, mesh.model, dim=0)
+        out["launches_by_rank"] = [{"paged_attention": int(v)} for v in every.tolist()]
+    return out
 
 
 def main():

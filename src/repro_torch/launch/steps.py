@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.policy import DENSE, PolicyLike
+from repro_torch.dist import parallel
 from repro_torch.models import model as lm
 from repro_torch.optim import adam
 
@@ -50,6 +51,8 @@ def make_train_step(
     opt_cfg: adam.AdamConfig,
     *,
     accum: int = 1,
+    mesh=None,
+    sharded=None,
 ) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -58,26 +61,38 @@ def make_train_step(
     and divided by ``accum``, the loss their mean, the other metrics the
     last microbatch's. The Adam update is in place
     (``apply_updates(..., inplace=True)``): the returned params and state
-    are the tensors passed in, updated."""
+    are the tensors passed in, updated.
+
+    On a ``mesh`` (``launch/mesh.py::Mesh``) params and state are this
+    rank's shards, ``batch`` this data rank's rows, and ``sharded`` a tree
+    of bools like ``params`` (the leaves split over ``model``): the loss
+    is the global one (``loss_fn``'s mesh path), the gradients are summed
+    over ``data`` after the microbatches' sum, and the clip reads the
+    global norm (``dist/parallel.py::global_norm``)."""
+    norm = adam.global_norm
+    if mesh is not None:
+        def norm(g):
+            return parallel.global_norm(g, sharded, mesh)
 
     def train_step(params, opt_state, batch):
         if accum == 1:
             (loss_v, metrics), grads = value_and_grad(
-                lambda p: lm.loss_fn(cfg, p, batch, policy), params)
+                lambda p: lm.loss_fn(cfg, p, batch, policy, mesh=mesh), params)
         else:
             grads, loss_v = None, 0.0
             for i in range(accum):
                 mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 (lv, metrics), g = value_and_grad(
-                    lambda p, mb=mb: lm.loss_fn(cfg, p, mb, policy), params)
+                    lambda p, mb=mb: lm.loss_fn(cfg, p, mb, policy, mesh=mesh), params)
                 grads = (adam.tree_map(lambda t: t.float(), g) if grads is None
                          else adam.tree_map(torch.add, grads, g))
                 loss_v = loss_v + lv / accum
             grads = adam.tree_map(lambda t: t / accum, grads)
         with torch.no_grad():
+            parallel.sum_grads_over_data(grads, mesh)
             params, opt_state, om = adam.apply_updates(
-                opt_cfg, params, grads, opt_state, inplace=True)
+                opt_cfg, params, grads, opt_state, inplace=True, norm=norm)
         return params, opt_state, dict(metrics, loss=loss_v, **om)
 
     return train_step
@@ -212,7 +227,8 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     return serve_step
 
 
-def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = False) -> Callable:
+def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = False,
+                   mesh=None) -> Callable:
     """Mixed prefill/decode step over per-slot state (continuous batching).
 
     state = {"tokens": [B,C] int32, "count": [B] int32 (real tokens per
@@ -248,7 +264,7 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
         if not spec:
             logits, new_cache = lm.decode_slots(
                 cfg, params, tokens, state["cache"], pos, count, enc_out=state.get("enc_out"),
-                block_tables=state.get("block_tables"), paged_kernel=paged_kernel,
+                block_tables=state.get("block_tables"), paged_kernel=paged_kernel, mesh=mesh,
             )
             nxt = _emit_tokens(logits, state, pos.long() + count.long() - 1)
             return nxt, dict(state, cache=new_cache, pos=pos + count)
@@ -257,7 +273,7 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
         logits, new_cache = lm.decode_slots(
             cfg, params, tokens, state["cache"], pos, count, enc_out=state.get("enc_out"),
             block_tables=state.get("block_tables"), paged_kernel=paged_kernel,
-            all_logits=True, spec_states=True,
+            all_logits=True, spec_states=True, mesh=mesh,
         )
         ar = torch.arange(c, device=tokens.device)
         fold = pos.long()[:, None] + ar[None, :]  # [B, C]

@@ -20,10 +20,25 @@ The reference's flags and defaults, plus:
     ``dw_gathered`` at block granularity) and ``--block-size``.
 
 ``--no-scan-layers`` is accepted and changes nothing: the port always
-unrolls the layer stack. ``--data-mesh`` / ``--model-mesh`` > 1 raise:
-meshes are not ported yet. PyTorch runs eagerly, so where the reference
+unrolls the layer stack. PyTorch runs eagerly, so where the reference
 keeps one compiled step per schedule bucket the port asks the program
 for the step's table and runs it.
+
+**Device meshes** (``--data-mesh D --model-mesh M``, the reference's
+flags): the one command spawns ``D*M`` ranks, one process each
+(``launch/mesh.py::run_on_mesh``; NCCL when each rank has a card, gloo
+when they share one or run on the CPU), and returns rank 0's dict. Each
+rank holds its shards of the params and of Adam's moments (the JAX
+package's partition specs, ``models/model.py::mesh_specs``), steps its
+``B/D`` rows of the global batch, and computes what the one-device step
+computes: the loss, the updated params and the kept channels
+(``dist/parallel.py``, ``core/sparsity.py::select_on_mesh``). A
+checkpoint on a mesh is the JAX package's sharded format, a
+``shard_<r>.msgpack`` a rank, committed by rank 0; a restart restores
+it and each rank keeps its slices. Still refused, each naming the
+ROADMAP item that ports it: a fleet (``--world-size > 1``) on a mesh, a
+non-dense family on a mesh, and a global batch that ``--data-mesh`` does
+not divide (the reference moves ``data`` to the sequence there).
 
 **Multi-process mode** (``--coord-dir`` + ``--world-size N`` +
 ``--rank r``): every rank runs this driver as its own OS process against
@@ -43,6 +58,10 @@ reference.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 12 --steps-per-epoch 4 --global-batch 4 --seq-len 32 \\
       --ckpt-dir /tmp/run1 --ckpt-every 4 --fail-at-step 6
+  # a 2x2 mesh, 4 ranks over gloo on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+      --steps 4 --steps-per-epoch 2 --global-batch 4 --seq-len 16 \\
+      --use-pallas --data-mesh 2 --model-mesh 2
   # 2-rank fleet on one machine (each line its own process):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 12 --ckpt-dir /tmp/fleet/ckpt --ckpt-every 4 \\
@@ -51,6 +70,7 @@ reference.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -60,10 +80,13 @@ import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.core import backward
 from repro_torch.core.policy import PolicyProgram, PolicyRules, paper_default, tpu_default
 from repro_torch.core.schedulers import make_schedule
 from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
 from repro_torch.dist import compat as dist_compat
+from repro_torch.dist import parallel
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.fault import (
     FleetSupervisor,
     Heartbeat,
@@ -73,6 +96,7 @@ from repro_torch.dist.fault import (
 )
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import run_on_mesh
 from repro_torch.launch.precision import fp32_precision
 from repro_torch.models import model as lm
 from repro_torch.optim import adam
@@ -151,13 +175,20 @@ def build_program(args, base_policy) -> PolicyProgram:
 
 
 def _refuse_unported(args) -> None:
+    """The mesh combinations the port does not run yet, each with the
+    ROADMAP item that ports it."""
+    if args.data_mesh * args.model_mesh == 1:
+        return
+    family = get_config(args.arch).family
     unported = {
-        "--data-mesh > 1": args.data_mesh > 1,
-        "--model-mesh > 1": args.model_mesh > 1,
+        "a fleet (--world-size > 1) on a mesh": args.world_size > 1,
+        f"the {family} family on a mesh (meshes run the dense family)": family != "dense",
+        f"--global-batch {args.global_batch} that --data-mesh {args.data_mesh} does not divide "
+        "(the reference moves data to the sequence dim)": args.global_batch % args.data_mesh != 0,
     }
-    asked = [flag for flag, on in unported.items() if on]
+    asked = [what for what, on in unported.items() if on]
     if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: meshes are not ported yet")
+        raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 
 
 def _sync(device: torch.device) -> None:
@@ -165,7 +196,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(args) -> dict:
+def run(args, *, cfg=None, collect=(), timeout_s: float | None = None) -> dict:
     """Train ``args.steps`` steps in full fp32 where the model is fp32
     (TF32 off, as the JAX package computes), resuming from the latest
     committed checkpoint of ``--ckpt-dir`` and restarting after a
@@ -174,20 +205,64 @@ def run(args) -> dict:
     load-balance loss (``aux``, 0 without MoE layers), scheduled drop rate
     and wall time (the step ends in a device sync); the launches of each
     kernel over the run; the checkpoint saves' and restores' sizes and
-    times; and the TF32 flags that were in force."""
+    times; and the TF32 flags that were in force.
+
+    On a mesh (``--data-mesh`` x ``--model-mesh`` > 1) the ranks run in
+    spawned processes and this is rank 0's dict, plus every rank's
+    kernel launches (``launches_by_rank``) beside what
+    ``kernel_launches_per_step`` says each should launch
+    (``launch_table_by_rank``). ``cfg`` trains another config than the
+    ``--arch`` one (a depth or dtype cut; the CLI has no flag for either,
+    as the reference's has none). ``collect`` adds, for tests and the
+    card's checks: ``"kept"``, the kept channels of every step and site
+    (global indices, all ranks' merged); ``"params"``, the final params
+    gathered to full tensors (``name -> tensor`` on the host);
+    ``timeout_s`` bounds a mesh run."""
     _refuse_unported(args)
+    if args.data_mesh * args.model_mesh > 1:
+        return run_on_mesh(run_rank, args.data_mesh, args.model_mesh, args.device, args,
+                           cfg, tuple(collect), timeout_s=timeout_s)
     with fp32_precision() as tf32:
-        out = _train(args)
+        out = _train(args, cfg=cfg, collect=tuple(collect))
     return {**out, "tf32": tf32}
 
 
-def _train(args) -> dict:
-    device = torch.device(args.device)
+def run_rank(mesh, args, cfg=None, collect=()):
+    """One rank's part of a mesh run (what :func:`run` spawns): its dict,
+    every rank's launches among them."""
+    with fp32_precision() as tf32:
+        out = _train(args, mesh, cfg=cfg, collect=collect)
+    return {**out, "tf32": tf32}
+
+
+def global_kept(cfg, site: str, sel, mesh) -> list[int]:
+    """A rank's kept channels of ``site`` as global output channels."""
+    idx = sel.idx if sel.valid is None else sel.idx[sel.valid]
+    if mesh is not None and lm.mesh_split(cfg, site, mesh.model) == "col":
+        idx = idx + mesh.model_rank * (lm.site_out_dim(cfg, site) // mesh.model)
+    return sorted(set(int(i) for i in idx))
+
+
+def _spec_leaves(tree) -> list:
+    """The :class:`~repro_torch.dist.sharding.Spec` leaves of a tree in the
+    checkpoint's flattening order (dict keys sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _spec_leaves(v)]
+    return [tree]
+
+
+def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
+    device = torch.device(args.device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     pipe = TokenPipeline(
         TokenPipelineConfig(cfg.vocab, args.seq_len, args.global_batch, args.seed)
     )
@@ -204,6 +279,10 @@ def _train(args) -> dict:
     ckpt_dir = args.ckpt_dir
     rank, world, coord_dir = args.rank, args.world_size, args.coord_dir
     multi = bool(coord_dir) and world > 1
+    if mesh is not None:
+        rank = mesh.rank
+        rows = args.global_batch // mesh.data
+        row0 = mesh.data_rank * rows
 
     sup = None
     loss_log = None
@@ -223,13 +302,15 @@ def _train(args) -> dict:
                                timeout_s=args.rejoin_timeout)
         sup = FleetSupervisor(coord_dir, world, timeout_s=args.hb_timeout)
     else:
-        hb = Heartbeat(os.path.join(ckpt_dir, "hb"), rank=0) if ckpt_dir else None
+        hb = Heartbeat(os.path.join(ckpt_dir, "hb"), rank=rank) if ckpt_dir else None
     strag = StragglerSupervisor()
     restart_policy = RestartPolicy(max_restarts=3, backoff_s=0.1)
     rec = {k: [] for k in ("steps", "history", "aux", "rates", "step_times")}
     ckpt_stats = {"saves": [], "restores": []}
     injected = {"done": False}
     before = dict(gm.launches)
+    table = {k: 0 for k in gm.launches}  # the launches kernel_launches_per_step says
+    kept: dict[int, dict[str, list[int]]] = {}
 
     def log_loss(step: int, loss: float) -> None:
         if loss_log:
@@ -241,6 +322,35 @@ def _train(args) -> dict:
         a checkpoint's snapshot stacks on the host."""
         return {k: lm.jax_layout(cfg, t, ckpt_lib.Stacked)
                 for k, t in (("params", params), ("m", opt_state.m), ("v", opt_state.v))}
+
+    def fresh_state():
+        """Params from the seed and zero moments; on a mesh this rank's
+        shards of them, with the specs and which leaves ``model`` splits."""
+        params = lm.init_params(cfg, args.seed, device=device)
+        if mesh is None:
+            return params, adam.init(params), None, None
+        specs = lm.mesh_specs(cfg, params, mesh.shape)
+        local = shd.shard_tree(params, specs, mesh)
+        del params
+        sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
+        return local, adam.init(local), specs, sharded
+
+    mesh_ckpt = {}  # on a mesh: the full state's like and the pieces each rank writes
+
+    def plan_saves(local, specs) -> None:
+        """The full state's shapes (``meta`` tensors) from this rank's
+        shards and their specs, and the plan of the pieces each rank
+        writes of them: ``plan_from_specs`` over the mesh's ranks."""
+        meta = shd.map_specs(
+            lambda t, sp: torch.empty(
+                [d * (mesh.shape[sp[i]] if i < len(sp) and sp[i] else 1)
+                 for i, d in enumerate(t.shape)], dtype=t.dtype, device="meta"),
+            local, specs)
+        like = ckpt_lib.like_of(jax_state(meta, adam.init(meta)))
+        jspecs = _spec_leaves(shd.param_specs(lm.jax_layout(cfg, meta, lm.StackShape)))
+        items = ckpt_lib.leaf_items(like)
+        mesh_ckpt.update(like=like, plan=ckpt_lib.plan_from_specs(
+            items, jspecs * 3, mesh.shape, list(range(mesh.world))))
 
     def attempt(attempt_idx: int):
         if restart_policy.excluded_ranks:
@@ -258,29 +368,44 @@ def _train(args) -> dict:
             active = list(membership.active)
             print(f"[train] rank {rank} attempt {attempt_idx}: "
                   f"epoch {membership.epoch} active={active}")
+        params, opt_state, specs, sharded = fresh_state()
+        if mesh is not None and ckpt_dir and not mesh_ckpt:
+            plan_saves(params, specs)
         saver = None
         if ckpt_dir:
             saver = ckpt_lib.AsyncCheckpointer(
-                ckpt_dir, rank=rank, ranks=active if multi else None,
-                commit_timeout_s=args.commit_timeout,
+                ckpt_dir, rank=rank,
+                ranks=active if multi else list(range(mesh.world)) if mesh else None,
+                commit_timeout_s=args.commit_timeout, plan=mesh_ckpt.get("plan"),
+                like=mesh_ckpt.get("like"),
             )
-        params = lm.init_params(cfg, args.seed, device=device)
-        opt_state = adam.init(params)
         start = 0
-        latest = ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None
+        latest = None
+        if ckpt_dir and mesh is not None:
+            # every rank's last save has landed and rank 0 has committed
+            # it (its saver waited) before any rank looks; rank 0's answer
+            # is every rank's
+            parallel.barrier(mesh)
+            latest = parallel.broadcast_object(ckpt_lib.latest_step(ckpt_dir))
+        elif ckpt_dir:
+            latest = ckpt_lib.latest_step(ckpt_dir)
         if latest is not None:
-            like = ckpt_lib.like_of(jax_state(params, opt_state))
+            like_now = (ckpt_lib.like_of(jax_state(params, opt_state)) if mesh is None
+                        else mesh_ckpt["like"])
             del params, opt_state  # the restored state takes their place on the device
             t0 = time.perf_counter()
-            state = ckpt_lib.restore(ckpt_dir, latest, like)
-            params = lm.params_from_jax(cfg, state["params"], device)
-            opt_state = adam.restored(latest, lm.params_from_jax(cfg, state["m"], device),
-                                      lm.params_from_jax(cfg, state["v"], device))
+            state = ckpt_lib.restore(ckpt_dir, latest, like_now)
+            trees = [lm.params_from_jax(cfg, state[k], device) for k in ("params", "m", "v")]
             del state
+            if mesh is not None:
+                trees = [shd.shard_tree(t, specs, mesh) for t in trees]
+            params = trees[0]
+            opt_state = adam.restored(latest, trees[1], trees[2])
+            del trees
             _sync(device)
             ckpt_stats["restores"].append({"step": latest, "s": time.perf_counter() - t0})
             start = latest
-            print(f"[train] resumed from step {latest}")
+            say(f"[train] resumed from step {latest}")
         try:
             for step in range(start, args.steps):
                 if multi:
@@ -293,16 +418,37 @@ def _train(args) -> dict:
                     raise RuntimeError("injected failure (fault-tolerance test)")
                 if args.step_delay > 0:
                     time.sleep(args.step_delay)
-                fn = steps_lib.make_train_step(cfg, resolved.policies_for_step(step), opt_cfg)
+                policies = resolved.policies_for_step(step)
+                fn = steps_lib.make_train_step(cfg, policies, opt_cfg, mesh=mesh,
+                                               sharded=sharded)
                 rate = program.schedule.rate(step)
-                batch = {k: torch.from_numpy(v).to(device)
-                         for k, v in pipe.batch_at(step).items()}
+                batch = pipe.batch_at(step)
+                if mesh is not None:
+                    batch = {k: v[row0:row0 + rows] for k, v in batch.items()}
+                batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
                 _sync(device)
                 t0 = time.perf_counter()
-                params, opt_state, metrics = fn(params, opt_state, batch)
+                # a mesh rank's launches depend on which sites kept none of
+                # its channels: the step's selections say
+                watch = mesh is not None or "kept" in collect
+                with (backward.record_selections() if watch
+                      else contextlib.nullcontext([])) as log:
+                    params, opt_state, metrics = fn(params, opt_state, batch)
                 loss = metrics["loss"].item()  # waits for the step
                 _sync(device)
                 dt = time.perf_counter() - t0
+                if mesh is not None:
+                    per = lm.kernel_launches_per_step(
+                        cfg, policies, model=mesh.model,
+                        idle_sites={site for site, sel in log if sel.k == 0})
+                    for k, v in per.items():
+                        table[k] += v
+                if "kept" in collect:
+                    site_of = _site_of(params) if mesh is None else None
+                    kept[step] = {
+                        (site_of[key] if mesh is None else key): global_kept(
+                            cfg, site_of[key] if mesh is None else key, sel, mesh)
+                        for key, sel in log}
                 strag.record(rank, dt)
                 strag.check(excluded=restart_policy.excluded_ranks)
                 if hb:
@@ -314,8 +460,8 @@ def _train(args) -> dict:
                 rec["step_times"].append(dt)
                 log_loss(step, loss)
                 if step % args.log_every == 0 or step == args.steps - 1:
-                    print(f"[train] step {step:5d} rate={rate:.2f} loss={loss:.4f} "
-                          f"aux={rec['aux'][-1]:.4f} ({dt * 1e3:.0f} ms)")
+                    say(f"[train] step {step:5d} rate={rate:.2f} loss={loss:.4f} "
+                        f"aux={rec['aux'][-1]:.4f} ({dt * 1e3:.0f} ms)")
                 if saver and (step + 1) % args.ckpt_every == 0:
                     saver.save(step + 1, jax_state(params, opt_state))
                     ckpt_stats["saves"].append(saver.last_stats)
@@ -332,11 +478,13 @@ def _train(args) -> dict:
                 # save errors (e.g. a torn commit after a peer died)
                 # surface on the next attempt's restore instead
                 raise saver.last_error
+        if "params" in collect:
+            rec["params"] = params if mesh is None else shd.gather_tree(params, specs, mesh)
         return rec["history"][-1] if rec["history"] else None
 
     final = restart_policy.run(
         attempt,
-        on_restart=lambda i, e: print(f"[train] restart {i}: {e}"),
+        on_restart=lambda i, e: say(f"[train] restart {i}: {e}"),
         on_evict=lambda r, e: print(f"[train] evicted straggler rank {r}: {e}"),
         on_reshard=lambda m: print(
             f"[train] rank {rank} resharding to epoch {m.epoch} active={list(m.active)}"
@@ -350,12 +498,56 @@ def _train(args) -> dict:
         with open(tmp, "w") as f:
             json.dump({"rank": rank, "final_loss": final, "steps": args.steps}, f)
         os.replace(tmp, done)
-    return {
-        **rec,
-        "final_loss": final,
-        "launches": {k: gm.launches[k] - before[k] for k in gm.launches},
-        "ckpt": ckpt_stats,
-    }
+    launches = {k: gm.launches[k] - before[k] for k in gm.launches}
+    out = {**rec, "final_loss": final, "launches": launches, "ckpt": ckpt_stats}
+    if mesh is not None:
+        names = sorted(launches)
+        mine = torch.tensor([[launches[k] for k in names], [table[k] for k in names]],
+                            dtype=torch.int64, device=device)
+        every = parallel.all_gather(mine[None], None, mesh.world, dim=0).cpu()
+        out["launches_by_rank"] = [dict(zip(names, r[0].tolist(), strict=True)) for r in every]
+        out["launch_table_by_rank"] = [dict(zip(names, r[1].tolist(), strict=True))
+                                       for r in every]
+        if "kept" in collect:
+            import torch.distributed as dist
+
+            every_kept = [None] * mesh.world
+            dist.all_gather_object(every_kept, kept)
+            kept = {step: {site: sorted({i for k in every_kept for i in k[step][site]})
+                           for site in every_kept[0][step]} for step in every_kept[0]}
+    if "kept" in collect:
+        out["kept"] = kept
+    if "params" in collect:
+        out["params"] = {k: v.cpu() for k, v in named_params(out.pop("params")).items()}
+    return out
+
+
+def _site_of(params) -> dict[int, str]:
+    """weight ``data_ptr`` -> site name over the dense stack's projections."""
+    out = {}
+    for li, layer in enumerate(params["stack"]["layers"]):
+        for role in ("attn", "mlp"):
+            for proj, p in layer.get(role, {}).items():
+                out[p["w"].data_ptr()] = f"layer_{li}/{role}/{proj}"
+    return out
+
+
+def named_params(params) -> dict[str, torch.Tensor]:
+    """``name -> tensor`` over a param tree: ``embed/table``,
+    ``layer_{li}/attn/q/w`` and so on."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}{k}/")
+        else:
+            out[prefix[:-1]] = node
+
+    walk({k: v for k, v in params.items() if k != "stack"}, "")
+    for li, layer in enumerate(params["stack"]["layers"]):
+        walk(layer, f"layer_{li}/")
+    return out
 
 
 def main():

@@ -13,6 +13,14 @@ Every call site carries a site name (``site=``): a plain
 :class:`~repro_torch.core.policy.SitePolicies` table gives each named
 site its own policy. Serving passes no policy (dense) and asks for no
 gradient, so its projections are plain matmuls.
+
+On a device mesh (``mesh=``, ``launch/mesh.py::Mesh``) the params are
+this rank's shards (``dist/sharding.py``): attention and the MLP hold
+their local heads and local ``d_ff``, the counts read from the local
+weights' widths; q/k/v/up/gate are column-parallel behind
+``copy_to_model``, o/down row-parallel ahead of ``reduce_from_model``,
+the embedding and the tied unembedding vocab-parallel
+(``dist/parallel.py``). ``mesh=None`` is the one-device model.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.core.conv import sparse_conv2d
 from repro_torch.core.dense import sparse_dense
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
+from repro_torch.dist import parallel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_attention import paged_attention_ref
 
@@ -42,8 +51,28 @@ def dense_init(gen, d_in, d_out, *, bias=False, dtype=torch.bfloat16, scale=None
     return p
 
 
-def dense_apply(p, x, policy: PolicyLike = DENSE, key=None, site: str = ""):
-    return sparse_dense(x, p["w"], p.get("b"), policy=policy_for(policy, site), key=key)
+def dense_apply(p, x, policy: PolicyLike = DENSE, key=None, site: str = "", *, mesh=None,
+                split: str = "col"):
+    """The ssProp linear layer at one site. On a mesh ``split`` says how
+    the rank holds it: ``"col"`` its output columns (its slice of the
+    replicated bias added; ``x`` already behind ``copy_to_model``),
+    ``"row"`` its input rows (the partial product summed over ``model``;
+    no bias), ``"gather"`` a column shard that does not line up with
+    heads, all-gathered on use into the full product, computed alike on
+    every model rank."""
+    b = p.get("b")
+    if mesh is None:
+        return sparse_dense(x, p["w"], b, policy=policy_for(policy, site), key=key)
+    w = p["w"]
+    if split == "col" and b is not None:
+        b = parallel.slice_for_model(b, mesh)
+    elif split == "gather":
+        w = parallel.gather_from_model(w, mesh)
+    elif split == "row" and b is not None:
+        raise NotImplementedError(f"{site}: a row-parallel bias on a mesh")
+    y = sparse_dense(x, w, b, policy=policy_for(policy, site), key=key,
+                     mesh=parallel.SiteMesh(mesh, col=split == "col", site=mesh.prefix + site))
+    return parallel.reduce_from_model(y, mesh) if split == "row" else y
 
 
 def conv2d_init(gen, c_out, c_in, k, *, bias=False, dtype=torch.float32, device="cuda"):
@@ -214,6 +243,7 @@ def attn_apply(
     paged_kernel=True,
     x_kv=None,
     site: str = "attn",
+    mesh=None,
 ):
     """Self- or cross-attention, full-sequence or over a KV cache.
 
@@ -250,15 +280,37 @@ def attn_apply(
       which computes this route outside any kernel: the cache read as a
       pool of B pages of T tokens, slot b's table ``[b]``.
 
+    On a ``mesh`` (self-attention only) the rank runs its local q heads
+    and their KV heads: the local k/v columns where they hold whole KV
+    heads (the KV cache then holds the local KV heads), else
+    (:func:`kv_heads_of_rank`) the full k/v products computed alike on
+    every model rank, their gradient summed over ``model`` by
+    ``copy_to_model`` (each rank's q heads reach only their KV head), and
+    this rank's KV heads taken.
+
     Returns (out [B,S,d], kv_cache).
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
     src = x if x_kv is None else x_kv
     t = src.shape[1]
-    q = dense_apply(p["q"], x, policy, site=f"{site}/q").reshape(b, s, cfg.n_heads, hd)
-    k = dense_apply(p["k"], src, policy, site=f"{site}/k").reshape(b, t, cfg.n_kv_heads, hd)
-    v = dense_apply(p["v"], src, policy, site=f"{site}/v").reshape(b, t, cfg.n_kv_heads, hd)
+    xm = parallel.copy_to_model(x, mesh)
+    q = dense_apply(p["q"], xm, policy, site=f"{site}/q", mesh=mesh).reshape(b, s, -1, hd)
+    kv_split = kv_heads_of_rank(cfg, mesh)
+    if kv_split is None:
+        k = dense_apply(p["k"], xm if x_kv is None else src, policy, site=f"{site}/k",
+                        mesh=mesh).reshape(b, t, -1, hd)
+        v = dense_apply(p["v"], xm if x_kv is None else src, policy, site=f"{site}/v",
+                        mesh=mesh).reshape(b, t, -1, hd)
+    else:
+        if kv_cache is not None:
+            raise NotImplementedError(
+                f"serving on a model mesh of {mesh.model} with {cfg.n_kv_heads} KV heads: the "
+                "model size must divide the KV heads (ROADMAP Queue 1 item 5)")
+        lo, hi = kv_split
+        k, v = (parallel.copy_to_model(
+            dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=mesh, split="gather"),
+            mesh).reshape(b, t, -1, hd)[:, :, lo:hi] for n in ("k", "v"))
     if rope is not None:
         q = apply_rope(q, rope)
         if x_kv is None:
@@ -278,8 +330,37 @@ def attn_apply(
             out = kops.paged_attention(q, k_pool, v_pool, block_tables, qpos)
         else:
             out = paged_attention_ref(q, k_pool, v_pool, block_tables, qpos).to(q.dtype)
-    out = out.reshape(b, s, cfg.n_heads * hd)
-    return dense_apply(p["o"], out, policy, site=f"{site}/o"), kv_cache
+    out = out.reshape(b, s, -1)
+    return dense_apply(p["o"], out, policy, site=f"{site}/o", mesh=mesh, split="row"), kv_cache
+
+
+def kv_whole_heads(cfg, model: int) -> bool:
+    """Do a model mesh's ranks hold whole KV heads of k/v (``model``
+    divides them, as ``fit_spec`` then keeps ``model`` on their columns at
+    a head boundary)?"""
+    return cfg.n_kv_heads % model == 0
+
+
+def kv_heads_of_rank(cfg, mesh) -> tuple[int, int] | None:
+    """``None`` where this rank's k/v columns are whole KV heads serving
+    its q heads (no mesh, or :func:`kv_whole_heads`); else the ``[lo,
+    hi)`` KV heads its q heads read, which the rank takes from the
+    gathered full k/v (``model`` a multiple of the KV heads: half a KV
+    head a rank at qwen's 2 KV heads on 4 ranks)."""
+    if mesh is None or mesh.model == 1:
+        return None
+    if cfg.n_heads % mesh.model:
+        raise NotImplementedError(
+            f"a model mesh of {mesh.model} does not divide {cfg.n_heads} heads")
+    if kv_whole_heads(cfg, mesh.model):
+        return None
+    if mesh.model % cfg.n_kv_heads:
+        raise NotImplementedError(
+            f"a model mesh of {mesh.model} with {cfg.n_kv_heads} KV heads")
+    h_loc = cfg.n_heads // mesh.model
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = mesh.model_rank * h_loc // g
+    return lo, ((mesh.model_rank + 1) * h_loc - 1) // g + 1
 
 
 # ----------------------------------------------------------------------
@@ -305,18 +386,20 @@ def mlp_init(gen, d_model, d_ff, dtype=torch.bfloat16, gated: bool = True, devic
     return p
 
 
-def mlp_apply(p, x, act: str, policy: PolicyLike = DENSE, site: str = "mlp"):
+def mlp_apply(p, x, act: str, policy: PolicyLike = DENSE, site: str = "mlp", mesh=None):
     """``down(act(gate(x)) * up(x))``, or ``down(act(up(x)))`` for the
     non-gated MLP (params without ``gate``); sites ``{site}/up``,
-    ``{site}/gate``, ``{site}/down``."""
+    ``{site}/gate``, ``{site}/down``. On a ``mesh``: this rank's ``d_ff``
+    columns, up/gate column-parallel, down row-parallel."""
     fn = _ACTS[act]
+    x = parallel.copy_to_model(x, mesh)
     if "gate" in p:
-        h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate")) * dense_apply(
-            p["up"], x, policy, site=f"{site}/up"
+        h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate", mesh=mesh)) * dense_apply(
+            p["up"], x, policy, site=f"{site}/up", mesh=mesh
         )
     else:
-        h = fn(dense_apply(p["up"], x, policy, site=f"{site}/up"))
-    return dense_apply(p["down"], h, policy, site=f"{site}/down")
+        h = fn(dense_apply(p["up"], x, policy, site=f"{site}/up", mesh=mesh))
+    return dense_apply(p["down"], h, policy, site=f"{site}/down", mesh=mesh, split="row")
 
 
 # ----------------------------------------------------------------------
@@ -329,18 +412,34 @@ def embed_init(gen, vocab, d_model, dtype=torch.bfloat16, device="cuda"):
     return {"table": (t * 0.02).to(dtype)}
 
 
-def embed_apply(p, tokens):
-    return p["table"][tokens.long()]
+def embed_apply(p, tokens, mesh=None):
+    """The rows of ``tokens``; on a ``mesh`` the vocab-parallel lookup."""
+    if mesh is None:
+        return p["table"][tokens.long()]
+    return parallel.vocab_embed(p["table"], tokens, mesh)
 
 
-def unembed_apply(p, x, valid: int | None = None):
+def unembed_local(p, x, mesh) -> torch.Tensor:
+    """This rank's vocabulary columns of the tied unembedding, fp32 and
+    unmasked: ``x`` (replicated over ``model``, behind ``copy_to_model``)
+    against the local table rows."""
+    return parallel.copy_to_model(x, mesh).float() @ p["table"].float().t()
+
+
+def unembed_apply(p, x, valid: int | None = None, mesh=None):
     """Tied unembedding: x [B,S,d] @ table^T -> logits in fp32.
 
     Both operands go to fp32 before the product, as the JAX package's
     ``preferred_element_type=float32`` accumulates: rounding 152k logits
     to bf16 would make argmax ties common. ``valid`` masks the logits of
-    the padded vocabulary rows to -1e30.
+    the padded vocabulary rows to -1e30. On a ``mesh`` every rank gets
+    the full row, each rank's columns all-gathered in vocab order.
     """
+    if mesh is not None:
+        logits = parallel.gather_vocab(unembed_local(p, x, mesh), mesh)
+        if valid is not None and valid < logits.shape[-1]:
+            logits[..., valid:] = -1e30
+        return logits
     table = p["table"]
     logits = x.float() @ table.float().t()
     v = table.shape[0]

@@ -11,6 +11,7 @@ hybrid, encdec, vlm):
   * ``forward(cfg, params, batch, policy)``     -> (logits fp32, aux)
   * ``loss_fn(cfg, params, batch, policy)``     -> (loss, metrics)
   * ``kernel_launches_per_step(cfg, policy)``   -> the kernels a train step launches
+  * ``mesh_specs(cfg, params, mesh_shape)``     -> each leaf's fitted spec on a mesh
   * ``init_cache(cfg, batch, max_seq, dtype, device)``   -> the contiguous cache
   * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device, batch=)``
   * ``decode_slots(cfg, params, tokens, cache, slot_pos, token_count, ...)``
@@ -35,6 +36,12 @@ self-attention among them; paged: a page pool; contiguous: rows a
 slot), ``{"conv", "state"}`` for a Mamba layer (a row a slot either
 way). The encoder's output is not cached here: the serving engine keeps
 it a slot, and the cross-attention projects its K/V at every step.
+
+On a device mesh (``mesh=``, ``launch/mesh.py::Mesh``; the dense
+decoder-only stack) params are this rank's shards of the leaves
+(:func:`mesh_specs`, ``dist/sharding.py::shard_tree``), a batch is this
+data rank's rows, and the loss, its gradients and the decode logits are
+the one-device model's (``dist/parallel.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparsity
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
+from repro_torch.dist import parallel
+from repro_torch.dist import sharding as shd
 from repro_torch.models import layers, transformer
 
 
@@ -136,6 +145,62 @@ def jax_layout(cfg: ModelConfig, tree, stack: Callable[[list], Any]) -> dict[str
     return out
 
 
+class StackShape:
+    """A shape-only stacked leaf (for spec rules over the JAX layout)."""
+
+    def __init__(self, parts):
+        self.shape = (len(parts), *parts[0].shape)
+
+
+def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
+    """Each leaf's spec on a mesh of ``mesh_shape``, in the port's layout:
+    ``dist/sharding.py``'s rules over the JAX layout (:func:`jax_layout`),
+    fitted to the stacked shapes with ``fit_spec``, a per-layer tensor
+    taking its stack's spec without the stack dim. The decoder-only
+    families only (a mesh runs the dense stack)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("encdec params on a mesh (ROADMAP Queue 1 item 5)")
+    jl = jax_layout(cfg, params, StackShape)
+    specs = shd.param_specs(jl)
+    fitted = shd.map_specs(lambda leaf, sp: shd.fit_spec(sp, leaf.shape, mesh_shape), jl, specs)
+    plen = len(transformer.period_pattern(cfg))
+
+    def unstack(sp):
+        if isinstance(sp, dict):
+            return {k: unstack(v) for k, v in sp.items()}
+        if sp[0] is not None:
+            raise NotImplementedError(f"a spec {sp} that splits the layer stack")
+        return shd.Spec(*sp[1:])
+
+    slots = fitted["stack"]["slots"]
+    return {"embed": fitted["embed"], "final_norm": fitted["final_norm"],
+            "stack": {"layers": [unstack(slots[li % plen]) for li in range(cfg.n_layers)]}}
+
+
+def shard_cache(cfg: ModelConfig, cache, mesh, *, paged: bool):
+    """This rank's shard of a decode cache on a model mesh: the
+    reference's ``cache_specs`` (over the period-stacked layout; ``paged``
+    the page pool's) fitted to the mesh, each layer keeping its stack's
+    spec without the stack dim, so K/V keep ``model`` on the KV-head dim.
+    A model size that does not divide the KV heads (``fit_spec`` would
+    move ``model`` to the head dim, where the scores need a partial-sum
+    all-reduce the kernel cannot do) raises."""
+    if any("k" not in layer for layer in cache):
+        raise NotImplementedError(f"{cfg.name}: SSM caches on a mesh (ROADMAP Queue 1 item 5)")
+    n = transformer.n_periods(cfg)
+    out = []
+    for layer in cache:
+        stacked = {k: StackShape([t] * n) for k, t in layer.items()}
+        specs = {k: shd.Spec(*sp[1:]) for k, sp in
+                 shd.cache_specs(mesh.shape, stacked, paged=paged).items()}
+        if specs["k"][2] != "model" and mesh.model > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: a model mesh of {mesh.model} does not divide its "
+                f"{cfg.n_kv_heads} KV heads (ROADMAP Queue 1 item 5)")
+        out.append(shd.shard_tree(layer, specs, mesh))
+    return out
+
+
 def site_names(cfg: ModelConfig):
     """Every sparsifiable call site of this model and the depth negative
     layer indices in rule patterns resolve against: ``(sites, depth)``,
@@ -149,35 +214,46 @@ def site_names(cfg: ModelConfig):
     return sites, cfg.n_layers
 
 
-def _embed_inputs(cfg, params, batch):
+def _embed_inputs(cfg, params, batch, mesh=None):
     """Token embeddings, with the VLM's patch prefix in front."""
-    x = layers.embed_apply(params["embed"], batch["tokens"])
+    x = layers.embed_apply(params["embed"], batch["tokens"], mesh)
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     return x
 
 
-def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
+def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=None):
     """Full-sequence forward. Returns (logits fp32 [B, S, V], aux loss):
     the MoE layers' load-balance losses summed (0 without MoE layers).
+    On a ``mesh`` the logits are every vocabulary column, gathered.
 
     vlm: the patches go in front of the tokens, and their positions are
     cut off after the final norm, so a token at index i sits at position
     ``n_patches + i`` and the logits are the tokens' alone. encdec: the
     encoder runs over ``frames`` (in the params' dtype), its output
     normed, and the cross-decoder attends to it."""
-    x = _embed_inputs(cfg, params, batch)
+    x, aux = _hidden(cfg, params, batch, policy, mesh)
+    logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab, mesh=mesh)
+    return logits, aux
+
+
+def _hidden(cfg, params, batch, policy, mesh):
+    """The final-normed hidden states the unembedding reads, and aux."""
+    if mesh is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh: ROADMAP Queue 1 item 5 (meshes run the "
+            "dense family)")
+    x = _embed_inputs(cfg, params, batch, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "encdec":
         enc = encode(cfg, params, batch["frames"].to(x.dtype), policy)
         x, _ = transformer.cross_decoder_apply(params["decoder"], x, enc, cfg, policy)
     else:
-        x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy)
+        x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy, mesh=mesh)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if cfg.family == "vlm":
         x = x[:, cfg.n_patches :]
-    logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab)
-    return logits, aux
+    return x, aux
 
 
 def encode(cfg: ModelConfig, params, frames: torch.Tensor, policy: PolicyLike = DENSE):
@@ -196,9 +272,26 @@ def encode_frames(cfg: ModelConfig, params, frames: np.ndarray, device) -> torch
         return encode(cfg, params, x.to(getattr(torch, cfg.dtype)))
 
 
-def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE):
+def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=None):
     """Next-token cross-entropy (+0.01 aux), averaged over ``loss_mask``
-    (default: every token). Returns ``(total, {"ce", "aux"})``."""
+    (default: every token). Returns ``(total, {"ce", "aux"})``.
+
+    On a ``mesh`` (``batch`` this data rank's rows): the cross-entropy is
+    the vocab-parallel one over the rank's logit columns, and the masked
+    mean's numerator and denominator are summed over ``data`` before the
+    division, so every rank's loss is the global one and its gradients
+    are its rows' share of the global gradient (summed over ``data`` by
+    the step)."""
+    if mesh is not None:
+        x, aux = _hidden(cfg, params, batch, policy, mesh)
+        logits = layers.unembed_local(params["embed"], x, mesh)
+        nll = parallel.vocab_cross_entropy(logits, batch["targets"], cfg.vocab, mesh)
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(nll) if mask is None else mask.float()
+        num = parallel.sum_over_data((nll * mask).sum(), mesh)
+        den = parallel.sum_over_data(mask.sum(), mesh)
+        loss = num / torch.clamp(den, min=1.0)
+        return loss + 0.01 * aux, {"ce": loss, "aux": aux}
     logits, aux = forward(cfg, params, batch, policy)
     targets = batch["targets"].long()
     logp = torch.log_softmax(logits, dim=-1)
@@ -226,7 +319,24 @@ def site_out_dim(cfg: ModelConfig, site: str) -> int:
     return cfg.d_ff * (cfg.n_shared_experts if "/shared/" in site else 1)  # up, gate
 
 
-def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, int]:
+def mesh_split(cfg: ModelConfig, site: str, model: int) -> str:
+    """How a rank of a model mesh of ``model`` holds a dense stack site:
+    ``"col"`` (q/k/v/up/gate: its output columns), ``"row"`` (o/down: its
+    input rows), ``"gather"`` (k/v where the model size does not divide
+    the KV heads: the full product on every rank), or ``"rep"`` (no
+    model split)."""
+    proj = site.rsplit("/", 1)[1]
+    if model == 1:
+        return "rep"
+    if proj in ("o", "down"):
+        return "row"
+    if proj in ("k", "v") and not layers.kv_whole_heads(cfg, model):
+        return "gather"
+    return "col"
+
+
+def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int = 1,
+                             idle_sites=()) -> dict[str, int]:
     """Launches of each backward kernel in one training step under
     ``policy`` (a plain policy or a step's table), site by site by the
     engine's rules: a sparse site on the kernel route (``use_pallas``,
@@ -241,18 +351,34 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike) -> dict[str, 
     (group, expert) pair (a step whose B*S tokens the G groups divide,
     else the ungrouped dispatch runs). A site whose ``tp_shards`` divides
     its output width, both sides sparsified, takes the TP fast path and
-    launches nothing."""
+    launches nothing.
+
+    On a model mesh of ``model`` (the dense stack) the table is one
+    rank's: a column-parallel site (:func:`mesh_split`) whose
+    ``tp_shards`` is ``t * model`` selects over its ``t`` local shards (the
+    fast path when ``t > 1``, the kernel route when ``t == 1``); any other
+    column-parallel site takes the one-device selection's channels in its
+    columns, on the block kernels where its columns are whole blocks,
+    else through ``matmul``; and launches nothing where that is no
+    channel (``idle_sites``, as the step found them)."""
     n = {"matmul": 0, "dx_gathered": 0, "dw_gathered": 0}
     experts = cfg.n_experts * max(1, cfg.moe_dp_groups)
     for site in site_names(cfg)[0]:
         p = policy_for(policy, site)
         if not (p.active and p.use_pallas and not p.mask_mode):
             continue
-        if p.sparsify_dx and p.sparsify_dw and sparsity.selection_shards(
-                p, site_out_dim(cfg, site)) > 1:
+        c = site_out_dim(cfg, site)
+        shards, blocks = sparsity.selection_shards(p, c), True
+        if mesh_split(cfg, site, model) == "col":
+            if site in idle_sites:
+                continue
+            tp = p.tp_shards
+            shards = tp // model if tp > 1 and c % tp == 0 and tp % model == 0 else 1
+            blocks = (c // model) % p.block_size == 0
+        if p.sparsify_dx and p.sparsify_dw and shards > 1:
             continue
         per = experts if site.split("/", 1)[1] in _EXPERT_SITES else 1
-        if p.granularity == "channel":
+        if p.granularity == "channel" or not blocks:
             n["matmul"] += per * (p.sparsify_dx + p.sparsify_dw)
         else:
             n["dx_gathered"] += per * p.sparsify_dx
@@ -296,6 +422,7 @@ def decode_slots(
     paged_kernel: bool = True,
     all_logits: bool = False,
     spec_states: bool = False,
+    mesh=None,
 ):
     """Mixed prefill/decode step over independently positioned slots.
 
@@ -327,12 +454,19 @@ def decode_slots(
     which every layer's cross-attention reads. vlm: the tokens alone, at
     the positions they are given; no patch prefix is fed, as in the JAX
     package's decode.
+
+    ``mesh``: a model mesh (the dense family): ``params`` and the cache
+    are this rank's shards (its heads, its KV heads), and the logits are
+    every vocabulary column, all-gathered, the same on every rank.
     """
+    if mesh is not None and cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) serving on a mesh: "
+                                  "ROADMAP Queue 1 item 5")
     b, c = tokens.shape
     ar = torch.arange(c, device=tokens.device)
     positions = slot_pos.long()[:, None] + ar[None, :]  # [B, C]
     valid = ar[None, :] < token_count.long()[:, None]  # [B, C]
-    x = layers.embed_apply(params["embed"], tokens)
+    x = layers.embed_apply(params["embed"], tokens, mesh)
     if cfg.family == "encdec":
         if enc_out is None:
             raise ValueError(f"{cfg.name}: an encdec decode step needs enc_out")
@@ -345,14 +479,14 @@ def decode_slots(
         x, cache, _ = transformer.stack_apply(
             params["stack"], x, cfg,
             positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
-            paged_kernel=paged_kernel, spec_states=spec_states,
+            paged_kernel=paged_kernel, spec_states=spec_states, mesh=mesh,
         )
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if all_logits:
-        return layers.unembed_apply(params["embed"], x, valid=cfg.vocab), cache
+        return layers.unembed_apply(params["embed"], x, valid=cfg.vocab, mesh=mesh), cache
     last = torch.clamp(token_count.long() - 1, 0, c - 1)
     x_last = x[torch.arange(b, device=x.device), last][:, None]  # [B, 1, d]
-    logits = layers.unembed_apply(params["embed"], x_last, valid=cfg.vocab)[:, 0]
+    logits = layers.unembed_apply(params["embed"], x_last, valid=cfg.vocab, mesh=mesh)[:, 0]
     return logits, cache
 
 

@@ -161,6 +161,7 @@ def _slot_apply(
     write_index=None,
     paged_kernel=True,
     spec_states=False,
+    mesh=None,
 ):
     """One layer. Returns (x, its new cache or None, its aux loss)."""
     h = layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
@@ -168,7 +169,7 @@ def _slot_apply(
         out, new_cache = layers.attn_apply(
             p["attn"], h, cfg, policy,
             rope=rope, qpos=qpos, kv_cache=cache, block_tables=block_tables,
-            write_index=write_index, paged_kernel=paged_kernel,
+            write_index=write_index, paged_kernel=paged_kernel, mesh=mesh,
         )
     else:
         out, new_cache = ssm.ssm_apply(
@@ -184,7 +185,7 @@ def _slot_apply(
                                           dp_groups=cfg.moe_dp_groups)
             aux = metrics["aux_loss"]
         else:
-            out2 = layers.mlp_apply(p["mlp"], h2, cfg.act, policy)
+            out2 = layers.mlp_apply(p["mlp"], h2, cfg.act, policy, mesh=mesh)
         x = x + out2
     return x, new_cache, aux
 
@@ -248,9 +249,12 @@ def stack_apply(
     block_tables=None,
     paged_kernel=True,
     spec_states=False,
+    mesh=None,
 ):
     """Run the stack. Returns (x, caches, aux), ``aux`` the MoE layers'
-    load-balance losses summed over the layers.
+    load-balance losses summed over the layers. ``mesh``: the params are
+    this rank's shards of a dense attention + MLP stack
+    (:func:`repro_torch.models.layers.attn_apply`).
 
     ``policy`` is a plain policy (every site) or a
     :class:`~repro_torch.core.policy.SitePolicies` table over
@@ -279,7 +283,8 @@ def stack_apply(
                 torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta
             )
         for li, p in enumerate(params["layers"]):
-            x, _, a = _slot_apply(p, x, cfg, slots[li], per_layer[li], rope=rope)
+            x, _, a = _slot_apply(p, x, cfg, slots[li], per_layer[li], rope=rope,
+                                  mesh=mesh and mesh.scoped(f"layer_{li}/"))
             aux = aux + a
         return x, None, aux
     qpos = rope = write_index = None
@@ -291,7 +296,7 @@ def stack_apply(
             p, x, cfg, slots[li], per_layer[li],
             rope=rope, qpos=qpos, cache=caches[li], token_valid=token_valid,
             block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
-            spec_states=spec_states,
+            spec_states=spec_states, mesh=mesh and mesh.scoped(f"layer_{li}/"),
         )
         aux = aux + a
     return x, caches, aux

@@ -120,13 +120,16 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), gn
 
 
-def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: bool = False):
+def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: bool = False,
+                  norm=global_norm):
     """One Adam(W) step. Returns (new_params, new_state, metrics).
 
     ``inplace=True`` writes the clipped grads, the moments and the params
     into the tensors passed in (none may require grad) and returns those
-    same trees; the numbers are the functional step's."""
-    gn = global_norm(grads)
+    same trees; the numbers are the functional step's. ``norm`` measures
+    the gradient's global norm (on a mesh, ``dist/parallel.py::global_norm``
+    over the local shards)."""
+    gn = norm(grads)
     if cfg.clip_norm > 0:
         if inplace:
             scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)

@@ -73,14 +73,17 @@ class SlotCacheManager:
       max_seq: rows a slot (prompt + generation must fit).
       dtype: cache dtype (fp32 default, as in the JAX engine).
       device: where the cache lives.
+      mesh: a model mesh: the rank holds its KV heads (``lm.shard_cache``).
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int, *,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", mesh=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.cache = lm.init_cache(cfg, n_slots, max_seq, dtype=dtype, device=device)
+        if mesh is not None:
+            self.cache = lm.shard_cache(cfg, self.cache, mesh, paged=False)
         self.pos = np.zeros((n_slots,), np.int32)  # per-slot write offset
         self._free: list[int] = list(range(n_slots - 1, -1, -1))
 
@@ -188,6 +191,10 @@ class PagedCacheManager:
       n_blocks: pool size in pages.
       dtype: pool dtype (fp32 default, as in the JAX engine).
       device: where the pools live.
+      mesh: a model mesh: each rank's pool holds its KV heads
+        (``lm.shard_cache``); the block tables, the allocator and the
+        swaps' host bookkeeping are the same on every rank, and a swap
+        stages the rank's own heads.
     """
 
     def __init__(
@@ -200,6 +207,7 @@ class PagedCacheManager:
         n_blocks: int,
         dtype=torch.float32,
         device="cuda",
+        mesh=None,
     ):
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
@@ -211,6 +219,8 @@ class PagedCacheManager:
         self.blocks_per_slot = -(-max_seq // block_size)
         self.cache = lm.init_paged_cache(cfg, n_blocks, block_size, dtype=dtype, device=device,
                                          batch=n_slots)
+        if mesh is not None:
+            self.cache = lm.shard_cache(cfg, self.cache, mesh, paged=True)
         self.pos = np.zeros((n_slots,), np.int32)
         self.block_tables = np.zeros((n_slots, self.blocks_per_slot), np.int32)
         self.n_table_blocks = np.zeros((n_slots,), np.int32)

@@ -94,6 +94,13 @@ class ContinuousBatchingEngine:
         (``spec_k > 0``), a model of the same family and vocabulary. Both
         default to the target model (self-drafting: every proposal the
         target would make).
+      mesh: a model mesh (``launch/mesh.py::Mesh``, the dense family):
+        ``params`` (and ``draft_params``) are this rank's shards, the
+        caches hold its KV heads, and every rank runs the same engine in
+        lock-step (arrivals are step-indexed, and every rank draws each
+        token from the same full row of logits).
+      seq_shard: the reference's ``model`` on the KV caches' sequence dim
+        for long decode; not ported (raises).
     """
 
     def __init__(
@@ -106,7 +113,11 @@ class ContinuousBatchingEngine:
         device="cuda",
         draft_cfg: ModelConfig | None = None,
         draft_params=None,
+        mesh=None,
+        seq_shard: bool = False,
     ):
+        if seq_shard:
+            raise NotImplementedError("seq_shard decode: not ported yet (ROADMAP Queue 1 item 5)")
         self.cfg = cfg
         self.params = params
         self.serve_cfg = serve_cfg
@@ -116,17 +127,17 @@ class ContinuousBatchingEngine:
                 cfg, serve_cfg.max_slots, serve_cfg.max_seq,
                 block_size=serve_cfg.block_size,
                 n_blocks=serve_cfg.total_blocks,
-                dtype=cache_dtype, device=self.device,
+                dtype=cache_dtype, device=self.device, mesh=mesh,
             )
         else:
             self.slots = SlotCacheManager(
                 cfg, serve_cfg.max_slots, serve_cfg.max_seq,
-                dtype=cache_dtype, device=self.device,
+                dtype=cache_dtype, device=self.device, mesh=mesh,
             )
         self.scheduler = Scheduler(serve_cfg)
         self._spec = serve_cfg.spec_k > 0
         self._step_fn = steps_lib.make_slot_step(
-            cfg, paged_kernel=serve_cfg.attn_kernel, spec=self._spec
+            cfg, paged_kernel=serve_cfg.attn_kernel, spec=self._spec, mesh=mesh
         )
         # --- speculative drafter plane (spec_k > 0) ---
         # Its own contiguous rows, slot ids mirroring the target's, sized
@@ -142,9 +153,9 @@ class ContinuousBatchingEngine:
                 )
             self._draft = SlotCacheManager(
                 self.draft_cfg, serve_cfg.max_slots, serve_cfg.max_seq + serve_cfg.spec_k,
-                dtype=cache_dtype, device=self.device,
+                dtype=cache_dtype, device=self.device, mesh=mesh,
             )
-            self._draft_step_fn = steps_lib.make_slot_step(self.draft_cfg)
+            self._draft_step_fn = steps_lib.make_slot_step(self.draft_cfg, mesh=mesh)
             # committed tokens (prompt + generated) the drafter has
             # consumed per slot; 0 forces a full catch-up prefill
             self._draft_sync = np.zeros((serve_cfg.max_slots,), np.int64)

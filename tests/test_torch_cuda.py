@@ -594,6 +594,24 @@ def test_matmul_every_operand_major(cuda, m, k, n, a_major, b_major):
     _close(out, tgm.matmul_ref(a, b))
 
 
+def test_observe_matmul_sees_each_launch(cuda):
+    """Within ``observe_matmul`` each launch of the kernel hands the
+    observer the operands the wrapper was given and the output it
+    returns; outside the block nothing is handed over."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(64, 96, generator=gen, device=cuda)
+    b = torch.randn(48, 96, generator=gen, device=cuda).T  # a transposed view
+    seen = []
+    with tgm.observe_matmul(lambda x, y, out: seen.append((x, y, out))):
+        out = tgm.matmul(a, b)
+    tgm.matmul(a, b)
+    assert len(seen) == 1
+    x, y, got = seen[0]
+    assert x is a and y is b and got is out
+    torch.testing.assert_close(out, tgm.matmul_ref(a, b), rtol=0, atol=1e-4 * max(
+        1.0, float(tgm.matmul_ref(a, b).abs().max())))
+
+
 def test_matmul_repacks_unaligned_pitches(cuda):
     """A pitch that is not a multiple of 8 (a plain ``index_select``), an
     operand with no unit stride, or an unaligned start: copied once each,

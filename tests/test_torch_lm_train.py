@@ -361,8 +361,11 @@ def test_train_cli_runs_in_fp32_and_restores_the_tf32_flags(before):
         torch.backends.cudnn.allow_tf32 = True
 
 
-@pytest.mark.parametrize("flag", [["--data-mesh", "2"], ["--model-mesh", "2"]])
+@pytest.mark.parametrize("flag", [["--data-mesh", "3"], ["--model-mesh", "2", "--world-size", "2"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
+    """The meshes training still refuses: a global batch (8) the data
+    mesh does not divide, and a fleet on a mesh (the meshes that train:
+    ``tests/test_torch_mesh_train.py``)."""
     args = ttrain.build_parser().parse_args(["--device", "cpu", "--reduced", *flag])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttrain.run(args)

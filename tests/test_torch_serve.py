@@ -213,8 +213,11 @@ def test_engine_refuses_unported_families(family):
         assert (eng.enc_out is not None) == (family == "encdec")
 
 
-@pytest.mark.parametrize("mesh", [("--data-mesh", "2"), ("--model-mesh", "2")])
+@pytest.mark.parametrize("mesh", [("--data-mesh", "2"), ("--model-mesh", "4")])
 def test_cli_refuses_meshes(mesh):
+    """The meshes serving still refuses: a data mesh, and a model mesh
+    that does not divide the reduced config's 2 KV heads (a model mesh of
+    2 serves: ``tests/test_torch_mesh_serve.py``)."""
     args = tserve.build_parser().parse_args(["--reduced", "--device", "cpu", *mesh])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tserve.run(args)

@@ -1,0 +1,296 @@
+"""Rank bodies the mesh tests spawn (``launch/mesh.py::run_on_mesh``).
+
+They live apart from the test files so that a spawned rank, which
+imports the module its function comes from, imports the port alone and
+not JAX. Each returns every rank's results to rank 0
+(``all_gather_object``), which ``run_on_mesh`` hands to the test;
+:func:`on_shapes` runs several mesh shapes of one size in one spawn.
+"""
+import dataclasses
+
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core import backward
+from repro_torch.core import policy as tpolicy
+from repro_torch.core import sparsity
+from repro_torch.core.dense import sparse_dense
+from repro_torch.dist import parallel
+from repro_torch.dist import sharding as shd
+from repro_torch.models import model as tlm
+
+ARCH = "qwen2.5-3b"
+
+
+def _named(tree, prefix=""):
+    """``path -> leaf`` over dicts and lists (a list index is a path part)."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k in sorted(tree) for k2, v2 in _named(tree[k], f"{prefix}{k}/").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree) for k2, v2 in _named(v, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def on_shapes(mesh, calls):
+    """Each ``(data, model): (fn, args)`` of ``calls`` on that mesh over
+    this spawn's ranks (every shape's size the world's, so one spawn
+    serves them all): ``{shape: fn(mesh, *args)}``."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {}
+    for shape, (fn, args) in calls.items():
+        m = mesh if shape == (mesh.data, mesh.model) else make_host_mesh(*shape, "cpu")
+        out[shape] = fn(m, *args)
+    return out
+
+
+def mesh_cases(mesh, tree):
+    """Every case of one mesh shape, on one rank (module-level: spawned
+    ranks import it). ``tree``: the JAX init of reduced qwen2.5-3b
+    (numpy, JAX layout). Returns every rank's results (rank 0's copy)."""
+    import torch.distributed as dist
+
+    torch.manual_seed(0)
+    cfg = get_config(ARCH).reduced()
+    params = tlm.params_from_jax(cfg, tree, device="cpu")
+    specs = tlm.mesh_specs(cfg, params, mesh.shape)
+    local = shd.shard_tree(params, specs, mesh)
+    named_p, named_s, named_l = _named(params), _named(specs), _named(local)
+    out = {"rank": mesh.rank, "coord": (mesh.data_rank, mesh.model_rank),
+           "specs": {k: tuple(v) for k, v in named_s.items()},
+           "local": {k: v.numpy() for k, v in named_l.items()}}
+    full = _named(shd.gather_tree(local, specs, mesh))
+    out["gather_eq"] = all(torch.equal(full[k], v) for k, v in named_p.items())
+
+    g = torch.Generator().manual_seed(1)
+    m, r = mesh.model, mesh.model_rank
+    f = {}
+
+    def cols(t, n=m, i=r):
+        w = t.shape[-1] // n
+        return t[..., i * w:(i + 1) * w]
+
+    # copy_to_model at a column-parallel product's input
+    x = torch.randn(4, 8, generator=g, dtype=torch.float64)
+    w = torch.randn(8, 12, generator=g, dtype=torch.float64)
+    c = torch.randn(4, 12, generator=g, dtype=torch.float64)
+    xa = x.clone().requires_grad_(True)
+    (parallel.copy_to_model(xa, mesh) @ cols(w) * cols(c)).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    (xp @ w * c).sum().backward()
+    f["copy_to_model"] = float((xa.grad - xp.grad).abs().max())
+    # reduce_from_model at a row-parallel product's output
+    xa = cols(x).clone().requires_grad_(True)
+    wa = w[r * 8 // m:(r + 1) * 8 // m].clone().requires_grad_(True)
+    y = parallel.reduce_from_model(xa @ wa, mesh)
+    (y * c).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    wp = w.clone().requires_grad_(True)
+    yp = xp @ wp
+    (yp * c).sum().backward()
+    f["reduce_from_model"] = max(float((y - yp).abs().max()),
+                                 float((xa.grad - cols(xp.grad)).abs().max()),
+                                 float((wa.grad - wp.grad[r * 8 // m:(r + 1) * 8 // m]).abs().max()))
+    # slice_for_model: the replicated bias, its gradient gathered whole
+    b = torch.randn(12, generator=g, dtype=torch.float64, requires_grad=True)
+    bl = parallel.slice_for_model(b, mesh)
+    (bl * cols(c[0])).sum().backward()
+    f["slice_for_model"] = max(float((bl - cols(b)).abs().max()), float((b.grad - c[0]).abs().max()))
+    # gather_from_model: gather-on-use; the (replicated) gradient sliced back
+    wl = cols(w).clone().requires_grad_(True)
+    wf = parallel.gather_from_model(wl, mesh)
+    (x @ wf * c).sum().backward()
+    wp = w.clone().requires_grad_(True)
+    (x @ wp * c).sum().backward()
+    f["gather_from_model"] = max(float((wf - w).abs().max()),
+                                 float((wl.grad - cols(wp.grad)).abs().max()))
+    # sum_over_data: each data rank's share of a global sum
+    s = torch.arange(1.0, 4.0, dtype=torch.float64) * (mesh.data_rank + 1)
+    sa = s.clone().requires_grad_(True)
+    tot = parallel.sum_over_data(sa.sum(), mesh)
+    tot.backward()
+    f["sum_over_data"] = max(abs(float(tot) - 6.0 * sum(range(1, mesh.data + 1))),
+                             float((sa.grad - 1).abs().max()))
+    # the vocab-parallel embedding
+    table = torch.randn(16, 4, generator=g, dtype=torch.float64)
+    tok = torch.randint(0, 16, (3, 5), generator=g)
+    tl = table[r * 16 // m:(r + 1) * 16 // m].clone().requires_grad_(True)
+    e = parallel.vocab_embed(tl, tok, mesh)
+    cw = torch.randn(3, 5, 4, generator=g, dtype=torch.float64)
+    (e * cw).sum().backward()
+    tp = table.clone().requires_grad_(True)
+    ep = tp[tok]
+    (ep * cw).sum().backward()
+    f["vocab_embed"] = max(float((e - ep).abs().max()),
+                           float((tl.grad - tp.grad[r * 16 // m:(r + 1) * 16 // m]).abs().max()))
+    # the vocab-parallel cross-entropy (fp32, as the model runs it), the
+    # last 3 ids padding, and the full rows gathered for sampling
+    logits = torch.randn(3, 5, 16, generator=g) * 4
+    tgt = torch.randint(0, 13, (3, 5), generator=g)
+    gw = torch.rand(3, 5, generator=g)
+    la = cols(logits).clone().requires_grad_(True)
+    nll = parallel.vocab_cross_entropy(la, tgt, 13, mesh)
+    (nll * gw).sum().backward()
+    lp = logits.clone().requires_grad_(True)
+    masked = torch.cat([lp[..., :13], torch.full_like(lp[..., 13:], -1e30)], -1)
+    ref = -torch.gather(torch.log_softmax(masked, -1), -1, tgt[..., None])[..., 0]
+    (ref * gw).sum().backward()
+    f["vocab_cross_entropy"] = max(float((nll - ref).abs().max()),
+                                   float((la.grad - cols(lp.grad)).abs().max()))
+    f["gather_vocab"] = float((parallel.gather_vocab(cols(logits), mesh) - logits).abs().max())
+    out["functions"] = f
+
+    # select_on_mesh: this rank's rows and columns of one dY
+    dy = torch.randn(8, 256, generator=g) * torch.linspace(0.1, 3.0, 256)[torch.randperm(256, generator=g)]
+    rows = dy[mesh.data_rank * 8 // mesh.data:(mesh.data_rank + 1) * 8 // mesh.data]
+    sel = {}
+    for name, pol in (("channel", tpolicy.paper_default(0.8)), ("block", dataclasses.replace(
+            tpolicy.tpu_default(0.8), block_size=32)), ("tp", dataclasses.replace(
+            tpolicy.paper_default(0.8), tp_shards=m))):
+        got_c = sparsity.select_on_mesh(cols(rows), pol, parallel.SiteMesh(mesh, col=True))
+        got_r = sparsity.select_on_mesh(rows, pol, parallel.SiteMesh(mesh, col=False),
+                                        n_shards=sparsity.selection_shards(pol, 256))
+        sel[name] = (sorted((got_c.idx + r * (256 // m)).tolist()), got_c.block_idx is not None,
+                     got_r.idx.tolist())
+    out["select"] = sel
+
+    # the program's own instruments: the collectives' counters (time only
+    # within timed_collectives) and a mesh site's recorded output gradient
+    parallel.counters.update(calls=0, bytes=0, s=0.0)
+    parallel.all_reduce(torch.ones(4, dtype=torch.float64), mesh.model_group)
+    with parallel.timed_collectives():
+        parallel.all_gather(torch.ones(3), mesh.data_group, mesh.data)
+    out["counters"] = dict(parallel.counters)
+    xs = torch.randn(6, 8, generator=g)
+    ws = cols(torch.randn(8, 12, generator=g)).clone().requires_grad_(True)
+    up = cols(torch.randn(6, 12, generator=g))
+    with backward.record_cotangents(["probe", "absent"]) as dys:
+        y = sparse_dense(xs, ws, None, policy=tpolicy.paper_default(0.5),
+                         mesh=parallel.SiteMesh(mesh, col=True, site="probe"))
+        (y * up).sum().backward()
+    out["cotangents"] = {k: torch.equal(v, up) for k, v in dys.items()}
+
+    every = [None] * mesh.world
+    dist.all_gather_object(every, out)
+    return every
+
+
+def train_cases(mesh, argvs, tp=None):
+    """Each command line through the training CLI's rank body
+    (``train.run_rank``), the kept channels and the gathered final params
+    collected; then, given ``tp = (tree, lr)``, :func:`tp_case`. Returns
+    the runs' dicts (rank 0's)."""
+    from repro_torch.launch import train
+
+    outs = [train.run_rank(mesh, train.build_parser().parse_args(argv), None, ("kept", "params"))
+            for argv in argvs]
+    if tp is not None:
+        outs.append(tp_case(mesh, *tp))
+    return outs
+
+
+def tp_case(mesh, tree, lr, batch=4, seq=16):
+    """Three steps of reduced qwen2.5-3b from the JAX init ``tree`` on the
+    mesh through ``make_train_step``: dense, then two at
+    ``paper_default(0.8)`` with ``use_pallas`` and ``tp_shards`` = the
+    model size, each rank's shards its own selection's. Returns the
+    losses, the kept channels (global, every rank's merged), every rank's
+    ``kops.matmul`` calls beside the launch table's count, and the
+    gathered params."""
+    import torch.distributed as dist
+
+    from repro_torch.core import backward
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+
+    cfg = get_config(ARCH).reduced()
+    params = tlm.params_from_jax(cfg, tree, device="cpu")
+    specs = tlm.mesh_specs(cfg, params, mesh.shape)
+    local = shd.shard_tree(params, specs, mesh)
+    sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
+    opt = adam.init(local)
+    ocfg = adam.AdamConfig(lr=lr, clip_norm=1.0, total_steps=3)
+    pol = dataclasses.replace(tpolicy.paper_default(0.8), use_pallas=True, tp_shards=mesh.model)
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab, seq, batch, 0))
+    rows = batch // mesh.data
+    calls = {"matmul": 0}
+    raw = kops.matmul
+
+    def counted(a, b):
+        calls["matmul"] += 1
+        return raw(a, b)
+
+    losses, kept, table = [], {}, 0
+    kops.matmul = counted
+    try:
+        for step, p in enumerate((tpolicy.DENSE, pol, pol)):
+            b = {k: torch.from_numpy(v[mesh.data_rank * rows:(mesh.data_rank + 1) * rows])
+                 for k, v in pipe.batch_at(step).items()}
+            fn = steps_lib.make_train_step(cfg, p, ocfg, mesh=mesh, sharded=sharded)
+            with backward.record_selections() as log:
+                local, opt, metrics = fn(local, opt, b)
+            losses.append(float(metrics["loss"]))
+            kept[step] = {site: train.global_kept(cfg, site, sel, mesh) for site, sel in log}
+            idle = {site for site, sel in log if sel.k == 0}
+            table += tlm.kernel_launches_per_step(cfg, p, model=mesh.model,
+                                                  idle_sites=idle)["matmul"]
+    finally:
+        kops.matmul = raw
+    every = [None] * mesh.world
+    dist.all_gather_object(every, (kept, calls["matmul"], table))
+    merged = {st: {s: sorted({i for k, _, _ in every for i in k[st][s]}) for s in kept[st]}
+              for st in kept}
+    full = train.named_params(shd.gather_tree(local, specs, mesh))
+    return {"history": losses, "kept": merged, "matmul_calls": [c for _, c, _ in every],
+            "matmul_table": [t for _, _, t in every],
+            "params": {k: v.clone() for k, v in full.items()}}
+
+
+def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv):
+    """The engine on a model mesh, once a mode: reduced qwen2.5-3b's
+    params from the JAX init ``tree`` (a 1-layer drafter's from
+    ``dtree``), this rank's shards of them, the mode's workload
+    (``modes[name] = (workload kwargs, ServeConfig kwargs, drafter?,
+    greedy-every-other?)``). Returns ``{name: (streams, stats, every
+    rank's paged_attention launches, every rank's swapped bytes, whether
+    every rank's streams are rank 0's)}`` and, last, the serving CLI's
+    rank body on ``cli_argv``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve
+    from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, poisson_workload
+
+    cfg = get_config(ARCH).reduced()
+    dcfg = cfg.reduced(n_layers=1)
+
+    def local(c, t):
+        p = tlm.params_from_jax(c, t, device="cpu")
+        return shd.shard_tree(p, tlm.mesh_specs(c, p, mesh.shape), mesh)
+
+    params, dparams = local(cfg, tree), local(dcfg, dtree)
+    out = {}
+    for name, (wkw, skw, draft, mixed) in modes.items():
+        kw = dict(draft_cfg=dcfg, draft_params=dparams) if draft else {}
+        eng = ContinuousBatchingEngine(cfg, params, ServeConfig(max_seq=max_seq, prefill_chunk=4,
+                                                                **skw),
+                                       device="cpu", mesh=mesh, **kw)
+        reqs = poisson_workload(cfg, **wkw)
+        if mixed:
+            for r in reqs[::2]:
+                r.sampling = type(r.sampling)()
+        for r in reqs:
+            eng.submit(r)
+        before = pa.launches
+        streams = {rid: list(map(int, toks)) for rid, toks in eng.run().items()}
+        stats = eng.stats()
+        every = [None] * mesh.world
+        dist.all_gather_object(every, (streams, pa.launches - before, stats["swapped_bytes"]))
+        out[name] = (streams, stats, [n for _, n, _ in every], [b for _, _, b in every],
+                     all(s == streams for s, _, _ in every))
+    args = serve.build_parser().parse_args(cli_argv)
+    out["cli"] = serve.serve_rank(mesh, args, cfg)["generated"].tolist()
+    return out
