@@ -265,7 +265,29 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    256, 2048]`` (numpy, from the seed); a warm-up and 3 timed dense and
    sparse steps, ``matmul`` launched ``kernel_launches_per_step`` times
    a sparse step, tokens/s, peak memory;
-23. prints the card's line, the kernels' JSON line (a gathered kernel's
+23. the other families on device meshes (``[mesh-families]``, PR 24):
+   ``train.run`` at 1x1 in this process, then one spawn of two rank
+   processes on the card over gloo running the training CLI's rank body
+   on a 1x2 and a 2x1 mesh, of mamba2-1.3b (depth 8 of 48, B=4 S=512),
+   whisper-large-v3 (4 + 4 of 32 + 32 layers, B=2 S=128, 1500 stub
+   frames), paligemma-3b (depth 4 of 18, B=8 S=128, 256 stub patches)
+   and the reduced kimi-k2, llama4 and jamba at ``moe_dp_groups`` 0 and
+   2 (B=8 S=64), all fp32 with TF32 off, ``paper_default(0.8)`` with
+   ``--use-pallas``, 3 steps (dense, sparse, sparse): losses within 1e-4
+   relative of 1x1, the share of (step, site) kept sets equal to 1x1's (a
+   routed expert's own), each rank's ``matmul`` launches equal to the
+   launch table's, every one of them within 1e-4 x max(1, max|plain|) of
+   the plain version on its own operands; then the serving CLI's rank
+   body on ``--model-mesh 2`` (4 Poisson requests, prompt 16, gen 16):
+   kimi-k2 at full width and depth 1 in bf16 (192 experts and 4 KV heads
+   a rank; its 1x1 tokens from ``[moe-serve]``'s params, freed before the
+   spawn), mamba2 at depth 24, whisper at 16 + 16 and paligemma at full
+   depth in fp32 (its one KV head cached on both ranks): each rank's
+   ``paged_attention`` launches (an attention layer a step), the fp32
+   shares of tokens equal to the 1x1 runs' at least 0.9 (kimi-k2's bf16
+   share printed), tokens/s, p50/p99 step and the collectives' calls and
+   bytes a step;
+24. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases'
    and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
    fused kernels' ``grouped`` key holding the G=2 case's times),
@@ -275,7 +297,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    paligemma training phases', the resumed run's of ``[ckpt]``
    (``lm_resume``), ``[moe-grouped]``'s kernel routes and every rank's
    of ``[mesh-train]`` (``mesh_train``; ``paged_attention``'s
-   ``mesh_serve``), each in
+   ``mesh_serve``) and of ``[mesh-families]`` (``mesh_families``, the 1x1
+   runs' and every rank's), each in
    ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
    whisper's in ``d64`` and paligemma's in ``d256``; ``matmul``'s
@@ -3032,14 +3055,17 @@ def ssm_serve_phase(lm, pa, S, get_config):
     return summaries, shares
 
 
-def moe_serve_phase(lm, pa, S, get_config):
+def moe_serve_phase(lm, pa, S, get_config, serve_cli):
     """kimi-k2-1t-a32b at full width (384 experts, top-8, a shared expert,
     d 7168, 64/8 heads of 112, vocab 163840), depth cut from 61 to 1, bf16
     weights (the experts drawn directly in bf16): 8 requests (prompt 128,
     gen 32) through 4 slots of the paged engine on the kernel route (the
     kernel at head_dim 112) and on the gather route; MoE decode at full
     capacity. The share of tokens equal between the routes must reach
-    SHARE_MIN; tokens/s, p50 and p99 step and peak memory printed."""
+    SHARE_MIN; tokens/s, p50 and p99 step and peak memory printed. Then
+    the serving CLI's rank body (``serve_cli.serve_rank``) on the same
+    params serves ``[mesh-families]``' workload at 1x1: its tokens are
+    returned last, and the params freed."""
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_DEPTH)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3069,11 +3095,15 @@ def moe_serve_phase(lm, pa, S, get_config):
     if share < SHARE_MIN:
         raise AssertionError(f"[moe-serve] the routes part: share {share} < {SHARE_MIN}")
     prof = step_profile(cfg, lm, params, tag="[moe-profile]")  # as the serve phase's steps
+    before = pa.launches
+    mesh_ref = serve_cli.serve_rank(None, serve_cli.build_parser().parse_args(
+        _mf_serve_argv(MOE_ARCH, 1)), cfg, params=params)["generated"]
+    launches += pa.launches - before
     del params, outs
     gc.collect()
     torch.cuda.empty_cache()
     return launches, dict(summary["kernel"], share=share, peak_gib=peak,
-                          gather=summary["gather"], profile=prof)
+                          gather=summary["gather"], profile=prof), mesh_ref
 
 
 def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S, get_config):
@@ -3362,6 +3392,271 @@ def xfamily_training_phase(arch, tag, lm, steps, adam, backward, gm, pa, policy_
                           per_step=per_step, route_worst=worst)
 
 
+# ----------------------------------------------------------------------
+# the other families on device meshes: mamba2, whisper, paligemma and the
+# reduced MoE / hybrid archs train on 1x2 and 2x1; kimi-k2, mamba2,
+# whisper and paligemma serve on a model mesh of 2
+# ----------------------------------------------------------------------
+
+MF_STEPS = 3  # dense, sparse, sparse (--scheduler bar)
+# arch -> (its cut of the full config, B, S); the reduced MoE archs at
+# moe_dp_groups 0 and 2 (a full-width kimi-k2 layer's experts are 33.8 GB
+# in bf16 before Adam, and jamba is 398 B)
+MF_TRAIN = {
+    SSM_ARCH: (dict(n_layers=8), 4, 512),  # 8 of 48 layers; two 256-token SSD chunks
+    ENCDEC_ARCH: (dict(n_layers=4, n_enc_layers=4), 2, 128),  # 4 + 4 of 32 + 32, 1500 frames
+    VLM_ARCH: (dict(n_layers=4), 8, 128),  # 4 of 18 layers, 256 patches
+}
+MF_REDUCED = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b")
+MF_REDUCED_BS = (8, 64)
+MF_GROUPS = (0, 2)
+# serving on --model-mesh 2: arch -> (its cut, dtype); 4 Poisson requests,
+# prompt 16 (one prefill chunk), gen 16, 4 slots, 16-token pages
+MF_SERVE = {
+    MOE_ARCH: (dict(n_layers=MOE_DEPTH), "bfloat16"),  # 192 experts, 4 KV heads a rank
+    SSM_ARCH: (dict(n_layers=SSM_SERVE_DEPTH), "float32"),
+    ENCDEC_ARCH: (dict(n_layers=16, n_enc_layers=16), "float32"),
+    VLM_ARCH: ({}, "float32"),  # full depth; the one KV head on both ranks
+}
+MF_TIMEOUT_S = 400
+
+
+def _mf_train_argv(arch, batch, seq, data, model):
+    return ["--arch", arch, "--steps", str(MF_STEPS), "--scheduler", "bar", "--global-batch",
+            str(batch), "--seq-len", str(seq), "--drop-rate", str(LM_RATE), "--granularity",
+            "channel", "--use-pallas", "--log-every", "100", "--device", "cuda", "--data-mesh",
+            str(data), "--model-mesh", str(model)]
+
+
+def _mf_serve_argv(arch, model):
+    return ["--arch", arch, "--batch", "4", "--requests", "4", "--prompt-len", "16", "--gen",
+            "16", "--prefill-chunk", "16", "--block-size", "16", "--arrival-rate", "0.5",
+            "--seed", "0", "--device", "cuda", "--model-mesh", str(model)]
+
+
+def mf_cases(get_config):
+    """``{name: (argv maker args, cfg)}`` of the phase's training runs."""
+    out = {}
+    for arch, (cut, b, sq) in MF_TRAIN.items():
+        out[arch] = (arch, b, sq, dataclasses.replace(get_config(arch), dtype="float32", **cut))
+    for arch in MF_REDUCED:
+        for g in MF_GROUPS:
+            out[f"{arch} reduced g{g}"] = (arch, *MF_REDUCED_BS, dataclasses.replace(
+                get_config(arch).reduced(), moe_dp_groups=g))
+    return out
+
+
+def mesh_family_ranks(mesh, cases, serves):
+    """Every mesh run of ``[mesh-families]`` in one spawn of two ranks on
+    the card: the training CLI's rank body (``train.run_rank``, the kept
+    channels collected) once a case of ``cases`` (``{name: (argv by
+    layout, cfg)}``) on this 1x2 mesh and on a 2x1 mesh over the same
+    ranks, every ``matmul`` launch held to its plain version on the same
+    operands (``gathered_matmul.observe_matmul``); then the serving CLI's
+    rank body once a config of ``serves`` (``{name: (argv, cfg)}``) on
+    the 1x2 mesh, the collectives' calls and bytes counted. Returns (rank
+    0's training dicts, its serving dicts, every rank's product checks
+    and collectives, rank 0's wall a part)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import parallel
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    checks = {}  # case -> [products, worst error, largest limit, first miss]
+
+    def checker(what):
+        def check(a, b, out):
+            ref = gm.matmul_ref(a, b)
+            err = (out - ref).abs().max().item()
+            limit = KERNEL_TOL * max(1.0, ref.abs().max().item())
+            c = checks.setdefault(what, [0, 0.0, 0.0, None])
+            c[0] += 1
+            c[1] = max(c[1], err)
+            c[2] = max(c[2], limit)
+            if err > limit and c[3] is None:
+                c[3] = f"A{tuple(a.shape)} @ B{tuple(b.shape)}: {err} > {limit}"
+        return check
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    walls, trained, served, colls = {}, {}, {}, {}
+    m21 = mesh_lib.make_host_mesh(2, 1, "cuda")
+    for name, (argvs, cfg) in cases.items():
+        for layout, argv in argvs.items():
+            t0 = time.perf_counter()
+            with gm.observe_matmul(checker(f"{name} {layout}")):
+                trained[name, layout] = train.run_rank(
+                    mesh if layout == "1x2" else m21, train.build_parser().parse_args(argv),
+                    cfg, ("kept",))
+            free()
+            walls[f"{name} {layout}"] = time.perf_counter() - t0
+            if mesh.rank == 0:
+                print(f"[mesh-families] rank 0: {name} {layout} in "
+                      f"{walls[f'{name} {layout}']:.1f} s", flush=True)
+    for name, (argv, cfg) in serves.items():
+        t0 = time.perf_counter()
+        parallel.counters.update(calls=0, bytes=0, s=0.0)
+        served[name] = serve.serve_rank(mesh, serve.build_parser().parse_args(argv), cfg)
+        colls[name] = dict(parallel.counters)
+        free()
+        walls[f"serve {name}"] = time.perf_counter() - t0
+        if mesh.rank == 0:
+            print(f"[mesh-families] rank 0: serve {name} in {walls[f'serve {name}']:.1f} s",
+                  flush=True)
+    every = [None] * mesh.world
+    dist.all_gather_object(every, {"rank": mesh.rank, "checks": checks, "colls": colls})
+    return trained, served, every, walls
+
+
+def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
+    """``[mesh-families]``: in this process ``train.run`` of every case of
+    :func:`mf_cases` at 1x1 (fp32, TF32 off, ``paper_default(0.8)`` with
+    ``--use-pallas``, 3 steps: dense, sparse, sparse; whisper's frames and
+    paligemma's patches from the pipeline's ``frontend_inputs``) and
+    ``serve.run`` of mamba2, whisper and paligemma at 1x1 (kimi-k2's 1x1
+    streams are ``kimi_one``, from ``[moe-serve]``, its weights freed);
+    then :func:`mesh_family_ranks` in two ranks on the card over gloo.
+    Training: the 1x2 and 2x1 losses within ``MESH_LOSS_TOL`` of 1x1's,
+    the share of (step, site) kept sets equal to 1x1's (a routed expert's
+    sites its own), each rank's ``matmul`` launches equal to the launch
+    table's, every product within ``KERNEL_TOL`` of its plain version.
+    Serving on ``--model-mesh 2``: each rank's ``paged_attention``
+    launches (an attention layer a step), the share of tokens equal to
+    1x1's (fp32 at least ``SHARE_MIN``; kimi-k2's bf16 printed),
+    tokens/s, p50/p99 step and the collectives' calls and bytes a step.
+    Returns (``matmul`` launches, every run's and rank's;
+    ``paged_attention`` launches; the worst product error; a summary)."""
+    from repro_torch.launch.mesh import run_on_mesh
+
+    t_phase = time.perf_counter()
+    cases = mf_cases(get_config)
+    one, mm_launches = {}, 0
+    for name, (arch, b, sq, cfg) in cases.items():
+        before = gm.launches["matmul"]
+        one[name] = train.run(train.build_parser().parse_args(_mf_train_argv(arch, b, sq, 1, 1)),
+                              cfg=cfg, collect=("kept",))
+        n = gm.launches["matmul"] - before
+        mm_launches += n
+        if n != one[name]["launches"]["matmul"] or not n:
+            raise AssertionError(f"[mesh-families] {name} 1x1: matmul launches {n}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+    serves, serve_one, pa_launches = {}, {}, 0
+    for arch, (cut, dtype) in MF_SERVE.items():
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype, **cut)
+        serves[arch] = (_mf_serve_argv(arch, 2), cfg)
+        if arch == MOE_ARCH:
+            serve_one[arch] = kimi_one
+            continue
+        before = pa.launches
+        serve_one[arch] = serve.run(serve.build_parser().parse_args(_mf_serve_argv(arch, 1)),
+                                    cfg=cfg)["generated"]
+        pa_launches += pa.launches - before
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_one_serve = time.perf_counter() - t_phase - t_one
+    print(f"[mesh-families] 1x1: {len(cases)} training runs in {t_one:.1f} s, "
+          f"{len(serve_one) - 1} serving runs in {t_one_serve:.1f} s")
+
+    t0 = time.perf_counter()
+    trained, served, every, walls = run_on_mesh(
+        mesh_family_ranks, 1, 2, "cuda",
+        {name: ({f"{d}x{m}": _mf_train_argv(arch, b, sq, d, m) for d, m in MESH_SHAPES}, cfg)
+         for name, (arch, b, sq, cfg) in cases.items()},
+        serves, timeout_s=MF_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    print(f"[mesh-families] one spawn of 2 ranks, {wall:.1f} s spawn to exit; rank 0's parts "
+          "(s): " + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+
+    summary, worst = {}, 0.0
+    for (name, layout), out in trained.items():
+        ref = one[name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["history"], ref["history"], strict=True))
+        sites = [(st, si) for st in ref["kept"] for si in ref["kept"][st]]
+        share = sum(out["kept"][st].get(si) == ref["kept"][st][si] for st, si in sites) / len(sites)
+        got = [r["matmul"] for r in out["launches_by_rank"]]
+        want = [r["matmul"] for r in out["launch_table_by_rank"]]
+        if not all(math.isfinite(v) for v in out["history"]) or rel > MESH_LOSS_TOL:
+            raise AssertionError(f"[mesh-families] {name} {layout} losses {out['history']} vs "
+                                 f"1x1 {ref['history']}: rel {rel:.3g} > {MESH_LOSS_TOL}")
+        if got != want or not all(got) or any(sum(v for k, v in r.items() if k != "matmul")
+                                              for r in out["launches_by_rank"]):
+            raise AssertionError(f"[mesh-families] {name} {layout} launches "
+                                 f"{out['launches_by_rank']} != the table's {want}")
+        mm_launches += sum(got)
+        # a differing set: how many of its kept channels are swapped
+        swapped = {f"{st} {si}": (len(set(out["kept"][st].get(si, ())) - set(ref["kept"][st][si])),
+                                  len(ref["kept"][st][si]))
+                   for st, si in sites if out["kept"][st].get(si) != ref["kept"][st][si]}
+        frac = max((n / max(k, 1) for n, k in swapped.values()), default=0.0)
+        summary[f"{name} {layout}"] = dict(loss_rel=rel, kept_share=share, matmul_by_rank=got,
+                                           most_swapped=frac, wall_s=walls[f"{name} {layout}"])
+        worst_sets = sorted(swapped.items(), key=lambda kv: -kv[1][0] / max(kv[1][1], 1))[:3]
+        print(f"[mesh-families] {name} {layout}: losses {out['history']} (max rel {rel:.3g} of "
+              f"1x1 {ref['history']}); kept sets equal to 1x1's at {share:.4f} of {len(sites)} "
+              f"(step, site), at most {frac:.4f} of a set's channels swapped "
+              f"({', '.join(f'{k}: {n} of {c}' for k, (n, c) in worst_sets)}); matmul launches "
+              f"by rank {got} = the table's")
+    for r in every:
+        for what, (n, err, limit, miss) in sorted(r["checks"].items()):
+            if miss is not None:
+                raise AssertionError(f"[mesh-families] rank {r['rank']} {what} matmul {miss}")
+            worst = max(worst, err)
+        for (name, layout), out in trained.items():
+            n = r["checks"].get(f"{name} {layout}", [0])[0]
+            if n != out["launches_by_rank"][r["rank"]]["matmul"]:
+                raise AssertionError(f"[mesh-families] rank {r['rank']} {name} {layout}: "
+                                     f"{n} products checked of "
+                                     f"{out['launches_by_rank'][r['rank']]['matmul']} launched")
+    print(f"[mesh-families] every matmul product of both ranks within {KERNEL_TOL} x max(1, "
+          f"max|plain|) of its plain version: {sum(c[0] for r in every for c in r['checks'].values())} "
+          f"products, worst {worst:.3g}")
+
+    serve_summary = {}
+    for arch, out in served.items():
+        cfg = serves[arch][1]
+        gen, steps, ref = out["generated"], out["steps"], serve_one[arch]
+        share = float((gen == ref).mean()) if gen.shape == ref.shape else 0.0
+        n_attn = (cfg.n_layers if cfg.family == "encdec" else
+                  sum(1 for s in lm.transformer.layer_slots(cfg) if s.mixer == "attn"))
+        got = [r["paged_attention"] for r in out["launches_by_rank"]]
+        if gen.shape != ref.shape or got != [n_attn * steps] * 2:
+            raise AssertionError(f"[mesh-families] serve {arch}: {gen.shape} vs {ref.shape}, "
+                                 f"paged_attention by rank {got} != {n_attn} x {steps}")
+        if cfg.dtype == "float32" and share < SHARE_MIN:
+            raise AssertionError(f"[mesh-families] serve {arch} fp32 share {share:.4f} < "
+                                 f"{SHARE_MIN}")
+        pa_launches += sum(got)
+        ms = np.asarray(out["step_times"]) * 1e3
+        st = out["stats"]
+        coll = [r["colls"][arch] for r in every]
+        serve_summary[arch] = dict(
+            dtype=cfg.dtype, share=share, steps=steps, tokens_per_s=st["tokens_per_s"],
+            generated_per_s=out["tokens_per_s"], p50_ms=float(np.percentile(ms, 50)),
+            p99_ms=float(np.percentile(ms, 99)), paged_attention_by_rank=got,
+            collectives_per_step=[c["calls"] / steps for c in coll],
+            collective_mb_per_step=[c["bytes"] / steps / 1e6 for c in coll],
+            wall_s=walls[f"serve {arch}"])
+        print(f"[mesh-families] serve {arch} (depth {cfg.n_layers}, {cfg.dtype}) on "
+              f"--model-mesh 2 ({card}): {steps} steps, {st['tokens_per_s']:.1f} tokens/s, "
+              f"{out['tokens_per_s']:.1f} generated/s; step p50 "
+              f"{serve_summary[arch]['p50_ms']:.2f} ms p99 {serve_summary[arch]['p99_ms']:.2f} "
+              f"ms; share of tokens equal to 1x1's {share:.4f}; paged_attention by rank {got}; "
+              f"collectives a step by rank {serve_summary[arch]['collectives_per_step']}, MB "
+              f"{[round(v, 2) for v in serve_summary[arch]['collective_mb_per_step']]}")
+    total = time.perf_counter() - t_phase
+    print(f"[mesh-families] phase {total:.1f} s ({card})")
+    return mm_launches, pa_launches, worst, dict(train=summary, serve=serve_summary,
+                                                 spawn_s=wall, phase_s=total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -3568,7 +3863,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _, ssm_shares = ssm_serve_phase(lm, pa, serve_pkg, get_config)
-    moe_launches, moe_summary = moe_serve_phase(lm, pa, serve_pkg, get_config)
+    moe_launches, moe_summary, kimi_one = moe_serve_phase(lm, pa, serve_pkg, get_config, serve)
     fam_rel = families_reduced_phase(lm, lm_steps, backward, policy_mod, pipeline, gm, pa,
                                      serve_pkg, get_config)
     t_moe = time.perf_counter()
@@ -3598,7 +3893,16 @@ def main() -> int:
               for arch, tag in ((ENCDEC_ARCH, "[encdec-train]"), (VLM_ARCH, "[vlm-train]"))}
 
     lap("encdec-vlm")
-    # 23. result lines
+    # 23. the other families on device meshes: training at 1x2 and 2x1,
+    # serving on a model mesh of 2, against the 1x1 runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mf_mm_launches, mf_pa_launches, mf_err, mf_summary = mesh_families_phase(
+        train, serve, lm, gm, pa, get_config, kimi_one, card)
+    del kimi_one
+
+    lap("mesh-families")
+    # 24. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
     head = next(r for r in rows if "NB=10 " in r["shape"] and "S=1 " in r["shape"]
@@ -3610,10 +3914,11 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
         launches=(launches + feat_launches + moe_launches + enc_launches + vlm_launches
-                  + mesh_serve_launches),
+                  + mesh_serve_launches + mf_pa_launches),
         launches_by_path={"serve": launches, "serve_features": feat_launches,
                           "moe_serve": moe_launches, "encdec_serve": enc_launches,
-                          "vlm_serve": vlm_launches, "mesh_serve": mesh_serve_launches},
+                          "vlm_serve": vlm_launches, "mesh_serve": mesh_serve_launches,
+                          "mesh_families": mf_pa_launches},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -3662,6 +3967,7 @@ def main() -> int:
         if name == "matmul":
             path_launches["lm_resume"] = resume_launches
             path_launches["mesh_train"] = mesh_train_launches
+            path_launches["mesh_families"] = mf_mm_launches
             path_launches["moe_grouped"] = sum(moe_grouped_launches.values())
             path_launches[SSM_ARCH] = ssm_launches
             path_launches.update({arch: xtrain[arch][0] for arch in xtrain})
@@ -3670,13 +3976,14 @@ def main() -> int:
             # launches at their shapes (bf16)
             more = x_rows | {f"{LM_ARCH} reduced (fleet)": (fleet_summary["kernel_rows"],
                                                             fleet_summary["kernel_err"])}
-            err = max([err, mesh_err] + [e[name] for _, e in more.values()])
+            err = max([err, mesh_err, mf_err] + [e[name] for _, e in more.values()])
             by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
                 r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
                 for arch, (xr, e) in more.items()}
             # every product of the mesh ranks' sparse steps, on its own operands
             by_arch["mesh_train"] = dict(max_abs_err=mesh_err, products=sum(
                 c[0] for r in mesh_train_summary["matmul_checks"].values() for c in r.values()))
+            by_arch["mesh_families"] = dict(max_abs_err=mf_err)
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, launches=sum(path_launches.values()),
@@ -3711,6 +4018,7 @@ def main() -> int:
     print(f"[xfamily-train] {json.dumps({a: v[1] for a, v in xtrain.items()})}")
     print(f"[mesh-train] {json.dumps(mesh_train_summary)}")
     print(f"[mesh-serve] {json.dumps(mesh_serve_summary)}")
+    print(f"[mesh-families] {json.dumps(mf_summary)}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@ of the ResNets through the channel-sparse backward engine, with the four gathere
 ssProp training of the paper's DDPM UNet through the same kernels, with
 the paper's backward-FLOPs ledger and task configs; and ssProp training
 of the dense LM at channel granularity, with the
-shrunk products in the ``matmul`` kernel. Every kernel is hand-written
+shrunk products in the ``matmul`` kernel; then every model family of the
+registry, fault-tolerant training, sharded selection, and device meshes
+on which every family trains (``data x model``) and serves (``model``),
+a rank a process (``launch/mesh.py``). Every kernel is hand-written
 CUDA (``kernels/csrc/``), ``importance`` included.
 """

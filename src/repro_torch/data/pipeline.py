@@ -52,6 +52,20 @@ class TokenPipeline:
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
+def frontend_inputs(cfg, global_batch: int, seed: int, step: int) -> dict[str, np.ndarray]:
+    """The stubbed frontends' outputs a step's batch carries besides its
+    tokens: ``frames [B, enc_seq, d_model]`` for the encoder-decoder
+    family, ``patches [B, n_patches, d_model]`` for the VLM, fp32
+    standard normal draws, a pure function of (seed, step); nothing for
+    the other families. The reference's pipeline gives tokens alone."""
+    rows = {"encdec": ("frames", cfg.enc_seq), "vlm": ("patches", cfg.n_patches)}
+    if cfg.family not in rows:
+        return {}
+    name, n = rows[cfg.family]
+    rng = np.random.default_rng((seed, step, 1))
+    return {name: rng.standard_normal((global_batch, n, cfg.d_model)).astype(np.float32)}
+
+
 @dataclasses.dataclass(frozen=True)
 class ImagePipelineConfig:
     image: tuple[int, int, int]  # (C, H, W)

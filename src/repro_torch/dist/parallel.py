@@ -23,7 +23,18 @@ tensors):
   embedding lookup and the cross-entropy over the tied unembedding's
   local logits;
 * :func:`sum_over_data` — the masked mean's numerator and denominator,
-  summed over ``data``.
+  summed over ``data`` (and the MoE load-balance statistics);
+* :func:`sum_stat_over_model` — a statistic each model rank takes of its
+  own columns (the SSM's gated RMSNorm's sum of squares over its heads)
+  summed over ``model``; every rank's output reads it, so the gradient is
+  summed over ``model`` too;
+* :func:`gather_ids_over_data` — int ids (the MoE router's top-k experts)
+  of every data rank's rows, in global row order (no gradient).
+
+A replicated leaf that each model rank reads only in part (the SSM's
+``conv_w`` over its own channels) goes behind :func:`copy_to_model`
+itself: its partial gradients are then summed over ``model``, so every
+rank holds the same full gradient.
 
 Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used: gloo runs
 those three on CUDA tensors (checked on the H100 machine's torch 2.11).
@@ -165,6 +176,17 @@ class _GatherFromModel(torch.autograd.Function):
         return g[..., r * n:(r + 1) * n].contiguous(), None
 
 
+class _SumStatOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x.contiguous().clone(), mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh.model_group), None
+
+
 class _SumOverData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -201,6 +223,21 @@ def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` summed over ``data``; the gradient passed through (each rank's
     share of a global sum gets the sum's gradient)."""
     return _SumOverData.apply(x, mesh) if _data_live(mesh) else x
+
+
+def sum_stat_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` (a statistic of this rank's columns) summed over ``model``;
+    the gradient summed over ``model`` as well (each rank's own outputs
+    read the sum)."""
+    return _SumStatOverModel.apply(x, mesh) if _model_live(mesh) else x
+
+
+def gather_ids_over_data(ids: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's ``ids [rows, ...]`` concatenated along dim 0 in
+    data-rank order (the global row order); no gradient."""
+    if not _data_live(mesh):
+        return ids
+    return all_gather(ids, mesh.data_group, mesh.data, dim=0)
 
 
 def vocab_range(v_loc: int, mesh) -> tuple[int, int]:
@@ -277,16 +314,25 @@ def gather_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
 
 
 class SiteMesh:
-    """How one ssProp site (named ``site``) sees the mesh: its importance
-    is averaged over ``data`` (each rank holds its rows of dY), and
-    ``col`` says that its output channels are split over ``model`` (a
-    column-parallel product), so that a global selection gathers the
-    importance first."""
+    """How one ssProp site (named ``site``) sees the mesh: ``col`` says
+    that its output channels are split over ``model`` (a column-parallel
+    product), so that a global selection gathers the importance first;
+    ``rows`` how its rows of dY lie over ``data``:
 
-    def __init__(self, mesh, col: bool, site: str = ""):
+    * ``"split"`` — each data rank holds its equal share of the rows: the
+      importance (a row mean) is averaged over ``data``;
+    * ``"padded"`` — each data rank holds every row, its own filled and
+      the others' zero (a routed expert's capacity buffer under the
+      global dispatch): the importance is summed over ``data``, which is
+      the one-device row mean;
+    * ``"local"`` — the rows are this rank's alone (an expert of a
+      token group the rank owns): no reduction."""
+
+    def __init__(self, mesh, col: bool, site: str = "", rows: str = "split"):
         self.mesh = mesh
         self.col = col and _model_live(mesh)
         self.site = site
+        self.rows = rows
 
     @property
     def model(self) -> int:
@@ -297,10 +343,11 @@ class SiteMesh:
         return self.mesh.model_rank if self.col else 0
 
     def data_mean(self, imp: torch.Tensor) -> torch.Tensor:
-        """The row mean over every data rank's rows (equal row counts)."""
-        if not _data_live(self.mesh):
+        """The row mean over every data rank's rows (by :attr:`rows`)."""
+        if not _data_live(self.mesh) or self.rows == "local":
             return imp
-        return all_reduce(imp.clone(), self.mesh.data_group) / self.mesh.data
+        tot = all_reduce(imp.clone(), self.mesh.data_group)
+        return tot if self.rows == "padded" else tot / self.mesh.data
 
     def gather_model(self, imp: torch.Tensor) -> torch.Tensor:
         """The full channel vector from each model rank's columns."""

@@ -264,16 +264,29 @@ def is_split(spec: Sequence, axis: str = "model") -> bool:
     return any(e == axis or (isinstance(e, tuple) and axis in e) for e in spec)
 
 
-def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+def shard_tree(tree: Any, specs: Any, mesh, *, consume: bool = False) -> Any:
     """Each leaf's local shard on this rank (a fresh contiguous tensor):
     the :func:`local_index` block of the rank's own copy of the full
-    leaf, so nothing moves between ranks."""
+    leaf, so nothing moves between ranks. ``consume`` drops each full
+    leaf from ``tree`` (set to ``None``) once its shard is taken, so that
+    the full tree and its shards are not held at once."""
 
     def one(leaf, spec):
         return leaf[local_index(spec, leaf.shape, mesh)].clone(
             memory_format=torch.contiguous_format)
 
-    return map_specs(one, tree, specs)
+    if not consume:
+        return map_specs(one, tree, specs)
+    keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+    out = {} if isinstance(tree, dict) else [None] * len(tree)
+    for k in keys:
+        v = tree[k]
+        if isinstance(v, (dict, list)):
+            out[k] = shard_tree(v, specs[k], mesh, consume=True)
+        elif v is not None:
+            out[k] = one(v, specs[k])
+        tree[k] = v = None
+    return out
 
 
 def gather_tree(tree: Any, specs: Any, mesh) -> Any:

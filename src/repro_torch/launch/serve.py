@@ -36,10 +36,13 @@ the contiguous cache) and runs ``paged_attention`` on them; the engine's
 host state is the same on every rank, which every step keeps in
 lock-step, since each rank draws every token from the same full row of
 logits (all-gathered over the vocabulary). Rank 0's result is returned.
-Still refused, each naming its ROADMAP item: ``--data-mesh > 1`` (the
-reference replicates the page pool over ``data``), a model size that does
-not divide the KV heads, the lock-step baseline engine, and the
-non-dense families.
+Every family serves on a model mesh: MoE ranks hold their experts, SSM
+ranks their heads' state rows, the encoder-decoder runs its encoder a
+request on the mesh, and where the model size does not divide the KV
+heads each rank caches the KV heads its q heads read (the layout of the
+reference's ``replicate_kv``). Still refused, each naming its ROADMAP
+item: ``--data-mesh > 1`` (the reference replicates the page pool over
+``data``) and the lock-step baseline engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --requests 8 --prompt-len 128 --gen 32 --prefill-chunk 32 \
@@ -58,6 +61,7 @@ import torch
 
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.configs.registry import get_config
+from repro_torch.dist import parallel
 from repro_torch.dist import sharding as shd
 from repro_torch.launch.mesh import run_on_mesh
 from repro_torch.models import model as lm
@@ -119,9 +123,6 @@ def _refuse_unported(args, cfg) -> None:
         return
     unported = {
         "--data-mesh > 1 (the reference replicates the page pool over data)": args.data_mesh > 1,
-        f"the {cfg.family} family on a mesh": cfg.family != "dense",
-        f"a model mesh of {args.model_mesh} that does not divide {cfg.n_kv_heads} KV heads":
-            cfg.n_kv_heads % args.model_mesh != 0,
         "the lock-step engine on a mesh": args.engine == "lockstep",
     }
     asked = [what for what, on in unported.items() if on]
@@ -129,13 +130,26 @@ def _refuse_unported(args, cfg) -> None:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 
 
-def _mesh_params(cfg, params, mesh):
-    """This rank's shards of ``params`` (the full tree is freed)."""
-    local = shd.shard_tree(params, lm.mesh_specs(cfg, params, mesh.shape), mesh)
-    del params
-    if mesh.device.type == "cuda":
-        torch.cuda.empty_cache()
-    return local
+def rank_params(cfg, seed, device, mesh):
+    """The params from ``seed``, or on a mesh this rank's serving shards
+    of them (``model.decode_params``). Ranks that share a device (the CPU,
+    or one card) build their shards in turn, each full leaf freed once its
+    shard is taken: each draws the full tree first, and at once they would
+    hold a copy each."""
+    if mesh is None:
+        return lm.init_params(cfg, seed, device)
+    shared = mesh.device.type == "cpu" or torch.cuda.device_count() < mesh.world
+    local = None
+    for turn in range(mesh.world if shared else 1):
+        if not shared or turn == mesh.rank:
+            full = lm.init_params(cfg, seed, device)
+            local = shd.shard_tree(full, lm.mesh_specs(cfg, full, mesh.shape), mesh, consume=True)
+            del full
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+        if shared:
+            parallel.barrier(mesh)
+    return lm.decode_params(cfg, local, mesh)  # every rank at once: it all-gathers
 
 
 def run(args, *, cfg=None, timeout_s: float | None = None) -> dict:
@@ -160,16 +174,17 @@ def run(args, *, cfg=None, timeout_s: float | None = None) -> dict:
     return serve_rank(None, args, cfg)
 
 
-def serve_rank(mesh, args, cfg) -> dict:
+def serve_rank(mesh, args, cfg, params=None) -> dict:
     """Serve on this process's device, or as one rank of a model mesh
-    (what :func:`run` spawns)."""
+    (what :func:`run` spawns). ``params``: the model's params already
+    built from ``--seed`` (one device), so that a caller that holds them
+    serves without a second copy."""
     device = torch.device(args.device) if mesh is None else mesh.device
     n_requests = args.requests or args.batch
     max_seq = args.prompt_len + args.gen + cfg.n_patches  # the JAX CLI's room for the patches
 
-    params = lm.init_params(cfg, args.seed, device)
-    if mesh is not None:
-        params = _mesh_params(cfg, params, mesh)
+    if params is None:
+        params = rank_params(cfg, args.seed, device, mesh)
     reqs = poisson_workload(
         cfg,
         n_requests=n_requests,
@@ -219,9 +234,7 @@ def serve_rank(mesh, args, cfg) -> dict:
     if args.spec_k and args.draft_layers:
         draft_cfg = (cfg.reduced(n_layers=args.draft_layers) if args.reduced
                      else dataclasses.replace(cfg, n_layers=args.draft_layers))
-        draft_params = lm.init_params(draft_cfg, args.seed + 1, device)
-        if mesh is not None:
-            draft_params = _mesh_params(draft_cfg, draft_params, mesh)
+        draft_params = rank_params(draft_cfg, args.seed + 1, device, mesh)
     before = pa.launches
     engine = ContinuousBatchingEngine(
         cfg,
@@ -265,8 +278,6 @@ def serve_rank(mesh, args, cfg) -> dict:
         out[k] = stats[k]
     out = dict(out, stats=stats, step_times=list(engine.step_times))
     if mesh is not None:
-        from repro_torch.dist import parallel
-
         n = torch.tensor([pa.launches - before], dtype=torch.int64, device=device)
         every = parallel.all_gather(n, mesh.model_group, mesh.model, dim=0)
         out["launches_by_rank"] = [{"paged_attention": int(v)} for v in every.tolist()]

@@ -35,10 +35,18 @@ computes: the loss, the updated params and the kept channels
 (``dist/parallel.py``, ``core/sparsity.py::select_on_mesh``). A
 checkpoint on a mesh is the JAX package's sharded format, a
 ``shard_<r>.msgpack`` a rank, committed by rank 0; a restart restores
-it and each rank keeps its slices. Still refused, each naming the
-ROADMAP item that ports it: a fleet (``--world-size > 1``) on a mesh, a
-non-dense family on a mesh, and a global batch that ``--data-mesh`` does
-not divide (the reference moves ``data`` to the sequence there).
+it and each rank keeps its slices. Every family runs on a mesh (experts
+split over ``model``, SSM heads split over ``model``, the encoder and the
+cross-decoder as the decoder stack). Still refused, each naming the
+ROADMAP item that ports it: a fleet (``--world-size > 1``) on a mesh and
+a global batch that ``--data-mesh`` does not divide (the reference moves
+``data`` to the sequence there).
+
+The token pipeline gives tokens alone, as the reference's does; for the
+encoder-decoder and VLM families the port adds the stubbed frontends'
+outputs to each batch (``data/pipeline.py::frontend_inputs``: frames or
+patches drawn from the seed and the step), which the reference's CLI
+lacks (it trains those families through ``make_train_step`` only).
 
 **Multi-process mode** (``--coord-dir`` + ``--world-size N`` +
 ``--rank r``): every rank runs this driver as its own OS process against
@@ -83,7 +91,7 @@ from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core import backward
 from repro_torch.core.policy import PolicyProgram, PolicyRules, paper_default, tpu_default
 from repro_torch.core.schedulers import make_schedule
-from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig, frontend_inputs
 from repro_torch.dist import compat as dist_compat
 from repro_torch.dist import parallel
 from repro_torch.dist import sharding as shd
@@ -99,6 +107,7 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import run_on_mesh
 from repro_torch.launch.precision import fp32_precision
 from repro_torch.models import model as lm
+from repro_torch.models import moe
 from repro_torch.optim import adam
 
 
@@ -179,10 +188,8 @@ def _refuse_unported(args) -> None:
     ROADMAP item that ports it."""
     if args.data_mesh * args.model_mesh == 1:
         return
-    family = get_config(args.arch).family
     unported = {
         "a fleet (--world-size > 1) on a mesh": args.world_size > 1,
-        f"the {family} family on a mesh (meshes run the dense family)": family != "dense",
         f"--global-batch {args.global_batch} that --data-mesh {args.data_mesh} does not divide "
         "(the reference moves data to the sequence dim)": args.global_batch % args.data_mesh != 0,
     }
@@ -422,7 +429,8 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
                 fn = steps_lib.make_train_step(cfg, policies, opt_cfg, mesh=mesh,
                                                sharded=sharded)
                 rate = program.schedule.rate(step)
-                batch = pipe.batch_at(step)
+                batch = dict(pipe.batch_at(step),
+                             **frontend_inputs(cfg, args.global_batch, args.seed, step))
                 if mesh is not None:
                     batch = {k: v[row0:row0 + rows] for k, v in batch.items()}
                 batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
@@ -439,16 +447,18 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
                 dt = time.perf_counter() - t0
                 if mesh is not None:
                     per = lm.kernel_launches_per_step(
-                        cfg, policies, model=mesh.model,
+                        cfg, policies, model=mesh.model, data=mesh.data,
+                        tokens=args.global_batch * args.seq_len,
                         idle_sites={site for site, sel in log if sel.k == 0})
                     for k, v in per.items():
                         table[k] += v
                 if "kept" in collect:
                     site_of = _site_of(params) if mesh is None else None
-                    kept[step] = {
-                        (site_of[key] if mesh is None else key): global_kept(
-                            cfg, site_of[key] if mesh is None else key, sel, mesh)
-                        for key, sel in log}
+                    got: dict[str, set[int]] = {}
+                    for key, sel in log:  # an expert of several groups: their union
+                        site = site_of[key] if mesh is None else key
+                        got.setdefault(site, set()).update(global_kept(cfg, site, sel, mesh))
+                    kept[step] = {site: sorted(v) for site, v in got.items()}
                 strag.record(rank, dt)
                 strag.check(excluded=restart_policy.excluded_ranks)
                 if hb:
@@ -513,8 +523,9 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
 
             every_kept = [None] * mesh.world
             dist.all_gather_object(every_kept, kept)
-            kept = {step: {site: sorted({i for k in every_kept for i in k[step][site]})
-                           for site in every_kept[0][step]} for step in every_kept[0]}
+            kept = {step: {site: sorted({i for k in every_kept for i in k[step].get(site, ())})
+                           for site in set().union(*(k[step] for k in every_kept))}
+                    for step in every_kept[0]}
     if "kept" in collect:
         out["kept"] = kept
     if "params" in collect:
@@ -523,18 +534,24 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
 
 
 def _site_of(params) -> dict[int, str]:
-    """weight ``data_ptr`` -> site name over the dense stack's projections."""
+    """weight ``data_ptr`` -> site name over every product of the model (a
+    routed expert's ``moe/gate[e]`` and the like, as a mesh names it)."""
     out = {}
-    for li, layer in enumerate(params["stack"]["layers"]):
-        for role in ("attn", "mlp"):
-            for proj, p in layer.get(role, {}).items():
-                out[p["w"].data_ptr()] = f"layer_{li}/{role}/{proj}"
+    for name, w in named_params(params).items():
+        site, _, leaf = name.rpartition("/")
+        if leaf == "w" and w.dim() == 2:
+            out[w.data_ptr()] = site
+        elif lm.is_expert_site(name) and w.dim() == 3:
+            layer = name.split("/moe/", 1)[0]
+            for e in range(w.shape[0]):
+                out[w[e].data_ptr()] = f"{layer}/{moe.expert_site(leaf, e)}"
     return out
 
 
 def named_params(params) -> dict[str, torch.Tensor]:
     """``name -> tensor`` over a param tree: ``embed/table``,
-    ``layer_{li}/attn/q/w`` and so on."""
+    ``layer_{li}/attn/q/w`` and so on (the encoder's layers
+    ``enc/layer_{i}/...``, the cross-decoder's ``layer_{li}/...``)."""
     out = {}
 
     def walk(node, prefix):
@@ -544,9 +561,11 @@ def named_params(params) -> dict[str, torch.Tensor]:
         else:
             out[prefix[:-1]] = node
 
-    walk({k: v for k, v in params.items() if k != "stack"}, "")
-    for li, layer in enumerate(params["stack"]["layers"]):
-        walk(layer, f"layer_{li}/")
+    stacks = {"stack": "", "decoder": "", "encoder": "enc/"}
+    walk({k: v for k, v in params.items() if k not in stacks}, "")
+    for key, pre in stacks.items():
+        for li, layer in enumerate(params.get(key, {}).get("layers", [])):
+            walk(layer, f"{pre}layer_{li}/")
     return out
 
 

@@ -280,13 +280,17 @@ def attn_apply(
       which computes this route outside any kernel: the cache read as a
       pool of B pages of T tokens, slot b's table ``[b]``.
 
-    On a ``mesh`` (self-attention only) the rank runs its local q heads
-    and their KV heads: the local k/v columns where they hold whole KV
-    heads (the KV cache then holds the local KV heads), else
+    On a ``mesh`` the rank runs its local q heads and their KV heads: the
+    local k/v columns where they hold whole KV heads, else
     (:func:`kv_heads_of_rank`) the full k/v products computed alike on
     every model rank, their gradient summed over ``model`` by
     ``copy_to_model`` (each rank's q heads reach only their KV head), and
-    this rank's KV heads taken.
+    this rank's KV heads taken. Either way the KV cache holds the KV heads
+    the rank's q heads read (:func:`kv_range`: where the model size does
+    not divide the KV heads, a head is held by every rank that reads it,
+    the layout of the reference's ``replicate_kv``). Cross-attention
+    projects K/V from ``x_kv``, replicated over ``model``, behind
+    ``copy_to_model``.
 
     Returns (out [B,S,d], kv_cache).
     """
@@ -298,19 +302,16 @@ def attn_apply(
     q = dense_apply(p["q"], xm, policy, site=f"{site}/q", mesh=mesh).reshape(b, s, -1, hd)
     kv_split = kv_heads_of_rank(cfg, mesh)
     if kv_split is None:
-        k = dense_apply(p["k"], xm if x_kv is None else src, policy, site=f"{site}/k",
-                        mesh=mesh).reshape(b, t, -1, hd)
-        v = dense_apply(p["v"], xm if x_kv is None else src, policy, site=f"{site}/v",
-                        mesh=mesh).reshape(b, t, -1, hd)
+        srcm = xm if x_kv is None else parallel.copy_to_model(src, mesh)
+        k = dense_apply(p["k"], srcm, policy, site=f"{site}/k", mesh=mesh).reshape(b, t, -1, hd)
+        v = dense_apply(p["v"], srcm, policy, site=f"{site}/v", mesh=mesh).reshape(b, t, -1, hd)
     else:
-        if kv_cache is not None:
-            raise NotImplementedError(
-                f"serving on a model mesh of {mesh.model} with {cfg.n_kv_heads} KV heads: the "
-                "model size must divide the KV heads (ROADMAP Queue 1 item 5)")
         lo, hi = kv_split
+        held = p["k"]["w"].shape[-1] == cfg.n_kv_heads * hd  # gathered at load (serving)
         k, v = (parallel.copy_to_model(
-            dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=mesh, split="gather"),
-            mesh).reshape(b, t, -1, hd)[:, :, lo:hi] for n in ("k", "v"))
+            dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=None if held else mesh,
+                        split="gather"), mesh).reshape(b, t, -1, hd)[:, :, lo:hi]
+            for n in ("k", "v"))
     if rope is not None:
         q = apply_rope(q, rope)
         if x_kv is None:
@@ -339,6 +340,18 @@ def kv_whole_heads(cfg, model: int) -> bool:
     divides them, as ``fit_spec`` then keeps ``model`` on their columns at
     a head boundary)?"""
     return cfg.n_kv_heads % model == 0
+
+
+def kv_range(cfg, mesh) -> tuple[int, int]:
+    """The ``[lo, hi)`` KV heads this rank's q heads read, which its KV
+    cache holds (all of them off a mesh)."""
+    split = kv_heads_of_rank(cfg, mesh)
+    if split is not None:
+        return split
+    if mesh is None or mesh.model == 1:
+        return 0, cfg.n_kv_heads
+    n = cfg.n_kv_heads // mesh.model
+    return mesh.model_rank * n, (mesh.model_rank + 1) * n
 
 
 def kv_heads_of_rank(cfg, mesh) -> tuple[int, int] | None:

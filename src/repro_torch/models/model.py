@@ -37,11 +37,13 @@ slot), ``{"conv", "state"}`` for a Mamba layer (a row a slot either
 way). The encoder's output is not cached here: the serving engine keeps
 it a slot, and the cross-attention projects its K/V at every step.
 
-On a device mesh (``mesh=``, ``launch/mesh.py::Mesh``; the dense
-decoder-only stack) params are this rank's shards of the leaves
-(:func:`mesh_specs`, ``dist/sharding.py::shard_tree``), a batch is this
-data rank's rows, and the loss, its gradients and the decode logits are
-the one-device model's (``dist/parallel.py``).
+On a device mesh (``mesh=``, ``launch/mesh.py::Mesh``; every family)
+params are this rank's shards of the leaves (:func:`mesh_specs`,
+``dist/sharding.py::shard_tree``), a batch is this data rank's rows, and
+the loss, its gradients and the decode logits are the one-device model's
+(``dist/parallel.py``): attention and MLPs hold their heads and ``d_ff``
+columns, MoE layers their experts, SSM layers their heads, and the VLM's
+patch prefix and the encoder's output are replicated over ``model``.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from repro_torch.core import sparsity
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
 from repro_torch.dist import parallel
 from repro_torch.dist import sharding as shd
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, ssm, transformer
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict[str, Any]:
@@ -156,14 +158,12 @@ def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
     """Each leaf's spec on a mesh of ``mesh_shape``, in the port's layout:
     ``dist/sharding.py``'s rules over the JAX layout (:func:`jax_layout`),
     fitted to the stacked shapes with ``fit_spec``, a per-layer tensor
-    taking its stack's spec without the stack dim. The decoder-only
-    families only (a mesh runs the dense stack)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("encdec params on a mesh (ROADMAP Queue 1 item 5)")
+    taking its stack's spec without the stack dim (every family: the
+    decoder stack's period slots, the encoder's and the cross-decoder's
+    layer stacks)."""
     jl = jax_layout(cfg, params, StackShape)
     specs = shd.param_specs(jl)
     fitted = shd.map_specs(lambda leaf, sp: shd.fit_spec(sp, leaf.shape, mesh_shape), jl, specs)
-    plen = len(transformer.period_pattern(cfg))
 
     def unstack(sp):
         if isinstance(sp, dict):
@@ -172,33 +172,56 @@ def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
             raise NotImplementedError(f"a spec {sp} that splits the layer stack")
         return shd.Spec(*sp[1:])
 
+    out = {"embed": fitted["embed"], "final_norm": fitted["final_norm"]}
+    if cfg.family == "encdec":
+        out["encoder"] = {"layers": [unstack(fitted["encoder"])] * cfg.n_enc_layers}
+        out["enc_norm"] = fitted["enc_norm"]
+        out["decoder"] = {"layers": [unstack(fitted["decoder"])] * cfg.n_layers}
+        return out
+    plen = len(transformer.period_pattern(cfg))
     slots = fitted["stack"]["slots"]
-    return {"embed": fitted["embed"], "final_norm": fitted["final_norm"],
-            "stack": {"layers": [unstack(slots[li % plen]) for li in range(cfg.n_layers)]}}
+    out["stack"] = {"layers": [unstack(slots[li % plen]) for li in range(cfg.n_layers)]}
+    return out
 
 
-def shard_cache(cfg: ModelConfig, cache, mesh, *, paged: bool):
-    """This rank's shard of a decode cache on a model mesh: the
-    reference's ``cache_specs`` (over the period-stacked layout; ``paged``
-    the page pool's) fitted to the mesh, each layer keeping its stack's
-    spec without the stack dim, so K/V keep ``model`` on the KV-head dim.
-    A model size that does not divide the KV heads (``fit_spec`` would
-    move ``model`` to the head dim, where the scores need a partial-sum
-    all-reduce the kernel cannot do) raises."""
-    if any("k" not in layer for layer in cache):
-        raise NotImplementedError(f"{cfg.name}: SSM caches on a mesh (ROADMAP Queue 1 item 5)")
-    n = transformer.n_periods(cfg)
+def shard_cache(cfg: ModelConfig, cache, mesh):
+    """This rank's shard of a decode cache on a model mesh: an attention
+    layer's K/V keep the KV heads the rank's q heads read
+    (``layers.kv_range``: the reference's ``cache_specs``, ``model`` on the
+    KV-head dim, where the model size divides the KV heads; else the
+    layout of its ``replicate_kv``, each head on every rank that reads it,
+    since ``fit_spec``'s move of ``model`` to the head dim would need a
+    partial-sum all-reduce of the scores the kernel cannot do); an SSM
+    layer's rows keep the rank's heads (``ssm.shard_cache``). The page
+    axis of a paged pool is never split."""
+    lo, hi = layers.kv_range(cfg, mesh)
     out = []
     for layer in cache:
-        stacked = {k: StackShape([t] * n) for k, t in layer.items()}
-        specs = {k: shd.Spec(*sp[1:]) for k, sp in
-                 shd.cache_specs(mesh.shape, stacked, paged=paged).items()}
-        if specs["k"][2] != "model" and mesh.model > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a model mesh of {mesh.model} does not divide its "
-                f"{cfg.n_kv_heads} KV heads (ROADMAP Queue 1 item 5)")
-        out.append(shd.shard_tree(layer, specs, mesh))
+        if "k" in layer:
+            out.append({k: t[:, :, lo:hi].contiguous() for k, t in layer.items()})
+        else:
+            out.append(ssm.shard_cache(cfg, layer, mesh))
     return out
+
+
+def decode_params(cfg: ModelConfig, params, mesh):
+    """A model-mesh rank's serving params: its shards, with the leaves a
+    step would gather on use at every layer gathered once, in place (the
+    SSM's ``in_proj``, whose even column split cuts across its parts, and
+    k/v where the model size does not divide the KV heads). Training
+    keeps them sharded (its gradients are the shards')."""
+    if mesh is None or mesh.model == 1:
+        return params
+    split_kv = not layers.kv_whole_heads(cfg, mesh.model)
+    stacks = ("stack", "decoder", "encoder")
+    for layer in [t for k in stacks if k in params for t in params[k]["layers"]]:
+        leaves = [layer["ssm"]["in_proj"]] if "ssm" in layer else []
+        if split_kv:
+            leaves += [layer[r][n] for r in ("attn", "self", "cross") if r in layer
+                       for n in ("k", "v")]
+        for p in leaves:
+            p["w"] = parallel.all_gather(p["w"], mesh.model_group, mesh.model, dim=-1)
+    return params
 
 
 def site_names(cfg: ModelConfig):
@@ -239,15 +262,11 @@ def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=No
 
 def _hidden(cfg, params, batch, policy, mesh):
     """The final-normed hidden states the unembedding reads, and aux."""
-    if mesh is not None and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh: ROADMAP Queue 1 item 5 (meshes run the "
-            "dense family)")
     x = _embed_inputs(cfg, params, batch, mesh)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "encdec":
-        enc = encode(cfg, params, batch["frames"].to(x.dtype), policy)
-        x, _ = transformer.cross_decoder_apply(params["decoder"], x, enc, cfg, policy)
+        enc = encode(cfg, params, batch["frames"].to(x.dtype), policy, mesh=mesh)
+        x, _ = transformer.cross_decoder_apply(params["decoder"], x, enc, cfg, policy, mesh=mesh)
     else:
         x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy, mesh=mesh)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
@@ -256,20 +275,23 @@ def _hidden(cfg, params, batch, policy, mesh):
     return x, aux
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor, policy: PolicyLike = DENSE):
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, policy: PolicyLike = DENSE, *,
+           mesh=None):
     """The encdec family's encoder pass: ``frames [B, enc_seq, d]`` ->
     the normed encoder output the cross-decoder attends to (serving runs
-    it once a request, at admission)."""
-    enc = transformer.encoder_apply(params["encoder"], frames, cfg, policy)
+    it once a request, at admission). On a ``mesh`` the output is
+    replicated over ``model``."""
+    enc = transformer.encoder_apply(params["encoder"], frames, cfg, policy, mesh=mesh)
     return layers.rmsnorm_apply(params["enc_norm"], enc, cfg.norm_eps)
 
 
-def encode_frames(cfg: ModelConfig, params, frames: np.ndarray, device) -> torch.Tensor:
+def encode_frames(cfg: ModelConfig, params, frames: np.ndarray, device, *,
+                  mesh=None) -> torch.Tensor:
     """:func:`encode` of numpy ``frames [B, enc_seq, d]`` (a request's, as
     the workload draws them): on ``device`` in ``cfg.dtype``, no grad."""
     x = torch.from_numpy(np.asarray(frames, np.float32)).to(device)
     with torch.no_grad():
-        return encode(cfg, params, x.to(getattr(torch, cfg.dtype)))
+        return encode(cfg, params, x.to(getattr(torch, cfg.dtype)), mesh=mesh)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=None):
@@ -305,9 +327,21 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=No
 _EXPERT_SITES = ("moe/gate", "moe/up", "moe/down")  # a launch a product an expert
 
 
+def _proj(site: str) -> str:
+    """A site's product name: the last path part, a routed expert's
+    ``[e]`` (``moe.expert_site``) cut off."""
+    return site.rsplit("/", 1)[1].split("[", 1)[0]
+
+
+def is_expert_site(site: str) -> bool:
+    """Is ``site`` a routed expert's product (``layer_{i}/moe/gate`` and
+    the like, with or without an expert's ``[e]``)?"""
+    return site.split("[", 1)[0].split("/", 1)[-1] in _EXPERT_SITES
+
+
 def site_out_dim(cfg: ModelConfig, site: str) -> int:
     """The output width (``D_out``, the selected axis) of a site's product."""
-    proj = site.rsplit("/", 1)[1]
+    proj = _proj(site)
     if proj == "q":
         return cfg.n_heads * cfg.head_dim
     if proj in ("k", "v"):
@@ -315,27 +349,29 @@ def site_out_dim(cfg: ModelConfig, site: str) -> int:
     if proj in ("o", "down", "out_proj"):
         return cfg.d_model
     if proj == "in_proj":
-        return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+        return ssm.site_cols(cfg)
     return cfg.d_ff * (cfg.n_shared_experts if "/shared/" in site else 1)  # up, gate
 
 
 def mesh_split(cfg: ModelConfig, site: str, model: int) -> str:
-    """How a rank of a model mesh of ``model`` holds a dense stack site:
-    ``"col"`` (q/k/v/up/gate: its output columns), ``"row"`` (o/down: its
+    """How a rank of a model mesh of ``model`` holds a site: ``"col"``
+    (q/k/v/up/gate: its output columns), ``"row"`` (o/down/out_proj: its
     input rows), ``"gather"`` (k/v where the model size does not divide
-    the KV heads: the full product on every rank), or ``"rep"`` (no
-    model split)."""
-    proj = site.rsplit("/", 1)[1]
-    if model == 1:
+    the KV heads, and the SSM's in_proj, whose even column split cuts
+    across its parts: the full product on every rank), or ``"rep"`` (no
+    model split; a routed expert, held whole by one rank)."""
+    proj = _proj(site)
+    if model == 1 or is_expert_site(site):
         return "rep"
-    if proj in ("o", "down"):
+    if proj in ("o", "down", "out_proj"):
         return "row"
-    if proj in ("k", "v") and not layers.kv_whole_heads(cfg, model):
+    if proj == "in_proj" or (proj in ("k", "v") and not layers.kv_whole_heads(cfg, model)):
         return "gather"
     return "col"
 
 
 def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int = 1,
+                             data: int = 1, tokens: int = 0,
                              idle_sites=()) -> dict[str, int]:
     """Launches of each backward kernel in one training step under
     ``policy`` (a plain policy or a step's table), site by site by the
@@ -348,21 +384,26 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int
     products too, the encoder's first layer among them. The routed
     experts' sites (``moe/gate``, ``moe/up``, ``moe/down``) launch their
     products once an expert, and with ``moe_dp_groups`` = G once a
-    (group, expert) pair (a step whose B*S tokens the G groups divide,
-    else the ungrouped dispatch runs). A site whose ``tp_shards`` divides
-    its output width, both sides sparsified, takes the TP fast path and
-    launches nothing.
+    (group, expert) pair (where the step's ``tokens``, every data rank's,
+    split into the G groups; else, or with ``tokens`` 0, as if they do).
+    A site whose ``tp_shards`` divides its output width, both sides
+    sparsified, takes the TP fast path and launches nothing.
 
-    On a model mesh of ``model`` (the dense stack) the table is one
-    rank's: a column-parallel site (:func:`mesh_split`) whose
-    ``tp_shards`` is ``t * model`` selects over its ``t`` local shards (the
-    fast path when ``t > 1``, the kernel route when ``t == 1``); any other
-    column-parallel site takes the one-device selection's channels in its
-    columns, on the block kernels where its columns are whole blocks,
-    else through ``matmul``; and launches nothing where that is no
-    channel (``idle_sites``, as the step found them)."""
+    On a ``data x model`` mesh the table is one rank's: its ``E/model``
+    experts, each once a local group (``G/data`` of them, or the one
+    group of the global dispatch); a column-parallel site
+    (:func:`mesh_split`) whose ``tp_shards`` is ``t * model`` selects
+    over its ``t`` local shards (the fast path when ``t > 1``, the kernel
+    route when ``t == 1``); any other column-parallel site takes the
+    one-device selection's channels in its columns, on the block kernels
+    where its columns are whole blocks, else through ``matmul``; and
+    launches nothing where that is no channel (``idle_sites``, as the
+    step found them)."""
     n = {"matmul": 0, "dx_gathered": 0, "dw_gathered": 0}
-    experts = cfg.n_experts * max(1, cfg.moe_dp_groups)
+    groups = cfg.moe_dp_groups
+    if groups and tokens and tokens % groups:
+        groups = 0
+    experts = cfg.n_experts // model * max(1, groups // data if groups else 1)
     for site in site_names(cfg)[0]:
         p = policy_for(policy, site)
         if not (p.active and p.use_pallas and not p.mask_mode):
@@ -377,14 +418,13 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int
             blocks = (c // model) % p.block_size == 0
         if p.sparsify_dx and p.sparsify_dw and shards > 1:
             continue
-        per = experts if site.split("/", 1)[1] in _EXPERT_SITES else 1
+        per = experts if is_expert_site(site) else 1
         if p.granularity == "channel" or not blocks:
             n["matmul"] += per * (p.sparsify_dx + p.sparsify_dw)
         else:
             n["dx_gathered"] += per * p.sparsify_dx
             n["dw_gathered"] += per * p.sparsify_dw
     return n
-
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda"):
@@ -455,13 +495,11 @@ def decode_slots(
     the positions they are given; no patch prefix is fed, as in the JAX
     package's decode.
 
-    ``mesh``: a model mesh (the dense family): ``params`` and the cache
-    are this rank's shards (its heads, its KV heads), and the logits are
-    every vocabulary column, all-gathered, the same on every rank.
+    ``mesh``: a model mesh: ``params`` and the cache are this rank's
+    shards (its heads and KV heads, experts, SSM heads; ``enc_out`` is
+    replicated), and the logits are every vocabulary column,
+    all-gathered, the same on every rank.
     """
-    if mesh is not None and cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) serving on a mesh: "
-                                  "ROADMAP Queue 1 item 5")
     b, c = tokens.shape
     ar = torch.arange(c, device=tokens.device)
     positions = slot_pos.long()[:, None] + ar[None, :]  # [B, C]
@@ -473,7 +511,7 @@ def decode_slots(
         x, cache = transformer.cross_decoder_apply(
             params["decoder"], x, enc_out, cfg,
             positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
-            paged_kernel=paged_kernel,
+            paged_kernel=paged_kernel, mesh=mesh,
         )
     else:
         x, cache, _ = transformer.stack_apply(

@@ -20,6 +20,23 @@ shards of a mesh), each with its own capacity, and each (group, expert)
 pair runs its own ``sparse_dense`` products, as the JAX package vmaps its
 expert FFN over both axes; the ungrouped dispatch is the one-group case
 (the JAX package keeps two copies of the body, the port one).
+
+On a ``data x model`` mesh (``mesh=``) the experts are split over
+``model`` (the reference's expert parallelism: a rank holds ``E/model``
+of them). The tokens are replicated over ``model``, so the router, the
+top-k and the dispatch run alike on every model rank; each rank runs its
+own experts' products, and its combine, a partial sum, is closed by
+``reduce_from_model``. The dispatched ``x`` and the combine weights reach
+only the rank's experts, so both sit behind ``copy_to_model``; the router
+reads ``x`` directly, so the load-balance loss's gradient, the same on
+every rank, is not summed ``model`` times. Over ``data``: with
+``dp_groups`` a multiple of the data size each data rank dispatches its
+own groups; otherwise (the global dispatch) every rank places every
+token by the all-gathered top-k ids in global order, fills its own
+tokens' capacity slots and leaves the others' zero, so capacity and
+drops are the one-device step's, and each expert's selection sums its
+importance over ``data`` (``SiteMesh(rows="padded")``). ``aux_loss`` and
+``dropped`` are the global ones on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +46,7 @@ import torch
 
 from repro_torch.core.dense import sparse_dense
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
+from repro_torch.dist import parallel
 from repro_torch.models import layers
 
 
@@ -55,27 +73,65 @@ def moe_init(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
-def _expert_ffn(gate_w, up_w, down_w, xb, act, pols):
+def _expert_ffn(gate_w, up_w, down_w, xb, act, pols, site_mesh=None):
     """The experts' gated FFNs on their ``[E, capacity, d]`` buffers.
 
     ``pols`` = the (gate, up, down) policies (sites ``moe/gate``,
     ``moe/up``, ``moe/down``). A site whose policy is active takes each
     expert's product through ``sparse_dense`` on its own, so each expert
-    selects over its own cotangent, as the JAX package's vmap does."""
+    selects over its own cotangent, as the JAX package's vmap does.
+    ``site_mesh(name, i)``: on a mesh, the ``SiteMesh`` of local expert
+    ``i``'s ``name`` product."""
     fn = layers._ACTS[act]
 
-    def product(x, w, pol):  # x [..., E, cap, d_in] @ w [E, d_in, d_out]
+    def product(x, w, pol, name):  # x [..., E, cap, d_in] @ w [E, d_in, d_out]
         if pol.active and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             xs = x.reshape(-1, *x.shape[-3:])
             out = torch.stack([
-                torch.stack([sparse_dense(xg[i], w[i], policy=pol) for i in range(w.shape[0])])
+                torch.stack([sparse_dense(xg[i], w[i], policy=pol,
+                                          mesh=site_mesh and site_mesh(name, i))
+                             for i in range(w.shape[0])])
                 for xg in xs])
             return out.reshape(*x.shape[:-1], w.shape[-1])
         t = torch.promote_types(x.dtype, w.dtype)
         return torch.matmul(x.to(t), w.to(t))
 
-    h = fn(product(xb, gate_w, pols[0])) * product(xb, up_w, pols[1])
-    return product(h, down_w, pols[2])
+    h = fn(product(xb, gate_w, pols[0], "gate")) * product(xb, up_w, pols[1], "up")
+    return product(h, down_w, pols[2], "down")
+
+
+def expert_site(name: str, e: int) -> str:
+    """The name a routed expert's product records its selection under on
+    a mesh: ``moe/{name}[{e}]``, ``e`` the global expert id."""
+    return f"moe/{name}[{e}]"
+
+
+def local_experts(cfg, mesh) -> tuple[int, int]:
+    """The ``[lo, hi)`` experts this rank holds (all of them off a mesh)."""
+    e = cfg.n_experts
+    if mesh is None or mesh.model == 1:
+        return 0, e
+    if e % mesh.model:
+        raise NotImplementedError(f"a model mesh of {mesh.model} does not divide {e} experts")
+    n = e // mesh.model
+    return mesh.model_rank * n, (mesh.model_rank + 1) * n
+
+
+def dispatch_groups(dp_groups: int, tokens: int, full_capacity: bool,
+                    data: int = 1) -> tuple[int, int]:
+    """``(groups, local groups)`` of a step over ``tokens`` tokens in all
+    (every data rank's): ``dp_groups`` where it divides the tokens (else
+    1, the ungrouped dispatch), and how many of them a data rank of
+    ``data`` holds (1 under the global dispatch: every rank takes part in
+    the one group)."""
+    g = dp_groups if dp_groups and tokens % dp_groups == 0 and not full_capacity else 1
+    if data == 1:
+        return g, g
+    if g == 1:
+        return 1, 1
+    if g % data:
+        raise NotImplementedError(f"moe_dp_groups={g} on a data mesh of {data}")
+    return g, g // data
 
 
 def _expert_policies(policy: PolicyLike):
@@ -83,7 +139,7 @@ def _expert_policies(policy: PolicyLike):
 
 
 def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = False,
-              dp_groups: int = 0):
+              dp_groups: int = 0, mesh=None):
     """x [B, S, d] -> ([B, S, d], {"aux_loss", "dropped"}).
 
     Router in fp32; ``top_k`` weights renormalised; the Switch
@@ -98,68 +154,97 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     dispatches within that many token groups of ``T/G`` tokens, each with
     its own capacity ``max(1, int(T/G*k/E * capacity_factor))``; otherwise
     there is one group. ``aux_loss`` and ``dropped`` are taken over all
-    groups.
+    groups. ``mesh``: this rank's rows and experts (module docstring).
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
-    tokens = b * s
-    g = dp_groups if dp_groups and tokens % dp_groups == 0 and not full_capacity else 1
+    data = mesh.data if mesh is not None else 1
+    t_loc = b * s
+    tokens = t_loc * data  # every data rank holds as many rows
+    g, g_loc = dispatch_groups(dp_groups, tokens, full_capacity, data)
+    spread = data > 1 and g == 1  # the global dispatch over the data ranks
     tg = tokens // g
-    xf = x.reshape(g, tg, d)
     dev = x.device
+    e_lo, e_hi = local_experts(cfg, mesh)
 
-    logits = layers.dense_apply(p["router"], x.reshape(tokens, d).float(), DENSE)
-    probs = torch.softmax(logits, dim=-1).reshape(g, tg, e)
-    topw, topi = torch.topk(probs, k, dim=-1)  # [G, tg, k]
+    logits = layers.dense_apply(p["router"], x.reshape(t_loc, d).float(), DENSE)
+    probs = torch.softmax(logits, dim=-1)  # [t_loc, E]
+    topw, topi = torch.topk(probs, k, dim=-1)  # [t_loc, k]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
-    # ---- load-balance aux (Switch-style) ----
-    me = probs.mean((0, 1))
-    ce = torch.bincount(topi.reshape(-1), minlength=e).float() / (tokens * k)
-    aux_loss = e * torch.sum(me * ce)
+    # ---- load-balance aux (Switch-style), over every data rank's tokens ----
+    counts_e = torch.bincount(topi.reshape(-1), minlength=e).float()
+    if data > 1:
+        me = parallel.sum_over_data(probs.sum(0), mesh) / tokens
+        counts_e = parallel.all_reduce(counts_e, mesh.data_group)
+    else:
+        me = probs.mean(0)
+    aux_loss = e * torch.sum(me * (counts_e / (tokens * k)))
 
     # ---- sort-based dispatch, within each group ----
+    # the groups this rank dispatches: its own (g_loc of tg tokens), or
+    # under the global dispatch the one group of every rank's tokens
+    off = mesh.data_rank * t_loc if spread else 0  # this rank's first token in the group
+    ids = parallel.gather_ids_over_data(topi, mesh) if spread else topi
+    gd = 1 if spread else g_loc
+    n = tokens * k if spread else tg * k
     cap = tokens if full_capacity else max(1, int(tg * k / e * cfg.capacity_factor))
-    flat_e = topi.reshape(g, tg * k)
+    flat_e = ids.reshape(gd, n)
     order = torch.argsort(flat_e, dim=1, stable=True)  # group by expert
     sorted_e = flat_e.gather(1, order)
-    sorted_tok = order // k  # source token of each slot
-    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
+    sorted_tok = order // k  # source token of each slot, within the group
+    experts = torch.arange(e, device=dev).expand(gd, e).contiguous()
     grp_start = torch.searchsorted(sorted_e, experts, side="left")  # [G, E]
     counts = torch.searchsorted(sorted_e, experts, side="right") - grp_start
-    pos = torch.arange(tg * k, device=dev)[None, :] - grp_start.gather(1, sorted_e)
+    pos = torch.arange(n, device=dev)[None, :] - grp_start.gather(1, sorted_e)
     keep = pos < cap
     pos_c = torch.clamp(pos, max=cap - 1)
+    own = (sorted_tok >= off) & (sorted_tok < off + t_loc) if spread else torch.ones_like(keep)
+    mine = (sorted_e >= e_lo) & (sorted_e < e_hi)
 
     # The JAX package writes every slot with one ``.at[].set`` scatter, in
     # which the overflow's clamped duplicates of slot cap-1 all land on
     # it and the last write wins (XLA's scatter, in sorted order): the
     # slot holds a dropped entry's zeros when its expert overflows. Write
-    # exactly those last writers, whose indices are unique.
-    gidx = torch.arange(g, device=dev)[:, None].expand(g, tg * k)
-    last = (pos < cap - 1) | (pos == counts.gather(1, sorted_e) - 1)
-    src = torch.where(keep[..., None], torch.take_along_dim(xf, sorted_tok[..., None], dim=1),
+    # exactly those last writers, whose indices are unique (a rank: its
+    # experts' slots, its own tokens' values).
+    xf = parallel.copy_to_model(x, mesh).reshape(-1, d)
+    gidx = torch.arange(gd, device=dev)[:, None].expand(gd, n)
+    last = ((pos < cap - 1) | (pos == counts.gather(1, sorted_e) - 1)) & mine
+    src_tok = torch.clamp(gidx * tg + sorted_tok - off, 0, t_loc - 1)  # rows of xf
+    src = torch.where((keep & own)[..., None], xf[src_tok],
                       torch.zeros((), dtype=x.dtype, device=dev))
-    buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=dev).index_put(
-        (gidx[last], sorted_e[last], pos_c[last]), src[last]
+    buf = torch.zeros((gd, e_hi - e_lo, cap, d), dtype=x.dtype, device=dev).index_put(
+        (gidx[last], sorted_e[last] - e_lo, pos_c[last]), src[last]
     )
 
     # every (group, expert) pair its own sparse products
-    out_buf = _expert_ffn(p["gate"], p["up"], p["down"], buf, cfg.act,
-                          _expert_policies(policy))  # [G, E, cap, d]
+    site_mesh = None
+    if mesh is not None:
+        rows = "padded" if spread else "local" if data > 1 else "split"
 
-    # ---- combine ----
-    gathered = out_buf[gidx, sorted_e, pos_c]  # [G, tg*k, d]
-    gathered = torch.where(keep[..., None], gathered, torch.zeros((), dtype=gathered.dtype,
-                                                                   device=dev))
-    contrib = torch.zeros((g, tg * k, d), dtype=torch.float32, device=dev).index_put(
-        (gidx, order), gathered.float()
-    )
-    contrib = contrib.reshape(g, tg, k, d) * topw[..., None]
-    y = contrib.sum(dim=2).to(x.dtype)
+        def site_mesh(name, i):
+            return parallel.SiteMesh(mesh, col=False, rows=rows,
+                                     site=mesh.prefix + expert_site(name, e_lo + i))
+
+    out_buf = _expert_ffn(p["gate"], p["up"], p["down"], buf, cfg.act,
+                          _expert_policies(policy), site_mesh)  # [G, E_loc, cap, d]
+
+    # ---- combine: this rank's tokens, from this rank's experts ----
+    take = keep & own & mine
+    gathered = out_buf[gidx[take], sorted_e[take] - e_lo, pos_c[take]]
+    contrib = torch.zeros((gd, t_loc * k // gd, d), dtype=torch.float32, device=dev).index_put(
+        (gidx[take], order[take] - off * k), gathered.float())
+    w = parallel.copy_to_model(topw, mesh)
+    contrib = contrib.reshape(t_loc, k, d) * w[..., None]
+    y = parallel.reduce_from_model(contrib.sum(dim=1), mesh).to(x.dtype)
 
     if "shared" in p:
-        y = y + layers.mlp_apply(p["shared"], xf, cfg.act, policy, site="moe/shared")
+        y = y + layers.mlp_apply(p["shared"], x.reshape(t_loc, d), cfg.act, policy,
+                                 site="moe/shared", mesh=mesh)
 
-    frac_dropped = 1.0 - keep.float().mean()
+    n_keep = keep.float().sum()
+    if data > 1 and not spread:
+        n_keep = parallel.all_reduce(n_keep.clone(), mesh.data_group)
+    frac_dropped = 1.0 - n_keep / (tokens * k)
     return y.reshape(b, s, d), {"aux_loss": aux_loss, "dropped": frac_dropped}

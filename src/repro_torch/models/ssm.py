@@ -11,6 +11,19 @@ The projections route through ``dense_apply`` (sites ``ssm/in_proj`` and
 ``ssm/out_proj``), so ssProp applies to them; the scan has no
 output-channel product to shrink, and is plain tensor arithmetic here as
 in the JAX package.
+
+On a model mesh (``mesh=``) a rank runs its ``H/model`` heads. The
+reference splits ``in_proj``'s columns evenly, which cuts across its
+``[z | x | B | C | dt]`` parts, so the rank gathers the weight on use and
+computes the full product (its gradient summed over ``model`` behind
+``copy_to_model``), then keeps its heads' z, x and dt and the whole of B
+and C (one group every head shares). ``conv_w`` / ``conv_b`` serve the
+rank's x channels and B/C, their partial gradients summed over ``model``;
+``A_log``, ``dt_bias``, ``D`` and the norm's scale are sliced to the
+rank's heads; the gated RMSNorm's sum of squares is summed over
+``model``; ``out_proj`` is row-parallel over the rank's ``d_inner`` rows.
+A decode cache holds the rank's state heads ``[B, H/model, N, P]`` and a
+conv window over its x channels plus B and C.
 """
 from __future__ import annotations
 
@@ -20,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import DENSE, PolicyLike
+from repro_torch.dist import parallel
 from repro_torch.models import layers
 
 _CONV_K = 4  # depthwise causal conv width (mamba default)
@@ -81,18 +95,30 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk):
     cum = torch.cumsum(da, dim=2)  # within-chunk cumulative decay
 
     # ---- intra-chunk (masked attention-like) ----
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q,Q,H]
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    # The log-decay from j to i is the segment sum of da over (j, i], taken
+    # as a cumsum of da masked to k > j. The JAX package takes it as the
+    # difference cum_i - cum_j of two long prefix sums; the backward of
+    # that difference weights each position by its whole prefix, and the
+    # large terms cancel: in fp32 it puts a relative error of ~4e-4 on a
+    # 256-token chunk's A_log gradient, which parts the backward routes
+    # (see ``tools/ssm_route_depth.py``).
+    ar = torch.arange(chunk, device=x.device)
+    after = (ar[:, None] > ar[None, :])[None, None, :, :, None]  # [k, j]: k > j
+    seg = torch.cumsum(torch.where(after, da[:, :, :, None, :], 0.0), dim=2)  # [B,nc,i,j,H]
+    mask = ar[:, None] >= ar[None, :]
     # Mask the exponent, not the result: exp of a masked +large diff is
     # inf, and where(mask, inf, 0) back-propagates inf*0 = NaN.
-    diff = torch.where(mask[None, None, :, :, None], diff, -math.inf)
+    diff = torch.where(mask[None, None, :, :, None], seg, -math.inf)
     decay = torch.exp(diff)
     cb = torch.einsum("bcin,bcjn->bcij", cr, br)  # [B,nc,Q,Q]
     scores = cb[..., None] * decay * dtr[:, :, None, :, :]  # [B,nc,Q,Q,H]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xr)
 
     # ---- chunk-final states ----
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # [B,nc,Q,H]
+    # the log-decay from q to the chunk's end, sum of da over (q, Q): a
+    # reverse cumsum, shifted (no difference of prefix sums, as above)
+    to_end = torch.flip(torch.cumsum(torch.flip(da[:, :, 1:], [2]), dim=2), [2])
+    decay_to_end = torch.exp(F.pad(to_end, (0, 0, 0, 1)))  # [B,nc,Q,H]
     weighted = xr * (decay_to_end * dtr)[..., None]  # [B,nc,Q,H,P]
     s_local = torch.einsum("bcqn,bcqhp->bchnp", br, weighted)  # [B,nc,H,N,P]
 
@@ -113,10 +139,12 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk):
 
 def _decode_scan(p, cfg, xbc, dt, cache, token_valid, spec_states):
     """The single-token recurrence over the S positions of ``xbc [B, S,
-    C]`` / ``dt [B, S, H]``; invalid tokens leave the conv window and
-    the state as they were. Returns (y [B, S, H, P] fp32, new cache)."""
+    C]`` / ``dt [B, S, H]`` (``p`` the rank's leaves, :func:`_local`);
+    invalid tokens leave the conv window and the state as they were.
+    Returns (y [B, S, H, P] fp32, new cache)."""
     bsz, s, _ = xbc.shape
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_headdim
+    n, h, pd = cfg.ssm_state, dt.shape[-1], cfg.ssm_headdim
+    di = h * pd
     a = -torch.exp(p["A_log"])
     conv_state, state = cache["conv"], cache["state"]  # [B,K-1,C], [B,H,N,P]
     cat_dtype = torch.promote_types(conv_state.dtype, xbc.dtype)
@@ -147,8 +175,70 @@ def _decode_scan(p, cfg, xbc, dt, cache, token_valid, spec_states):
     return torch.stack(ys, dim=1), new_cache
 
 
+def local_heads(cfg, mesh) -> tuple[int, int]:
+    """The ``[lo, hi)`` SSM heads this rank runs (all of them off a mesh)."""
+    h = cfg.n_ssm_heads
+    if mesh is None or mesh.model == 1:
+        return 0, h
+    if h % mesh.model:
+        raise NotImplementedError(f"a model mesh of {mesh.model} does not divide {h} SSM heads")
+    n = h // mesh.model
+    return mesh.model_rank * n, (mesh.model_rank + 1) * n
+
+
+def conv_channels(cfg, lo: int, hi: int) -> torch.Tensor:
+    """The conv channels heads ``[lo, hi)`` read: their x channels, then B
+    and C (``[x (d_inner) | B | C]`` is the conv's channel layout)."""
+    di, pd = cfg.d_inner, cfg.ssm_headdim
+    return torch.cat([torch.arange(lo * pd, hi * pd), torch.arange(di, di + 2 * cfg.ssm_state)])
+
+
+def _local(p, x, cfg, policy, mesh):
+    """``(proj pieces z, xbc, dt, the rank's leaves)``: off a mesh the
+    layer's own; on a model mesh the rank's heads (see the module
+    docstring)."""
+    if mesh is None or mesh.model == 1:
+        proj = layers.dense_apply(p["in_proj"], x, policy, site="ssm/in_proj", mesh=mesh)
+        z, xbc, dt = _split_proj(cfg, proj)
+        leaves = {k: p[k] for k in ("conv_w", "conv_b", "A_log", "dt_bias", "D")}
+        return z, xbc, dt, dict(leaves, norm=p["norm"]["scale"])
+    width = p["in_proj"]["w"].shape[-1]
+    held = width == site_cols(cfg)  # gathered at load (serving: ``model.decode_params``)
+    if not held and width * mesh.model != site_cols(cfg):
+        raise NotImplementedError(f"{cfg.name}: in_proj split off its columns on a mesh")
+    lo, hi = local_heads(cfg, mesh)
+    pd = cfg.ssm_headdim
+    proj = parallel.copy_to_model(layers.dense_apply(
+        p["in_proj"], x, policy, site="ssm/in_proj", mesh=None if held else mesh,
+        split="gather"), mesh)
+    z, xbc, dt = _split_proj(cfg, proj)
+    ch = conv_channels(cfg, lo, hi).to(x.device)
+    leaves = {k: parallel.copy_to_model(p[k], mesh).index_select(-1, ch)
+              for k in ("conv_w", "conv_b")}
+    for k in ("A_log", "dt_bias", "D"):
+        leaves[k] = parallel.slice_for_model(p[k], mesh)
+    leaves["norm"] = parallel.slice_for_model(p["norm"]["scale"], mesh)
+    return (z[..., lo * pd:hi * pd], xbc.index_select(-1, ch), dt[..., lo:hi], leaves)
+
+
+def site_cols(cfg) -> int:
+    """``in_proj``'s output width: ``[z | x | B | C | dt]``."""
+    return 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+
+
+def _gated_norm(scale, y, eps, width, mesh):
+    """RMSNorm over the full ``d_inner`` of ``y``'s (the rank's) columns:
+    the sum of squares summed over ``model``."""
+    if mesh is None or mesh.model == 1:
+        return layers.rmsnorm_apply({"scale": scale}, y, eps)
+    y32 = y.float()
+    ss = parallel.sum_stat_over_model(torch.sum(y32 * y32, dim=-1, keepdim=True), mesh)
+    return (y32 * torch.rsqrt(ss / width + eps) * scale.float()).to(y.dtype)
+
+
 def ssm_apply(
-    p, x, cfg, policy: PolicyLike = DENSE, cache=None, token_valid=None, spec_states=False
+    p, x, cfg, policy: PolicyLike = DENSE, cache=None, token_valid=None, spec_states=False,
+    mesh=None,
 ):
     """Mamba-2 block. x [B, S, d] -> (out [B, S, d], new cache or None).
 
@@ -162,17 +252,19 @@ def ssm_apply(
     ``{"conv": [B, S, K-1, C], "state": [B, S, H, N, P]}`` in place of the
     final state, so a speculative verifier can commit the state as of any
     accepted prefix (a frozen position carries the previous state on).
+
+    ``mesh``: a model mesh; the rank runs its heads and holds their cache.
     """
     bsz, s, _ = x.shape
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_headdim
-
-    proj = layers.dense_apply(p["in_proj"], x, policy, site="ssm/in_proj")
-    z, xbc, dt = _split_proj(cfg, proj)
-    dt = F.softplus(dt.float() + p["dt_bias"])
+    n, pd = cfg.ssm_state, cfg.ssm_headdim
+    z, xbc, dt, lp = _local(p, x, cfg, policy, mesh)
+    h = dt.shape[-1]
+    di = h * pd
+    dt = F.softplus(dt.float() + lp["dt_bias"])
 
     new_cache = None
     if cache is None:
-        xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        xbc = F.silu(_causal_conv(xbc, lp["conv_w"], lp["conv_b"]))
         xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
         xh = xs.reshape(bsz, s, h, pd)
         pad = (-s) % cfg.ssm_chunk
@@ -182,18 +274,29 @@ def ssm_apply(
             dt_p = F.pad(dt, (0, 0, 0, pad))
             bm = F.pad(bmat, (0, 0, 0, pad))
             cm = F.pad(cmat, (0, 0, 0, pad))
-        y = ssd_chunked(xh_p, dt_p, p["A_log"], bm, cm, cfg.ssm_chunk)[:, :s]
-        y = y + xh * p["D"][None, None, :, None]
+        y = ssd_chunked(xh_p, dt_p, lp["A_log"], bm, cm, cfg.ssm_chunk)[:, :s]
+        y = y + xh * lp["D"][None, None, :, None]
     else:
         if token_valid is None:
             token_valid = torch.ones((bsz, s), dtype=torch.bool, device=x.device)
-        y, new_cache = _decode_scan(p, cfg, xbc, dt, cache, token_valid, spec_states)
+        y, new_cache = _decode_scan(lp, cfg, xbc, dt, cache, token_valid, spec_states)
 
     y = y.reshape(bsz, s, di).to(x.dtype)
     y = y * F.silu(z)
-    y = layers.rmsnorm_apply(p["norm"], y, cfg.norm_eps)
-    out = layers.dense_apply(p["out_proj"], y, policy, site="ssm/out_proj")
+    y = _gated_norm(lp["norm"], y, cfg.norm_eps, cfg.d_inner, mesh)
+    out = layers.dense_apply(p["out_proj"], y, policy, site="ssm/out_proj", mesh=mesh,
+                             split="row")
     return out, new_cache
+
+
+def shard_cache(cfg, cache, mesh):
+    """This rank's rows of one SSM layer's decode cache on a model mesh:
+    its state heads (the reference's ``model`` on H) and its conv channels
+    (:func:`conv_channels`; the port's own layout, never checkpointed)."""
+    lo, hi = local_heads(cfg, mesh)
+    ch = conv_channels(cfg, lo, hi).to(cache["conv"].device)
+    return {"conv": cache["conv"].index_select(-1, ch).contiguous(),
+            "state": cache["state"][:, lo:hi].contiguous()}
 
 
 def ssm_cache_init(cfg, batch, dtype=torch.float32, device="cuda"):

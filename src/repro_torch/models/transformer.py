@@ -174,15 +174,16 @@ def _slot_apply(
     else:
         out, new_cache = ssm.ssm_apply(
             p["ssm"], h, cfg, policy, cache=cache, token_valid=token_valid,
-            spec_states=spec_states,
+            spec_states=spec_states, mesh=mesh,
         )
     x = x + out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if slot.ffn is not None:
         h2 = layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         if slot.ffn == "moe":
-            out2, metrics = moe.moe_apply(p["moe"], h2, cfg, policy, full_capacity=cache is not None,
-                                          dp_groups=cfg.moe_dp_groups)
+            out2, metrics = moe.moe_apply(p["moe"], h2, cfg, policy,
+                                          full_capacity=cache is not None,
+                                          dp_groups=cfg.moe_dp_groups, mesh=mesh)
             aux = metrics["aux_loss"]
         else:
             out2 = layers.mlp_apply(p["mlp"], h2, cfg.act, policy, mesh=mesh)
@@ -253,8 +254,10 @@ def stack_apply(
 ):
     """Run the stack. Returns (x, caches, aux), ``aux`` the MoE layers'
     load-balance losses summed over the layers. ``mesh``: the params are
-    this rank's shards of a dense attention + MLP stack
-    (:func:`repro_torch.models.layers.attn_apply`).
+    this rank's shards (attention and the MLP,
+    :func:`repro_torch.models.layers.attn_apply`; the SSM's heads,
+    :func:`repro_torch.models.ssm.ssm_apply`; the MoE's experts,
+    :func:`repro_torch.models.moe.moe_apply`), the caches its rows.
 
     ``policy`` is a plain policy (every site) or a
     :class:`~repro_torch.core.policy.SitePolicies` table over
@@ -324,22 +327,24 @@ def encoder_init(gen, cfg: ModelConfig, device):
     return {"layers": [one() for _ in range(cfg.n_enc_layers)]}
 
 
-def encoder_apply(params, x, cfg: ModelConfig, policy: PolicyLike = DENSE):
+def encoder_apply(params, x, cfg: ModelConfig, policy: PolicyLike = DENSE, *, mesh=None):
     """The encoder over ``x [B, enc_seq, d]``: per layer non-causal
     self-attention (RoPE at ``arange(enc_seq)``, as the JAX package's
     default positions) and the MLP, pre-norm residual. A
     :class:`~repro_torch.core.policy.SitePolicies` table is scoped to
-    ``enc`` and then to each layer."""
+    ``enc`` and then to each layer. ``mesh``: this rank's heads and
+    ``d_ff`` columns, as in the decoder stack."""
     enc = policy.scoped("enc") if isinstance(policy, SitePolicies) else policy
     per_layer = _layer_scopes(enc, cfg.n_enc_layers)
     rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
                               cfg.rope_theta)
-    for p, pol in zip(params["layers"], per_layer, strict=True):
+    for i, (p, pol) in enumerate(zip(params["layers"], per_layer, strict=True)):
+        m = mesh and mesh.scoped(f"enc/layer_{i}/")
         a, _ = layers.attn_apply(p["attn"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
-                                 cfg, pol, rope=rope, causal=False)
+                                 cfg, pol, rope=rope, causal=False, mesh=m)
         x = x + a
         x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                                 cfg.act, pol)
+                                 cfg.act, pol, mesh=m)
     return x
 
 
@@ -379,6 +384,7 @@ def cross_decoder_apply(
     token_valid=None,
     block_tables=None,
     paged_kernel=True,
+    mesh=None,
 ):
     """Run the cross-decoder over ``x [B,S,d]`` and the encoder's output
     ``enc_out [B, enc_seq, d]``. Returns (x, caches).
@@ -389,7 +395,9 @@ def cross_decoder_apply(
     as in the JAX package), then the MLP. Without ``caches`` (training)
     the self-attention runs over the sequence; with them (serving) it
     writes and reads the per-layer K/V cache, paged or contiguous, as
-    :func:`stack_apply`'s attention layers do."""
+    :func:`stack_apply`'s attention layers do. ``mesh``: this rank's heads
+    (self- and cross-attention) and ``d_ff`` columns, its KV heads
+    cached."""
     per_layer = _layer_scopes(policy, cfg.n_layers)
     if caches is None:
         rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
@@ -399,20 +407,21 @@ def cross_decoder_apply(
         qpos, rope, write_index = _decode_geometry(cfg, caches, positions, token_valid,
                                                    block_tables)
     for li, (p, pol) in enumerate(zip(params["layers"], per_layer, strict=True)):
+        m = mesh and mesh.scoped(f"layer_{li}/")
         a, cache = layers.attn_apply(
             p["self"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps), cfg, pol,
             rope=rope, qpos=qpos, kv_cache=None if caches is None else caches[li],
             block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
-            site="self",
+            site="self", mesh=m,
         )
         if caches is not None:
             caches[li] = cache
         x = x + a
         c, _ = layers.attn_apply(
             p["cross"], layers.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), cfg, pol,
-            rope=None, x_kv=enc_out, site="cross",
+            rope=None, x_kv=enc_out, site="cross", mesh=m,
         )
         x = x + c
         x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                                 cfg.act, pol)
+                                 cfg.act, pol, mesh=m)
     return x, caches

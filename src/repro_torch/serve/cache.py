@@ -83,7 +83,7 @@ class SlotCacheManager:
         self.max_seq = max_seq
         self.cache = lm.init_cache(cfg, n_slots, max_seq, dtype=dtype, device=device)
         if mesh is not None:
-            self.cache = lm.shard_cache(cfg, self.cache, mesh, paged=False)
+            self.cache = lm.shard_cache(cfg, self.cache, mesh)
         self.pos = np.zeros((n_slots,), np.int32)  # per-slot write offset
         self._free: list[int] = list(range(n_slots - 1, -1, -1))
 
@@ -220,7 +220,7 @@ class PagedCacheManager:
         self.cache = lm.init_paged_cache(cfg, n_blocks, block_size, dtype=dtype, device=device,
                                          batch=n_slots)
         if mesh is not None:
-            self.cache = lm.shard_cache(cfg, self.cache, mesh, paged=True)
+            self.cache = lm.shard_cache(cfg, self.cache, mesh)
         self.pos = np.zeros((n_slots,), np.int32)
         self.block_tables = np.zeros((n_slots, self.blocks_per_slot), np.int32)
         self.n_table_blocks = np.zeros((n_slots,), np.int32)

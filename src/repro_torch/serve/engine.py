@@ -94,10 +94,11 @@ class ContinuousBatchingEngine:
         (``spec_k > 0``), a model of the same family and vocabulary. Both
         default to the target model (self-drafting: every proposal the
         target would make).
-      mesh: a model mesh (``launch/mesh.py::Mesh``, the dense family):
+      mesh: a model mesh (``launch/mesh.py::Mesh``, any family):
         ``params`` (and ``draft_params``) are this rank's shards, the
-        caches hold its KV heads, and every rank runs the same engine in
-        lock-step (arrivals are step-indexed, and every rank draws each
+        caches hold its KV heads and SSM heads, the encoder runs on the
+        mesh (its output replicated), and every rank runs the same engine
+        in lock-step (arrivals are step-indexed, and every rank draws each
         token from the same full row of logits).
       seq_shard: the reference's ``model`` on the KV caches' sequence dim
         for long decode; not ported (raises).
@@ -120,6 +121,7 @@ class ContinuousBatchingEngine:
             raise NotImplementedError("seq_shard decode: not ported yet (ROADMAP Queue 1 item 5)")
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.serve_cfg = serve_cfg
         self.device = torch.device(device)
         if serve_cfg.paged:
@@ -200,7 +202,7 @@ class ContinuousBatchingEngine:
         its seconds, the device's work included, go to ``encode_times``."""
         self._sync()
         t0 = time.perf_counter()
-        out = lm.encode_frames(cfg, params, frames[None], self.device)[0]
+        out = lm.encode_frames(cfg, params, frames[None], self.device, mesh=self.mesh)[0]
         self._sync()
         self.encode_times.append(time.perf_counter() - t0)
         return out

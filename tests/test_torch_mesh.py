@@ -18,7 +18,9 @@ rank's results to the test, which holds them to:
 * ``select_on_mesh`` against the one-device selection restricted to the
   rank's columns.
 
-Then every combination the CLIs still refuse raises (no spawn).
+Then every combination the CLIs still refuse raises (no spawn), and each
+command line they refused before every family ran on a mesh runs and
+prints the one-device CLI's losses or tokens.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -200,8 +202,14 @@ def test_select_on_mesh_equals_select_on_the_full_gradient(runs):
 
 
 # ----------------------------------------------------------------------
-# what still raises
+# what still raises, and what runs now
 # ----------------------------------------------------------------------
+
+# a short run of each command line that no longer raises
+SHORT_TRAIN = ["--steps", "3", "--steps-per-epoch", "1", "--global-batch", "4", "--seq-len",
+               "16", "--use-pallas", "--log-every", "100"]
+SHORT_SERVE = ["--batch", "2", "--requests", "4", "--prompt-len", "12", "--gen", "8",
+               "--prefill-chunk", "4", "--block-size", "4"]
 
 
 @pytest.mark.parametrize("argv, what", [
@@ -214,10 +222,24 @@ def test_select_on_mesh_equals_select_on_the_full_gradient(runs):
     (["--data-mesh", "3"], "does not divide"),
 ])
 def test_train_cli_refuses(argv, what):
+    """A fleet on a mesh and a global batch the data mesh does not divide
+    still raise, naming their ROADMAP item; every family trains on a mesh:
+    the same command line (a short run of it) prints the one-device CLI's
+    losses within 1e-5 (whisper's frames and paligemma's patches come from
+    ``frontend_inputs``)."""
     args = ttrain.build_parser().parse_args(["--device", "cpu", "--reduced", *argv])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") as e:
-        ttrain.run(args)
-    assert what.split()[0] in str(e.value)
+    if "family" not in what:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") as e:
+            ttrain.run(args)
+        assert what.split()[0] in str(e.value)
+        return
+    one = ttrain.run(ttrain.build_parser().parse_args(
+        ["--device", "cpu", "--reduced", *argv[2:], *SHORT_TRAIN]))["history"]  # no mesh flag
+    got = ttrain.run(ttrain.build_parser().parse_args(
+        ["--device", "cpu", "--reduced", *argv, *SHORT_TRAIN]), timeout_s=TIMEOUT_S)["history"]
+    assert len(got) == len(one) == 3
+    for a, b in zip(got, one, strict=True):
+        assert abs(a - b) <= 1e-5 * abs(b), (what, got, one)
 
 
 @pytest.mark.parametrize("argv, what", [
@@ -227,10 +249,21 @@ def test_train_cli_refuses(argv, what):
     (["--model-mesh", "2", "--arch", "mamba2-1.3b"], "ssm family"),
 ])
 def test_serve_cli_refuses(argv, what):
-    args = tserve.build_parser().parse_args(["--device", "cpu", "--reduced", *argv])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") as e:
-        tserve.run(args)
-    assert what in str(e.value)
+    """``--data-mesh`` serving and the lock-step engine on a mesh still
+    raise, naming their ROADMAP item; a model mesh that does not divide the
+    KV heads (reduced qwen2.5-3b's 2 at model 4: each rank caches the KV
+    head its q head reads) and the SSM family serve: the same command line
+    (a short run of it) prints the one-device CLI's tokens."""
+    base = ["--device", "cpu", "--reduced", *argv]
+    if what in ("--data-mesh", "lock-step"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") as e:
+            tserve.run(tserve.build_parser().parse_args(base))
+        assert what in str(e.value)
+        return
+    one = tserve.run(tserve.build_parser().parse_args(
+        ["--device", "cpu", "--reduced", *argv[2:], *SHORT_SERVE]))["generated"]
+    got = tserve.run(tserve.build_parser().parse_args(base + SHORT_SERVE), timeout_s=TIMEOUT_S)
+    assert got["generated"].tolist() == one.tolist()
 
 
 def test_seq_shard_decode_raises():

@@ -5,8 +5,11 @@ spawn of 2 gloo ranks (``--model-mesh 2``, one KV head a rank; one torch
 thread a rank, a 120-s timeout) runs the engine in every mode below and
 the serving CLI's rank body; every mode's streams and counters must be
 the one-device JAX engine's token for token, on every rank, and the CLI
-must print the one-device CLI's tokens. On the CPU the paged-attention
-wrapper runs its plain version, so no launch is counted.
+must print the one-device CLI's tokens. A spawn of 4 ranks
+(``--model-mesh 4``: half a KV head a rank, so each caches the head its
+q head reads) holds two modes to the JAX engine the same way. On the
+CPU the paged-attention wrapper runs its plain version, so no launch is
+counted.
 """
 import jax
 import numpy as np
@@ -99,3 +102,30 @@ def test_model_mesh_streams_are_the_jax_engines(port_runs, jax_runs, mode):
 def test_the_cli_on_a_model_mesh_prints_the_one_device_tokens(port_runs):
     one = tserve.run(tserve.build_parser().parse_args(CLI))["generated"]
     assert port_runs["cli"] == one.tolist()
+
+
+MESH_4_MODES = ("greedy-kernel", "sampled-kernel")
+
+
+@pytest.fixture(scope="module")
+def port_runs_4(model):
+    """The engine on a model mesh of 4 (2 KV heads: each rank caches the
+    KV head its q head reads, gathered once at load), in two modes."""
+    tree = jax.tree.map(np.asarray, model["jparams"])
+    modes = {m: MODES[m] for m in MESH_4_MODES}
+    return tmesh.run_on_mesh(ranks.serve_cases, 1, 4, "cpu", tree, None, modes, MAX_SEQ, None,
+                             timeout_s=TIMEOUT_S)
+
+
+@pytest.mark.parametrize("mode", MESH_4_MODES)
+def test_a_model_mesh_of_4_streams_are_the_jax_engines(port_runs_4, jax_runs, mode):
+    """At ``--model-mesh 4``, which does not divide the 2 KV heads, every
+    rank's streams and the counters are the JAX engine's."""
+    streams, stats, launches, _, same = port_runs_4[mode]
+    want, jstats = jax_runs[mode]
+    assert same, "the four ranks' streams differ"
+    assert streams == want
+    for k in COUNTERS:
+        if k != "swapped_bytes":
+            assert stats[k] == jstats[k], k
+    assert launches == [0] * 4

@@ -215,12 +215,21 @@ def test_engine_refuses_unported_families(family):
 
 @pytest.mark.parametrize("mesh", [("--data-mesh", "2"), ("--model-mesh", "4")])
 def test_cli_refuses_meshes(mesh):
-    """The meshes serving still refuses: a data mesh, and a model mesh
-    that does not divide the reduced config's 2 KV heads (a model mesh of
-    2 serves: ``tests/test_torch_mesh_serve.py``)."""
+    """The mesh serving still refuses, a data mesh; a model mesh that does
+    not divide the reduced config's 2 KV heads serves (each of the 4 ranks
+    caches the KV head its q head reads), and a short run of it prints the
+    one-device CLI's tokens (a model mesh of 2 against the JAX engine:
+    ``tests/test_torch_mesh_serve.py``)."""
     args = tserve.build_parser().parse_args(["--reduced", "--device", "cpu", *mesh])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserve.run(args)
+    if mesh[0] == "--data-mesh":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tserve.run(args)
+        return
+    short = ["--reduced", "--device", "cpu", "--batch", "2", "--requests", "3", "--prompt-len",
+             "8", "--gen", "6", "--prefill-chunk", "4", "--block-size", "4"]
+    one = tserve.run(tserve.build_parser().parse_args(short))["generated"]
+    got = tserve.run(tserve.build_parser().parse_args(short + list(mesh)), timeout_s=120)
+    assert got["generated"].tolist() == one.tolist()
 
 
 def test_engine_defaults_to_the_kernel_route(model, monkeypatch):

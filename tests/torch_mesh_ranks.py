@@ -44,6 +44,26 @@ def on_shapes(mesh, calls):
     return out
 
 
+def in_turn(mesh, calls):
+    """Each ``(fn, args)`` of ``calls`` on ``mesh``, in turn: their results."""
+    return [fn(mesh, *args) for fn, args in calls]
+
+
+def spawn_shapes(calls, keys, timeout_s):
+    """Run ``calls`` (``{shape: (fn, args)}``, ``fn`` returning a list)
+    with one spawn of gloo ranks on the CPU for the shapes of each size,
+    and key each shape's results by ``keys[shape]``: ``{key: result}``."""
+    from repro_torch.launch import mesh as tmesh
+
+    out = {}
+    for world in sorted({d * m for d, m in calls}):
+        group = {sh: c for sh, c in calls.items() if sh[0] * sh[1] == world}
+        res = tmesh.run_on_mesh(on_shapes, *next(iter(group)), "cpu", group, timeout_s=timeout_s)
+        for shape, got in res.items():
+            out.update(zip(keys[shape], got, strict=True))
+    return out
+
+
 def mesh_cases(mesh, tree):
     """Every case of one mesh shape, on one rank (module-level: spawned
     ranks import it). ``tree``: the JAX init of reduced qwen2.5-3b
@@ -249,29 +269,110 @@ def tp_case(mesh, tree, lr, batch=4, seq=16):
             "params": {k: v.clone() for k, v in full.items()}}
 
 
-def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv):
-    """The engine on a model mesh, once a mode: reduced qwen2.5-3b's
+def family_train(mesh, arch, tree, overrides, batches, lr):
+    """Three steps of the reduced ``arch`` (``overrides`` replaced in its
+    config) from the JAX init ``tree`` on the mesh through
+    ``make_train_step``: dense, then two at ``paper_default(0.8)`` with
+    ``use_pallas``, each data rank stepping its rows of ``batches`` (one
+    numpy dict a step, frames or patches among them). Returns the losses,
+    each step's ``dropped`` a MoE layer (``moe_apply``'s, global on every
+    rank), the kept channels of every site and routed expert (global,
+    every rank's merged; a selection over an all-zero dY, an expert no
+    token of a group reached, keeps none, as its dW shows), every rank's
+    ``kops.matmul`` calls beside the launch table's count, and the
+    gathered params."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.optim import adam
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+    params = tlm.params_from_jax(cfg, tree, device="cpu")
+    specs = tlm.mesh_specs(cfg, params, mesh.shape)
+    local = shd.shard_tree(params, specs, mesh)
+    sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
+    opt = adam.init(local)
+    ocfg = adam.AdamConfig(lr=lr, clip_norm=1.0, total_steps=len(batches))
+    pol = dataclasses.replace(tpolicy.paper_default(0.8), use_pallas=True)
+    n_rows = batches[0]["tokens"].shape[0]
+    rows = n_rows // mesh.data
+    calls, dropped, live = {"matmul": 0}, [], []
+    raw_mm, raw_moe, raw_sel = kops.matmul, moe.moe_apply, sparsity.select_on_mesh
+
+    def counted(a, b):
+        calls["matmul"] += 1
+        return raw_mm(a, b)
+
+    def recorded(*a, **k):
+        y, m = raw_moe(*a, **k)
+        dropped[-1].append(float(m["dropped"]))
+        return y, m
+
+    def selecting(dy, *a, **k):  # a selection over an all-zero dY keeps nothing
+        live.append(bool(dy.abs().sum() > 0))
+        return raw_sel(dy, *a, **k)
+
+    losses, kept, table = [], {}, 0
+    kops.matmul, moe.moe_apply, sparsity.select_on_mesh = counted, recorded, selecting
+    try:
+        for step, p in enumerate((tpolicy.DENSE, pol, pol)):
+            b = {k: torch.from_numpy(v[mesh.data_rank * rows:(mesh.data_rank + 1) * rows])
+                 for k, v in batches[step].items()}
+            fn = steps_lib.make_train_step(cfg, p, ocfg, mesh=mesh, sharded=sharded)
+            dropped.append([])
+            live.clear()
+            with backward.record_selections() as log:
+                local, opt, metrics = fn(local, opt, b)
+            losses.append(float(metrics["loss"]))
+            got = {}
+            for (site, sel), nonzero in zip(log, live, strict=True):
+                got.setdefault(site, set()).update(
+                    train.global_kept(cfg, site, sel, mesh) if nonzero else ())
+            kept[step] = got
+            idle = {site for site, sel in log if sel.k == 0}
+            table += tlm.kernel_launches_per_step(
+                cfg, p, model=mesh.model, data=mesh.data,
+                tokens=n_rows * b["tokens"].shape[1], idle_sites=idle)["matmul"]
+    finally:
+        kops.matmul, moe.moe_apply, sparsity.select_on_mesh = raw_mm, raw_moe, raw_sel
+    every = [None] * mesh.world
+    dist.all_gather_object(every, (kept, calls["matmul"], table))
+    merged = {st: {s: sorted(set().union(*(k[st].get(s, set()) for k, _, _ in every)))
+                   for s in set().union(*(k[st] for k, _, _ in every))} for st in kept}
+    full = train.named_params(shd.gather_tree(local, specs, mesh))
+    return {"history": losses, "dropped": dropped, "kept": merged,
+            "matmul_calls": [c for _, c, _ in every],
+            "matmul_table": [t for _, _, t in every],
+            "params": {k: v.clone() for k, v in full.items()}}
+
+
+def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv, arch=ARCH):
+    """The engine on a model mesh, once a mode: the reduced ``arch``'s
     params from the JAX init ``tree`` (a 1-layer drafter's from
-    ``dtree``), this rank's shards of them, the mode's workload
+    ``dtree``, or none), this rank's shards of them, the mode's workload
     (``modes[name] = (workload kwargs, ServeConfig kwargs, drafter?,
     greedy-every-other?)``). Returns ``{name: (streams, stats, every
     rank's paged_attention launches, every rank's swapped bytes, whether
-    every rank's streams are rank 0's)}`` and, last, the serving CLI's
-    rank body on ``cli_argv``."""
+    every rank's streams are rank 0's)}`` and, last (given ``cli_argv``),
+    the serving CLI's rank body on it."""
     import torch.distributed as dist
 
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve
     from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, poisson_workload
 
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     dcfg = cfg.reduced(n_layers=1)
 
-    def local(c, t):
+    def local(c, t):  # the serving CLI's shards
         p = tlm.params_from_jax(c, t, device="cpu")
-        return shd.shard_tree(p, tlm.mesh_specs(c, p, mesh.shape), mesh)
+        return tlm.decode_params(c, shd.shard_tree(p, tlm.mesh_specs(c, p, mesh.shape), mesh), mesh)
 
-    params, dparams = local(cfg, tree), local(dcfg, dtree)
+    params = local(cfg, tree)
+    dparams = None if dtree is None else local(dcfg, dtree)
     out = {}
     for name, (wkw, skw, draft, mixed) in modes.items():
         kw = dict(draft_cfg=dcfg, draft_params=dparams) if draft else {}
@@ -291,6 +392,16 @@ def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv):
         dist.all_gather_object(every, (streams, pa.launches - before, stats["swapped_bytes"]))
         out[name] = (streams, stats, [n for _, n, _ in every], [b for _, _, b in every],
                      all(s == streams for s, _, _ in every))
-    args = serve.build_parser().parse_args(cli_argv)
-    out["cli"] = serve.serve_rank(mesh, args, cfg)["generated"].tolist()
+    if cli_argv is not None:
+        args = serve.build_parser().parse_args(cli_argv)
+        out["cli"] = serve.serve_rank(mesh, args, cfg)["generated"].tolist()
     return out
+
+
+def cli_train(mesh, argvs):
+    """Each command line through the training CLI's rank body: its
+    losses (checkpoints, if asked for, land in its ``--ckpt-dir``)."""
+    from repro_torch.launch import train
+
+    return [train.run_rank(mesh, train.build_parser().parse_args(argv))["history"]
+            for argv in argvs]
