@@ -10,7 +10,8 @@ and as a 2-rank fleet; on 1x2 and 2x1 device meshes and serving on a
 model mesh of 2, a rank a process), the other decoder-only families (mamba2-1.3b and kimi-k2
 serving at full width, the reduced configs of the seven archs beside
 qwen2.5-3b), the encoder-decoder and VLM families (whisper-large-v3 and
-paligemma-3b serving and training at full width and depth), sharded
+paligemma-3b serving at full width and training at full width and
+depth), sharded
 selection (ResNet-18 under a TP-sharded selection, grouped convs,
 qwen2.5-3b under the JAX dryrun's TP policies, the MoE archs' DP-local
 dispatch), and fails (non-zero exit, no result line) on any error:
@@ -74,9 +75,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    requests (prompt 128, gen 32) through 4 slots of the paged engine at
    full width; every request must get exactly 32 tokens in the
    vocabulary, and the kernel must have launched once per layer per step;
-   then ``serve_features_phase``, the rest of serving at full width with
-   the same bf16 params, then with an fp32 copy of them: the requests
-   sampled (temperature 0.8, top-k 50, top-p 0.95) through the paged
+   then ``serve_features_phase``, the rest of serving at full width and
+   12 of the 36 layers (their bf16 params), then with an fp32 copy: the
+   requests sampled (temperature 0.8, top-k 50, top-p 0.95) through the paged
    engine, through a 24-page pool (swap preemptions), speculating 4
    tokens self-drafted and with a full-width 4-layer drafter, through the
    contiguous engine and the lock-step baseline; every page back and
@@ -188,8 +189,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
 15c. device meshes (``[mesh-train]``, ``[mesh-serve]``): ``train.run``
    on qwen2.5-3b at full width, depth 4, fp32 with TF32 off, B=8 S=128,
    ``paper_default(0.8)`` with ``--use-pallas``, 3 steps (dense, sparse,
-   sparse) at 1x1 in this process, and ``serve.run`` at full width and
-   depth, fp32; then one spawn of two rank processes on the card over
+   sparse) at 1x1 in this process, and ``serve.run`` at full width,
+   depth 12 of 36, fp32 and bf16; then one spawn of two rank processes on the card over
    gloo runs the training CLI's rank body on a 1x2 and a 2x1 mesh: losses
    within 1e-4 relative of 1x1, the share of (step, site) kept sets equal
    to 1x1's, each rank's ``matmul`` launches equal to
@@ -199,11 +200,11 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    the collectives' calls and bytes a step, their ms from a second run
    with each synced), the warm-up step's products checked alike and the
    row-parallel ``layer_0/attn/o`` dY equal bit for bit on both model
-   ranks; then the serving CLI's rank body at full width and depth on a
+   ranks; then the serving CLI's rank body at full width, depth 12, on a
    model mesh of 2 (the serve phase's 8 requests), fp32 and bf16:
-   ``paged_attention`` 36 launches a step on each rank, the fp32 share of
+   ``paged_attention`` 12 launches a step on each rank, the fp32 share of
    tokens equal to the 1x1 fp32 run's at least 0.9 (bf16's against the
-   serve phase's, printed), tokens/s and p50/p99;
+   1x1 bf16 run's, printed), tokens/s and p50/p99;
 16. SSM training: the loss and every gradient leaf of one sparse step of
    mamba2-1.3b at full width and depth 4 (fp32, B=2, S=512) through
    ``matmul``, the gather route and the mask oracle, the same kept
@@ -212,9 +213,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    chunks) for 8 epoch-bar steps: every loss finite, ``matmul`` launched
    the launch table's 192 times 4, dense and sparse step medians,
    tokens/s and peak memory;
-17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 24 since PR
-   23, serves 8 sampled
-   requests (prompt 32, gen 32, 4 slots) through the paged engine, a
+17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 8, serves 8
+   sampled requests (prompt 32, gen 32, 4 slots) through the paged engine, a
    10-page pool (small enough to swap), self-drafted speculation (k=4), the
    contiguous engine and the lock-step baseline, bf16 and an fp32 copy;
    the arch has no attention layer, so no kernel runs (checked); every
@@ -237,8 +237,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    launched the launch table's count (2 x experts x products on the
    expert sites), each MoE layer's ``aux_loss`` and ``dropped`` printed;
 20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width,
-   depth cut to 16 encoder + 16 decoder layers of 32 + 32 since PR 23
-   (d 1280, vocab 51866), 8
+   depth cut to 6 encoder + 6 decoder layers of 32 + 32 (d 1280, vocab
+   51866), 8
    sampled Poisson requests, each with its ``[1500, 1280]`` frames from
    the workload (prompt 16, gen 64, 4 slots, 16-token pages) through the
    paged engine on the kernel and the gather route, a 12-page pool
@@ -248,8 +248,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    zero, tokens/s, p50/p99 step, the encoder's time a call, peak memory,
    the shares of tokens equal to the paged kernel run's (fp32 at least
    0.9); a profile of a decode and a mixed step;
-21. VLM serving (``[vlm-serve]``): paligemma-3b at full width and depth
-   (18 layers, d 2048, d_ff 16384, vocab 257216), the same runs (prompt
+21. VLM serving (``[vlm-serve]``): paligemma-3b at full width, depth cut
+   18 -> 6 (d 2048, d_ff 16384, vocab 257216), the same runs (prompt
    128, gen 32, ``max_seq`` with room for the 256 patches, a 24-page
    pool), ``paged_attention`` at D=256;
 22. encdec and VLM training (``[encdec-kernels]``, ``[vlm-kernels]``,
@@ -281,12 +281,40 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    body on ``--model-mesh 2`` (4 Poisson requests, prompt 16, gen 16):
    kimi-k2 at full width and depth 1 in bf16 (192 experts and 4 KV heads
    a rank; its 1x1 tokens from ``[moe-serve]``'s params, freed before the
-   spawn), mamba2 at depth 24, whisper at 16 + 16 and paligemma at full
-   depth in fp32 (its one KV head cached on both ranks): each rank's
+   spawn), mamba2 at depth 8, whisper at 6 + 6 and paligemma at depth 6
+   in fp32 (its one KV head cached on both ranks): each rank's
    ``paged_attention`` launches (an attention layer a step), the fp32
    shares of tokens equal to the 1x1 runs' at least 0.9 (kimi-k2's bf16
    share printed), tokens/s, p50/p99 step and the collectives' calls and
    bytes a step;
+23b. the program auditor on the card (``[audit]``): every kernel
+   launch this process made (each distinct set of a launch's integer
+   arguments, recorded from the build on by
+   ``gathered_matmul.observe_launches``) has its ``<name>_geometry`` report
+   (grid, block, dynamic shared memory, split, stages: what its
+   ``<name>_launch`` uses) equal to ``kernels/specs.py``'s and passes
+   ``analysis/launch_check.py`` under the card's own
+   ``shared_memory_per_block_optin``; each kernel's geometry at its largest
+   launch, its tile and useful FLOPs and its emulated over least bytes are
+   printed; one sparse ResNet-18 step (B=128, ``use_pallas``, block 128)
+   one sparse qwen2.5-3b step (full width, depth 4, ``--use-pallas``) and
+   one of the reduced kimi-k2 (the MoE dispatch's boolean masks and
+   ``bincount`` stall the host) run under
+   ``torch.cuda.set_sync_debug_mode("warn")``: the warnings
+   counted equal the census's host syncs for the same step on meta
+   (``analysis/dispatch_walk.py``), and the wrappers' launch counters the
+   census's launches; then the savings audits of ResNet-18, the DDPM and
+   qwen2.5-3b on the kernel route: the kernels' tile FLOPs against
+   ``core/flops.py``'s TPU-tiled count;
+23c. the dry run (``[dryrun]``): ``[mesh-train]``'s configuration
+   (qwen2.5-3b, depth 4, B=8, S=128) at 1x2 and 2x1 on the fake process
+   group (``launch/dryrun.py``, every rank on meta): its per-rank
+   parameter and Adam bytes and collective calls and bytes a step equal
+   what the 1x2 bf16 ranks recorded, its ``matmul`` launches a rank a
+   sparse step the fp32 runs' at both layouts; then qwen2.5-3b x
+   ``train_4k`` and x ``decode_32k`` on 16x16: each rank's argument bytes
+   beside ``torch.cuda.mem_get_info()``'s total, with the card's name and
+   power limit;
 24. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases'
    and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
@@ -340,6 +368,9 @@ TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summatio
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
 LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
 LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
+# [serve-features]: the serving modes at 12 of qwen2.5-3b's 36 layers (the
+# [serve] main path runs them all); the script must end well inside 1200 s
+SERVE_FEATURES_DEPTH = 12
 # the paper's CelebA generation task (configs/paper.py GENERATION["celeba"]),
 # the UNet at its full width; 32-channel blocks, so blocks really drop
 DDPM_BATCH, DDPM_IMAGE, DDPM_T = 128, (3, 64, 64), 1000
@@ -408,22 +439,25 @@ def paged_case(gen, *, b, s, nb, qdt, pdt, kind, h=16, kv=2, d=128, bs=16, dev="
 
 
 def paged_bound_ms(q, k, tables, qpos, tf32_terms=None) -> tuple[float, str]:
-    """Least time for the work this input needs: each needed K/V page read
-    once, q/tables/qpos read once, the fp32 output written once; QK and PV
-    at 2 flops a multiply-add over the visible keys, in fp32 at the FMA
-    rate, or, given ``tf32_terms = (qk, pv)``, as that many TF32 products
-    of each at the tensor cores' rate (the 64-row variant's arithmetic)."""
+    """Least time for the work this input needs, from the launch's
+    ``kernels/specs.py`` spec given the query positions: each needed K/V
+    page read once, q/tables/qpos read once, the fp32 output written once;
+    QK and PV at 2 flops a multiply-add over the visible keys, in fp32 at
+    the FMA rate, or, given ``tf32_terms = (qk, pv)``, as that many TF32
+    products of each at the tensor cores' rate (the 64-row variant's
+    arithmetic)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import specs
+
     b, s, h, d = q.shape
-    _, bs, kv, _ = k.shape
-    pages = ((qpos.max(dim=1).values // bs) + 1).clamp(max=tables.shape[1]).sum().item()
-    nbytes = (
-        q.numel() * q.element_size()
-        + 2 * pages * bs * kv * d * k.element_size()
-        + tables.numel() * 4 + qpos.numel() * 4
-        + b * s * h * d * 4
-    )
-    flops = 4 * h * d * (qpos.long() + 1).sum().item()
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    n_pages, bs, kv, _ = k.shape
+    nb = tables.shape[1]
+    plan = pa.paged_split_plan(b, s, h, kv, d, nb, bs)
+    spec = specs.paged_attention_spec(
+        b, s, h, kv, d, n_pages, bs, nb, plan.row_tile, plan.chunk, plan.splits,
+        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), qpos=qpos.tolist())
+    flops = spec.useful_flops
+    t_bytes, t_ops = spec.least_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     if tf32_terms is not None:
         t_ops = flops / 2 * sum(tf32_terms) / TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -857,8 +891,9 @@ def _feature_runs(cfg, lm, pa, ops, S, params, dparams, tag):
 
 
 def serve_features_phase(cfg, lm, pa, ops, S, params):
-    """The rest of serving at full width and depth (qwen2.5-3b, the serve
-    phase's bf16 params, fp32 caches): 8 sampled requests (temperature
+    """The rest of serving at full width, depth ``SERVE_FEATURES_DEPTH``
+    (qwen2.5-3b, the serve phase's bf16 params' first layers, fp32
+    caches): 8 sampled requests (temperature
     0.8, top-k 50, top-p 0.95, a seed each; prompt 128, gen 32, 4 slots)
     through the paged engine; through a pool too small for them (swap
     preemption); speculating 4 tokens self-drafted and with a full-width
@@ -870,12 +905,16 @@ def serve_features_phase(cfg, lm, pa, ops, S, params):
     Then the same runs with an exact fp32 copy of the params, and the
     share of tokens equal to the sampled paged run's. With bf16 params a
     step whose shapes or attention route differ rounds its bf16
-    activations otherwise, 36 layers of random weights grow that into
+    activations otherwise, layers of random weights grow that into
     logits a few percent apart (``route_check``), and a sampled stream
     leaves the other at the first draw that flips: the bf16 shares are
     printed as measured. In fp32 the runs differ in summation order only,
     and every share must reach SHARE_MIN. Returns the launches of the
     paged runs, the summaries by precision and the verify step's plan."""
+    cfg = dataclasses.replace(cfg, n_layers=SERVE_FEATURES_DEPTH)
+    params = dict(params, stack=dict(params["stack"],
+                                     layers=params["stack"]["layers"][:SERVE_FEATURES_DEPTH]))
+    print(f"[serve-features] {cfg.name} full width, depth {cfg.n_layers}")
     dcfg = dataclasses.replace(cfg, n_layers=4)
     dparams = lm.init_params(dcfg, 1, "cuda")
     summaries, launches = {}, 0
@@ -1002,6 +1041,8 @@ def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=1
     plain calls, their arguments, a library call that computes the same
     function on the kept real channels (its operands gathered here,
     untimed), and what the bound needs."""
+    from repro_torch.kernels import specs
+
     c_in, c_out, k, h_in, stride, kb = geo
     pad = (k - 1) // 2
     h_out = (h_in + 2 * pad - k) // stride + 1
@@ -1056,34 +1097,39 @@ def gathered_case(gm, ops, name, geo, dtype, gen, *, groups=1, blocks=None, bs=1
         "dw_gathered": lambda: gm.dw_plan(m, d, kb, bs, c_out)[0],
         "conv_dw_fused": lambda: gm.conv_dw_plan(m, dg, kb, bs, c_out)[0],
     }
+    # the launch's integer arguments (kernels/specs.py LAUNCH_ARGS), for its spec
+    bf16, c_pad, cg = int(dtype == torch.bfloat16), nb * bs, c_in // groups
+    if name == "dx_gathered":
+        ints = (m, c_out, d, kb, bs, bf16)
+    elif name == "dw_gathered":
+        ints = (m, d, c_out, kb, bs, *gm.dw_plan(m, d, kb, bs, c_out), bf16)
+    elif name == "conv_dw_fused":
+        ints = (batch, h_in + 2 * pad, groups, h_in + 2 * pad, cg, h_out, h_out, c_pad, c_out,
+                k, k, stride, stride, 1, 1, kb, bs, *gm.conv_dw_plan(m, dg, kb, bs, c_out), bf16)
+    else:
+        ints = (batch, h_in, h_in, pad, pad, groups, cg, h_out, h_out, c_pad, c_out, k, k,
+                stride, stride, 1, 1, kb, bs, bf16)
+    spec = specs.spec_for_launch(name, ints, block_idx=blocks)
     return dict(
         kernel=lambda *a: getattr(gm, name)(*a, **kw),
         plain=lambda *a: getattr(gm, f"{name}_ref")(*a, **plain_kw),
-        args=args, library=lib, lib_args=lib_args, blocks=blocks,
+        args=args, library=lib, lib_args=lib_args, blocks=blocks, spec=spec,
         dims=dict(m=m, d=dg, k_real=len(real), kb=kb, bs=bs, c_in=c_in, h=h_in,
                   h_pad=h_in + 2 * pad, batch=batch, itemsize=args[0].element_size()),
         splits=splits[name]() if name in splits else None,
     )
 
 
-def gathered_bound_ms(name, dims, flops_per_s=FP32_FLOPS, passes=1) -> tuple[float, str]:
-    """Least time for the work: each input the function needs read once
-    (the kept channels of dY and W only), each output written once in
-    fp32; 2 flops a multiply-add over the real kept channels at the fp32
-    FMA rate (the SIMT kernels compute in fp32 whatever the operand
-    type), or ``passes`` products at another unit's rate (3xTF32: three
-    TF32 products at the tensor cores' 495 TFLOP/s)."""
-    m, d, kr, it = dims["m"], dims["d"], dims["k_real"], dims["itemsize"]
-    compact = d * dims["kb"] * dims["bs"] * 4
-    image = dims["batch"] * dims["h_pad"] ** 2 * dims["c_in"]  # the padded input xg
-    interior = dims["batch"] * dims["h"] ** 2 * dims["c_in"]  # dX, the interior only
-    nbytes = {
-        "dx_gathered": (m * kr + d * kr) * it + m * d * 4,
-        "dw_gathered": (m * d + m * kr) * it + compact,
-        "conv_dw_fused": (image + m * kr) * it + compact,
-        "conv_dx_fused": m * kr * it + d * dims["kb"] * dims["bs"] * it + interior * 4,
-    }[name] + 4 * dims["kb"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, passes * 2 * m * d * kr / flops_per_s
+def gathered_bound_ms(spec, flops_per_s=FP32_FLOPS, passes=1) -> tuple[float, str]:
+    """Least time for the work of one launch, from its ``kernels/specs.py``
+    spec: its least bytes (each input the function needs read once, the
+    kept channels of dY and W only; each output written once in fp32)
+    over the memory rate; its useful FLOPs (2 a multiply-add over the real
+    kept channels) at the fp32 FMA rate (the SIMT kernels compute in fp32
+    whatever the operand type), or ``passes`` products at another unit's
+    rate (3xTF32: three TF32 products at the tensor cores' 495 TFLOP/s)."""
+    t_bytes = spec.least_bytes / HBM_BYTES_PER_S
+    t_ops = passes * spec.useful_flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1126,8 +1172,8 @@ def kernel_rows(gm, ops, launches, gen, tag, *, bs=128, batch=TRAIN_BATCH, group
             library_ms = gpu_time_ms(case["library"], [lib, tuple(a.clone() for a in lib)], 20)
             # fp32 work on the tensor cores as three TF32 products: the
             # least time drops below the fp32 FMA bound, kept beside it
-            fma_ms, _ = gathered_bound_ms(name, case["dims"])
-            bound_ms, bound_by = gathered_bound_ms(name, case["dims"], TF32_FLOPS, passes=3)
+            fma_ms, _ = gathered_bound_ms(case["spec"])
+            bound_ms, bound_by = gathered_bound_ms(case["spec"], TF32_FLOPS, passes=3)
             c_in, c_out, k, h_in, stride, kb = geo
             flops = 2 * case["dims"]["m"] * case["dims"]["d"] * case["dims"]["k_real"]
             row = dict(name=name, shape=f"B={batch} C_in={c_in} C_out={c_out} k={k} H={h_in} "
@@ -2450,6 +2496,7 @@ MESH_LOSS_TOL = 1e-4  # fp32, TF32 off: summation order only
 MESH_TIMEOUT_S = 300  # one mesh run, spawn to exit
 MESH_PROBE = "layer_0/attn/o"  # the row-parallel site whose dY must agree bit for bit
 MESH_SERVE_MODEL = 2  # [mesh-serve]: 8 q heads on 1 KV head a rank
+MESH_SERVE_DEPTH = 12  # [mesh-serve]: 36 layers cut to 12 (the script must end inside 1200 s)
 
 
 def _mesh_train_argv(data, model):
@@ -2590,28 +2637,32 @@ def mesh_timed_steps(mesh, cfg, policy, steps, probe, check):
     mine = dict(rank=mesh.rank, step_ms=wall, busy_ms=busy_ms, dy_spread=dy_spread,
                 coll_ms=parallel.counters["s"] * 1e3, coll_calls=calls,
                 coll_bytes=nbytes, synced_step_ms=synced_ms,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                param_bytes=sum(t.numel() * t.element_size() for t in adam.tree_leaves(local)),
+                adam_bytes=sum(t.numel() * t.element_size()
+                               for t in adam.tree_leaves([opt.m, opt.v, opt.step])))
     out = [None] * mesh.world
     dist.all_gather_object(out, mine)
     return out
 
 
-def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, gen16, card):
+def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, card):
     """``[mesh-train]`` and ``[mesh-serve]``: in this process ``train.run``
     on qwen2.5-3b at full width, depth ``MESH_DEPTH``, fp32 with TF32 off,
     B=8 S=128, ``paper_default(0.8)`` with ``--use-pallas``, 3 steps
-    (dense, sparse, sparse) at 1x1, and ``serve.run`` at full width and
-    depth, fp32, the ``[serve]`` phase's 8 Poisson requests (prompt 128,
-    gen 32); then :func:`mesh_ranks` in two ranks on the card over gloo.
+    (dense, sparse, sparse) at 1x1, and ``serve.run`` at full width,
+    depth ``MESH_SERVE_DEPTH``, fp32 and bf16, the ``[serve]`` phase's 8
+    Poisson requests (prompt 128, gen 32); then :func:`mesh_ranks` in two
+    ranks on the card over gloo.
     Training: the 1x2 and 2x1 losses within ``MESH_LOSS_TOL`` of 1x1's,
     the share of (step, site) kept sets equal to 1x1's, each rank's
     launches equal to the launch table's, every ``matmul`` product within
     ``KERNEL_TOL`` of its plain version, the bf16 1x2 steps' times and
     the probe site's dY equal on both model ranks. Serving on
     ``--model-mesh 2``, fp32 and bf16: each rank launches
-    ``paged_attention`` 36 times a step; the share of tokens equal to the
-    1x1 run's (fp32 at least ``SHARE_MIN``; bf16 against the ``[serve]``
-    phase's, printed); tokens/s and p50/p99 step. Returns (``matmul``
+    ``paged_attention`` once a layer a step; the share of tokens equal to
+    the 1x1 run's of its dtype (fp32 at least ``SHARE_MIN``; bf16
+    printed); tokens/s and p50/p99 step. Returns (``matmul``
     launches of the training runs, every rank's; ``paged_attention``
     launches of the mesh serving; the worst product error; the two
     summaries)."""
@@ -2633,15 +2684,18 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, gen16, 
     torch.cuda.empty_cache()
     print(f"[mesh-train] {LM_ARCH} full width, depth {MESH_DEPTH}, fp32, B={LM_BATCH} "
           f"S={LM_SEQ}: 1x1 losses {one['history']} in {time.perf_counter() - t0:.1f} s")
-    base = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    one32 = serve.run(serve.build_parser().parse_args(serve_argv),
-                      cfg=dataclasses.replace(base, dtype="float32"))["generated"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"[mesh-serve] 1x1 fp32 run {time.perf_counter() - t0:.1f} s")
-
+    base = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_SERVE_DEPTH)
     dtypes = ("float32", "bfloat16")
+    one_serve = {}
+    for dt in dtypes:
+        t0 = time.perf_counter()
+        one_serve[dt] = serve.run(serve.build_parser().parse_args(serve_argv),
+                            cfg=dataclasses.replace(base, dtype=dt))["generated"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[mesh-serve] {LM_ARCH} full width, depth {MESH_SERVE_DEPTH}: 1x1 {dt} run "
+              f"{time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     outs, ranks, served, checks, walls = run_on_mesh(
         mesh_ranks, 1, 2, "cuda", {f"{d}x{m}": _mesh_train_argv(d, m) for d, m in MESH_SHAPES},
@@ -2709,8 +2763,8 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, gen16, 
 
     # serving
     serve_launches, serve_summary = 0, {}
-    for dtype, ref, out in zip(dtypes, (one32, gen16), served, strict=True):
-        gen, steps = out["generated"], out["steps"]
+    for dtype, out in zip(dtypes, served, strict=True):
+        ref, gen, steps = one_serve[dtype], out["generated"], out["steps"]
         share = float((gen == ref).mean())
         got = [r["paged_attention"] for r in out["launches_by_rank"]]
         if gen.shape != ref.shape or got != [base.n_layers * steps] * MESH_SERVE_MODEL:
@@ -2740,7 +2794,7 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, gen16, 
 # ----------------------------------------------------------------------
 
 SSM_ARCH, SSM_BATCH, SSM_SEQ = "mamba2-1.3b", 4, 512  # two 256-token SSD chunks
-SSM_SERVE_DEPTH = 24  # [ssm-serve]: 48 layers cut to 24 (PR 23: the script had passed 1000 s)
+SSM_SERVE_DEPTH = 8  # [ssm-serve]: 48 layers cut to 8 (the script must end well inside 1200 s)
 MOE_ARCH, MOE_DEPTH = "kimi-k2-1t-a32b", 1  # full width; 61 layers cut to 1
 NEW_ARCHS = ("nemotron-4-15b", "deepseek-67b", "mistral-large-123b",
              "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-1.3b",
@@ -3220,15 +3274,15 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "paligemma-3b"
 # training batches: B, S decoder tokens (+ frames [B, 1500, 1280] / patches [B, 256, 2048])
 XFAMILY_TRAIN = {ENCDEC_ARCH: (2, 128), VLM_ARCH: (8, 128)}
 # the serving phases' depths: whisper's 32 decoder and 32 encoder layers cut
-# to 16 each (PR 23: the script's last phase had passed 1000 s)
-XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 16}
+# to 6 each, paligemma's 18 to 6 (the script must end well inside 1200 s)
+XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 6, VLM_ARCH: 6}
 XFAMILY_ROUTE = (2, 32)  # B, S of the route check (full width, depth 2, fp32)
 XFAMILY_STEPS = 3  # timed dense and sparse steps each, after a warm-up of each
 
 
 def xfamily_serve_phase(arch, tag, lm, pa, S, get_config):
-    """An encdec or vlm arch serves at full width and depth (whisper's
-    cut as ``XFAMILY_SERVE_DEPTH`` says): 8 sampled
+    """An encdec or vlm arch serves at full width, depth cut as
+    ``XFAMILY_SERVE_DEPTH`` says: 8 sampled
     Poisson requests (whisper: prompt 16, gen 64, each with its
     ``[1500, 1280]`` frames from the workload; paligemma: prompt 128,
     gen 32; 4 slots, 16-token pages, ``max_seq`` with room for the
@@ -3415,8 +3469,9 @@ MF_GROUPS = (0, 2)
 MF_SERVE = {
     MOE_ARCH: (dict(n_layers=MOE_DEPTH), "bfloat16"),  # 192 experts, 4 KV heads a rank
     SSM_ARCH: (dict(n_layers=SSM_SERVE_DEPTH), "float32"),
-    ENCDEC_ARCH: (dict(n_layers=16, n_enc_layers=16), "float32"),
-    VLM_ARCH: ({}, "float32"),  # full depth; the one KV head on both ranks
+    ENCDEC_ARCH: (dict(n_layers=XFAMILY_SERVE_DEPTH[ENCDEC_ARCH],
+                       n_enc_layers=XFAMILY_SERVE_DEPTH[ENCDEC_ARCH]), "float32"),
+    VLM_ARCH: (dict(n_layers=XFAMILY_SERVE_DEPTH[VLM_ARCH]), "float32"),  # the KV head on both
 }
 MF_TIMEOUT_S = 400
 
@@ -3657,6 +3712,250 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
                                                  spawn_s=wall, phase_s=total)
 
 
+# ----------------------------------------------------------------------
+# the program auditor and the dry run, held to the card
+# ----------------------------------------------------------------------
+
+AUDIT_KERNELS = ("paged_attention", "dx_gathered", "dw_gathered", "conv_dw_fused",
+                 "conv_dx_fused", "matmul", "importance")
+
+
+class LaunchLog:
+    """Every distinct launch (kernel, its C entry point's integer
+    arguments) this process makes, with its count."""
+
+    def __init__(self):
+        self.seen: dict[tuple, int] = {}
+
+    def add(self, name, args) -> None:
+        key = (name, tuple(int(a) for a in args))
+        self.seen[key] = self.seen.get(key, 0) + 1
+
+
+def synced_step(fn, args, gm):
+    """``fn(*args)`` under ``torch.cuda.set_sync_debug_mode("warn")``:
+    returns its output, the synchronizing-operation warnings it raised and
+    the wrappers' launches it made."""
+    import warnings
+
+    torch.cuda.synchronize()
+    before = dict(gm.launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    launched = {k: gm.launches[k] - before[k] for k in before if gm.launches[k] != before[k]}
+    return out, syncs, launched
+
+
+def audit_phase(log, gm, get_config, lm, lm_steps, tc, resnet, adam, policy_mod, card):
+    """``[audit]`` (module docstring, 23b). Returns its summary."""
+    from repro_torch.analysis import dispatch_walk, launch_check, savings
+    from repro_torch.analysis.report import Report
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import input_specs
+    from repro_torch.kernels import specs
+
+    t0 = time.perf_counter()
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    label = f"the card's opt-in limit ({card})"
+    by_kernel: dict[str, dict] = {}
+    for (name, args), count in sorted(log.seen.items()):
+        sp = specs.spec_for_launch(name, args)
+        got = gm.geometry(name, args)
+        if got != sp.geometry():
+            raise AssertionError(f"[audit] {name}{args}: <name>_geometry {got} != specs.py "
+                                 f"{sp.geometry()}")
+        rep = Report(name)
+        if not launch_check.check_spec(rep, sp, limit=limit, label=label, traffic=False):
+            raise AssertionError(f"[audit] {name}{args}: "
+                                 + "; ".join(f.message for f in rep.errors()))
+        k = by_kernel.setdefault(name, {"launch_shapes": 0, "launches": 0, "smem_max": 0,
+                                        "top": None})
+        k["launch_shapes"] += 1
+        k["launches"] += count
+        k["smem_max"] = max(k["smem_max"], sp.shared_bytes)
+        if k["top"] is None or sp.useful_flops > k["top"][1].useful_flops:
+            k["top"] = (args, sp)
+    missing = [n for n in AUDIT_KERNELS if n not in by_kernel]
+    if missing:
+        raise AssertionError(f"[audit] no launch of {missing} was seen")
+    summary = {"smem_limit": limit, "checked_s": 0.0, "kernels": {}}
+    for name in AUDIT_KERNELS:
+        k = by_kernel[name]
+        args, sp = k["top"]
+        moved = specs.emulate_bytes(sp)
+        row = dict(launch_shapes=k["launch_shapes"], launches=k["launches"],
+                   smem_max=k["smem_max"], top_args=list(args), geometry=list(sp.geometry()),
+                   tile=list(sp.tile), stages=sp.stages, split=sp.split,
+                   tile_flops=sp.tile_flops, product_flops=sp.product_flops,
+                   useful_flops=sp.useful_flops, emulated_bytes=moved,
+                   least_bytes=sp.least_bytes, traffic_ratio=moved / sp.least_bytes)
+        summary["kernels"][name] = row
+        print(f"[audit] {name}: {k['launch_shapes']} launch shapes ({k['launches']} launches) "
+              f"in this process, each <name>_geometry = specs.py's and in bounds; shared "
+              f"memory at most {k['smem_max']} B of {limit} B; largest launch {list(args)}: "
+              f"grid {sp.launches[0].grid} block {sp.launches[0].block} smem "
+              f"{sp.launches[0].smem} split {sp.split} stages {sp.stages}; tile FLOPs "
+              f"{sp.tile_flops} / useful {sp.useful_flops}; bytes moved {moved} / least "
+              f"{sp.least_bytes} = {moved / sp.least_bytes:.3f}", flush=True)
+    summary["checked_s"] = time.perf_counter() - t0
+
+    # host syncs and launches of two sparse steps, on the card and in the census
+    steps_out = {}
+    rpol = train_policy(policy_mod)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = resnet.init_params(RESNET, 0, device="cuda")
+    opt = adam.init(params)
+    x = torch.randn((TRAIN_BATCH, *TRAIN_IMAGE), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (TRAIN_BATCH,), generator=gen, device="cuda")
+    ocfg = adam.AdamConfig()
+    cases = {f"{RESNET} B={TRAIN_BATCH}": (
+        lambda p, o, a, b: tc.train_step(RESNET, p, o, a, b, rpol, ocfg), (params, opt, x, y))}
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_ROUTE_DEPTH, dtype="float32")
+    lparams = lm.init_params(cfg, 0, device="cuda")
+    lopt = adam.init(lparams)
+    batch = {k: torch.randint(0, cfg.vocab, v.shape, generator=gen, device="cuda",
+                              dtype=v.dtype)
+             for k, v in input_specs(cfg, ShapeConfig("audit", LM_SEQ, LM_BATCH, "train")).items()}
+    lfn = lm_steps.make_train_step(cfg, lm_policy(policy_mod), adam.AdamConfig())
+    cases[f"{LM_ARCH} depth {LM_ROUTE_DEPTH}"] = (lfn, (lparams, lopt, batch))
+    # the reduced kimi-k2: the MoE dispatch's data-dependent shapes stall the host
+    mcfg = get_config(MOE_ARCH).reduced()
+    mparams = lm.init_params(mcfg, 0, device="cuda")
+    mbatch = {k: torch.randint(0, mcfg.vocab, v.shape, generator=gen, device="cuda",
+                               dtype=v.dtype)
+              for k, v in input_specs(mcfg, ShapeConfig("audit", 64, LM_BATCH, "train")).items()}
+    cases[f"{MOE_ARCH} reduced"] = (
+        lm_steps.make_train_step(mcfg, lm_policy(policy_mod), adam.AdamConfig()),
+        (mparams, adam.init(mparams), mbatch))
+    for what, (fn, args) in cases.items():
+        meta_args = dispatch_walk.meta_like(args)
+        with dispatch_walk.Census(args=meta_args) as c:
+            out = fn(*meta_args)
+        counts = c.finish(out)
+        _, syncs, launched = synced_step(fn, args, gm)
+        census = counts.launches_by_name()
+        if len(syncs) != len(counts.syncs) or launched != census:
+            raise AssertionError(f"[audit] {what}: the card's {len(syncs)} sync warnings "
+                                 f"{syncs[:3]} / launches {launched} vs the census's "
+                                 f"{len(counts.syncs)} {[s.op for s in counts.syncs][:3]} / "
+                                 f"{census}")
+        steps_out[what] = dict(sync_warnings=len(syncs), census_syncs=len(counts.syncs),
+                               launches=launched, census_flops=counts.flops,
+                               census_kernel_tile_flops=counts.kernel_flops,
+                               census_peak_bytes=counts.peak_bytes)
+        print(f"[audit] {what} sparse step under set_sync_debug_mode('warn'): {len(syncs)} "
+              f"sync warnings = the census's {len(counts.syncs)} host syncs on meta; launches "
+              f"{launched} = the census's; census FLOPs {counts.flops} (torch ops) + "
+              f"{counts.kernel_flops} (kernel tiles), eager peak {counts.peak_bytes} B "
+              f"(meta, from shapes)", flush=True)
+    del params, opt, lparams, lopt, mparams, cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["steps"] = steps_out
+
+    # the kernel route's tile FLOPs against the TPU-tiled FLOPs model
+    ddpm_pol = dataclasses.replace(rpol, block_size=DDPM_BS)
+    audits = {RESNET: savings.audit_resnet(RESNET, TRAIN_IMAGE, rpol, batch=TRAIN_BATCH),
+              "ddpm": savings.audit_ddpm(DDPM_IMAGE, ddpm_pol, batch=DDPM_BATCH, base=DDPM_BASE),
+              LM_ARCH: savings.audit_lm(get_config(LM_ARCH), lm_policy(policy_mod),
+                                        batch=LM_BATCH, seq=LM_SEQ)}
+    summary["tile_flops"] = {}
+    for what, rep in audits.items():
+        if rep.errors():
+            raise AssertionError(f"[audit] savings {what}: "
+                                 + "; ".join(f.message for f in rep.errors()))
+        rows = [f for f in rep.findings if "ratio" in f.data]  # the kernel-route sites
+        layers = {f.site: f.data["count"] for f in rep.findings if "count" in f.data}
+
+        def total(get):
+            return sum(get(f.data) * layers.get(f.site, 1) for f in rows)
+
+        tiles = total(lambda d: d["tile_flops"])
+        table = total(lambda d: d["table"][1])
+        products = total(lambda d: d["product_flops"])
+        summary["tile_flops"][what] = dict(sites=len(rows), tile_flops=tiles,
+                                           tpu_table_flops=table, product_flops=products,
+                                           ratio=tiles / table if table else 0.0)
+        print(f"[audit] {what} kernel route, backward of every site (one sparse step): kernel "
+              f"tile FLOPs {tiles} vs core/flops.py's TPU-tiled {table} "
+              f"({tiles / table if table else 0:.4f}); products asked for {products}, equal "
+              "to the model's unpadded count at every site", flush=True)
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"[audit] {time.perf_counter() - t0:.1f} s", flush=True)
+    return summary
+
+
+def dryrun_phase(mesh_train_summary, get_config, policy_mod, card):
+    """``[dryrun]`` (module docstring, 23c). Returns its summary."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+
+    t0 = time.perf_counter()
+    pol = lm_policy(policy_mod)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_DEPTH, dtype="bfloat16")
+    shape = ShapeConfig("mesh-train", LM_SEQ, LM_BATCH, "train")
+    real = {r["rank"]: r for r in mesh_train_summary["1x2_bf16"]}
+    summary = {}
+    try:
+        for data, model in MESH_SHAPES:
+            layout = f"{data}x{model}"
+            ms = {"data": data, "model": model}
+            cell = dryrun.make_cell(cfg, shape, pol, ms)
+            cell.meta["accum"] = 1
+            rb = dryrun.rank_bytes(cell, ms)
+            per_step = [n // 2 for n in mesh_train_summary[layout]["matmul_by_rank"]]
+            for rank in range(data * model):
+                rec = dryrun.census_record(dryrun.step_census(
+                    cell, tmesh.make_fake_mesh(data, model, rank=rank)))
+                got = rec["launches"].get("matmul", 0)
+                if got != per_step[rank]:
+                    raise AssertionError(f"[dryrun] {layout} rank {rank}: census matmul {got} "
+                                         f"!= {per_step[rank]} a sparse step on the card")
+                row = dict(matmul=got, param_bytes=rb["params"], adam_bytes=rb["adam"],
+                           calls=rec["collective_calls"], bytes=rec["collective_bytes"],
+                           by_kind=rec["collectives"], host_syncs=rec["host_syncs"])
+                if layout == "1x2":
+                    r = real[rank]
+                    want = (r["param_bytes"], r["adam_bytes"], r["coll_calls"], r["coll_bytes"])
+                    have = (rb["params"], rb["adam"], rec["collective_calls"],
+                            rec["collective_bytes"])
+                    if have != want:
+                        raise AssertionError(f"[dryrun] 1x2 rank {rank}: (params, Adam, calls, "
+                                             f"bytes) {have} on the fake group != {want} on the "
+                                             "card")
+                summary[f"{layout} rank {rank}"] = row
+                print(f"[dryrun] [mesh-train] {layout} rank {rank} on the fake group: "
+                      f"{json.dumps(row)} = the card's ranks'", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmesh._fake.clear()
+    total = torch.cuda.mem_get_info()[1]
+    for name in ("train_4k", "decode_32k"):
+        ms = tmesh.production_mesh_shape()
+        cell, _ = dryrun.build_cell(LM_ARCH, name, ms, "ssprop")
+        rb = dryrun.rank_bytes(cell, ms)
+        status = dryrun.refusal(cell, ms, "ssprop") or "runs"
+        summary[f"16x16 {name}"] = dict(rank_bytes=rb, card_bytes=total, status=status)
+        print(f"[dryrun] {LM_ARCH} x {name} on 16x16, rank 0: argument bytes {json.dumps(rb)} "
+              f"= {rb['total'] / 2**30:.3f} GiB of the card's {total / 2**30:.2f} GiB "
+              f"({card}); the CLI: {status}", flush=True)
+    summary["seconds"] = time.perf_counter() - t0
+    print(f"[dryrun] {time.perf_counter() - t0:.1f} s", flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -3712,6 +4011,10 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     lap("build")
+    # every launch from here on is recorded for [audit]
+    launch_log = LaunchLog()
+    observing = gm.observe_launches(launch=launch_log.add)
+    observing.__enter__()
     # 3. kernel phase
     rows, v_rows, k_rows, new_dims, max_err, paged_digest = kernel_phase(pa, F)
 
@@ -3763,7 +4066,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"paged_attention launches {launches} = {cfg.n_layers} x {steps}")
     print("[serve] first request tokens:", gen[0][:16].tolist())
-    serve_argv, serve_gen = list(argv), gen
+    serve_argv = list(argv)
     del out
     torch.cuda.empty_cache()
 
@@ -3847,7 +4150,7 @@ def main() -> int:
     t_mesh = time.perf_counter()
     (mesh_train_launches, mesh_serve_launches, mesh_err, mesh_train_summary,
      mesh_serve_summary) = mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv,
-                                      serve_gen, card)
+                                      card)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[time] mesh phases {time.perf_counter() - t_mesh:.1f} s together")
@@ -3874,8 +4177,9 @@ def main() -> int:
           f"{sum(new_phase_s.values()):.1f} s together")
 
     lap("families")
-    # 20-22. the encoder-decoder and VLM families at full width and depth:
-    # serving (paged_attention at head dims 64 and 256), then training
+    # 20-22. the encoder-decoder and VLM families at full width: serving at
+    # depth 6 (paged_attention at head dims 64 and 256), then training at
+    # full depth
     enc_launches, enc_summary = xfamily_serve_phase(ENCDEC_ARCH, "[encdec-serve]", lm, pa,
                                                     serve_pkg, get_config)
     vlm_launches, vlm_summary = xfamily_serve_phase(VLM_ARCH, "[vlm-serve]", lm, pa, serve_pkg,
@@ -3902,6 +4206,15 @@ def main() -> int:
     del kimi_one
 
     lap("mesh-families")
+    # 23b-c. the program auditor and the dry run, held to the card
+    observing.__exit__(None, None, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    audit_summary = audit_phase(launch_log, gm, get_config, lm, lm_steps, tc, resnet, adam,
+                                policy_mod, card)
+    dryrun_summary = dryrun_phase(mesh_train_summary, get_config, policy_mod, card)
+
+    lap("audit-dryrun")
     # 24. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
@@ -4019,6 +4332,8 @@ def main() -> int:
     print(f"[mesh-train] {json.dumps(mesh_train_summary)}")
     print(f"[mesh-serve] {json.dumps(mesh_serve_summary)}")
     print(f"[mesh-families] {json.dumps(mf_summary)}")
+    print(f"[audit] {json.dumps(audit_summary)}")
+    print(f"[dryrun] {json.dumps(dryrun_summary)}")
     print(f"[device] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,36 @@ derived values (``head_dim``, ``padded_vocab``, ``is_moe``, ``is_ssm``,
 of the same arch there describe the same model. Every family of the JAX
 package is ported: dense, moe, ssm, hybrid, the encoder-decoder (the
 encoder's depth and fixed length) and the VLM (its patch prefix).
+
+The input-shape cells of the dry run are the JAX package's too:
+:class:`ShapeConfig`, :data:`SHAPES` and
+:meth:`ModelConfig.supports_shape`.
 """
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a global batch of ``seq_len`` tokens."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    # a global batch below the multi-pod dp size (2x16 = 32): the joint
+    # ('pod', 'data') batch split keeps pod on the batch and moves data
+    # to the sequence (dist/sharding.py::fit_spec)
+    "train_tight": ShapeConfig("train_tight", 4_096, 8, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +83,8 @@ class ModelConfig:
     # VLM
     n_patches: int = 0  # prefix length of the stub patch embeddings
 
+    decode_seq_shard: bool = False  # the seq-sharded KV decode (not ported: the CLIs refuse it)
+
     dtype: str = "bfloat16"
     attn_q_chunk: int = 1024  # full-sequence attention's query chunk (memory lever)
 
@@ -85,6 +113,13 @@ class ModelConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    def supports_shape(self, shape: ShapeConfig) -> tuple[bool, str]:
+        """Whether a shape cell applies (long_500k needs a sub-quadratic
+        mixer)."""
+        if shape.seq_len > 100_000 and self.family not in ("ssm", "hybrid"):
+            return False, "long_500k skipped: pure full-attention arch (DESIGN.md §4)"
+        return True, ""
 
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks), for 6ND; the

@@ -39,6 +39,55 @@ from repro_torch.core.policy import SsPropPolicy
 
 _selection_log: list | None = None
 _cotangent_log: tuple[frozenset, dict] | None = None  # (the sites wanted, their dY)
+_scopes: list[str] = []  # the names the running forward ops sit under, outermost first
+_region: tuple[str, SsPropPolicy] | None = None  # the sparse backward running: (site, policy)
+
+
+class scope:
+    """Within the block, ops run under ``name`` (a layer, then a site in
+    it): what :func:`current_scope` joins, and what a sparse op records
+    at forward for its backward's :class:`region`. The program auditor
+    reads both (``analysis/dispatch_walk.py``). A class, not a generator:
+    every dense call enters one, serving included."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        _scopes.append(self.name)
+
+    def __exit__(self, *exc) -> None:
+        _scopes.pop()
+
+
+def current_scope() -> str:
+    """The names of :class:`scope` in force, joined by ``/``."""
+    return "/".join(n for n in _scopes if n)
+
+
+class region:
+    """Within the block the sparse backward of ``site`` runs under
+    ``policy`` (its ``bwd_dtype`` region): :func:`current_region`."""
+
+    __slots__ = ("entry", "prev")
+
+    def __init__(self, site: str, policy: SsPropPolicy):
+        self.entry = (site, policy)
+
+    def __enter__(self) -> None:
+        global _region
+        self.prev, _region = _region, self.entry
+
+    def __exit__(self, *exc) -> None:
+        global _region
+        _region = self.prev
+
+
+def current_region() -> tuple[str, SsPropPolicy] | None:
+    """``(site, policy)`` of the sparse backward running, or None."""
+    return _region
 
 
 @contextlib.contextmanager

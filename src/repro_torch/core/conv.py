@@ -249,6 +249,7 @@ class _SparseConv2d(torch.autograd.Function):
             y = y + b[None, :, None, None]
         ctx.save_for_backward(x, w)
         ctx.conf = (policy, stride, pads, dilation, groups, key, b is not None)
+        ctx.site = backward.current_scope()
         return y
 
     @staticmethod
@@ -257,9 +258,10 @@ class _SparseConv2d(torch.autograd.Function):
         policy, stride, pads, dilation, groups, key, has_bias = ctx.conf
         op = _ConvOp(x, w, stride, pads, dilation, groups, policy,
                      need_dx=ctx.needs_input_grad[0])
-        dx, dw, db = backward.channel_sparse_backward(
-            policy, op, dy, key=key, has_bias=has_bias
-        )
+        with backward.region(ctx.site, policy):
+            dx, dw, db = backward.channel_sparse_backward(
+                policy, op, dy, key=key, has_bias=has_bias
+            )
         return (
             None if dx is None else dx.to(x.dtype),
             dw.to(w.dtype),

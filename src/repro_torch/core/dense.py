@@ -132,6 +132,7 @@ class _SparseDense(torch.autograd.Function):
             y = y + b
         ctx.save_for_backward(x, w)
         ctx.conf = (policy, key, b is not None, mesh)
+        ctx.site = mesh.site if mesh is not None else backward.current_scope()
         return y
 
     @staticmethod
@@ -142,9 +143,10 @@ class _SparseDense(torch.autograd.Function):
         lead = x.shape[:-1]
         m = math.prod(lead)
         op = _DenseOp(x.reshape(m, d_in), w, policy, need_dx=ctx.needs_input_grad[0])
-        dx2, dw, db = backward.channel_sparse_backward(
-            policy, op, dy.reshape(m, d_out), key=key, has_bias=has_bias, mesh=mesh
-        )
+        with backward.region(ctx.site, policy):
+            dx2, dw, db = backward.channel_sparse_backward(
+                policy, op, dy.reshape(m, d_out), key=key, has_bias=has_bias, mesh=mesh
+            )
         return (
             None if dx2 is None else dx2.reshape(*lead, d_in).to(x.dtype),
             dw.to(w.dtype),

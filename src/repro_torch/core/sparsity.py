@@ -255,8 +255,9 @@ def keep_mask(
     broadcast against ``dy_shape``."""
     axis = channel_axis % len(dy_shape)
     c = dy_shape[axis]
-    flat = torch.zeros((c,), dtype=torch.bool, device=idx.device)
-    flat[idx] = True
+    # a fill at the indices: ``flat[idx] = True`` stalled the host on the
+    # card (an in-place ``index_put_`` of a scalar), once a biased site a step
+    flat = torch.zeros((c,), dtype=torch.bool, device=idx.device).index_fill_(0, idx, True)
     shape = [1] * len(dy_shape)
     shape[axis] = c
     return flat.reshape(shape).to(dtype)

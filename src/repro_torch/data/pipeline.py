@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +106,24 @@ class ImagePipeline:
         y = rng.integers(0, cfg.n_classes, size=n).astype(np.int32)
         x = self._protos[y] + rng.normal(0, 0.5, size=(n,) + cfg.image).astype(np.float32)
         return {"images": x.astype(np.float32), "labels": y}
+
+
+def input_specs(cfg, shape, *, device="meta") -> dict[str, torch.Tensor]:
+    """Empty stand-ins on ``device`` (default ``meta``: nothing allocated)
+    for every model input of one cell: ``cfg`` a ``ModelConfig``,
+    ``shape`` a ``ShapeConfig``. Tokens (and targets, but for decode) are
+    int32; a train or prefill batch of the encoder-decoder or the VLM
+    adds ``frames [B, enc_seq, d]`` / ``patches [B, n_patches, d]`` in
+    ``cfg.dtype``, as :func:`frontend_inputs` does."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        specs = {"tokens": torch.empty((b, 1), dtype=torch.int32, device=device)}
+    else:
+        specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=device),
+                 "targets": torch.empty((b, s), dtype=torch.int32, device=device)}
+    rows = {"encdec": ("frames", cfg.enc_seq), "vlm": ("patches", cfg.n_patches)}
+    if cfg.family in rows and shape.kind != "decode":
+        name, n = rows[cfg.family]
+        specs[name] = torch.empty((b, n, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                                  device=device)
+    return specs

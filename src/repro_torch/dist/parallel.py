@@ -122,7 +122,7 @@ def _model_live(mesh) -> bool:
 
 
 def _data_live(mesh) -> bool:
-    return mesh is not None and mesh.data > 1
+    return mesh is not None and mesh.dp > 1
 
 
 # ----------------------------------------------------------------------
@@ -237,7 +237,7 @@ def gather_ids_over_data(ids: torch.Tensor, mesh) -> torch.Tensor:
     data-rank order (the global row order); no gradient."""
     if not _data_live(mesh):
         return ids
-    return all_gather(ids, mesh.data_group, mesh.data, dim=0)
+    return all_gather(ids, mesh.data_group, mesh.dp, dim=0)
 
 
 def vocab_range(v_loc: int, mesh) -> tuple[int, int]:
@@ -347,7 +347,7 @@ class SiteMesh:
         if not _data_live(self.mesh) or self.rows == "local":
             return imp
         tot = all_reduce(imp.clone(), self.mesh.data_group)
-        return tot if self.rows == "padded" else tot / self.mesh.data
+        return tot if self.rows == "padded" else tot / self.mesh.dp
 
     def gather_model(self, imp: torch.Tensor) -> torch.Tensor:
         """The full channel vector from each model rank's columns."""

@@ -152,6 +152,20 @@ def param_specs(params: Any, *, replicate_kv: bool = False) -> Any:
     return _map_with_keys(one, params)
 
 
+def param_shardings(mesh, params: Any, *, replicate_kv: bool = False) -> Any:
+    """The specs of ``params`` (JAX layout) fitted to ``mesh``: the rule
+    table's, repaired by :func:`fit_spec` leaf by leaf (the reference's
+    ``NamedSharding`` tree, as specs)."""
+    return map_specs(lambda leaf, sp: fit_spec(sp, leaf.shape, mesh), params,
+                     param_specs(params, replicate_kv=replicate_kv))
+
+
+def opt_state_shardings(mesh, params: Any) -> Any:
+    """Adam's moments mirror the params' layout (same shapes, fp32; k/v
+    never replicated, as the reference's)."""
+    return param_shardings(mesh, params)
+
+
 def _batch_axis(mesh):
     dpax = dp_axes(mesh)
     if not dpax:

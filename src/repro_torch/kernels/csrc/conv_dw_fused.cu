@@ -53,6 +53,7 @@
 
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "mma.cuh"
 #include "tile.cuh"
 
@@ -226,11 +227,30 @@ conv_dw_fused_kernel(const T* __restrict__ xg, const T* __restrict__ dy2r,
     }
 }
 
+// Grid (kept blocks x column tiles of a block, row tiles of P = Kh*Kw*Cg,
+// splits), a 3-deep ring; with S > 1 tile.cuh's reduce over P x NC.
+template <typename T>
+geometry::Geometry plan(const Geom& g, int S) {
+  geometry::Geometry geo;
+  const int P = g.Kh * g.Kw * g.Cg;
+  const int ctpb = (g.bs + BN - 1) / BN;
+  geo.first.grid = dim3((unsigned)(g.KB * ctpb), (unsigned)((P + BM - 1) / BM), (unsigned)S);
+  geo.first.block = dim3(THREADS, 1, 1);
+  geo.first.smem = STAGES * 2 * BK * LDS * (int)sizeof(T);
+  geo.split = S;
+  geo.stages = STAGES;
+  if (S > 1) {
+    const long long n = (long long)P * g.KB * g.bs;
+    geo.second.grid = dim3((unsigned)tile::reduce_blocks(n), 1, 1);
+    geo.second.block = dim3(256, 1, 1);
+  }
+  return geo;
+}
+
 template <typename T>
 int launch(const void* xg, const void* dy2r, const void* bidx, void* partial, void* out,
            const Geom& g, int S, long long chunk, cudaStream_t st) {
-  const int P = g.Kh * g.Kw * g.Cg;
-  const int ctpb = (g.bs + BN - 1) / BN;
+  const geometry::Geometry geo = plan<T>(g, S);
   // every 64-row tile inside one tap, every column tile inside one block,
   // 16-byte aligned rows: the contiguous cp.async loads
   // and both tensors small enough for 32-bit element offsets
@@ -240,18 +260,18 @@ int launch(const void* xg, const void* dy2r, const void* bidx, void* partial, vo
                    reinterpret_cast<uintptr_t>(xg) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dy2r) % 16 == 0 && x_elems < (1ll << 31) &&
                    dy_elems < (1ll << 31);
-  const int smem = STAGES * 2 * BK * LDS * (int)sizeof(T);
+  const int smem = geo.first.smem;
   auto kernel = conv_dw_fused_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   float* dst = S == 1 ? static_cast<float*>(out) : static_cast<float*>(partial);
-  const dim3 grid((unsigned)(g.KB * ctpb), (unsigned)((P + BM - 1) / BM), (unsigned)S);
-  kernel<<<grid, THREADS, smem, st>>>(static_cast<const T*>(xg), static_cast<const T*>(dy2r),
-                                      static_cast<const int*>(bidx), dst, g, chunk, fast);
+  kernel<<<geo.first.grid, geo.first.block, smem, st>>>(
+      static_cast<const T*>(xg), static_cast<const T*>(dy2r), static_cast<const int*>(bidx), dst,
+      g, chunk, fast);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return (int)e;
-  const long long n = (long long)P * g.KB * g.bs;
-  tile::reduce_splits<<<tile::reduce_blocks(n), 256, 0, st>>>(
+  const long long n = (long long)(g.Kh * g.Kw * g.Cg) * g.KB * g.bs;
+  tile::reduce_splits<<<geo.second.grid, geo.second.block, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), n, S);
   return (int)cudaGetLastError();
 }
@@ -275,4 +295,17 @@ extern "C" int conv_dw_fused_launch(const void* xg, const void* dy2r, const void
                Kh, Kw,    sh, sw,    dh, dw,    KB,    bs,    (C_pad / bs) / G};
   if (bf16) return launch<__nv_bfloat16>(xg, dy2r, bidx, partial, out, g, S, chunk, st);
   return launch<float>(xg, dy2r, bidx, partial, out, g, S, chunk, st);
+}
+
+// The launch geometry of conv_dw_fused_launch with these arguments
+// (geometry.cuh says what out[16] holds).
+extern "C" int conv_dw_fused_geometry(int B, int H_pad, int G, int W_pad, int Cg, int H_out,
+                                      int W_out, int C_pad, int c_valid, int Kh, int Kw, int sh,
+                                      int sw, int dh, int dw, int KB, int bs, int S,
+                                      long long chunk, int bf16, int* out) {
+  (void)chunk;
+  const Geom g{B,  H_pad, G,  W_pad, Cg, H_out, W_out, C_pad, c_valid,
+               Kh, Kw,    sh, sw,    dh, dw,    KB,    bs,    (C_pad / bs) / G};
+  geometry::put(bf16 ? plan<__nv_bfloat16>(g, S) : plan<float>(g, S), out);
+  return 0;
 }

@@ -45,6 +45,7 @@
 
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -283,6 +284,20 @@ conv_dx_fused_kernel(const T* __restrict__ dy2r, const T* __restrict__ w2k,
     }
 }
 
+// Grid (row tiles of every phase, column tiles of Cg, groups), a 3-deep
+// ring; nothing where a phase has no interior pixel or Cg or G is 0.
+template <typename T>
+geometry::Geometry plan(const Geom& g) {
+  geometry::Geometry geo;
+  const int tiles = row_tiles(g);
+  if (tiles == 0 || g.Cg == 0 || g.G == 0) return geo;
+  geo.first.grid = dim3((unsigned)tiles, (unsigned)((g.Cg + BN - 1) / BN), (unsigned)g.G);
+  geo.first.block = dim3(THREADS, 1, 1);
+  geo.first.smem = STAGES * (BM + BN) * ldk<T>() * (int)sizeof(T);
+  geo.stages = STAGES;
+  return geo;
+}
+
 template <typename T>
 int launch(const void* dy2r, const void* w2k, const void* bidx, void* out, const Geom& g,
            cudaStream_t st) {
@@ -290,16 +305,15 @@ int launch(const void* dy2r, const void* w2k, const void* bidx, void* out, const
   const int fast = (g.bs * (int)sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dy2r) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w2k) % 16 == 0;
+  const geometry::Geometry geo = plan<T>(g);
   const int smem = STAGES * (BM + BN) * ldk<T>() * (int)sizeof(T);
   auto kernel = conv_dx_fused_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = row_tiles(g);
-  if (tiles == 0 || g.Cg == 0 || g.G == 0) return 0;
-  const dim3 grid((unsigned)tiles, (unsigned)((g.Cg + BN - 1) / BN), (unsigned)g.G);
-  kernel<<<grid, THREADS, smem, st>>>(static_cast<const T*>(dy2r), static_cast<const T*>(w2k),
-                                      static_cast<const int*>(bidx), static_cast<float*>(out), g,
-                                      fast);
+  if (geo.first.grid.x == 0) return 0;
+  kernel<<<geo.first.grid, geo.first.block, geo.first.smem, st>>>(
+      static_cast<const T*>(dy2r), static_cast<const T*>(w2k), static_cast<const int*>(bidx),
+      static_cast<float*>(out), g, fast);
   return (int)cudaGetLastError();
 }
 
@@ -321,4 +335,16 @@ extern "C" int conv_dx_fused_launch(const void* dy2r, const void* w2k, const voi
                Kh, Kw, sh, sw,  dh,  dw, KB, bs, (C_pad / bs) / G};
   if (bf16) return launch<__nv_bfloat16>(dy2r, w2k, bidx, out, g, st);
   return launch<float>(dy2r, w2k, bidx, out, g, st);
+}
+
+// The launch geometry of conv_dx_fused_launch with these arguments
+// (geometry.cuh says what out[16] holds).
+extern "C" int conv_dx_fused_geometry(int B, int H, int W, int ph0, int pw0, int G, int Cg,
+                                      int H_out, int W_out, int C_pad, int c_valid, int Kh,
+                                      int Kw, int sh, int sw, int dh, int dw, int KB, int bs,
+                                      int bf16, int* out) {
+  const Geom g{B,  H,  W,  ph0, pw0, G,  Cg,     H_out,           W_out, C_pad, c_valid,
+               Kh, Kw, sh, sw,  dh,  dw, KB, bs, (C_pad / bs) / G};
+  geometry::put(bf16 ? plan<__nv_bfloat16>(g) : plan<float>(g), out);
+  return 0;
 }

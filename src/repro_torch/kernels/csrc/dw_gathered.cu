@@ -43,6 +43,7 @@
 
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -215,11 +216,33 @@ dw_reduce(const float* __restrict__ partial, float* __restrict__ out,
   }
 }
 
+// Grid (kept blocks x column tiles of a block, row tiles of D, splits), a
+// 3-deep ring; with S > 1 the reduce pass over the D x NC outputs.
+template <typename T>
+geometry::Geometry plan(int D, int KB, int bs, int S) {
+  geometry::Geometry geo;
+  const int NC = KB * bs;
+  if (D == 0 || NC == 0) return geo;
+  const int ctpb = (bs + BN - 1) / BN;
+  geo.first.grid = dim3((unsigned)(KB * ctpb), (unsigned)((D + BM - 1) / BM), (unsigned)S);
+  geo.first.block = dim3(THREADS, 1, 1);
+  geo.first.smem = STAGES * 2 * BK * LDS * (int)sizeof(T);
+  geo.split = S;
+  geo.stages = STAGES;
+  if (S > 1) {
+    const long long n = (long long)D * NC;
+    geo.second.grid = dim3((unsigned)((n + RED_LANES - 1) / RED_LANES), 1, 1);
+    geo.second.block = dim3(RED_LANES, RED_GROUPS, 1);
+  }
+  return geo;
+}
+
 template <typename T>
 int launch(const void* x, const void* dy, const void* bidx, void* partial, void* out, int M,
            int D, int N, int KB, int bs, int S, int chunk, cudaStream_t st) {
   const int NC = KB * bs;
-  if (D == 0 || NC == 0) return 0;
+  const geometry::Geometry geo = plan<T>(D, KB, bs, S);
+  if (geo.first.grid.x == 0) return 0;
   constexpr int EPC = 16 / sizeof(T);
   const bool x_al = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   // a slab of BK rows starts on 16 bytes when every stage starts on a
@@ -229,20 +252,17 @@ int launch(const void* x, const void* dy, const void* bidx, void* partial, void*
                                                               : X_GENERIC;
   const int dy_fast =
       reinterpret_cast<uintptr_t>(dy) % 16 == 0 && N % EPC == 0 && bs % EPC == 0;
-  const int smem = STAGES * 2 * BK * LDS * (int)sizeof(T);
+  const int smem = geo.first.smem;
   auto kernel = dw_gathered_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   float* dst = S == 1 ? static_cast<float*>(out) : static_cast<float*>(partial);
-  const int ctpb = (bs + BN - 1) / BN;
-  const dim3 grid((unsigned)(KB * ctpb), (unsigned)((D + BM - 1) / BM), (unsigned)S);
-  kernel<<<grid, THREADS, smem, st>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
-                                      static_cast<const int*>(bidx), dst, M, D, N, KB, bs, S,
-                                      chunk, x_load, dy_fast);
+  kernel<<<geo.first.grid, geo.first.block, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const int*>(bidx), dst, M,
+      D, N, KB, bs, S, chunk, x_load, dy_fast);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return (int)e;
-  const long long n = (long long)D * NC;
-  dw_reduce<<<(unsigned)((n + RED_LANES - 1) / RED_LANES), dim3(RED_LANES, RED_GROUPS), 0, st>>>(
+  dw_reduce<<<geo.second.grid, geo.second.block, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(out),
       static_cast<const int*>(bidx), D, N, NC, bs, S);
   return (int)cudaGetLastError();
@@ -262,4 +282,13 @@ extern "C" int dw_gathered_launch(const void* x, const void* dy, const void* bid
   if (bf16)
     return launch<__nv_bfloat16>(x, dy, bidx, partial, out, M, D, N, KB, bs, S, chunk, st);
   return launch<float>(x, dy, bidx, partial, out, M, D, N, KB, bs, S, chunk, st);
+}
+
+// The launch geometry of dw_gathered_launch with these arguments
+// (geometry.cuh says what out[16] holds).
+extern "C" int dw_gathered_geometry(int M, int D, int N, int KB, int bs, int S, int chunk,
+                                    int bf16, int* out) {
+  (void)M, (void)N, (void)chunk;
+  geometry::put(bf16 ? plan<__nv_bfloat16>(D, KB, bs, S) : plan<float>(D, KB, bs, S), out);
+  return 0;
 }

@@ -38,6 +38,7 @@
 
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -164,38 +165,50 @@ dx_gathered_kernel(const T* __restrict__ dy, const T* __restrict__ w,
 
 template <typename T, int STAGES>
 int start(const void* dy, const void* w, const void* bidx, void* out, int M, int N, int D,
-          int KB, int bs, int col_tiles, long long tiles, int fast, cudaStream_t st) {
-  const int smem = STAGES * (BM + BN) * ldk<T>() * (int)sizeof(T);
+          int KB, int bs, int col_tiles, const geometry::Geometry& geo, int fast,
+          cudaStream_t st) {
   auto kernel = dx_gathered_kernel<T, STAGES>;
+  const int smem = geo.first.smem;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)tiles, THREADS, smem, st>>>(
+  kernel<<<geo.first.grid, geo.first.block, smem, st>>>(
       static_cast<const T*>(dy), static_cast<const T*>(w), static_cast<const int*>(bidx),
       static_cast<float*>(out), M, N, D, KB, bs, col_tiles, fast);
   return (int)cudaGetLastError();
 }
 
+// One block an output tile (row tiles major, column tiles minor); a 4-deep
+// ring where the grid fills at most three blocks an SM, else 3 deep.
+template <typename T>
+int plan(int M, int D, geometry::Geometry& geo) {
+  if (M == 0 || D == 0) return 0;
+  int sms = 0;
+  const int e = geometry::sm_count(&sms);
+  if (e != 0) return e;
+  const int col_tiles = (D + BN - 1) / BN;
+  const long long tiles = (long long)((M + BM - 1) / BM) * col_tiles;
+  geo.stages = tiles <= 3LL * sms ? 4 : 3;
+  geo.first.grid = dim3((unsigned)tiles, 1, 1);
+  geo.first.block = dim3(THREADS, 1, 1);
+  geo.first.smem = geo.stages * (BM + BN) * ldk<T>() * (int)sizeof(T);
+  return 0;
+}
+
 template <typename T>
 int launch(const void* dy, const void* w, const void* bidx, void* out, int M, int N, int D,
            int KB, int bs, cudaStream_t st) {
-  if (M == 0 || D == 0) return 0;
+  geometry::Geometry geo;
+  const int e = plan<T>(M, D, geo);
+  if (e != 0 || geo.first.grid.x == 0) return e;
   constexpr int EPC = 16 / sizeof(T);
   // 16-byte copies: every row pitch and kept-block start on 16 bytes
   const int fast = N % EPC == 0 && bs % EPC == 0 &&
                    reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int col_tiles = (D + BN - 1) / BN;
-  const long long tiles = (long long)((M + BM - 1) / BM) * col_tiles;
-  static int sms = 0;  // the card's SM count, read once
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (tiles <= 3LL * sms)
-    return start<T, 4>(dy, w, bidx, out, M, N, D, KB, bs, col_tiles, tiles, fast, st);
-  return start<T, 3>(dy, w, bidx, out, M, N, D, KB, bs, col_tiles, tiles, fast, st);
+  if (geo.stages == 4)
+    return start<T, 4>(dy, w, bidx, out, M, N, D, KB, bs, col_tiles, geo, fast, st);
+  return start<T, 3>(dy, w, bidx, out, M, N, D, KB, bs, col_tiles, geo, fast, st);
 }
 
 }  // namespace
@@ -210,4 +223,14 @@ extern "C" int dx_gathered_launch(const void* dy, const void* w, const void* bid
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) return launch<__nv_bfloat16>(dy, w, bidx, out, M, N, D, KB, bs, st);
   return launch<float>(dy, w, bidx, out, M, N, D, KB, bs, st);
+}
+
+// The launch geometry of dx_gathered_launch with these arguments
+// (geometry.cuh says what out[16] holds).
+extern "C" int dx_gathered_geometry(int M, int N, int D, int KB, int bs, int bf16, int* out) {
+  (void)N, (void)KB, (void)bs;
+  geometry::Geometry geo;
+  const int e = bf16 ? plan<__nv_bfloat16>(M, D, geo) : plan<float>(M, D, geo);
+  geometry::put(geo, out);
+  return e;
 }

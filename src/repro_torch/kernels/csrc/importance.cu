@@ -23,6 +23,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "geometry.cuh"
+
 namespace {
 
 constexpr int COLS = 32;  // channels a block takes
@@ -67,22 +69,34 @@ __global__ void finish_kernel(const float* __restrict__ partial, float* __restri
   out[n] = t / (float)M;
 }
 
+// Grid (channel blocks of COLS, row splits); with S > 1 the finish pass.
+geometry::Geometry plan(int N, int S) {
+  geometry::Geometry geo;
+  geo.first.grid = dim3((unsigned)((N + COLS - 1) / COLS), (unsigned)S, 1);
+  geo.first.block = dim3(COLS * WARPS, 1, 1);
+  geo.split = S;
+  if (S > 1) {
+    geo.second.grid = dim3((unsigned)((N + 255) / 256), 1, 1);
+    geo.second.block = dim3(256, 1, 1);
+  }
+  return geo;
+}
+
 template <typename T>
 int launch(const void* dy, void* partial, void* out, int M, int N, int S, int chunk,
            cudaStream_t st) {
-  const dim3 grid((unsigned)((N + COLS - 1) / COLS), (unsigned)S);
+  const geometry::Geometry geo = plan(N, S);
   if (S == 1) {
-    importance_kernel<T><<<grid, COLS * WARPS, 0, st>>>(static_cast<const T*>(dy),
-                                                        static_cast<float*>(out), M, N, chunk, 1);
+    importance_kernel<T><<<geo.first.grid, geo.first.block, 0, st>>>(
+        static_cast<const T*>(dy), static_cast<float*>(out), M, N, chunk, 1);
     return (int)cudaGetLastError();
   }
-  importance_kernel<T><<<grid, COLS * WARPS, 0, st>>>(static_cast<const T*>(dy),
-                                                      static_cast<float*>(partial), M, N, chunk,
-                                                      0);
+  importance_kernel<T><<<geo.first.grid, geo.first.block, 0, st>>>(
+      static_cast<const T*>(dy), static_cast<float*>(partial), M, N, chunk, 0);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  finish_kernel<<<(N + 255) / 256, 256, 0, st>>>(static_cast<const float*>(partial),
-                                                 static_cast<float*>(out), M, N, S);
+  finish_kernel<<<geo.second.grid, geo.second.block, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), M, N, S);
   return (int)cudaGetLastError();
 }
 
@@ -97,4 +111,12 @@ extern "C" int importance_launch(const void* dy, void* partial, void* out, int M
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) return launch<__nv_bfloat16>(dy, partial, out, M, N, S, chunk, st);
   return launch<float>(dy, partial, out, M, N, S, chunk, st);
+}
+
+// The launch geometry of importance_launch with these arguments
+// (geometry.cuh says what out[16] holds).
+extern "C" int importance_geometry(int M, int N, int S, int chunk, int bf16, int* out) {
+  (void)M, (void)chunk, (void)bf16;
+  geometry::put(plan(N, S), out);
+  return 0;
 }

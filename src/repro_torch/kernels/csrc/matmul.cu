@@ -49,6 +49,7 @@
 #include <cuda.h>  // CUtensorMap and its encoder's types (header only: no -lcuda)
 #include <stdint.h>
 
+#include "geometry.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -310,6 +311,23 @@ bool make_map(CUtensorMap* map, const void* p, long long inner, long long outer,
 
 constexpr int ERR_TENSOR_MAP = -1;  // the encoder is missing or refused the operand
 
+// bf16: one block an output tile and split (a producer warp and two
+// consumer warpgroups, a 4-deep TMA ring); with S > 1 tile.cuh's reduce.
+geometry::Geometry plan_wgmma(int M, int N, int S) {
+  geometry::Geometry geo;
+  geo.first.grid = dim3((unsigned)((N + TC_BN - 1) / TC_BN), (unsigned)((M + TC_BM - 1) / TC_BM),
+                        (unsigned)S);
+  geo.first.block = dim3(TC_THREADS, 1, 1);
+  geo.first.smem = TC_SMEM;
+  geo.split = S;
+  geo.stages = TC_STAGES;
+  if (S > 1) {
+    geo.second.grid = dim3((unsigned)tile::reduce_blocks((long long)M * N), 1, 1);
+    geo.second.block = dim3(256, 1, 1);
+  }
+  return geo;
+}
+
 template <int TA, int TB>
 int launch_wgmma(const void* a, const void* b, void* partial, void* out, int M, int N, int K,
                  long long sa_m, long long sa_k, long long sb_k, long long sb_n, int S,
@@ -325,13 +343,13 @@ int launch_wgmma(const void* a, const void* b, void* partial, void* out, int M, 
                                        TC_SMEM);
   if (e != cudaSuccess) return (int)e;
   float* dst = static_cast<float*>(S == 1 ? out : partial);
-  const dim3 grid((unsigned)((N + TC_BN - 1) / TC_BN), (unsigned)((M + TC_BM - 1) / TC_BM),
-                  (unsigned)S);
-  kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(map_a, map_b, dst, M, N, K, chunk);
+  const geometry::Geometry geo = plan_wgmma(M, N, S);
+  kernel<<<geo.first.grid, geo.first.block, geo.first.smem, st>>>(map_a, map_b, dst, M, N, K,
+                                                                  chunk);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return (int)e;
   const long long n = (long long)M * N;
-  tile::reduce_splits<<<tile::reduce_blocks(n), 256, 0, st>>>(
+  tile::reduce_splits<<<geo.second.grid, geo.second.block, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), n, S);
   return (int)cudaGetLastError();
 }
@@ -409,6 +427,14 @@ matmul_simt_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// fp32: one block a 64x64 output tile, its whole reduction in 16-deep panels.
+geometry::Geometry plan_simt(int M, int N) {
+  geometry::Geometry geo;
+  geo.first.grid = dim3((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM), 1);
+  geo.first.block = dim3(THREADS, 1, 1);
+  return geo;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. a [M, K] with element strides
@@ -426,8 +452,8 @@ extern "C" int matmul_launch(const void* a, const void* b, void* partial, void* 
                              long long sb_n, int S, int chunk, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bf16) {
-    const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
-    matmul_simt_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(a),
+    const geometry::Geometry geo = plan_simt(M, N);
+    matmul_simt_kernel<<<geo.first.grid, geo.first.block, 0, st>>>(static_cast<const float*>(a),
                                                  static_cast<const float*>(b),
                                                  static_cast<float*>(out), M, N, K, sa_m, sa_k,
                                                  sb_k, sb_n);
@@ -442,4 +468,14 @@ extern "C" int matmul_launch(const void* a, const void* b, void* partial, void* 
   if (tb == 0)
     return launch_wgmma<1, 0>(a, b, partial, out, M, N, K, sa_m, sa_k, sb_k, sb_n, S, chunk, st);
   return launch_wgmma<1, 1>(a, b, partial, out, M, N, K, sa_m, sa_k, sb_k, sb_n, S, chunk, st);
+}
+
+// The launch geometry of matmul_launch with these arguments (geometry.cuh
+// says what out[16] holds).
+extern "C" int matmul_geometry(int M, int N, int K, long long sa_m, long long sa_k,
+                               long long sb_k, long long sb_n, int S, int chunk, int bf16,
+                               int* out) {
+  (void)K, (void)sa_m, (void)sa_k, (void)sb_k, (void)sb_n, (void)chunk;
+  geometry::put(bf16 ? plan_wgmma(M, N, S) : plan_simt(M, N), out);
+  return 0;
 }

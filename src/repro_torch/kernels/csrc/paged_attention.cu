@@ -63,6 +63,7 @@
 
 #include <type_traits>
 
+#include "geometry.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -627,25 +628,67 @@ cudaError_t start(Kern kern, dim3 grid, int threads, size_t smem, cudaStream_t s
   return cudaGetLastError();
 }
 
+// Grid (splits, row tiles, slots x KV heads); with P > 1 the combine pass,
+// a block of D threads a row.
+template <typename TKV, int D, int ROWS>
+geometry::Geometry plan(const Geom& g) {
+  using T = Tile<TKV, D, ROWS>;
+  geometry::Geometry geo;
+  const int row_tiles = (g.S * (g.H / g.KV) + ROWS - 1) / ROWS;
+  geo.first.grid = dim3(g.P, row_tiles, g.B * g.KV);
+  geo.first.block = dim3(T::THREADS, 1, 1);
+  geo.first.smem = (int)T::smem_bytes;
+  geo.split = g.P;
+  geo.stages = STAGES;
+  if (g.P > 1) {
+    geo.second.grid = dim3(g.B * g.S * g.H, 1, 1);
+    geo.second.block = dim3(D, 1, 1);
+  }
+  return geo;
+}
+
 template <typename TQ, typename TKV, int D, int ROWS>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
            const void* qpos, void* out, void* part, const Geom& g,
            cudaStream_t stream) {
   using T = Tile<TKV, D, ROWS>;
-  const int row_tiles = (g.S * (g.H / g.KV) + ROWS - 1) / ROWS;
-  const dim3 grid(g.P, row_tiles, g.B * g.KV);
+  const geometry::Geometry geo = plan<TKV, D, ROWS>(g);
   cudaError_t e;
   if constexpr (T::MMA)
-    e = start<TQ, TKV>(paged_attn_mma<TQ, TKV, D>, grid, T::THREADS, T::smem_bytes, stream, q,
-                       k_pool, v_pool, tables, qpos, out, part, g);
+    e = start<TQ, TKV>(paged_attn_mma<TQ, TKV, D>, geo.first.grid, geo.first.block.x,
+                       geo.first.smem, stream, q, k_pool, v_pool, tables, qpos, out, part, g);
   else
-    e = start<TQ, TKV>(paged_attn_simt<TQ, TKV, D, ROWS>, grid, T::THREADS, T::smem_bytes,
-                       stream, q, k_pool, v_pool, tables, qpos, out, part, g);
+    e = start<TQ, TKV>(paged_attn_simt<TQ, TKV, D, ROWS>, geo.first.grid, geo.first.block.x,
+                       geo.first.smem, stream, q, k_pool, v_pool, tables, qpos, out, part, g);
   if (e != cudaSuccess || g.P == 1) return (int)e;
   const int rows_total = g.B * g.S * g.H;
-  paged_combine<D><<<rows_total, D, 0, stream>>>(static_cast<const float*>(part),
-                                                  static_cast<float*>(out), rows_total, g.P);
+  paged_combine<D><<<geo.second.grid, geo.second.block, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), rows_total, g.P);
   return (int)cudaGetLastError();
+}
+
+// The geometry of launch<TQ, TKV, D, rows> (TQ does not change it).
+template <typename TKV>
+int geometry_d(int D, int rows, const Geom& g, geometry::Geometry& geo) {
+#define PAGED_PLAN(DD, RR) \
+  if (D == DD && rows == RR) { geo = plan<TKV, DD, RR>(g); return 0; }
+  PAGED_PLAN(32, 8)
+  PAGED_PLAN(32, 16)
+  PAGED_PLAN(32, 64)
+  PAGED_PLAN(64, 8)
+  PAGED_PLAN(64, 16)
+  PAGED_PLAN(64, 64)
+  PAGED_PLAN(112, 8)
+  PAGED_PLAN(112, 16)
+  PAGED_PLAN(112, 64)
+  PAGED_PLAN(128, 8)
+  PAGED_PLAN(128, 16)
+  PAGED_PLAN(128, 64)
+  PAGED_PLAN(256, 8)
+  PAGED_PLAN(256, 16)
+  PAGED_PLAN(256, 64)
+#undef PAGED_PLAN
+  return -1;
 }
 
 // Head dims of the ported configs: qwen2.5-3b and the dense and MoE archs
@@ -705,4 +748,20 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
     return launch_d<float, __nv_bfloat16>(D, rows, q, k_pool, v_pool, tables, qpos, out, part,
                                           g, st);
   return launch_d<float, float>(D, rows, q, k_pool, v_pool, tables, qpos, out, part, g, st);
+}
+
+// The launch geometry of paged_attention_launch with these arguments
+// (geometry.cuh says what out[16] holds); -1 where the launch refuses them.
+extern "C" int paged_attention_geometry(int B, int S, int H, int KV, int D, int n_pages, int bs,
+                                        int NB, int rows, int chunk, int P, int q_bf16,
+                                        int kv_bf16, int* out) {
+  (void)q_bf16;
+  if (D <= 0 || chunk != CHUNK_VALUES / pad_dim(D) || P < 1 || P > COMBINE_MAX_P || bs <= 0)
+    return -1;
+  const Geom g{B, S, H, KV, n_pages, bs, 0, NB, P, 1.f};
+  geometry::Geometry geo;
+  const int e = kv_bf16 ? geometry_d<__nv_bfloat16>(D, rows, g, geo)
+                        : geometry_d<float>(D, rows, g, geo);
+  geometry::put(geo, out);
+  return e;
 }

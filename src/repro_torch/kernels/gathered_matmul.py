@@ -30,8 +30,13 @@ count as zeros) are masked in the kernel. Every kernel takes fp32 or
 bf16 operands (both of one type), int32 ``block_idx``, accumulates in
 fp32 and returns fp32.
 
-Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to
-the kernel, or the wrapper raises.
+Dispatch, by the operands' device: a CPU tensor goes to the plain
+version; a CUDA tensor goes to the kernel, or the wrapper raises; a
+``meta`` tensor (the dry run and the program auditor, nothing allocated)
+takes the meta route: an empty output of the kernel's shape, the launch
+counted in :data:`launches` as the kernel's, and the launch's spec
+(``kernels/specs.py``) handed to the census that observes it
+(:func:`observe_launches`); every other device raises.
 
 Tiles and plans: ``matmul``'s bf16 kernel takes 128x128 output tiles
 64 deep (:func:`matmul_plan` splits K where too few tiles fill the
@@ -51,7 +56,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, specs
 
 # kernel launches by each wrapper (reset by whoever counts)
 launches = {
@@ -61,6 +66,8 @@ launches = {
 # operands a wrapper copied into an aligned buffer before launching
 repacks = {"matmul": 0}
 _matmul_observer: Callable | None = None
+_launch_observers: list[Callable] = []  # fn(name, int_args) at each launch, card or meta
+_meta_observers: list[Callable] = []  # fn(name, spec) at each meta-route launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TARGET_BLOCKS = 8 * 132  # about eight resident blocks on each of the H100's 132 SMs
@@ -81,6 +88,8 @@ _ARGTYPES = {
     "importance": [_P] * 3 + [_I] * 4 + [_I, _P],
 }
 _fns: dict[str, object] = {}
+_N_PTRS = {name: sum(t is _P for t in a) - 1 for name, a in _ARGTYPES.items()}  # less the stream
+_geometry_fns: dict[str, object] = {}
 
 
 def _fn(name: str):
@@ -94,22 +103,76 @@ def _fn(name: str):
 
 
 def _launch(name: str, device, *args) -> None:
+    ints = args[_N_PTRS[name]:]
+    for fn in _launch_observers:
+        fn(name, ints)
+    launches[name] += 1
+    if device.type == "meta":
+        if _meta_observers:
+            spec = specs.spec_for_launch(name, ints)
+            for fn in _meta_observers:
+                fn(name, spec)
+        return
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _fn(name)(*args, stream)
     if err != 0:
+        launches[name] -= 1
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
 
 
-def _on_cuda(name: str, *ops, block_idx=None, contiguous: bool = True) -> bool:
-    """True for CUDA operands, False for CPU ones; raises for anything
-    else, and for what the kernel does not take."""
+@contextlib.contextmanager
+def observe_launches(*, launch: Callable | None = None, meta: Callable | None = None
+                     ) -> Iterator[None]:
+    """Within the block, every kernel launch of these wrappers and of
+    ``paged_attention`` calls ``launch(name, int_args)`` with the integer
+    arguments its C entry point takes (``specs.LAUNCH_ARGS``), on the card
+    and on the meta route; every meta-route launch also calls ``meta(name,
+    spec)`` with its ``kernels/specs.py`` spec."""
+    if launch is not None:
+        _launch_observers.append(launch)
+    if meta is not None:
+        _meta_observers.append(meta)
+    try:
+        yield
+    finally:
+        if launch is not None:
+            _launch_observers.remove(launch)
+        if meta is not None:
+            _meta_observers.remove(meta)
+
+
+def geometry(name: str, int_args) -> tuple[int, ...]:
+    """What ``<name>_geometry`` (``csrc/geometry.cuh``) reports for a
+    launch with these integer arguments: the grid, block, dynamic shared
+    memory, split and stages the kernel's ``<name>_launch`` uses (builds
+    the kernel; on the card's machine)."""
+    if name == "paged_attention":
+        from repro_torch.kernels import paged_attention
+
+        return paged_attention.geometry(int_args)
+    fn = _geometry_fns.get(name)
+    if fn is None:
+        fn = getattr(build.load(name), f"{name}_geometry")
+        fn.argtypes = _ARGTYPES[name][_N_PTRS[name]:-1] + [_P]
+        fn.restype = ctypes.c_int
+        _geometry_fns[name] = fn
+    out = (ctypes.c_int * 16)()
+    err = fn(*int_args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_geometry failed: {err}")
+    return tuple(out)
+
+
+def _route(name: str, *ops, block_idx=None, contiguous: bool = True) -> str:
+    """``"cpu"``, ``"cuda"`` or ``"meta"``: the operands' device, checked
+    for what the kernel takes (dtypes, one device, contiguity; on meta as
+    on the card); raises for any other device."""
     dev = ops[0].device
     if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+        return "cpu"
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on cpu or cuda (meta: counted, not run), not {dev}")
     if ops[0].dtype not in _DTYPES or any(t.dtype != ops[0].dtype for t in ops):
         raise TypeError(
             f"{name}: dtypes {[str(t.dtype) for t in ops]}; the kernel takes operands "
@@ -125,7 +188,7 @@ def _on_cuda(name: str, *ops, block_idx=None, contiguous: bool = True) -> bool:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    return True
+    return dev.type
 
 
 def _expand(block_idx: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -172,7 +235,7 @@ def dx_gathered_ref(dy, w, block_idx, *, block_size: int = 128) -> torch.Tensor:
 def dx_gathered(dy, w, block_idx, *, block_size: int = 128) -> torch.Tensor:
     """dX[M, D_in] from dY[M, N], W[D_in, N] and the kept block indices
     (int32, sorted), fp32."""
-    if not _on_cuda("dx_gathered", dy, w, block_idx=block_idx):
+    if _route("dx_gathered", dy, w, block_idx=block_idx) == "cpu":
         return dx_gathered_ref(dy, w, block_idx, block_size=block_size)
     m, n = dy.shape
     d_in, n2 = w.shape
@@ -237,7 +300,7 @@ def dw_gathered_ref(x, dy, block_idx, *, block_size: int = 128) -> torch.Tensor:
 def dw_gathered(x, dy, block_idx, *, block_size: int = 128) -> torch.Tensor:
     """Compact dW[D_in, KB*block_size] from X[M, D_in], dY[M, N]; the
     caller scatters it."""
-    if not _on_cuda("dw_gathered", x, dy, block_idx=block_idx):
+    if _route("dw_gathered", x, dy, block_idx=block_idx) == "cpu":
         return dw_gathered_ref(x, dy, block_idx, block_size=block_size)
     m, d_in = x.shape
     m2, n = dy.shape
@@ -360,7 +423,7 @@ def conv_dw_fused(
     real channel count, default ``C_pad``) lets the kernel skip the
     phantom channels of a ragged tail.
     """
-    if not _on_cuda("conv_dw_fused", xg, dy2r, block_idx=block_idx):
+    if _route("conv_dw_fused", xg, dy2r, block_idx=block_idx) == "cpu":
         return conv_dw_fused_ref(
             xg, dy2r, block_idx, kh_dim=kh_dim, kw_dim=kw_dim, stride=stride,
             dilation=dilation, h_out=h_out, block_size=block_size,
@@ -429,7 +492,7 @@ def conv_dx_fused(
     computed. Pass ``arange(NB)`` and the full filter for the dense side
     of a mixed policy. ``c_out`` (the real channel count, default
     ``C_pad``) lets the kernel stop at the ragged tail's real channels."""
-    if not _on_cuda("conv_dx_fused", dy2r, w2k, block_idx=block_idx):
+    if _route("conv_dx_fused", dy2r, w2k, block_idx=block_idx) == "cpu":
         return conv_dx_fused_ref(
             dy2r, w2k, block_idx, b=b, hw=hw, padding=padding, groups=groups,
             stride=stride, dilation=dilation, block_size=block_size,
@@ -526,7 +589,7 @@ def matmul(a, b) -> torch.Tensor:
     :data:`repacks`."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: a {tuple(a.shape)} and b {tuple(b.shape)}")
-    if not _on_cuda("matmul", a, b, contiguous=False):
+    if _route("matmul", a, b, contiguous=False) == "cpu":
         return matmul_ref(a, b)
     m, k = a.shape
     n = b.shape[1]
@@ -572,7 +635,7 @@ def importance(dy) -> torch.Tensor:
     fp32 or bf16) -> [N] fp32, divided by the true M."""
     if dy.dim() != 2:
         raise ValueError(f"importance: dy {tuple(dy.shape)} is not [M, N]")
-    if not _on_cuda("importance", dy):
+    if _route("importance", dy) == "cpu":
         return importance_ref(dy)
     m, n = dy.shape
     # rows cut into S chunks when the channels alone give too few blocks

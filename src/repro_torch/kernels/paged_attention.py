@@ -22,7 +22,10 @@ the chunks of split ``sp``, which it applies to the keys of each slot,
 up to the slot's largest qpos.
 
 Dispatch: a CPU tensor goes to :func:`paged_attention_ref`; a CUDA
-tensor goes to the kernel, or the wrapper raises.
+tensor goes to the kernel, or the wrapper raises; a ``meta`` tensor takes
+the meta route of ``gathered_matmul`` (an empty output, the launch
+counted, its spec handed to the observing census); any other device
+raises.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, specs
+from repro_torch.kernels import gathered_matmul as gm
 
 # kernel launches by :func:`paged_attention` (reset by whoever counts)
 launches = 0
@@ -199,8 +203,9 @@ def paged_attention(
     global launches, _fn
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_tables, qpos)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"paged_attention runs on cpu or cuda (meta: counted, not run), "
+                         f"not {q.device}")
     _check(q, k_pool, v_pool, block_tables, qpos)
     b, s, h, d = q.shape
     n_pages, bs_pg, kv, _ = k_pool.shape
@@ -210,6 +215,17 @@ def paged_attention(
     if not 1 <= p <= MAX_SPLITS:
         raise ValueError(f"splits must be 1 to {MAX_SPLITS}, got {p}")
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    ints = (b, s, h, kv, d, n_pages, bs_pg, nb, plan.row_tile, plan.chunk, p,
+            int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16))
+    for fn in gm._launch_observers:
+        fn("paged_attention", ints)
+    if q.device.type == "meta":
+        launches += 1
+        if gm._meta_observers:
+            spec = specs.spec_for_launch("paged_attention", ints)
+            for fn in gm._meta_observers:
+                fn("paged_attention", spec)
+        return out
     # each split's partials of each row: acc[d], then m and l, at a 16-byte pitch
     part = torch.empty((p, b * s * h, d + 4) if p > 1 else (0,), dtype=torch.float32,
                        device=q.device)
@@ -222,11 +238,28 @@ def paged_attention(
         err = _fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), part.data_ptr(),
-            b, s, h, kv, d, n_pages, bs_pg, nb, plan.row_tile, plan.chunk, p,
-            int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
-            1.0 / math.sqrt(d), stream,
+            *ints, 1.0 / math.sqrt(d), stream,
         )
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+_geometry_fn = None
+
+
+def geometry(int_args) -> tuple[int, ...]:
+    """What ``paged_attention_geometry`` (``csrc/geometry.cuh``) reports
+    for a launch with these integer arguments (builds the kernel; on the
+    card's machine)."""
+    global _geometry_fn
+    if _geometry_fn is None:
+        _geometry_fn = build.load("paged_attention").paged_attention_geometry
+        _geometry_fn.argtypes = [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        _geometry_fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 16)()
+    err = _geometry_fn(*int_args, out)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_geometry failed: {err}")
+    return tuple(out)

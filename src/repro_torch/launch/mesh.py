@@ -22,6 +22,13 @@ process groups itself, made by ``new_group`` for every backend, and
 ``dist/sharding.py`` places tensors from the specs by index arithmetic
 (a ``DeviceMesh`` of device type ``cuda`` over gloo groups does not run
 DTensor on torch 2.11: its ranks die in a segfault).
+
+The dry run plays one rank of the production mesh in this process:
+:func:`make_production_mesh` initialises ``torch.distributed``'s ``fake``
+backend (its collectives return at once, on meta tensors too) at 256 or
+512 ranks and builds the same groups, with a ``pod`` axis on 512: the
+data group then spans ``pod x data``, pod-major, as the JAX package's
+``("pod", "data")`` batch axis does.
 """
 from __future__ import annotations
 
@@ -72,19 +79,23 @@ def backend_for(device: torch.device, world: int) -> str:
 
 
 def rank_device(device: torch.device, rank: int) -> torch.device:
-    """Rank ``r``'s device: ``cuda:{r % device_count}``, or the CPU."""
+    """Rank ``r``'s device: ``cuda:{r % device_count}``, ``meta`` for a
+    dry run, or the CPU."""
     if device.type == "cuda":
         return torch.device("cuda", rank % torch.cuda.device_count())
+    if device.type == "meta":
+        return device
     return torch.device("cpu")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a ``data x model`` mesh: the sizes, this rank's
-    coordinates, its device, the backend and the process group of each
-    axis (the ranks that share this rank's other coordinate). ``prefix``
-    is the scope of the site names a layer records (``layer_{li}/``,
-    :meth:`scoped`)."""
+    """One rank's view of a ``data x model`` mesh (``pod x data x model``
+    with ``pod > 1``): the sizes, this rank's coordinates, its device, the
+    backend and the process group of each axis (the ranks that share this
+    rank's other coordinates; the data group spans ``pod x data``).
+    ``prefix`` is the scope of the site names a layer records
+    (``layer_{li}/``, :meth:`scoped`)."""
 
     data: int
     model: int
@@ -94,20 +105,29 @@ class Mesh:
     data_group: Any
     model_group: Any
     prefix: str = ""
+    pod: int = 1
 
     def scoped(self, prefix: str) -> Mesh:
         return dataclasses.replace(self, prefix=prefix)
 
     @property
     def shape(self) -> dict[str, int]:
+        if self.pod > 1:
+            return {"pod": self.pod, "data": self.data, "model": self.model}
         return {"data": self.data, "model": self.model}
 
     @property
+    def dp(self) -> int:
+        """The data group's size: ``pod * data``."""
+        return self.pod * self.data
+
+    @property
     def world(self) -> int:
-        return self.data * self.model
+        return self.dp * self.model
 
     @property
     def data_rank(self) -> int:
+        """This rank's place in the data group (pod-major)."""
         return self.rank // self.model
 
     @property
@@ -115,23 +135,28 @@ class Mesh:
         return self.rank % self.model
 
     def coord(self, axis: str) -> int:
-        return self.data_rank if axis == "data" else self.model_rank
+        if axis == "pod":
+            return self.data_rank // self.data
+        if axis == "data":
+            return self.data_rank % self.data
+        return self.model_rank
 
 
-def make_host_mesh(data: int, model: int, device) -> Mesh:
-    """The ``("data", "model")`` mesh over the ranks of the initialised
-    default process group (``data * model`` of them), and its two axis
-    groups. Every rank calls it, in the same order as every other
-    collective."""
+def make_host_mesh(data: int, model: int, device, *, pod: int = 1) -> Mesh:
+    """The ``("data", "model")`` mesh (``("pod", "data", "model")`` with
+    ``pod > 1``) over the ranks of the initialised default process group
+    (``pod * data * model`` of them), and its two axis groups. Every rank
+    calls it, in the same order as every other collective."""
     import torch.distributed as dist
 
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"a {data}x{model} mesh needs {data * model} ranks, not {world}")
+    if world != pod * data * model:
+        raise ValueError(f"a {pod}x{data}x{model} mesh needs {pod * data * model} ranks, "
+                         f"not {world}")
     rank = dist.get_rank()
     device = torch.device(device)
     backend = dist.get_backend()
-    grid = torch.arange(world).reshape(data, model)
+    grid = torch.arange(world).reshape(pod * data, model)
     dev = rank_device(device, rank)
     # every rank creates every group, in one order, as new_group requires
     data_group = model_group = None
@@ -139,11 +164,42 @@ def make_host_mesh(data: int, model: int, device) -> Mesh:
         g = dist.new_group(grid[:, j].tolist())
         if rank % model == j:
             data_group = g
-    for i in range(data):
+    for i in range(pod * data):
         g = dist.new_group(grid[i].tolist())
         if rank // model == i:
             model_group = g
-    return Mesh(data, model, rank, dev, backend, data_group, model_group)
+    return Mesh(data, model, rank, dev, backend, data_group, model_group, pod=pod)
+
+
+_fake: dict[tuple[int, int, int, int], Mesh] = {}
+
+
+def make_fake_mesh(data: int, model: int, *, pod: int = 1, rank: int = 0) -> Mesh:
+    """Rank ``rank`` of a ``pod x data x model`` mesh in this process, over
+    ``torch.distributed``'s ``fake`` backend on ``meta``: its collectives
+    return at once and move nothing. The default process group is
+    (re)initialised for the mesh's world size; a mesh already made is
+    returned again."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    key = (pod, data, model, rank)
+    if key in _fake and dist.is_initialized():
+        return _fake[key]
+    if dist.is_initialized():
+        dist.destroy_process_group()
+        _fake.clear()
+    dist.init_process_group("fake", rank=rank, world_size=pod * data * model, store=FakeStore())
+    mesh = make_host_mesh(data, model, "meta", pod=pod)
+    _fake[key] = mesh
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """Rank ``rank`` of the production mesh (16x16, or 2x16x16 with
+    ``multi_pod``) on the fake backend (:func:`make_fake_mesh`)."""
+    shape = production_mesh_shape(multi_pod=multi_pod)
+    return make_fake_mesh(shape["data"], shape["model"], pod=shape.get("pod", 1), rank=rank)
 
 
 def _rank_main(rank, world, data, model, device, store_path, out_path, fn, args):

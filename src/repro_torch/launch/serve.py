@@ -125,7 +125,8 @@ def _refuse_unported(args, cfg) -> None:
         "--data-mesh > 1 (the reference replicates the page pool over data)": args.data_mesh > 1,
         "the lock-step engine on a mesh": args.engine == "lockstep",
     }
-    asked = [what for what, on in unported.items() if on]
+    asked = [what for what, on in unported.items() if on] + lm.mesh_unported(
+        cfg, args.model_mesh)
     if asked:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 

@@ -12,6 +12,11 @@ per-slot tensors (``temps`` / ``top_ks`` / ``top_ps`` and a ``[B, 2]``
 PRNG-lane tensor ``rng``); without ``rng`` the step is greedy argmax.
 The draws are ``jax.random``'s own (:mod:`repro_torch.core.prng`), so a
 seeded sampled stream is the JAX engine's stream.
+
+For the dry run: :func:`microbatch_plan` (a train cell's gradient
+accumulation), :func:`make_prefill_step`, and :func:`abstract_state` /
+:func:`abstract_cache`, the params, Adam state and decode cache at full
+width on ``meta`` (nothing allocated).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from collections.abc import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import prng
 from repro_torch.core.policy import DENSE, PolicyLike
 from repro_torch.dist import parallel
@@ -30,6 +35,22 @@ from repro_torch.optim import adam
 # kept equal to the JAX package's static ``lax.top_k`` cap: the step
 # takes the top TOP_K_CAP values once and indexes the k-th per row.
 TOP_K_CAP = 128
+
+
+def microbatch_plan(cfg: ModelConfig, shape: ShapeConfig, dp: int) -> int:
+    """Gradient-accumulation microsteps of a train cell: about 8k tokens a
+    data shard a microstep (one example at ``d_model >= 8192``), the
+    global batch a whole number of microbatches."""
+    if shape.kind != "train":
+        return 1
+    budget = max(1, 8192 // shape.seq_len)  # examples per shard
+    if cfg.d_model >= 8192:
+        budget = 1
+    micro_global = min(shape.global_batch, dp * budget)
+    accum = max(1, shape.global_batch // micro_global)
+    while shape.global_batch % accum:
+        accum += 1
+    return accum
 
 
 def value_and_grad(fn, params):
@@ -106,6 +127,37 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
             return lm.loss_fn(cfg, params, batch, DENSE)[1]["ce"]
 
     return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
+    """(params, batch) -> each row's greedy next token after its prompt
+    (``[B]``): the dense full-sequence forward, without a graph."""
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            logits, _ = lm.forward(cfg, params, batch, DENSE, mesh=mesh)
+            return torch.argmax(logits[:, -1], dim=-1)
+
+    return prefill
+
+
+def abstract_state(cfg: ModelConfig):
+    """``(params, Adam state)`` at full width on ``meta``: the shapes and
+    dtypes ``init_params`` gives, nothing allocated (the init runs under
+    a ``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = lm.init_params(cfg, 0, device="cpu")
+    params = adam.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+    return params, adam.init(params)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int):
+    """The contiguous decode cache of ``batch`` rows of ``max_seq`` on
+    ``meta``, in ``cfg.dtype``."""
+    return lm.init_cache(cfg, batch, max_seq, device="meta")
 
 
 _CONTROLS = ("rng", "temps", "top_ks", "top_ps")  # the per-slot sampling tensors

@@ -183,7 +183,7 @@ def build_program(args, base_policy) -> PolicyProgram:
     return PolicyProgram(rules=rules, schedule=schedule)
 
 
-def _refuse_unported(args) -> None:
+def _refuse_unported(args, cfg) -> None:
     """The mesh combinations the port does not run yet, each with the
     ROADMAP item that ports it."""
     if args.data_mesh * args.model_mesh == 1:
@@ -193,9 +193,16 @@ def _refuse_unported(args) -> None:
         f"--global-batch {args.global_batch} that --data-mesh {args.data_mesh} does not divide "
         "(the reference moves data to the sequence dim)": args.global_batch % args.data_mesh != 0,
     }
-    asked = [what for what, on in unported.items() if on]
+    asked = [what for what, on in unported.items() if on] + lm.mesh_unported(
+        cfg, args.model_mesh)
     if asked:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
+
+
+def _config(args):
+    """The ``--arch`` config, reduced with ``--reduced``."""
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
 
 
 def _sync(device: torch.device) -> None:
@@ -225,7 +232,7 @@ def run(args, *, cfg=None, collect=(), timeout_s: float | None = None) -> dict:
     (global indices, all ranks' merged); ``"params"``, the final params
     gathered to full tensors (``name -> tensor`` on the host);
     ``timeout_s`` bounds a mesh run."""
-    _refuse_unported(args)
+    _refuse_unported(args, cfg or _config(args))
     if args.data_mesh * args.model_mesh > 1:
         return run_on_mesh(run_rank, args.data_mesh, args.model_mesh, args.device, args,
                            cfg, tuple(collect), timeout_s=timeout_s)
@@ -266,10 +273,7 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")
     lead = mesh is None or mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)
-    if cfg is None:
-        cfg = get_config(args.arch)
-        if args.reduced:
-            cfg = cfg.reduced()
+    cfg = cfg or _config(args)
     pipe = TokenPipeline(
         TokenPipelineConfig(cfg.vocab, args.seq_len, args.global_batch, args.seed)
     )

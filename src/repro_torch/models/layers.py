@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import backward
 from repro_torch.core.conv import sparse_conv2d
 from repro_torch.core.dense import sparse_dense
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
@@ -60,6 +61,11 @@ def dense_apply(p, x, policy: PolicyLike = DENSE, key=None, site: str = "", *, m
     no bias), ``"gather"`` a column shard that does not line up with
     heads, all-gathered on use into the full product, computed alike on
     every model rank."""
+    with backward.scope(site):
+        return _dense_apply(p, x, policy, key, site, mesh, split)
+
+
+def _dense_apply(p, x, policy, key, site, mesh, split):
     b = p.get("b")
     if mesh is None:
         return sparse_dense(x, p["w"], b, policy=policy_for(policy, site), key=key)
@@ -100,17 +106,18 @@ def conv_apply(
 ):
     """The single conv call site the CNN models share: params dict in,
     ssProp-backward conv out."""
-    return sparse_conv2d(
-        x,
-        p["w"],
-        p.get("b"),
-        stride=stride,
-        padding=padding,
-        dilation=dilation,
-        groups=groups,
-        policy=policy_for(policy, site),
-        key=key,
-    )
+    with backward.scope(site):
+        return sparse_conv2d(
+            x,
+            p["w"],
+            p.get("b"),
+            stride=stride,
+            padding=padding,
+            dilation=dilation,
+            groups=groups,
+            policy=policy_for(policy, site),
+            key=key,
+        )
 
 
 def rmsnorm_init(d, dtype=torch.bfloat16, device="cuda"):

@@ -152,6 +152,7 @@ class StackShape:
 
     def __init__(self, parts):
         self.shape = (len(parts), *parts[0].shape)
+        self.dtype = parts[0].dtype
 
 
 def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
@@ -161,9 +162,7 @@ def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
     taking its stack's spec without the stack dim (every family: the
     decoder stack's period slots, the encoder's and the cross-decoder's
     layer stacks)."""
-    jl = jax_layout(cfg, params, StackShape)
-    specs = shd.param_specs(jl)
-    fitted = shd.map_specs(lambda leaf, sp: shd.fit_spec(sp, leaf.shape, mesh_shape), jl, specs)
+    fitted = shd.param_shardings(mesh_shape, jax_layout(cfg, params, StackShape))
 
     def unstack(sp):
         if isinstance(sp, dict):
@@ -181,6 +180,24 @@ def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
     plen = len(transformer.period_pattern(cfg))
     slots = fitted["stack"]["slots"]
     out["stack"] = {"layers": [unstack(slots[li % plen]) for li in range(cfg.n_layers)]}
+    return out
+
+
+def mesh_unported(cfg: ModelConfig, model: int) -> list[str]:
+    """What a model mesh of ``model`` cannot split of ``cfg`` yet, each
+    as the CLIs name it: q heads the model size does not divide (the
+    reference's ``fit_spec`` moves ``model`` to the head dim), KV heads
+    that neither divide nor are divided by it, experts it does not
+    divide."""
+    out = []
+    if model > 1 and cfg.family != "ssm":
+        if cfg.n_heads % model:
+            out.append(f"--model-mesh {model} that does not divide the {cfg.n_heads} q heads "
+                       "(the reference moves model to the head dim)")
+        elif not layers.kv_whole_heads(cfg, model) and model % cfg.n_kv_heads:
+            out.append(f"--model-mesh {model} with {cfg.n_kv_heads} KV heads")
+    if model > 1 and cfg.is_moe and cfg.n_experts % model:
+        out.append(f"--model-mesh {model} that does not divide the {cfg.n_experts} experts")
     return out
 
 

@@ -158,7 +158,7 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
-    data = mesh.data if mesh is not None else 1
+    data = mesh.dp if mesh is not None else 1
     t_loc = b * s
     tokens = t_loc * data  # every data rank holds as many rows
     g, g_loc = dispatch_groups(dp_groups, tokens, full_capacity, data)

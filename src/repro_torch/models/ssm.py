@@ -186,11 +186,13 @@ def local_heads(cfg, mesh) -> tuple[int, int]:
     return mesh.model_rank * n, (mesh.model_rank + 1) * n
 
 
-def conv_channels(cfg, lo: int, hi: int) -> torch.Tensor:
+def conv_channels(cfg, lo: int, hi: int, device=None) -> torch.Tensor:
     """The conv channels heads ``[lo, hi)`` read: their x channels, then B
-    and C (``[x (d_inner) | B | C]`` is the conv's channel layout)."""
+    and C (``[x (d_inner) | B | C]`` is the conv's channel layout), made on
+    ``device`` (a copy from host memory would stall the host each layer)."""
     di, pd = cfg.d_inner, cfg.ssm_headdim
-    return torch.cat([torch.arange(lo * pd, hi * pd), torch.arange(di, di + 2 * cfg.ssm_state)])
+    return torch.cat([torch.arange(lo * pd, hi * pd, device=device),
+                      torch.arange(di, di + 2 * cfg.ssm_state, device=device)])
 
 
 def _local(p, x, cfg, policy, mesh):
@@ -212,7 +214,7 @@ def _local(p, x, cfg, policy, mesh):
         p["in_proj"], x, policy, site="ssm/in_proj", mesh=None if held else mesh,
         split="gather"), mesh)
     z, xbc, dt = _split_proj(cfg, proj)
-    ch = conv_channels(cfg, lo, hi).to(x.device)
+    ch = conv_channels(cfg, lo, hi, device=x.device)
     leaves = {k: parallel.copy_to_model(p[k], mesh).index_select(-1, ch)
               for k in ("conv_w", "conv_b")}
     for k in ("A_log", "dt_bias", "D"):
@@ -294,7 +296,7 @@ def shard_cache(cfg, cache, mesh):
     its state heads (the reference's ``model`` on H) and its conv channels
     (:func:`conv_channels`; the port's own layout, never checkpointed)."""
     lo, hi = local_heads(cfg, mesh)
-    ch = conv_channels(cfg, lo, hi).to(cache["conv"].device)
+    ch = conv_channels(cfg, lo, hi, device=cache["conv"].device)
     return {"conv": cache["conv"].index_select(-1, ch).contiguous(),
             "state": cache["state"][:, lo:hi].contiguous()}
 

@@ -29,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import backward
 from repro_torch.core.policy import DENSE, PolicyLike, SitePolicies
 from repro_torch.models import layers, moe, ssm
 
@@ -286,8 +287,9 @@ def stack_apply(
                 torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta
             )
         for li, p in enumerate(params["layers"]):
-            x, _, a = _slot_apply(p, x, cfg, slots[li], per_layer[li], rope=rope,
-                                  mesh=mesh and mesh.scoped(f"layer_{li}/"))
+            with backward.scope(f"layer_{li}"):
+                x, _, a = _slot_apply(p, x, cfg, slots[li], per_layer[li], rope=rope,
+                                      mesh=mesh and mesh.scoped(f"layer_{li}/"))
             aux = aux + a
         return x, None, aux
     qpos = rope = write_index = None
@@ -340,11 +342,12 @@ def encoder_apply(params, x, cfg: ModelConfig, policy: PolicyLike = DENSE, *, me
                               cfg.rope_theta)
     for i, (p, pol) in enumerate(zip(params["layers"], per_layer, strict=True)):
         m = mesh and mesh.scoped(f"enc/layer_{i}/")
-        a, _ = layers.attn_apply(p["attn"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
-                                 cfg, pol, rope=rope, causal=False, mesh=m)
-        x = x + a
-        x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                                 cfg.act, pol, mesh=m)
+        with backward.scope(f"enc/layer_{i}"):
+            a, _ = layers.attn_apply(p["attn"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
+                                     cfg, pol, rope=rope, causal=False, mesh=m)
+            x = x + a
+            x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                                     cfg.act, pol, mesh=m)
     return x
 
 
@@ -408,20 +411,108 @@ def cross_decoder_apply(
                                                    block_tables)
     for li, (p, pol) in enumerate(zip(params["layers"], per_layer, strict=True)):
         m = mesh and mesh.scoped(f"layer_{li}/")
-        a, cache = layers.attn_apply(
-            p["self"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps), cfg, pol,
-            rope=rope, qpos=qpos, kv_cache=None if caches is None else caches[li],
-            block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
-            site="self", mesh=m,
-        )
-        if caches is not None:
-            caches[li] = cache
-        x = x + a
-        c, _ = layers.attn_apply(
-            p["cross"], layers.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), cfg, pol,
-            rope=None, x_kv=enc_out, site="cross", mesh=m,
-        )
-        x = x + c
-        x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                                 cfg.act, pol, mesh=m)
+        with backward.scope(f"layer_{li}"):
+            a, cache = layers.attn_apply(
+                p["self"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps), cfg, pol,
+                rope=rope, qpos=qpos, kv_cache=None if caches is None else caches[li],
+                block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
+                site="self", mesh=m,
+            )
+            if caches is not None:
+                caches[li] = cache
+            x = x + a
+            c, _ = layers.attn_apply(
+                p["cross"], layers.rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), cfg, pol,
+                rope=None, x_kv=enc_out, site="cross", mesh=m,
+            )
+            x = x + c
+            x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                                     cfg.act, pol, mesh=m)
     return x, caches
+
+
+def iter_dense_shapes(cfg: ModelConfig, batch: int, seq: int):
+    """Yield ``(site, m, d_in, d_out, count)`` for every sparsifiable
+    projection of the model at one training shape.
+
+    ``site`` is a representative full site path (``layer_{si}/...`` for
+    the first period, ``enc/layer_0/...`` for the encoder) so callers
+    can resolve per-site policies against the same names
+    :func:`stack_sites` produces; ``count`` is how many layers share
+    that exact geometry (depth-uniform policies assumed — the same
+    restriction ``scan_layers=True`` already imposes). ``m`` is the
+    total contraction row count: ``batch*seq`` for sequence sites,
+    ``E*capacity`` for the batched expert matmuls.
+
+    Only ``sparse_dense`` projection sites appear — attention scores,
+    the SSM scan, embeddings and the logits head are not ssProp sites.
+    The JAX package's, copied for the program auditor
+    (``analysis/savings.py``).
+    """
+    tokens = batch * seq
+    hd = cfg.head_dim
+
+    def _attn_sites(prefix, m_q, m_kv):
+        return [
+            (f"{prefix}/q", m_q, cfg.d_model, cfg.n_heads * hd),
+            (f"{prefix}/k", m_kv, cfg.d_model, cfg.n_kv_heads * hd),
+            (f"{prefix}/v", m_kv, cfg.d_model, cfg.n_kv_heads * hd),
+            (f"{prefix}/o", m_q, cfg.n_heads * hd, cfg.d_model),
+        ]
+
+    def _mlp_shapes(m, d_ff, gated):
+        out = [("mlp/up", m, cfg.d_model, d_ff)]
+        if gated:
+            out.append(("mlp/gate", m, cfg.d_model, d_ff))
+        out.append(("mlp/down", m, d_ff, cfg.d_model))
+        return out
+
+    if cfg.family == "encdec":
+        m_enc = batch * cfg.enc_seq
+        enc_per = _attn_sites("attn", m_enc, m_enc) + _mlp_shapes(
+            m_enc, cfg.d_ff, cfg.gated_mlp
+        )
+        for site, m, d_in, d_out in enc_per:
+            yield f"enc/layer_0/{site}", m, d_in, d_out, cfg.n_enc_layers
+        dec_per = (
+            _attn_sites("self", tokens, tokens)
+            + _attn_sites("cross", tokens, m_enc)
+            + _mlp_shapes(tokens, cfg.d_ff, cfg.gated_mlp)
+        )
+        for site, m, d_in, d_out in dec_per:
+            yield f"layer_0/{site}", m, d_in, d_out, cfg.n_layers
+        return
+
+    slots = period_pattern(cfg)
+    reps = n_periods(cfg)
+    for si, slot in enumerate(slots):
+        per = []
+        if slot.mixer == "attn":
+            per += _attn_sites("attn", tokens, tokens)
+        else:
+            d_in_proj = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+            per += [
+                ("ssm/in_proj", tokens, cfg.d_model, d_in_proj),
+                ("ssm/out_proj", tokens, cfg.d_inner, cfg.d_model),
+            ]
+        if slot.ffn == "moe":
+            cap = max(
+                1, int(tokens * cfg.moe_topk / cfg.n_experts * cfg.capacity_factor)
+            )
+            rows = cfg.n_experts * cap
+            per += [
+                ("moe/gate", rows, cfg.d_model, cfg.d_ff),
+                ("moe/up", rows, cfg.d_model, cfg.d_ff),
+                ("moe/down", rows, cfg.d_ff, cfg.d_model),
+            ]
+            if cfg.n_shared_experts:
+                ffs = cfg.d_ff * cfg.n_shared_experts
+                per += [
+                    ("moe/shared/up", tokens, cfg.d_model, ffs),
+                    ("moe/shared/gate", tokens, cfg.d_model, ffs),
+                    ("moe/shared/down", tokens, ffs, cfg.d_model),
+                ]
+        elif slot.ffn == "mlp":
+            per += _mlp_shapes(tokens, cfg.d_ff, cfg.gated_mlp)
+        for site, m, d_in, d_out in per:
+            yield f"layer_{si}/{site}", m, d_in, d_out, reps

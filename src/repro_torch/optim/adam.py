@@ -78,7 +78,9 @@ def tree_map(fn, tree, *rest):
 def lr_at(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:
     """The learning rate at ``step`` (a 0-d tensor), fp32, on its device."""
     s = step.float()
-    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)
+    # a fill on the device, not a copy from host memory: a pageable copy
+    # would stall the host until the stream catches up, every step
+    lr = torch.full((), cfg.lr, dtype=torch.float32, device=step.device)
     if cfg.schedule == "constant":
         return lr
     total = max(cfg.total_steps, 1)
@@ -140,8 +142,8 @@ def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: 
     step = state.step + 1
     lr = lr_at(cfg, step)
     sf = step.float()
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=sf.device), sf)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=sf.device), sf)
+    bc1 = 1 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32, device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32, device=sf.device), sf)
     b1, b2 = cfg.b1, cfg.b2
 
     def upd(p, g, m, v):

@@ -70,6 +70,10 @@ from repro_torch.serve.cache import PagedCacheManager, SlotCacheManager
 from repro_torch.serve.scheduler import Scheduler, ServeConfig
 
 
+# what the engine (and the dry run, for a seq-sharded decode cell) answers seq_shard
+SEQ_SHARD_REFUSAL = "seq_shard decode: not ported yet (ROADMAP Queue 1 item 5)"
+
+
 class TokenEvent(NamedTuple):
     """One streamed token, in slot order within a tick. ``is_last``
     marks the request's final token (its slot is already released)."""
@@ -118,7 +122,7 @@ class ContinuousBatchingEngine:
         seq_shard: bool = False,
     ):
         if seq_shard:
-            raise NotImplementedError("seq_shard decode: not ported yet (ROADMAP Queue 1 item 5)")
+            raise NotImplementedError(SEQ_SHARD_REFUSAL)
         self.cfg = cfg
         self.params = params
         self.mesh = mesh

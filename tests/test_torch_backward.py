@@ -177,13 +177,28 @@ def test_sparse_dense_grads_match_jax(granularity, bwd_dtype, route):
 
 def test_sparse_dense_channel_kernel_route_raises():
     """Channel granularity with ``use_pallas`` is the ``matmul`` kernel's
-    route: a tensor on neither the CPU nor a card reaches the kernel's
-    wrapper and raises there, never falling back to ``torch.matmul``."""
+    route: a tensor off the CPU reaches the kernel's wrapper, never
+    falling back to ``torch.matmul``. On ``meta`` the wrapper's meta route
+    counts both products' launches; a tensor on no device the wrapper
+    takes raises there."""
+    from repro_torch.kernels import gathered_matmul as tgm
+
     x = torch.zeros(8, 16, device="meta", requires_grad=True)
     w = torch.zeros(16, 32, device="meta", requires_grad=True)
     pol = tpolicy.SsPropPolicy(0.5, use_pallas=True)
+    before = tgm.launches["matmul"]
+    (tdense(x, w, policy=pol) ** 2).sum().backward()
+    assert tgm.launches["matmul"] == before + 2
+    assert x.grad.device.type == "meta" and w.grad.shape == (16, 32)
+
+    class Elsewhere(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xpu", 0)
+
+    z = torch.Tensor._make_subclass(Elsewhere, torch.zeros(8, 16))
     with pytest.raises(ValueError, match="matmul runs on cpu or cuda"):
-        (tdense(x, w, policy=pol) ** 2).sum().backward()
+        tgm.matmul(z, z.T)
 
 
 @pytest.mark.parametrize("groups,tp_shards", [(2, 0), (1, 2)])

@@ -1,0 +1,321 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package's, and its census on the fake process group against real ranks.
+
+* Placements: every arch x shape x ``single|multi`` mesh under ``ssprop``
+  and ``opt``, the port's report equal to the JAX dry run's leaf for leaf
+  (its ``PartitionSpec`` strings less their prefix), ``train_tight``'s
+  joint ``('pod', 'data')`` split among them; the per-rank argument bytes
+  equal to the sums of the JAX ``NamedSharding.shard_shape`` sizes. The
+  JAX side comes from one subprocess with 512 placeholder devices
+  (``REPRO_DRYRUN_DEVICES``), every cell in it, as
+  ``tests/test_multiprocess.py::test_dryrun_joint_fit_spec_placement``
+  gets its own.
+* Fake vs real: the dry run's census of one step of reduced qwen2.5-3b
+  and reduced kimi-k2 at 1x2 and 2x1, each rank on the fake group,
+  records the collective calls and bytes and the kernel launches (wrapper
+  calls) the gloo ranks of ``tests/torch_mesh_ranks.py`` record.
+* The twins the dry run reads: ``ShapeConfig`` / ``SHAPES`` /
+  ``supports_shape``, ``input_specs``, ``microbatch_plan``,
+  ``abstract_state``, ``abstract_cache`` and ``make_prefill_step``.
+* Every cell's status: ``ok``, ``unsupported`` with the CLI's refusal, or
+  ``skipped``; a full-width train cell (depth cut) runs as rank 0 of the
+  16x16 and of the 2x16x16 mesh.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.configs.registry import get_config as jget_config
+from repro.data import pipeline as jpipeline
+from repro.launch import steps as jsteps
+from repro.models import model as jlm
+from repro_torch.configs import base as tbase
+from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.core import policy as tpolicy
+from repro_torch.data import pipeline as tpipeline
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import model as tlm
+from repro_torch.optim import adam as tadam
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.abspath(os.path.join(ROOT, "src"))
+SHAPES = list(tbase.SHAPES)
+MESHES = ("single", "multi")
+POLICIES = ("ssprop", "opt")
+
+# the JAX dry run's placements and per-rank argument bytes of every cell,
+# one process with 512 placeholder devices (both meshes fit in it)
+_JAX_CELLS = r"""
+import json, sys
+import repro.launch.dryrun as d  # sets XLA_FLAGS before jax is imported
+import jax
+import numpy as np
+from repro.configs.base import SHAPES
+from repro.configs.registry import ARCH_IDS
+out = {}
+for mesh_kind in ("single", "multi"):
+    mesh = d.make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    for pol in ("ssprop", "opt"):
+        for a in ARCH_IDS:
+            for s in SHAPES:
+                fn, args, meta = d.build_cell(a, s, mesh, pol)
+                key = "|".join((a, s, mesh_kind, pol))
+                if fn is None:
+                    out[key] = None
+                    continue
+                nbytes = [int(sum(np.prod(l.sharding.shard_shape(l.shape)) * l.dtype.itemsize
+                                  for l in jax.tree.leaves(t))) for t in args]
+                out[key] = {"placements": d._placement_report(args), "bytes": nbytes}
+print(json.dumps(out))
+"""
+
+
+def _norm(spec: str) -> str:
+    return spec[len("PartitionSpec"):] if spec.startswith("PartitionSpec") else spec
+
+
+@pytest.fixture(scope="module")
+def jax_cells():
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_DRYRUN_DEVICES="512", JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", _JAX_CELLS], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("mesh_kind", MESHES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_placements_and_rank_bytes_equal_the_jax_dry_run(jax_cells, arch, shape, mesh_kind,
+                                                         policy):
+    want = jax_cells["|".join((arch, shape, mesh_kind, policy))]
+    rec = dryrun.run_cell(arch, shape, mesh_kind, policy, verbose=False, placements_only=True)
+    if want is None:
+        assert rec["status"] == "skipped"
+        return
+    jp = want["placements"]
+    assert rec["placements"]["param_spec_histogram"] == {
+        _norm(k): v for k, v in jp["param_spec_histogram"].items()}
+    assert rec["placements"]["inputs"] == {k: _norm(v) for k, v in jp["inputs"].items()}
+    rb = rec["rank_bytes"]
+    names = ["params"] + [n for n in ("adam", "batch", "state") if n in rb]
+    assert [rb[n] for n in names] == want["bytes"]
+    if (shape, mesh_kind) == ("train_tight", "multi"):  # the joint split: pod on B, data on S
+        assert rec["placements"]["inputs"]["['tokens']"] == "('pod', 'data')"
+
+
+def test_placements_only_cli_exits_zero(capsys):
+    assert dryrun.main(["--arch", "qwen2.5-3b", "--shape", "train_tight", "--mesh", "multi",
+                        "--placements-only"]) == 0
+    payload = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                          if ln.startswith("{")][-1])
+    assert payload["inputs"]["['tokens']"] == "('pod', 'data')"
+
+
+# ----------------------------------------------------------------------
+# the twins the dry run reads
+# ----------------------------------------------------------------------
+
+
+def test_shape_twins_jax():
+    assert list(tbase.SHAPES) == list(jbase.SHAPES)
+    for name, sh in tbase.SHAPES.items():
+        assert dataclasses.asdict(sh) == dataclasses.asdict(jbase.SHAPES[name])
+    for arch in ARCH_IDS:
+        for name in tbase.SHAPES:
+            assert (get_config(arch).supports_shape(tbase.SHAPES[name])
+                    == jget_config(arch).supports_shape(jbase.SHAPES[name])), (arch, name)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "whisper-large-v3", "paligemma-3b",
+                                  "mistral-large-123b"])
+def test_input_specs_and_microbatch_plan_equal_the_jax_package(arch):
+    for name in tbase.SHAPES:
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        got = tpipeline.input_specs(cfg, tbase.SHAPES[name])
+        want = jpipeline.input_specs(jcfg, jbase.SHAPES[name])
+        assert sorted(got) == sorted(want)
+        for k, v in got.items():
+            assert v.device.type == "meta"
+            assert tuple(v.shape) == tuple(want[k].shape), (name, k)
+            assert str(v.dtype).replace("torch.", "") == str(want[k].dtype), (name, k)
+        for dp in (1, 16, 32):
+            assert (tsteps.microbatch_plan(cfg, tbase.SHAPES[name], dp)
+                    == jsteps.microbatch_plan(jcfg, jbase.SHAPES[name], dp))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
+                                  "whisper-large-v3"])
+def test_abstract_state_and_cache_are_the_jax_shapes(arch):
+    """Full width, on meta: the params (in the JAX layout), the Adam
+    moments and the cache have the JAX package's abstract shapes."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    params, opt = tsteps.abstract_state(cfg)
+    assert all(t.device.type == "meta" for t in tadam.tree_leaves([params, opt.m, opt.v]))
+    a_params, _ = jsteps.abstract_state(jcfg)
+    jl = tlm.jax_layout(cfg, params, tlm.StackShape)
+    got = {p: (tuple(x.shape), str(x.dtype).replace("torch.", "")) for p, x in dryrun._paths(jl)}
+    want = {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype))
+            for p, x in jax.tree_util.tree_flatten_with_path(a_params)[0]}
+    assert got == want
+    assert opt.m["embed"]["table"].dtype == torch.float32
+    cache = dryrun.jax_cache_layout(cfg, tsteps.abstract_cache(cfg, 2, 64))
+    a_cache = jsteps.abstract_cache(jcfg, 2, 64)
+    got = {p: tuple(x.shape) for p, x in dryrun._paths(cache)}
+    want = {jax.tree_util.keystr(p): tuple(x.shape)
+            for p, x in jax.tree_util.tree_flatten_with_path(a_cache)[0]}
+    assert got == want
+
+
+def test_prefill_step_equals_the_jax_package():
+    """``make_prefill_step`` on the CPU gives the JAX prefill's tokens
+    (reduced qwen2.5-3b, the same params)."""
+    jcfg = jget_config("qwen2.5-3b").reduced()
+    cfg = get_config("qwen2.5-3b").reduced()
+    tree = jax.device_get(jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    params = tlm.params_from_jax(cfg, tree, device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    want = np.asarray(jsteps.make_prefill_step(jcfg)(tree, {"tokens": toks}))
+    got = tsteps.make_prefill_step(cfg)(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ----------------------------------------------------------------------
+# every cell's status
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh_kind", MESHES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_every_cell_is_ok_unsupported_or_skipped(mesh_kind, policy):
+    """The refusals are the CLIs' own: a train cell whose batch the data
+    mesh does not divide, every prefill (``--data-mesh`` serving) and
+    decode (and the lock-step engine, and the seq-sharded decode under
+    ``opt``); the rest run."""
+    ms = tmesh.production_mesh_shape(multi_pod=(mesh_kind == "multi"))
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            cell, why = dryrun.build_cell(arch, shape, ms, policy)
+            if cell is None:
+                assert shape == "long_500k" and "full-attention" in why
+                continue
+            msg = dryrun.refusal(cell, ms, policy)
+            kind = tbase.SHAPES[shape].kind
+            heads = tlm.mesh_unported(cell.cfg, 16)  # whisper, paligemma, llama4: q heads
+            assert bool(heads) == (arch in ("whisper-large-v3", "paligemma-3b",
+                                            "llama4-maverick-400b-a17b"))
+            assert all(h in msg for h in heads)
+            if kind == "train":
+                assert bool(msg) == (shape == "train_tight" or bool(heads)), (arch, shape)
+            else:
+                assert "--data-mesh > 1" in msg and "ROADMAP Queue 1 item 5" in msg
+            if kind == "decode":
+                assert "lock-step" in msg
+                assert ("seq_shard decode" in msg) == (policy == "opt")
+
+
+@pytest.fixture
+def fake_group():
+    import torch.distributed as dist
+
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    tmesh._fake.clear()
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_full_width_train_cell_runs_on_meta(fake_group, multi):
+    """qwen2.5-3b at full width (depth cut to 2) x train_4k as rank 0 of
+    the production mesh on the fake group: the step runs, allocates
+    nothing, and counts its collectives, FLOPs and peak."""
+    ms = tmesh.production_mesh_shape(multi_pod=multi)
+    cell, _ = dryrun.build_cell("qwen2.5-3b", "train_4k", ms, "ssprop")
+    cell.cfg = dataclasses.replace(cell.cfg, n_layers=2)
+    mesh = tmesh.make_production_mesh(multi_pod=multi)
+    assert mesh.world == (512 if multi else 256) and mesh.device.type == "meta"
+    rec = dryrun.census_record(dryrun.step_census(cell, mesh))
+    assert rec["flops"] > 0 and rec["collective_calls"] > 0
+    assert rec["peak_bytes"] > rec["arg_bytes"] > 0
+    assert set(rec["collectives"]) <= {"all-reduce", "all-gather"}
+    assert rec["launches"] == {}  # tpu_default runs the gather route
+
+
+def test_the_kernel_route_counts_its_launches(fake_group):
+    """With ``use_pallas`` on a model mesh of 16, a rank launches what the
+    launch table says (the full-selection channels in its columns)."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    pol = dataclasses.replace(tpolicy.paper_default(0.8), use_pallas=True)
+    shape = tbase.ShapeConfig("t", 128, 16, "train")
+    ms = {"data": 16, "model": 16}
+    cell = dryrun.make_cell(cfg, shape, pol, ms)
+    cell.meta["accum"] = 1
+    mesh = tmesh.make_fake_mesh(16, 16)
+    counts = dryrun.step_census(cell, mesh)
+    want = tlm.kernel_launches_per_step(cfg, pol, model=16, data=16, tokens=16 * 128)
+    assert counts.launches_by_name() == {k: v for k, v in want.items() if v}
+
+
+# ----------------------------------------------------------------------
+# the census on the fake group against real gloo ranks
+# ----------------------------------------------------------------------
+
+FVR_ARCHS = ("qwen2.5-3b", "kimi-k2-1t-a32b")
+FVR_SHAPES = ((1, 2), (2, 1))
+FVR_BATCH, FVR_SEQ = 4, 16
+
+
+@pytest.fixture(scope="module")
+def real_ranks():
+    import torch_mesh_ranks as ranks
+
+    pol = dataclasses.replace(tpolicy.paper_default(0.8), use_pallas=True)
+    calls = {sh: (ranks.in_turn, ([(ranks.counted_step, (a, pol, FVR_BATCH, FVR_SEQ))
+                                   for a in FVR_ARCHS],)) for sh in FVR_SHAPES}
+    res = tmesh.run_on_mesh(ranks.on_shapes, *FVR_SHAPES[0], "cpu", calls, timeout_s=240)
+    return {(sh, a): every for sh, outs in res.items()
+            for a, every in zip(FVR_ARCHS, outs, strict=True)}
+
+
+@pytest.mark.parametrize("shape", FVR_SHAPES)
+@pytest.mark.parametrize("arch", FVR_ARCHS)
+def test_fake_group_census_equals_real_ranks(real_ranks, fake_group, arch, shape):
+    pol = dataclasses.replace(tpolicy.paper_default(0.8), use_pallas=True)
+    cfg = get_config(arch).reduced()
+    sh = tbase.ShapeConfig("t", FVR_SEQ, FVR_BATCH, "train")
+    cell = dryrun.make_cell(cfg, sh, pol, {"data": shape[0], "model": shape[1]})
+    cell.meta["accum"] = 1
+    rb = dryrun.rank_bytes(cell, {"data": shape[0], "model": shape[1]})
+    for real in real_ranks[(shape, arch)]:
+        mesh = tmesh.make_fake_mesh(*shape, rank=real["rank"])
+        counts = dryrun.step_census(cell, mesh)
+        rec = dryrun.census_record(counts)
+        assert (rec["collective_calls"], rec["collective_bytes"]) == (real["calls"],
+                                                                      real["bytes"]), real
+        assert rec["launches"] == real["launches"] and real["launches"]["matmul"] > 0, real
+        assert (rb["params"], rb["adam"]) == (real["param_bytes"], real["adam_bytes"])
+
+
+@pytest.mark.parametrize("cli", ["train", "serve"])
+def test_clis_refuse_a_model_mesh_that_splits_heads_unevenly(cli):
+    """A model mesh that does not divide the q heads is refused with the
+    ROADMAP item, before any rank starts (the dry run found the mesh step
+    failing in a reshape there instead)."""
+    from repro_torch.launch import serve, train
+
+    mod = train if cli == "train" else serve
+    argv = ["--device", "cpu", "--reduced", "--model-mesh", "3"]
+    with pytest.raises(NotImplementedError, match="does not divide the 4 q heads.*Queue 1 item 5"):
+        mod.run(mod.build_parser().parse_args(argv))

@@ -201,24 +201,57 @@ def test_asymmetric_padding_patches():
 # --- dispatch ---------------------------------------------------------
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device the wrappers do not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
+
+
+def _elsewhere(*shape, dtype=torch.float32):
+    return torch.Tensor._make_subclass(_Elsewhere, torch.zeros(shape, dtype=dtype))
+
+
 def test_wrappers_refuse_other_devices():
-    """Only a CPU tensor takes the plain version; a tensor elsewhere is
-    the kernel's or an error, never a silent fall-back."""
-    z = torch.zeros((4, 8), device="meta")
-    i = torch.zeros((1,), dtype=torch.int32, device="meta")
+    """Only a CPU tensor takes the plain version; a CUDA tensor is the
+    kernel's and a meta tensor the meta route's (counted, not run); a
+    tensor elsewhere is an error, never a silent fall-back."""
+    z = _elsewhere(4, 8)
+    i = _elsewhere(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tgm.dx_gathered(z, z, i, block_size=8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tgm.dw_gathered(z, z, i, block_size=8)
-    xg = torch.zeros((8, 1, 6, 2), device="meta")
-    dy2r = torch.zeros((4, 4, 8), device="meta")
+    xg = _elsewhere(8, 1, 6, 2)
+    dy2r = _elsewhere(4, 4, 8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tgm.conv_dw_fused(xg, dy2r, i, kh_dim=3, kw_dim=3, stride=(1, 1), dilation=(1, 1),
                           h_out=4, block_size=8)
-    w2k = torch.zeros((3, 3, 2, 8), device="meta")
+    w2k = _elsewhere(3, 3, 2, 8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tgm.conv_dx_fused(dy2r, w2k, i, b=1, hw=(4, 4), padding=((1, 1), (1, 1)), groups=1,
                           stride=(1, 1), dilation=(1, 1), block_size=8)
+
+
+def test_meta_route_counts_the_launch_and_reports_its_spec():
+    """A meta tensor takes the meta route: an empty output of the kernel's
+    shape and dtype, one launch counted as the kernel's, and the launch's
+    spec handed to the observer; the plain version does not run."""
+    z = torch.zeros((4, 8), device="meta")
+    i = torch.zeros((1,), dtype=torch.int32, device="meta")
+    before = dict(tgm.launches)
+    seen = []
+    with tgm.observe_launches(launch=lambda n, a: seen.append((n, tuple(a))),
+                              meta=lambda n, sp: seen.append((n, sp.name))):
+        out = tgm.dx_gathered(z, z, i, block_size=8)
+        dw = tgm.dw_gathered(z, z, i, block_size=8)
+    assert out.device.type == "meta" and out.shape == (4, 4) and out.dtype == torch.float32
+    assert dw.device.type == "meta" and dw.shape == (8, 8)
+    assert tgm.launches["dx_gathered"] == before["dx_gathered"] + 1
+    assert tgm.launches["dw_gathered"] == before["dw_gathered"] + 1
+    assert seen[:2] == [("dx_gathered", (4, 8, 4, 1, 8, 0)), ("dx_gathered", "dx_gathered")]
+    assert [n for n, _ in seen[2:]] == ["dw_gathered", "dw_gathered"]
 
 
 def test_plain_versions_count_no_launch():

@@ -41,7 +41,12 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.checkpoint.codec", "repro_torch.checkpoint.ckpt",
               "repro_torch.dist.fault", "repro_torch.dist.compat", "repro_torch.dist",
               "repro_torch.dist.sharding", "repro_torch.launch.mesh",
-              "repro_torch.optim.compression"):
+              "repro_torch.optim.compression", "repro_torch.analysis",
+              "repro_torch.analysis.dispatch_walk", "repro_torch.analysis.launch_check",
+              "repro_torch.analysis.lints", "repro_torch.analysis.report",
+              "repro_torch.analysis.retrace", "repro_torch.analysis.savings",
+              "repro_torch.kernels.specs", "repro_torch.launch.analyze",
+              "repro_torch.launch.dryrun"):
         assert m in mods
     code = (
         "import sys\n"

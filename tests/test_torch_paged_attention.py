@@ -88,15 +88,32 @@ def test_paged_attention_ignores_garbage_table_entries():
     np.testing.assert_allclose(out_t_bad, out_j_bad, rtol=1e-5, atol=1e-5)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device the wrapper does not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
+
+
 def test_wrapper_refuses_other_devices():
-    """Only a CPU tensor takes the plain version; a tensor elsewhere is
-    the kernel's or an error, never a silent fall-back."""
-    q = torch.zeros((1, 1, 2, 32), device="meta")
-    pool = torch.zeros((2, 4, 1, 32), device="meta")
-    tables = torch.zeros((1, 2), dtype=torch.int32, device="meta")
-    qpos = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    """Only a CPU tensor takes the plain version; a CUDA tensor is the
+    kernel's and a meta tensor the meta route's (an empty output, the
+    launch counted); a tensor elsewhere is an error, never a silent
+    fall-back."""
+    def on(dev, shape, dtype=torch.float32):
+        if dev == "xpu":
+            return torch.Tensor._make_subclass(_Elsewhere, torch.zeros(shape, dtype=dtype))
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    args = lambda dev: (on(dev, (1, 1, 2, 32)), on(dev, (2, 4, 1, 32)), on(dev, (2, 4, 1, 32)),  # noqa: E731
+                        on(dev, (1, 2), torch.int32), on(dev, (1, 1), torch.int32))
     with pytest.raises(ValueError, match="cpu or cuda"):
-        tpa.paged_attention(q, pool, pool, tables, qpos)
+        tpa.paged_attention(*args("xpu"))
+    before = tpa.launches
+    out = tpa.paged_attention(*args("meta"))
+    assert out.device.type == "meta" and out.shape == (1, 1, 2, 32)
+    assert tpa.launches == before + 1
 
 
 def test_build_is_keyed_by_source_hash():

@@ -405,3 +405,56 @@ def cli_train(mesh, argvs):
 
     return [train.run_rank(mesh, train.build_parser().parse_args(argv))["history"]
             for argv in argvs]
+
+
+def counted_step(mesh, arch, policy, batch, seq):
+    """One training step of the reduced ``arch`` at ``policy`` on this
+    rank (seed-0 params, the token pipeline's first batch): the
+    collectives' calls and bytes (``dist/parallel.py::counters``) and the
+    kernel wrappers' calls by name, which on the card are their launches
+    (the CPU runs the plain versions). Returns every rank's (rank 0's
+    copy), to hold the dry run's census on the fake group to."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adam
+
+    cfg = get_config(arch).reduced()
+    params = tlm.init_params(cfg, 0, device="cpu")
+    specs = tlm.mesh_specs(cfg, params, mesh.shape)
+    local = shd.shard_tree(params, specs, mesh)
+    sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
+    opt = adam.init(local)
+    fn = steps_lib.make_train_step(cfg, policy, adam.AdamConfig(lr=2e-4, clip_norm=1.0),
+                                   mesh=mesh, sharded=sharded)
+    rows = batch // mesh.data
+    data = TokenPipeline(TokenPipelineConfig(cfg.vocab, seq, batch, 0)).batch_at(0)
+    b = {k: torch.from_numpy(v[mesh.data_rank * rows:(mesh.data_rank + 1) * rows])
+         for k, v in data.items()}
+    calls = dict.fromkeys(gm.launches, 0)
+    raw = {name: getattr(gm, name) for name in calls}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return raw[name](*a, **k)
+        return call
+
+    for name in calls:
+        setattr(gm, name, counting(name))
+    parallel.counters.update(calls=0, bytes=0, s=0.0)
+    try:
+        fn(local, opt, b)
+    finally:
+        for name, f in raw.items():
+            setattr(gm, name, f)
+    mine = {"rank": mesh.rank, "calls": parallel.counters["calls"],
+            "bytes": parallel.counters["bytes"], "launches": {k: v for k, v in calls.items() if v},
+            "param_bytes": sum(t.numel() * t.element_size() for t in adam.tree_leaves(local)),
+            "adam_bytes": sum(t.numel() * t.element_size()
+                              for t in adam.tree_leaves([opt.m, opt.v])) + 4}
+    every = [None] * mesh.world
+    dist.all_gather_object(every, mine)
+    return every
