@@ -204,7 +204,17 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    model mesh of 2 (the serve phase's 8 requests), fp32 and bf16:
    ``paged_attention`` 12 launches a step on each rank, the fp32 share of
    tokens equal to the 1x1 fp32 run's at least 0.9 (bf16's against the
-   1x1 bf16 run's, printed), tokens/s and p50/p99;
+   1x1 bf16 run's, printed), tokens/s and p50/p99; then, in the same
+   spawn (``[mesh-data-serve]``), the fp32 config on ``--data-mesh 2``
+   (the paged engine, 2 slots a rank, the page pool replicated): each
+   rank launches ``paged_attention`` once a layer a step, the two data
+   ranks' running pool digests (a checksum a step) are equal, the share
+   of tokens equal to the 1x1 fp32 run's at least 0.9; then at depth 2
+   the lock-step engine at 1x2, at 2x1 and at 1x2 with
+   ``decode_seq_shard`` (the sequence over ``model``), each share at
+   least 0.9 against a 1x1 fp32 paged run at that depth; and one lock-step
+   decode step at 1x2 and 2x1 counted (each rank's param and cache bytes,
+   the collectives' calls and bytes);
 16. SSM training: the loss and every gradient leaf of one sparse step of
    mamba2-1.3b at full width and depth 4 (fp32, B=2, S=512) through
    ``matmul``, the gather route and the mask oracle, the same kept
@@ -311,10 +321,14 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    group (``launch/dryrun.py``, every rank on meta): its per-rank
    parameter and Adam bytes and collective calls and bytes a step equal
    what the 1x2 bf16 ranks recorded, its ``matmul`` launches a rank a
-   sparse step the fp32 runs' at both layouts; then qwen2.5-3b x
-   ``train_4k`` and x ``decode_32k`` on 16x16: each rank's argument bytes
-   beside ``torch.cuda.mem_get_info()``'s total, with the card's name and
-   power limit;
+   sparse step the fp32 runs' at both layouts; ``[mesh-data-serve]``'s
+   lock-step decode step (depth 2, fp32, B=4, 160 tokens) at 1x2 and
+   2x1 on the fake group: each rank's param and cache bytes and the
+   collectives' calls and bytes equal what the card's ranks recorded;
+   then qwen2.5-3b x ``train_4k`` and x ``decode_32k`` on 16x16: each
+   rank's argument bytes beside ``torch.cuda.mem_get_info()``'s total,
+   and ``decode_32k``'s step run on the fake group (its eager peak), with
+   the card's name and power limit;
 24. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases'
    and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
@@ -325,7 +339,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    paligemma training phases', the resumed run's of ``[ckpt]``
    (``lm_resume``), ``[moe-grouped]``'s kernel routes and every rank's
    of ``[mesh-train]`` (``mesh_train``; ``paged_attention``'s
-   ``mesh_serve``) and of ``[mesh-families]`` (``mesh_families``, the 1x1
+   ``mesh_serve``, and ``mesh_data_serve`` the ``--data-mesh 2`` run's)
+   and of ``[mesh-families]`` (``mesh_families``, the 1x1
    runs' and every rank's), each in
    ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
@@ -2497,6 +2512,10 @@ MESH_TIMEOUT_S = 300  # one mesh run, spawn to exit
 MESH_PROBE = "layer_0/attn/o"  # the row-parallel site whose dY must agree bit for bit
 MESH_SERVE_MODEL = 2  # [mesh-serve]: 8 q heads on 1 KV head a rank
 MESH_SERVE_DEPTH = 12  # [mesh-serve]: 36 layers cut to 12 (the script must end inside 1200 s)
+MESH_DATA = 2  # [mesh-data-serve]: --data-mesh 2, the serve phase's 4 slots 2 a rank
+# [mesh-data-serve]'s lock-step runs: name -> (data, model, decode_seq_shard)
+MESH_LOCK = {"1x2": (1, 2, False), "2x1": (2, 1, False), "1x2 seq-model": (1, 2, True)}
+MESH_LOCK_DEPTH = 2  # their depth (and the counted step's): 318 gloo-bound steps a run
 
 
 def _mesh_train_argv(data, model):
@@ -2506,18 +2525,22 @@ def _mesh_train_argv(data, model):
             "--data-mesh", str(data), "--model-mesh", str(model)]
 
 
-def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, probe):
-    """Every mesh run of ``[mesh-train]`` and ``[mesh-serve]``, in one
-    spawn of two ranks on the card: the training CLI's rank body
-    (``train.run_rank``, fp32, the kept channels collected) on this 1x2
-    mesh and on a 2x1 mesh over the same ranks, then
-    :func:`mesh_timed_steps` in bf16 at 1x2, then the serving CLI's rank
-    body (``serve.serve_rank``) once a config of ``serve_cfgs``. Every
+def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, probe,
+               base_serve_argv, lock_cfg):
+    """Every mesh run of ``[mesh-train]``, ``[mesh-serve]`` and
+    ``[mesh-data-serve]``, in one spawn of two ranks on the card: the
+    training CLI's rank body (``train.run_rank``, fp32, the kept channels
+    collected) on this 1x2 mesh and on a 2x1 mesh over the same ranks,
+    then :func:`mesh_timed_steps` in bf16 at 1x2, then the serving CLI's
+    rank body (``serve.serve_rank``) once a config of ``serve_cfgs``, then
+    :func:`mesh_data_serve` (``base_serve_argv``, the fp32 config, the
+    lock-step runs at ``lock_cfg``). Every
     ``matmul`` launch of the fp32 runs and of the bf16 warm-up step is
     held against its plain version on the same operands
     (``gathered_matmul.observe_matmul``). Returns (the CLI's dict of each
     training layout, every rank's bf16 timings, each config's serving
-    dict, every rank's product checks, the ranks' wall of each part)."""
+    dict, every rank's product checks, the ranks' wall of each part, the
+    data-mesh serving results)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import gathered_matmul as gm
@@ -2566,9 +2589,70 @@ def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, pr
         served.append(serve.serve_rank(mesh, args, c))
         free()
     walls["serve"] = time.perf_counter() - t0
+    data_served = mesh_data_serve(mesh, base_serve_argv, serve_cfgs[0], lock_cfg, walls, free)
     every = [None] * mesh.world
     dist.all_gather_object(every, {"rank": mesh.rank, "checks": checks})
-    return train_outs, timed, served, every, walls
+    return train_outs, timed, served, every, walls, data_served
+
+
+def mesh_data_serve(mesh, argv, cfg, lock_cfg, walls, free):
+    """``[mesh-data-serve]`` in a rank of the 1x2 spawn: the serving CLI's
+    rank body with ``cfg`` (fp32) on a 2x1 mesh over the same ranks
+    (``--data-mesh 2``, the paged engine), then with ``lock_cfg`` (fp32,
+    ``MESH_LOCK_DEPTH`` layers) the lock-step engine on each ``MESH_LOCK``
+    layout and one lock-step decode step (the CLI's slots and
+    ``max_seq``, from position 0) at 1x2 and 2x1 with the collectives
+    counted (``parallel.counters``). Returns rank 0's serving dicts and
+    every rank's step counts; ``walls`` gains each part's seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import parallel
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as lm
+
+    data = mesh_lib.make_host_mesh(MESH_DATA, 1, mesh.device.type)
+    t0 = time.perf_counter()
+    args = serve.build_parser().parse_args(argv + ["--data-mesh", str(MESH_DATA)])
+    out = {"data": serve.serve_rank(data, args, cfg)}
+    free()
+    walls["data serve"] = time.perf_counter() - t0
+    lock_args = serve.build_parser().parse_args(argv + ["--engine", "lockstep"])
+    for name, (d, _, seq) in MESH_LOCK.items():
+        t0 = time.perf_counter()
+        out[name] = serve.serve_rank(data if d > 1 else mesh, lock_args,
+                                     dataclasses.replace(lock_cfg, decode_seq_shard=seq))
+        free()
+        walls[f"lockstep {name}"] = time.perf_counter() - t0
+    b, max_seq = lock_args.batch, lock_args.prompt_len + lock_args.gen
+
+    def nbytes(tree):
+        from repro_torch.optim import adam
+
+        return sum(t.numel() * t.element_size() for t in adam.tree_leaves(tree))
+
+    steps = {}
+    for name, m in (("1x2", mesh), ("2x1", data)):
+        params = serve.rank_params(lock_cfg, 0, m.device, m)
+        layout = lm.cache_layout(lock_cfg, m, b, max_seq)
+        cache = lm.init_local_cache(lock_cfg, layout, m, max_seq=max_seq, device=m.device)
+        rows = layout.slots[1] - layout.slots[0]
+        state = {"tokens": torch.zeros((rows, 1), dtype=torch.int32, device=m.device),
+                 "pos": 0, "cache": cache}
+        step = steps_lib.make_serve_step(lock_cfg, mesh=m, layout=layout)
+        parallel.counters.update(calls=0, bytes=0, s=0.0)
+        with torch.no_grad():
+            step(params, state)["tokens"].cpu()
+        mine = dict(rank=m.rank, calls=parallel.counters["calls"], bytes=parallel.counters["bytes"],
+                    param_bytes=nbytes(params), cache_bytes=nbytes(cache))
+        every = [None] * m.world
+        dist.all_gather_object(every, mine)
+        steps[name] = every
+        del params, cache, state
+        free()
+    out["step"] = {"batch": b, "max_seq": max_seq, "ranks": steps}
+    return out
 
 
 def mesh_timed_steps(mesh, cfg, policy, steps, probe, check):
@@ -2696,12 +2780,20 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, card):
         print(f"[mesh-serve] {LM_ARCH} full width, depth {MESH_SERVE_DEPTH}: 1x1 {dt} run "
               f"{time.perf_counter() - t0:.1f} s")
 
+    lock_cfg = dataclasses.replace(base, n_layers=MESH_LOCK_DEPTH, dtype="float32")
     t0 = time.perf_counter()
-    outs, ranks, served, checks, walls = run_on_mesh(
+    one_lock = serve.run(serve.build_parser().parse_args(serve_argv), cfg=lock_cfg)["generated"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh-data-serve] {LM_ARCH} full width, depth {MESH_LOCK_DEPTH}: 1x1 float32 run "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    outs, ranks, served, checks, walls, data_served = run_on_mesh(
         mesh_ranks, 1, 2, "cuda", {f"{d}x{m}": _mesh_train_argv(d, m) for d, m in MESH_SHAPES},
         serve_argv + ["--model-mesh", str(MESH_SERVE_MODEL)], cfg,
         [dataclasses.replace(base, dtype=dt) for dt in dtypes], policy, MESH_STEPS, MESH_PROBE,
-        timeout_s=MESH_TIMEOUT_S)
+        serve_argv, lock_cfg, timeout_s=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
     print(f"[mesh] one spawn of 2 ranks, {wall:.1f} s spawn to exit; rank 0's parts (s): "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
@@ -2785,7 +2877,59 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, card):
               f"ms; share of tokens equal to 1x1's {share:.4f}; paged_attention launches by rank "
               f"{got} = {base.n_layers} x {steps}")
     serve_summary["wall_s"] = walls["serve"]
+    serve_summary["data"] = mesh_data_serve_summary(data_served, one_serve["float32"], one_lock,
+                                                    base, walls, card)
     return mesh_launches, serve_launches, worst, summary, serve_summary
+
+
+def mesh_data_serve_summary(out, ref, lock_ref, cfg, walls, card):
+    """``[mesh-data-serve]``'s checks and lines (:func:`mesh_data_serve`'s
+    results against the 1x1 fp32 runs' tokens: ``ref`` at ``cfg``'s depth,
+    ``lock_ref`` at ``MESH_LOCK_DEPTH``, each the paged engine's). Returns
+    its summary, ``launches`` the data-mesh run's ``paged_attention``
+    launches over both ranks."""
+    run = out["data"]
+    gen, steps = run["generated"], run["steps"]
+    share = float((gen == ref).mean())
+    got = [r["paged_attention"] for r in run["launches_by_rank"]]
+    digests = run["pool_digests"]
+    if gen.shape != ref.shape or got != [cfg.n_layers * steps] * MESH_DATA:
+        raise AssertionError(f"[mesh-data-serve] {gen.shape}, launches by rank {got} != "
+                             f"{cfg.n_layers} x {steps} steps each")
+    if len(set(digests)) != 1:
+        raise AssertionError(f"[mesh-data-serve] the data ranks' pools differ: {digests}")
+    if share < SHARE_MIN:
+        raise AssertionError(f"[mesh-data-serve] fp32 share {share:.4f} < {SHARE_MIN}")
+    ms = np.asarray(run["step_times"]) * 1e3
+    st = run["stats"]
+    summary = dict(share=share, steps=steps, launches_by_rank=got, launches=sum(got),
+                   pool_digest=digests[0], tokens_per_s=st["tokens_per_s"],
+                   p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                   wall_s=walls["data serve"])
+    print(f"[mesh-data-serve] data={MESH_DATA} fp32 ({card}): {steps} steps, "
+          f"{st['tokens_per_s']:.1f} tokens/s; step p50 {summary['p50_ms']:.2f} ms p99 "
+          f"{summary['p99_ms']:.2f} ms; share of tokens equal to 1x1's {share:.4f}; "
+          f"paged_attention launches by rank {got} = {cfg.n_layers} x {steps}; the data ranks' "
+          f"pool digests equal ({digests[0][:16]}...); {walls['data serve']:.1f} s")
+    for name in MESH_LOCK:
+        lock = out[name]
+        share = float((lock["generated"] == lock_ref).mean())
+        if lock["generated"].shape != lock_ref.shape or share < SHARE_MIN:
+            raise AssertionError(f"[mesh-data-serve] lock-step {name}: share {share:.4f} < "
+                                 f"{SHARE_MIN} ({lock['generated'].shape})")
+        summary[f"lockstep {name}"] = dict(share=share, steps=lock["steps"],
+                                           decode_s=lock["decode_s"], prefill_s=lock["prefill_s"],
+                                           wall_s=walls[f"lockstep {name}"])
+        print(f"[mesh-data-serve] lock-step {name} fp32, depth {MESH_LOCK_DEPTH} ({card}): "
+              f"{lock['steps']} steps, prefill {lock['prefill_s']:.1f} s, decode "
+              f"{lock['decode_s']:.1f} s; share of tokens equal to the 1x1 paged run's at that "
+              f"depth {share:.4f}; {walls[f'lockstep {name}']:.1f} s")
+    summary["step"] = out["step"]
+    for name, every in out["step"]["ranks"].items():
+        print(f"[mesh-data-serve] one lock-step decode step at {name} (depth {MESH_LOCK_DEPTH}, "
+              f"B={out['step']['batch']}, {out['step']['max_seq']} tokens, fp32), by rank: "
+              + json.dumps(every))
+    return summary
 
 
 # ----------------------------------------------------------------------
@@ -3893,8 +4037,10 @@ def audit_phase(log, gm, get_config, lm, lm_steps, tc, resnet, adam, policy_mod,
     return summary
 
 
-def dryrun_phase(mesh_train_summary, get_config, policy_mod, card):
-    """``[dryrun]`` (module docstring, 23c). Returns its summary."""
+def dryrun_phase(mesh_train_summary, lock_steps, get_config, policy_mod, card):
+    """``[dryrun]`` (module docstring, 23c); ``lock_steps``:
+    ``[mesh-data-serve]``'s counted lock-step decode step, every rank's, by
+    layout. Returns its summary."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
@@ -3937,6 +4083,33 @@ def dryrun_phase(mesh_train_summary, get_config, policy_mod, card):
                 summary[f"{layout} rank {rank}"] = row
                 print(f"[dryrun] [mesh-train] {layout} rank {rank} on the fake group: "
                       f"{json.dumps(row)} = the card's ranks'", flush=True)
+        # [mesh-data-serve]'s lock-step decode step: the serving config at
+        # the CLI's slots and tokens, one step from position 0
+        scfg = dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LOCK_DEPTH,
+                                   dtype="float32")
+        sshape = ShapeConfig("mesh-decode", lock_steps["max_seq"], lock_steps["batch"], "decode")
+        for layout, every in lock_steps["ranks"].items():
+            data, model = (int(n) for n in layout.split("x"))
+            ms = {"data": data, "model": model}
+            cell = dryrun.make_cell(scfg, sshape, pol, ms)
+            rb = dryrun.rank_bytes(cell, ms)
+            for real in every:
+                rec = dryrun.census_record(dryrun.step_census(
+                    cell, tmesh.make_fake_mesh(data, model, rank=real["rank"])))
+                have = (rb["params"], rb["cache"], rec["collective_calls"],
+                        rec["collective_bytes"])
+                want = (real["param_bytes"], real["cache_bytes"], real["calls"], real["bytes"])
+                if have != want:
+                    raise AssertionError(f"[dryrun] lock-step decode {layout} rank "
+                                         f"{real['rank']}: (params, cache, calls, bytes) {have} "
+                                         f"on the fake group != {want} on the card")
+                row = dict(param_bytes=rb["params"], cache_bytes=rb["cache"],
+                           calls=rec["collective_calls"], bytes=rec["collective_bytes"],
+                           by_kind=rec["collectives"], peak_bytes=rec["peak_bytes"])
+                summary[f"lock-step decode {layout} rank {real['rank']}"] = row
+                print(f"[dryrun] [mesh-data-serve] lock-step decode step {layout} rank "
+                      f"{real['rank']} on the fake group: {json.dumps(row)} = the card's "
+                      "ranks'", flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3947,10 +4120,23 @@ def dryrun_phase(mesh_train_summary, get_config, policy_mod, card):
         cell, _ = dryrun.build_cell(LM_ARCH, name, ms, "ssprop")
         rb = dryrun.rank_bytes(cell, ms)
         status = dryrun.refusal(cell, ms, "ssprop") or "runs"
-        summary[f"16x16 {name}"] = dict(rank_bytes=rb, card_bytes=total, status=status)
+        row = dict(rank_bytes=rb, card_bytes=total, status=status)
+        peak = ""
+        if name == "decode_32k":  # the lock-step decode step, run on the fake group
+            try:
+                rec = dryrun.census_record(dryrun.step_census(cell, tmesh.make_production_mesh()))
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                tmesh._fake.clear()
+            row.update(peak_bytes=rec["peak_bytes"], collective_calls=rec["collective_calls"],
+                       flops=rec["flops"])
+            peak = (f", its eager peak {rec['peak_bytes'] / 2**30:.3f} GiB, "
+                    f"{rec['collective_calls']} collectives a step")
+        summary[f"16x16 {name}"] = row
         print(f"[dryrun] {LM_ARCH} x {name} on 16x16, rank 0: argument bytes {json.dumps(rb)} "
               f"= {rb['total'] / 2**30:.3f} GiB of the card's {total / 2**30:.2f} GiB "
-              f"({card}); the CLI: {status}", flush=True)
+              f"({card}); the CLI: {status}{peak}", flush=True)
     summary["seconds"] = time.perf_counter() - t0
     print(f"[dryrun] {time.perf_counter() - t0:.1f} s", flush=True)
     return summary
@@ -4151,6 +4337,7 @@ def main() -> int:
     (mesh_train_launches, mesh_serve_launches, mesh_err, mesh_train_summary,
      mesh_serve_summary) = mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv,
                                       card)
+    mesh_data_launches = mesh_serve_summary["data"]["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[time] mesh phases {time.perf_counter() - t_mesh:.1f} s together")
@@ -4212,7 +4399,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     audit_summary = audit_phase(launch_log, gm, get_config, lm, lm_steps, tc, resnet, adam,
                                 policy_mod, card)
-    dryrun_summary = dryrun_phase(mesh_train_summary, get_config, policy_mod, card)
+    dryrun_summary = dryrun_phase(mesh_train_summary, mesh_serve_summary["data"]["step"],
+                                  get_config, policy_mod, card)
 
     lap("audit-dryrun")
     # 24. result lines
@@ -4227,10 +4415,11 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
         launches=(launches + feat_launches + moe_launches + enc_launches + vlm_launches
-                  + mesh_serve_launches + mf_pa_launches),
+                  + mesh_serve_launches + mesh_data_launches + mf_pa_launches),
         launches_by_path={"serve": launches, "serve_features": feat_launches,
                           "moe_serve": moe_launches, "encdec_serve": enc_launches,
                           "vlm_serve": vlm_launches, "mesh_serve": mesh_serve_launches,
+                          "mesh_data_serve": mesh_data_launches,
                           "mesh_families": mf_pa_launches},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],

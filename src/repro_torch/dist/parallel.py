@@ -28,8 +28,14 @@ tensors):
   own columns (the SSM's gated RMSNorm's sum of squares over its heads)
   summed over ``model``; every rank's output reads it, so the gradient is
   summed over ``model`` too;
-* :func:`gather_ids_over_data` — int ids (the MoE router's top-k experts)
-  of every data rank's rows, in global row order (no gradient).
+* :func:`gather_ids_over_data` — int ids (the MoE router's top-k experts,
+  a serving step's sampled tokens and accepted counts) of every data
+  rank's rows, in global row order (no gradient);
+* :func:`from_data_rank` — one data rank's tensor on every data rank (a
+  swapped-out slot's SSM rows, staged by every rank);
+* :func:`softmax_combine` — seq-sharded decode attention: each rank's
+  per-head partial softmax ``(max, sum, out)`` over its slice of the KV
+  sequence, all-gathered over the axis group and combined in rank order.
 
 A replicated leaf that each model rank reads only in part (the SSM's
 ``conv_w`` over its own channels) goes behind :func:`copy_to_model`
@@ -238,6 +244,38 @@ def gather_ids_over_data(ids: torch.Tensor, mesh) -> torch.Tensor:
     if not _data_live(mesh):
         return ids
     return all_gather(ids, mesh.data_group, mesh.dp, dim=0)
+
+
+def from_data_rank(t: torch.Tensor, mesh, src: int) -> torch.Tensor:
+    """Data rank ``src``'s ``t`` on every data rank (each rank passes a
+    tensor of the same shape; the others' are ignored)."""
+    if not _data_live(mesh):
+        return t
+    return all_gather(t[None], mesh.data_group, mesh.dp, dim=0)[src]
+
+
+def softmax_combine(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor, group, n: int,
+                    heads: tuple[int, int] | None = None) -> torch.Tensor:
+    """The attention output from ``n`` ranks' partial softmaxes over their
+    slices of the keys: ``m [..., H]`` each head's largest score, ``s [...,
+    H]`` the sum of ``exp(score - m)``, ``o [..., H, D]`` the values so
+    weighted, all fp32. The triples are all-gathered over ``group`` and
+    combined in rank order (a slice whose keys are all masked has ``m`` at
+    -1e30 and weighs 0 beside any rank with a key); ``heads`` keeps only
+    those heads. Returns the normalised ``[..., H, D]`` fp32 output, the
+    same on every rank."""
+    packed = torch.cat([o, m[..., None], s[..., None]], dim=-1)
+    every = all_gather(packed, group, n, dim=0).reshape(n, *packed.shape)
+    if heads is not None:
+        every = every[..., heads[0]:heads[1], :]
+    ms, ss, os_ = every[..., -2], every[..., -1], every[..., :-2]
+    top = ms.amax(dim=0)
+    num = den = None
+    for i in range(n):  # a fixed order: the same bits on every rank
+        w = torch.exp(ms[i] - top)
+        num = os_[i] * w[..., None] if num is None else num + os_[i] * w[..., None]
+        den = ss[i] * w if den is None else den + ss[i] * w
+    return num / den[..., None]
 
 
 def vocab_range(v_loc: int, mesh) -> tuple[int, int]:

@@ -13,20 +13,25 @@ device, and the collectives return at once. For each cell it records:
   * the placements: each input's partition spec over the JAX package's
     layout (the params as a spec histogram, the other inputs leaf by
     leaf), equal to the reference's ``--placements-only`` report;
-  * the per-rank argument bytes: params, Adam state, batch and cache
-    shards, from the specs;
+  * the per-rank argument bytes: params, Adam state and batch shards,
+    from the specs; a decode cell's state (tokens, cache, encoder output)
+    as the port's rank holds it (``models/model.py::cache_layout``), with
+    the reference's spec's bytes beside it where they differ, and the
+    cache leaves the rank holds whole (``cache_whole``, with why);
   * for a cell the port's CLIs run: the eager peak live bytes, the FLOPs
     a rank (torch-op contractions and the kernels' tiles), the kernel
     launches a rank by kernel, the host syncs, and the collectives' calls
     and bytes by kind, every call counted as it runs (no loop multiplier
     to apply: eager PyTorch runs each call).
 
-A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: ``--data-mesh``
-serving, the lock-step engine on a mesh, a global batch the data mesh does
-not divide, or a seq-sharded decode under ``--policy opt``) has status
-``unsupported`` with the CLI's own message; its placements and bytes are
-still reported. A cell a full-attention arch cannot take (``long_500k``)
-is ``skipped``.
+A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: a global
+batch the data mesh does not divide, a model mesh that does not divide
+the q heads) has status ``unsupported`` with the CLI's own message; its
+placements and bytes are still reported. A cell a full-attention arch
+cannot take (``long_500k``) is ``skipped``. A decode cell steps the
+lock-step engine's ``make_serve_step`` on the rank's cache shard (the
+sequence split over ``model`` under ``--policy opt``'s seq-sharded
+decode, over ``data`` where the batch of 1 cannot take it).
 
 Usage::
 
@@ -53,9 +58,8 @@ from repro_torch.core.policy import DENSE, PolicyProgram, tpu_default
 from repro_torch.data.pipeline import input_specs
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import dp_size, production_mesh_shape
+from repro_torch.launch.mesh import dp_size, production_mesh_shape, shape_mesh
 from repro_torch.models import model as lm
-from repro_torch.models import transformer
 from repro_torch.optim import adam
 
 POLICIES = ("ssprop", "ssprop_tp", "opt", "dense")
@@ -92,23 +96,6 @@ class _Shape:
 
     def __init__(self, shape, dtype):
         self.shape, self.dtype = tuple(shape), dtype
-
-
-def _stacked(leaves):
-    """The layers' leaves (dicts of tensors) stacked, as shapes."""
-    if isinstance(leaves[0], dict):
-        return {k: _stacked([leaf[k] for leaf in leaves]) for k in leaves[0]}
-    return lm.StackShape(leaves)
-
-
-def jax_cache_layout(cfg, cache):
-    """The port's per-layer decode cache in the JAX package's layout:
-    the encoder-decoder's ``{"k", "v"}`` stacked over its layers, else a
-    tuple over the period's slots of each slot's layers stacked."""
-    if cfg.family == "encdec":
-        return _stacked(cache)
-    plen = len(transformer.period_pattern(cfg))
-    return tuple(_stacked(cache[j::plen]) for j in range(plen))
 
 
 def _paths(tree, prefix=""):
@@ -202,7 +189,7 @@ def make_cell(cfg, shape, table, mesh_shape: dict[str, int], *, opt: bool = Fals
         trees["batch"] = (batch, shd.batch_specs(mesh_shape, batch))
     else:
         b = shape.global_batch
-        cache = jax_cache_layout(cfg, steps_lib.abstract_cache(cfg, b, shape.seq_len))
+        cache = lm.jax_cache_layout(cfg, steps_lib.abstract_cache(cfg, b, shape.seq_len))
         state = {"tokens": _Shape((b, 1), torch.int32), "pos": _Shape((), torch.int32),
                  "cache": cache}
         specs = {"tokens": shd.fit_spec(shd.Spec(baxis, None), (b, 1), mesh_shape),
@@ -212,7 +199,34 @@ def make_cell(cfg, shape, table, mesh_shape: dict[str, int], *, opt: bool = Fals
             state["enc_out"] = _Shape((b, cfg.enc_seq, cfg.d_model), getattr(torch, cfg.dtype))
             specs["enc_out"] = shd.Spec(baxis, None, None)
         trees["state"] = (state, specs)
+        layout = lm.cache_layout(cfg, shape_mesh(mesh_shape), b, shape.seq_len,
+                                 seq_shard=cfg.decode_seq_shard)
+        meta["cache_layout"] = {"slots": list(layout.slots), "seq": layout.seq}
+        if layout.whole:
+            meta["cache_whole"] = list(layout.whole)
     return Cell(cfg, shape, table, trees, meta)
+
+
+def _decode_state(cell: Cell, mesh, device="meta"):
+    """A decode cell's step state as ``mesh``'s rank holds it (empty
+    tensors on ``device``) and its cache layout: its rows of the tokens
+    and the encoder output, its cache shard; ``pos`` a host int."""
+    cfg, shape = cell.cfg, cell.shape
+    layout = lm.cache_layout(cfg, mesh, shape.global_batch, shape.seq_len,
+                             seq_shard=cfg.decode_seq_shard)
+    rows = layout.slots[1] - layout.slots[0]
+    cache = lm.init_local_cache(cfg, layout, mesh, max_seq=shape.seq_len, device=device)
+    state = {"tokens": torch.empty((rows, 1), dtype=torch.int32, device=device), "pos": 0,
+             "cache": cache}
+    if cfg.family == "encdec":
+        state["enc_out"] = torch.empty((rows, cfg.enc_seq, cfg.d_model),
+                                       dtype=getattr(torch, cfg.dtype), device=device)
+    return state, layout
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in adam.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
 
 
 def placement_report(cell: Cell) -> dict:
@@ -237,7 +251,14 @@ def rank_bytes(cell: Cell, mesh_shape) -> dict[str, int]:
     for name, (tree, specs) in cell.trees.items():
         leaves = dict(_paths(tree))
         out[name] = sum(shard_bytes(leaves[p], sp, mesh_shape) for p, sp in _paths(specs))
-    out["total"] = sum(out.values())
+    # a decode cell's state as the port's rank holds it (a cell the CLIs
+    # refuse for its heads has no such layout: the spec's bytes stand)
+    if cell.shape.kind == "decode" and not lm.mesh_unported(cell.cfg, mesh_shape["model"]):
+        state, _ = _decode_state(cell, shape_mesh(mesh_shape))
+        ref, out["state"], out["cache"] = out["state"], _nbytes(state), _nbytes(state["cache"])
+        if ref != out["state"]:
+            out["state_reference"] = ref
+    out["total"] = sum(v for k, v in out.items() if k not in ("cache", "state_reference"))
     return out
 
 
@@ -245,10 +266,9 @@ def refusal(cell: Cell, mesh_shape: dict[str, int], policy_name: str) -> str:
     """The message the port's CLI gives for this cell, or ``""`` where it
     runs it: the training CLI's for a train cell, the serving CLI's for
     prefill (the paged engine) and decode (the lock-step engine, the
-    reference's decode step), the engine's for a seq-sharded decode."""
+    reference's decode step)."""
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
-    from repro_torch.serve.engine import SEQ_SHARD_REFUSAL
 
     dp, model = dp_size(mesh_shape), mesh_shape["model"]
     msgs = []
@@ -263,8 +283,6 @@ def refusal(cell: Cell, mesh_shape: dict[str, int], policy_name: str) -> str:
                 data_mesh=dp, model_mesh=model, engine=engine), cell.cfg)
     except NotImplementedError as e:
         msgs.append(str(e))
-    if cell.shape.kind == "decode" and cell.cfg.decode_seq_shard:
-        msgs.append(SEQ_SHARD_REFUSAL)
     return "; ".join(msgs)
 
 
@@ -285,13 +303,23 @@ def step_census(cell: Cell, mesh, *, opt_cfg=None):
     meta) under the census; returns its counts. Train: the params, Adam
     state and batch are the rank's shards and rows, the step the
     training CLI's ``make_train_step`` at the cell's accumulation; prefill:
-    ``make_prefill_step`` on the model mesh."""
+    ``make_prefill_step`` on the rank's rows; decode: the lock-step
+    engine's ``make_serve_step`` on the rank's serving params (k/v whole
+    under seq-sharded decode), rows and cache shard."""
     from repro_torch.analysis.dispatch_walk import Census
 
     cfg, shape = cell.cfg, cell.shape
     params, _ = steps_lib.abstract_state(cfg)
-    specs = lm.mesh_specs(cfg, params, mesh.shape)
+    decode = shape.kind == "decode"
+    specs = lm.mesh_specs(cfg, params, mesh.shape, replicate_kv=decode and cfg.decode_seq_shard)
     local = shd.shard_tree(params, specs, mesh, consume=True)
+    if decode:
+        state, layout = _decode_state(cell, mesh)
+        fn = steps_lib.make_serve_step(cfg, mesh=mesh, layout=layout)
+        args = (lm.decode_params(cfg, local, mesh), state)
+        with Census(args=args) as c:
+            out = fn(*args)
+        return c.finish(out)
     batch = _local_batch(cfg, shape, mesh)
     if shape.kind == "train":
         sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
@@ -302,9 +330,6 @@ def step_census(cell: Cell, mesh, *, opt_cfg=None):
     elif shape.kind == "prefill":
         fn = steps_lib.make_prefill_step(cfg, mesh=mesh)
         args = (lm.decode_params(cfg, local, mesh), batch)
-    else:
-        raise NotImplementedError(f"the dry run steps no {shape.kind} cell on a mesh: the "
-                                  "lock-step engine is refused there")
     with Census(args=args) as c:
         out = fn(*args)
     return c.finish(out)

@@ -134,6 +134,12 @@ class Mesh:
     def model_rank(self) -> int:
         return self.rank % self.model
 
+    def model_only(self) -> Mesh:
+        """This rank's view without the data axis, for a step whose rows
+        every data rank holds alike (a serving batch the data size does
+        not divide): the model group and coordinates stay."""
+        return dataclasses.replace(self, data=1, pod=1, data_group=None)
+
     def coord(self, axis: str) -> int:
         if axis == "pod":
             return self.data_rank // self.data
@@ -169,6 +175,15 @@ def make_host_mesh(data: int, model: int, device, *, pod: int = 1) -> Mesh:
         if rank // model == i:
             model_group = g
     return Mesh(data, model, rank, dev, backend, data_group, model_group, pod=pod)
+
+
+def shape_mesh(mesh_shape, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``mesh_shape`` without process
+    groups, on ``meta``: what a placement reads (its coordinates), for
+    reports that run no step."""
+    shape = axis_sizes(mesh_shape)
+    return Mesh(shape["data"], shape["model"], rank, torch.device("meta"), "none", None, None,
+                pod=shape.get("pod", 1))
 
 
 _fake: dict[tuple[int, int, int, int], Mesh] = {}

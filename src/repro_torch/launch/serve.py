@@ -28,21 +28,28 @@ JAX CLI does, and the full-width config cut to n layers without it
 512-token vocabulary the target's tokens overflow). 0 (the default)
 self-drafts with the target.
 
-``--model-mesh M`` serves on a model mesh: the one command spawns M
-ranks, one process each (``launch/mesh.py::run_on_mesh``; NCCL when each
-rank has a card, gloo when they share one or run on the CPU). Each rank
-holds its shards of the params and its KV heads of the paged pool (or
-the contiguous cache) and runs ``paged_attention`` on them; the engine's
-host state is the same on every rank, which every step keeps in
-lock-step, since each rank draws every token from the same full row of
-logits (all-gathered over the vocabulary). Rank 0's result is returned.
-Every family serves on a model mesh: MoE ranks hold their experts, SSM
-ranks their heads' state rows, the encoder-decoder runs its encoder a
-request on the mesh, and where the model size does not divide the KV
-heads each rank caches the KV heads its q heads read (the layout of the
-reference's ``replicate_kv``). Still refused, each naming its ROADMAP
-item: ``--data-mesh > 1`` (the reference replicates the page pool over
-``data``) and the lock-step baseline engine.
+``--data-mesh D --model-mesh M`` serves on a ``data x model`` mesh: the
+one command spawns D·M ranks, one process each
+(``launch/mesh.py::run_on_mesh``; NCCL when each rank has a card, gloo
+when they share one or run on the CPU). Each rank holds its shards of
+the params and its KV heads of the paged pool (or the contiguous cache)
+and runs ``paged_attention`` on them. Over ``data`` the slots split
+where D divides ``--batch`` (each rank computes its slots' rows; else
+every data rank computes every slot), and the paged pool stays whole
+and equal on every data rank: each step all-gathers the data ranks' new
+K/V rows into every replica. The engine's host state is the same on
+every rank, which every step keeps in lock-step: each rank draws its
+slots' tokens from the same full row of logits (all-gathered over the
+vocabulary) and the step's tokens are all-gathered over ``data``. The
+lock-step engine runs on the mesh too (``serve/lockstep.py``), its
+contiguous cache split as the reference's ``cache_specs`` fits it.
+Rank 0's result is returned. Every family serves on a mesh: MoE ranks
+hold their experts, SSM ranks their heads' state rows, the
+encoder-decoder runs its encoder a request on the model mesh, and where
+the model size does not divide the KV heads each rank caches the KV
+heads its q heads read (the layout of the reference's
+``replicate_kv``). Still refused, naming its ROADMAP item: a model mesh
+that does not divide the q heads (``models/model.py::mesh_unported``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --requests 8 --prompt-len 128 --gen 32 --prefill-chunk 32 \
@@ -50,14 +57,19 @@ item: ``--data-mesh > 1`` (the reference replicates the page pool over
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
       --batch 2 --requests 4 --prompt-len 12 --gen 8 --prefill-chunk 4 \
       --block-size 4 --model-mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+      --batch 2 --requests 4 --prompt-len 12 --gen 8 --prefill-chunk 4 \
+      --block-size 4 --data-mesh 2 --model-mesh 2 --engine lockstep
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.configs.registry import get_config
@@ -121,12 +133,7 @@ def _refuse_unported(args, cfg) -> None:
     ROADMAP item that ports it."""
     if args.data_mesh * args.model_mesh == 1:
         return
-    unported = {
-        "--data-mesh > 1 (the reference replicates the page pool over data)": args.data_mesh > 1,
-        "the lock-step engine on a mesh": args.engine == "lockstep",
-    }
-    asked = [what for what, on in unported.items() if on] + lm.mesh_unported(
-        cfg, args.model_mesh)
+    asked = lm.mesh_unported(cfg, args.model_mesh)
     if asked:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 
@@ -144,7 +151,8 @@ def rank_params(cfg, seed, device, mesh):
     for turn in range(mesh.world if shared else 1):
         if not shared or turn == mesh.rank:
             full = lm.init_params(cfg, seed, device)
-            local = shd.shard_tree(full, lm.mesh_specs(cfg, full, mesh.shape), mesh, consume=True)
+            specs = lm.mesh_specs(cfg, full, mesh.shape, replicate_kv=cfg.decode_seq_shard)
+            local = shd.shard_tree(full, specs, mesh, consume=True)
             del full
             if mesh.device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -158,10 +166,14 @@ def run(args, *, cfg=None, timeout_s: float | None = None) -> dict:
     CLI's result keys (the generated tokens ``[requests, gen]``, steps,
     times, throughput and, for the engines, slot use, preemptions and
     speculation), plus the engine's whole ``stats`` and its per-step
-    times. On a model mesh, rank 0's, plus every rank's kernel launches
-    (``launches_by_rank``). ``cfg`` serves another config than the
-    ``--arch`` one (a dtype cut: the CLI has no flag for it); ``timeout_s``
-    bounds a mesh run."""
+    times. On a mesh, rank 0's, plus every rank's kernel launches
+    (``launches_by_rank``, in rank order) and, for the paged engine on a
+    data mesh, each rank's running digest of its page pool, a checksum
+    after every step (``pool_digests``: equal over the data ranks of a
+    model rank).
+    ``cfg`` serves another config than the ``--arch`` one (a dtype or
+    depth cut, ``decode_seq_shard``: the CLI has no flag for them);
+    ``timeout_s`` bounds a mesh run."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")
@@ -170,16 +182,17 @@ def run(args, *, cfg=None, timeout_s: float | None = None) -> dict:
         if args.reduced:
             cfg = cfg.reduced()
     _refuse_unported(args, cfg)
-    if args.model_mesh > 1:
-        return run_on_mesh(serve_rank, 1, args.model_mesh, device, args, cfg, timeout_s=timeout_s)
+    if args.data_mesh * args.model_mesh > 1:
+        return run_on_mesh(serve_rank, args.data_mesh, args.model_mesh, device, args, cfg,
+                           timeout_s=timeout_s)
     return serve_rank(None, args, cfg)
 
 
 def serve_rank(mesh, args, cfg, params=None) -> dict:
-    """Serve on this process's device, or as one rank of a model mesh
-    (what :func:`run` spawns). ``params``: the model's params already
-    built from ``--seed`` (one device), so that a caller that holds them
-    serves without a second copy."""
+    """Serve on this process's device, or as one rank of a ``data x
+    model`` mesh (what :func:`run` spawns). ``params``: the model's params
+    already built from ``--seed`` (one device), so that a caller that holds
+    them serves without a second copy."""
     device = torch.device(args.device) if mesh is None else mesh.device
     n_requests = args.requests or args.batch
     max_seq = args.prompt_len + args.gen + cfg.n_patches  # the JAX CLI's room for the patches
@@ -199,6 +212,7 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
         top_p=args.top_p,
     )
 
+    before = pa.launches
     if args.engine == "lockstep":
         # equal capacity with the engines: static waves of --batch
         # requests in arrival order, each stalling on its longest one
@@ -214,6 +228,7 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
                 frames=np.stack([r.frames for r in wave]) if cfg.family == "encdec" else None,
                 sampling=[r.sampling for r in wave],
                 device=device,
+                mesh=mesh,
             )
             steps += out["steps"]
             gen_tokens += out["generated_tokens"]
@@ -221,7 +236,7 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
             decode_s += out["decode_s"]
             for r, toks in zip(wave, out["tokens"], strict=True):
                 tokens_by_rid[r.rid] = toks
-        return {
+        out = {
             "generated": np.stack([tokens_by_rid[r.rid] for r in reqs]),
             "steps": steps,
             "prefill_s": prefill_s,
@@ -229,6 +244,7 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
             "tokens_per_s": gen_tokens / max(prefill_s + decode_s, 1e-9),
             "slot_utilization": 1.0,
         }
+        return _mesh_result(out, mesh, pa.launches - before)
 
     paged = args.engine == "paged"
     draft_cfg = draft_params = None
@@ -236,7 +252,6 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
         draft_cfg = (cfg.reduced(n_layers=args.draft_layers) if args.reduced
                      else dataclasses.replace(cfg, n_layers=args.draft_layers))
         draft_params = rank_params(draft_cfg, args.seed + 1, device, mesh)
-    before = pa.launches
     engine = ContinuousBatchingEngine(
         cfg,
         params,
@@ -263,6 +278,10 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
         def on_token(ev):
             tail = " <eos>" if ev.is_last else ""
             print(f"[stream] rid={ev.rid} token={ev.token}{tail}")
+    digest = hashlib.sha256() if mesh is not None and paged and mesh.dp > 1 else None
+    while digest is not None and (engine.waiting or engine.by_slot):
+        engine.run(max_ticks=1, on_token=on_token)
+        digest.update(pool_checksum(engine.slots.cache))
     results = engine.run(on_token=on_token)
     stats = engine.stats()
     out = {
@@ -278,9 +297,34 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
               "acceptance_rate", "draft_steps"):
         out[k] = stats[k]
     out = dict(out, stats=stats, step_times=list(engine.step_times))
+    if digest is not None:
+        out["pool_digests"] = [None] * mesh.world
+        dist.all_gather_object(out["pool_digests"], digest.hexdigest())
+    return _mesh_result(out, mesh, pa.launches - before)
+
+
+def pool_checksum(cache) -> bytes:
+    """A checksum of a paged cache's page pools (its K/V leaves; the SSM
+    rows are a data rank's own), made on their device: per leaf the
+    position-weighted sum of its words as integers. A data mesh's paged
+    run chains one a step into a sha256 (``pool_digests``), which is equal
+    on two data ranks only if their pools were equal after every step."""
+    sums = []
+    for layer in cache:
+        for k in sorted(set(layer) & {"k", "v"}):
+            t = layer[k].detach().contiguous()
+            v = t.view(torch.int16 if t.element_size() == 2 else torch.int32).reshape(-1).long()
+            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+            sums.append((v * w).sum())
+    return torch.stack(sums).cpu().numpy().tobytes()
+
+
+def _mesh_result(out: dict, mesh, launches: int) -> dict:
+    """``out`` plus, on a mesh, every rank's ``paged_attention`` launches
+    (``launches_by_rank``, in rank order)."""
     if mesh is not None:
-        n = torch.tensor([pa.launches - before], dtype=torch.int64, device=device)
-        every = parallel.all_gather(n, mesh.model_group, mesh.model, dim=0)
+        n = torch.tensor([launches], dtype=torch.int64, device=mesh.device)
+        every = parallel.all_gather(n, None, mesh.world, dim=0)
         out["launches_by_rank"] = [{"paged_attention": int(v)} for v in every.tolist()]
     return out
 

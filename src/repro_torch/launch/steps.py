@@ -257,7 +257,7 @@ def _emit_chunk_tokens(logits, state, fold):
     return flat.reshape(b, c)
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, mesh=None, layout=None) -> Callable:
     """One lock-step decode step over the contiguous cache.
 
     state = {"tokens": [B,1] int32, "pos": int (every row's write
@@ -266,11 +266,17 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     "top_ks" / "top_ps" (absent -> greedy)}.
     Returns the new state: ``tokens`` the next tokens ``[B,1]``, ``pos``
     advanced by one, the cache written in place. The draw folds by
-    ``pos``, the position of the token whose logits these are."""
+    ``pos``, the position of the token whose logits these are.
+
+    On a ``data x model`` mesh (``layout`` from
+    ``models/model.py::cache_layout``) every row-indexed entry of the
+    state is this rank's ``layout.slots`` rows and the cache its shard,
+    as the reference's step takes its batch-sharded state; the new tokens
+    are those rows' (no collective beyond the model's)."""
 
     def serve_step(params, state):
         logits, cache = lm.decode_step(cfg, params, state["tokens"], state["cache"], state["pos"],
-                                       enc_out=state.get("enc_out"))
+                                       enc_out=state.get("enc_out"), mesh=mesh, layout=layout)
         fold = torch.full((logits.shape[0],), state["pos"], dtype=torch.int64,
                           device=logits.device)
         nxt = _emit_tokens(logits, state, fold)[:, None]
@@ -280,7 +286,7 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 
 
 def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = False,
-                   mesh=None) -> Callable:
+                   mesh=None, layout=None) -> Callable:
     """Mixed prefill/decode step over per-slot state (continuous batching).
 
     state = {"tokens": [B,C] int32, "count": [B] int32 (real tokens per
@@ -309,7 +315,21 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
     Rejected K/V writes lie past the committed ``pos``, where the
     per-slot causal mask fences them until they are overwritten. Returns
     ``((tokens [B, C] int32, keep [B] int32), new_state)``.
+
+    On a ``data x model`` mesh (``layout`` from
+    ``models/model.py::cache_layout``) the state is every slot's, the same
+    on every rank, and the rank computes its ``layout.slots`` rows; where
+    the slots are split over ``data`` the tokens (and ``keep``) are
+    all-gathered over ``data`` in rank order, so every rank returns every
+    slot's and its host scheduler stays in lock-step with the others.
     """
+    split = layout is not None and layout.split
+
+    def mine(state):  # this rank's rows of the per-slot sampling controls
+        return {k: layout.rows(state[k]) for k in _CONTROLS if k in state} if split else state
+
+    def every(t):  # every data rank's rows, in slot order
+        return parallel.gather_ids_over_data(t, mesh) if split else t
 
     def slot_step(params, state):
         tokens, count, pos = state["tokens"], state["count"], state["pos"]
@@ -317,27 +337,33 @@ def make_slot_step(cfg: ModelConfig, *, paged_kernel: bool = True, spec: bool = 
             logits, new_cache = lm.decode_slots(
                 cfg, params, tokens, state["cache"], pos, count, enc_out=state.get("enc_out"),
                 block_tables=state.get("block_tables"), paged_kernel=paged_kernel, mesh=mesh,
+                layout=layout,
             )
-            nxt = _emit_tokens(logits, state, pos.long() + count.long() - 1)
+            fold = pos.long() + count.long() - 1
+            nxt = every(_emit_tokens(logits, mine(state), layout.rows(fold) if split else fold))
             return nxt, dict(state, cache=new_cache, pos=pos + count)
 
-        b, c = tokens.shape
         logits, new_cache = lm.decode_slots(
             cfg, params, tokens, state["cache"], pos, count, enc_out=state.get("enc_out"),
             block_tables=state.get("block_tables"), paged_kernel=paged_kernel,
-            all_logits=True, spec_states=True, mesh=mesh,
+            all_logits=True, spec_states=True, mesh=mesh, layout=layout,
         )
+        if split:
+            tokens, count, pos = (layout.rows(t) for t in (tokens, count, pos))
+        c = tokens.shape[1]
         ar = torch.arange(c, device=tokens.device)
         fold = pos.long()[:, None] + ar[None, :]  # [B, C]
-        tok = _emit_chunk_tokens(logits, state, fold)  # [B, C]
+        tok = _emit_chunk_tokens(logits, mine(state), fold)  # [B, C]
         keep = count
         if c > 1:
             # draft d_{j+1} rides in the input row: accept while the
             # target's token at position j reproduces it
             matches = (tok[:, :-1] == tokens[:, 1:]) & (ar[None, : c - 1] < (count - 1)[:, None])
             acc = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1).to(count.dtype)
-            keep = torch.where(state["is_spec"] & (count > 1), acc + 1, count)
+            is_spec = layout.rows(state["is_spec"]) if split else state["is_spec"]
+            keep = torch.where(is_spec & (count > 1), acc + 1, count)
         new_cache = lm.commit_spec_cache(new_cache, keep)
-        return (tok, keep), dict(state, cache=new_cache, pos=pos + keep)
+        tok, keep = every(tok), every(keep)
+        return (tok, keep), dict(state, cache=new_cache, pos=state["pos"] + keep)
 
     return slot_step

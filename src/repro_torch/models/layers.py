@@ -25,6 +25,7 @@ the embedding and the tied unembedding vocab-parallel
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -197,15 +198,96 @@ def paged_write_index(block_tables, positions, token_valid, block_size):
     return rows, cols, (page[rows, cols], (logical % block_size)[rows, cols])
 
 
-def slot_write_index(positions, token_valid, t):
+def slot_write_index(positions, token_valid, t, lo: int = 0, t_loc: int | None = None):
     """Where this step's real tokens go in a contiguous cache ``[B, t,
     KV, hd]``: ``(rows, cols, (rows, tgt))``, so that token ``[rows[i],
     cols[i]]`` is written at ``cache[rows[i], tgt[i]]``, its absolute
     position. Invalid tokens and positions past the cache are left out,
-    as the JAX package's out-of-range ``mode="drop"`` scatter does."""
+    as the JAX package's out-of-range ``mode="drop"`` scatter does. A
+    rank that holds only positions ``[lo, lo + t_loc)`` of the cache (its
+    sequence dim split over a mesh axis) writes only the tokens there, at
+    ``tgt - lo``."""
     keep = token_valid & (positions < t)
+    if t_loc is not None:
+        keep = keep & (positions >= lo) & (positions < lo + t_loc)
     rows, cols = keep.nonzero(as_tuple=True)
-    return rows, cols, (rows, positions.long()[rows, cols])
+    return rows, cols, (rows, positions.long()[rows, cols] - lo)
+
+
+class SeqSplit(NamedTuple):
+    """A contiguous decode cache's sequence dim split over a mesh axis
+    (``"model"`` under ``decode_seq_shard``, ``"data"`` where the batch
+    cannot take it): this rank holds the ``index``-th of ``n`` equal
+    slices, and attention combines the group's partial softmaxes."""
+
+    axis: str
+    group: Any
+    n: int
+    index: int
+
+
+class KvPlace(NamedTuple):
+    """How a rank of a mesh writes and reads a decode step's K/V, beside
+    its rows: ``gather`` the mesh whose data ranks' new K/V rows every rank
+    writes (the paged pool, replicated over ``data`` while the slots are
+    split), with ``write_index`` the step's full-batch write index; ``seq``
+    the contiguous cache's sequence split, or ``None``."""
+
+    write_index: Any = None
+    gather: Any = None
+    seq: SeqSplit | None = None
+
+
+class DecodeGeom(NamedTuple):
+    """What every attention layer of a decode step shares
+    (``transformer._decode_geometry``): the rank's rows' int32 query
+    positions, the RoPE angles, the K/V write index, the rows' block
+    tables (paged) and the :class:`KvPlace` fields."""
+
+    qpos: torch.Tensor
+    rope: Any
+    write_index: Any
+    block_tables: torch.Tensor | None = None
+    gather: Any = None
+    seq: SeqSplit | None = None
+
+
+def partial_attention(q, k, v, qpos, t0: int):
+    """The per-head partial softmax of ``q [B,S,H,D]`` over a slice of a
+    contiguous cache ``k/v [B,T,KV,D]`` that holds positions ``t0 ..
+    t0+T-1``: scores in fp32, future positions at -1e30 as in
+    :func:`~repro_torch.kernels.paged_attention.paged_attention_ref`.
+    Returns ``(m [B,S,H], s [B,S,H], o [B,S,H,D])``: each head's largest
+    score, the sum of ``exp(score - m)`` and the values so weighted
+    (:func:`repro_torch.dist.parallel.softmax_combine` joins the slices)."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kk = k.float().repeat_interleave(h // kv, dim=2)
+    vv = v.float().repeat_interleave(h // kv, dim=2)
+    pos = t0 + torch.arange(t, device=q.device)
+    mask = pos[None, None, :] <= qpos.long()[:, :, None]  # [B, S, T]
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), kk) * (1.0 / math.sqrt(d))
+    scores = scores.masked_fill(~mask[:, None], -1e30)
+    m = scores.amax(dim=-1)  # [B,H,S]
+    p = torch.exp(scores - m[..., None])
+    o = torch.einsum("bhst,bthd->bshd", p, vv)
+    return m.transpose(1, 2), p.sum(dim=-1).transpose(1, 2), o
+
+
+def seq_split_attention(q, k, v, qpos, seq: SeqSplit, mesh):
+    """Attention over a contiguous cache whose sequence dim is split over
+    ``seq``'s group: this rank scores its slice and the group's partials
+    combine in rank order. Over ``model`` (``decode_seq_shard``: every
+    rank holds every KV head) the rank first gathers every model rank's q
+    heads and keeps its own heads of the result; over ``data`` the rank's
+    q heads and KV heads are its model rank's. Returns fp32 ``[B,S,H_loc,D]``."""
+    heads = None
+    if seq.axis == "model":
+        h_loc = q.shape[2]
+        q = parallel.all_gather(q, mesh.model_group, mesh.model, dim=2)
+        heads = (mesh.model_rank * h_loc, (mesh.model_rank + 1) * h_loc)
+    m, s, o = partial_attention(q, k, v, qpos, seq.index * k.shape[1])
+    return parallel.softmax_combine(m, s, o, seq.group, seq.n, heads)
 
 
 def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024):
@@ -243,10 +325,8 @@ def attn_apply(
     *,
     rope,
     causal=True,
-    qpos=None,
     kv_cache=None,
-    block_tables=None,
-    write_index=None,
+    geom: DecodeGeom | None = None,
     paged_kernel=True,
     x_kv=None,
     site: str = "attn",
@@ -267,16 +347,21 @@ def attn_apply(
     Without ``kv_cache`` (training, the encoder): :func:`masked_attention`
     over the sequence itself, causal or not by ``causal``.
 
-    With ``kv_cache`` = dict(k, v) (serving), ``qpos [B,S]`` int32 is each
-    token's absolute position in its slot, and this step's K/V are
-    written **in place** (cast to the cache dtype) at ``write_index``,
-    which leaves out the invalid tokens:
+    With ``kv_cache`` = dict(k, v) (serving), ``geom`` is the step's
+    :class:`DecodeGeom`: ``geom.qpos [B,S]`` int32 is each token's
+    absolute position in its slot, and this step's K/V are written **in
+    place** (cast to the cache dtype) at ``geom.write_index``, which
+    leaves out the invalid tokens:
 
-    * with ``block_tables``, the paged layout: ``kv_cache`` is one
+    * with ``geom.block_tables``, the paged layout: ``kv_cache`` is one
       layer's page pool ``[n_pages, bs, KV, D]`` shared by all slots, and
       slot b's token at position p lives in page ``block_tables[b, p //
       bs]`` at offset ``p % bs`` (``write_index`` from
-      :func:`paged_write_index`). ``paged_kernel=True`` (the default)
+      :func:`paged_write_index`). On a data mesh the pool is the same on
+      every data rank (the reference's replicated page axis): with
+      ``geom.gather`` each rank all-gathers the data ranks' new K/V rows
+      (one collective a layer) and writes them all, at the full batch's
+      write index. ``paged_kernel=True`` (the default)
       attends through the paged-attention kernel, which reads the pages
       in place; ``paged_kernel=False`` takes the gather route, the
       kernel's plain version
@@ -285,7 +370,14 @@ def attn_apply(
       one row set a slot (``write_index`` from :func:`slot_write_index`).
       Attention is the plain per-slot causal one, as in the JAX package,
       which computes this route outside any kernel: the cache read as a
-      pool of B pages of T tokens, slot b's table ``[b]``.
+      pool of B pages of T tokens, slot b's table ``[b]``. With
+      ``geom.seq`` the rank holds one slice of the sequence dim: it writes
+      only the tokens whose positions it holds, scores its slice, and the
+      group's partial softmaxes combine (:func:`seq_split_attention`).
+      Over ``model`` (``decode_seq_shard``) the k/v projections are held
+      whole on every rank (the reference's ``replicate_kv``) and every KV
+      head is cached; the output keeps the rank's heads for the
+      row-parallel ``o``.
 
     On a ``mesh`` the rank runs its local q heads and their KV heads: the
     local k/v columns where they hold whole KV heads, else
@@ -308,7 +400,11 @@ def attn_apply(
     xm = parallel.copy_to_model(x, mesh)
     q = dense_apply(p["q"], xm, policy, site=f"{site}/q", mesh=mesh).reshape(b, s, -1, hd)
     kv_split = kv_heads_of_rank(cfg, mesh)
-    if kv_split is None:
+    if geom is not None and geom.seq is not None and geom.seq.axis == "model":
+        # every KV head on every model rank, from the replicated k/v kernels
+        k, v = (dense_apply(p[n], src, policy, site=f"{site}/{n}").reshape(b, t, -1, hd)
+                for n in ("k", "v"))
+    elif kv_split is None:
         srcm = xm if x_kv is None else parallel.copy_to_model(src, mesh)
         k = dense_apply(p["k"], srcm, policy, site=f"{site}/k", mesh=mesh).reshape(b, t, -1, hd)
         v = dense_apply(p["v"], srcm, policy, site=f"{site}/v", mesh=mesh).reshape(b, t, -1, hd)
@@ -328,10 +424,17 @@ def attn_apply(
         out = masked_attention(q, k, v, causal=causal and x_kv is None, q_chunk=cfg.attn_q_chunk)
     else:
         k_pool, v_pool = kv_cache["k"], kv_cache["v"]
-        rows, cols, dest = write_index
-        k_pool[dest] = k[rows, cols].to(k_pool.dtype)
-        v_pool[dest] = v[rows, cols].to(v_pool.dtype)
-        if block_tables is None:
+        rows, cols, dest = geom.write_index
+        kw, vw = k, v
+        if geom.gather is not None:
+            m = geom.gather
+            kw, vw = parallel.all_gather(torch.stack([k, v]), m.data_group, m.dp, dim=1)
+        k_pool[dest] = kw[rows, cols].to(k_pool.dtype)
+        v_pool[dest] = vw[rows, cols].to(v_pool.dtype)
+        qpos, block_tables = geom.qpos, geom.block_tables
+        if block_tables is None and geom.seq is not None:
+            out = seq_split_attention(q, k_pool, v_pool, qpos, geom.seq, mesh).to(q.dtype)
+        elif block_tables is None:
             tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
             out = paged_attention_ref(q, k_pool, v_pool, tables, qpos).to(q.dtype)
         elif paged_kernel:

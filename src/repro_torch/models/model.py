@@ -14,6 +14,8 @@ hybrid, encdec, vlm):
   * ``mesh_specs(cfg, params, mesh_shape)``     -> each leaf's fitted spec on a mesh
   * ``init_cache(cfg, batch, max_seq, dtype, device)``   -> the contiguous cache
   * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device, batch=)``
+  * ``cache_layout(cfg, mesh, n_slots, max_seq, ...)``  -> how a mesh rank holds a cache
+  * ``init_local_cache(cfg, layout, mesh, ...)``          -> that rank's cache
   * ``decode_slots(cfg, params, tokens, cache, slot_pos, token_count, ...)``
   * ``decode_step(cfg, params, tokens, cache, pos)``      -> lock-step decode
   * ``encode(cfg, params, frames)``             -> the encoder's output (encdec)
@@ -44,10 +46,16 @@ the loss, its gradients and the decode logits are the one-device model's
 (``dist/parallel.py``): attention and MLPs hold their heads and ``d_ff``
 columns, MoE layers their experts, SSM layers their heads, and the VLM's
 patch prefix and the encoder's output are replicated over ``model``.
+Serving on a ``data x model`` mesh (:func:`cache_layout`): a rank holds
+its slots' rows of the slot-major state (the step's tokens, contiguous
+K/V, SSM rows) where the data size divides the slots, the whole paged
+pool (replicated over ``data``), its KV heads, and the contiguous K/V's
+slice of the sequence where the fitted spec puts a mesh axis there.
 """
 from __future__ import annotations
 
 from collections.abc import Callable
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -58,6 +66,7 @@ from repro_torch.core import sparsity
 from repro_torch.core.policy import DENSE, PolicyLike, policy_for
 from repro_torch.dist import parallel
 from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import layers, ssm, transformer
 
 
@@ -155,14 +164,17 @@ class StackShape:
         self.dtype = parts[0].dtype
 
 
-def mesh_specs(cfg: ModelConfig, params, mesh_shape) -> dict[str, Any]:
+def mesh_specs(cfg: ModelConfig, params, mesh_shape, *, replicate_kv: bool = False
+               ) -> dict[str, Any]:
     """Each leaf's spec on a mesh of ``mesh_shape``, in the port's layout:
     ``dist/sharding.py``'s rules over the JAX layout (:func:`jax_layout`),
     fitted to the stacked shapes with ``fit_spec``, a per-layer tensor
     taking its stack's spec without the stack dim (every family: the
     decoder stack's period slots, the encoder's and the cross-decoder's
-    layer stacks)."""
-    fitted = shd.param_shardings(mesh_shape, jax_layout(cfg, params, StackShape))
+    layer stacks). ``replicate_kv``: the k/v kernels whole on every rank
+    (seq-sharded decode, ``cfg.decode_seq_shard``)."""
+    fitted = shd.param_shardings(mesh_shape, jax_layout(cfg, params, StackShape),
+                                 replicate_kv=replicate_kv)
 
     def unstack(sp):
         if isinstance(sp, dict):
@@ -201,24 +213,198 @@ def mesh_unported(cfg: ModelConfig, model: int) -> list[str]:
     return out
 
 
-def shard_cache(cfg: ModelConfig, cache, mesh):
-    """This rank's shard of a decode cache on a model mesh: an attention
-    layer's K/V keep the KV heads the rank's q heads read
-    (``layers.kv_range``: the reference's ``cache_specs``, ``model`` on the
-    KV-head dim, where the model size divides the KV heads; else the
-    layout of its ``replicate_kv``, each head on every rank that reads it,
-    since ``fit_spec``'s move of ``model`` to the head dim would need a
-    partial-sum all-reduce of the scores the kernel cannot do); an SSM
-    layer's rows keep the rank's heads (``ssm.shard_cache``). The page
-    axis of a paged pool is never split."""
-    lo, hi = layers.kv_range(cfg, mesh)
+_DIM_NAMES = {  # the stacked cache leaves' dims, for the layout's report
+    "kv": ("layer-stack", "slot", "sequence", "KV-head", "head"),
+    "paged": ("layer-stack", "page", "within-page", "KV-head", "head"),
+    "state": ("layer-stack", "slot", "head", "state", "head"),
+    "conv": ("layer-stack", "slot", "window", "channel"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """How one rank of a mesh holds a decode cache of ``n_slots`` slots
+    (:func:`cache_layout`): ``slots`` the ``[lo, hi)`` slot rows it
+    computes and holds (every slot unless they are split over ``data``);
+    ``paged`` the paged layout (a pool of pages, replicated over
+    ``data``); ``seq`` the mesh axis the contiguous K/V's sequence dim is
+    split over (``"model"`` or ``"data"``), or ``None``; ``whole`` the
+    leaves the fitted spec splits over a data axis on a dim the port's
+    step does not split, each with the reason the rank holds it whole."""
+
+    n_slots: int
+    slots: tuple[int, int]
+    paged: bool = False
+    seq: str | None = None
+    whole: tuple[str, ...] = ()
+
+    @property
+    def split(self) -> bool:
+        """Are the slots split over ``data``?"""
+        return self.slots != (0, self.n_slots)
+
+    def rows(self, a):
+        """This rank's rows of a per-slot array or tensor."""
+        return a[self.slots[0]:self.slots[1]] if self.split else a
+
+    def local_slot(self, slot: int) -> int | None:
+        """``slot``'s row in this rank's slot-major leaves, or ``None``
+        where another data rank holds it."""
+        lo, hi = self.slots
+        return slot - lo if lo <= slot < hi else None
+
+    def owner(self, slot: int) -> int:
+        """The data rank that holds ``slot``'s rows (slots split)."""
+        return slot // (self.slots[1] - self.slots[0])
+
+    def seq_split(self, mesh) -> layers.SeqSplit | None:
+        if self.seq == "model":
+            return layers.SeqSplit("model", mesh.model_group, mesh.model, mesh.model_rank)
+        if self.seq == "data":
+            return layers.SeqSplit("data", mesh.data_group, mesh.dp, mesh.data_rank)
+        return None
+
+    def row_mesh(self, mesh):
+        """The mesh a step over this rank's rows runs on: ``mesh``, or
+        where every data rank holds every slot its view without ``data``
+        (a row's MoE dispatch then stays within the rank)."""
+        if mesh is None or self.split or mesh.dp == 1:
+            return mesh
+        return mesh.model_only()
+
+
+def jax_cache_layout(cfg: ModelConfig, cache):
+    """The port's per-layer decode cache in the JAX package's layout: the
+    encoder-decoder's ``{"k", "v"}`` stacked over its layers, else a tuple
+    over the period's slots of each slot's layers stacked (shapes only)."""
+
+    def stacked(leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stacked([leaf[k] for leaf in leaves]) for k in leaves[0]}
+        return StackShape(leaves)
+
+    if cfg.family == "encdec":
+        return stacked(cache)
+    plen = len(transformer.period_pattern(cfg))
+    return tuple(stacked(cache[j::plen]) for j in range(plen))
+
+
+def _spec_leaves(tree, path=""):
+    """``(path, leaf name, spec)`` of a tree of cache specs."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_leaves(tree[k], f"{path}['{k}']")
+    elif isinstance(tree, (list, tuple)) and not isinstance(tree, shd.Spec):
+        for i, v in enumerate(tree):
+            yield from _spec_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, path.rsplit("'", 2)[-2], tree
+
+
+def cache_layout(cfg: ModelConfig, mesh, n_slots: int, max_seq: int, *, paged: bool = False,
+                 seq_shard: bool = False) -> CacheLayout:
+    """How a rank of ``mesh`` (``None``: one device) holds a decode cache
+    of ``n_slots`` slots of ``max_seq`` tokens, from the reference's
+    fitted ``cache_specs`` over the JAX layout:
+
+    * the slot-major state (the step's tokens, contiguous K/V, SSM rows)
+      splits its slot dim over the data axes where ``fit_spec`` keeps them
+      on the batch (the data size divides the slots); else every data
+      rank holds every slot;
+    * the paged pool keeps every page on every data rank (the page axis
+      replicated);
+    * where the spec puts a data axis (``long_500k``'s batch of 1) or,
+      with ``seq_shard``, ``model`` on the contiguous K/V's sequence dim,
+      that dim is split (:class:`~repro_torch.models.layers.SeqSplit`);
+    * a data axis the spec moves onto any other dim (mamba2's state at
+      batch 1: its layer stack) leaves that leaf whole on the rank, listed
+      in ``whole`` with the reason;
+    * the KV heads are the rank's q heads' (``layers.kv_range``), every
+      KV head with ``seq_shard``; an SSM layer's heads its own
+      (``ssm.local_heads``)."""
+    layout = CacheLayout(n_slots, (0, n_slots), paged)
+    if mesh is None:
+        return layout
+    shape = mesh.shape
+    dpax = dp_axes(shape)
+    baxis = dpax if len(dpax) > 1 else dpax[0]
+    if paged:
+        cache = init_paged_cache(cfg, 1, 1, device="meta", batch=n_slots)
+    else:
+        cache = init_cache(cfg, n_slots, max_seq, device="meta")
+    specs = shd.cache_specs(shape, jax_cache_layout(cfg, cache), seq_shard=seq_shard, paged=paged)
+    split = mesh.dp > 1 and shd.fit_spec(shd.Spec(baxis, None), (n_slots, 1), shape)[0] == baxis
+    seq, whole, has_kv = None, [], False
+    for path, name, spec in _spec_leaves(specs):
+        kind = "paged" if paged and name in ("k", "v") else "kv" if name in ("k", "v") else name
+        has_kv = has_kv or kind == "kv"
+        for i, e in enumerate(spec):
+            if kind == "kv" and i == 2 and (e == "model" and seq_shard or
+                                            e == baxis and mesh.dp > 1):
+                seq = "model" if e == "model" else "data"
+            elif (mesh.dp > 1 and e is not None and not (i == 1 and split)
+                  and set(e if isinstance(e, tuple) else (e,)) & set(dpax)):
+                whole.append(f"{path}: {e} on its {_DIM_NAMES[kind][i]} dim, which the port's "
+                             "step does not split; the rank holds the leaf whole")
+    if seq_shard and has_kv and seq != "model":
+        raise NotImplementedError(f"seq-sharded decode at {max_seq} tokens on a model mesh of "
+                                  f"{mesh.model}: the sequence dim is not split over model")
+    slots = (0, n_slots)
+    if split:
+        per = n_slots // mesh.dp
+        slots = (mesh.data_rank * per, (mesh.data_rank + 1) * per)
+    return CacheLayout(n_slots, slots, paged, seq, tuple(whole))
+
+
+def shard_cache(cfg: ModelConfig, cache, mesh, layout: CacheLayout):
+    """This rank's shard of a decode cache on a mesh: an attention layer's
+    K/V keep the KV heads the rank's q heads read (``layers.kv_range``: the
+    reference's ``cache_specs``, ``model`` on the KV-head dim, where the
+    model size divides the KV heads; else the layout of its
+    ``replicate_kv``, each head on every rank that reads it, since
+    ``fit_spec``'s move of ``model`` to the head dim would need a
+    partial-sum all-reduce of the scores the kernel cannot do), every KV
+    head under a ``model`` sequence split; an SSM layer's rows keep the
+    rank's heads (``ssm.shard_cache``); and by ``layout``
+    (:func:`cache_layout`) the rank's slot rows of the slot-major leaves
+    and its slice of the contiguous K/V's sequence. The page axis of a
+    paged pool is never split."""
+    seq = layout.seq_split(mesh)
+    lo, hi = (0, cfg.n_kv_heads) if seq is not None and seq.axis == "model" else \
+        layers.kv_range(cfg, mesh)
+
+    def kv(t):
+        if not layout.paged:
+            t = layout.rows(t)
+            if seq is not None:
+                n = t.shape[1] // seq.n
+                t = t[:, seq.index * n:(seq.index + 1) * n]
+        return t[:, :, lo:hi].contiguous()
+
     out = []
     for layer in cache:
         if "k" in layer:
-            out.append({k: t[:, :, lo:hi].contiguous() for k, t in layer.items()})
+            out.append({k: kv(t) for k, t in layer.items()})
         else:
-            out.append(ssm.shard_cache(cfg, layer, mesh))
+            out.append(ssm.shard_cache(cfg, layer, mesh, rows=slice(*layout.slots)))
     return out
+
+
+def init_local_cache(cfg: ModelConfig, layout: CacheLayout, mesh, *, max_seq: int = 0,
+                     n_blocks: int = 0, block_size: int = 0, dtype=None, device="cuda"):
+    """This rank's decode cache, zeros: contiguous (``max_seq`` tokens a
+    slot) or, with ``layout.paged``, a pool of ``n_blocks`` pages of
+    ``block_size``. The full cache is laid out on ``meta`` and sharded
+    there (:func:`shard_cache`), so only the rank's shard is allocated."""
+    if layout.paged:
+        full = init_paged_cache(cfg, n_blocks, block_size, dtype, device="meta",
+                                batch=layout.n_slots)
+    else:
+        full = init_cache(cfg, layout.n_slots, max_seq, dtype, device="meta")
+    if mesh is not None:
+        full = shard_cache(cfg, full, mesh, layout)
+    return [{k: torch.zeros(t.shape, dtype=t.dtype, device=device) for k, t in layer.items()}
+            for layer in full]
 
 
 def decode_params(cfg: ModelConfig, params, mesh):
@@ -233,9 +419,10 @@ def decode_params(cfg: ModelConfig, params, mesh):
     stacks = ("stack", "decoder", "encoder")
     for layer in [t for k in stacks if k in params for t in params[k]["layers"]]:
         leaves = [layer["ssm"]["in_proj"]] if "ssm" in layer else []
-        if split_kv:
+        if split_kv:  # shards only: under replicate_kv they are whole already
             leaves += [layer[r][n] for r in ("attn", "self", "cross") if r in layer
-                       for n in ("k", "v")]
+                       for n in ("k", "v")
+                       if layer[r][n]["w"].shape[-1] < cfg.n_kv_heads * cfg.head_dim]
         for p in leaves:
             p["w"] = parallel.all_gather(p["w"], mesh.model_group, mesh.model, dim=-1)
     return params
@@ -480,6 +667,7 @@ def decode_slots(
     all_logits: bool = False,
     spec_states: bool = False,
     mesh=None,
+    layout: CacheLayout | None = None,
 ):
     """Mixed prefill/decode step over independently positioned slots.
 
@@ -512,15 +700,48 @@ def decode_slots(
     the positions they are given; no patch prefix is fed, as in the JAX
     package's decode.
 
-    ``mesh``: a model mesh: ``params`` and the cache are this rank's
-    shards (its heads and KV heads, experts, SSM heads; ``enc_out`` is
-    replicated), and the logits are every vocabulary column,
-    all-gathered, the same on every rank.
+    ``mesh``: ``params`` and the cache are this rank's shards (its heads
+    and KV heads, experts, SSM heads; ``enc_out`` is replicated over
+    ``model``), and the logits are every vocabulary column, all-gathered,
+    the same on every model rank. ``layout`` (:func:`cache_layout`; a
+    ``data x model`` mesh): ``tokens``, ``slot_pos``, ``token_count``,
+    ``block_tables`` and ``enc_out`` are every slot's, the same on every
+    rank, and the rank computes its ``layout.slots`` rows of them; the
+    logits are those rows'. Where the slots are split the paged pool
+    stays the same on every data rank: the full batch's write index is
+    made here and each layer all-gathers the data ranks' new K/V rows.
     """
     b, c = tokens.shape
     ar = torch.arange(c, device=tokens.device)
     positions = slot_pos.long()[:, None] + ar[None, :]  # [B, C]
     valid = ar[None, :] < token_count.long()[:, None]  # [B, C]
+    place = None
+    if layout is not None and mesh is not None:
+        gather, write_index = None, None
+        kv = transformer.kv_layers(cache)
+        if block_tables is not None and layout.split and kv:
+            gather = mesh
+            write_index = layers.paged_write_index(block_tables, positions, valid,
+                                                   cache[kv[0]]["k"].shape[1])
+        place = layers.KvPlace(write_index, gather, layout.seq_split(mesh))
+        if layout.split:
+            tokens, positions, valid, token_count = (layout.rows(t) for t in
+                                                     (tokens, positions, valid, token_count))
+            if block_tables is not None:
+                block_tables = layout.rows(block_tables)
+            if enc_out is not None and enc_out.shape[0] == b:
+                enc_out = layout.rows(enc_out)
+        mesh = layout.row_mesh(mesh)
+    return _decode_rows(cfg, params, tokens, cache, positions, valid, token_count,
+                        enc_out=enc_out, block_tables=block_tables, paged_kernel=paged_kernel,
+                        all_logits=all_logits, spec_states=spec_states, mesh=mesh, place=place)
+
+
+def _decode_rows(cfg, params, tokens, cache, positions, valid, token_count, *, enc_out,
+                 block_tables, paged_kernel, all_logits, spec_states, mesh, place):
+    """:func:`decode_slots` over the rows given (their positions, valid
+    tokens and counts), the K/V placed by ``place``."""
+    b, c = tokens.shape
     x = layers.embed_apply(params["embed"], tokens, mesh)
     if cfg.family == "encdec":
         if enc_out is None:
@@ -528,13 +749,13 @@ def decode_slots(
         x, cache = transformer.cross_decoder_apply(
             params["decoder"], x, enc_out, cfg,
             positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
-            paged_kernel=paged_kernel, mesh=mesh,
+            paged_kernel=paged_kernel, mesh=mesh, place=place,
         )
     else:
         x, cache, _ = transformer.stack_apply(
             params["stack"], x, cfg,
             positions=positions, caches=cache, token_valid=valid, block_tables=block_tables,
-            paged_kernel=paged_kernel, spec_states=spec_states, mesh=mesh,
+            paged_kernel=paged_kernel, spec_states=spec_states, mesh=mesh, place=place,
         )
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if all_logits:
@@ -546,22 +767,37 @@ def decode_slots(
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, pos: int, *,
-                enc_out: torch.Tensor | None = None):
+                enc_out: torch.Tensor | None = None, mesh=None,
+                layout: CacheLayout | None = None):
     """One lock-step decode step over the contiguous cache: every row
     writes its ``S`` tokens at ``pos .. pos + S - 1``. The uniform-position
     case of :func:`decode_slots` (the JAX package writes it with one
     ``dynamic_update_slice``; the rows and the mask are the same).
     ``enc_out``: the rows' encoder outputs (encdec).
-    Returns (logits [B, V] at the last position, cache)."""
+    Returns (logits [B, V] at the last position, cache).
+
+    On a mesh (``layout`` from :func:`cache_layout`), ``tokens`` and
+    ``enc_out`` are this rank's rows (``layout.slots``) and the cache its
+    shard; with ``layout.seq`` the rank holds a slice of the sequence, and
+    the step writes the new token only on the rank that holds its
+    position."""
     b, s = tokens.shape
     kv = transformer.kv_layers(cache)
-    t = cache[kv[0]]["k"].shape[1] if kv else pos + s
+    seq = layout.seq_split(mesh) if layout is not None and mesh is not None else None
+    t = cache[kv[0]]["k"].shape[1] * (seq.n if seq is not None else 1) if kv else pos + s
     if pos + s > t:
         raise ValueError(f"decode_step writes positions {pos}..{pos + s - 1} past max_seq {t}")
     dev = tokens.device
-    slot_pos = torch.full((b,), pos, dtype=torch.int32, device=dev)
+    positions = pos + torch.arange(s, device=dev)[None, :].expand(b, s)
     count = torch.full((b,), s, dtype=torch.int32, device=dev)
-    return decode_slots(cfg, params, tokens, cache, slot_pos, count, enc_out=enc_out)
+    valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+    if layout is not None and mesh is not None:
+        place, mesh = layers.KvPlace(seq=seq), layout.row_mesh(mesh)
+    else:
+        place = None
+    return _decode_rows(cfg, params, tokens, cache, positions, valid, count, enc_out=enc_out,
+                        block_tables=None, paged_kernel=True, all_logits=False,
+                        spec_states=False, mesh=mesh, place=place)
 
 
 def commit_spec_cache(cache, keep: torch.Tensor):
@@ -616,30 +852,43 @@ def reset_paged(cache, slot_mask, page_mask) -> None:
     _zero_rows(cache, slot_mask, ("conv", "state"))
 
 
-def swap_out_slot(cache, slot: int, pages):
+def swap_out_slot(cache, slot: int, pages, *, layout: CacheLayout | None = None, mesh=None):
     """One slot's swappable state of a paged cache, per layer: the K/V of
     its ``pages`` (``[n_pages, bs, KV, hd]`` copies) or its SSM row
     (``conv`` / ``state`` copies), on the cache's device. The bundle plus
-    the slot's position restores the request's device state exactly."""
+    the slot's position restores the request's device state exactly.
+    Where ``layout`` splits the slots over ``data``, the owner's SSM rows
+    reach every data rank (:func:`~repro_torch.dist.parallel.from_data_rank`),
+    so the bundle is the same on each and can come back into a slot any
+    of them holds; the pool's pages are the same on every data rank."""
+    split = layout is not None and layout.split
+    row = layout.local_slot(slot) if split else slot
     out = []
     for layer in cache:
         if "k" in layer:
             idx = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=layer["k"].device)
             out.append({k: layer[k].index_select(0, idx) for k in ("k", "v")})
+        elif split:
+            out.append({k: parallel.from_data_rank(
+                t[row].clone() if row is not None else torch.zeros_like(t[0]), mesh,
+                layout.owner(slot)) for k, t in layer.items()})
         else:
             out.append({k: t[slot].clone() for k, t in layer.items()})
     return out
 
 
-def swap_in_slot(cache, data, slot: int, pages) -> None:
+def swap_in_slot(cache, data, slot: int, pages, *, layout: CacheLayout | None = None) -> None:
     """Write a :func:`swap_out_slot` bundle back into a paged cache, in
     place: K/V at the freshly allocated ``pages`` (the ids may differ from
     swap-out time: page contents are position-addressed within a page),
-    SSM rows at ``slot``."""
+    SSM rows at ``slot``, on the data rank that holds it (``layout``)."""
+    row = layout.local_slot(slot) if layout is not None and layout.split else slot
     for layer, saved in zip(cache, data, strict=True):
-        where = slot
+        where = row
         if "k" in layer:
             where = torch.as_tensor(np.asarray(pages), dtype=torch.long, device=layer["k"].device)
+        elif row is None:
+            continue
         for k, t in layer.items():
             t[where] = saved[k].to(device=t.device, dtype=t.dtype)
 

@@ -291,14 +291,15 @@ def ssm_apply(
     return out, new_cache
 
 
-def shard_cache(cfg, cache, mesh):
-    """This rank's rows of one SSM layer's decode cache on a model mesh:
-    its state heads (the reference's ``model`` on H) and its conv channels
-    (:func:`conv_channels`; the port's own layout, never checkpointed)."""
+def shard_cache(cfg, cache, mesh, rows: slice = slice(None)):
+    """This rank's part of one SSM layer's decode cache on a mesh: its
+    slot ``rows`` (the reference's batch over ``data``), its state heads
+    (``model`` on H) and its conv channels (:func:`conv_channels`; the
+    port's own layout, never checkpointed)."""
     lo, hi = local_heads(cfg, mesh)
     ch = conv_channels(cfg, lo, hi, device=cache["conv"].device)
-    return {"conv": cache["conv"].index_select(-1, ch).contiguous(),
-            "state": cache["state"][:, lo:hi].contiguous()}
+    return {"conv": cache["conv"][rows].index_select(-1, ch).contiguous(),
+            "state": cache["state"][rows, lo:hi].contiguous()}
 
 
 def ssm_cache_init(cfg, batch, dtype=torch.float32, device="cuda"):

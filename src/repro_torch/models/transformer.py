@@ -155,11 +155,9 @@ def _slot_apply(
     policy: PolicyLike,
     *,
     rope,
-    qpos=None,
+    geom=None,
     cache=None,
     token_valid=None,
-    block_tables=None,
-    write_index=None,
     paged_kernel=True,
     spec_states=False,
     mesh=None,
@@ -168,9 +166,8 @@ def _slot_apply(
     h = layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     if slot.mixer == "attn":
         out, new_cache = layers.attn_apply(
-            p["attn"], h, cfg, policy,
-            rope=rope, qpos=qpos, kv_cache=cache, block_tables=block_tables,
-            write_index=write_index, paged_kernel=paged_kernel, mesh=mesh,
+            p["attn"], h, cfg, policy, rope=rope, kv_cache=cache, geom=geom,
+            paged_kernel=paged_kernel, mesh=mesh,
         )
     else:
         out, new_cache = ssm.ssm_apply(
@@ -226,17 +223,29 @@ def kv_layers(caches) -> list[int]:
     return [li for li, c in enumerate(caches) if "k" in c]
 
 
-def _decode_geometry(cfg, caches, positions, token_valid, block_tables):
-    """What every attention layer of a decode step shares: the int32 query
-    positions, the RoPE angles and the K/V write index."""
+def _decode_geometry(cfg, caches, positions, token_valid, block_tables, place=None):
+    """What every attention layer of a decode step shares
+    (:class:`~repro_torch.models.layers.DecodeGeom`): the int32 query
+    positions, the RoPE angles and the K/V write index of the rows given,
+    their block tables, and the mesh placement ``place`` (a
+    :class:`~repro_torch.models.layers.KvPlace`: the full batch's write
+    index where the data ranks' rows are gathered into a replicated pool;
+    the contiguous cache's sequence split, whose rank writes only the
+    positions it holds)."""
+    place = place or layers.KvPlace()
     qpos = positions.to(torch.int32).contiguous()
     rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     rows = caches[kv_layers(caches)[0]]["k"].shape[1]
-    if block_tables is None:
-        write_index = layers.slot_write_index(positions, token_valid, rows)
+    if block_tables is not None:
+        write_index = place.write_index
+        if write_index is None:
+            write_index = layers.paged_write_index(block_tables, positions, token_valid, rows)
+    elif place.seq is not None:
+        write_index = layers.slot_write_index(positions, token_valid, rows * place.seq.n,
+                                              place.seq.index * rows, rows)
     else:
-        write_index = layers.paged_write_index(block_tables, positions, token_valid, rows)
-    return qpos, rope, write_index
+        write_index = layers.slot_write_index(positions, token_valid, rows)
+    return layers.DecodeGeom(qpos, rope, write_index, block_tables, place.gather, place.seq)
 
 
 def stack_apply(
@@ -252,13 +261,15 @@ def stack_apply(
     paged_kernel=True,
     spec_states=False,
     mesh=None,
+    place=None,
 ):
     """Run the stack. Returns (x, caches, aux), ``aux`` the MoE layers'
     load-balance losses summed over the layers. ``mesh``: the params are
     this rank's shards (attention and the MLP,
     :func:`repro_torch.models.layers.attn_apply`; the SSM's heads,
     :func:`repro_torch.models.ssm.ssm_apply`; the MoE's experts,
-    :func:`repro_torch.models.moe.moe_apply`), the caches its rows.
+    :func:`repro_torch.models.moe.moe_apply`), the caches its rows, and
+    ``place`` how its K/V lie over the mesh (:func:`_decode_geometry`).
 
     ``policy`` is a plain policy (every site) or a
     :class:`~repro_torch.core.policy.SitePolicies` table over
@@ -292,16 +303,15 @@ def stack_apply(
                                       mesh=mesh and mesh.scoped(f"layer_{li}/"))
             aux = aux + a
         return x, None, aux
-    qpos = rope = write_index = None
+    geom = None
     if kv_layers(caches):
-        qpos, rope, write_index = _decode_geometry(cfg, caches, positions, token_valid,
-                                                   block_tables)
+        geom = _decode_geometry(cfg, caches, positions, token_valid, block_tables, place)
     for li, p in enumerate(params["layers"]):
         x, caches[li], a = _slot_apply(
             p, x, cfg, slots[li], per_layer[li],
-            rope=rope, qpos=qpos, cache=caches[li], token_valid=token_valid,
-            block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
-            spec_states=spec_states, mesh=mesh and mesh.scoped(f"layer_{li}/"),
+            rope=geom and geom.rope, geom=geom, cache=caches[li], token_valid=token_valid,
+            paged_kernel=paged_kernel, spec_states=spec_states,
+            mesh=mesh and mesh.scoped(f"layer_{li}/"),
         )
         aux = aux + a
     return x, caches, aux
@@ -388,6 +398,7 @@ def cross_decoder_apply(
     block_tables=None,
     paged_kernel=True,
     mesh=None,
+    place=None,
 ):
     """Run the cross-decoder over ``x [B,S,d]`` and the encoder's output
     ``enc_out [B, enc_seq, d]``. Returns (x, caches).
@@ -405,18 +416,17 @@ def cross_decoder_apply(
     if caches is None:
         rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
                                   cfg.rope_theta)
-        qpos = write_index = None
+        geom = None
     else:
-        qpos, rope, write_index = _decode_geometry(cfg, caches, positions, token_valid,
-                                                   block_tables)
+        geom = _decode_geometry(cfg, caches, positions, token_valid, block_tables, place)
+        rope = geom.rope
     for li, (p, pol) in enumerate(zip(params["layers"], per_layer, strict=True)):
         m = mesh and mesh.scoped(f"layer_{li}/")
         with backward.scope(f"layer_{li}"):
             a, cache = layers.attn_apply(
                 p["self"], layers.rmsnorm_apply(p["norm1"], x, cfg.norm_eps), cfg, pol,
-                rope=rope, qpos=qpos, kv_cache=None if caches is None else caches[li],
-                block_tables=block_tables, write_index=write_index, paged_kernel=paged_kernel,
-                site="self", mesh=m,
+                rope=rope, kv_cache=None if caches is None else caches[li], geom=geom,
+                paged_kernel=paged_kernel, site="self", mesh=m,
             )
             if caches is not None:
                 caches[li] = cache

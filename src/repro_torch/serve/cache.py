@@ -73,7 +73,12 @@ class SlotCacheManager:
       max_seq: rows a slot (prompt + generation must fit).
       dtype: cache dtype (fp32 default, as in the JAX engine).
       device: where the cache lives.
-      mesh: a model mesh: the rank holds its KV heads (``lm.shard_cache``).
+      mesh: a ``data x model`` mesh: the rank holds its shard
+        (``lm.cache_layout``: its slots' rows where the data size divides
+        the slots, else every slot and, where the fitted spec puts
+        ``data`` there, its slice of the sequence; its KV heads). The
+        free list and the positions are every slot's, the same on every
+        rank.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq: int, *,
@@ -81,9 +86,9 @@ class SlotCacheManager:
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
-        self.cache = lm.init_cache(cfg, n_slots, max_seq, dtype=dtype, device=device)
-        if mesh is not None:
-            self.cache = lm.shard_cache(cfg, self.cache, mesh)
+        self.layout = lm.cache_layout(cfg, mesh, n_slots, max_seq)
+        self.cache = lm.init_local_cache(cfg, self.layout, mesh, max_seq=max_seq, dtype=dtype,
+                                         device=device)
         self.pos = np.zeros((n_slots,), np.int32)  # per-slot write offset
         self._free: list[int] = list(range(n_slots - 1, -1, -1))
 
@@ -115,7 +120,7 @@ class SlotCacheManager:
             return
         mask = np.zeros((self.n_slots,), bool)
         mask[slots] = True
-        lm.reset_slots(self.cache, mask)
+        lm.reset_slots(self.cache, self.layout.rows(mask))
 
 
 class NoFreeBlocks(RuntimeError):
@@ -191,10 +196,14 @@ class PagedCacheManager:
       n_blocks: pool size in pages.
       dtype: pool dtype (fp32 default, as in the JAX engine).
       device: where the pools live.
-      mesh: a model mesh: each rank's pool holds its KV heads
-        (``lm.shard_cache``); the block tables, the allocator and the
-        swaps' host bookkeeping are the same on every rank, and a swap
-        stages the rank's own heads.
+      mesh: a ``data x model`` mesh: each rank's pool holds its KV heads
+        and every page (the page axis replicated over ``data``: each step
+        writes every data rank's new rows into every replica, so the pools
+        stay equal), its SSM rows its slots' where the data size divides
+        the slots (``lm.cache_layout``); the block tables, the allocator
+        and the swaps' host bookkeeping are the same on every rank, and a
+        swap stages the rank's own heads, the slot's SSM rows taken from
+        the data rank that holds them.
     """
 
     def __init__(
@@ -217,10 +226,10 @@ class PagedCacheManager:
         self.block_size = block_size
         self.n_blocks = n_blocks
         self.blocks_per_slot = -(-max_seq // block_size)
-        self.cache = lm.init_paged_cache(cfg, n_blocks, block_size, dtype=dtype, device=device,
-                                         batch=n_slots)
-        if mesh is not None:
-            self.cache = lm.shard_cache(cfg, self.cache, mesh)
+        self.mesh = mesh
+        self.layout = lm.cache_layout(cfg, mesh, n_slots, max_seq, paged=True)
+        self.cache = lm.init_local_cache(cfg, self.layout, mesh, n_blocks=n_blocks,
+                                         block_size=block_size, dtype=dtype, device=device)
         self.pos = np.zeros((n_slots,), np.int32)
         self.block_tables = np.zeros((n_slots, self.blocks_per_slot), np.int32)
         self.n_table_blocks = np.zeros((n_slots,), np.int32)
@@ -321,7 +330,8 @@ class PagedCacheManager:
         pages = self.block_tables[slot, :n].copy()
         pos = int(self.pos[slot])
         data = [{k: _to_host(t) for k, t in layer.items()}
-                for layer in lm.swap_out_slot(self.cache, slot, pages)]
+                for layer in lm.swap_out_slot(self.cache, slot, pages, layout=self.layout,
+                                              mesh=self.mesh)]
         self.free(slot)
         return SwappedSlot(pos=pos, n_pages=n, data=data)
 
@@ -338,7 +348,7 @@ class PagedCacheManager:
         self.block_tables[slot, : swapped.n_pages] = pages
         self.n_table_blocks[slot] = swapped.n_pages
         self.pos[slot] = swapped.pos
-        lm.swap_in_slot(self.cache, swapped.data, slot, pages)
+        lm.swap_in_slot(self.cache, swapped.data, slot, pages, layout=self.layout)
         return True
 
     def _zero(self, *, slots: Sequence[int], pages: Sequence[int]) -> None:
@@ -348,7 +358,7 @@ class PagedCacheManager:
         slot_mask[list(slots)] = True
         page_mask = np.zeros((self.n_blocks,), bool)
         page_mask[list(pages)] = True
-        lm.reset_paged(self.cache, slot_mask, page_mask)
+        lm.reset_paged(self.cache, self.layout.rows(slot_mask), page_mask)
 
     def page_view(self, page: int) -> list[torch.Tensor]:
         """Host copies of one page's K and V at every attention layer

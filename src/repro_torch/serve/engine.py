@@ -70,8 +70,8 @@ from repro_torch.serve.cache import PagedCacheManager, SlotCacheManager
 from repro_torch.serve.scheduler import Scheduler, ServeConfig
 
 
-# what the engine (and the dry run, for a seq-sharded decode cell) answers seq_shard
-SEQ_SHARD_REFUSAL = "seq_shard decode: not ported yet (ROADMAP Queue 1 item 5)"
+# what the engine answers seq_shard (model on the paged pool's within-page dim)
+SEQ_SHARD_REFUSAL = "seq_shard paged decode: not ported yet (ROADMAP Queue 1 item 5)"
 
 
 class TokenEvent(NamedTuple):
@@ -98,14 +98,18 @@ class ContinuousBatchingEngine:
         (``spec_k > 0``), a model of the same family and vocabulary. Both
         default to the target model (self-drafting: every proposal the
         target would make).
-      mesh: a model mesh (``launch/mesh.py::Mesh``, any family):
-        ``params`` (and ``draft_params``) are this rank's shards, the
-        caches hold its KV heads and SSM heads, the encoder runs on the
-        mesh (its output replicated), and every rank runs the same engine
-        in lock-step (arrivals are step-indexed, and every rank draws each
-        token from the same full row of logits).
-      seq_shard: the reference's ``model`` on the KV caches' sequence dim
-        for long decode; not ported (raises).
+      mesh: a ``data x model`` mesh (``launch/mesh.py::Mesh``, any
+        family): ``params`` (and ``draft_params``) are this rank's
+        shards, the caches hold its KV heads and SSM heads and, where the
+        data size divides the slots, its slots' rows (the paged pool every
+        page, the same on every data rank); the encoder runs on the model
+        mesh (its output replicated, every slot's row on every rank), and
+        every rank runs the same engine in lock-step: arrivals are
+        step-indexed, every rank draws each of its slots' tokens from the
+        same full row of logits, and each step's tokens are all-gathered
+        over ``data``.
+      seq_shard: the reference's ``model`` on the paged pool's
+        within-page dim; not ported (raises; no CLI asks for it).
     """
 
     def __init__(
@@ -143,7 +147,8 @@ class ContinuousBatchingEngine:
         self.scheduler = Scheduler(serve_cfg)
         self._spec = serve_cfg.spec_k > 0
         self._step_fn = steps_lib.make_slot_step(
-            cfg, paged_kernel=serve_cfg.attn_kernel, spec=self._spec, mesh=mesh
+            cfg, paged_kernel=serve_cfg.attn_kernel, spec=self._spec, mesh=mesh,
+            layout=self.slots.layout,
         )
         # --- speculative drafter plane (spec_k > 0) ---
         # Its own contiguous rows, slot ids mirroring the target's, sized
@@ -161,7 +166,8 @@ class ContinuousBatchingEngine:
                 self.draft_cfg, serve_cfg.max_slots, serve_cfg.max_seq + serve_cfg.spec_k,
                 dtype=cache_dtype, device=self.device, mesh=mesh,
             )
-            self._draft_step_fn = steps_lib.make_slot_step(self.draft_cfg, mesh=mesh)
+            self._draft_step_fn = steps_lib.make_slot_step(self.draft_cfg, mesh=mesh,
+                                                           layout=self._draft.layout)
             # committed tokens (prompt + generated) the drafter has
             # consumed per slot; 0 forces a full catch-up prefill
             self._draft_sync = np.zeros((serve_cfg.max_slots,), np.int64)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import parallel
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model as lm
 from repro_torch.serve.request import SamplingParams
@@ -37,11 +38,20 @@ def generate_lockstep(
     cache_dtype=torch.float32,
     sampling: Sequence[SamplingParams] | None = None,
     device="cuda",
+    mesh=None,
 ) -> dict[str, object]:
     """Lock-step decode of one static batch (greedy by default;
     ``sampling``, one :class:`SamplingParams` a request, samples through
     the engine's per-position lanes). An encdec batch needs ``frames``,
     encoded once before the first step.
+
+    On a ``data x model`` mesh (``params`` the rank's serving shards) the
+    rank runs :func:`~repro_torch.launch.steps.make_serve_step` over its
+    rows and shard of the cache (``lm.cache_layout``, with the sequence
+    split over ``model`` under ``cfg.decode_seq_shard``, or over ``data``
+    where the batch cannot take it), and the generated tokens are
+    all-gathered over ``data`` once at the end: every rank returns every
+    request's.
 
     Returns a dict with ``tokens`` (per-request arrays, each cut to its
     gen_len), ``steps`` (model invocations: P-1 teacher steps +
@@ -57,26 +67,30 @@ def generate_lockstep(
     if p + max_gen - 1 > max_seq:
         raise ValueError(f"prompt+generation ({p + max_gen - 1}) exceeds max_seq {max_seq}")
 
-    serve_step = steps_lib.make_serve_step(cfg)
+    layout = lm.cache_layout(cfg, mesh, b, max_seq, seq_shard=cfg.decode_seq_shard)
+    serve_step = steps_lib.make_serve_step(cfg, mesh=mesh, layout=layout)
+    rows = layout.rows(prompts)  # this rank's requests
     state = {
-        "tokens": torch.from_numpy(prompts[:, :1].copy()).to(device),
+        "tokens": torch.from_numpy(rows[:, :1].copy()).to(device),
         "pos": 0,
-        "cache": lm.init_cache(cfg, b, max_seq, dtype=cache_dtype, device=device),
+        "cache": lm.init_local_cache(cfg, layout, mesh, max_seq=max_seq, dtype=cache_dtype,
+                                     device=device),
     }
     if sampling is not None:
         sampling = list(sampling)
         if len(sampling) != b:
             raise ValueError(f"sampling has {len(sampling)} entries for batch {b}")
-        state.update(steps_lib.sampling_state(sampling, device))
+        state.update(steps_lib.sampling_state(layout.rows(sampling), device))
     if cfg.family == "encdec":
         if frames is None:
             raise ValueError("encdec lock-step needs frames")
-        state["enc_out"] = lm.encode_frames(cfg, params, frames, device)
+        state["enc_out"] = lm.encode_frames(cfg, params, layout.rows(np.asarray(frames)), device,
+                                            mesh=mesh)
 
     t0 = time.perf_counter()
     for t in range(1, p):
         state = serve_step(params, state)
-        state["tokens"] = torch.from_numpy(prompts[:, t : t + 1].copy()).to(device)  # teacher-forced
+        state["tokens"] = torch.from_numpy(rows[:, t : t + 1].copy()).to(device)  # teacher-forced
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prefill_s = time.perf_counter() - t0
@@ -88,7 +102,9 @@ def generate_lockstep(
         generated.append(state["tokens"][:, 0].cpu().numpy())
     decode_s = time.perf_counter() - t0
 
-    gen = np.stack(generated, axis=1)  # [B, max_gen]
+    gen = np.stack(generated, axis=1)  # [B, max_gen] (this rank's rows of B)
+    if layout.split:
+        gen = parallel.gather_ids_over_data(torch.from_numpy(gen).to(device), mesh).cpu().numpy()
     return {
         "tokens": [gen[i, : gen_lens[i]] for i in range(b)],
         "steps": (p - 1) + max_gen,

@@ -249,17 +249,13 @@ def test_train_cli_refuses(argv, what):
     (["--model-mesh", "2", "--arch", "mamba2-1.3b"], "ssm family"),
 ])
 def test_serve_cli_refuses(argv, what):
-    """``--data-mesh`` serving and the lock-step engine on a mesh still
-    raise, naming their ROADMAP item; a model mesh that does not divide the
-    KV heads (reduced qwen2.5-3b's 2 at model 4: each rank caches the KV
-    head its q head reads) and the SSM family serve: the same command line
-    (a short run of it) prints the one-device CLI's tokens."""
+    """Nothing of these is refused any more: ``--data-mesh`` serving (the
+    slots over ``data``, the page pool replicated), the lock-step engine
+    on a mesh, a model mesh that does not divide the KV heads (reduced
+    qwen2.5-3b's 2 at model 4: each rank caches the KV head its q head
+    reads) and the SSM family serve: the same command line (a short run of
+    it) prints the one-device CLI's tokens."""
     base = ["--device", "cpu", "--reduced", *argv]
-    if what in ("--data-mesh", "lock-step"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") as e:
-            tserve.run(tserve.build_parser().parse_args(base))
-        assert what in str(e.value)
-        return
     one = tserve.run(tserve.build_parser().parse_args(
         ["--device", "cpu", "--reduced", *argv[2:], *SHORT_SERVE]))["generated"]
     got = tserve.run(tserve.build_parser().parse_args(base + SHORT_SERVE), timeout_s=TIMEOUT_S)

@@ -215,16 +215,12 @@ def test_engine_refuses_unported_families(family):
 
 @pytest.mark.parametrize("mesh", [("--data-mesh", "2"), ("--model-mesh", "4")])
 def test_cli_refuses_meshes(mesh):
-    """The mesh serving still refuses, a data mesh; a model mesh that does
-    not divide the reduced config's 2 KV heads serves (each of the 4 ranks
-    caches the KV head its q head reads), and a short run of it prints the
-    one-device CLI's tokens (a model mesh of 2 against the JAX engine:
-    ``tests/test_torch_mesh_serve.py``)."""
-    args = tserve.build_parser().parse_args(["--reduced", "--device", "cpu", *mesh])
-    if mesh[0] == "--data-mesh":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tserve.run(args)
-        return
+    """No mesh is refused here any more: a data mesh (the slots split over
+    it, the page pool replicated) and a model mesh that does not divide
+    the reduced config's 2 KV heads (each of the 4 ranks caches the KV
+    head its q head reads) serve, and a short run of each prints the
+    one-device CLI's tokens (the JAX engine's on 2x1 and 2x2:
+    ``tests/test_torch_mesh_data_serve.py``)."""
     short = ["--reduced", "--device", "cpu", "--batch", "2", "--requests", "3", "--prompt-len",
              "8", "--gen", "6", "--prefill-chunk", "4", "--block-size", "4"]
     one = tserve.run(tserve.build_parser().parse_args(short))["generated"]

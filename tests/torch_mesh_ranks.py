@@ -458,3 +458,125 @@ def counted_step(mesh, arch, policy, batch, seq):
     every = [None] * mesh.world
     dist.all_gather_object(every, mine)
     return every
+
+
+def _serve_params(mesh, cfg, tree):
+    """This rank's serving shards of the JAX init ``tree`` (k/v whole under
+    ``cfg.decode_seq_shard``), as the serving CLI makes them."""
+    p = tlm.params_from_jax(cfg, tree, device="cpu")
+    specs = tlm.mesh_specs(cfg, p, mesh.shape, replicate_kv=cfg.decode_seq_shard)
+    return tlm.decode_params(cfg, shd.shard_tree(p, specs, mesh), mesh)
+
+
+def data_serve_cases(mesh, arch, tree, dtree, modes, max_seq):
+    """The engine on a ``data x model`` mesh, once a mode (``modes`` as
+    :func:`serve_cases` takes them): ``{name: (streams, stats, every rank's
+    paged_attention launches, every rank's swapped bytes, whether every
+    rank's streams are rank 0's, whether every data rank's pools equal
+    this model rank's after every step, the (swap-out, swap-in) slot pairs
+    of its swaps)}``. A pool's bits are compared through a checksum a
+    step (``serve.pool_checksum``)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve
+    from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, poisson_workload
+    from repro_torch.serve.cache import PagedCacheManager
+
+    cfg = get_config(arch).reduced()
+    dcfg = cfg.reduced(n_layers=2 if cfg.attn_every else 1)
+    params = _serve_params(mesh, cfg, tree)
+    dparams = None if dtree is None else _serve_params(mesh, dcfg, dtree)
+    out = {}
+    for name, (wkw, skw, draft, mixed) in modes.items():
+        kw = dict(draft_cfg=dcfg, draft_params=dparams) if draft else {}
+        eng = ContinuousBatchingEngine(cfg, params, ServeConfig(max_seq=max_seq, prefill_chunk=4,
+                                                                **skw),
+                                       device="cpu", mesh=mesh, **kw)
+        reqs = poisson_workload(cfg, **wkw)
+        if mixed:
+            for r in reqs[::2]:
+                r.sampling = type(r.sampling)()
+        for r in reqs:
+            eng.submit(r)
+        swaps, staged = [], {}
+        if isinstance(eng.slots, PagedCacheManager):
+            mgr, out_fn, in_fn = eng.slots, eng.slots.swap_out, eng.slots.swap_in
+
+            def swap_out(slot, out_fn=out_fn):
+                bundle = out_fn(slot)
+                staged[id(bundle)] = slot
+                return bundle
+
+            def swap_in(slot, bundle, in_fn=in_fn):
+                swaps.append((staged[id(bundle)], slot))
+                return in_fn(slot, bundle)
+
+            mgr.swap_out, mgr.swap_in = swap_out, swap_in
+        before = pa.launches
+        sums = []
+        while eng.waiting or eng.by_slot:
+            eng.run(max_ticks=1)
+            if isinstance(eng.slots, PagedCacheManager):
+                sums.append(serve.pool_checksum(eng.slots.cache))
+        streams = {rid: list(map(int, toks)) for rid, toks in eng.run().items()}
+        stats = eng.stats()
+        every = [None] * mesh.world
+        dist.all_gather_object(every, (streams, pa.launches - before, stats["swapped_bytes"],
+                                       mesh.model_rank, sums))
+        pools_equal = all(s == sums for _, _, _, r, s in every if r == mesh.model_rank)
+        out[name] = (streams, stats, [n for _, n, _, _, _ in every],
+                     [b for _, _, b, _, _ in every], all(s == streams for s, *_ in every),
+                     pools_equal, swaps)
+    return out
+
+
+def lockstep_cases(mesh, arch, tree, cases, max_seq):
+    """The lock-step decode on this mesh, once a case (``cases[name] =
+    (prompts [B, P], gen, config overrides)``): teacher-forced through
+    ``model.decode_step``, then greedy, every step's logits of every row
+    (gathered over ``data``), and ``generate_lockstep``'s tokens (the
+    serving CLI's lock-step engine). Returns ``{name: (logits [steps, B,
+    V], tokens [B, gen], the layout's (slots, seq, whole))}``."""
+    import numpy as np
+
+    from repro_torch.serve import generate_lockstep
+
+    base = get_config(arch).reduced()
+    out = {}
+    for name, (prompts, gen, overrides) in cases.items():
+        cfg = dataclasses.replace(base, **overrides)
+        params = _serve_params(mesh, cfg, tree)
+        b, p = prompts.shape
+        layout = tlm.cache_layout(cfg, mesh, b, max_seq, seq_shard=cfg.decode_seq_shard)
+        cache = tlm.init_local_cache(cfg, layout, mesh, max_seq=max_seq, dtype=torch.float32,
+                                     device="cpu")
+        rows = layout.rows(prompts)
+        tok = torch.from_numpy(rows[:, :1].copy())
+        logits = []
+        with torch.no_grad():
+            for t in range(p + gen - 1):
+                lg, cache = tlm.decode_step(cfg, params, tok, cache, t, mesh=mesh, layout=layout)
+                if layout.split:
+                    lg = parallel.gather_ids_over_data(lg, mesh)
+                logits.append(lg.numpy())
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                nxt = layout.rows(nxt) if layout.split else nxt
+                tok = (torch.from_numpy(rows[:, t + 1:t + 2].copy()) if t + 1 < p
+                       else nxt[:, None])
+            res = generate_lockstep(cfg, params, prompts, [gen] * b, max_seq=max_seq,
+                                    device="cpu", mesh=mesh)
+        out[name] = (np.stack(logits), np.stack(res["tokens"]),
+                     (layout.slots, layout.seq, layout.whole))
+    return out
+
+
+def serve_cli_rank(mesh, tree, argv):
+    """The serving CLI's rank body on this mesh with the JAX init ``tree``'s
+    shards as its params: the generated tokens."""
+    from repro_torch.launch import serve
+
+    cfg = get_config(ARCH).reduced()
+    args = serve.build_parser().parse_args(argv)
+    return serve.serve_rank(mesh, args, cfg, params=_serve_params(mesh, cfg, tree))[
+        "generated"].tolist()
