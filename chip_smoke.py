@@ -76,7 +76,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    full width; every request must get exactly 32 tokens in the
    vocabulary, and the kernel must have launched once per layer per step;
    then ``serve_features_phase``, the rest of serving at full width and
-   12 of the 36 layers (their bf16 params), then with an fp32 copy: the
+   6 of the 36 layers (their bf16 params), then with an fp32 copy: the
    requests sampled (temperature 0.8, top-k 50, top-p 0.95) through the paged
    engine, through a 24-page pool (swap preemptions), speculating 4
    tokens self-drafted and with a full-width 4-layer drafter, through the
@@ -160,8 +160,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    4, no other kernel, no operand repacked; then a profile of one dense
    and one sparse step, in which the bf16 tensor-core kernel carries all
    504 ``matmul`` launches of the sparse step and the SIMT one none;
-   then, on the profile's params and Adam state cut to 12 layers (PR 23:
-   room for the mesh phases), ``[tp-lm]``: each projection's kept
+   then, on the profile's params and Adam state cut to 6 layers (room
+   for the mesh phases), ``[tp-lm]``: each projection's kept
    channels under 16 shards against global selection with
    ``dense_backward_contraction_bounds``, 4 timed
    ``make_train_step`` steps and a profile of ``ssprop_tp`` and of
@@ -190,7 +190,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    on qwen2.5-3b at full width, depth 4, fp32 with TF32 off, B=8 S=128,
    ``paper_default(0.8)`` with ``--use-pallas``, 3 steps (dense, sparse,
    sparse) at 1x1 in this process, and ``serve.run`` at full width,
-   depth 12 of 36, fp32 and bf16; then one spawn of two rank processes on the card over
+   depth 6 of 36, fp32 and bf16; then one spawn of two rank processes on the card over
    gloo runs the training CLI's rank body on a 1x2 and a 2x1 mesh: losses
    within 1e-4 relative of 1x1, the share of (step, site) kept sets equal
    to 1x1's, each rank's ``matmul`` launches equal to
@@ -200,9 +200,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    the collectives' calls and bytes a step, their ms from a second run
    with each synced), the warm-up step's products checked alike and the
    row-parallel ``layer_0/attn/o`` dY equal bit for bit on both model
-   ranks; then the serving CLI's rank body at full width, depth 12, on a
+   ranks; then the serving CLI's rank body at full width, depth 6, on a
    model mesh of 2 (the serve phase's 8 requests), fp32 and bf16:
-   ``paged_attention`` 12 launches a step on each rank, the fp32 share of
+   ``paged_attention`` 6 launches a step on each rank, the fp32 share of
    tokens equal to the 1x1 fp32 run's at least 0.9 (bf16's against the
    1x1 bf16 run's, printed), tokens/s and p50/p99; then, in the same
    spawn (``[mesh-data-serve]``), the fp32 config on ``--data-mesh 2``
@@ -214,7 +214,14 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    ``decode_seq_shard`` (the sequence over ``model``), each share at
    least 0.9 against a 1x1 fp32 paged run at that depth; and one lock-step
    decode step at 1x2 and 2x1 counted (each rank's param and cache bytes,
-   the collectives' calls and bytes);
+   the collectives' calls and bytes); then (``[mesh-seq]``) the
+   training CLI's rank body on 2x1 at depth 2, B=3 S=128, a batch
+   ``--data-mesh 2`` does not divide: ``data`` moves to the sequence (64 positions a rank,
+   the K/V all-gathered over ``data``), beside a 1x1 run at the same batch
+   in this process: losses within 1e-4 relative, the first sparse step's
+   kept sets equal at every site, each rank's ``matmul`` launches (counted
+   from 0 around the run) equal to the launch table's, every one held to
+   the plain version, the sequence split's collectives a step;
 16. SSM training: the loss and every gradient leaf of one sparse step of
    mamba2-1.3b at full width and depth 4 (fp32, B=2, S=512) through
    ``matmul``, the gather route and the mask oracle, the same kept
@@ -223,7 +230,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    chunks) for 8 epoch-bar steps: every loss finite, ``matmul`` launched
    the launch table's 192 times 4, dense and sparse step medians,
    tokens/s and peak memory;
-17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 8, serves 8
+17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 4, serves 8
    sampled requests (prompt 32, gen 32, 4 slots) through the paged engine, a
    10-page pool (small enough to swap), self-drafted speculation (k=4), the
    contiguous engine and the lock-step baseline, bf16 and an fp32 copy;
@@ -247,7 +254,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    launched the launch table's count (2 x experts x products on the
    expert sites), each MoE layer's ``aux_loss`` and ``dropped`` printed;
 20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width,
-   depth cut to 6 encoder + 6 decoder layers of 32 + 32 (d 1280, vocab
+   depth cut to 4 encoder + 4 decoder layers of 32 + 32 (d 1280, vocab
    51866), 8
    sampled Poisson requests, each with its ``[1500, 1280]`` frames from
    the workload (prompt 16, gen 64, 4 slots, 16-token pages) through the
@@ -259,7 +266,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    the shares of tokens equal to the paged kernel run's (fp32 at least
    0.9); a profile of a decode and a mixed step;
 21. VLM serving (``[vlm-serve]``): paligemma-3b at full width, depth cut
-   18 -> 6 (d 2048, d_ff 16384, vocab 257216), the same runs (prompt
+   18 -> 4 (d 2048, d_ff 16384, vocab 257216), the same runs (prompt
    128, gen 32, ``max_seq`` with room for the 256 patches, a 24-page
    pool), ``paged_attention`` at D=256;
 22. encdec and VLM training (``[encdec-kernels]``, ``[vlm-kernels]``,
@@ -291,12 +298,16 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    body on ``--model-mesh 2`` (4 Poisson requests, prompt 16, gen 16):
    kimi-k2 at full width and depth 1 in bf16 (192 experts and 4 KV heads
    a rank; its 1x1 tokens from ``[moe-serve]``'s params, freed before the
-   spawn), mamba2 at depth 8, whisper at 6 + 6 and paligemma at depth 6
+   spawn), mamba2 at depth 4, whisper at 4 + 4 and paligemma at depth 4
    in fp32 (its one KV head cached on both ranks): each rank's
    ``paged_attention`` launches (an attention layer a step), the fp32
    shares of tokens equal to the 1x1 runs' at least 0.9 (kimi-k2's bf16
    share printed), tokens/s, p50/p99 step and the collectives' calls and
-   bytes a step;
+   bytes a step; then ``[mesh-seq]`` in the same spawn: mamba2 (depth 4,
+   B=1 S=512: one 256-token SSD chunk a rank, the conv's halo and the
+   carried state passed between the ranks) and the reduced kimi-k2, llama4
+   and jamba at ``moe_dp_groups`` 0 and 2 (B=3 S=64) on 2x1, each beside
+   its 1x1 run, held as in 15c;
 23b. the program auditor on the card (``[audit]``): every kernel
    launch this process made (each distinct set of a launch's integer
    arguments, recorded from the build on by
@@ -325,7 +336,11 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    lock-step decode step (depth 2, fp32, B=4, 160 tokens) at 1x2 and
    2x1 on the fake group: each rank's param and cache bytes and the
    collectives' calls and bytes equal what the card's ranks recorded;
-   then qwen2.5-3b x ``train_4k`` and x ``decode_32k`` on 16x16: each
+   ``[mesh-seq]``'s qwen2.5-3b run on the fake group: the sequence
+   split's collectives a step equal rank 0's on the card; qwen2.5-3b x
+   ``train_tight`` at full width and depth as rank 0 of 16x16 and
+   2x16x16: its block ``[8, 256]`` / ``[4, 256]``, eager peak and
+   collectives; then qwen2.5-3b x ``train_4k`` and x ``decode_32k`` on 16x16: each
    rank's argument bytes beside ``torch.cuda.mem_get_info()``'s total,
    and ``decode_32k``'s step run on the fake group (its eager peak), with
    the card's name and power limit;
@@ -341,6 +356,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    of ``[mesh-train]`` (``mesh_train``; ``paged_attention``'s
    ``mesh_serve``, and ``mesh_data_serve`` the ``--data-mesh 2`` run's)
    and of ``[mesh-families]`` (``mesh_families``, the 1x1
+   runs' and every rank's) and of ``[mesh-seq]`` (``mesh_seq``, the 1x1
    runs' and every rank's), each in
    ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
@@ -383,9 +399,9 @@ TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summatio
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
 LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
 LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
-# [serve-features]: the serving modes at 12 of qwen2.5-3b's 36 layers (the
+# [serve-features]: the serving modes at 6 of qwen2.5-3b's 36 layers (the
 # [serve] main path runs them all); the script must end well inside 1200 s
-SERVE_FEATURES_DEPTH = 12
+SERVE_FEATURES_DEPTH = 6
 # the paper's CelebA generation task (configs/paper.py GENERATION["celeba"]),
 # the UNet at its full width; 32-channel blocks, so blocks really drop
 DDPM_BATCH, DDPM_IMAGE, DDPM_T = 128, (3, 64, 64), 1000
@@ -2114,7 +2130,7 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
 # ----------------------------------------------------------------------
 
 TP_SHARDS = 16  # the production mesh's model axis (launch/mesh.py)
-TP_DEPTH = 12  # [tp-lm]'s timed steps: 36 layers cut to 12, room for the mesh phases
+TP_DEPTH = 6  # [tp-lm]'s timed steps: 36 layers cut to 6, room for the mesh phases
 TP_STEPS = 4  # timed steps a policy, after a warm-up
 COMPRESS_RATIO = 0.01
 
@@ -2511,11 +2527,17 @@ MESH_LOSS_TOL = 1e-4  # fp32, TF32 off: summation order only
 MESH_TIMEOUT_S = 300  # one mesh run, spawn to exit
 MESH_PROBE = "layer_0/attn/o"  # the row-parallel site whose dY must agree bit for bit
 MESH_SERVE_MODEL = 2  # [mesh-serve]: 8 q heads on 1 KV head a rank
-MESH_SERVE_DEPTH = 12  # [mesh-serve]: 36 layers cut to 12 (the script must end inside 1200 s)
+MESH_SERVE_DEPTH = 6  # [mesh-serve]: 36 layers cut to 6 (the script must end inside 1200 s)
 MESH_DATA = 2  # [mesh-data-serve]: --data-mesh 2, the serve phase's 4 slots 2 a rank
 # [mesh-data-serve]'s lock-step runs: name -> (data, model, decode_seq_shard)
 MESH_LOCK = {"1x2": (1, 2, False), "2x1": (2, 1, False), "1x2 seq-model": (1, 2, True)}
 MESH_LOCK_DEPTH = 2  # their depth (and the counted step's): 318 gloo-bound steps a run
+# [mesh-seq]: a global batch --data-mesh 2 does not divide, so data moves to
+# the sequence dim as the reference's fit_spec places it; qwen2.5-3b at full
+# width, B=3 S=128 (64 positions a rank), 36 layers cut to 2 (the script's
+# last phase stays under ~800 s)
+MESH_SEQ_LM = (3, 128)
+MESH_SEQ_DEPTH = 2
 
 
 def _mesh_train_argv(data, model):
@@ -2525,8 +2547,101 @@ def _mesh_train_argv(data, model):
             "--data-mesh", str(data), "--model-mesh", str(model)]
 
 
+def mesh_seq_ranks(mesh21, cases, checker, free):
+    """``[mesh-seq]`` in a rank of a two-rank spawn: the training CLI's rank
+    body on the 2x1 mesh ``mesh21`` once a case of ``cases`` (``{name:
+    (argv, cfg)}``, a global batch ``--data-mesh 2`` does not divide: each
+    rank steps its block of the sequence, ``models/model.py::batch_layout``),
+    the kept channels collected; the kernels' counts set to 0 just before
+    each run and read just after it, every ``matmul`` launch held to its
+    plain version on its own operands (``checker(f"seq {name}")``), and the
+    collectives the run made (``dist/parallel.py::counters``, the sequence
+    split's apart). Returns ``({name: the CLI's dict with "counted" and
+    "collectives"}, {part: wall s})``."""
+    from repro_torch.dist import parallel
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.launch import train
+
+    out, walls = {}, {}
+    for name, (argv, cfg) in cases.items():
+        t0 = time.perf_counter()
+        for k in gm.launches:
+            gm.launches[k] = 0
+        parallel.counters.update(calls=0, bytes=0, s=0.0, seq_calls=0, seq_bytes=0)
+        with gm.observe_matmul(checker(f"seq {name}")):
+            res = train.run_rank(mesh21, train.build_parser().parse_args(argv), cfg, ("kept",))
+        out[name] = dict(res, counted=dict(gm.launches), collectives=dict(parallel.counters))
+        free()
+        walls[f"seq {name}"] = time.perf_counter() - t0
+        if mesh21.rank == 0:
+            print(f"[mesh-seq] rank 0: {name} 2x1 in {walls[f'seq {name}']:.1f} s", flush=True)
+    return out, walls
+
+
+def mesh_seq_report(one, got, every, one_launches, card):
+    """Checks and prints ``[mesh-seq]``: each 2x1 run of ``got`` against its
+    1x1 run in ``one`` (same batch, depth and seed): the losses within
+    ``MESH_LOSS_TOL``, the kept channels of every site at the first sparse
+    step equal, each rank's ``matmul`` launches equal to the launch table's
+    (rank 0's counted from 0 around the run too) and no other kernel, every
+    one of them checked against the plain version within ``KERNEL_TOL``
+    (``every``: each rank's ``checks``), and the sequence split's
+    collectives a step. Returns (``matmul`` launches: the 1x1 runs'
+    ``one_launches`` and every rank's; the worst product error; a
+    summary)."""
+    launches, worst, summary = one_launches, 0.0, {}
+    for name, out in got.items():
+        ref = one[name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["history"], ref["history"], strict=True))
+        first = min(st for st, v in ref["kept"].items() if v)  # the first sparse step
+        sites = ref["kept"][first]
+        differ = sorted(s for s, v in sites.items() if out["kept"][first].get(s) != v)
+        differ += sorted(set(out["kept"][first]) - set(sites))
+        by_rank = [r["matmul"] for r in out["launches_by_rank"]]
+        table = [r["matmul"] for r in out["launch_table_by_rank"]]
+        checked = []
+        for r in every:
+            mine = [c for k, c in r["checks"].items()
+                    if k == f"seq {name}" or k.startswith(f"seq {name} ")]
+            checked.append((sum(c[0] for c in mine), max((c[1] for c in mine), default=0.0),
+                            next((c[3] for c in mine if c[3] is not None), None)))
+        if not all(math.isfinite(v) for v in out["history"]) or rel > MESH_LOSS_TOL:
+            raise AssertionError(f"[mesh-seq] {name} losses {out['history']} vs 1x1 "
+                                 f"{ref['history']}: rel {rel:.3g} > {MESH_LOSS_TOL}")
+        if differ:
+            raise AssertionError(f"[mesh-seq] {name}: the first sparse step's kept sets differ "
+                                 f"from 1x1's at {differ}")
+        others = sum(v for r in out["launches_by_rank"] for k, v in r.items() if k != "matmul")
+        if (by_rank != table or not all(by_rank) or others
+                or out["counted"]["matmul"] != by_rank[0]):
+            raise AssertionError(f"[mesh-seq] {name} launches {out['launches_by_rank']} (rank 0 "
+                                 f"counted {out['counted']}) != the table's {table}")
+        if [c[0] for c in checked] != by_rank or any(c[2] for c in checked):
+            raise AssertionError(f"[mesh-seq] {name}: products checked {checked} of {by_rank}")
+        worst = max([worst] + [c[1] for c in checked])
+        launches += sum(by_rank)
+        steps, coll = len(out["history"]), out["collectives"]
+        row = dict(losses=out["history"], loss_rel=rel, first_sparse_step=first,
+                   kept_sites=len(sites), matmul_by_rank=by_rank,
+                   products_worst=max(c[1] for c in checked),
+                   seq_calls_per_step=coll["seq_calls"] / steps,
+                   seq_mb_per_step=coll["seq_bytes"] / steps / 1e6,
+                   collective_calls_per_step=coll["calls"] / steps,
+                   collective_mb_per_step=coll["bytes"] / steps / 1e6)
+        summary[name] = row
+        print(f"[mesh-seq] {name} 2x1 ({card}): losses {out['history']} (max rel {rel:.3g} of 1x1 "
+              f"{ref['history']}); first sparse step {first}: kept sets equal to 1x1's at all "
+              f"{len(sites)} sites; matmul launches by rank {by_rank} = the table's, every "
+              f"product within {KERNEL_TOL} x max(1, max|plain|) of the plain version (worst "
+              f"{row['products_worst']:.3g}); the sequence split's collectives a step "
+              f"{row['seq_calls_per_step']:g} calls, {row['seq_mb_per_step']:.2f} MB (all "
+              f"collectives {row['collective_calls_per_step']:g} calls, "
+              f"{row['collective_mb_per_step']:.2f} MB)", flush=True)
+    return launches, worst, summary
+
+
 def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, probe,
-               base_serve_argv, lock_cfg):
+               base_serve_argv, lock_cfg, seq_cases):
     """Every mesh run of ``[mesh-train]``, ``[mesh-serve]`` and
     ``[mesh-data-serve]``, in one spawn of two ranks on the card: the
     training CLI's rank body (``train.run_rank``, fp32, the kept channels
@@ -2534,13 +2649,14 @@ def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, pr
     then :func:`mesh_timed_steps` in bf16 at 1x2, then the serving CLI's
     rank body (``serve.serve_rank``) once a config of ``serve_cfgs``, then
     :func:`mesh_data_serve` (``base_serve_argv``, the fp32 config, the
-    lock-step runs at ``lock_cfg``). Every
+    lock-step runs at ``lock_cfg``), then :func:`mesh_seq_ranks` of
+    ``seq_cases`` on a 2x1 mesh. Every
     ``matmul`` launch of the fp32 runs and of the bf16 warm-up step is
     held against its plain version on the same operands
     (``gathered_matmul.observe_matmul``). Returns (the CLI's dict of each
     training layout, every rank's bf16 timings, each config's serving
     dict, every rank's product checks, the ranks' wall of each part, the
-    data-mesh serving results)."""
+    data-mesh serving results, the ``[mesh-seq]`` runs)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import gathered_matmul as gm
@@ -2590,9 +2706,12 @@ def mesh_ranks(mesh, train_argvs, serve_argv, cfg, serve_cfgs, policy, steps, pr
         free()
     walls["serve"] = time.perf_counter() - t0
     data_served = mesh_data_serve(mesh, base_serve_argv, serve_cfgs[0], lock_cfg, walls, free)
+    seq_outs, seq_walls = mesh_seq_ranks(mesh_lib.make_host_mesh(2, 1, "cuda"), seq_cases,
+                                         checker, free)
+    walls.update(seq_walls)
     every = [None] * mesh.world
     dist.all_gather_object(every, {"rank": mesh.rank, "checks": checks})
-    return train_outs, timed, served, every, walls, data_served
+    return train_outs, timed, served, every, walls, data_served, seq_outs
 
 
 def mesh_data_serve(mesh, argv, cfg, lock_cfg, walls, free):
@@ -2780,6 +2899,20 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, card):
         print(f"[mesh-serve] {LM_ARCH} full width, depth {MESH_SERVE_DEPTH}: 1x1 {dt} run "
               f"{time.perf_counter() - t0:.1f} s")
 
+    # [mesh-seq]'s 1x1 run: at a batch --data-mesh 2 does not divide
+    t0 = time.perf_counter()
+    before = gm.launches["matmul"]
+    seq_b, seq_s = MESH_SEQ_LM
+    seq_cfg = dataclasses.replace(cfg, n_layers=MESH_SEQ_DEPTH)
+    one_seq = {LM_ARCH: train.run(train.build_parser().parse_args(
+        _mf_train_argv(LM_ARCH, seq_b, seq_s, 1, 1)), cfg=seq_cfg, collect=("kept",))}
+    one_seq_launches = gm.launches["matmul"] - before
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_seq_one = time.perf_counter() - t0
+    print(f"[mesh-seq] {LM_ARCH} full width, depth {MESH_SEQ_DEPTH}, fp32, B={seq_b} S={seq_s}: "
+          f"1x1 losses {one_seq[LM_ARCH]['history']} in {t_seq_one:.1f} s")
+
     lock_cfg = dataclasses.replace(base, n_layers=MESH_LOCK_DEPTH, dtype="float32")
     t0 = time.perf_counter()
     one_lock = serve.run(serve.build_parser().parse_args(serve_argv), cfg=lock_cfg)["generated"]
@@ -2789,11 +2922,12 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, card):
           f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    outs, ranks, served, checks, walls, data_served = run_on_mesh(
+    outs, ranks, served, checks, walls, data_served, seq_outs = run_on_mesh(
         mesh_ranks, 1, 2, "cuda", {f"{d}x{m}": _mesh_train_argv(d, m) for d, m in MESH_SHAPES},
         serve_argv + ["--model-mesh", str(MESH_SERVE_MODEL)], cfg,
         [dataclasses.replace(base, dtype=dt) for dt in dtypes], policy, MESH_STEPS, MESH_PROBE,
-        serve_argv, lock_cfg, timeout_s=MESH_TIMEOUT_S)
+        serve_argv, lock_cfg, {LM_ARCH: (_mf_train_argv(LM_ARCH, seq_b, seq_s, 2, 1), seq_cfg)},
+        timeout_s=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
     print(f"[mesh] one spawn of 2 ranks, {wall:.1f} s spawn to exit; rank 0's parts (s): "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
@@ -2841,6 +2975,11 @@ def mesh_phase(train, serve, lm, gm, policy_mod, get_config, serve_argv, card):
         if got != want:
             raise AssertionError(f"[mesh-train] rank {i} products checked {got} != launched {want}")
     summary["matmul_checks"] = {f"rank {r['rank']}": r["checks"] for r in checks}
+    seq_launches, seq_err, seq_summary = mesh_seq_report(one_seq, seq_outs, checks,
+                                                         one_seq_launches, card)
+    summary["seq"] = dict(launches=seq_launches, max_abs_err=seq_err, runs=seq_summary)
+    print(f"[time] [mesh-seq] {LM_ARCH}: 1x1 {t_seq_one:.1f} s, 2x1 in the spawn "
+          f"{walls[f'seq {LM_ARCH}']:.1f} s")
     for r in ranks:
         if r["dy_spread"] != 0.0:
             raise AssertionError(f"[mesh-train] {MESH_PROBE}'s dY differs over the model ranks "
@@ -2938,7 +3077,7 @@ def mesh_data_serve_summary(out, ref, lock_ref, cfg, walls, card):
 # ----------------------------------------------------------------------
 
 SSM_ARCH, SSM_BATCH, SSM_SEQ = "mamba2-1.3b", 4, 512  # two 256-token SSD chunks
-SSM_SERVE_DEPTH = 8  # [ssm-serve]: 48 layers cut to 8 (the script must end well inside 1200 s)
+SSM_SERVE_DEPTH = 4  # [ssm-serve]: 48 layers cut to 4 (the script must end well inside 1200 s)
 MOE_ARCH, MOE_DEPTH = "kimi-k2-1t-a32b", 1  # full width; 61 layers cut to 1
 NEW_ARCHS = ("nemotron-4-15b", "deepseek-67b", "mistral-large-123b",
              "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-1.3b",
@@ -3419,7 +3558,7 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "paligemma-3b"
 XFAMILY_TRAIN = {ENCDEC_ARCH: (2, 128), VLM_ARCH: (8, 128)}
 # the serving phases' depths: whisper's 32 decoder and 32 encoder layers cut
 # to 6 each, paligemma's 18 to 6 (the script must end well inside 1200 s)
-XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 6, VLM_ARCH: 6}
+XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 4, VLM_ARCH: 4}
 XFAMILY_ROUTE = (2, 32)  # B, S of the route check (full width, depth 2, fp32)
 XFAMILY_STEPS = 3  # timed dense and sparse steps each, after a warm-up of each
 
@@ -3618,6 +3757,11 @@ MF_SERVE = {
     VLM_ARCH: (dict(n_layers=XFAMILY_SERVE_DEPTH[VLM_ARCH]), "float32"),  # the KV head on both
 }
 MF_TIMEOUT_S = 400
+# [mesh-seq] in the same spawn: batches --data-mesh 2 does not divide (data on
+# the sequence dim). mamba2 at depth 4, B=1 S=512: one 256-token SSD chunk a
+# rank; the reduced MoE archs at moe_dp_groups 0 and 2, B=3 S=64
+MF_SEQ = {SSM_ARCH: (dict(n_layers=4), 1, 512)}  # 48 layers cut to 4
+MF_SEQ_REDUCED_BS = (3, 64)
 
 
 def _mf_train_argv(arch, batch, seq, data, model):
@@ -3645,7 +3789,19 @@ def mf_cases(get_config):
     return out
 
 
-def mesh_family_ranks(mesh, cases, serves):
+def mf_seq_cases(get_config):
+    """``{name: (arch, B, S, cfg)}`` of ``[mesh-seq]``'s family runs."""
+    out = {}
+    for arch, (cut, b, sq) in MF_SEQ.items():
+        out[arch] = (arch, b, sq, dataclasses.replace(get_config(arch), dtype="float32", **cut))
+    for arch in MF_REDUCED:
+        for g in MF_GROUPS:
+            out[f"{arch} reduced g{g}"] = (arch, *MF_SEQ_REDUCED_BS, dataclasses.replace(
+                get_config(arch).reduced(), moe_dp_groups=g))
+    return out
+
+
+def mesh_family_ranks(mesh, cases, serves, seq_cases):
     """Every mesh run of ``[mesh-families]`` in one spawn of two ranks on
     the card: the training CLI's rank body (``train.run_rank``, the kept
     channels collected) once a case of ``cases`` (``{name: (argv by
@@ -3653,9 +3809,10 @@ def mesh_family_ranks(mesh, cases, serves):
     ranks, every ``matmul`` launch held to its plain version on the same
     operands (``gathered_matmul.observe_matmul``); then the serving CLI's
     rank body once a config of ``serves`` (``{name: (argv, cfg)}``) on
-    the 1x2 mesh, the collectives' calls and bytes counted. Returns (rank
+    the 1x2 mesh, the collectives' calls and bytes counted; then
+    :func:`mesh_seq_ranks` of ``seq_cases`` on the 2x1 mesh. Returns (rank
     0's training dicts, its serving dicts, every rank's product checks
-    and collectives, rank 0's wall a part)."""
+    and collectives, rank 0's wall a part, the ``[mesh-seq]`` runs)."""
     import torch.distributed as dist
 
     from repro_torch.dist import parallel
@@ -3708,9 +3865,11 @@ def mesh_family_ranks(mesh, cases, serves):
         if mesh.rank == 0:
             print(f"[mesh-families] rank 0: serve {name} in {walls[f'serve {name}']:.1f} s",
                   flush=True)
+    seq_outs, seq_walls = mesh_seq_ranks(m21, seq_cases, checker, free)
+    walls.update(seq_walls)
     every = [None] * mesh.world
     dist.all_gather_object(every, {"rank": mesh.rank, "checks": checks, "colls": colls})
-    return trained, served, every, walls
+    return trained, served, every, walls, seq_outs
 
 
 def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
@@ -3763,13 +3922,26 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
     t_one_serve = time.perf_counter() - t_phase - t_one
     print(f"[mesh-families] 1x1: {len(cases)} training runs in {t_one:.1f} s, "
           f"{len(serve_one) - 1} serving runs in {t_one_serve:.1f} s")
+    # [mesh-seq]'s 1x1 runs: each case at its batch, depth and seed
+    t0 = time.perf_counter()
+    seq_cases, one_seq, one_seq_launches = mf_seq_cases(get_config), {}, 0
+    for name, (arch, b, sq, cfg) in seq_cases.items():
+        before = gm.launches["matmul"]
+        one_seq[name] = train.run(train.build_parser().parse_args(
+            _mf_train_argv(arch, b, sq, 1, 1)), cfg=cfg, collect=("kept",))
+        one_seq_launches += gm.launches["matmul"] - before
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_seq_one = time.perf_counter() - t0
+    print(f"[mesh-seq] 1x1: {len(seq_cases)} family runs in {t_seq_one:.1f} s")
 
     t0 = time.perf_counter()
-    trained, served, every, walls = run_on_mesh(
+    trained, served, every, walls, seq_outs = run_on_mesh(
         mesh_family_ranks, 1, 2, "cuda",
         {name: ({f"{d}x{m}": _mf_train_argv(arch, b, sq, d, m) for d, m in MESH_SHAPES}, cfg)
          for name, (arch, b, sq, cfg) in cases.items()},
-        serves, timeout_s=MF_TIMEOUT_S)
+        serves, {name: (_mf_train_argv(arch, b, sq, 2, 1), cfg)
+                 for name, (arch, b, sq, cfg) in seq_cases.items()}, timeout_s=MF_TIMEOUT_S)
     wall = time.perf_counter() - t0
     print(f"[mesh-families] one spawn of 2 ranks, {wall:.1f} s spawn to exit; rank 0's parts "
           "(s): " + json.dumps({k: round(v, 1) for k, v in walls.items()}))
@@ -3850,10 +4022,15 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
               f"ms; share of tokens equal to 1x1's {share:.4f}; paged_attention by rank {got}; "
               f"collectives a step by rank {serve_summary[arch]['collectives_per_step']}, MB "
               f"{[round(v, 2) for v in serve_summary[arch]['collective_mb_per_step']]}")
+    seq_launches, seq_err, seq_summary = mesh_seq_report(one_seq, seq_outs, every,
+                                                         one_seq_launches, card)
+    print(f"[time] [mesh-seq] the families: 1x1 {t_seq_one:.1f} s, 2x1 in the spawn "
+          f"{sum(v for k, v in walls.items() if k.startswith('seq ')):.1f} s")
     total = time.perf_counter() - t_phase
     print(f"[mesh-families] phase {total:.1f} s ({card})")
-    return mm_launches, pa_launches, worst, dict(train=summary, serve=serve_summary,
-                                                 spawn_s=wall, phase_s=total)
+    return mm_launches, pa_launches, worst, dict(
+        train=summary, serve=serve_summary, spawn_s=wall, phase_s=total,
+        seq=dict(launches=seq_launches, max_abs_err=seq_err, runs=seq_summary))
 
 
 # ----------------------------------------------------------------------
@@ -4110,10 +4287,69 @@ def dryrun_phase(mesh_train_summary, lock_steps, get_config, policy_mod, card):
                 print(f"[dryrun] [mesh-data-serve] lock-step decode step {layout} rank "
                       f"{real['rank']} on the fake group: {json.dumps(row)} = the card's "
                       "ranks'", flush=True)
+        # [mesh-seq]'s qwen2.5-3b run (fp32, depth 2, B=3 S=128 on 2x1): the
+        # sequence split's collectives a step on the fake group, each rank's
+        from repro_torch.dist import parallel
+
+        t_seq = time.perf_counter()
+        seq_cfg = dataclasses.replace(cfg, n_layers=MESH_SEQ_DEPTH, dtype="float32")
+        seq_b, seq_s = MESH_SEQ_LM
+        seq_real = mesh_train_summary["seq"]["runs"][LM_ARCH]
+        cell = dryrun.make_cell(seq_cfg, ShapeConfig("mesh-seq", seq_s, seq_b, "train"), pol,
+                                {"data": 2, "model": 1})
+        cell.meta["accum"] = 1
+        for rank in range(2):
+            parallel.counters.update(seq_calls=0, seq_bytes=0)
+            dryrun.step_census(cell, tmesh.make_fake_mesh(2, 1, rank=rank))
+            have = (parallel.counters["seq_calls"], parallel.counters["seq_bytes"] / 1e6)
+            want = (seq_real["seq_calls_per_step"], seq_real["seq_mb_per_step"])
+            if rank == 0 and have != want:  # the card's numbers are rank 0's
+                raise AssertionError(f"[dryrun] [mesh-seq] 2x1 rank 0: the sequence split's "
+                                     f"(calls, MB) a step {have} on the fake group != {want} "
+                                     "on the card")
+            summary[f"mesh-seq 2x1 rank {rank}"] = dict(seq_calls=have[0], seq_mb=have[1])
+            print(f"[dryrun] [mesh-seq] {LM_ARCH} 2x1 rank {rank} on the fake group: the "
+                  f"sequence split's collectives a step {have[0]} calls, {have[1]:.4f} MB"
+                  + (" = the card's" if rank == 0 else ""), flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         tmesh._fake.clear()
+    # train_tight (batch 8 of 4096 tokens) at full width and depth, rank 0 of
+    # 16x16 and 2x16x16: data on the sequence (and pod on the batch)
+    from repro_torch.dist import parallel
+
+    for multi in (False, True):
+        ms = tmesh.production_mesh_shape(multi_pod=multi)
+        cell, _ = dryrun.build_cell(LM_ARCH, "train_tight", ms, "ssprop")
+        blk = cell.meta["batch_block"]
+        want_rows = 4 if multi else 8
+        if (blk["rows"], blk["seq"]) != ([0, want_rows], [0, 256]):
+            raise AssertionError(f"[dryrun] train_tight block {blk}")
+        try:
+            parallel.counters.update(seq_calls=0, seq_bytes=0)
+            rec = dryrun.census_record(dryrun.step_census(
+                cell, tmesh.make_production_mesh(multi_pod=multi)))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            tmesh._fake.clear()
+        name = "2x16x16" if multi else "16x16"
+        row = dict(block=[want_rows, 256], batch_axes=blk["batch_axes"],
+                   seq_axes=blk["seq_axes"], peak_bytes=rec["peak_bytes"],
+                   arg_bytes=rec["arg_bytes"], flops=rec["flops"],
+                   collective_calls=rec["collective_calls"],
+                   collective_bytes=rec["collective_bytes"],
+                   seq_calls=parallel.counters["seq_calls"],
+                   seq_bytes=parallel.counters["seq_bytes"])
+        summary[f"{name} train_tight"] = row
+        print(f"[dryrun] {LM_ARCH} x train_tight on {name}, rank 0: block [{want_rows}, 256] "
+              f"(batch axes {blk['batch_axes']}, sequence axes {blk['seq_axes']}); eager peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB, {rec['collective_calls']} collectives "
+              f"({rec['collective_bytes'] / 2**30:.3f} GiB) a step, of them the sequence "
+              f"split's {row['seq_calls']} ({row['seq_bytes'] / 2**30:.3f} GiB)", flush=True)
+    print(f"[time] [dryrun] [mesh-seq] census and train_tight {time.perf_counter() - t_seq:.1f} s",
+          flush=True)
     total = torch.cuda.mem_get_info()[1]
     for name in ("train_4k", "decode_32k"):
         ms = tmesh.production_mesh_shape()
@@ -4365,7 +4601,7 @@ def main() -> int:
 
     lap("families")
     # 20-22. the encoder-decoder and VLM families at full width: serving at
-    # depth 6 (paged_attention at head dims 64 and 256), then training at
+    # depth 4 (paged_attention at head dims 64 and 256), then training at
     # full depth
     enc_launches, enc_summary = xfamily_serve_phase(ENCDEC_ARCH, "[encdec-serve]", lm, pa,
                                                     serve_pkg, get_config)
@@ -4470,6 +4706,9 @@ def main() -> int:
             path_launches["lm_resume"] = resume_launches
             path_launches["mesh_train"] = mesh_train_launches
             path_launches["mesh_families"] = mf_mm_launches
+            # [mesh-seq]: the seq-split runs' 1x1 references and every rank's
+            path_launches["mesh_seq"] = (mesh_train_summary["seq"]["launches"]
+                                         + mf_summary["seq"]["launches"])
             path_launches["moe_grouped"] = sum(moe_grouped_launches.values())
             path_launches[SSM_ARCH] = ssm_launches
             path_launches.update({arch: xtrain[arch][0] for arch in xtrain})
@@ -4478,14 +4717,18 @@ def main() -> int:
             # launches at their shapes (bf16)
             more = x_rows | {f"{LM_ARCH} reduced (fleet)": (fleet_summary["kernel_rows"],
                                                             fleet_summary["kernel_err"])}
-            err = max([err, mesh_err, mf_err] + [e[name] for _, e in more.values()])
+            err = max([err, mesh_err, mf_err, mesh_train_summary["seq"]["max_abs_err"],
+                       mf_summary["seq"]["max_abs_err"]] + [e[name] for _, e in more.values()])
             by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
                 r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
                 for arch, (xr, e) in more.items()}
             # every product of the mesh ranks' sparse steps, on its own operands
             by_arch["mesh_train"] = dict(max_abs_err=mesh_err, products=sum(
-                c[0] for r in mesh_train_summary["matmul_checks"].values() for c in r.values()))
+                c[0] for r in mesh_train_summary["matmul_checks"].values()
+                for k, c in r.items() if not k.startswith("seq ")))
             by_arch["mesh_families"] = dict(max_abs_err=mf_err)
+            by_arch["mesh_seq"] = dict(max_abs_err=max(
+                mesh_train_summary["seq"]["max_abs_err"], mf_summary["seq"]["max_abs_err"]))
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, launches=sum(path_launches.values()),

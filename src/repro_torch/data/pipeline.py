@@ -67,6 +67,16 @@ def frontend_inputs(cfg, global_batch: int, seed: int, step: int) -> dict[str, n
     return {name: rng.standard_normal((global_batch, n, cfg.d_model)).astype(np.float32)}
 
 
+def rank_block(batch: dict[str, np.ndarray], layout) -> dict[str, np.ndarray]:
+    """A mesh rank's block of a global batch (``models/model.py::BatchLayout``):
+    its rows of every input, and of ``tokens`` and ``targets`` its block of
+    the sequence (the frontends' frames and patches keep their whole
+    second dim: their families take only a batch the data axes divide)."""
+    lo, hi = layout.rows
+    return {k: layout.block(v) if k in ("tokens", "targets", "loss_mask") else v[lo:hi]
+            for k, v in batch.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class ImagePipelineConfig:
     image: tuple[int, int, int]  # (C, H, W)

@@ -35,7 +35,15 @@ tensors):
   swapped-out slot's SSM rows, staged by every rank);
 * :func:`softmax_combine` — seq-sharded decode attention: each rank's
   per-head partial softmax ``(max, sum, out)`` over its slice of the KV
-  sequence, all-gathered over the axis group and combined in rank order.
+  sequence, all-gathered over the axis group and combined in rank order;
+* the sequence split of a training step (``SeqSplit``: a data axis on the
+  sequence dim where it does not divide the batch):
+  :func:`gather_seq` (every rank's block along the sequence, its gradient
+  summed over the group and sliced back to the rank's block: the K/V of
+  causal attention), :func:`seq_halo` (the previous rank's last
+  positions: the SSM's causal conv) and :func:`seq_fold` (the state that
+  enters the rank's block, folded from every earlier rank's in rank
+  order: the SSM's scan).
 
 A replicated leaf that each model rank reads only in part (the SSM's
 ``conv_w`` over its own channels) goes behind :func:`copy_to_model`
@@ -62,8 +70,10 @@ import time
 import torch
 import torch.distributed as dist
 
-# the step's collectives on this rank (reset by whoever reads them)
-counters = {"calls": 0, "bytes": 0, "s": 0.0}
+# the step's collectives on this rank (reset by whoever reads them); the
+# sequence split's (:func:`gather_seq`, forward and backward) among them,
+# also counted apart
+counters = {"calls": 0, "bytes": 0, "s": 0.0, "seq_calls": 0, "seq_bytes": 0}
 _timed = False
 
 
@@ -276,6 +286,73 @@ def softmax_combine(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor, group, n:
         num = os_[i] * w[..., None] if num is None else num + os_[i] * w[..., None]
         den = ss[i] * w if den is None else den + ss[i] * w
     return num / den[..., None]
+
+
+def _seq_count(t: torch.Tensor) -> None:
+    counters["seq_calls"] += 1
+    counters["seq_bytes"] += t.numel() * t.element_size()
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seq, dim):
+        ctx.seq, ctx.dim = seq, dim
+        _seq_count(x)
+        return all_gather(x, seq.group, seq.n, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        seq, dim = ctx.seq, ctx.dim
+        g = g.contiguous().clone()
+        _seq_count(g)
+        all_reduce(g, seq.group)  # every rank's share of each block, summed
+        n = g.shape[dim] // seq.n
+        return g.narrow(dim, seq.index * n, n).contiguous(), None, None
+
+
+def gather_seq(x: torch.Tensor, seq, dim: int = 1) -> torch.Tensor:
+    """Every rank of the sequence split ``seq``'s ``x`` (a block of the
+    sequence along ``dim``) concatenated in rank order; the gradient of
+    the whole is summed over the group (one all-reduce: a fixed order, no
+    atomics) and the rank's block sliced out."""
+    if seq is None or seq.n == 1:
+        return x
+    return _GatherSeq.apply(x, seq, dim)
+
+
+def _unused(t: torch.Tensor) -> torch.Tensor:
+    """A zero scalar that depends on ``t``: a gathered tensor a rank does
+    not read still reaches the loss, so that every rank's backward runs
+    its gather's all-reduce (a rank that skipped it would hang the
+    others)."""
+    return torch.where(torch.zeros((), dtype=torch.bool, device=t.device), t.sum(), 0.0)
+
+
+def seq_halo(x: torch.Tensor, seq, k: int) -> torch.Tensor:
+    """The previous rank's last ``k`` positions of ``x [B, L, ...]`` (zeros
+    on the first rank), with their gradient sent back to that rank."""
+    if x.shape[1] < k:
+        raise NotImplementedError(f"a sequence block of {x.shape[1]} positions under a halo "
+                                  f"of {k}")
+    tails = gather_seq(x[:, x.shape[1] - k:], seq, dim=1)
+    if seq.index == 0:
+        return torch.zeros_like(tails[:, :k]) + _unused(tails).to(tails.dtype)
+    return tails[:, (seq.index - 1) * k:seq.index * k]
+
+
+def seq_fold(decay: torch.Tensor, state: torch.Tensor, seq) -> torch.Tensor:
+    """The linear recurrence's state entering this rank's block: with each
+    rank's total ``decay [B, H]`` over its block and the ``state [B, H, N,
+    P]`` its block ends in from a zero start, ``h_0 = 0`` and ``h_{r+1} =
+    decay_r * h_r + state_r``, taken in rank order over the ranks before
+    this one (gradients reach each rank's ``decay`` and ``state`` through
+    :func:`gather_seq`)."""
+    decays = gather_seq(decay[None], seq, dim=0)
+    states = gather_seq(state[None], seq, dim=0)
+    h = torch.zeros_like(state) + _unused(decays) + _unused(states)
+    for r in range(seq.index):
+        h = decays[r][..., None, None] * h + states[r]
+    return h
 
 
 def vocab_range(v_loc: int, mesh) -> tuple[int, int]:

@@ -24,10 +24,14 @@ device, and the collectives return at once. For each cell it records:
     and bytes by kind, every call counted as it runs (no loop multiplier
     to apply: eager PyTorch runs each call).
 
-A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: a global
-batch the data mesh does not divide, a model mesh that does not divide
-the q heads) has status ``unsupported`` with the CLI's own message; its
-placements and bytes are still reported. A cell a full-attention arch
+A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: a model
+mesh that does not divide the q heads) has status ``unsupported`` with
+the CLI's own message; its placements and bytes are still reported. A
+train cell whose global batch the data axes do not divide
+(``train_tight``: a batch of 8 on 16 or 2x16 data ranks) steps the rank's
+block of the fitted batch spec (``models/model.py::batch_layout``:
+``data`` on the sequence, ``pod`` on the batch), recorded as
+``batch_block``. A cell a full-attention arch
 cannot take (``long_500k``) is ``skipped``. A decode cell steps the
 lock-step engine's ``make_serve_step`` on the rank's cache shard (the
 sequence split over ``model`` under ``--policy opt``'s seq-sharded
@@ -55,7 +59,7 @@ import torch
 from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.policy import DENSE, PolicyProgram, tpu_default
-from repro_torch.data.pipeline import input_specs
+from repro_torch.data.pipeline import input_specs, rank_block
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import dp_size, production_mesh_shape, shape_mesh
@@ -180,6 +184,12 @@ def make_cell(cfg, shape, table, mesh_shape: dict[str, int], *, opt: bool = Fals
     baxis = shd._batch_axis(mesh_shape)
     if shape.kind == "train":
         meta["accum"] = steps_lib.microbatch_plan(cfg, shape, dp)
+        if shape.global_batch % dp and cfg.family not in ("encdec", "vlm"):
+            layout = lm.batch_layout(cfg, shape_mesh(mesh_shape), shape.global_batch,
+                                     shape.seq_len)
+            meta["batch_block"] = {"rows": list(layout.rows), "seq": list(layout.seq),
+                                   "batch_axes": list(layout.batch_axes),
+                                   "seq_axes": list(layout.seq_axes)}
         o_specs = shd.opt_state_shardings(mesh_shape, jl)
         m = adam.tree_map(lambda x: _Shape(x.shape, torch.float32), jl)  # the moments: fp32
         trees["adam"] = (adam.AdamState(_Shape((), torch.int32), m, m),
@@ -291,17 +301,11 @@ def refusal(cell: Cell, mesh_shape: dict[str, int], policy_name: str) -> str:
 # ----------------------------------------------------------------------
 
 
-def _local_batch(cfg, shape, mesh):
-    """This data rank's rows of the global batch, on meta."""
-    rows = shape.global_batch // mesh.dp
-    return {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype, device="meta")
-            for k, v in input_specs(cfg, shape).items()}
-
-
 def step_census(cell: Cell, mesh, *, opt_cfg=None):
     """Run the cell's step once as this rank of ``mesh`` (a fake mesh, on
     meta) under the census; returns its counts. Train: the params, Adam
-    state and batch are the rank's shards and rows, the step the
+    state and batch are the rank's shards and block of the batch
+    (``models/model.py::batch_layout``), the step the
     training CLI's ``make_train_step`` at the cell's accumulation; prefill:
     ``make_prefill_step`` on the rank's rows; decode: the lock-step
     engine's ``make_serve_step`` on the rank's serving params (k/v whole
@@ -320,12 +324,17 @@ def step_census(cell: Cell, mesh, *, opt_cfg=None):
         with Census(args=args) as c:
             out = fn(*args)
         return c.finish(out)
-    batch = _local_batch(cfg, shape, mesh)
+    # the rank's block of the global batch, on meta (fresh tensors: the
+    # census counts an argument's storage)
+    layout = lm.batch_layout(cfg, mesh, shape.global_batch, shape.seq_len)
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in rank_block(input_specs(cfg, shape), layout).items()}
     if shape.kind == "train":
         sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
         opt = adam.init(local)
         fn = steps_lib.make_train_step(cfg, cell.table, opt_cfg or adam.AdamConfig(
-            lr=2e-4, clip_norm=1.0), accum=cell.meta["accum"], mesh=mesh, sharded=sharded)
+            lr=2e-4, clip_norm=1.0), accum=cell.meta["accum"], mesh=mesh, sharded=sharded,
+            layout=layout)
         args = (local, opt, batch)
     elif shape.kind == "prefill":
         fn = steps_lib.make_prefill_step(cfg, mesh=mesh)

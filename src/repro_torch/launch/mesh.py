@@ -28,7 +28,14 @@ The dry run plays one rank of the production mesh in this process:
 backend (its collectives return at once, on meta tensors too) at 256 or
 512 ranks and builds the same groups, with a ``pod`` axis on 512: the
 data group then spans ``pod x data``, pod-major, as the JAX package's
-``("pod", "data")`` batch axis does.
+``("pod", "data")`` batch axis does, and each of the two axes also has a
+group of its own (``data`` within one pod, ``pod`` across pods).
+
+A training step whose global batch the data axes do not divide runs on a
+view of the mesh (:meth:`Mesh.over`): its data group is the group of the
+axes that split the step's tokens (``models/model.py::BatchLayout``, from
+the reference's fitted batch spec), so its loss, importance and gradient
+sums run over those ranks alone, and ``seq`` is the sequence split.
 """
 from __future__ import annotations
 
@@ -93,9 +100,15 @@ class Mesh:
     """One rank's view of a ``data x model`` mesh (``pod x data x model``
     with ``pod > 1``): the sizes, this rank's coordinates, its device, the
     backend and the process group of each axis (the ranks that share this
-    rank's other coordinates; the data group spans ``pod x data``).
-    ``prefix`` is the scope of the site names a layer records
-    (``layer_{li}/``, :meth:`scoped`)."""
+    rank's other coordinates; the data group spans ``pod x data``,
+    ``data_only_group`` is ``data`` within one pod and ``pod_group``
+    ``pod`` alone). ``prefix`` is the scope of the site names a layer
+    records (``layer_{li}/``, :meth:`scoped`).
+
+    A view made by :meth:`over` narrows the data group to some of the
+    data axes (``dp_n`` ranks, this one at ``dp_i``) and carries the
+    step's batch ``layout`` and sequence split ``seq`` (a
+    ``models/layers.py::SeqSplit``)."""
 
     data: int
     model: int
@@ -106,9 +119,43 @@ class Mesh:
     model_group: Any
     prefix: str = ""
     pod: int = 1
+    data_only_group: Any = None
+    pod_group: Any = None
+    dp_n: int = 0
+    dp_i: int = -1
+    layout: Any = None
+    seq: Any = None
 
     def scoped(self, prefix: str) -> Mesh:
         return dataclasses.replace(self, prefix=prefix)
+
+    def axis_group(self, axes: tuple[str, ...]) -> tuple[Any, int, int]:
+        """``(group, size, this rank's index)`` of the data axes ``axes``
+        (a subset of ``("pod", "data")``, pod-major)."""
+        axes = tuple(a for a in ("pod", "data") if a in axes)
+        n = 1
+        i = 0
+        for a in axes:
+            n *= self.shape[a]
+            i = i * self.shape[a] + self.coord(a)
+        if axes == ("pod", "data") or self.pod == 1 and axes == ("data",):
+            group = self.data_group
+        elif axes == ("data",):
+            group = self.data_only_group
+        elif axes == ("pod",):
+            group = self.pod_group
+        else:
+            group = None
+        return group, n, i
+
+    def over(self, axes: tuple[str, ...], layout=None, seq=None) -> Mesh:
+        """This rank's view with the data group narrowed to ``axes`` (no
+        data axis: :meth:`model_only`), carrying ``layout`` and ``seq``."""
+        if not axes:
+            return dataclasses.replace(self.model_only(), layout=layout)
+        group, n, i = self.axis_group(axes)
+        return dataclasses.replace(self, data_group=group, dp_n=n, dp_i=i, layout=layout,
+                                   seq=seq)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -118,17 +165,17 @@ class Mesh:
 
     @property
     def dp(self) -> int:
-        """The data group's size: ``pod * data``."""
-        return self.pod * self.data
+        """The data group's size: ``pod * data`` (a view's: its axes')."""
+        return self.dp_n or self.pod * self.data
 
     @property
     def world(self) -> int:
-        return self.dp * self.model
+        return self.pod * self.data * self.model
 
     @property
     def data_rank(self) -> int:
         """This rank's place in the data group (pod-major)."""
-        return self.rank // self.model
+        return self.dp_i if self.dp_i >= 0 else self.rank // self.model
 
     @property
     def model_rank(self) -> int:
@@ -138,13 +185,14 @@ class Mesh:
         """This rank's view without the data axis, for a step whose rows
         every data rank holds alike (a serving batch the data size does
         not divide): the model group and coordinates stay."""
-        return dataclasses.replace(self, data=1, pod=1, data_group=None)
+        return dataclasses.replace(self, data=1, pod=1, data_group=None, data_only_group=None,
+                                   pod_group=None, dp_n=0, dp_i=-1, seq=None)
 
     def coord(self, axis: str) -> int:
         if axis == "pod":
-            return self.data_rank // self.data
+            return self.rank // self.model // self.data
         if axis == "data":
-            return self.data_rank % self.data
+            return self.rank // self.model % self.data
         return self.model_rank
 
 
@@ -165,7 +213,7 @@ def make_host_mesh(data: int, model: int, device, *, pod: int = 1) -> Mesh:
     grid = torch.arange(world).reshape(pod * data, model)
     dev = rank_device(device, rank)
     # every rank creates every group, in one order, as new_group requires
-    data_group = model_group = None
+    data_group = model_group = data_only = pod_group = None
     for j in range(model):
         g = dist.new_group(grid[:, j].tolist())
         if rank % model == j:
@@ -174,7 +222,20 @@ def make_host_mesh(data: int, model: int, device, *, pod: int = 1) -> Mesh:
         g = dist.new_group(grid[i].tolist())
         if rank // model == i:
             model_group = g
-    return Mesh(data, model, rank, dev, backend, data_group, model_group, pod=pod)
+    if pod > 1:  # each data axis alone: data within a pod, pod across pods
+        cube = grid.reshape(pod, data, model)
+        for p in range(pod):
+            for j in range(model):
+                g = dist.new_group(cube[p, :, j].tolist())
+                if rank // model // data == p and rank % model == j:
+                    data_only = g
+        for i in range(data):
+            for j in range(model):
+                g = dist.new_group(cube[:, i, j].tolist())
+                if rank // model % data == i and rank % model == j:
+                    pod_group = g
+    return Mesh(data, model, rank, dev, backend, data_group, model_group, pod=pod,
+                data_only_group=data_only, pod_group=pod_group)
 
 
 def shape_mesh(mesh_shape, rank: int = 0) -> Mesh:

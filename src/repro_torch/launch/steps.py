@@ -74,6 +74,7 @@ def make_train_step(
     accum: int = 1,
     mesh=None,
     sharded=None,
+    layout=None,
 ) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -85,11 +86,16 @@ def make_train_step(
     are the tensors passed in, updated.
 
     On a ``mesh`` (``launch/mesh.py::Mesh``) params and state are this
-    rank's shards, ``batch`` this data rank's rows, and ``sharded`` a tree
-    of bools like ``params`` (the leaves split over ``model``): the loss
-    is the global one (``loss_fn``'s mesh path), the gradients are summed
-    over ``data`` after the microbatches' sum, and the clip reads the
+    rank's shards, ``batch`` this rank's block of the global batch
+    (``layout``, ``models/model.py::batch_layout``; without it, this data
+    rank's rows), and ``sharded`` a tree of bools like ``params`` (the
+    leaves split over ``model``): the loss is the global one
+    (``loss_fn``'s mesh path), the gradients are summed over the data
+    ranks that split the tokens after the microbatches' sum (over none
+    where every data rank holds the whole batch), and the clip reads the
     global norm (``dist/parallel.py::global_norm``)."""
+    if layout is not None:
+        mesh = layout.step_mesh(mesh)
     norm = adam.global_norm
     if mesh is not None:
         def norm(g):

@@ -30,17 +30,22 @@ flags): the one command spawns ``D*M`` ranks, one process each
 when they share one or run on the CPU), and returns rank 0's dict. Each
 rank holds its shards of the params and of Adam's moments (the JAX
 package's partition specs, ``models/model.py::mesh_specs``), steps its
-``B/D`` rows of the global batch, and computes what the one-device step
-computes: the loss, the updated params and the kept channels
-(``dist/parallel.py``, ``core/sparsity.py::select_on_mesh``). A
+block of the global batch (``models/model.py::batch_layout``, from the
+reference's fitted batch spec: its ``B/D`` rows; where ``--data-mesh``
+does not divide the batch, its block of the sequence, the K/V and the
+SSM's state passed between the ranks; where it divides neither, the
+whole batch, as every data rank holds it), and computes what the
+one-device step computes: the loss, the updated params and the kept
+channels (``dist/parallel.py``, ``core/sparsity.py::select_on_mesh``). A
 checkpoint on a mesh is the JAX package's sharded format, a
 ``shard_<r>.msgpack`` a rank, committed by rank 0; a restart restores
 it and each rank keeps its slices. Every family runs on a mesh (experts
 split over ``model``, SSM heads split over ``model``, the encoder and the
 cross-decoder as the decoder stack). Still refused, each naming the
-ROADMAP item that ports it: a fleet (``--world-size > 1``) on a mesh and
-a global batch that ``--data-mesh`` does not divide (the reference moves
-``data`` to the sequence there).
+ROADMAP item that ports it: a fleet (``--world-size > 1``) on a mesh,
+and the encoder-decoder and VLM families under a global batch that
+``--data-mesh`` does not divide (their frames and patches follow specs
+of their own).
 
 The token pipeline gives tokens alone, as the reference's does; for the
 encoder-decoder and VLM families the port adds the stubbed frontends'
@@ -91,7 +96,12 @@ from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core import backward
 from repro_torch.core.policy import PolicyProgram, PolicyRules, paper_default, tpu_default
 from repro_torch.core.schedulers import make_schedule
-from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig, frontend_inputs
+from repro_torch.data.pipeline import (
+    TokenPipeline,
+    TokenPipelineConfig,
+    frontend_inputs,
+    rank_block,
+)
 from repro_torch.dist import compat as dist_compat
 from repro_torch.dist import parallel
 from repro_torch.dist import sharding as shd
@@ -188,13 +198,16 @@ def _refuse_unported(args, cfg) -> None:
     ROADMAP item that ports it."""
     if args.data_mesh * args.model_mesh == 1:
         return
+    heads = lm.mesh_unported(cfg, args.model_mesh)
     unported = {
         "a fleet (--world-size > 1) on a mesh": args.world_size > 1,
-        f"--global-batch {args.global_batch} that --data-mesh {args.data_mesh} does not divide "
-        "(the reference moves data to the sequence dim)": args.global_batch % args.data_mesh != 0,
+        # (a cell refused for its heads is refused for them alone)
+        f"the {cfg.family} family under --global-batch {args.global_batch} that --data-mesh "
+        f"{args.data_mesh} does not divide (the reference splits its frames or patches by "
+        "specs of their own)": (cfg.family in ("encdec", "vlm") and not heads
+                                and args.global_batch % args.data_mesh != 0),
     }
-    asked = [what for what, on in unported.items() if on] + lm.mesh_unported(
-        cfg, args.model_mesh)
+    asked = [what for what, on in unported.items() if on] + heads
     if asked:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 
@@ -290,10 +303,11 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
     ckpt_dir = args.ckpt_dir
     rank, world, coord_dir = args.rank, args.world_size, args.coord_dir
     multi = bool(coord_dir) and world > 1
+    layout = None
     if mesh is not None:
         rank = mesh.rank
-        rows = args.global_batch // mesh.data
-        row0 = mesh.data_rank * rows
+        layout = lm.batch_layout(cfg, mesh, args.global_batch, args.seq_len)
+        step_dp = layout.step_mesh(mesh).dp  # the data ranks that split the tokens
 
     sup = None
     loss_log = None
@@ -431,12 +445,12 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
                     time.sleep(args.step_delay)
                 policies = resolved.policies_for_step(step)
                 fn = steps_lib.make_train_step(cfg, policies, opt_cfg, mesh=mesh,
-                                               sharded=sharded)
+                                               sharded=sharded, layout=layout)
                 rate = program.schedule.rate(step)
                 batch = dict(pipe.batch_at(step),
                              **frontend_inputs(cfg, args.global_batch, args.seed, step))
                 if mesh is not None:
-                    batch = {k: v[row0:row0 + rows] for k, v in batch.items()}
+                    batch = rank_block(batch, layout)
                 batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
                 _sync(device)
                 t0 = time.perf_counter()
@@ -451,9 +465,10 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
                 dt = time.perf_counter() - t0
                 if mesh is not None:
                     per = lm.kernel_launches_per_step(
-                        cfg, policies, model=mesh.model, data=mesh.data,
+                        cfg, policies, model=mesh.model, data=step_dp,
                         tokens=args.global_batch * args.seq_len,
-                        idle_sites={site for site, sel in log if sel.k == 0})
+                        idle_sites={site for site, sel in log if sel.k == 0},
+                        seq_split=layout.seq_split)
                     for k, v in per.items():
                         table[k] += v
                 if "kept" in collect:

@@ -215,10 +215,13 @@ def slot_write_index(positions, token_valid, t, lo: int = 0, t_loc: int | None =
 
 
 class SeqSplit(NamedTuple):
-    """A contiguous decode cache's sequence dim split over a mesh axis
-    (``"model"`` under ``decode_seq_shard``, ``"data"`` where the batch
-    cannot take it): this rank holds the ``index``-th of ``n`` equal
-    slices, and attention combines the group's partial softmaxes."""
+    """A sequence dim split over a mesh axis: this rank holds the
+    ``index``-th of ``n`` equal slices, the axis's ranks forming ``group``.
+    A contiguous decode cache's (``"model"`` under ``decode_seq_shard``,
+    ``"data"`` where the batch cannot take it), whose attention combines
+    the group's partial softmaxes; or a training step's tokens
+    (``models/model.py::BatchLayout``: a data axis the global batch cannot
+    take), whose attention gathers the group's K/V."""
 
     axis: str
     group: Any
@@ -290,15 +293,17 @@ def seq_split_attention(q, k, v, qpos, seq: SeqSplit, mesh):
     return parallel.softmax_combine(m, s, o, seq.group, seq.n, heads)
 
 
-def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024):
+def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024, q_offset: int = 0):
     """Full-sequence attention, blocked over query chunks of ``q_chunk``.
 
     q [B,S,H,D], k/v [B,T,KV,D] (GQA: each KV head serves H/KV query
     heads). Scores and softmax in fp32; with ``causal`` (the decoder's
     self-attention) future positions are masked at -1e30, without it
     (the encoder, cross-attention) every key is seen, as the JAX
-    package's ``masked_attention`` without a cache. Returns [B,S,H,D] in
-    q.dtype.
+    package's ``masked_attention`` without a cache. ``q_offset`` is the
+    absolute position of ``q[:, 0]`` (the keys sit at ``0 .. T-1``): a
+    rank's block of a sequence split over a mesh axis. Returns [B,S,H,D]
+    in q.dtype.
     """
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -311,7 +316,7 @@ def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024):
         qc = q[:, c0 : c0 + q_chunk].float().transpose(1, 2)  # [B,H,qc,D]
         scores = (qc @ k_t) * scale  # [B,H,qc,T]
         if causal:
-            q_pos = torch.arange(c0, c0 + qc.shape[2], device=q.device)
+            q_pos = torch.arange(q_offset + c0, q_offset + c0 + qc.shape[2], device=q.device)
             scores = scores.masked_fill(kv_pos[None, :] > q_pos[:, None], -1e30)
         outs.append((torch.softmax(scores, dim=-1) @ v_h).transpose(1, 2))  # [B,qc,H,D]
     return torch.cat(outs, dim=1).to(q.dtype)
@@ -345,7 +350,13 @@ def attn_apply(
     ``x_kv`` with ``use_rope=False``, which the cross-decoder passes).
 
     Without ``kv_cache`` (training, the encoder): :func:`masked_attention`
-    over the sequence itself, causal or not by ``causal``.
+    over the sequence itself, causal or not by ``causal``. Where the
+    step's sequence is split over a data axis (``mesh.seq``, a
+    :class:`SeqSplit`; ``rope`` is then taken at the block's global
+    positions) the rank's queries attend to every rank's K/V, all-gathered
+    in rank order (``dist/parallel.py::gather_seq``: the gradient of each
+    rank's K/V block summed over the group), causally masked at the global
+    positions.
 
     With ``kv_cache`` = dict(k, v) (serving), ``geom`` is the step's
     :class:`DecodeGeom`: ``geom.qpos [B,S]`` int32 is each token's
@@ -421,7 +432,12 @@ def attn_apply(
             k = apply_rope(k, rope)
 
     if kv_cache is None:
-        out = masked_attention(q, k, v, causal=causal and x_kv is None, q_chunk=cfg.attn_q_chunk)
+        seq, q0 = getattr(mesh, "seq", None), 0
+        if seq is not None and x_kv is None:
+            q0 = mesh.layout.seq[0]
+            k, v = parallel.gather_seq(torch.stack([k, v]), seq, dim=2).unbind(0)
+        out = masked_attention(q, k, v, causal=causal and x_kv is None, q_chunk=cfg.attn_q_chunk,
+                               q_offset=q0)
     else:
         k_pool, v_pool = kv_cache["k"], kv_cache["v"]
         rows, cols, dest = geom.write_index

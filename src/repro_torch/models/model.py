@@ -14,6 +14,7 @@ hybrid, encdec, vlm):
   * ``mesh_specs(cfg, params, mesh_shape)``     -> each leaf's fitted spec on a mesh
   * ``init_cache(cfg, batch, max_seq, dtype, device)``   -> the contiguous cache
   * ``init_paged_cache(cfg, n_blocks, block_size, dtype, device, batch=)``
+  * ``batch_layout(cfg, mesh, global_batch, seq_len)``  -> how a mesh rank holds a batch
   * ``cache_layout(cfg, mesh, n_slots, max_seq, ...)``  -> how a mesh rank holds a cache
   * ``init_local_cache(cfg, layout, mesh, ...)``          -> that rank's cache
   * ``decode_slots(cfg, params, tokens, cache, slot_pos, token_count, ...)``
@@ -41,7 +42,9 @@ it a slot, and the cross-attention projects its K/V at every step.
 
 On a device mesh (``mesh=``, ``launch/mesh.py::Mesh``; every family)
 params are this rank's shards of the leaves (:func:`mesh_specs`,
-``dist/sharding.py::shard_tree``), a batch is this data rank's rows, and
+``dist/sharding.py::shard_tree``), a batch is this rank's block of the
+global batch (:func:`batch_layout`: its rows, or where the data axes do
+not divide the batch its block of the sequence, or the whole batch), and
 the loss, its gradients and the decode logits are the one-device model's
 (``dist/parallel.py``): attention and MLPs hold their heads and ``d_ff``
 columns, MoE layers their experts, SSM layers their heads, and the VLM's
@@ -211,6 +214,87 @@ def mesh_unported(cfg: ModelConfig, model: int) -> list[str]:
     if model > 1 and cfg.is_moe and cfg.n_experts % model:
         out.append(f"--model-mesh {model} that does not divide the {cfg.n_experts} experts")
     return out
+
+
+def _axes(entry) -> tuple[str, ...]:
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchLayout:
+    """How one rank of a mesh holds a training batch of ``global_batch``
+    rows of ``seq_len`` tokens (:func:`batch_layout`): its rows ``[lo,
+    hi)`` and its block ``[s0, s1)`` of the sequence; ``batch_axes`` and
+    ``seq_axes`` the data axes the reference's fitted spec puts on the
+    batch and on the sequence dims (a data axis on neither: the data ranks
+    hold the whole batch alike)."""
+
+    global_batch: int
+    seq_len: int
+    rows: tuple[int, int]
+    seq: tuple[int, int]
+    batch_axes: tuple[str, ...] = ()
+    seq_axes: tuple[str, ...] = ()
+
+    @property
+    def token_axes(self) -> tuple[str, ...]:
+        """The data axes that split the step's tokens (pod-major)."""
+        return tuple(a for a in ("pod", "data") if a in self.batch_axes + self.seq_axes)
+
+    @property
+    def seq_split(self) -> bool:
+        return self.seq != (0, self.seq_len)
+
+    def block(self, a):
+        """This rank's block of a ``[B, S, ...]`` array or tensor."""
+        return a[self.rows[0]:self.rows[1], self.seq[0]:self.seq[1]]
+
+    def positions(self, device) -> torch.Tensor:
+        """The global positions of the rank's sequence block."""
+        return torch.arange(self.seq[0], self.seq[1], device=device)
+
+    def token_index(self, device) -> torch.Tensor:
+        """Each of the rank's tokens' index in the global batch flattened
+        row-major (``row * seq_len + position``), in the rank's own
+        row-major order."""
+        rows = torch.arange(self.rows[0], self.rows[1], device=device)
+        return (rows[:, None] * self.seq_len + self.positions(device)[None, :]).reshape(-1)
+
+    def step_mesh(self, mesh):
+        """The mesh view the step runs on: the data group narrowed to the
+        axes that split the tokens (none: the model group alone), with
+        this layout and the sequence split (``launch/mesh.py::Mesh.over``)."""
+        if mesh is None:
+            return None
+        seq = None
+        if self.seq_split:
+            group, n, i = mesh.axis_group(self.seq_axes)
+            seq = layers.SeqSplit("+".join(self.seq_axes), group, n, i)
+        return mesh.over(self.token_axes, self, seq)
+
+
+def batch_layout(cfg: ModelConfig, mesh, global_batch: int, seq_len: int) -> BatchLayout:
+    """How a rank of ``mesh`` (``None``: one device) holds a training batch,
+    read from the reference's fitted spec of its tokens
+    (``dist/sharding.py::batch_specs``): the data axes stay on the batch
+    where they divide it; where they do not, ``fit_spec`` moves an axis to
+    the sequence where it divides that (on 2x16x16 at batch 8: ``pod`` on
+    the batch, ``data`` on the sequence), and replicates it where it
+    divides neither. The encoder-decoder's frames and the VLM's patches
+    follow another spec (their second dim is not the token sequence), so
+    those families take only a batch the data axes divide."""
+    if mesh is None:
+        return BatchLayout(global_batch, seq_len, (0, global_batch), (0, seq_len))
+    shape = (global_batch, seq_len)
+    spec = shd.batch_specs(mesh.shape, {"tokens": torch.empty(shape, device="meta")})["tokens"]
+    rows, seq = shd.local_index(spec, shape, mesh)
+    layout = BatchLayout(global_batch, seq_len, (rows.start or 0, rows.stop or global_batch),
+                         (seq.start or 0, seq.stop or seq_len), _axes(spec[0]), _axes(spec[1]))
+    if cfg.family in ("encdec", "vlm") and set(layout.batch_axes) != set(dp_axes(mesh.shape)):
+        raise NotImplementedError(
+            f"--global-batch {global_batch} that the data mesh of {mesh.dp} does not divide "
+            f"for the {cfg.family} family (its frames or patches are held by another spec)")
+    return layout
 
 
 _DIM_NAMES = {  # the stacked cache leaves' dims, for the layout's report
@@ -502,12 +586,13 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=No
     """Next-token cross-entropy (+0.01 aux), averaged over ``loss_mask``
     (default: every token). Returns ``(total, {"ce", "aux"})``.
 
-    On a ``mesh`` (``batch`` this data rank's rows): the cross-entropy is
-    the vocab-parallel one over the rank's logit columns, and the masked
-    mean's numerator and denominator are summed over ``data`` before the
-    division, so every rank's loss is the global one and its gradients
-    are its rows' share of the global gradient (summed over ``data`` by
-    the step)."""
+    On a ``mesh`` (``batch`` this rank's block of the global batch, the
+    mesh the step's view of it, ``BatchLayout.step_mesh``): the
+    cross-entropy is the vocab-parallel one over the rank's logit columns,
+    and the masked mean's numerator and denominator are summed over the
+    view's data group before the division, so every rank's loss is the
+    global one and its gradients are its tokens' share of the global
+    gradient (summed over that group by the step)."""
     if mesh is not None:
         x, aux = _hidden(cfg, params, batch, policy, mesh)
         logits = layers.unembed_local(params["embed"], x, mesh)
@@ -575,8 +660,8 @@ def mesh_split(cfg: ModelConfig, site: str, model: int) -> str:
 
 
 def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int = 1,
-                             data: int = 1, tokens: int = 0,
-                             idle_sites=()) -> dict[str, int]:
+                             data: int = 1, tokens: int = 0, idle_sites=(),
+                             seq_split: bool = False) -> dict[str, int]:
     """Launches of each backward kernel in one training step under
     ``policy`` (a plain policy or a step's table), site by site by the
     engine's rules: a sparse site on the kernel route (``use_pallas``,
@@ -593,9 +678,12 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int
     A site whose ``tp_shards`` divides its output width, both sides
     sparsified, takes the TP fast path and launches nothing.
 
-    On a ``data x model`` mesh the table is one rank's: its ``E/model``
+    On a ``data x model`` mesh the table is one rank's (``data`` the
+    ranks that split the step's tokens, ``batch_layout``): its ``E/model``
     experts, each once a local group (``G/data`` of them, or the one
-    group of the global dispatch); a column-parallel site
+    group of the global dispatch; with ``seq_split``, every rank's tokens
+    a block of the sequence, each once in each of the ``G`` groups, which
+    may span ranks); a column-parallel site
     (:func:`mesh_split`) whose ``tp_shards`` is ``t * model`` selects
     over its ``t`` local shards (the fast path when ``t > 1``, the kernel
     route when ``t == 1``); any other column-parallel site takes the
@@ -607,7 +695,7 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int
     groups = cfg.moe_dp_groups
     if groups and tokens and tokens % groups:
         groups = 0
-    experts = cfg.n_experts // model * max(1, groups // data if groups else 1)
+    experts = cfg.n_experts // model * max(1, groups // (1 if seq_split else data))
     for site in site_names(cfg)[0]:
         p = policy_for(policy, site)
         if not (p.active and p.use_pallas and not p.mask_mode):

@@ -118,17 +118,17 @@ def local_experts(cfg, mesh) -> tuple[int, int]:
 
 
 def dispatch_groups(dp_groups: int, tokens: int, full_capacity: bool,
-                    data: int = 1) -> tuple[int, int]:
+                    data: int = 1, seq_split: bool = False) -> tuple[int, int]:
     """``(groups, local groups)`` of a step over ``tokens`` tokens in all
     (every data rank's): ``dp_groups`` where it divides the tokens (else
     1, the ungrouped dispatch), and how many of them a data rank of
-    ``data`` holds (1 under the global dispatch: every rank takes part in
-    the one group)."""
+    ``data`` takes part in: every group under the global dispatch or where
+    the ranks hold blocks of the sequence (``seq_split``: a group, the
+    reference's ``T/G`` consecutive tokens of the flattened batch, may
+    span ranks), else its own ``G/data``."""
     g = dp_groups if dp_groups and tokens % dp_groups == 0 and not full_capacity else 1
-    if data == 1:
+    if data == 1 or g == 1 or seq_split:
         return g, g
-    if g == 1:
-        return 1, 1
     if g % data:
         raise NotImplementedError(f"moe_dp_groups={g} on a data mesh of {data}")
     return g, g // data
@@ -160,9 +160,11 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     e, k = cfg.n_experts, cfg.moe_topk
     data = mesh.dp if mesh is not None else 1
     t_loc = b * s
-    tokens = t_loc * data  # every data rank holds as many rows
-    g, g_loc = dispatch_groups(dp_groups, tokens, full_capacity, data)
-    spread = data > 1 and g == 1  # the global dispatch over the data ranks
+    tokens = t_loc * data  # every data rank holds as many tokens
+    layout = mesh.layout if mesh is not None and data > 1 else None
+    seq_split = layout is not None and layout.seq_split
+    g, g_loc = dispatch_groups(dp_groups, tokens, full_capacity, data, seq_split)
+    spread = data > 1 and g_loc == g  # every group over every data rank's tokens
     tg = tokens // g
     dev = x.device
     e_lo, e_hi = local_experts(cfg, mesh)
@@ -183,11 +185,24 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
 
     # ---- sort-based dispatch, within each group ----
     # the groups this rank dispatches: its own (g_loc of tg tokens), or
-    # under the global dispatch the one group of every rank's tokens
-    off = mesh.data_rank * t_loc if spread else 0  # this rank's first token in the group
-    ids = parallel.gather_ids_over_data(topi, mesh) if spread else topi
-    gd = 1 if spread else g_loc
-    n = tokens * k if spread else tg * k
+    # every group of every rank's tokens, placed in global order by the
+    # all-gathered ids (and, for blocks of the sequence, the tokens' global
+    # indices)
+    ids, local_of = topi, None
+    if spread:
+        ids = parallel.gather_ids_over_data(topi, mesh)  # [tokens, k], rank-major
+        if seq_split:
+            where = layout.token_index(dev)
+            every = parallel.gather_ids_over_data(where, mesh)
+            ids = torch.empty_like(ids).index_copy_(0, every, ids)
+            local_of = torch.full((tokens,), -1, dtype=torch.long, device=dev)
+            local_of[where] = torch.arange(t_loc, device=dev)
+        else:
+            off = mesh.data_rank * t_loc  # this rank's first token
+            local_of = torch.arange(tokens, device=dev) - off
+            local_of = torch.where((local_of >= 0) & (local_of < t_loc), local_of, -1)
+    gd = g_loc
+    n = tg * k
     cap = tokens if full_capacity else max(1, int(tg * k / e * cfg.capacity_factor))
     flat_e = ids.reshape(gd, n)
     order = torch.argsort(flat_e, dim=1, stable=True)  # group by expert
@@ -199,7 +214,11 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     pos = torch.arange(n, device=dev)[None, :] - grp_start.gather(1, sorted_e)
     keep = pos < cap
     pos_c = torch.clamp(pos, max=cap - 1)
-    own = (sorted_tok >= off) & (sorted_tok < off + t_loc) if spread else torch.ones_like(keep)
+    gidx = torch.arange(gd, device=dev)[:, None].expand(gd, n)
+    tok = gidx * tg + sorted_tok  # the slot's token: global (spread) or the rank's own
+    if spread:
+        tok = local_of[tok]  # its row on this rank, or -1
+    own = tok >= 0
     mine = (sorted_e >= e_lo) & (sorted_e < e_hi)
 
     # The JAX package writes every slot with one ``.at[].set`` scatter, in
@@ -209,9 +228,8 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     # exactly those last writers, whose indices are unique (a rank: its
     # experts' slots, its own tokens' values).
     xf = parallel.copy_to_model(x, mesh).reshape(-1, d)
-    gidx = torch.arange(gd, device=dev)[:, None].expand(gd, n)
     last = ((pos < cap - 1) | (pos == counts.gather(1, sorted_e) - 1)) & mine
-    src_tok = torch.clamp(gidx * tg + sorted_tok - off, 0, t_loc - 1)  # rows of xf
+    src_tok = torch.clamp(tok, 0, t_loc - 1)  # rows of xf
     src = torch.where((keep & own)[..., None], xf[src_tok],
                       torch.zeros((), dtype=x.dtype, device=dev))
     buf = torch.zeros((gd, e_hi - e_lo, cap, d), dtype=x.dtype, device=dev).index_put(
@@ -233,8 +251,9 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     # ---- combine: this rank's tokens, from this rank's experts ----
     take = keep & own & mine
     gathered = out_buf[gidx[take], sorted_e[take] - e_lo, pos_c[take]]
-    contrib = torch.zeros((gd, t_loc * k // gd, d), dtype=torch.float32, device=dev).index_put(
-        (gidx[take], order[take] - off * k), gathered.float())
+    slot = tok * k + order % k  # the (token, choice) on this rank
+    contrib = torch.zeros((t_loc * k, d), dtype=torch.float32, device=dev).index_put(
+        (slot[take],), gathered.float())
     w = parallel.copy_to_model(topw, mesh)
     contrib = contrib.reshape(t_loc, k, d) * w[..., None]
     y = parallel.reduce_from_model(contrib.sum(dim=1), mesh).to(x.dtype)
@@ -246,5 +265,5 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
     n_keep = keep.float().sum()
     if data > 1 and not spread:
         n_keep = parallel.all_reduce(n_keep.clone(), mesh.data_group)
-    frac_dropped = 1.0 - n_keep / (tokens * k)
+    frac_dropped = 1.0 - n_keep * (1.0 / (tokens * k))  # the JAX package's mean: by the reciprocal
     return y.reshape(b, s, d), {"aux_loss": aux_loss, "dropped": frac_dropped}

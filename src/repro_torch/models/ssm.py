@@ -59,10 +59,11 @@ def ssm_init(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     }
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv: x [B, L, C], w [K, C] -> [B, L, C]."""
+def _causal_conv(x, w, b, halo=None):
+    """Depthwise causal conv: x [B, L, C], w [K, C] -> [B, L, C]. ``halo
+    [B, K-1, C]``: the positions before ``x`` (zeros without it)."""
     k, length = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = F.pad(x, (0, 0, k - 1, 0)) if halo is None else torch.cat([halo.to(x.dtype), x], dim=1)
     out = 0
     for i in range(k):
         out = out + xp[:, i : i + length] * w[i]
@@ -74,12 +75,18 @@ def _split_proj(cfg, proj):
     return torch.split(proj, [di, di + 2 * n, proj.shape[-1] - 2 * di - 2 * n], dim=-1)
 
 
-def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk):
+def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk, seq=None):
     """SSD chunk-parallel scan.
 
     x [B, L, H, P], dt [B, L, H] (post-softplus, fp32), a_log [H],
     b_mat / c_mat [B, L, N] (one group broadcast over heads); L a
     multiple of ``chunk``. Returns y [B, L, H, P] fp32.
+
+    ``seq`` (a ``models/layers.py::SeqSplit``): the block is one rank's of
+    a sequence split over a mesh axis. The scan runs from a zero state;
+    the block's total decay and the state it ends in are folded over the
+    ranks in order (``dist/parallel.py::seq_fold``) into the state that
+    enters the block, whose decayed read-out is added at every position.
     """
     bsz, slen, h, p = x.shape
     n = b_mat.shape[-1]
@@ -134,7 +141,17 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk):
     # ---- inter-chunk contribution ----
     in_decay = torch.exp(cum)  # decay from chunk start to position i
     y_inter = torch.einsum("bcqn,bchnp->bcqhp", cr, s_prevs) * in_decay[..., None]
-    return (y_intra + y_inter).reshape(bsz, slen, h, p)
+    y = y_intra + y_inter
+    if seq is not None:
+        # the state entering this rank's block, and its read-out: the log
+        # decay from the block's start to position i is the chunks'
+        # totals before i's chunk plus the within-chunk cumsum
+        totals = cum[:, :, -1, :]  # [B,nc,H]
+        before = F.pad(torch.cumsum(totals[:, :-1], dim=1), (0, 0, 1, 0))
+        h_in = parallel.seq_fold(torch.exp(totals.sum(dim=1)), s_prev, seq)
+        y = y + torch.einsum("bcqn,bhnp->bcqhp", cr, h_in) * torch.exp(
+            before[:, :, None, :] + cum)[..., None]
+    return y.reshape(bsz, slen, h, p)
 
 
 def _decode_scan(p, cfg, xbc, dt, cache, token_valid, spec_states):
@@ -245,7 +262,12 @@ def ssm_apply(
     """Mamba-2 block. x [B, S, d] -> (out [B, S, d], new cache or None).
 
     Without ``cache``: the full sequence, padded to a multiple of
-    ``ssm_chunk`` for :func:`ssd_chunked`. With ``cache`` = ``{"conv":
+    ``ssm_chunk`` for :func:`ssd_chunked`. Where the step splits the
+    sequence over a data axis (``mesh.seq``) the rank's block is padded at
+    its end (zero ``dt`` there: the state passes through unchanged), its
+    causal conv reads the previous rank's last positions
+    (``dist/parallel.py::seq_halo``) and its scan starts from the state
+    the earlier ranks' blocks end in. With ``cache`` = ``{"conv":
     [B, K-1, C], "state": [B, H, N, P]}`` (decode): the per-position
     recurrence over the S tokens; ``token_valid [B, S]`` freezes the conv
     window and the state on padding rows, so slots advance independently.
@@ -266,7 +288,9 @@ def ssm_apply(
 
     new_cache = None
     if cache is None:
-        xbc = F.silu(_causal_conv(xbc, lp["conv_w"], lp["conv_b"]))
+        seq = mesh.seq if mesh is not None else None
+        halo = None if seq is None else parallel.seq_halo(xbc, seq, lp["conv_w"].shape[0] - 1)
+        xbc = F.silu(_causal_conv(xbc, lp["conv_w"], lp["conv_b"], halo))
         xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
         xh = xs.reshape(bsz, s, h, pd)
         pad = (-s) % cfg.ssm_chunk
@@ -276,7 +300,7 @@ def ssm_apply(
             dt_p = F.pad(dt, (0, 0, 0, pad))
             bm = F.pad(bmat, (0, 0, 0, pad))
             cm = F.pad(cmat, (0, 0, 0, pad))
-        y = ssd_chunked(xh_p, dt_p, lp["A_log"], bm, cm, cfg.ssm_chunk)[:, :s]
+        y = ssd_chunked(xh_p, dt_p, lp["A_log"], bm, cm, cfg.ssm_chunk, seq)[:, :s]
         y = y + xh * lp["D"][None, None, :, None]
     else:
         if token_valid is None:

@@ -248,6 +248,15 @@ def _decode_geometry(cfg, caches, positions, token_valid, block_tables, place=No
     return layers.DecodeGeom(qpos, rope, write_index, block_tables, place.gather, place.seq)
 
 
+def _train_positions(x, mesh) -> torch.Tensor:
+    """The global positions of a training step's sequence: ``arange(S)``,
+    or on a mesh whose step splits the sequence the rank's block of it
+    (``models/model.py::BatchLayout``)."""
+    if mesh is not None and mesh.seq is not None:
+        return mesh.layout.positions(x.device)
+    return torch.arange(x.shape[1], device=x.device)
+
+
 def stack_apply(
     params,
     x,
@@ -276,7 +285,8 @@ def stack_apply(
     :func:`stack_sites` names, scoped per layer here.
 
     Without ``caches`` (training): the full causal sequence, RoPE at
-    ``arange(S)``. With ``caches`` (serving): ``positions [B,S]`` are each
+    ``arange(S)`` (a rank's block of it where ``mesh.seq`` splits the
+    sequence). With ``caches`` (serving): ``positions [B,S]`` are each
     token's absolute position in its slot and ``token_valid [B,S]`` marks
     the real tokens; K/V are written in place, and an SSM layer's entry is
     replaced by its new state. With ``block_tables`` it is the paged
@@ -294,9 +304,7 @@ def stack_apply(
     if caches is None:
         rope = None
         if has_attn:
-            rope = layers.rope_angles(
-                torch.arange(x.shape[1], device=x.device), cfg.head_dim, cfg.rope_theta
-            )
+            rope = layers.rope_angles(_train_positions(x, mesh), cfg.head_dim, cfg.rope_theta)
         for li, p in enumerate(params["layers"]):
             with backward.scope(f"layer_{li}"):
                 x, _, a = _slot_apply(p, x, cfg, slots[li], per_layer[li], rope=rope,
@@ -414,8 +422,7 @@ def cross_decoder_apply(
     cached."""
     per_layer = _layer_scopes(policy, cfg.n_layers)
     if caches is None:
-        rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,
-                                  cfg.rope_theta)
+        rope = layers.rope_angles(_train_positions(x, mesh), cfg.head_dim, cfg.rope_theta)
         geom = None
     else:
         geom = _decode_geometry(cfg, caches, positions, token_valid, block_tables, place)

@@ -44,6 +44,7 @@ from repro_torch.data import pipeline as tpipeline
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
+from repro_torch.models import layers
 from repro_torch.models import model as tlm
 from repro_torch.optim import adam as tadam
 
@@ -203,11 +204,11 @@ def test_prefill_step_equals_the_jax_package():
 @pytest.mark.parametrize("mesh_kind", MESHES)
 @pytest.mark.parametrize("policy", POLICIES)
 def test_every_cell_is_ok_unsupported_or_skipped(mesh_kind, policy):
-    """The refusals are the CLIs' own: a train cell whose batch the data
-    mesh does not divide, and a cell of an arch whose q heads the model
-    mesh does not divide (whisper, paligemma, llama4); every other
-    prefill and decode cell runs (``--data-mesh`` serving, the lock-step
-    engine on a mesh, the seq-sharded decode under ``opt``)."""
+    """The refusals are the CLIs' own, and only for q heads the model
+    mesh does not divide (whisper, paligemma, llama4); every other cell
+    runs: train cells whose batch the data mesh does not divide
+    (``train_tight``: ``data`` on the sequence), ``--data-mesh`` serving,
+    the lock-step engine on a mesh, the seq-sharded decode under ``opt``."""
     ms = tmesh.production_mesh_shape(multi_pod=(mesh_kind == "multi"))
     for arch in ARCH_IDS:
         for shape in SHAPES:
@@ -221,11 +222,13 @@ def test_every_cell_is_ok_unsupported_or_skipped(mesh_kind, policy):
             assert bool(heads) == (arch in ("whisper-large-v3", "paligemma-3b",
                                             "llama4-maverick-400b-a17b"))
             assert all(h in msg for h in heads)
-            if kind == "train":
-                assert bool(msg) == (shape == "train_tight" or bool(heads)), (arch, shape)
-            else:
-                assert bool(msg) == bool(heads), (arch, shape, msg)
-                assert "seq_shard" not in msg and "--data-mesh" not in msg
+            assert bool(msg) == bool(heads), (arch, shape, msg)
+            assert "q heads" in msg or not msg
+            assert "seq_shard" not in msg and "--data-mesh" not in msg
+            assert "--global-batch" not in msg, (arch, shape, msg)
+            if kind == "train" and not heads:
+                blk = cell.meta.get("batch_block")
+                assert (blk is not None) == (shape == "train_tight"), (arch, shape)
 
 
 @pytest.fixture
@@ -253,6 +256,41 @@ def test_full_width_train_cell_runs_on_meta(fake_group, multi):
     assert rec["peak_bytes"] > rec["arg_bytes"] > 0
     assert set(rec["collectives"]) <= {"all-reduce", "all-gather"}
     assert rec["launches"] == {}  # tpu_default runs the gather route
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_full_width_train_tight_cell_steps_its_sequence_block(fake_group, multi):
+    """qwen2.5-3b at full width (depth cut to 2) x train_tight (batch 8 of
+    4096 tokens) as rank 0 of the production mesh: 16 data ranks do not
+    divide the batch, so ``data`` takes the sequence (256 positions a
+    rank) and on 2x16x16 ``pod`` keeps the batch (4 rows a pod). The rank
+    steps its ``[8, 256]`` / ``[4, 256]`` block: each attention layer
+    gathers its K/V over ``data`` (one all-gather forward, one all-reduce
+    backward), and the step's collectives are what the census counts."""
+    from repro_torch.dist import parallel
+
+    ms = tmesh.production_mesh_shape(multi_pod=multi)
+    cell, _ = dryrun.build_cell("qwen2.5-3b", "train_tight", ms, "ssprop")
+    cell.cfg = dataclasses.replace(cell.cfg, n_layers=2)
+    rows = 4 if multi else 8
+    assert cell.meta["batch_block"] == {"rows": [0, rows], "seq": [0, 256],
+                                        "batch_axes": ["pod"] if multi else [],
+                                        "seq_axes": ["data"]}
+    assert cell.meta["accum"] == 1
+    mesh = tmesh.make_production_mesh(multi_pod=multi)
+    layout = tlm.batch_layout(cell.cfg, mesh, 8, 4096)
+    assert (layout.rows, layout.seq) == ((0, rows), (0, 256))
+    assert layout.step_mesh(mesh).dp == (32 if multi else 16)
+    parallel.counters.update(calls=0, bytes=0, seq_calls=0, seq_bytes=0)
+    counts = dryrun.step_census(cell, mesh)
+    rec = dryrun.census_record(counts)
+    assert counts.arg_bytes > 0 and rec["flops"] > 0
+    lo, hi = layers.kv_range(cell.cfg, mesh)  # the KV head the rank's q head reads
+    kv = 2 * rows * 256 * (hi - lo) * cell.cfg.head_dim * 2  # the block's k and v, bf16
+    assert parallel.counters["seq_calls"] == 2 * 2  # a gather and its all-reduce a layer
+    assert parallel.counters["seq_bytes"] == 2 * (kv + 16 * kv)
+    assert parallel.counters["calls"] == rec["collective_calls"]
+    assert parallel.counters["bytes"] == rec["collective_bytes"]
 
 
 def test_the_kernel_route_counts_its_launches(fake_group):

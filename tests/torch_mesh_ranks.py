@@ -273,14 +273,17 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
     """Three steps of the reduced ``arch`` (``overrides`` replaced in its
     config) from the JAX init ``tree`` on the mesh through
     ``make_train_step``: dense, then two at ``paper_default(0.8)`` with
-    ``use_pallas``, each data rank stepping its rows of ``batches`` (one
-    numpy dict a step, frames or patches among them). Returns the losses,
+    ``use_pallas``, each rank stepping its block of ``batches`` (one
+    numpy dict a step, frames or patches among them; its rows, or where
+    the data axes do not divide the batch its block of the sequence, by
+    ``model.batch_layout``). Returns the losses,
     each step's ``dropped`` a MoE layer (``moe_apply``'s, global on every
     rank), the kept channels of every site and routed expert (global,
     every rank's merged; a selection over an all-zero dY, an expert no
     token of a group reached, keeps none, as its dW shows), every rank's
-    ``kops.matmul`` calls beside the launch table's count, and the
-    gathered params."""
+    ``kops.matmul`` calls beside the launch table's count, the gathered
+    params, the rank's block (``rows``, ``seq``) and each step's
+    sequence-split collectives (``dist/parallel.py::counters``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops as kops
@@ -297,9 +300,12 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
     opt = adam.init(local)
     ocfg = adam.AdamConfig(lr=lr, clip_norm=1.0, total_steps=len(batches))
     pol = dataclasses.replace(tpolicy.paper_default(0.8), use_pallas=True)
-    n_rows = batches[0]["tokens"].shape[0]
-    rows = n_rows // mesh.data
-    calls, dropped, live = {"matmul": 0}, [], []
+    from repro_torch.data.pipeline import rank_block
+
+    n_rows, seq = batches[0]["tokens"].shape
+    layout = tlm.batch_layout(cfg, mesh, n_rows, seq)
+    step_dp = layout.step_mesh(mesh).dp
+    calls, dropped, live, seq_colls = {"matmul": 0}, [], [], []
     raw_mm, raw_moe, raw_sel = kops.matmul, moe.moe_apply, sparsity.select_on_mesh
 
     def counted(a, b):
@@ -319,13 +325,15 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
     kops.matmul, moe.moe_apply, sparsity.select_on_mesh = counted, recorded, selecting
     try:
         for step, p in enumerate((tpolicy.DENSE, pol, pol)):
-            b = {k: torch.from_numpy(v[mesh.data_rank * rows:(mesh.data_rank + 1) * rows])
-                 for k, v in batches[step].items()}
-            fn = steps_lib.make_train_step(cfg, p, ocfg, mesh=mesh, sharded=sharded)
+            b = {k: torch.from_numpy(v) for k, v in rank_block(batches[step], layout).items()}
+            fn = steps_lib.make_train_step(cfg, p, ocfg, mesh=mesh, sharded=sharded,
+                                           layout=layout)
             dropped.append([])
             live.clear()
+            parallel.counters.update(seq_calls=0, seq_bytes=0)
             with backward.record_selections() as log:
                 local, opt, metrics = fn(local, opt, b)
+            seq_colls.append((parallel.counters["seq_calls"], parallel.counters["seq_bytes"]))
             losses.append(float(metrics["loss"]))
             got = {}
             for (site, sel), nonzero in zip(log, live, strict=True):
@@ -334,8 +342,8 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
             kept[step] = got
             idle = {site for site, sel in log if sel.k == 0}
             table += tlm.kernel_launches_per_step(
-                cfg, p, model=mesh.model, data=mesh.data,
-                tokens=n_rows * b["tokens"].shape[1], idle_sites=idle)["matmul"]
+                cfg, p, model=mesh.model, data=step_dp, tokens=n_rows * seq, idle_sites=idle,
+                seq_split=layout.seq_split)["matmul"]
     finally:
         kops.matmul, moe.moe_apply, sparsity.select_on_mesh = raw_mm, raw_moe, raw_sel
     every = [None] * mesh.world
@@ -346,7 +354,20 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
     return {"history": losses, "dropped": dropped, "kept": merged,
             "matmul_calls": [c for _, c, _ in every],
             "matmul_table": [t for _, _, t in every],
-            "params": {k: v.clone() for k, v in full.items()}}
+            "params": {k: v.clone() for k, v in full.items()},
+            "rows": layout.rows, "seq": layout.seq, "seq_collectives": seq_colls}
+
+
+def seq_train(mesh, shape, arch, tree, overrides, batches, lr):
+    """:func:`family_train` on a ``(pod, data, model)`` mesh ``shape`` over
+    this spawn's ranks (a pod mesh made here), the batch's rows or its
+    sequence split as the fitted spec places the data axes."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    pod, data, model = shape
+    if (pod, data, model) != (1, mesh.data, mesh.model):
+        mesh = make_host_mesh(data, model, "cpu", pod=pod)
+    return family_train(mesh, arch, tree, overrides, batches, lr)
 
 
 def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv, arch=ARCH):
