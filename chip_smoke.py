@@ -76,7 +76,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    full width; every request must get exactly 32 tokens in the
    vocabulary, and the kernel must have launched once per layer per step;
    then ``serve_features_phase``, the rest of serving at full width and
-   6 of the 36 layers (their bf16 params), then with an fp32 copy: the
+   3 of the 36 layers (their bf16 params), then with an fp32 copy: the
    requests sampled (temperature 0.8, top-k 50, top-p 0.95) through the paged
    engine, through a 24-page pool (swap preemptions), speculating 4
    tokens self-drafted and with a full-width 4-layer drafter, through the
@@ -170,7 +170,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    time, the bytes against the full gradients', grad == kept + residual
    exactly at every leaf);
 15b. fault-tolerant LM training (``[ckpt]``): ``train.run`` on qwen2.5-3b
-   at full width, depth cut 36 -> 4 (a save holds ~6.2 GB), bf16, B=8,
+   at full width, depth cut 36 -> 2 (a save holds ~4.7 GB), bf16, B=8,
    S=128, ``--use-pallas``, 6 steps of 2-step epochs, ``--ckpt-every 3
    --fail-at-step 4``: it saves step 3 (the JAX package's format, written
    on a thread from pinned host copies), crashes once, resumes from 3
@@ -190,7 +190,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    on qwen2.5-3b at full width, depth 4, fp32 with TF32 off, B=8 S=128,
    ``paper_default(0.8)`` with ``--use-pallas``, 3 steps (dense, sparse,
    sparse) at 1x1 in this process, and ``serve.run`` at full width,
-   depth 6 of 36, fp32 and bf16; then one spawn of two rank processes on the card over
+   depth 3 of 36, fp32 and bf16; then one spawn of two rank processes on the card over
    gloo runs the training CLI's rank body on a 1x2 and a 2x1 mesh: losses
    within 1e-4 relative of 1x1, the share of (step, site) kept sets equal
    to 1x1's, each rank's ``matmul`` launches equal to
@@ -200,9 +200,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    the collectives' calls and bytes a step, their ms from a second run
    with each synced), the warm-up step's products checked alike and the
    row-parallel ``layer_0/attn/o`` dY equal bit for bit on both model
-   ranks; then the serving CLI's rank body at full width, depth 6, on a
+   ranks; then the serving CLI's rank body at full width, depth 3, on a
    model mesh of 2 (the serve phase's 8 requests), fp32 and bf16:
-   ``paged_attention`` 6 launches a step on each rank, the fp32 share of
+   ``paged_attention`` 3 launches a step on each rank, the fp32 share of
    tokens equal to the 1x1 fp32 run's at least 0.9 (bf16's against the
    1x1 bf16 run's, printed), tokens/s and p50/p99; then, in the same
    spawn (``[mesh-data-serve]``), the fp32 config on ``--data-mesh 2``
@@ -230,7 +230,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    chunks) for 8 epoch-bar steps: every loss finite, ``matmul`` launched
    the launch table's 192 times 4, dense and sparse step medians,
    tokens/s and peak memory;
-17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 4, serves 8
+17. SSM serving: mamba2-1.3b at full width, depth cut 48 -> 2, serves 8
    sampled requests (prompt 32, gen 32, 4 slots) through the paged engine, a
    10-page pool (small enough to swap), self-drafted speculation (k=4), the
    contiguous engine and the lock-step baseline, bf16 and an fp32 copy;
@@ -245,7 +245,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
 19. the reduced fp32 configs of the seven new archs and of whisper and
    paligemma: the three-route training check (each routed expert's own
    kept channels, ``matmul`` launches equal to the table; the frames or
-   patches in the batch) and identical greedy and sampled streams
+   patches in the batch) and identical sampled streams
    through the paged engine on both routes, swap, speculation with a
    one-period drafter, the contiguous engine and the lock-step oracle;
    then ``[moe-grouped]``: kimi-k2's, llama4-maverick's and jamba's
@@ -254,7 +254,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    launched the launch table's count (2 x experts x products on the
    expert sites), each MoE layer's ``aux_loss`` and ``dropped`` printed;
 20. encdec serving (``[encdec-serve]``): whisper-large-v3 at full width,
-   depth cut to 4 encoder + 4 decoder layers of 32 + 32 (d 1280, vocab
+   depth cut to 2 encoder + 2 decoder layers of 32 + 32 (d 1280, vocab
    51866), 8
    sampled Poisson requests, each with its ``[1500, 1280]`` frames from
    the workload (prompt 16, gen 64, 4 slots, 16-token pages) through the
@@ -266,7 +266,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    the shares of tokens equal to the paged kernel run's (fp32 at least
    0.9); a profile of a decode and a mixed step;
 21. VLM serving (``[vlm-serve]``): paligemma-3b at full width, depth cut
-   18 -> 4 (d 2048, d_ff 16384, vocab 257216), the same runs (prompt
+   18 -> 2 (d 2048, d_ff 16384, vocab 257216), the same runs (prompt
    128, gen 32, ``max_seq`` with room for the 256 patches, a 24-page
    pool), ``paged_attention`` at D=256;
 22. encdec and VLM training (``[encdec-kernels]``, ``[vlm-kernels]``,
@@ -285,9 +285,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
 23. the other families on device meshes (``[mesh-families]``, PR 24):
    ``train.run`` at 1x1 in this process, then one spawn of two rank
    processes on the card over gloo running the training CLI's rank body
-   on a 1x2 and a 2x1 mesh, of mamba2-1.3b (depth 8 of 48, B=4 S=512),
-   whisper-large-v3 (4 + 4 of 32 + 32 layers, B=2 S=128, 1500 stub
-   frames), paligemma-3b (depth 4 of 18, B=8 S=128, 256 stub patches)
+   on a 1x2 and a 2x1 mesh, of mamba2-1.3b (depth 2 of 48, B=4 S=512),
+   whisper-large-v3 (2 + 2 of 32 + 32 layers, B=2 S=128, 1500 stub
+   frames), paligemma-3b (depth 2 of 18, B=8 S=128, 256 stub patches)
    and the reduced kimi-k2, llama4 and jamba at ``moe_dp_groups`` 0 and
    2 (B=8 S=64), all fp32 with TF32 off, ``paper_default(0.8)`` with
    ``--use-pallas``, 3 steps (dense, sparse, sparse): losses within 1e-4
@@ -298,7 +298,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    body on ``--model-mesh 2`` (4 Poisson requests, prompt 16, gen 16):
    kimi-k2 at full width and depth 1 in bf16 (192 experts and 4 KV heads
    a rank; its 1x1 tokens from ``[moe-serve]``'s params, freed before the
-   spawn), mamba2 at depth 4, whisper at 4 + 4 and paligemma at depth 4
+   spawn), mamba2 at depth 1, whisper at 2 + 2 and paligemma at depth 2
    in fp32 (its one KV head cached on both ranks): each rank's
    ``paged_attention`` launches (an attention layer a step), the fp32
    shares of tokens equal to the 1x1 runs' at least 0.9 (kimi-k2's bf16
@@ -308,6 +308,23 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    carried state passed between the ranks) and the reduced kimi-k2, llama4
    and jamba at ``moe_dp_groups`` 0 and 2 (B=3 S=64) on 2x1, each beside
    its 1x1 run, held as in 15c;
+23a. model meshes that do not divide the q heads (``[mesh-heads]``):
+   whisper-large-v3 at full width, 2 + 2 of 32 + 32 layers, B=2
+   S=128 with 1500 stub frames, on ``--model-mesh 8`` (160 of its 1280 q
+   columns a rank: each rank runs the 3 heads they touch, the 20 KV heads
+   neither dividing 8 nor divided by it), 8 rank processes on the card
+   over gloo; the reduced llama4-maverick with 10 q heads on 2 KV heads
+   and the reduced paligemma with 2 on 1 (their spans at ``--model-mesh
+   16``: 3 q heads on one KV head, half a head) on 4; fp32, TF32 off,
+   ``paper_default(0.8)`` with ``--use-pallas``, 3 steps, then serving 4
+   Poisson requests (prompt 16, gen 16), each beside its 1x1 run in this
+   process: losses within 1e-4 relative, the first sparse step's kept
+   sets equal at every site, each rank's ``matmul`` launches equal to the
+   launch table's (rank 0's counted from 0 around the run), every one
+   within 1e-4 x max(1, max|plain|) of the plain version on its own
+   operands, nothing else launched; the share of tokens equal to 1x1's
+   1.0, each rank's ``paged_attention`` launches an attention layer a
+   step, the collectives a step;
 23b. the program auditor on the card (``[audit]``): every kernel
    launch this process made (each distinct set of a launch's integer
    arguments, recorded from the build on by
@@ -343,7 +360,15 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    collectives; then qwen2.5-3b x ``train_4k`` and x ``decode_32k`` on 16x16: each
    rank's argument bytes beside ``torch.cuda.mem_get_info()``'s total,
    and ``decode_32k``'s step run on the fake group (its eager peak), with
-   the card's name and power limit;
+   the card's name and power limit; then (``[dryrun] [heads]``) the 10
+   cells a model mesh that cuts the q heads opens on 16x16 under
+   ``ssprop`` (whisper's, paligemma's and llama4's ``train_4k``,
+   ``prefill_32k``, ``decode_32k``, llama4's ``train_tight``), at full
+   width and depth 1 (1 + 1; llama4 2: a dense and a MoE layer), rank 0:
+   argument bytes (a decode cell's
+   state as the port holds it beside the reference's), eager peak,
+   collectives; whisper's and paligemma's ``train_tight`` refused with
+   the encoder-decoder / VLM batch message;
 24. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases'
    and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
@@ -356,8 +381,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    of ``[mesh-train]`` (``mesh_train``; ``paged_attention``'s
    ``mesh_serve``, and ``mesh_data_serve`` the ``--data-mesh 2`` run's)
    and of ``[mesh-families]`` (``mesh_families``, the 1x1
-   runs' and every rank's) and of ``[mesh-seq]`` (``mesh_seq``, the 1x1
-   runs' and every rank's), each in
+   runs' and every rank's), of ``[mesh-seq]`` (``mesh_seq``, the 1x1
+   runs' and every rank's) and of ``[mesh-heads]`` (``mesh_heads``,
+   likewise, ``paged_attention``'s too), each in
    ``launches_by_path``, with the
    verify chunk's times in ``verify``, kimi-k2's decode in ``d112``,
    whisper's in ``d64`` and paligemma's in ``d256``; ``matmul``'s
@@ -399,9 +425,9 @@ TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summatio
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
 LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
 LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
-# [serve-features]: the serving modes at 6 of qwen2.5-3b's 36 layers (the
+# [serve-features]: the serving modes at 3 of qwen2.5-3b's 36 layers (the
 # [serve] main path runs them all); the script must end well inside 1200 s
-SERVE_FEATURES_DEPTH = 6
+SERVE_FEATURES_DEPTH = 3
 # the paper's CelebA generation task (configs/paper.py GENERATION["celeba"]),
 # the UNet at its full width; 32-channel blocks, so blocks really drop
 DDPM_BATCH, DDPM_IMAGE, DDPM_T = 128, (3, 64, 64), 1000
@@ -2130,7 +2156,7 @@ def lm_profile(lm, steps, adam, policy_mod, pipeline, cfg):
 # ----------------------------------------------------------------------
 
 TP_SHARDS = 16  # the production mesh's model axis (launch/mesh.py)
-TP_DEPTH = 6  # [tp-lm]'s timed steps: 36 layers cut to 6, room for the mesh phases
+TP_DEPTH = 3  # [tp-lm]'s timed steps: 36 layers cut to 3, room for the mesh phases
 TP_STEPS = 4  # timed steps a policy, after a warm-up
 COMPRESS_RATIO = 0.01
 
@@ -2271,7 +2297,7 @@ def tp_lm_phase(lm, steps, adam, compression, flops, sparsity, policy_mod, gm, c
 # fault-tolerant LM training: checkpoint, crash and resume; the fleet
 # ----------------------------------------------------------------------
 
-CKPT_DEPTH = 4  # qwen2.5-3b at full width, 36 layers cut to 4: a save holds ~6.2 GB
+CKPT_DEPTH = 2  # qwen2.5-3b at full width, 36 layers cut to 2: a save holds ~4.7 GB
 CKPT_DIR = ROOT / "build" / "ckpt_smoke"  # git-ignored, inside the checkout; removed after
 FLEET_TIMEOUT_S = 300  # one rank process, start to exit
 FLEET_SEQ = 64  # the fleet's reduced runs: B=LM_BATCH, S=64
@@ -2527,7 +2553,7 @@ MESH_LOSS_TOL = 1e-4  # fp32, TF32 off: summation order only
 MESH_TIMEOUT_S = 300  # one mesh run, spawn to exit
 MESH_PROBE = "layer_0/attn/o"  # the row-parallel site whose dY must agree bit for bit
 MESH_SERVE_MODEL = 2  # [mesh-serve]: 8 q heads on 1 KV head a rank
-MESH_SERVE_DEPTH = 6  # [mesh-serve]: 36 layers cut to 6 (the script must end inside 1200 s)
+MESH_SERVE_DEPTH = 3  # [mesh-serve]: 36 layers cut to 3 (the script must end inside 1200 s)
 MESH_DATA = 2  # [mesh-data-serve]: --data-mesh 2, the serve phase's 4 slots 2 a rank
 # [mesh-data-serve]'s lock-step runs: name -> (data, model, decode_seq_shard)
 MESH_LOCK = {"1x2": (1, 2, False), "2x1": (2, 1, False), "1x2 seq-model": (1, 2, True)}
@@ -3077,7 +3103,7 @@ def mesh_data_serve_summary(out, ref, lock_ref, cfg, walls, card):
 # ----------------------------------------------------------------------
 
 SSM_ARCH, SSM_BATCH, SSM_SEQ = "mamba2-1.3b", 4, 512  # two 256-token SSD chunks
-SSM_SERVE_DEPTH = 4  # [ssm-serve]: 48 layers cut to 4 (the script must end well inside 1200 s)
+SSM_SERVE_DEPTH = 2  # [ssm-serve]: 48 layers cut to 2 (the script must end well inside 1200 s)
 MOE_ARCH, MOE_DEPTH = "kimi-k2-1t-a32b", 1  # full width; 61 layers cut to 1
 NEW_ARCHS = ("nemotron-4-15b", "deepseek-67b", "mistral-large-123b",
              "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b", "mamba2-1.3b",
@@ -3446,7 +3472,7 @@ def moe_serve_phase(lm, pa, S, get_config, serve_cli):
 def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S, get_config):
     """The reduced fp32 config of each of the seven new archs on the card:
     (i) the training route check (``family_route_check``, B=2 S=24), and
-    (ii) 6 requests, greedy and then sampled, through the paged engine on
+    (ii) 6 sampled requests through the paged engine on
     the kernel and the gather route, under swap preemption, speculating 4
     tokens with a one-period drafter (one layer; two for llama4's and
     jamba's periods), through the contiguous engine and the lock-step
@@ -3469,7 +3495,7 @@ def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S,
             "contiguous": (dict(base), None),
         }
         first = {}
-        for kind, controls in (("greedy", {}), ("sampled", SAMPLED)):
+        for kind, controls in (("sampled", SAMPLED),):
             reqs_kw = dict(n_requests=6, arrival_rate=2.0, prompt_len=(3, 7), gen_len=(8, 12),
                            seed=5, **controls)
             outs, _, _ = _family_runs(S, cfg, params, f"[family-serve] {arch} {kind}", runs,
@@ -3482,7 +3508,7 @@ def families_reduced_phase(lm, steps, backward, policy_mod, pipeline, gm, pa, S,
                                              f"{o[rid].tolist()} != paged kernel "
                                              f"{ref[rid].tolist()}")
             first[kind] = ref[0].tolist()
-        print(f"[family-serve] {arch} reduced: {len(outs)} runs identical, greedy and sampled "
+        print(f"[family-serve] {arch} reduced: {len(outs)} runs identical, sampled "
               f"(paged kernel/gather, swap, spec_k={SPEC_K} with a {dcfg.n_layers}-layer "
               f"drafter, contiguous, lock-step) in {time.perf_counter() - t0:.1f} s; first "
               f"streams {first}")
@@ -3557,8 +3583,8 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "paligemma-3b"
 # training batches: B, S decoder tokens (+ frames [B, 1500, 1280] / patches [B, 256, 2048])
 XFAMILY_TRAIN = {ENCDEC_ARCH: (2, 128), VLM_ARCH: (8, 128)}
 # the serving phases' depths: whisper's 32 decoder and 32 encoder layers cut
-# to 6 each, paligemma's 18 to 6 (the script must end well inside 1200 s)
-XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 4, VLM_ARCH: 4}
+# to 2 each, paligemma's 18 to 2 (the script must end well inside 1200 s)
+XFAMILY_SERVE_DEPTH = {ENCDEC_ARCH: 2, VLM_ARCH: 2}
 XFAMILY_ROUTE = (2, 32)  # B, S of the route check (full width, depth 2, fp32)
 XFAMILY_STEPS = 3  # timed dense and sparse steps each, after a warm-up of each
 
@@ -3739,22 +3765,21 @@ MF_STEPS = 3  # dense, sparse, sparse (--scheduler bar)
 # arch -> (its cut of the full config, B, S); the reduced MoE archs at
 # moe_dp_groups 0 and 2 (a full-width kimi-k2 layer's experts are 33.8 GB
 # in bf16 before Adam, and jamba is 398 B)
-MF_TRAIN = {
-    SSM_ARCH: (dict(n_layers=8), 4, 512),  # 8 of 48 layers; two 256-token SSD chunks
-    ENCDEC_ARCH: (dict(n_layers=4, n_enc_layers=4), 2, 128),  # 4 + 4 of 32 + 32, 1500 frames
-    VLM_ARCH: (dict(n_layers=4), 8, 128),  # 4 of 18 layers, 256 patches
+MF_TRAIN = {  # depths cut for the room [mesh-heads] needs
+    SSM_ARCH: (dict(n_layers=2), 4, 512),  # 2 of 48 layers; two 256-token SSD chunks
+    ENCDEC_ARCH: (dict(n_layers=2, n_enc_layers=2), 2, 128),  # 2 + 2 of 32 + 32, 1500 frames
+    VLM_ARCH: (dict(n_layers=2), 8, 128),  # 2 of 18 layers, 256 patches
 }
 MF_REDUCED = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b")
 MF_REDUCED_BS = (8, 64)
 MF_GROUPS = (0, 2)
 # serving on --model-mesh 2: arch -> (its cut, dtype); 4 Poisson requests,
 # prompt 16 (one prefill chunk), gen 16, 4 slots, 16-token pages
-MF_SERVE = {
+MF_SERVE = {  # mamba2 at 1 layer, whisper and paligemma at 2 (the script's time limit)
     MOE_ARCH: (dict(n_layers=MOE_DEPTH), "bfloat16"),  # 192 experts, 4 KV heads a rank
-    SSM_ARCH: (dict(n_layers=SSM_SERVE_DEPTH), "float32"),
-    ENCDEC_ARCH: (dict(n_layers=XFAMILY_SERVE_DEPTH[ENCDEC_ARCH],
-                       n_enc_layers=XFAMILY_SERVE_DEPTH[ENCDEC_ARCH]), "float32"),
-    VLM_ARCH: (dict(n_layers=XFAMILY_SERVE_DEPTH[VLM_ARCH]), "float32"),  # the KV head on both
+    SSM_ARCH: (dict(n_layers=1), "float32"),
+    ENCDEC_ARCH: (dict(n_layers=2, n_enc_layers=2), "float32"),
+    VLM_ARCH: (dict(n_layers=2), "float32"),  # the KV head on both
 }
 MF_TIMEOUT_S = 400
 # [mesh-seq] in the same spawn: batches --data-mesh 2 does not divide (data on
@@ -3801,6 +3826,26 @@ def mf_seq_cases(get_config):
     return out
 
 
+def matmul_checker(checks, gm):
+    """``checker(what)``: an ``observe_matmul`` callback that holds each
+    ``matmul`` launch's output to the plain version on its own operands
+    within ``KERNEL_TOL`` x max(1, max|plain|), counting into
+    ``checks[what]`` = [products, worst error, largest limit, first miss]."""
+    def checker(what):
+        def check(a, b, out):
+            ref = gm.matmul_ref(a, b)
+            err = (out - ref).abs().max().item()
+            limit = KERNEL_TOL * max(1.0, ref.abs().max().item())
+            c = checks.setdefault(what, [0, 0.0, 0.0, None])
+            c[0] += 1
+            c[1] = max(c[1], err)
+            c[2] = max(c[2], limit)
+            if err > limit and c[3] is None:
+                c[3] = f"A{tuple(a.shape)} @ B{tuple(b.shape)}: {err} > {limit}"
+        return check
+    return checker
+
+
 def mesh_family_ranks(mesh, cases, serves, seq_cases):
     """Every mesh run of ``[mesh-families]`` in one spawn of two ranks on
     the card: the training CLI's rank body (``train.run_rank``, the kept
@@ -3823,19 +3868,7 @@ def mesh_family_ranks(mesh, cases, serves, seq_cases):
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full fp32
     torch.backends.cudnn.allow_tf32 = False
     checks = {}  # case -> [products, worst error, largest limit, first miss]
-
-    def checker(what):
-        def check(a, b, out):
-            ref = gm.matmul_ref(a, b)
-            err = (out - ref).abs().max().item()
-            limit = KERNEL_TOL * max(1.0, ref.abs().max().item())
-            c = checks.setdefault(what, [0, 0.0, 0.0, None])
-            c[0] += 1
-            c[1] = max(c[1], err)
-            c[2] = max(c[2], limit)
-            if err > limit and c[3] is None:
-                c[3] = f"A{tuple(a.shape)} @ B{tuple(b.shape)}: {err} > {limit}"
-        return check
+    checker = matmul_checker(checks, gm)
 
     def free():
         gc.collect()
@@ -4031,6 +4064,217 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
     return mm_launches, pa_launches, worst, dict(
         train=summary, serve=serve_summary, spawn_s=wall, phase_s=total,
         seq=dict(launches=seq_launches, max_abs_err=seq_err, runs=seq_summary))
+
+
+# ----------------------------------------------------------------------
+# [mesh-heads]: model meshes that do not divide the q heads
+# ----------------------------------------------------------------------
+
+MH_STEPS = 3  # dense, sparse, sparse (--scheduler bar)
+# name -> (arch, the cut of its config, B, S, --model-mesh). whisper at full
+# width on 8 ranks: 160 of its 1280 q columns a rank, 2.5 of its 20 heads
+# of 64, the 20 KV heads neither dividing 8 nor divided by it; 2 + 2 of
+# 32 + 32 layers, 1500 stub frames. The reduced configs whose head
+# overrides give llama4-maverick's (3 q heads on one KV head) and
+# paligemma's (half a head) spans at --model-mesh 16, on 4 ranks
+MH_CASES = {
+    ENCDEC_ARCH: (ENCDEC_ARCH, dict(n_layers=2, n_enc_layers=2), 2, 128, 8),
+    "llama4-like": ("llama4-maverick-400b-a17b", dict(n_heads=10, n_kv_heads=2), 8, 64, 4),
+    "paligemma-like": (VLM_ARCH, dict(n_heads=2, n_kv_heads=1), 8, 64, 4),
+}
+MH_TIMEOUT_S = 400
+
+
+def mh_config(get_config, name):
+    """A ``[mesh-heads]`` case's config (fp32): whisper cut in depth, the
+    others reduced with their head overrides."""
+    arch, cut, *_ = MH_CASES[name]
+    if name == arch:
+        return dataclasses.replace(get_config(arch), dtype="float32", **cut)
+    return dataclasses.replace(get_config(arch).reduced(), **cut)
+
+
+def mesh_heads_ranks(mesh, cases):
+    """The ranks' part of ``[mesh-heads]`` in one spawn on the card: once
+    a case of ``cases`` (``{name: (train argv, serve argv, cfg)}``) the
+    training CLI's rank body (``train.run_rank``, the kept channels
+    collected), every ``matmul`` launch held to its plain version on its
+    own operands (``gathered_matmul.observe_matmul``), then the serving
+    CLI's rank body, the collectives' calls and bytes counted; each run's
+    kernel counts set to 0 just before it and read just after. Returns
+    (rank 0's training dicts, its serving dicts, every rank's product
+    checks and collectives, rank 0's wall a part)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import parallel
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain products in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    checks, colls, walls, trained, served = {}, {}, {}, {}, {}
+    checker = matmul_checker(checks, gm)
+
+    for name, (train_argv, serve_argv, cfg) in cases.items():
+        t0 = time.perf_counter()
+        for k in gm.launches:
+            gm.launches[k] = 0
+        with gm.observe_matmul(checker(name)):
+            trained[name] = dict(train.run_rank(mesh, train.build_parser().parse_args(train_argv),
+                                                cfg, ("kept",)), counted=dict(gm.launches))
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls[f"train {name}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pa.launches = 0
+        parallel.counters.update(calls=0, bytes=0, s=0.0)
+        served[name] = dict(serve.serve_rank(mesh, serve.build_parser().parse_args(serve_argv),
+                                             cfg), counted=pa.launches)
+        colls[name] = dict(parallel.counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls[f"serve {name}"] = time.perf_counter() - t0
+        if mesh.rank == 0:
+            print(f"[mesh-heads] rank 0: {name} on 1x{mesh.model}: training "
+                  f"{walls[f'train {name}']:.1f} s, serving {walls[f'serve {name}']:.1f} s",
+                  flush=True)
+    every = [None] * mesh.world
+    dist.all_gather_object(every, {"rank": mesh.rank, "checks": checks, "colls": colls})
+    return trained, served, every, walls
+
+
+def mesh_heads_phase(train, serve, lm, gm, pa, get_config, card):
+    """``[mesh-heads]``: each case of ``MH_CASES`` trains (fp32, TF32 off,
+    ``paper_default(0.8)`` with ``--use-pallas``, 3 steps: dense, sparse,
+    sparse; whisper's frames from the pipeline's ``frontend_inputs``) and
+    serves (4 Poisson requests, prompt 16, gen 16, fp32) at 1x1 in this
+    process, then on ``1 x --model-mesh`` in a spawn of that many rank
+    processes on the card over gloo (:func:`mesh_heads_ranks`): each rank
+    runs the q heads its columns touch (``models/layers.py::head_span``).
+    Training: losses within ``MESH_LOSS_TOL`` of 1x1's, the first sparse
+    step's kept sets equal to 1x1's at every site (the share over every
+    step printed), each rank's ``matmul`` launches equal to the launch
+    table's and to its own count from 0, every launch within
+    ``KERNEL_TOL`` of its plain version. Serving: the share of tokens
+    equal to 1x1's 1.0, each rank's ``paged_attention`` launches an
+    attention layer a step (every rank has a span), the collectives a
+    step. Returns (``matmul`` launches, ``paged_attention`` launches, the
+    worst product error, a summary)."""
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    cfgs = {name: mh_config(get_config, name) for name in MH_CASES}
+    argv = {}
+    for name, (arch, _, b, sq, m) in MH_CASES.items():
+        argv[name] = {layout: (_mf_train_argv(arch, b, sq, 1, model), _mf_serve_argv(arch, model))
+                      for layout, model in (("1x1", 1), ("mesh", m))}
+    one, mm_launches, pa_launches = {}, 0, 0
+    for name, cfg in cfgs.items():
+        before = gm.launches["matmul"]
+        one[name] = train.run(train.build_parser().parse_args(argv[name]["1x1"][0]), cfg=cfg,
+                              collect=("kept",))
+        n = gm.launches["matmul"] - before
+        if n != one[name]["launches"]["matmul"] or not n:
+            raise AssertionError(f"[mesh-heads] {name} 1x1: matmul launches {n}")
+        mm_launches += n
+        before = pa.launches
+        one[name]["generated"] = serve.run(serve.build_parser().parse_args(argv[name]["1x1"][1]),
+                                           cfg=cfg)["generated"]
+        pa_launches += pa.launches - before
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+    print(f"[mesh-heads] 1x1: {len(cfgs)} training and serving runs in {t_one:.1f} s")
+
+    trained, served, every, walls, spawns = {}, {}, [], {}, {}
+    for m in sorted({c[4] for c in MH_CASES.values()}, reverse=True):
+        t0 = time.perf_counter()
+        cases = {name: (*argv[name]["mesh"], cfgs[name]) for name, c in MH_CASES.items()
+                 if c[4] == m}
+        tr, sv, ev, wl = run_on_mesh(mesh_heads_ranks, 1, m, "cuda", cases,
+                                     timeout_s=MH_TIMEOUT_S)
+        trained.update(tr)
+        served.update(sv)
+        every.append(ev)
+        walls.update(wl)
+        spawns[f"1x{m}"] = time.perf_counter() - t0
+        print(f"[mesh-heads] one spawn of {m} ranks, {spawns[f'1x{m}']:.1f} s spawn to exit; "
+              "rank 0's parts (s): " + json.dumps({k: round(v, 1) for k, v in wl.items()}),
+              flush=True)
+
+    summary, worst = {}, 0.0
+    for name, out in trained.items():
+        ref, cfg, m = one[name], cfgs[name], MH_CASES[name][4]
+        spans = [layers.head_span(cfg, m, r) for r in range(m)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["history"], ref["history"], strict=True))
+        first = min(st for st, v in ref["kept"].items() if v)  # the first sparse step
+        differ = sorted(s for s, v in ref["kept"][first].items()
+                        if out["kept"][first].get(s) != v)
+        sites = [(st, si) for st in ref["kept"] for si in ref["kept"][st]]
+        share = sum(out["kept"][st].get(si) == ref["kept"][st][si] for st, si in sites) / len(sites)
+        got = [r["matmul"] for r in out["launches_by_rank"]]
+        want = [r["matmul"] for r in out["launch_table_by_rank"]]
+        ranks_of = next(ev for ev in every if len(ev) == m)
+        checked = [r["checks"].get(name, [0, 0.0, 0.0, None]) for r in ranks_of]
+        if not all(math.isfinite(v) for v in out["history"]) or rel > MESH_LOSS_TOL:
+            raise AssertionError(f"[mesh-heads] {name} losses {out['history']} vs 1x1 "
+                                 f"{ref['history']}: rel {rel:.3g} > {MESH_LOSS_TOL}")
+        if differ:
+            raise AssertionError(f"[mesh-heads] {name}: the first sparse step's kept sets "
+                                 f"differ from 1x1's at {differ}")
+        others = sum(v for r in out["launches_by_rank"] for k, v in r.items() if k != "matmul")
+        if got != want or not all(got) or others or out["counted"]["matmul"] != got[0]:
+            raise AssertionError(f"[mesh-heads] {name} launches {out['launches_by_rank']} "
+                                 f"(rank 0 counted {out['counted']}) != the table's {want}")
+        if [c[0] for c in checked] != got or any(c[3] for c in checked):
+            raise AssertionError(f"[mesh-heads] {name}: products checked {checked} of {got}")
+        worst = max([worst] + [c[1] for c in checked])
+        mm_launches += sum(got)
+        sv = served[name]
+        gen, steps = sv["generated"], sv["steps"]
+        tok_share = float((gen == ref["generated"]).mean()) if gen.shape == ref[
+            "generated"].shape else 0.0
+        n_attn = (cfg.n_layers if cfg.family == "encdec" else
+                  sum(1 for s in lm.transformer.layer_slots(cfg) if s.mixer == "attn"))
+        pa_got = [r["paged_attention"] for r in sv["launches_by_rank"]]
+        if tok_share != 1.0:
+            raise AssertionError(f"[mesh-heads] serve {name}: share of tokens equal to 1x1's "
+                                 f"{tok_share:.4f} != 1.0")
+        if pa_got != [n_attn * steps] * m or sv["counted"] != pa_got[0]:
+            raise AssertionError(f"[mesh-heads] serve {name}: paged_attention by rank {pa_got} "
+                                 f"(rank 0 counted {sv['counted']}) != {n_attn} x {steps}")
+        pa_launches += sum(pa_got)
+        coll = [r["colls"][name] for r in ranks_of]
+        ms = np.asarray(sv["step_times"]) * 1e3
+        summary[name] = dict(
+            model=m, spans=[[s.q, s.kv] for s in spans], losses=out["history"], loss_rel=rel,
+            first_sparse_step=first, kept_sites=len(ref["kept"][first]), kept_share=share,
+            matmul_by_rank=got, products_worst=max(c[1] for c in checked), share=tok_share,
+            steps=steps, paged_attention_by_rank=pa_got, tokens_per_s=sv["stats"]["tokens_per_s"],
+            p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+            collectives_per_step=[c["calls"] / steps for c in coll],
+            collective_mb_per_step=[c["bytes"] / steps / 1e6 for c in coll],
+            train_s=walls[f"train {name}"], serve_s=walls[f"serve {name}"])
+        print(f"[mesh-heads] {name} (depth {cfg.n_layers}, {cfg.n_heads} q heads on "
+              f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}) on 1x{m} ({card}): spans (q, KV) "
+              f"{summary[name]['spans']}; losses {out['history']} (max rel {rel:.3g} of 1x1 "
+              f"{ref['history']}); first sparse step {first}: kept sets equal to 1x1's at all "
+              f"{len(ref['kept'][first])} sites ({share:.4f} of every (step, site)); matmul "
+              f"launches by rank {got} = the table's, every product within {KERNEL_TOL} x "
+              f"max(1, max|plain|) of the plain version (worst "
+              f"{summary[name]['products_worst']:.3g}); serving: {steps} steps, share of "
+              f"tokens equal to 1x1's {tok_share:.4f}, paged_attention by rank {pa_got} = "
+              f"{n_attn} x {steps}, {summary[name]['tokens_per_s']:.1f} tokens/s, p50 "
+              f"{summary[name]['p50_ms']:.2f} ms p99 {summary[name]['p99_ms']:.2f} ms, "
+              f"collectives a step by rank {summary[name]['collectives_per_step']}, MB "
+              f"{[round(v, 3) for v in summary[name]['collective_mb_per_step']]}", flush=True)
+    total = time.perf_counter() - t_phase
+    print(f"[time] [mesh-heads] 1x1 {t_one:.1f} s, spawns "
+          f"{json.dumps({k: round(v, 1) for k, v in spawns.items()})}, phase {total:.1f} s",
+          flush=True)
+    return mm_launches, pa_launches, worst, dict(cases=summary, spawn_s=spawns, phase_s=total)
 
 
 # ----------------------------------------------------------------------
@@ -4373,9 +4617,68 @@ def dryrun_phase(mesh_train_summary, lock_steps, get_config, policy_mod, card):
         print(f"[dryrun] {LM_ARCH} x {name} on 16x16, rank 0: argument bytes {json.dumps(rb)} "
               f"= {rb['total'] / 2**30:.3f} GiB of the card's {total / 2**30:.2f} GiB "
               f"({card}); the CLI: {status}{peak}", flush=True)
+    summary.update(dryrun_heads_cells(dryrun, tmesh, dist, card))
     summary["seconds"] = time.perf_counter() - t0
     print(f"[dryrun] {time.perf_counter() - t0:.1f} s", flush=True)
     return summary
+
+
+# [dryrun]'s census of the cells a model mesh that cuts the q heads opens:
+# arch -> its depth cut (full width; the CPU dry run steps them at full depth)
+DRYRUN_HEADS = {ENCDEC_ARCH: dict(n_layers=1, n_enc_layers=1), VLM_ARCH: dict(n_layers=1),
+                "llama4-maverick-400b-a17b": dict(n_layers=2)}  # one dense, one MoE layer
+DRYRUN_HEADS_SHAPES = ("train_4k", "train_tight", "prefill_32k", "decode_32k")
+
+
+def dryrun_heads_cells(dryrun, tmesh, dist, card):
+    """Rank 0 of 16x16 under ``ssprop`` on the fake group, at full width
+    and the depths of ``DRYRUN_HEADS``: the census of whisper's,
+    paligemma's and llama4's ``train_4k``, ``prefill_32k`` and
+    ``decode_32k`` and llama4's ``train_tight`` (each rank runs its q head
+    span), their argument bytes (a decode cell's state as the port holds
+    it beside the reference's spec's), peak and collectives; whisper's and
+    paligemma's ``train_tight`` must be refused with the encdec / VLM
+    batch message. Returns the rows."""
+    from repro_torch.configs.base import SHAPES
+
+    t0 = time.perf_counter()
+    ms = tmesh.production_mesh_shape()
+    out = {}
+    try:
+        for arch, cut in DRYRUN_HEADS.items():
+            cfg, table = dryrun.resolve(arch, "ssprop", ms)
+            cfg = dataclasses.replace(cfg, **cut)
+            for name in DRYRUN_HEADS_SHAPES:
+                cell = dryrun.make_cell(cfg, SHAPES[name], table, ms)
+                why = dryrun.refusal(cell, ms, "ssprop")
+                family = name == "train_tight" and cfg.family in ("encdec", "vlm")
+                if family != bool(why) or (family and "--global-batch 8" not in why):
+                    raise AssertionError(f"[dryrun] {arch} x {name}: refusal {why!r}")
+                if family:
+                    out[f"{arch} {name}"] = dict(status="unsupported", why=why)
+                    print(f"[dryrun] [heads] {arch} x {name}: unsupported ({why})", flush=True)
+                    continue
+                rb = dryrun.rank_bytes(cell, ms)
+                rec = dryrun.census_record(dryrun.step_census(cell, tmesh.make_production_mesh()))
+                row = dict(status="ok", depth=cfg.n_layers, rank_bytes=rb,
+                           peak_bytes=rec["peak_bytes"], flops=rec["flops"],
+                           collectives=rec["collectives"],
+                           collective_calls=rec["collective_calls"],
+                           collective_bytes=rec["collective_bytes"], launches=rec["launches"])
+                if "cache_kv_heads" in cell.meta:
+                    row["kv_heads"] = cell.meta["cache_kv_heads"]
+                out[f"{arch} {name}"] = row
+                print(f"[dryrun] [heads] {arch} x {name} on 16x16, rank 0, depth "
+                      f"{cfg.n_layers} of full width: argument bytes {json.dumps(rb)}; eager peak "
+                      f"{rec['peak_bytes'] / 2**30:.3f} GiB; {rec['collective_calls']} collectives "
+                      f"({rec['collective_bytes'] / 2**30:.3f} GiB) a step: "
+                      f"{json.dumps(rec['collectives'])} ({card})", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmesh._fake.clear()
+    print(f"[time] [dryrun] [heads] {len(out)} cells {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -4629,6 +4932,15 @@ def main() -> int:
     del kimi_one
 
     lap("mesh-families")
+    # 23a. model meshes that do not divide the q heads: whisper at full
+    # width on 8 ranks, the llama4-like and paligemma-like reduced configs
+    # on 4, each rank running the heads its q columns touch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mh_mm_launches, mh_pa_launches, mh_err, mh_summary = mesh_heads_phase(
+        train, serve, lm, gm, pa, get_config, card)
+
+    lap("mesh-heads")
     # 23b-c. the program auditor and the dry run, held to the card
     observing.__exit__(None, None, None)
     gc.collect()
@@ -4651,12 +4963,12 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:94",
         launches=(launches + feat_launches + moe_launches + enc_launches + vlm_launches
-                  + mesh_serve_launches + mesh_data_launches + mf_pa_launches),
+                  + mesh_serve_launches + mesh_data_launches + mf_pa_launches + mh_pa_launches),
         launches_by_path={"serve": launches, "serve_features": feat_launches,
                           "moe_serve": moe_launches, "encdec_serve": enc_launches,
                           "vlm_serve": vlm_launches, "mesh_serve": mesh_serve_launches,
                           "mesh_data_serve": mesh_data_launches,
-                          "mesh_families": mf_pa_launches},
+                          "mesh_families": mf_pa_launches, "mesh_heads": mh_pa_launches},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -4706,6 +5018,7 @@ def main() -> int:
             path_launches["lm_resume"] = resume_launches
             path_launches["mesh_train"] = mesh_train_launches
             path_launches["mesh_families"] = mf_mm_launches
+            path_launches["mesh_heads"] = mh_mm_launches
             # [mesh-seq]: the seq-split runs' 1x1 references and every rank's
             path_launches["mesh_seq"] = (mesh_train_summary["seq"]["launches"]
                                          + mf_summary["seq"]["launches"])
@@ -4717,7 +5030,7 @@ def main() -> int:
             # launches at their shapes (bf16)
             more = x_rows | {f"{LM_ARCH} reduced (fleet)": (fleet_summary["kernel_rows"],
                                                             fleet_summary["kernel_err"])}
-            err = max([err, mesh_err, mf_err, mesh_train_summary["seq"]["max_abs_err"],
+            err = max([err, mesh_err, mf_err, mh_err, mesh_train_summary["seq"]["max_abs_err"],
                        mf_summary["seq"]["max_abs_err"]] + [e[name] for _, e in more.values()])
             by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
                 r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
@@ -4727,6 +5040,7 @@ def main() -> int:
                 c[0] for r in mesh_train_summary["matmul_checks"].values()
                 for k, c in r.items() if not k.startswith("seq ")))
             by_arch["mesh_families"] = dict(max_abs_err=mf_err)
+            by_arch["mesh_heads"] = dict(max_abs_err=mh_err)
             by_arch["mesh_seq"] = dict(max_abs_err=max(
                 mesh_train_summary["seq"]["max_abs_err"], mf_summary["seq"]["max_abs_err"]))
         kernels.append(dict(
@@ -4764,6 +5078,7 @@ def main() -> int:
     print(f"[mesh-train] {json.dumps(mesh_train_summary)}")
     print(f"[mesh-serve] {json.dumps(mesh_serve_summary)}")
     print(f"[mesh-families] {json.dumps(mf_summary)}")
+    print(f"[mesh-heads] {json.dumps(mh_summary)}")
     print(f"[audit] {json.dumps(audit_summary)}")
     print(f"[dryrun] {json.dumps(dryrun_summary)}")
     print(f"[device] {card}")

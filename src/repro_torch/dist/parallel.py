@@ -19,6 +19,11 @@ tensors):
   line up with heads (k/v at half a KV head a rank): all-gathered over
   ``model``; its gradient, replicated by then, is sliced back to this
   rank's piece;
+* :func:`gather_span_from_model` — q's columns where they cut across
+  heads: every rank's columns all-gathered and this rank's span of whole
+  heads kept; ranks whose spans share a head send different partial
+  gradients into its columns, so the backward sums every rank's span
+  gradient into this rank's columns, in rank order;
 * :func:`vocab_embed` and :func:`vocab_cross_entropy` — the vocab-parallel
   embedding lookup and the cross-entropy over the tied unembedding's
   local logits;
@@ -192,6 +197,28 @@ class _GatherFromModel(torch.autograd.Function):
         return g[..., r * n:(r + 1) * n].contiguous(), None
 
 
+class _GatherSpanFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, spans):
+        ctx.mesh, ctx.spans, ctx.n = mesh, spans, t.shape[-1]
+        lo, hi = spans[mesh.model_rank]
+        return all_gather(t, mesh.model_group, mesh.model, dim=-1)[..., lo:hi].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, spans, n = ctx.mesh, ctx.spans, ctx.n
+        width = max(hi - lo for lo, hi in spans)  # every rank's span gradient, padded alike
+        g = torch.nn.functional.pad(g.contiguous(), (0, width - g.shape[-1]))
+        every = all_gather(g[None], mesh.model_group, mesh.model, dim=0)
+        c0 = mesh.model_rank * n
+        out = torch.zeros((*g.shape[:-1], n), dtype=g.dtype, device=g.device)
+        for j, (lo, hi) in enumerate(spans):  # a fixed order: rank 0 first, no atomics
+            a, b = max(lo, c0), min(hi, c0 + n)
+            if a < b:
+                out[..., a - c0:b - c0] += every[j][..., a - lo:b - lo]
+        return out, None, None
+
+
 class _SumStatOverModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -231,8 +258,22 @@ def slice_for_model(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def gather_from_model(t: torch.Tensor, mesh) -> torch.Tensor:
     """The ``model`` ranks' ``t`` concatenated along the last dim; the
-    gradient (the same on every rank) sliced back to this rank's part."""
+    gradient sliced back to this rank's part. Precondition: that gradient
+    is the same on every rank (the whole product computed alike on each).
+    Where each rank reads its own part of the result, so that the ranks'
+    gradients differ, use :func:`gather_span_from_model`, which sums them."""
     return _GatherFromModel.apply(t, mesh) if _model_live(mesh) else t
+
+
+def gather_span_from_model(t: torch.Tensor, mesh, spans) -> torch.Tensor:
+    """Columns ``spans[r]`` (``[lo, hi)`` of the gathered last dim, one
+    pair a model rank, in rank order) of the ``model`` ranks' ``t``
+    concatenated along the last dim, on rank ``r``. Ranks whose spans
+    overlap send partial gradients into the shared columns: the backward
+    all-gathers every rank's span gradient and sums, in rank order, those
+    that reach this rank's own columns (a reduce-scatter with a fixed
+    order and no atomics)."""
+    return _GatherSpanFromModel.apply(t, mesh, tuple(spans)) if _model_live(mesh) else t
 
 
 def sum_over_data(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -24,9 +24,13 @@ device, and the collectives return at once. For each cell it records:
     and bytes by kind, every call counted as it runs (no loop multiplier
     to apply: eager PyTorch runs each call).
 
-A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: a model
-mesh that does not divide the q heads) has status ``unsupported`` with
-the CLI's own message; its placements and bytes are still reported. A
+A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: whisper's
+and paligemma's frames and patches under a global batch the data axes
+do not divide) has status ``unsupported`` with the CLI's own message;
+its placements and bytes are still reported. A model mesh that cuts q's
+columns across heads runs each rank's head span
+(``models/layers.py::head_span``), its decode cache the span's whole KV
+heads (``kv_heads`` beside the layout). A
 train cell whose global batch the data axes do not divide
 (``train_tight``: a batch of 8 on 16 or 2x16 data ranks) steps the rank's
 block of the fitted batch spec (``models/model.py::batch_layout``:
@@ -214,6 +218,8 @@ def make_cell(cfg, shape, table, mesh_shape: dict[str, int], *, opt: bool = Fals
         meta["cache_layout"] = {"slots": list(layout.slots), "seq": layout.seq}
         if layout.whole:
             meta["cache_whole"] = list(layout.whole)
+        if layout.kv_heads:
+            meta["cache_kv_heads"] = layout.kv_heads
     return Cell(cfg, shape, table, trees, meta)
 
 
@@ -261,9 +267,8 @@ def rank_bytes(cell: Cell, mesh_shape) -> dict[str, int]:
     for name, (tree, specs) in cell.trees.items():
         leaves = dict(_paths(tree))
         out[name] = sum(shard_bytes(leaves[p], sp, mesh_shape) for p, sp in _paths(specs))
-    # a decode cell's state as the port's rank holds it (a cell the CLIs
-    # refuse for its heads has no such layout: the spec's bytes stand)
-    if cell.shape.kind == "decode" and not lm.mesh_unported(cell.cfg, mesh_shape["model"]):
+    # a decode cell's state as the port's rank holds it
+    if cell.shape.kind == "decode":
         state, _ = _decode_state(cell, shape_mesh(mesh_shape))
         ref, out["state"], out["cache"] = out["state"], _nbytes(state), _nbytes(state["cache"])
         if ref != out["state"]:

@@ -45,11 +45,13 @@ lock-step engine runs on the mesh too (``serve/lockstep.py``), its
 contiguous cache split as the reference's ``cache_specs`` fits it.
 Rank 0's result is returned. Every family serves on a mesh: MoE ranks
 hold their experts, SSM ranks their heads' state rows, the
-encoder-decoder runs its encoder a request on the model mesh, and where
-the model size does not divide the KV heads each rank caches the KV
-heads its q heads read (the layout of the reference's
-``replicate_kv``). Still refused, naming its ROADMAP item: a model mesh
-that does not divide the q heads (``models/model.py::mesh_unported``).
+encoder-decoder runs its encoder a request on the model mesh. Where the
+model size cuts q's columns across heads, each rank runs the heads its
+columns touch (``models/layers.py::head_span``), and where it does not
+divide the KV heads each rank caches the KV heads its q heads read (the
+layout of the reference's ``replicate_kv``). Still refused, naming its
+ROADMAP item: a model mesh that does not divide the experts
+(``models/model.py::mesh_unported``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --requests 8 --prompt-len 128 --gen 32 --prefill-chunk 32 \

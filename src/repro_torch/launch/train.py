@@ -198,16 +198,14 @@ def _refuse_unported(args, cfg) -> None:
     ROADMAP item that ports it."""
     if args.data_mesh * args.model_mesh == 1:
         return
-    heads = lm.mesh_unported(cfg, args.model_mesh)
     unported = {
         "a fleet (--world-size > 1) on a mesh": args.world_size > 1,
-        # (a cell refused for its heads is refused for them alone)
         f"the {cfg.family} family under --global-batch {args.global_batch} that --data-mesh "
         f"{args.data_mesh} does not divide (the reference splits its frames or patches by "
-        "specs of their own)": (cfg.family in ("encdec", "vlm") and not heads
+        "specs of their own)": (cfg.family in ("encdec", "vlm")
                                 and args.global_batch % args.data_mesh != 0),
     }
-    asked = [what for what, on in unported.items() if on] + heads
+    asked = [what for what, on in unported.items() if on] + lm.mesh_unported(cfg, args.model_mesh)
     if asked:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 

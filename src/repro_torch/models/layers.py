@@ -15,12 +15,15 @@ site its own policy. Serving passes no policy (dense) and asks for no
 gradient, so its projections are plain matmuls.
 
 On a device mesh (``mesh=``, ``launch/mesh.py::Mesh``) the params are
-this rank's shards (``dist/sharding.py``): attention and the MLP hold
-their local heads and local ``d_ff``, the counts read from the local
-weights' widths; q/k/v/up/gate are column-parallel behind
+this rank's shards (``dist/sharding.py``): attention runs the q heads its
+q columns touch (:func:`head_span`; the columns may cut across heads) and
+the MLP its local ``d_ff``; q/k/v/up/gate are column-parallel behind
 ``copy_to_model``, o/down row-parallel ahead of ``reduce_from_model``,
 the embedding and the tied unembedding vocab-parallel
-(``dist/parallel.py``). ``mesh=None`` is the one-device model.
+(``dist/parallel.py``). Where ``fit_spec`` drops ``model`` from a leaf
+(the model size divides none of its dims) every rank holds it whole and
+runs its product alike (:func:`model_splits`). ``mesh=None`` is the
+one-device model.
 """
 from __future__ import annotations
 
@@ -61,7 +64,9 @@ def dense_apply(p, x, policy: PolicyLike = DENSE, key=None, site: str = "", *, m
     ``"row"`` its input rows (the partial product summed over ``model``;
     no bias), ``"gather"`` a column shard that does not line up with
     heads, all-gathered on use into the full product, computed alike on
-    every model rank."""
+    every model rank, ``"rep"`` the whole leaf (``fit_spec`` dropped
+    ``model`` from it, or serving gathered it at load), the full product
+    computed alike on every model rank."""
     with backward.scope(site):
         return _dense_apply(p, x, policy, key, site, mesh, split)
 
@@ -277,18 +282,14 @@ def partial_attention(q, k, v, qpos, t0: int):
     return m.transpose(1, 2), p.sum(dim=-1).transpose(1, 2), o
 
 
-def seq_split_attention(q, k, v, qpos, seq: SeqSplit, mesh):
+def seq_split_attention(q, k, v, qpos, seq: SeqSplit, heads=None):
     """Attention over a contiguous cache whose sequence dim is split over
     ``seq``'s group: this rank scores its slice and the group's partials
     combine in rank order. Over ``model`` (``decode_seq_shard``: every
-    rank holds every KV head) the rank first gathers every model rank's q
-    heads and keeps its own heads of the result; over ``data`` the rank's
-    q heads and KV heads are its model rank's. Returns fp32 ``[B,S,H_loc,D]``."""
-    heads = None
-    if seq.axis == "model":
-        h_loc = q.shape[2]
-        q = parallel.all_gather(q, mesh.model_group, mesh.model, dim=2)
-        heads = (mesh.model_rank * h_loc, (mesh.model_rank + 1) * h_loc)
+    rank holds every KV head) ``q`` is every head (the model ranks' q
+    columns gathered) and ``heads`` the ``[lo, hi)`` the rank keeps of the
+    result, its head span; over ``data`` the rank's q heads and KV heads
+    are its model rank's. Returns fp32 ``[B,S,H_loc,D]``."""
     m, s, o = partial_attention(q, k, v, qpos, seq.index * k.shape[1])
     return parallel.softmax_combine(m, s, o, seq.group, seq.n, heads)
 
@@ -390,17 +391,22 @@ def attn_apply(
       head is cached; the output keeps the rank's heads for the
       row-parallel ``o``.
 
-    On a ``mesh`` the rank runs its local q heads and their KV heads: the
-    local k/v columns where they hold whole KV heads, else
-    (:func:`kv_heads_of_rank`) the full k/v products computed alike on
-    every model rank, their gradient summed over ``model`` by
-    ``copy_to_model`` (each rank's q heads reach only their KV head), and
-    this rank's KV heads taken. Either way the KV cache holds the KV heads
-    the rank's q heads read (:func:`kv_range`: where the model size does
-    not divide the KV heads, a head is held by every rank that reads it,
-    the layout of the reference's ``replicate_kv``). Cross-attention
-    projects K/V from ``x_kv``, replicated over ``model``, behind
-    ``copy_to_model``.
+    On a ``mesh`` the rank runs the heads of its :func:`head_span`: q
+    column-parallel on its own columns, and where those cut across heads
+    all-gathered over ``model`` and the span's heads taken
+    (``parallel.gather_span_from_model``, whose backward sums the ranks'
+    partial gradients of a shared head); K/V the local k/v columns where
+    they are the span's KV heads, else the full k/v products computed
+    alike on every model rank, their gradient summed over ``model`` by
+    ``copy_to_model`` (each rank's q heads reach only their KV heads), and
+    the span's KV heads taken. The output, flattened, gives the rank's
+    own columns to its rows of the row-parallel ``o``. The KV cache holds
+    the span's KV heads (:func:`kv_range`: where the model size does not
+    divide the KV heads, a head is held by every rank that reads it, the
+    layout of the reference's ``replicate_kv``). Where ``model`` does not
+    divide q's columns, every rank runs every head on whole q/k/v/o, no
+    collective. Cross-attention projects K/V from ``x_kv``, replicated
+    over ``model``, behind ``copy_to_model``.
 
     Returns (out [B,S,d], kv_cache).
     """
@@ -408,24 +414,35 @@ def attn_apply(
     hd = cfg.head_dim
     src = x if x_kv is None else x_kv
     t = src.shape[1]
-    xm = parallel.copy_to_model(x, mesh)
-    q = dense_apply(p["q"], xm, policy, site=f"{site}/q", mesh=mesh).reshape(b, s, -1, hd)
-    kv_split = kv_heads_of_rank(cfg, mesh)
-    if geom is not None and geom.seq is not None and geom.seq.axis == "model":
+    span = mesh_head_span(cfg, mesh)
+    seq_model = geom is not None and geom.seq is not None and geom.seq.axis == "model"
+    xm = parallel.copy_to_model(x, mesh) if span.split else x
+    q = dense_apply(p["q"], xm, policy, site=f"{site}/q", mesh=mesh,
+                    split="col" if span.split else "rep")
+    if seq_model and span.split:  # every head: each rank scores its slice of every head's keys
+        q = parallel.all_gather(q, mesh.model_group, mesh.model, dim=-1)
+    elif span.gather_q:
+        spans = [tuple(hd * e for e in head_span(cfg, mesh.model, r).q)
+                 for r in range(mesh.model)]
+        q = parallel.gather_span_from_model(q, mesh, spans)
+    q = q.reshape(b, s, -1, hd)
+    if seq_model:
         # every KV head on every model rank, from the replicated k/v kernels
         k, v = (dense_apply(p[n], src, policy, site=f"{site}/{n}").reshape(b, t, -1, hd)
                 for n in ("k", "v"))
-    elif kv_split is None:
+    elif span.local_kv:
         srcm = xm if x_kv is None else parallel.copy_to_model(src, mesh)
         k = dense_apply(p["k"], srcm, policy, site=f"{site}/k", mesh=mesh).reshape(b, t, -1, hd)
         v = dense_apply(p["v"], srcm, policy, site=f"{site}/v", mesh=mesh).reshape(b, t, -1, hd)
     else:
-        lo, hi = kv_split
-        held = p["k"]["w"].shape[-1] == cfg.n_kv_heads * hd  # gathered at load (serving)
-        k, v = (parallel.copy_to_model(
-            dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=None if held else mesh,
-                        split="gather"), mesh).reshape(b, t, -1, hd)[:, :, lo:hi]
-            for n in ("k", "v"))
+        lo, hi = span.kv
+        # whole where fit_spec dropped model from it or serving gathered it at load
+        whole = p["k"]["w"].shape[-1] == cfg.n_kv_heads * hd
+        k, v = (dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=mesh,
+                            split="rep" if whole else "gather") for n in ("k", "v"))
+        if span.split:
+            k, v = parallel.copy_to_model(k, mesh), parallel.copy_to_model(v, mesh)
+        k, v = (y.reshape(b, t, -1, hd)[:, :, lo:hi] for y in (k, v))
     if rope is not None:
         q = apply_rope(q, rope)
         if x_kv is None:
@@ -449,7 +466,8 @@ def attn_apply(
         v_pool[dest] = vw[rows, cols].to(v_pool.dtype)
         qpos, block_tables = geom.qpos, geom.block_tables
         if block_tables is None and geom.seq is not None:
-            out = seq_split_attention(q, k_pool, v_pool, qpos, geom.seq, mesh).to(q.dtype)
+            out = seq_split_attention(q, k_pool, v_pool, qpos, geom.seq,
+                                      span.q if seq_model else None).to(q.dtype)
         elif block_tables is None:
             tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
             out = paged_attention_ref(q, k_pool, v_pool, tables, qpos).to(q.dtype)
@@ -457,8 +475,17 @@ def attn_apply(
             out = kops.paged_attention(q, k_pool, v_pool, block_tables, qpos)
         else:
             out = paged_attention_ref(q, k_pool, v_pool, block_tables, qpos).to(q.dtype)
-    out = out.reshape(b, s, -1)
-    return dense_apply(p["o"], out, policy, site=f"{site}/o", mesh=mesh, split="row"), kv_cache
+    out = out.reshape(b, s, -1)[..., span.cols[0]:span.cols[1]].contiguous()  # the rank's own
+    return dense_apply(p["o"], out, policy, site=f"{site}/o", mesh=mesh,
+                       split="row" if span.split else "rep"), kv_cache
+
+
+def model_splits(width: int, mesh) -> bool:
+    """Does a mesh's ``model`` axis split a dim of ``width`` (``fit_spec``
+    keeps an axis on a dim it divides; where it does not, the leaf's
+    ``model`` split moves elsewhere or is dropped, and every model rank
+    holds the dim whole)?"""
+    return mesh is not None and mesh.model > 1 and width % mesh.model == 0
 
 
 def kv_whole_heads(cfg, model: int) -> bool:
@@ -468,38 +495,63 @@ def kv_whole_heads(cfg, model: int) -> bool:
     return cfg.n_kv_heads % model == 0
 
 
+class HeadSpan(NamedTuple):
+    """The attention heads one rank of a model mesh runs
+    (:func:`head_span`): q heads ``[q[0], q[1])`` and the KV heads
+    ``[kv[0], kv[1])`` they read; ``cols`` the rank's own q columns
+    ``[lo, hi)`` within the span's heads flattened (what its row of the
+    row-parallel ``o`` reads). ``split``: ``model`` splits q's columns
+    (else every rank runs every head, and q, k, v and o are held whole);
+    ``gather_q``: those columns cut across heads, so q is all-gathered
+    over ``model`` and the span taken; ``local_kv``: the rank's k/v
+    columns are the span's KV heads (else the full k/v products are
+    computed alike on every rank and the span's KV heads taken)."""
+
+    q: tuple[int, int]
+    kv: tuple[int, int]
+    cols: tuple[int, int]
+    split: bool = False
+    gather_q: bool = False
+    local_kv: bool = False
+
+
+def head_span(cfg, model: int, rank: int) -> HeadSpan:
+    """Rank ``rank``'s :class:`HeadSpan` on a model mesh of ``model``. The
+    rank holds q columns ``[r*c, (r+1)*c)`` of ``H*hd``, ``c = H*hd /
+    model`` (``fit_spec`` keeps ``model`` there where it divides them);
+    its span is the q heads those columns touch, and the KV heads those
+    read. ``paged_attention`` has each KV head serve the same number of
+    its q heads (``row_id = kvh*G + g``), so where the span's KV heads
+    would serve unequal numbers of them it widens to whole GQA groups.
+    Where ``model`` does not divide ``H*hd`` the q split is dropped (a
+    move elsewhere is refused, ``model.mesh_unported``): every head (and
+    none in a stack without attention)."""
+    h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if model == 1 or not n_kv or (h * hd) % model:
+        return HeadSpan((0, h), (0, n_kv), (0, h * hd))
+    c, g = h * hd // model, h // n_kv
+    lo, hi = rank * c // hd, -(-(rank + 1) * c // hd)
+    klo, khi = lo // g, (hi - 1) // g + 1
+    if len({min(hi, (j + 1) * g) - max(lo, j * g) for j in range(klo, khi)}) > 1:
+        lo, hi = klo * g, khi * g
+    cols = (rank * c - lo * hd, (rank + 1) * c - lo * hd)
+    return HeadSpan((lo, hi), (klo, khi), cols, True, cols != (0, (hi - lo) * hd),
+                    kv_whole_heads(cfg, model))
+
+
+def mesh_head_span(cfg, mesh) -> HeadSpan:
+    """:func:`head_span` of ``mesh``'s rank (every head off a mesh)."""
+    if mesh is None:
+        return head_span(cfg, 1, 0)
+    return head_span(cfg, mesh.model, mesh.model_rank)
+
+
 def kv_range(cfg, mesh) -> tuple[int, int]:
     """The ``[lo, hi)`` KV heads this rank's q heads read, which its KV
-    cache holds (all of them off a mesh)."""
-    split = kv_heads_of_rank(cfg, mesh)
-    if split is not None:
-        return split
-    if mesh is None or mesh.model == 1:
-        return 0, cfg.n_kv_heads
-    n = cfg.n_kv_heads // mesh.model
-    return mesh.model_rank * n, (mesh.model_rank + 1) * n
-
-
-def kv_heads_of_rank(cfg, mesh) -> tuple[int, int] | None:
-    """``None`` where this rank's k/v columns are whole KV heads serving
-    its q heads (no mesh, or :func:`kv_whole_heads`); else the ``[lo,
-    hi)`` KV heads its q heads read, which the rank takes from the
-    gathered full k/v (``model`` a multiple of the KV heads: half a KV
-    head a rank at qwen's 2 KV heads on 4 ranks)."""
-    if mesh is None or mesh.model == 1:
-        return None
-    if cfg.n_heads % mesh.model:
-        raise NotImplementedError(
-            f"a model mesh of {mesh.model} does not divide {cfg.n_heads} heads")
-    if kv_whole_heads(cfg, mesh.model):
-        return None
-    if mesh.model % cfg.n_kv_heads:
-        raise NotImplementedError(
-            f"a model mesh of {mesh.model} with {cfg.n_kv_heads} KV heads")
-    h_loc = cfg.n_heads // mesh.model
-    g = cfg.n_heads // cfg.n_kv_heads
-    lo = mesh.model_rank * h_loc // g
-    return lo, ((mesh.model_rank + 1) * h_loc - 1) // g + 1
+    cache holds (all of them off a mesh): its :func:`head_span`'s. Where
+    the model size does not divide the KV heads a head is held by every
+    rank that reads it, the layout of the reference's ``replicate_kv``."""
+    return mesh_head_span(cfg, mesh).kv
 
 
 # ----------------------------------------------------------------------
@@ -525,20 +577,25 @@ def mlp_init(gen, d_model, d_ff, dtype=torch.bfloat16, gated: bool = True, devic
     return p
 
 
-def mlp_apply(p, x, act: str, policy: PolicyLike = DENSE, site: str = "mlp", mesh=None):
+def mlp_apply(p, x, act: str, policy: PolicyLike = DENSE, site: str = "mlp", mesh=None, *,
+              d_ff: int):
     """``down(act(gate(x)) * up(x))``, or ``down(act(up(x)))`` for the
     non-gated MLP (params without ``gate``); sites ``{site}/up``,
-    ``{site}/gate``, ``{site}/down``. On a ``mesh``: this rank's ``d_ff``
-    columns, up/gate column-parallel, down row-parallel."""
+    ``{site}/gate``, ``{site}/down``. On a ``mesh`` where ``model``
+    divides the hidden width ``d_ff``: this rank's ``d_ff`` columns,
+    up/gate column-parallel, down row-parallel; where it does not
+    (``fit_spec`` drops the split) every rank runs the whole MLP."""
     fn = _ACTS[act]
-    x = parallel.copy_to_model(x, mesh)
+    split = model_splits(d_ff, mesh)
+    col, row = ("col", "row") if split else ("rep", "rep")
+    if split:
+        x = parallel.copy_to_model(x, mesh)
     if "gate" in p:
-        h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate", mesh=mesh)) * dense_apply(
-            p["up"], x, policy, site=f"{site}/up", mesh=mesh
-        )
+        h = fn(dense_apply(p["gate"], x, policy, site=f"{site}/gate", mesh=mesh, split=col)) * (
+            dense_apply(p["up"], x, policy, site=f"{site}/up", mesh=mesh, split=col))
     else:
-        h = fn(dense_apply(p["up"], x, policy, site=f"{site}/up", mesh=mesh))
-    return dense_apply(p["down"], h, policy, site=f"{site}/down", mesh=mesh, split="row")
+        h = fn(dense_apply(p["up"], x, policy, site=f"{site}/up", mesh=mesh, split=col))
+    return dense_apply(p["down"], h, policy, site=f"{site}/down", mesh=mesh, split=row)
 
 
 # ----------------------------------------------------------------------

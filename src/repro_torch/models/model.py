@@ -46,8 +46,10 @@ params are this rank's shards of the leaves (:func:`mesh_specs`,
 global batch (:func:`batch_layout`: its rows, or where the data axes do
 not divide the batch its block of the sequence, or the whole batch), and
 the loss, its gradients and the decode logits are the one-device model's
-(``dist/parallel.py``): attention and MLPs hold their heads and ``d_ff``
-columns, MoE layers their experts, SSM layers their heads, and the VLM's
+(``dist/parallel.py``): attention runs the q heads its columns touch
+(``layers.head_span``), MLPs hold their ``d_ff`` columns, MoE layers
+their experts, SSM layers their heads, a leaf ``fit_spec`` drops
+``model`` from is whole on every rank (:func:`mesh_split`), and the VLM's
 patch prefix and the encoder's output are replicated over ``model``.
 Serving on a ``data x model`` mesh (:func:`cache_layout`): a rank holds
 its slots' rows of the slot-major state (the step's tokens, contiguous
@@ -200,19 +202,28 @@ def mesh_specs(cfg: ModelConfig, params, mesh_shape, *, replicate_kv: bool = Fal
 
 def mesh_unported(cfg: ModelConfig, model: int) -> list[str]:
     """What a model mesh of ``model`` cannot split of ``cfg`` yet, each
-    as the CLIs name it: q heads the model size does not divide (the
-    reference's ``fit_spec`` moves ``model`` to the head dim), KV heads
-    that neither divide nor are divided by it, experts it does not
-    divide."""
+    as the CLIs name it: experts it does not divide, and a leaf whose
+    fitted spec moves ``model`` onto a dim the port's step does not split
+    (no registry arch has one at the model sizes that divide 16)."""
     out = []
-    if model > 1 and cfg.family != "ssm":
-        if cfg.n_heads % model:
-            out.append(f"--model-mesh {model} that does not divide the {cfg.n_heads} q heads "
-                       "(the reference moves model to the head dim)")
-        elif not layers.kv_whole_heads(cfg, model) and model % cfg.n_kv_heads:
-            out.append(f"--model-mesh {model} with {cfg.n_kv_heads} KV heads")
     if model > 1 and cfg.is_moe and cfg.n_experts % model:
         out.append(f"--model-mesh {model} that does not divide the {cfg.n_experts} experts")
+    if model > 1:
+        vocab = shd.fit_spec(shd.Spec("model", None), (cfg.padded_vocab, cfg.d_model),
+                             {"model": model})
+        if vocab[1] is not None:
+            out.append(f"--model-mesh {model} that fit_spec moves off the vocabulary onto "
+                       "the embedding's width")
+        seen = set()
+        for site in site_names(cfg)[0]:
+            shape = _site_shape(cfg, site)
+            if is_expert_site(site) or shape in seen:
+                continue
+            seen.add(shape)
+            try:
+                mesh_split(cfg, site, model)
+            except NotImplementedError as e:
+                out.append(str(e))
     return out
 
 
@@ -314,13 +325,16 @@ class CacheLayout:
     ``data``); ``seq`` the mesh axis the contiguous K/V's sequence dim is
     split over (``"model"`` or ``"data"``), or ``None``; ``whole`` the
     leaves the fitted spec splits over a data axis on a dim the port's
-    step does not split, each with the reason the rank holds it whole."""
+    step does not split, each with the reason the rank holds it whole;
+    ``kv_heads`` where the fitted spec puts ``model`` on the K/V's head
+    dim, which KV heads the rank holds instead, and why."""
 
     n_slots: int
     slots: tuple[int, int]
     paged: bool = False
     seq: str | None = None
     whole: tuple[str, ...] = ()
+    kv_heads: str = ""
 
     @property
     def split(self) -> bool:
@@ -404,7 +418,9 @@ def cache_layout(cfg: ModelConfig, mesh, n_slots: int, max_seq: int, *, paged: b
       batch 1: its layer stack) leaves that leaf whole on the rank, listed
       in ``whole`` with the reason;
     * the KV heads are the rank's q heads' (``layers.kv_range``), every
-      KV head with ``seq_shard``; an SSM layer's heads its own
+      KV head with ``seq_shard``; where the spec moves ``model`` to the
+      K/V's head dim (the model size does not divide the KV heads),
+      ``kv_heads`` says so; an SSM layer's heads its own
       (``ssm.local_heads``)."""
     layout = CacheLayout(n_slots, (0, n_slots), paged)
     if mesh is None:
@@ -418,11 +434,18 @@ def cache_layout(cfg: ModelConfig, mesh, n_slots: int, max_seq: int, *, paged: b
         cache = init_cache(cfg, n_slots, max_seq, device="meta")
     specs = shd.cache_specs(shape, jax_cache_layout(cfg, cache), seq_shard=seq_shard, paged=paged)
     split = mesh.dp > 1 and shd.fit_spec(shd.Spec(baxis, None), (n_slots, 1), shape)[0] == baxis
-    seq, whole, has_kv = None, [], False
+    seq, whole, has_kv, kv_heads = None, [], False, ""
     for path, name, spec in _spec_leaves(specs):
         kind = "paged" if paged and name in ("k", "v") else "kv" if name in ("k", "v") else name
         has_kv = has_kv or kind == "kv"
         for i, e in enumerate(spec):
+            if kind in ("kv", "paged") and i == 4 and e == "model" and not kv_heads:
+                lo, hi = layers.kv_range(cfg, mesh)
+                kv_heads = (f"{path}: the reference puts model on the head dim ({cfg.n_kv_heads} "
+                            f"KV heads that model {mesh.model} does not divide); the rank holds "
+                            f"whole KV heads, those its q heads read ([{lo}, {hi}) of "
+                            f"{cfg.n_kv_heads}), since a split head dim needs a partial-sum "
+                            "all-reduce of the scores, which paged_attention cannot do")
             if kind == "kv" and i == 2 and (e == "model" and seq_shard or
                                             e == baxis and mesh.dp > 1):
                 seq = "model" if e == "model" else "data"
@@ -437,12 +460,12 @@ def cache_layout(cfg: ModelConfig, mesh, n_slots: int, max_seq: int, *, paged: b
     if split:
         per = n_slots // mesh.dp
         slots = (mesh.data_rank * per, (mesh.data_rank + 1) * per)
-    return CacheLayout(n_slots, slots, paged, seq, tuple(whole))
+    return CacheLayout(n_slots, slots, paged, seq, tuple(whole), kv_heads)
 
 
 def shard_cache(cfg: ModelConfig, cache, mesh, layout: CacheLayout):
     """This rank's shard of a decode cache on a mesh: an attention layer's
-    K/V keep the KV heads the rank's q heads read (``layers.kv_range``: the
+    K/V keep the KV heads its head span's q heads read (``layers.kv_range``: the
     reference's ``cache_specs``, ``model`` on the KV-head dim, where the
     model size divides the KV heads; else the layout of its
     ``replicate_kv``, each head on every rank that reads it, since
@@ -525,9 +548,17 @@ def site_names(cfg: ModelConfig):
     return sites, cfg.n_layers
 
 
+def _vocab_mesh(cfg, mesh):
+    """The mesh the vocab-parallel embedding, unembedding and
+    cross-entropy run on: ``mesh`` where ``model`` splits the vocabulary,
+    else none (``fit_spec`` dropped the split: every rank holds the whole
+    table and computes alike)."""
+    return mesh if layers.model_splits(cfg.padded_vocab, mesh) else None
+
+
 def _embed_inputs(cfg, params, batch, mesh=None):
     """Token embeddings, with the VLM's patch prefix in front."""
-    x = layers.embed_apply(params["embed"], batch["tokens"], mesh)
+    x = layers.embed_apply(params["embed"], batch["tokens"], _vocab_mesh(cfg, mesh))
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     return x
@@ -544,7 +575,8 @@ def forward(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=No
     encoder runs over ``frames`` (in the params' dtype), its output
     normed, and the cross-decoder attends to it."""
     x, aux = _hidden(cfg, params, batch, policy, mesh)
-    logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab, mesh=mesh)
+    logits = layers.unembed_apply(params["embed"], x, valid=cfg.vocab,
+                                  mesh=_vocab_mesh(cfg, mesh))
     return logits, aux
 
 
@@ -595,8 +627,9 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: PolicyLike = DENSE, mesh=No
     gradient (summed over that group by the step)."""
     if mesh is not None:
         x, aux = _hidden(cfg, params, batch, policy, mesh)
-        logits = layers.unembed_local(params["embed"], x, mesh)
-        nll = parallel.vocab_cross_entropy(logits, batch["targets"], cfg.vocab, mesh)
+        vmesh = _vocab_mesh(cfg, mesh)
+        logits = layers.unembed_local(params["embed"], x, vmesh)
+        nll = parallel.vocab_cross_entropy(logits, batch["targets"], cfg.vocab, vmesh)
         mask = batch.get("loss_mask")
         mask = torch.ones_like(nll) if mask is None else mask.float()
         num = parallel.sum_over_data((nll * mask).sum(), mesh)
@@ -628,6 +661,9 @@ def is_expert_site(site: str) -> bool:
     return site.split("[", 1)[0].split("/", 1)[-1] in _EXPERT_SITES
 
 
+_ROW_PROJ = ("o", "down", "out_proj")  # row-parallel products (``model`` on their rows)
+
+
 def site_out_dim(cfg: ModelConfig, site: str) -> int:
     """The output width (``D_out``, the selected axis) of a site's product."""
     proj = _proj(site)
@@ -635,24 +671,55 @@ def site_out_dim(cfg: ModelConfig, site: str) -> int:
         return cfg.n_heads * cfg.head_dim
     if proj in ("k", "v"):
         return cfg.n_kv_heads * cfg.head_dim
-    if proj in ("o", "down", "out_proj"):
+    if proj in _ROW_PROJ:
         return cfg.d_model
     if proj == "in_proj":
         return ssm.site_cols(cfg)
     return cfg.d_ff * (cfg.n_shared_experts if "/shared/" in site else 1)  # up, gate
 
 
+def _site_shape(cfg: ModelConfig, site: str) -> tuple[int, int, int, bool]:
+    """A site's kernel in the JAX layout, ``[stack, d_in, d_out]``, and
+    whether it is row-parallel."""
+    proj = _proj(site)
+    if cfg.family == "encdec":
+        stack = cfg.n_enc_layers if site.startswith("enc/") else cfg.n_layers
+    else:
+        stack = transformer.n_periods(cfg)
+    d_in = cfg.d_model
+    if proj == "o":
+        d_in = cfg.n_heads * cfg.head_dim
+    elif proj == "out_proj":
+        d_in = cfg.d_inner
+    elif proj == "down":
+        d_in = cfg.d_ff * (cfg.n_shared_experts if "/shared/" in site else 1)
+    return stack, d_in, site_out_dim(cfg, site), proj in _ROW_PROJ
+
+
 def mesh_split(cfg: ModelConfig, site: str, model: int) -> str:
-    """How a rank of a model mesh of ``model`` holds a site: ``"col"``
-    (q/k/v/up/gate: its output columns), ``"row"`` (o/down/out_proj: its
-    input rows), ``"gather"`` (k/v where the model size does not divide
-    the KV heads, and the SSM's in_proj, whose even column split cuts
-    across its parts: the full product on every rank), or ``"rep"`` (no
-    model split; a routed expert, held whole by one rank)."""
+    """How a rank of a model mesh of ``model`` holds a site, read from
+    its kernel's fitted spec (the rule table's ``model`` on the columns,
+    or on the rows of o/down/out_proj, through ``fit_spec``): ``"col"``
+    (q/k/v/up/gate: its output columns; q's may cut across heads,
+    ``layers.head_span``), ``"row"`` (o/down/out_proj: its input rows),
+    ``"gather"`` (k/v where the model size does not divide the KV heads,
+    and the SSM's in_proj, whose even column split cuts across its parts:
+    the full product on every rank), or ``"rep"`` (``fit_spec`` dropped
+    ``model``: the whole leaf on every rank, as a routed expert is held
+    whole by one rank). A spec that moves ``model`` onto another dim
+    raises."""
     proj = _proj(site)
     if model == 1 or is_expert_site(site):
         return "rep"
-    if proj in ("o", "down", "out_proj"):
+    *shape, row = _site_shape(cfg, site)
+    spec = shd.fit_spec(shd.Spec(None, "model", None) if row else shd.Spec(None, None, "model"),
+                        shape, {"model": model})
+    if not shd.is_split(spec):
+        return "rep"
+    if spec[1 if row else 2] != "model":
+        raise NotImplementedError(f"--model-mesh {model} that fit_spec moves off the "
+                                  f"{'rows' if row else 'columns'} of {proj} {shape}")
+    if row:
         return "row"
     if proj == "in_proj" or (proj in ("k", "v") and not layers.kv_whole_heads(cfg, model)):
         return "gather"
@@ -830,7 +897,8 @@ def _decode_rows(cfg, params, tokens, cache, positions, valid, token_count, *, e
     """:func:`decode_slots` over the rows given (their positions, valid
     tokens and counts), the K/V placed by ``place``."""
     b, c = tokens.shape
-    x = layers.embed_apply(params["embed"], tokens, mesh)
+    vmesh = _vocab_mesh(cfg, mesh)
+    x = layers.embed_apply(params["embed"], tokens, vmesh)
     if cfg.family == "encdec":
         if enc_out is None:
             raise ValueError(f"{cfg.name}: an encdec decode step needs enc_out")
@@ -847,10 +915,10 @@ def _decode_rows(cfg, params, tokens, cache, positions, valid, token_count, *, e
         )
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if all_logits:
-        return layers.unembed_apply(params["embed"], x, valid=cfg.vocab, mesh=mesh), cache
+        return layers.unembed_apply(params["embed"], x, valid=cfg.vocab, mesh=vmesh), cache
     last = torch.clamp(token_count.long() - 1, 0, c - 1)
     x_last = x[torch.arange(b, device=x.device), last][:, None]  # [B, 1, d]
-    logits = layers.unembed_apply(params["embed"], x_last, valid=cfg.vocab, mesh=mesh)[:, 0]
+    logits = layers.unembed_apply(params["embed"], x_last, valid=cfg.vocab, mesh=vmesh)[:, 0]
     return logits, cache
 
 

@@ -260,7 +260,8 @@ def moe_apply(p, x, cfg, policy: PolicyLike = DENSE, *, full_capacity: bool = Fa
 
     if "shared" in p:
         y = y + layers.mlp_apply(p["shared"], x.reshape(t_loc, d), cfg.act, policy,
-                                 site="moe/shared", mesh=mesh)
+                                 site="moe/shared", mesh=mesh,
+                                 d_ff=cfg.d_ff * cfg.n_shared_experts)
 
     n_keep = keep.float().sum()
     if data > 1 and not spread:

@@ -184,7 +184,7 @@ def _slot_apply(
                                           dp_groups=cfg.moe_dp_groups, mesh=mesh)
             aux = metrics["aux_loss"]
         else:
-            out2 = layers.mlp_apply(p["mlp"], h2, cfg.act, policy, mesh=mesh)
+            out2 = layers.mlp_apply(p["mlp"], h2, cfg.act, policy, mesh=mesh, d_ff=cfg.d_ff)
         x = x + out2
     return x, new_cache, aux
 
@@ -365,7 +365,7 @@ def encoder_apply(params, x, cfg: ModelConfig, policy: PolicyLike = DENSE, *, me
                                      cfg, pol, rope=rope, causal=False, mesh=m)
             x = x + a
             x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                                     cfg.act, pol, mesh=m)
+                                     cfg.act, pol, mesh=m, d_ff=cfg.d_ff)
     return x
 
 
@@ -444,7 +444,7 @@ def cross_decoder_apply(
             )
             x = x + c
             x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                                     cfg.act, pol, mesh=m)
+                                     cfg.act, pol, mesh=m, d_ff=cfg.d_ff)
     return x, caches
 
 

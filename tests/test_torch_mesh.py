@@ -273,13 +273,25 @@ def test_seq_shard_decode_raises():
 
 
 def test_heads_the_model_mesh_does_not_divide_raise():
-    """A model size that does not divide the q heads, or that neither
-    divides nor is a multiple of the KV heads, has no head split."""
+    """Nothing raises any more where the model size does not divide the q
+    heads, or neither divides nor is a multiple of the KV heads: at 3,
+    which divides none of reduced qwen2.5-3b's 128 q columns, ``fit_spec``
+    drops the split and every rank runs every head; 6 q heads and 6 KV
+    heads on 4 ranks give each rank 1.5 heads' columns and a span of the 2
+    heads they touch, with those KV heads."""
     cfg = get_config(ARCH).reduced()
-    for model, kv in ((3, 2), (4, 3)):
-        mesh = tmesh.Mesh(1, model, 0, torch.device("cpu"), "gloo", None, None)
-        with pytest.raises(NotImplementedError):
-            layers.kv_heads_of_rank(dataclasses.replace(cfg, n_kv_heads=kv), mesh)
+
+    def span(c, model, rank):
+        mesh = tmesh.Mesh(1, model, rank, torch.device("cpu"), "gloo", None, None)
+        return layers.mesh_head_span(c, mesh)
+
+    for r in range(3):
+        got = span(cfg, 3, r)
+        assert (got.q, got.kv, got.cols, got.split) == ((0, 4), (0, 2), (0, 128), False)
+    six = [span(dataclasses.replace(cfg, n_heads=6, n_kv_heads=6), 4, r) for r in range(4)]
+    assert [s.q for s in six] == [(0, 2), (1, 3), (3, 5), (4, 6)]
+    assert [s.kv for s in six] == [s.q for s in six]
+    assert [s.cols for s in six] == [(0, 48), (16, 64), (0, 48), (16, 64)]
 
 
 def test_a_mesh_on_cuda_without_a_card_raises():

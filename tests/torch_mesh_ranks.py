@@ -370,10 +370,11 @@ def seq_train(mesh, shape, arch, tree, overrides, batches, lr):
     return family_train(mesh, arch, tree, overrides, batches, lr)
 
 
-def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv, arch=ARCH):
+def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv, arch=ARCH, overrides=None):
     """The engine on a model mesh, once a mode: the reduced ``arch``'s
-    params from the JAX init ``tree`` (a 1-layer drafter's from
-    ``dtree``, or none), this rank's shards of them, the mode's workload
+    (``overrides`` replaced in its config) params from the JAX init
+    ``tree`` (a 1-layer drafter's from ``dtree``, or none), this rank's
+    shards of them, the mode's workload
     (``modes[name] = (workload kwargs, ServeConfig kwargs, drafter?,
     greedy-every-other?)``). Returns ``{name: (streams, stats, every
     rank's paged_attention launches, every rank's swapped bytes, whether
@@ -385,7 +386,7 @@ def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv, arch=ARCH):
     from repro_torch.launch import serve
     from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, poisson_workload
 
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **(overrides or {}))
     dcfg = cfg.reduced(n_layers=1)
 
     def local(c, t):  # the serving CLI's shards
@@ -417,6 +418,83 @@ def serve_cases(mesh, tree, dtree, modes, max_seq, cli_argv, arch=ARCH):
         args = serve.build_parser().parse_args(cli_argv)
         out["cli"] = serve.serve_rank(mesh, args, cfg)["generated"].tolist()
     return out
+
+
+def lockstep_streams(mesh, arch, tree, cases, max_seq):
+    """The lock-step engine (``serve.generate_lockstep``) on this mesh,
+    once a case (``cases[name] = (prompts [B, P], gen, config overrides,
+    frames or None)``; ``decode_seq_shard`` among the overrides splits the
+    contiguous K/V's sequence over ``model``, the k/v kernels whole):
+    ``{name: (tokens [B, gen], the layout's (slots, seq), whether every
+    rank's tokens are rank 0's)}``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.serve import generate_lockstep
+
+    base = get_config(arch).reduced()
+    out = {}
+    for name, (prompts, gen, overrides, frames) in cases.items():
+        cfg = dataclasses.replace(base, **overrides)
+        params = _serve_params(mesh, cfg, tree)
+        b = prompts.shape[0]
+        layout = tlm.cache_layout(cfg, mesh, b, max_seq, seq_shard=cfg.decode_seq_shard)
+        with torch.no_grad():
+            res = generate_lockstep(cfg, params, prompts, [gen] * b, max_seq=max_seq,
+                                    frames=frames, device="cpu", mesh=mesh)
+        tokens = np.stack(res["tokens"])
+        every = [None] * mesh.world
+        dist.all_gather_object(every, tokens.tolist())
+        out[name] = (tokens, (layout.slots, layout.seq),
+                     all(t == tokens.tolist() for t in every))
+    return out
+
+
+def span_gather_case(mesh, shape, n_heads, head_dim):
+    """``parallel.gather_span_from_model`` on this rank of a ``(data,
+    model)`` mesh ``shape`` over this spawn's ranks, ``n_heads`` heads of
+    ``head_dim`` whose q columns the model ranks split (fp64): each
+    rank weighs its head span of the gathered q by its own cotangent, so
+    ranks that share a head send different gradients into its columns.
+    Returns every rank's (span, forward error, gradient error against the
+    summed one-process gradient, the plain ``gather_from_model``'s
+    gradient error, whether a second backward is bit-identical)."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+
+    if tuple(shape) != (mesh.data, mesh.model):
+        mesh = make_host_mesh(*shape, "cpu")
+    cfg = types.SimpleNamespace(n_heads=n_heads, n_kv_heads=n_heads, head_dim=head_dim)
+    m, r = mesh.model, mesh.model_rank
+    spans = [tuple(head_dim * e for e in layers.head_span(cfg, m, j).q) for j in range(m)]
+    width, c = n_heads * head_dim, n_heads * head_dim // m
+    q = torch.randn(3, width, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    cot = [torch.randn(3, hi - lo, generator=torch.Generator().manual_seed(1 + j),
+                       dtype=torch.float64) for j, (lo, hi) in enumerate(spans)]
+    want = torch.zeros_like(q)  # d/dq of every rank's weighted span, summed
+    for (lo, hi), w in zip(spans, cot, strict=True):
+        want[:, lo:hi] += w
+    grads, outs = [], []
+    for summed in (True, True, False):  # twice, then the plain gather (its backward slices)
+        ql = q[:, r * c:(r + 1) * c].clone().requires_grad_(True)
+        if summed:
+            out = parallel.gather_span_from_model(ql, mesh, spans)
+        else:
+            out = parallel.gather_from_model(ql, mesh)[:, spans[r][0]:spans[r][1]]
+        (out * cot[r]).sum().backward()
+        grads.append(ql.grad)
+        outs.append(out.detach())
+    fwd = float((outs[0] - q[:, spans[r][0]:spans[r][1]]).abs().max())
+    mine = want[:, r * c:(r + 1) * c]
+    res = (layers.head_span(cfg, m, r), fwd, float((grads[0] - mine).abs().max()),
+           float((grads[2] - mine).abs().max()), torch.equal(grads[0], grads[1]))
+    every = [None] * mesh.world
+    dist.all_gather_object(every, res)
+    return every
 
 
 def cli_train(mesh, argvs):
