@@ -305,9 +305,15 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    share printed), tokens/s, p50/p99 step and the collectives' calls and
    bytes a step; then ``[mesh-seq]`` in the same spawn: mamba2 (depth 4,
    B=1 S=512: one 256-token SSD chunk a rank, the conv's halo and the
-   carried state passed between the ranks) and the reduced kimi-k2, llama4
-   and jamba at ``moe_dp_groups`` 0 and 2 (B=3 S=64) on 2x1, each beside
-   its 1x1 run, held as in 15c;
+   carried state passed between the ranks), whisper-large-v3 at full width
+   (2 + 2 of 32 + 32 layers, 1500 frames, B=1 S=128: 64 tokens a rank, the
+   encoder alike on both, the cross-attention's K/V gradient summed over
+   ``data``: its calls and bytes a step printed), paligemma-3b at full
+   width (2 of 18 layers, 256 patches, B=1 S=128: 128 patches and 64
+   tokens a rank, attention masked by position vectors; its three steps
+   sparse, ``MF_SEQ_SCHEDULER``) and the reduced
+   kimi-k2, llama4 and jamba at ``moe_dp_groups`` 0 and 2 (B=3 S=64) on
+   2x1, each beside its 1x1 run, held as in 15c;
 23a. model meshes that do not divide the q heads (``[mesh-heads]``):
    whisper-large-v3 at full width, 2 + 2 of 32 + 32 layers, B=2
    S=128 with 1500 stub frames, on ``--model-mesh 8`` (160 of its 1280 q
@@ -353,8 +359,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    lock-step decode step (depth 2, fp32, B=4, 160 tokens) at 1x2 and
    2x1 on the fake group: each rank's param and cache bytes and the
    collectives' calls and bytes equal what the card's ranks recorded;
-   ``[mesh-seq]``'s qwen2.5-3b run on the fake group: the sequence
-   split's collectives a step equal rank 0's on the card; qwen2.5-3b x
+   ``[mesh-seq]``'s qwen2.5-3b, whisper and paligemma runs on the fake
+   group: the sequence split's collectives a step (whisper's cross K/V
+   sums among them) equal rank 0's on the card; qwen2.5-3b x
    ``train_tight`` at full width and depth as rank 0 of 16x16 and
    2x16x16: its block ``[8, 256]`` / ``[4, 256]``, eager peak and
    collectives; then qwen2.5-3b x ``train_4k`` and x ``decode_32k`` on 16x16: each
@@ -367,8 +374,11 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    width and depth 1 (1 + 1; llama4 2: a dense and a MoE layer), rank 0:
    argument bytes (a decode cell's
    state as the port holds it beside the reference's), eager peak,
-   collectives; whisper's and paligemma's ``train_tight`` refused with
-   the encoder-decoder / VLM batch message;
+   collectives; then (``[dryrun] [tight]``) whisper's and paligemma's
+   ``train_tight`` on 16x16, rank 0, at the same depths: the batch block
+   (whisper's frames whole, paligemma's patch block), arguments, peak,
+   collectives a step, the sequence split's and of them the cross K/V
+   all-reduce's share;
 24. prints the card's line, the kernels' JSON line (a gathered kernel's
    ``launches`` is the sum of the ResNet-18 and DDPM training phases'
    and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
@@ -2564,6 +2574,7 @@ MESH_LOCK_DEPTH = 2  # their depth (and the counted step's): 318 gloo-bound step
 # last phase stays under ~800 s)
 MESH_SEQ_LM = (3, 128)
 MESH_SEQ_DEPTH = 2
+MESH_SEQ_LOSS_TOL = 1e-5  # the seq-split runs' losses against 1x1's, relative
 
 
 def _mesh_train_argv(data, model):
@@ -2593,7 +2604,8 @@ def mesh_seq_ranks(mesh21, cases, checker, free):
         t0 = time.perf_counter()
         for k in gm.launches:
             gm.launches[k] = 0
-        parallel.counters.update(calls=0, bytes=0, s=0.0, seq_calls=0, seq_bytes=0)
+        parallel.counters.update(calls=0, bytes=0, s=0.0, seq_calls=0, seq_bytes=0,
+                                 kv_sum_calls=0, kv_sum_bytes=0)
         with gm.observe_matmul(checker(f"seq {name}")):
             res = train.run_rank(mesh21, train.build_parser().parse_args(argv), cfg, ("kept",))
         out[name] = dict(res, counted=dict(gm.launches), collectives=dict(parallel.counters))
@@ -2607,7 +2619,7 @@ def mesh_seq_ranks(mesh21, cases, checker, free):
 def mesh_seq_report(one, got, every, one_launches, card):
     """Checks and prints ``[mesh-seq]``: each 2x1 run of ``got`` against its
     1x1 run in ``one`` (same batch, depth and seed): the losses within
-    ``MESH_LOSS_TOL``, the kept channels of every site at the first sparse
+    ``MESH_SEQ_LOSS_TOL``, the kept channels of every site at the first sparse
     step equal, each rank's ``matmul`` launches equal to the launch table's
     (rank 0's counted from 0 around the run too) and no other kernel, every
     one of them checked against the plain version within ``KERNEL_TOL``
@@ -2631,9 +2643,9 @@ def mesh_seq_report(one, got, every, one_launches, card):
                     if k == f"seq {name}" or k.startswith(f"seq {name} ")]
             checked.append((sum(c[0] for c in mine), max((c[1] for c in mine), default=0.0),
                             next((c[3] for c in mine if c[3] is not None), None)))
-        if not all(math.isfinite(v) for v in out["history"]) or rel > MESH_LOSS_TOL:
+        if not all(math.isfinite(v) for v in out["history"]) or rel > MESH_SEQ_LOSS_TOL:
             raise AssertionError(f"[mesh-seq] {name} losses {out['history']} vs 1x1 "
-                                 f"{ref['history']}: rel {rel:.3g} > {MESH_LOSS_TOL}")
+                                 f"{ref['history']}: rel {rel:.3g} > {MESH_SEQ_LOSS_TOL}")
         if differ:
             raise AssertionError(f"[mesh-seq] {name}: the first sparse step's kept sets differ "
                                  f"from 1x1's at {differ}")
@@ -2652,6 +2664,8 @@ def mesh_seq_report(one, got, every, one_launches, card):
                    products_worst=max(c[1] for c in checked),
                    seq_calls_per_step=coll["seq_calls"] / steps,
                    seq_mb_per_step=coll["seq_bytes"] / steps / 1e6,
+                   kv_sum_calls_per_step=coll["kv_sum_calls"] / steps,
+                   kv_sum_mb_per_step=coll["kv_sum_bytes"] / steps / 1e6,
                    collective_calls_per_step=coll["calls"] / steps,
                    collective_mb_per_step=coll["bytes"] / steps / 1e6)
         summary[name] = row
@@ -2660,8 +2674,10 @@ def mesh_seq_report(one, got, every, one_launches, card):
               f"{len(sites)} sites; matmul launches by rank {by_rank} = the table's, every "
               f"product within {KERNEL_TOL} x max(1, max|plain|) of the plain version (worst "
               f"{row['products_worst']:.3g}); the sequence split's collectives a step "
-              f"{row['seq_calls_per_step']:g} calls, {row['seq_mb_per_step']:.2f} MB (all "
-              f"collectives {row['collective_calls_per_step']:g} calls, "
+              f"{row['seq_calls_per_step']:g} calls, {row['seq_mb_per_step']:.2f} MB (of them "
+              f"the cross K/V gradient sums {row['kv_sum_calls_per_step']:g} calls, "
+              f"{row['kv_sum_mb_per_step']:.2f} MB; all collectives "
+              f"{row['collective_calls_per_step']:g} calls, "
               f"{row['collective_mb_per_step']:.2f} MB)", flush=True)
     return launches, worst, summary
 
@@ -3785,12 +3801,23 @@ MF_TIMEOUT_S = 400
 # [mesh-seq] in the same spawn: batches --data-mesh 2 does not divide (data on
 # the sequence dim). mamba2 at depth 4, B=1 S=512: one 256-token SSD chunk a
 # rank; the reduced MoE archs at moe_dp_groups 0 and 2, B=3 S=64
-MF_SEQ = {SSM_ARCH: (dict(n_layers=4), 1, 512)}  # 48 layers cut to 4
+MF_SEQ = {SSM_ARCH: (dict(n_layers=4), 1, 512),  # 48 layers cut to 4
+          # 2 + 2 of 32 + 32, 1500 frames whole on both ranks, 64 tokens a rank
+          ENCDEC_ARCH: (dict(n_layers=2, n_enc_layers=2), 1, 128),
+          VLM_ARCH: (dict(n_layers=2), 1, 128)}  # 2 of 18; 128 patches, 64 tokens a rank
 MF_SEQ_REDUCED_BS = (3, 64)
+# a [mesh-seq] run's schedule where it is not --scheduler bar: paligemma's
+# three steps all sparse, so that its first sparse step selects from the
+# init, alike on both layouts. After bar's dense first step, Adam's eps
+# regime (|g| ~ eps: an element moves by lr * g / (|g| + eps)) parts the
+# two layouts' params by ~2e-5 relative at its 16384-wide MLP sites, over
+# gaps of 4e-6 between the kept and the first dropped channel; every site
+# agrees under eps 1e-5 or a sparse first step (tools/seq_split_tie_probe.py)
+MF_SEQ_SCHEDULER = {VLM_ARCH: "constant"}
 
 
-def _mf_train_argv(arch, batch, seq, data, model):
-    return ["--arch", arch, "--steps", str(MF_STEPS), "--scheduler", "bar", "--global-batch",
+def _mf_train_argv(arch, batch, seq, data, model, scheduler="bar"):
+    return ["--arch", arch, "--steps", str(MF_STEPS), "--scheduler", scheduler, "--global-batch",
             str(batch), "--seq-len", str(seq), "--drop-rate", str(LM_RATE), "--granularity",
             "channel", "--use-pallas", "--log-every", "100", "--device", "cuda", "--data-mesh",
             str(data), "--model-mesh", str(model)]
@@ -3961,7 +3988,8 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
     for name, (arch, b, sq, cfg) in seq_cases.items():
         before = gm.launches["matmul"]
         one_seq[name] = train.run(train.build_parser().parse_args(
-            _mf_train_argv(arch, b, sq, 1, 1)), cfg=cfg, collect=("kept",))
+            _mf_train_argv(arch, b, sq, 1, 1, MF_SEQ_SCHEDULER.get(name, "bar"))), cfg=cfg,
+            collect=("kept",))
         one_seq_launches += gm.launches["matmul"] - before
         gc.collect()
         torch.cuda.empty_cache()
@@ -3969,12 +3997,13 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
     print(f"[mesh-seq] 1x1: {len(seq_cases)} family runs in {t_seq_one:.1f} s")
 
     t0 = time.perf_counter()
+    seq_argvs = {name: (_mf_train_argv(arch, b, sq, 2, 1, MF_SEQ_SCHEDULER.get(name, "bar")), cfg)
+                 for name, (arch, b, sq, cfg) in seq_cases.items()}
     trained, served, every, walls, seq_outs = run_on_mesh(
         mesh_family_ranks, 1, 2, "cuda",
         {name: ({f"{d}x{m}": _mf_train_argv(arch, b, sq, d, m) for d, m in MESH_SHAPES}, cfg)
          for name, (arch, b, sq, cfg) in cases.items()},
-        serves, {name: (_mf_train_argv(arch, b, sq, 2, 1), cfg)
-                 for name, (arch, b, sq, cfg) in seq_cases.items()}, timeout_s=MF_TIMEOUT_S)
+        serves, seq_argvs, timeout_s=MF_TIMEOUT_S)
     wall = time.perf_counter() - t0
     print(f"[mesh-families] one spawn of 2 ranks, {wall:.1f} s spawn to exit; rank 0's parts "
           "(s): " + json.dumps({k: round(v, 1) for k, v in walls.items()}))
@@ -4458,10 +4487,45 @@ def audit_phase(log, gm, get_config, lm, lm_steps, tc, resnet, adam, policy_mod,
     return summary
 
 
-def dryrun_phase(mesh_train_summary, lock_steps, get_config, policy_mod, card):
+def dryrun_mesh_seq_families(dryrun, tmesh, mf_seq_runs, get_config, pol):
+    """``[mesh-seq]``'s whisper and paligemma runs (fp32, full width, B=1
+    S=128 on 2x1) on the fake group: rank 0's sequence collectives a step,
+    the cross K/V gradient sums apart, equal to what rank 0 counted on the
+    card (``mf_seq_runs``, :func:`mesh_seq_report`'s rows). Returns the
+    rows."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import parallel
+
+    summary = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        cut, fb, fs = MF_SEQ[arch]
+        fcfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        cell = dryrun.make_cell(fcfg, ShapeConfig("mesh-seq", fs, fb, "train"), pol,
+                                {"data": 2, "model": 1})
+        cell.meta["accum"] = 1
+        parallel.counters.update(seq_calls=0, seq_bytes=0, kv_sum_calls=0, kv_sum_bytes=0)
+        dryrun.step_census(cell, tmesh.make_fake_mesh(2, 1, rank=0))
+        c, r = parallel.counters, mf_seq_runs[arch]
+        have = (c["seq_calls"], c["seq_bytes"] / 1e6, c["kv_sum_calls"], c["kv_sum_bytes"] / 1e6)
+        want = (r["seq_calls_per_step"], r["seq_mb_per_step"], r["kv_sum_calls_per_step"],
+                r["kv_sum_mb_per_step"])
+        if have != want:
+            raise AssertionError(f"[dryrun] [mesh-seq] {arch} 2x1 rank 0: the sequence split's "
+                                 f"(calls, MB, cross K/V sums, MB) a step {have} on the fake "
+                                 f"group != {want} on the card")
+        summary[f"mesh-seq {arch} 2x1 rank 0"] = dict(seq_calls=have[0], seq_mb=have[1],
+                                                      kv_sum_calls=have[2], kv_sum_mb=have[3])
+        print(f"[dryrun] [mesh-seq] {arch} 2x1 rank 0 on the fake group: the sequence split's "
+              f"collectives a step {have[0]} calls, {have[1]:.4f} MB, of them the cross K/V "
+              f"gradient sums {have[2]} calls, {have[3]:.4f} MB = the card's", flush=True)
+    return summary
+
+
+def dryrun_phase(mesh_train_summary, lock_steps, mf_seq_runs, get_config, policy_mod, card):
     """``[dryrun]`` (module docstring, 23c); ``lock_steps``:
     ``[mesh-data-serve]``'s counted lock-step decode step, every rank's, by
-    layout. Returns its summary."""
+    layout; ``mf_seq_runs``: ``[mesh-families]``' ``[mesh-seq]`` rows.
+    Returns its summary."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ShapeConfig
@@ -4555,6 +4619,7 @@ def dryrun_phase(mesh_train_summary, lock_steps, get_config, policy_mod, card):
             print(f"[dryrun] [mesh-seq] {LM_ARCH} 2x1 rank {rank} on the fake group: the "
                   f"sequence split's collectives a step {have[0]} calls, {have[1]:.4f} MB"
                   + (" = the card's" if rank == 0 else ""), flush=True)
+        summary.update(dryrun_mesh_seq_families(dryrun, tmesh, mf_seq_runs, get_config, pol))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4618,6 +4683,7 @@ def dryrun_phase(mesh_train_summary, lock_steps, get_config, policy_mod, card):
               f"= {rb['total'] / 2**30:.3f} GiB of the card's {total / 2**30:.2f} GiB "
               f"({card}); the CLI: {status}{peak}", flush=True)
     summary.update(dryrun_heads_cells(dryrun, tmesh, dist, card))
+    summary.update(dryrun_tight_cells(dryrun, tmesh, dist, card))
     summary["seconds"] = time.perf_counter() - t0
     print(f"[dryrun] {time.perf_counter() - t0:.1f} s", flush=True)
     return summary
@@ -4636,9 +4702,9 @@ def dryrun_heads_cells(dryrun, tmesh, dist, card):
     paligemma's and llama4's ``train_4k``, ``prefill_32k`` and
     ``decode_32k`` and llama4's ``train_tight`` (each rank runs its q head
     span), their argument bytes (a decode cell's state as the port holds
-    it beside the reference's spec's), peak and collectives; whisper's and
-    paligemma's ``train_tight`` must be refused with the encdec / VLM
-    batch message. Returns the rows."""
+    it beside the reference's spec's), peak and collectives; none is
+    refused (whisper's and paligemma's ``train_tight``:
+    :func:`dryrun_tight_cells`). Returns the rows."""
     from repro_torch.configs.base import SHAPES
 
     t0 = time.perf_counter()
@@ -4649,15 +4715,12 @@ def dryrun_heads_cells(dryrun, tmesh, dist, card):
             cfg, table = dryrun.resolve(arch, "ssprop", ms)
             cfg = dataclasses.replace(cfg, **cut)
             for name in DRYRUN_HEADS_SHAPES:
+                if name == "train_tight" and cfg.family in ("encdec", "vlm"):
+                    continue  # [dryrun] [tight]
                 cell = dryrun.make_cell(cfg, SHAPES[name], table, ms)
                 why = dryrun.refusal(cell, ms, "ssprop")
-                family = name == "train_tight" and cfg.family in ("encdec", "vlm")
-                if family != bool(why) or (family and "--global-batch 8" not in why):
+                if why:
                     raise AssertionError(f"[dryrun] {arch} x {name}: refusal {why!r}")
-                if family:
-                    out[f"{arch} {name}"] = dict(status="unsupported", why=why)
-                    print(f"[dryrun] [heads] {arch} x {name}: unsupported ({why})", flush=True)
-                    continue
                 rb = dryrun.rank_bytes(cell, ms)
                 rec = dryrun.census_record(dryrun.step_census(cell, tmesh.make_production_mesh()))
                 row = dict(status="ok", depth=cfg.n_layers, rank_bytes=rb,
@@ -4678,6 +4741,68 @@ def dryrun_heads_cells(dryrun, tmesh, dist, card):
             dist.destroy_process_group()
         tmesh._fake.clear()
     print(f"[time] [dryrun] [heads] {len(out)} cells {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def dryrun_tight_cells(dryrun, tmesh, dist, card):
+    """``[dryrun] [tight]``: whisper's and paligemma's ``train_tight``
+    (batch 8 of 4096 tokens: ``data`` on the sequence, 256 a rank) on
+    16x16 under ``ssprop``, rank 0 on the fake group, at full width and
+    the depths of ``DRYRUN_HEADS``: the batch block (whisper's frames
+    whole past their rows, paligemma's 16 patches beside its tokens),
+    argument bytes, eager peak, the collectives a step and their GiB, of
+    them the sequence split's and the cross-attention K/V gradient sums'
+    (whisper's; none for paligemma). Returns the rows."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.dist import parallel
+
+    t0 = time.perf_counter()
+    ms = tmesh.production_mesh_shape()
+    out = {}
+    try:
+        for arch in (ENCDEC_ARCH, VLM_ARCH):
+            cfg, table = dryrun.resolve(arch, "ssprop", ms)
+            cfg = dataclasses.replace(cfg, **DRYRUN_HEADS[arch])
+            cell = dryrun.make_cell(cfg, SHAPES["train_tight"], table, ms)
+            why, blk = dryrun.refusal(cell, ms, "ssprop"), cell.meta.get("batch_block")
+            encdec = cfg.family == "encdec"
+            if why or blk is None or blk["seq"] != [0, 256] or (
+                    "whole" in blk) != encdec or ("patches" in blk) == encdec:
+                raise AssertionError(f"[dryrun] [tight] {arch}: refusal {why!r}, block {blk}")
+            rb = dryrun.rank_bytes(cell, ms)
+            parallel.counters.update(calls=0, bytes=0, seq_calls=0, seq_bytes=0, kv_sum_calls=0,
+                                     kv_sum_bytes=0)
+            rec = dryrun.census_record(dryrun.step_census(cell, tmesh.make_production_mesh()))
+            c = dict(parallel.counters)
+            if (not c["seq_calls"] or bool(c["kv_sum_calls"]) != encdec
+                    or (c["calls"], c["bytes"]) != (rec["collective_calls"],
+                                                    rec["collective_bytes"])):
+                raise AssertionError(f"[dryrun] [tight] {arch}: counters {c} vs the census's "
+                                     f"{rec['collective_calls']} calls")
+            row = dict(depth=[cfg.n_layers] + ([cfg.n_enc_layers] if encdec else []),
+                       block={k: v for k, v in blk.items() if k != "whole"},
+                       whole=[w.split(":")[0] for w in blk.get("whole", ())], rank_bytes=rb,
+                       peak_bytes=rec["peak_bytes"], flops=rec["flops"],
+                       collective_calls=rec["collective_calls"],
+                       collective_bytes=rec["collective_bytes"], seq_calls=c["seq_calls"],
+                       seq_bytes=c["seq_bytes"], kv_sum_calls=c["kv_sum_calls"],
+                       kv_sum_bytes=c["kv_sum_bytes"],
+                       kv_sum_share=c["kv_sum_bytes"] / rec["collective_bytes"])
+            out[f"{arch} train_tight"] = row
+            print(f"[dryrun] [tight] {arch} x train_tight on 16x16, rank 0, depth "
+                  f"{' + '.join(map(str, row['depth']))} of full width: block {json.dumps(blk)}; "
+                  f"argument bytes {json.dumps(rb)}; eager peak {rec['peak_bytes'] / 2**30:.3f} "
+                  f"GiB; {rec['collective_calls']} collectives "
+                  f"({rec['collective_bytes'] / 2**30:.4f} GiB) a step, of them the sequence "
+                  f"split's {c['seq_calls']} ({c['seq_bytes'] / 2**30:.4f} GiB) and the cross "
+                  f"K/V gradient sums {c['kv_sum_calls']} ({c['kv_sum_bytes'] / 2**30:.4f} GiB, "
+                  f"{row['kv_sum_share']:.4f} of the bytes) ({card})", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmesh._fake.clear()
+    print(f"[time] [dryrun] [tight] {len(out)} cells {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
 
 
@@ -4948,7 +5073,7 @@ def main() -> int:
     audit_summary = audit_phase(launch_log, gm, get_config, lm, lm_steps, tc, resnet, adam,
                                 policy_mod, card)
     dryrun_summary = dryrun_phase(mesh_train_summary, mesh_serve_summary["data"]["step"],
-                                  get_config, policy_mod, card)
+                                  mf_summary["seq"]["runs"], get_config, policy_mod, card)
 
     lap("audit-dryrun")
     # 24. result lines

@@ -69,12 +69,18 @@ def frontend_inputs(cfg, global_batch: int, seed: int, step: int) -> dict[str, n
 
 def rank_block(batch: dict[str, np.ndarray], layout) -> dict[str, np.ndarray]:
     """A mesh rank's block of a global batch (``models/model.py::BatchLayout``):
-    its rows of every input, and of ``tokens`` and ``targets`` its block of
-    the sequence (the frontends' frames and patches keep their whole
-    second dim: their families take only a batch the data axes divide)."""
+    its rows of every input; of ``tokens``, ``targets`` and ``loss_mask``
+    its block of the sequence; of the VLM's ``patches`` its patch block;
+    the encoder-decoder's ``frames`` whole past their rows (the encoder
+    runs alike on every rank of a sequence split)."""
     lo, hi = layout.rows
-    return {k: layout.block(v) if k in ("tokens", "targets", "loss_mask") else v[lo:hi]
-            for k, v in batch.items()}
+
+    def one(k, v):
+        if k in ("tokens", "targets", "loss_mask"):
+            return layout.block(v)
+        return layout.patch_block(v) if k == "patches" else v[lo:hi]
+
+    return {k: one(k, v) for k, v in batch.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,8 +45,11 @@ tensors):
   sequence dim where it does not divide the batch):
   :func:`gather_seq` (every rank's block along the sequence, its gradient
   summed over the group and sliced back to the rank's block: the K/V of
-  causal attention), :func:`seq_halo` (the previous rank's last
-  positions: the SSM's causal conv) and :func:`seq_fold` (the state that
+  causal attention), :func:`sum_grad_over_seq` (identity forward, the
+  gradient summed over the group: the cross-attention's K/V, projected
+  alike on every rank from the encoder's whole rows), :func:`seq_halo`
+  (the previous rank's last positions: the SSM's causal conv) and
+  :func:`seq_fold` (the state that
   enters the rank's block, folded from every earlier rank's in rank
   order: the SSM's scan).
 
@@ -76,9 +79,11 @@ import torch
 import torch.distributed as dist
 
 # the step's collectives on this rank (reset by whoever reads them); the
-# sequence split's (:func:`gather_seq`, forward and backward) among them,
-# also counted apart
-counters = {"calls": 0, "bytes": 0, "s": 0.0, "seq_calls": 0, "seq_bytes": 0}
+# sequence split's (:func:`gather_seq` forward and backward,
+# :func:`sum_grad_over_seq`'s backward) among them, also counted apart, and
+# of those the cross-attention K/V's gradient sums apart again
+counters = {"calls": 0, "bytes": 0, "s": 0.0, "seq_calls": 0, "seq_bytes": 0,
+            "kv_sum_calls": 0, "kv_sum_bytes": 0}
 _timed = False
 
 
@@ -351,6 +356,32 @@ class _GatherSeq(torch.autograd.Function):
         return g.narrow(dim, seq.index * n, n).contiguous(), None, None
 
 
+class _SumGradOverSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seq):
+        ctx.seq = seq
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _seq_count(g)
+        counters["kv_sum_calls"] += 1
+        counters["kv_sum_bytes"] += g.numel() * g.element_size()
+        return all_reduce(g, ctx.seq.group), None
+
+
+def sum_grad_over_seq(x: torch.Tensor, seq) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over the sequence split
+    ``seq``'s group (a fixed order, no atomics). The cross-attention's
+    K/V, projected alike on every rank of the group from the encoder's
+    whole rows while each rank's queries are its own tokens': their
+    gradient is the sum of the ranks' shares, as one device's is."""
+    if seq is None or seq.n == 1:
+        return x
+    return _SumGradOverSeq.apply(x, seq)
+
+
 def gather_seq(x: torch.Tensor, seq, dim: int = 1) -> torch.Tensor:
     """Every rank of the sequence split ``seq``'s ``x`` (a block of the
     sequence along ``dim``) concatenated in rank order; the gradient of
@@ -510,14 +541,31 @@ class SiteMesh:
         return all_gather(imp, self.mesh.model_group, self.mesh.model, dim=0)
 
 
-def sum_grads_over_data(grads, mesh) -> None:
-    """Sum every gradient leaf over ``data``, in place, one all-reduce a
-    dtype (the leaves flattened into one buffer)."""
-    if not _data_live(mesh):
-        return
+def sum_grads_over_data(grads, mesh, alike=None, alike_mesh=None) -> None:
+    """Sum every gradient leaf over ``data`` (the step view's data group),
+    in place, one all-reduce a dtype (the leaves flattened into one
+    buffer).
+
+    ``alike`` (a tree of bools like ``grads``) flags the leaves whose
+    gradient is already whole and alike on every rank of the step's
+    sequence split: the encoder-decoder's encoder leaves, ``enc_norm`` and
+    the cross-attention's k/v kernels and biases
+    (``models/model.py::seq_alike``), whose products run on the encoder's
+    whole rows after the K/V gradient's sum over the sequence group. Those
+    are summed over ``alike_mesh``'s data group instead (the batch axes:
+    ``pod`` where it splits the rows; nothing on 16x16), never over
+    ``data`` again, which would count them once a data rank."""
     from repro_torch.optim.adam import tree_leaves
 
     leaves = tree_leaves(grads)
+    flags = [False] * len(leaves) if alike is None else tree_leaves(alike)
+    _sum_leaves([t for t, f in zip(leaves, flags, strict=True) if not f], mesh)
+    _sum_leaves([t for t, f in zip(leaves, flags, strict=True) if f], alike_mesh)
+
+
+def _sum_leaves(leaves, mesh) -> None:
+    if not leaves or not _data_live(mesh):
+        return
     for dt in sorted({t.dtype for t in leaves}, key=str):
         group = [t for t in leaves if t.dtype == dt]
         flat = torch.cat([t.reshape(-1) for t in group])

@@ -14,7 +14,9 @@ device, and the collectives return at once. For each cell it records:
     layout (the params as a spec histogram, the other inputs leaf by
     leaf), equal to the reference's ``--placements-only`` report;
   * the per-rank argument bytes: params, Adam state and batch shards,
-    from the specs; a decode cell's state (tokens, cache, encoder output)
+    from the specs (a train cell's batch as the port's rank holds it where
+    it holds an input whole, ``batch_reference`` the spec's beside it); a
+    decode cell's state (tokens, cache, encoder output)
     as the port's rank holds it (``models/model.py::cache_layout``), with
     the reference's spec's bytes beside it where they differ, and the
     cache leaves the rank holds whole (``cache_whole``, with why);
@@ -22,20 +24,25 @@ device, and the collectives return at once. For each cell it records:
     a rank (torch-op contractions and the kernels' tiles), the kernel
     launches a rank by kernel, the host syncs, and the collectives' calls
     and bytes by kind, every call counted as it runs (no loop multiplier
-    to apply: eager PyTorch runs each call).
+    to apply: eager PyTorch runs each call); of them the sequence split's
+    and its cross-attention K/V gradient sums (``seq_split``).
 
-A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5: whisper's
-and paligemma's frames and patches under a global batch the data axes
-do not divide) has status ``unsupported`` with the CLI's own message;
-its placements and bytes are still reported. A model mesh that cuts q's
-columns across heads runs each rank's head span
+A cell that the port's CLIs refuse (ROADMAP Queue 1 item 5; none on
+the production meshes since the encoder-decoder and the VLM train under
+a global batch the data axes do not divide) has status ``unsupported``
+with the CLI's own message; its placements and bytes are still
+reported. A model mesh that cuts q's columns across heads runs each
+rank's head span
 (``models/layers.py::head_span``), its decode cache the span's whole KV
 heads (``kv_heads`` beside the layout). A
 train cell whose global batch the data axes do not divide
 (``train_tight``: a batch of 8 on 16 or 2x16 data ranks) steps the rank's
 block of the fitted batch spec (``models/model.py::batch_layout``:
 ``data`` on the sequence, ``pod`` on the batch), recorded as
-``batch_block``. A cell a full-attention arch
+``batch_block``: whisper's frames whole past their rows (``whole``, the
+encoder alike on the sequence group, the cross-attention's K/V gradient
+summed over it), paligemma's patch block beside its token block
+(``patches``). A cell a full-attention arch
 cannot take (``long_500k``) is ``skipped``. A decode cell steps the
 lock-step engine's ``make_serve_step`` on the rank's cache shard (the
 sequence split over ``model`` under ``--policy opt``'s seq-sharded
@@ -64,6 +71,7 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.policy import DENSE, PolicyProgram, tpu_default
 from repro_torch.data.pipeline import input_specs, rank_block
+from repro_torch.dist import parallel
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import dp_size, production_mesh_shape, shape_mesh
@@ -188,12 +196,16 @@ def make_cell(cfg, shape, table, mesh_shape: dict[str, int], *, opt: bool = Fals
     baxis = shd._batch_axis(mesh_shape)
     if shape.kind == "train":
         meta["accum"] = steps_lib.microbatch_plan(cfg, shape, dp)
-        if shape.global_batch % dp and cfg.family not in ("encdec", "vlm"):
+        if shape.global_batch % dp:
             layout = lm.batch_layout(cfg, shape_mesh(mesh_shape), shape.global_batch,
                                      shape.seq_len)
             meta["batch_block"] = {"rows": list(layout.rows), "seq": list(layout.seq),
                                    "batch_axes": list(layout.batch_axes),
                                    "seq_axes": list(layout.seq_axes)}
+            if layout.n_patches:
+                meta["batch_block"]["patches"] = list(layout.patches)
+            if layout.whole:
+                meta["batch_block"]["whole"] = list(layout.whole)
         o_specs = shd.opt_state_shardings(mesh_shape, jl)
         m = adam.tree_map(lambda x: _Shape(x.shape, torch.float32), jl)  # the moments: fp32
         trees["adam"] = (adam.AdamState(_Shape((), torch.int32), m, m),
@@ -267,13 +279,21 @@ def rank_bytes(cell: Cell, mesh_shape) -> dict[str, int]:
     for name, (tree, specs) in cell.trees.items():
         leaves = dict(_paths(tree))
         out[name] = sum(shard_bytes(leaves[p], sp, mesh_shape) for p, sp in _paths(specs))
+    # a train cell's batch as the port's rank holds it (whisper's frames whole)
+    blk = cell.meta.get("batch_block", {})
+    if "whole" in blk:
+        layout = lm.batch_layout(cell.cfg, shape_mesh(mesh_shape), cell.shape.global_batch,
+                                 cell.shape.seq_len)
+        port = _nbytes(rank_block(input_specs(cell.cfg, cell.shape), layout))
+        out["batch_reference"], out["batch"] = out["batch"], port
     # a decode cell's state as the port's rank holds it
     if cell.shape.kind == "decode":
         state, _ = _decode_state(cell, shape_mesh(mesh_shape))
         ref, out["state"], out["cache"] = out["state"], _nbytes(state), _nbytes(state["cache"])
         if ref != out["state"]:
             out["state_reference"] = ref
-    out["total"] = sum(v for k, v in out.items() if k not in ("cache", "state_reference"))
+    out["total"] = sum(v for k, v in out.items()
+                       if k not in ("cache", "state_reference", "batch_reference"))
     return out
 
 
@@ -291,7 +311,8 @@ def refusal(cell: Cell, mesh_shape: dict[str, int], policy_name: str) -> str:
         if cell.shape.kind == "train":
             train_cli._refuse_unported(argparse.Namespace(
                 data_mesh=dp, model_mesh=model, world_size=1,
-                global_batch=cell.shape.global_batch), cell.cfg)
+                global_batch=cell.shape.global_batch, seq_len=cell.shape.seq_len), cell.cfg,
+                mesh_shape)
         else:
             engine = "paged" if cell.shape.kind == "prefill" else "lockstep"
             serve_cli._refuse_unported(argparse.Namespace(
@@ -404,7 +425,11 @@ def run_cell(arch, shape_name, mesh_kind, policy_name, out_dir=None, verbose=Tru
     else:
         try:
             mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"), rank=rank)
+            seq = ("seq_calls", "seq_bytes", "kv_sum_calls", "kv_sum_bytes")
+            parallel.counters.update(dict.fromkeys(seq, 0))
             rec["step"] = census_record(step_census(cell, mesh))
+            if parallel.counters["seq_calls"]:  # the sequence split's, the cross K/V sums apart
+                rec["step"]["seq_split"] = {k: parallel.counters[k] for k in seq}
             rec["status"] = "ok"
         except Exception as e:
             rec.update(status="error", error=f"{type(e).__name__}: {e}",
@@ -420,6 +445,11 @@ def run_cell(arch, shape_name, mesh_kind, policy_name, out_dir=None, verbose=Tru
                       f" launches={st['launches']} syncs={st['host_syncs']}"
                       f" collectives={st['collective_calls']} calls/"
                       f"{st['collective_bytes'] / 2**30:.3f}GiB")
+            if "seq_split" in st:
+                sq = st["seq_split"]
+                extra += (f" seq_split={sq['seq_calls']} calls/{sq['seq_bytes'] / 2**30:.3f}GiB"
+                          f" kv_sums={sq['kv_sum_calls']} calls/"
+                          f"{sq['kv_sum_bytes'] / 2**30:.3f}GiB")
         elif rec["status"] == "unsupported":
             extra += f" ({rec['unsupported']})"
         else:

@@ -93,8 +93,14 @@ def make_train_step(
     (``loss_fn``'s mesh path), the gradients are summed over the data
     ranks that split the tokens after the microbatches' sum (over none
     where every data rank holds the whole batch), and the clip reads the
-    global norm (``dist/parallel.py::global_norm``)."""
+    global norm (``dist/parallel.py::global_norm``). Where the step
+    splits the sequence, the encoder-decoder's leaves computed alike on
+    the sequence group (``models/model.py::seq_alike``) are summed over
+    the batch axes alone (``BatchLayout.batch_mesh``)."""
+    alike_mesh = None
     if layout is not None:
+        if mesh is not None and layout.seq_split and cfg.family == "encdec":
+            alike_mesh = layout.batch_mesh(mesh)
         mesh = layout.step_mesh(mesh)
     norm = adam.global_norm
     if mesh is not None:
@@ -117,7 +123,8 @@ def make_train_step(
                 loss_v = loss_v + lv / accum
             grads = adam.tree_map(lambda t: t / accum, grads)
         with torch.no_grad():
-            parallel.sum_grads_over_data(grads, mesh)
+            parallel.sum_grads_over_data(
+                grads, mesh, None if alike_mesh is None else lm.seq_alike(cfg, grads), alike_mesh)
             params, opt_state, om = adam.apply_updates(
                 opt_cfg, params, grads, opt_state, inplace=True, norm=norm)
         return params, opt_state, dict(metrics, loss=loss_v, **om)

@@ -41,11 +41,12 @@ checkpoint on a mesh is the JAX package's sharded format, a
 ``shard_<r>.msgpack`` a rank, committed by rank 0; a restart restores
 it and each rank keeps its slices. Every family runs on a mesh (experts
 split over ``model``, SSM heads split over ``model``, the encoder and the
-cross-decoder as the decoder stack). Still refused, each naming the
-ROADMAP item that ports it: a fleet (``--world-size > 1``) on a mesh,
-and the encoder-decoder and VLM families under a global batch that
-``--data-mesh`` does not divide (their frames and patches follow specs
-of their own).
+cross-decoder as the decoder stack; under a sequence split the encoder
+runs alike on every rank of the group, and the VLM's patches split with
+its tokens). Still refused, each naming the ROADMAP item that ports it:
+a fleet (``--world-size > 1``) on a mesh, and a VLM layout whose fitted
+spec splits the tokens' sequence but not the patches (none on the
+production meshes).
 
 The token pipeline gives tokens alone, as the reference's does; for the
 encoder-decoder and VLM families the port adds the stubbed frontends'
@@ -114,7 +115,7 @@ from repro_torch.dist.fault import (
 )
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import run_on_mesh
+from repro_torch.launch.mesh import run_on_mesh, shape_mesh
 from repro_torch.launch.precision import fp32_precision
 from repro_torch.models import model as lm
 from repro_torch.models import moe
@@ -193,19 +194,21 @@ def build_program(args, base_policy) -> PolicyProgram:
     return PolicyProgram(rules=rules, schedule=schedule)
 
 
-def _refuse_unported(args, cfg) -> None:
+def _refuse_unported(args, cfg, mesh_shape=None) -> None:
     """The mesh combinations the port does not run yet, each with the
-    ROADMAP item that ports it."""
+    ROADMAP item that ports it. ``mesh_shape``: the mesh the batch layout
+    is read on (default ``--data-mesh x --model-mesh``; the dry run's has
+    a ``pod`` axis)."""
     if args.data_mesh * args.model_mesh == 1:
         return
-    unported = {
-        "a fleet (--world-size > 1) on a mesh": args.world_size > 1,
-        f"the {cfg.family} family under --global-batch {args.global_batch} that --data-mesh "
-        f"{args.data_mesh} does not divide (the reference splits its frames or patches by "
-        "specs of their own)": (cfg.family in ("encdec", "vlm")
-                                and args.global_batch % args.data_mesh != 0),
-    }
-    asked = [what for what, on in unported.items() if on] + lm.mesh_unported(cfg, args.model_mesh)
+    asked = ["a fleet (--world-size > 1) on a mesh"] if args.world_size > 1 else []
+    try:
+        lm.batch_layout(cfg, shape_mesh(mesh_shape or {"data": args.data_mesh,
+                                                       "model": args.model_mesh}),
+                        args.global_batch, args.seq_len)
+    except NotImplementedError as e:
+        asked.append(str(e))
+    asked += lm.mesh_unported(cfg, args.model_mesh)
     if asked:
         raise NotImplementedError(f"{'; '.join(asked)}: not ported yet (ROADMAP Queue 1 item 5)")
 

@@ -294,7 +294,8 @@ def seq_split_attention(q, k, v, qpos, seq: SeqSplit, heads=None):
     return parallel.softmax_combine(m, s, o, seq.group, seq.n, heads)
 
 
-def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024, q_offset: int = 0):
+def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024, q_offset: int = 0,
+                     q_pos=None, kv_pos=None):
     """Full-sequence attention, blocked over query chunks of ``q_chunk``.
 
     q [B,S,H,D], k/v [B,T,KV,D] (GQA: each KV head serves H/KV query
@@ -303,22 +304,28 @@ def masked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024, q_off
     (the encoder, cross-attention) every key is seen, as the JAX
     package's ``masked_attention`` without a cache. ``q_offset`` is the
     absolute position of ``q[:, 0]`` (the keys sit at ``0 .. T-1``): a
-    rank's block of a sequence split over a mesh axis. Returns [B,S,H,D]
-    in q.dtype.
+    rank's block of a sequence split over a mesh axis. Where a rank's
+    positions are not one run (the VLM's patch block and token block),
+    ``q_pos [S]`` and ``kv_pos [T]`` give every query's and key's absolute
+    position instead. Returns [B,S,H,D] in q.dtype.
     """
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
     k_t = k.float().repeat_interleave(h // kv, dim=2).permute(0, 2, 3, 1)  # [B,H,D,T]
     v_h = v.float().repeat_interleave(h // kv, dim=2).transpose(1, 2)  # [B,H,T,D]
-    kv_pos = torch.arange(t, device=q.device)
+    if kv_pos is None:
+        kv_pos = torch.arange(t, device=q.device)
     outs = []
     for c0 in range(0, s, q_chunk):
         qc = q[:, c0 : c0 + q_chunk].float().transpose(1, 2)  # [B,H,qc,D]
         scores = (qc @ k_t) * scale  # [B,H,qc,T]
         if causal:
-            q_pos = torch.arange(q_offset + c0, q_offset + c0 + qc.shape[2], device=q.device)
-            scores = scores.masked_fill(kv_pos[None, :] > q_pos[:, None], -1e30)
+            if q_pos is None:
+                qp = torch.arange(q_offset + c0, q_offset + c0 + qc.shape[2], device=q.device)
+            else:
+                qp = q_pos[c0:c0 + qc.shape[2]]
+            scores = scores.masked_fill(kv_pos[None, :] > qp[:, None], -1e30)
         outs.append((torch.softmax(scores, dim=-1) @ v_h).transpose(1, 2))  # [B,qc,H,D]
     return torch.cat(outs, dim=1).to(q.dtype)
 
@@ -349,6 +356,13 @@ def attn_apply(
     ``x_kv [B,T,d]`` makes it cross-attention: K/V are projections of
     ``x_kv``, unrotated and uncached, every key seen (the JAX package's
     ``x_kv`` with ``use_rope=False``, which the cross-decoder passes).
+    Where the step's sequence is split (``mesh.seq``), ``x_kv`` (the
+    encoder's output) is whole and alike on every rank of the sequence
+    group: the k/v products run on the view over the batch axes alone
+    (``BatchLayout.batch_mesh``), and their outputs' gradient, a partial
+    sum of the rank's queries, is summed over the group before their
+    sites' backward (``parallel.sum_grad_over_seq``), so their importance,
+    kept channels, dW and dX are the one-device run's, alike on the group.
 
     Without ``kv_cache`` (training, the encoder): :func:`masked_attention`
     over the sequence itself, causal or not by ``causal``. Where the
@@ -357,7 +371,8 @@ def attn_apply(
     positions) the rank's queries attend to every rank's K/V, all-gathered
     in rank order (``dist/parallel.py::gather_seq``: the gradient of each
     rank's K/V block summed over the group), causally masked at the global
-    positions.
+    positions (the VLM's a position vector a side, ``BatchLayout.positions``
+    and ``group_positions``: a rank holds a patch block and a token block).
 
     With ``kv_cache`` = dict(k, v) (serving), ``geom`` is the step's
     :class:`DecodeGeom`: ``geom.qpos [B,S]`` int32 is each token's
@@ -415,6 +430,8 @@ def attn_apply(
     src = x if x_kv is None else x_kv
     t = src.shape[1]
     span = mesh_head_span(cfg, mesh)
+    seq = getattr(mesh, "seq", None)
+    kv_mesh = mesh.layout.batch_mesh(mesh) if seq is not None and x_kv is not None else mesh
     seq_model = geom is not None and geom.seq is not None and geom.seq.axis == "model"
     xm = parallel.copy_to_model(x, mesh) if span.split else x
     q = dense_apply(p["q"], xm, policy, site=f"{site}/q", mesh=mesh,
@@ -432,29 +449,34 @@ def attn_apply(
                 for n in ("k", "v"))
     elif span.local_kv:
         srcm = xm if x_kv is None else parallel.copy_to_model(src, mesh)
-        k = dense_apply(p["k"], srcm, policy, site=f"{site}/k", mesh=mesh).reshape(b, t, -1, hd)
-        v = dense_apply(p["v"], srcm, policy, site=f"{site}/v", mesh=mesh).reshape(b, t, -1, hd)
+        k = dense_apply(p["k"], srcm, policy, site=f"{site}/k", mesh=kv_mesh).reshape(b, t, -1, hd)
+        v = dense_apply(p["v"], srcm, policy, site=f"{site}/v", mesh=kv_mesh).reshape(b, t, -1, hd)
     else:
         lo, hi = span.kv
         # whole where fit_spec dropped model from it or serving gathered it at load
         whole = p["k"]["w"].shape[-1] == cfg.n_kv_heads * hd
-        k, v = (dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=mesh,
+        k, v = (dense_apply(p[n], src, policy, site=f"{site}/{n}", mesh=kv_mesh,
                             split="rep" if whole else "gather") for n in ("k", "v"))
         if span.split:
             k, v = parallel.copy_to_model(k, mesh), parallel.copy_to_model(v, mesh)
         k, v = (y.reshape(b, t, -1, hd)[:, :, lo:hi] for y in (k, v))
+    if kv_mesh is not mesh:  # the group's queries' gradients summed: the sites' dY whole
+        k, v = parallel.sum_grad_over_seq(torch.stack([k, v]), seq).unbind(0)
     if rope is not None:
         q = apply_rope(q, rope)
         if x_kv is None:
             k = apply_rope(k, rope)
 
     if kv_cache is None:
-        seq, q0 = getattr(mesh, "seq", None), 0
+        q0, pos = 0, {}
         if seq is not None and x_kv is None:
-            q0 = mesh.layout.seq[0]
+            lay = mesh.layout
+            q0 = lay.seq[0]
+            if not lay.one_run:
+                pos = {"q_pos": lay.positions(x.device), "kv_pos": lay.group_positions(x.device)}
             k, v = parallel.gather_seq(torch.stack([k, v]), seq, dim=2).unbind(0)
         out = masked_attention(q, k, v, causal=causal and x_kv is None, q_chunk=cfg.attn_q_chunk,
-                               q_offset=q0)
+                               q_offset=q0, **pos)
     else:
         k_pool, v_pool = kv_cache["k"], kv_cache["v"]
         rows, cols, dest = geom.write_index

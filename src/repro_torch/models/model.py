@@ -238,7 +238,11 @@ class BatchLayout:
     hi)`` and its block ``[s0, s1)`` of the sequence; ``batch_axes`` and
     ``seq_axes`` the data axes the reference's fitted spec puts on the
     batch and on the sequence dims (a data axis on neither: the data ranks
-    hold the whole batch alike)."""
+    hold the whole batch alike). The VLM's sequence is ``patches ++
+    tokens``: ``n_patches`` and the rank's block ``patches`` ``[p0, p1)``
+    of them, split over the sequence axes as its tokens are. ``whole``:
+    each input the fitted spec splits over a data axis on a dim the port's
+    step does not split, held whole by the rank, with the reason."""
 
     global_batch: int
     seq_len: int
@@ -246,6 +250,9 @@ class BatchLayout:
     seq: tuple[int, int]
     batch_axes: tuple[str, ...] = ()
     seq_axes: tuple[str, ...] = ()
+    n_patches: int = 0
+    patches: tuple[int, int] = (0, 0)
+    whole: tuple[str, ...] = ()
 
     @property
     def token_axes(self) -> tuple[str, ...]:
@@ -256,20 +263,49 @@ class BatchLayout:
     def seq_split(self) -> bool:
         return self.seq != (0, self.seq_len)
 
+    @property
+    def one_run(self) -> bool:
+        """Are the rank's positions one run (no patch prefix split with
+        the tokens)?"""
+        return not (self.n_patches and self.seq_split)
+
     def block(self, a):
         """This rank's block of a ``[B, S, ...]`` array or tensor."""
         return a[self.rows[0]:self.rows[1], self.seq[0]:self.seq[1]]
 
+    def patch_block(self, a):
+        """This rank's block of the VLM's ``[B, n_patches, ...]`` patches."""
+        return a[self.rows[0]:self.rows[1], self.patches[0]:self.patches[1]]
+
+    def _positions(self, j: int, device) -> torch.Tensor:
+        """The global positions of the ``j``-th block of the sequence split."""
+        ps, ts = self.patches[1] - self.patches[0], self.seq[1] - self.seq[0]
+        toks = torch.arange(j * ts, (j + 1) * ts, device=device)
+        if not self.n_patches:
+            return toks
+        return torch.cat([torch.arange(j * ps, (j + 1) * ps, device=device),
+                          self.n_patches + toks])
+
     def positions(self, device) -> torch.Tensor:
-        """The global positions of the rank's sequence block."""
-        return torch.arange(self.seq[0], self.seq[1], device=device)
+        """The global positions of the rank's sequence block: its tokens'
+        (``arange(s0, s1)``), or the VLM's patch block then its token
+        block (``cat(arange(p0, p1), n_patches + arange(s0, s1))``)."""
+        return self._positions(self.seq[0] // (self.seq[1] - self.seq[0]), device)
+
+    def group_positions(self, device) -> torch.Tensor:
+        """Every block's positions, in the rank order ``gather_seq``
+        concatenates the sequence group's blocks in: the keys' positions
+        of attention over the gathered K/V (static, no collective)."""
+        n = self.seq_len // (self.seq[1] - self.seq[0])
+        return torch.cat([self._positions(j, device) for j in range(n)])
 
     def token_index(self, device) -> torch.Tensor:
         """Each of the rank's tokens' index in the global batch flattened
         row-major (``row * seq_len + position``), in the rank's own
         row-major order."""
         rows = torch.arange(self.rows[0], self.rows[1], device=device)
-        return (rows[:, None] * self.seq_len + self.positions(device)[None, :]).reshape(-1)
+        toks = torch.arange(self.seq[0], self.seq[1], device=device)
+        return (rows[:, None] * self.seq_len + toks[None, :]).reshape(-1)
 
     def step_mesh(self, mesh):
         """The mesh view the step runs on: the data group narrowed to the
@@ -283,29 +319,99 @@ class BatchLayout:
             seq = layers.SeqSplit("+".join(self.seq_axes), group, n, i)
         return mesh.over(self.token_axes, self, seq)
 
+    def batch_mesh(self, mesh):
+        """The view over the batch axes alone (no sequence split; none on
+        16x16): what the encoder and the cross-attention's K/V run on,
+        whose rows every rank of the sequence group holds alike."""
+        return mesh.over(self.batch_axes, self, None)
+
+
+_FRONTEND = {"encdec": "frames", "vlm": "patches"}  # the stubbed frontends' batch inputs
+
 
 def batch_layout(cfg: ModelConfig, mesh, global_batch: int, seq_len: int) -> BatchLayout:
     """How a rank of ``mesh`` (``None``: one device) holds a training batch,
-    read from the reference's fitted spec of its tokens
+    read from the reference's fitted specs of its inputs
     (``dist/sharding.py::batch_specs``): the data axes stay on the batch
     where they divide it; where they do not, ``fit_spec`` moves an axis to
     the sequence where it divides that (on 2x16x16 at batch 8: ``pod`` on
     the batch, ``data`` on the sequence), and replicates it where it
-    divides neither. The encoder-decoder's frames and the VLM's patches
-    follow another spec (their second dim is not the token sequence), so
-    those families take only a batch the data axes divide."""
+    divides neither.
+
+    The frontends' inputs take the tokens' rows. The VLM's patches take
+    the block their fitted spec gives their patch dim, which must be split
+    over the tokens' sequence axes (on the production meshes it is: 256
+    patches); a spec that splits the tokens' sequence but not the patches
+    is refused (ROADMAP Queue 1 item 5 sub-item 4). The encoder-decoder's
+    frames stay whole past their rows (whisper's 1500 frames: ``data`` on
+    ``d_model``): the encoder runs on every rank of the sequence group
+    alike. Each such whole input is listed in ``whole``; where the tokens
+    are replicated over a data axis, so are the patches and frames."""
+    n_p = cfg.n_patches if cfg.family == "vlm" else 0
     if mesh is None:
-        return BatchLayout(global_batch, seq_len, (0, global_batch), (0, seq_len))
+        return BatchLayout(global_batch, seq_len, (0, global_batch), (0, seq_len),
+                           n_patches=n_p, patches=(0, n_p))
     shape = (global_batch, seq_len)
-    spec = shd.batch_specs(mesh.shape, {"tokens": torch.empty(shape, device="meta")})["tokens"]
+    inputs = {"tokens": torch.empty(shape, device="meta")}
+    front = _FRONTEND.get(cfg.family)
+    if front:
+        n = cfg.n_patches if front == "patches" else cfg.enc_seq
+        inputs[front] = torch.empty((global_batch, n, cfg.d_model), device="meta")
+    specs = shd.batch_specs(mesh.shape, inputs)
+    spec = specs["tokens"]
     rows, seq = shd.local_index(spec, shape, mesh)
-    layout = BatchLayout(global_batch, seq_len, (rows.start or 0, rows.stop or global_batch),
-                         (seq.start or 0, seq.stop or seq_len), _axes(spec[0]), _axes(spec[1]))
-    if cfg.family in ("encdec", "vlm") and set(layout.batch_axes) != set(dp_axes(mesh.shape)):
-        raise NotImplementedError(
-            f"--global-batch {global_batch} that the data mesh of {mesh.dp} does not divide "
-            f"for the {cfg.family} family (its frames or patches are held by another spec)")
-    return layout
+    seq_axes = _axes(spec[1])
+    patches, whole = (0, n_p), []
+    if front:
+        fspec, fshape = specs[front], inputs[front].shape
+        dims = ("patch" if front == "patches" else "encoder-sequence", "d_model")
+        for i in (1, 2):
+            axes = tuple(a for a in _axes(fspec[i]) if a in dp_axes(mesh.shape))
+            if front == "patches" and i == 1 and seq_axes and axes == seq_axes:
+                blk = shd.local_index(fspec, fshape, mesh)[1]
+                patches = (blk.start, blk.stop)
+            elif axes:
+                why = ("the encoder runs on every rank of the sequence group alike"
+                       if seq_axes and front == "frames" else
+                       "the tokens are not split over it: every such rank steps the whole batch")
+                whole.append(f"{front}: {'+'.join(axes)} on its {dims[i - 1]} dim "
+                             f"({fshape[i]}), which the port's step does not split; the rank "
+                             f"holds them whole ({why})")
+        if front == "patches" and seq_axes and patches == (0, n_p):
+            raise NotImplementedError(
+                f"--global-batch {global_batch} --seq-len {seq_len} on a data mesh of "
+                f"{mesh.dp} for the vlm family: the fitted spec splits the tokens' sequence "
+                f"over {'+'.join(seq_axes)} but not the {n_p} patches (spec {tuple(fspec)}): a "
+                "rank would hold every patch beside its block of the tokens (ROADMAP Queue 1 "
+                "item 5 sub-item 4)")
+    return BatchLayout(global_batch, seq_len, (rows.start or 0, rows.stop or global_batch),
+                       (seq.start or 0, seq.stop or seq_len), _axes(spec[0]), seq_axes,
+                       n_p, patches, tuple(whole))
+
+
+def seq_alike(cfg: ModelConfig, tree):
+    """A tree of bools like the params ``tree``: the leaves whose gradient
+    a step that splits the sequence over a data axis computes whole and
+    alike on every rank of the group. The encoder-decoder's encoder,
+    ``enc_norm`` and its cross-attention's k/v kernels and biases: their
+    products run on the encoder's whole rows (``transformer.encoder_apply``),
+    after the K/V gradient's sum over the group (``layers.attn_apply``).
+    Every other leaf's gradient is the rank's tokens' share
+    (``parallel.sum_grads_over_data``)."""
+
+    def mark(node, flag):
+        if isinstance(node, dict):
+            return {k: mark(v, flag) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [mark(v, flag) for v in node]
+        return flag
+
+    out = {k: mark(v, k in ("encoder", "enc_norm")) for k, v in tree.items()}
+    if cfg.family == "encdec":
+        for layer in out["decoder"]["layers"]:
+            for n in ("k", "v"):
+                layer["cross"][n] = mark(layer["cross"][n], True)
+    return out
 
 
 _DIM_NAMES = {  # the stacked cache leaves' dims, for the layout's report
@@ -557,7 +663,9 @@ def _vocab_mesh(cfg, mesh):
 
 
 def _embed_inputs(cfg, params, batch, mesh=None):
-    """Token embeddings, with the VLM's patch prefix in front."""
+    """Token embeddings, with the VLM's patch prefix in front (on a mesh
+    whose step splits the sequence, the rank's patch block in front of its
+    token block)."""
     x = layers.embed_apply(params["embed"], batch["tokens"], _vocab_mesh(cfg, mesh))
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
@@ -591,7 +699,7 @@ def _hidden(cfg, params, batch, policy, mesh):
         x, _, aux = transformer.stack_apply(params["stack"], x, cfg, policy, mesh=mesh)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if cfg.family == "vlm":
-        x = x[:, cfg.n_patches :]
+        x = x[:, cfg.n_patches if mesh is None else batch["patches"].shape[1]:]
     return x, aux
 
 
@@ -600,7 +708,8 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, policy: PolicyLike = 
     """The encdec family's encoder pass: ``frames [B, enc_seq, d]`` ->
     the normed encoder output the cross-decoder attends to (serving runs
     it once a request, at admission). On a ``mesh`` the output is
-    replicated over ``model``."""
+    replicated over ``model``; where the step splits the sequence, over
+    the sequence group too (``transformer.encoder_apply``)."""
     enc = transformer.encoder_apply(params["encoder"], frames, cfg, policy, mesh=mesh)
     return layers.rmsnorm_apply(params["enc_norm"], enc, cfg.norm_eps)
 
@@ -750,8 +859,9 @@ def kernel_launches_per_step(cfg: ModelConfig, policy: PolicyLike, *, model: int
     experts, each once a local group (``G/data`` of them, or the one
     group of the global dispatch; with ``seq_split``, every rank's tokens
     a block of the sequence, each once in each of the ``G`` groups, which
-    may span ranks); a column-parallel site
-    (:func:`mesh_split`) whose ``tp_shards`` is ``t * model`` selects
+    may span ranks); the encoder's and the cross k/v's products, whose
+    rows every rank of a sequence split holds whole, once on each rank; a
+    column-parallel site (:func:`mesh_split`) whose ``tp_shards`` is ``t * model`` selects
     over its ``t`` local shards (the fast path when ``t > 1``, the kernel
     route when ``t == 1``); any other column-parallel site takes the
     one-device selection's channels in its columns, on the block kernels

@@ -353,7 +353,16 @@ def encoder_apply(params, x, cfg: ModelConfig, policy: PolicyLike = DENSE, *, me
     default positions) and the MLP, pre-norm residual. A
     :class:`~repro_torch.core.policy.SitePolicies` table is scoped to
     ``enc`` and then to each layer. ``mesh``: this rank's heads and
-    ``d_ff`` columns, as in the decoder stack."""
+    ``d_ff`` columns, as in the decoder stack. Where the step splits the
+    tokens' sequence (``mesh.seq``), the frames' rows are whole on every
+    rank of the sequence group: the encoder runs on the view over the
+    batch axes alone (``BatchLayout.batch_mesh``), so its attention
+    gathers nothing and its sites average their importance over the ranks
+    that split the rows (``pod`` where it does; none on 16x16). Its
+    gradient arrives whole and alike on those ranks (the cross-attention's
+    K/V gradient is summed over the group, ``layers.attn_apply``)."""
+    if mesh is not None and mesh.seq is not None:
+        mesh = mesh.layout.batch_mesh(mesh)
     enc = policy.scoped("enc") if isinstance(policy, SitePolicies) else policy
     per_layer = _layer_scopes(enc, cfg.n_enc_layers)
     rope = layers.rope_angles(torch.arange(x.shape[1], device=x.device), cfg.head_dim,

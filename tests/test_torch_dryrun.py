@@ -112,9 +112,11 @@ def test_placements_and_rank_bytes_equal_the_jax_dry_run(jax_cells, arch, shape,
     assert rec["placements"]["inputs"] == {k: _norm(v) for k, v in jp["inputs"].items()}
     rb = rec["rank_bytes"]
     names = ["params"] + [n for n in ("adam", "batch", "state") if n in rb]
-    # a decode cell's state by the reference's spec (``state`` is the
-    # port's rank's, reported beside it where the two differ)
-    ref = dict(rb, state=rb.get("state_reference", rb.get("state")))
+    # a decode cell's state and a train cell's batch by the reference's spec
+    # (``state`` and ``batch`` are the port's rank's, reported beside it
+    # where the two differ: whisper's train_tight frames, held whole)
+    ref = dict(rb, state=rb.get("state_reference", rb.get("state")),
+               batch=rb.get("batch_reference", rb.get("batch")))
     assert [ref[n] for n in names] == want["bytes"]
     if (shape, mesh_kind) == ("train_tight", "multi"):  # the joint split: pod on B, data on S
         assert rec["placements"]["inputs"]["['tokens']"] == "('pod', 'data')"
@@ -204,14 +206,13 @@ def test_prefill_step_equals_the_jax_package():
 @pytest.mark.parametrize("mesh_kind", MESHES)
 @pytest.mark.parametrize("policy", POLICIES)
 def test_every_cell_is_ok_unsupported_or_skipped(mesh_kind, policy):
-    """The refusals are the CLIs' own, and only for whisper's and
-    paligemma's ``train_tight``: their frames and patches under a global
-    batch the data mesh does not divide. Every other cell runs: train
-    cells whose batch the data mesh does not divide (``train_tight``:
-    ``data`` on the sequence), ``--data-mesh`` serving, the lock-step
-    engine on a mesh, the seq-sharded decode under ``opt``, and a model
-    mesh that cuts the q heads (whisper, paligemma, llama4: each rank
-    runs its head span)."""
+    """No cell is refused: every cell the arch can take runs. Among them
+    train cells whose batch the data mesh does not divide (``train_tight``:
+    ``data`` on the sequence; whisper's frames whole past their rows, the
+    encoder alike on the sequence group; paligemma's patch block beside its
+    token block), ``--data-mesh`` serving, the lock-step engine on a mesh,
+    the seq-sharded decode under ``opt``, and a model mesh that cuts the q
+    heads (whisper, paligemma, llama4: each rank runs its head span)."""
     ms = tmesh.production_mesh_shape(multi_pod=(mesh_kind == "multi"))
     for arch in ARCH_IDS:
         for shape in SHAPES:
@@ -222,15 +223,17 @@ def test_every_cell_is_ok_unsupported_or_skipped(mesh_kind, policy):
             msg = dryrun.refusal(cell, ms, policy)
             kind = tbase.SHAPES[shape].kind
             assert tlm.mesh_unported(cell.cfg, 16) == []
-            family = shape == "train_tight" and arch in ("whisper-large-v3", "paligemma-3b")
-            assert bool(msg) == family, (arch, shape, msg)
-            if family:
-                assert f"the {cell.cfg.family} family under --global-batch 8" in msg, msg
-                assert "Queue 1 item 5" in msg and "q heads" not in msg
-            assert "seq_shard" not in msg and "--model-mesh" not in msg
-            if kind == "train" and not family:
+            assert msg == "", (arch, shape, msg)
+            if kind == "train":
                 blk = cell.meta.get("batch_block")
                 assert (blk is not None) == (shape == "train_tight"), (arch, shape)
+            if shape == "train_tight" and arch == "whisper-large-v3":
+                assert [w.split(":")[0] for w in blk["whole"]] == ["frames"], blk
+                assert "d_model" in blk["whole"][0] and "patches" not in blk
+            elif shape == "train_tight" and arch == "paligemma-3b":
+                assert blk["patches"] == [0, 16] and "whole" not in blk, blk
+            elif kind == "train" and blk is not None:
+                assert "patches" not in blk and "whole" not in blk, blk
 
 
 @pytest.fixture
@@ -291,6 +294,50 @@ def test_full_width_train_tight_cell_steps_its_sequence_block(fake_group, multi)
     kv = 2 * rows * 256 * (hi - lo) * cell.cfg.head_dim * 2  # the block's k and v, bf16
     assert parallel.counters["seq_calls"] == 2 * 2  # a gather and its all-reduce a layer
     assert parallel.counters["seq_bytes"] == 2 * (kv + 16 * kv)
+    assert parallel.counters["calls"] == rec["collective_calls"]
+    assert parallel.counters["bytes"] == rec["collective_bytes"]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "paligemma-3b"])
+def test_full_width_family_train_tight_cells_split_the_sequence(fake_group, arch, multi):
+    """whisper and paligemma at full width (depth cut to 1, whisper 1 + 1)
+    x train_tight as rank 0 of the production mesh on the fake group.
+    ``data`` takes the tokens' sequence (256 a rank) and on 2x16x16
+    ``pod`` the batch. whisper's 1500 frames are whole past their rows
+    (``fit_spec`` puts ``data`` on ``d_model``): the encoder gathers
+    nothing, its decoder layer's self-attention gathers its K/V over
+    ``data``, and the cross-attention's K/V gradient is summed over
+    ``data`` (one all-reduce of the rank's K/V heads over its rows' 1500
+    frames, counted apart). paligemma's 256 patches split with the tokens
+    (16 a rank, positions ``16r ..`` then ``256 + 256r ..``), its one
+    attention layer gathering 272 positions a rank. The step's
+    collectives are what the census counts."""
+    from repro_torch.dist import parallel
+
+    ms = tmesh.production_mesh_shape(multi_pod=multi)
+    cell, _ = dryrun.build_cell(arch, "train_tight", ms, "ssprop")
+    encdec = arch == "whisper-large-v3"
+    cell.cfg = dataclasses.replace(cell.cfg, n_layers=1, **({"n_enc_layers": 1} if encdec else {}))
+    rows = 4 if multi else 8
+    assert dryrun.refusal(cell, ms, "ssprop") == ""
+    mesh = tmesh.make_production_mesh(multi_pod=multi)
+    layout = tlm.batch_layout(cell.cfg, mesh, 8, 4096)
+    assert (layout.rows, layout.seq) == ((0, rows), (0, 256))
+    assert layout.patches == ((0, 0) if encdec else (0, 16))
+    assert layout.positions("meta").shape == (256 if encdec else 272,)
+    parallel.counters.update(calls=0, bytes=0, seq_calls=0, seq_bytes=0, kv_sum_calls=0,
+                             kv_sum_bytes=0)
+    rec = dryrun.census_record(dryrun.step_census(cell, mesh))
+    assert rec["flops"] > 0
+    lo, hi = layers.kv_range(cell.cfg, mesh)
+    kv = 2 * rows * (hi - lo) * cell.cfg.head_dim * 2  # k and v of one position, bf16
+    own = kv * (256 + (0 if encdec else 16))
+    sums = 2 * rows * 1500 * (hi - lo) * cell.cfg.head_dim * 2 if encdec else 0
+    assert (parallel.counters["kv_sum_calls"], parallel.counters["kv_sum_bytes"]) == (
+        int(encdec), sums)
+    assert parallel.counters["seq_calls"] == 2 + int(encdec)
+    assert parallel.counters["seq_bytes"] == own + 16 * own + sums
     assert parallel.counters["calls"] == rec["collective_calls"]
     assert parallel.counters["bytes"] == rec["collective_bytes"]
 

@@ -283,7 +283,9 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
     token of a group reached, keeps none, as its dW shows), every rank's
     ``kops.matmul`` calls beside the launch table's count, the gathered
     params, the rank's block (``rows``, ``seq``) and each step's
-    sequence-split collectives (``dist/parallel.py::counters``)."""
+    sequence-split collectives (``dist/parallel.py::counters``), of those
+    the cross-attention K/V gradient sums apart, and the layout's patch
+    block and ``whole`` inputs."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops as kops
@@ -305,7 +307,7 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
     n_rows, seq = batches[0]["tokens"].shape
     layout = tlm.batch_layout(cfg, mesh, n_rows, seq)
     step_dp = layout.step_mesh(mesh).dp
-    calls, dropped, live, seq_colls = {"matmul": 0}, [], [], []
+    calls, dropped, live, seq_colls, kv_sums = {"matmul": 0}, [], [], [], []
     raw_mm, raw_moe, raw_sel = kops.matmul, moe.moe_apply, sparsity.select_on_mesh
 
     def counted(a, b):
@@ -330,10 +332,11 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
                                            layout=layout)
             dropped.append([])
             live.clear()
-            parallel.counters.update(seq_calls=0, seq_bytes=0)
+            parallel.counters.update(seq_calls=0, seq_bytes=0, kv_sum_calls=0, kv_sum_bytes=0)
             with backward.record_selections() as log:
                 local, opt, metrics = fn(local, opt, b)
             seq_colls.append((parallel.counters["seq_calls"], parallel.counters["seq_bytes"]))
+            kv_sums.append((parallel.counters["kv_sum_calls"], parallel.counters["kv_sum_bytes"]))
             losses.append(float(metrics["loss"]))
             got = {}
             for (site, sel), nonzero in zip(log, live, strict=True):
@@ -355,7 +358,8 @@ def family_train(mesh, arch, tree, overrides, batches, lr):
             "matmul_calls": [c for _, c, _ in every],
             "matmul_table": [t for _, _, t in every],
             "params": {k: v.clone() for k, v in full.items()},
-            "rows": layout.rows, "seq": layout.seq, "seq_collectives": seq_colls}
+            "rows": layout.rows, "seq": layout.seq, "seq_collectives": seq_colls,
+            "patches": layout.patches, "whole": list(layout.whole), "kv_sum_collectives": kv_sums}
 
 
 def seq_train(mesh, shape, arch, tree, overrides, batches, lr):
