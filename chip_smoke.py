@@ -146,7 +146,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    the variant (bf16: TMA + wgmma, and its split-K; fp32: SIMT) and its
    TFLOP/s;
 14. LM route check: one sparse step (0.8) of qwen2.5-3b at full width and
-   depth 4, fp32 with TF32 off, through ``matmul``, the gather route and
+   depth 2 (PR 30; 4 before), fp32 with TF32 off, through ``matmul``, the gather route and
    the mask oracle: the same kept channels at every site, the same loss,
    every gradient leaf within a relative L2 of 1e-4 between each pair;
    then ``[tp-lm]``: the same step under the JAX dryrun's ``ssprop_tp``
@@ -185,9 +185,25 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    repro_torch.launch.train --reduced`` on the one card under
    ``--coord-dir`` / ``--world-size 2`` write a sharded checkpoint (a
    shard a rank, the leader's manifest), and one process resumes from it:
-   its losses equal the fleet's after the checkpoint;
+   its losses equal the fleet's after the checkpoint. Then
+   ``[fleet-mesh]`` (a fleet on a mesh): two launchers of ``python -m
+   repro_torch.launch.train`` (qwen2.5-3b at full width, depth 2, fp32,
+   B=2 S=128, ``--use-pallas``) under ``--coord-dir`` / ``--world-size 2``,
+   each on a 1x2 mesh (4 processes over gloo on the card; every
+   ``matmul`` product of each mesh rank held to the plain version on its
+   operands), save every 3 of 6 steps; both fleet checks hold at step
+   4's start until the fleet changes, and once step 3 is committed with
+   the fleet plan's two shards fleet rank 1's launcher is SIGKILLed: its
+   mesh ranks must be gone within 10 s (by ``/proc``; by ``nvidia-smi
+   --query-compute-apps`` too where it lists them), rank 0 evicts it at
+   step 4, restarts once from step 3 at world 1 (step 6's manifest
+   ``ranks == [0]``) and exits 0; beside that restart a world-1 launcher
+   on 1x2 resumes from step 3 with rank 0's losses bit for bit;
+   each mesh rank's ``matmul`` launches equal the launch table's; steps
+   0-2 within 1e-4 of a 1x1 run of the same arguments in this process.
+   Its launchers run after 23a, while this process runs 23b-c;
 15c. device meshes (``[mesh-train]``, ``[mesh-serve]``): ``train.run``
-   on qwen2.5-3b at full width, depth 4, fp32 with TF32 off, B=8 S=128,
+   on qwen2.5-3b at full width, depth 2, fp32 with TF32 off, B=8 S=128,
    ``paper_default(0.8)`` with ``--use-pallas``, 3 steps (dense, sparse,
    sparse) at 1x1 in this process, and ``serve.run`` at full width,
    depth 3 of 36, fp32 and bf16; then one spawn of two rank processes on the card over
@@ -285,9 +301,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
 23. the other families on device meshes (``[mesh-families]``, PR 24):
    ``train.run`` at 1x1 in this process, then one spawn of two rank
    processes on the card over gloo running the training CLI's rank body
-   on a 1x2 and a 2x1 mesh, of mamba2-1.3b (depth 2 of 48, B=4 S=512),
-   whisper-large-v3 (2 + 2 of 32 + 32 layers, B=2 S=128, 1500 stub
-   frames), paligemma-3b (depth 2 of 18, B=8 S=128, 256 stub patches)
+   on a 1x2 and a 2x1 mesh, of mamba2-1.3b (depth 1 of 48, B=4 S=512),
+   whisper-large-v3 (1 + 1 of 32 + 32 layers, B=2 S=128, 1500 stub
+   frames), paligemma-3b (depth 1 of 18, B=8 S=128, 256 stub patches)
    and the reduced kimi-k2, llama4 and jamba at ``moe_dp_groups`` 0 and
    2 (B=8 S=64), all fp32 with TF32 off, ``paper_default(0.8)`` with
    ``--use-pallas``, 3 steps (dense, sparse, sparse): losses within 1e-4
@@ -315,7 +331,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    kimi-k2, llama4 and jamba at ``moe_dp_groups`` 0 and 2 (B=3 S=64) on
    2x1, each beside its 1x1 run, held as in 15c;
 23a. model meshes that do not divide the q heads (``[mesh-heads]``):
-   whisper-large-v3 at full width, 2 + 2 of 32 + 32 layers, B=2
+   whisper-large-v3 at full width, 1 + 1 of 32 + 32 layers, B=2
    S=128 with 1500 stub frames, on ``--model-mesh 8`` (160 of its 1280 q
    columns a rank: each rank runs the 3 heads they touch, the 20 KV heads
    neither dividing 8 nor divided by it), 8 rank processes on the card
@@ -351,7 +367,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    qwen2.5-3b on the kernel route: the kernels' tile FLOPs against
    ``core/flops.py``'s TPU-tiled count;
 23c. the dry run (``[dryrun]``): ``[mesh-train]``'s configuration
-   (qwen2.5-3b, depth 4, B=8, S=128) at 1x2 and 2x1 on the fake process
+   (qwen2.5-3b, depth 2, B=8, S=128) at 1x2 and 2x1 on the fake process
    group (``launch/dryrun.py``, every rank on meta): its per-rank
    parameter and Adam bytes and collective calls and bytes a step equal
    what the 1x2 bf16 ranks recorded, its ``matmul`` launches a rank a
@@ -405,6 +421,7 @@ dispatch), and fails (non-zero exit, no result line) on any error:
 from __future__ import annotations
 
 import ast
+import atexit
 import dataclasses
 import gc
 import hashlib
@@ -415,6 +432,7 @@ from pathlib import Path
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -434,7 +452,7 @@ BF16_NOISE_FACTOR = 1.5  # bf16 params: kernel route's distance to fp32 vs the g
 TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summation order only
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
 LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
-LM_ROUTE_DEPTH = 4  # the route check's depth (full width)
+LM_ROUTE_DEPTH = 2  # the route check's depth (full width; PR 30: 4 before)
 # [serve-features]: the serving modes at 3 of qwen2.5-3b's 36 layers (the
 # [serve] main path runs them all); the script must end well inside 1200 s
 SERVE_FEATURES_DEPTH = 3
@@ -2180,7 +2198,7 @@ def tp_policies(policy_mod) -> dict:
 
 def tp_lm_route_check(lm, steps, backward, policy_mod, gm, cfg, params, batch, site_of):
     """``[tp-lm]`` route check: one sparse step of qwen2.5-3b at full width
-    and depth 4, fp32 (the LM route check's params and batch), under
+    and depth ``LM_ROUTE_DEPTH``, fp32 (the LM route check's params and batch), under
     ``ssprop_tp`` through the TP fast path and the mask oracle: the same
     kept channels at every site, ``k_loc`` of them in each of the 16
     shards, every leaf within TRAIN_ROUTE_TOL, and no kernel launched
@@ -2551,12 +2569,318 @@ def fleet_phase(gm, lm, policy_mod, get_config):
                 kernel_err=k_err)
 
 
+# [fleet-mesh]: a fleet whose ranks each train on a 1x2 mesh, qwen2.5-3b at
+# full width, 36 layers cut to 2 (as [ckpt]), fp32, B=2 S=128; 6 steps of
+# 2-step epochs (2, 3 sparse), a save every 3
+FLEET_MESH_DEPTH = 2
+FLEET_MESH_LM = (2, 128)
+FLEET_MESH_HB_S = 2.5  # --hb-timeout: a killed launcher is evicted within this
+# both fleet ranks' checks hold at this step's start (once) until the fleet
+# changes: rank 1's launcher is killed there, so the eviction comes at a step
+# start after step 3's commit and before step 6's save, whatever the host's pace
+FLEET_MESH_HOLD_STEP = 4
+FLEET_MESH_GONE_S = 10.0  # the killed launcher's mesh ranks must be gone within
+FLEET_MESH_TIMEOUT_S = 420  # one launcher, start to exit
+# a launcher: the training CLI with the phase's depth and dtype (the CLI
+# has no flag for either) and this script's rank body around the CLI's
+_FLEET_MESH_LAUNCHER = """
+import dataclasses
+import chip_smoke
+from repro_torch.launch import train
+get_config = train.get_config
+train.get_config = lambda arch: dataclasses.replace(get_config(arch), n_layers={depth},
+                                                    dtype="float32")
+train.run_rank = chip_smoke.fleet_mesh_rank
+train.main()
+"""
+
+
+def _hold_fleet_check(args) -> None:
+    """Make this process's fleet check (``FleetSupervisor.check_epoch``,
+    which only mesh rank 0 runs) hold at step ``FLEET_MESH_HOLD_STEP``'s
+    start, once: it marks ``<coord>/held/rank_<fleet>`` and polls the fleet
+    until its epoch moves, then checks as always (and so raises
+    ``MembershipChanged`` there)."""
+    from repro_torch.dist import fault
+
+    check_epoch, calls = fault.FleetSupervisor.check_epoch, [0]
+    held = Path(args.coord_dir) / "held"
+
+    def hold_then_check(sup, epoch):
+        calls[0] += 1  # a check a step; the first attempt starts at step 0
+        if calls[0] == FLEET_MESH_HOLD_STEP + 1:
+            held.mkdir(exist_ok=True)
+            (held / f"rank_{args.rank}").touch()
+            deadline = time.monotonic() + FLEET_MESH_TIMEOUT_S
+            while sup.view.read().epoch == epoch and time.monotonic() < deadline:
+                if sup.should_poll(args.rank):
+                    sup.poll()
+                time.sleep(0.05)
+        return check_epoch(sup, epoch)
+
+    fault.FleetSupervisor.check_epoch = hold_then_check
+
+
+def fleet_mesh_rank(mesh, args, cfg=None, collect=()):
+    """A ``[fleet-mesh]`` mesh rank: the training CLI's rank body
+    (``train.run_rank``) with every ``matmul`` product held to the plain
+    version on its own operands (the checks go to
+    ``<coord>/checks/rank_<fleet>_mesh_<m>.json``) and, in a fleet, the
+    fleet check's hold (:func:`_hold_fleet_check`)."""
+    from repro_torch.kernels import gathered_matmul as gm
+    from repro_torch.launch import train
+
+    if args.world_size > 1:
+        _hold_fleet_check(args)
+    checks = {}
+    with gm.observe_matmul(matmul_checker(checks, gm)("fleet-mesh")):
+        out = train.run_rank(mesh, args, cfg, collect)
+    path = Path(args.coord_dir) / "checks" / f"rank_{args.rank:05d}_mesh_{mesh.rank}.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(checks.get("fleet-mesh", [0, 0.0, 0.0, None])))
+    return out
+
+
+def _fleet_mesh_argv(coord, ckpt_dir, rank, world):
+    b, seq = FLEET_MESH_LM
+    argv = ["--arch", LM_ARCH, "--steps", "6", "--steps-per-epoch", "2", "--global-batch",
+            str(b), "--seq-len", str(seq), "--drop-rate", str(LM_RATE), "--granularity",
+            "channel", "--use-pallas", "--log-every", "1", "--device", "cuda"]
+    if coord is None:  # the 1x1 run in this process
+        return argv
+    return argv + ["--ckpt-dir", str(ckpt_dir), "--ckpt-every", "3", "--coord-dir", str(coord),
+                   "--world-size", str(world), "--rank", str(rank), "--data-mesh", "1",
+                   "--model-mesh", "2", "--hb-interval", "0.25", "--hb-timeout",
+                   str(FLEET_MESH_HB_S), "--commit-timeout", "20", "--rejoin-timeout", "120"]
+
+
+def _pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (by ``/proc``; a zombie, dead but not reaped, does not)."""
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+    except (OSError, IndexError):
+        return False
+    return state not in ("Z", "X")
+
+
+def _card_pids() -> set[int]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _train_json(log: str, prefix: str):
+    line = next(ln for ln in reversed(log.splitlines()) if ln.startswith(prefix))
+    return json.loads(line[len(prefix):])
+
+
+def fleet_mesh_phase(train, lm, gm, policy_mod, get_config, card):
+    """``[fleet-mesh]``: a fleet whose ranks each train on a 1x2 mesh (see
+    the module docstring). Runs the 1x1 run, then starts the launchers
+    and a thread that drives them, and returns ``finish()``: the caller
+    runs other phases meanwhile (the launchers are processes of their
+    own), then ``finish()`` waits for the thread, checks what the
+    launchers wrote and returns a summary with the ``matmul`` launches
+    of every mesh rank that ran to its end."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=FLEET_MESH_DEPTH, dtype="float32")
+    root = CKPT_DIR / "fleet_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    coord, ckpt_dir, solo, solo_ckpt = (root / "coord", root / "ckpt", root / "solo",
+                                        root / "solo_ckpt")
+    for d in (coord, solo, solo_ckpt):
+        d.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    one = train.run(train.build_parser().parse_args(_fleet_mesh_argv(None, None, 0, 1)),
+                    cfg=cfg)["history"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    code = _FLEET_MESH_LAUNCHER.format(depth=FLEET_MESH_DEPTH)
+
+    def launch(name, argv):
+        with open(root / f"{name}.log", "w") as f:
+            return subprocess.Popen([sys.executable, "-c", code, *argv], cwd=ROOT, env=env,
+                                    stdout=f, stderr=subprocess.STDOUT)
+
+    def wait_for(cond, what, procs, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        while not cond():
+            for name, p in procs.items():
+                if p.poll() not in (None, 0):
+                    raise AssertionError(f"[fleet-mesh] {name} exited {p.returncode} waiting "
+                                         f"for {what}: {(root / f'{name}.log').read_text()[-3000:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[fleet-mesh] no {what} within {timeout_s} s")
+            time.sleep(0.1)
+
+    step3, step6 = ckpt_dir / "step_00000003", ckpt_dir / "step_00000006"
+    held = [coord / "held" / f"rank_{r}" for r in (0, 1)]
+    procs, got = {}, {}
+
+    def stop():
+        for p in list(procs.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)  # no launcher outlives the script, whatever fails
+
+    def drive():
+        try:
+            t0 = time.perf_counter()
+            procs.update({f"rank{r}": launch(f"rank{r}", _fleet_mesh_argv(coord, ckpt_dir, r, 2))
+                          for r in (0, 1)})
+            wait_for(lambda: (step3 / "COMMITTED").exists() and all(h.exists() for h in held),
+                     f"committed step 3 with both fleet ranks held at step {FLEET_MESH_HOLD_STEP}",
+                     procs, FLEET_MESH_TIMEOUT_S)
+            t_commit = time.perf_counter() - t0
+            manifest = json.loads((step3 / "manifest.json").read_text())
+            shards = sorted(f.name for f in step3.iterdir() if f.name.startswith("shard_"))
+            if manifest["ranks"] != [0, 1] or shards != ["shard_0.msgpack", "shard_1.msgpack"]:
+                raise AssertionError(f"[fleet-mesh] step 3: ranks {manifest['ranks']}, {shards}")
+            shard_bytes = {f.name: f.stat().st_size for f in step3.iterdir()
+                           if f.name.startswith("shard_")}
+            pids = [int((coord / "pids" / f"rank_00001_mesh_{m}").read_text()) for m in (0, 1)]
+            if not all(_pid_alive(p) for p in pids):
+                raise AssertionError(f"[fleet-mesh] fleet rank 1's mesh ranks {pids} not running")
+            on_card = _card_pids()
+            t_kill = time.perf_counter()
+            procs["rank1"].kill()
+            procs["rank1"].wait(30)
+            while any(_pid_alive(p) for p in pids):
+                if time.perf_counter() - t_kill > FLEET_MESH_GONE_S:
+                    raise AssertionError(f"[fleet-mesh] fleet rank 1's mesh ranks {pids} alive "
+                                         f"{FLEET_MESH_GONE_S} s after its launcher's SIGKILL")
+                time.sleep(0.05)
+            t_gone = time.perf_counter() - t_kill
+            # nvidia-smi lists a process only where it shares the tool's pid
+            # namespace; where it listed the mesh ranks, it must list them no more
+            if on_card & set(pids):
+                still = _card_pids() & set(pids)
+                if still:
+                    raise AssertionError(f"[fleet-mesh] nvidia-smi lists the killed mesh ranks {still}")
+                smi = f"nvidia-smi listed {sorted(on_card & set(pids))} before and none after"
+            else:
+                smi = (f"nvidia-smi lists {sorted(on_card)}, none of the mesh ranks (another pid "
+                       f"namespace): /proc alone shows them gone")
+            # a world-1 launcher resumes from step 3 (its own directory: the
+            # step's files linked), beside fleet rank 0's restart; no save of
+            # its own: --ckpt-every past the end
+            shutil.copytree(step3, solo_ckpt / step3.name, copy_function=os.link)
+            t_solo0 = time.perf_counter()
+            procs["solo"] = launch("solo", _fleet_mesh_argv(solo, solo_ckpt, 0, 1)
+                                   + ["--ckpt-every", "100"])
+            live, ends = {n: procs[n] for n in ("rank0", "solo")}, {}
+
+            def both_exited():
+                for n, p in live.items():
+                    if n not in ends and p.poll() == 0:
+                        ends[n] = time.perf_counter()
+                return len(ends) == len(live)
+
+            wait_for(both_exited, "exit of fleet rank 0 and the world-1 launcher", live,
+                     FLEET_MESH_TIMEOUT_S)
+            t_fleet, t_solo = ends["rank0"] - t0, ends["solo"] - t_solo0
+            membership = json.loads((coord / "membership.json").read_text())
+            m6 = json.loads((step6 / "manifest.json").read_text())
+            if membership["evicted"] != [1] or m6["ranks"] != [0] or not (
+                    step6 / "COMMITTED").exists():
+                raise AssertionError(f"[fleet-mesh] membership {membership}, step 6 ranks "
+                                     f"{m6['ranks']}")
+            got.update(t_commit=t_commit, shard_bytes=shard_bytes, pids=pids, on_card=on_card,
+                       t_gone=t_gone, smi=smi, t_fleet=t_fleet, t_solo=t_solo)
+        except BaseException as e:
+            got["error"] = e
+        finally:
+            stop()
+
+    worker = threading.Thread(target=drive, name="fleet-mesh", daemon=True)
+    worker.start()
+    return lambda: _fleet_mesh_finish(worker, got, root, coord, solo, one, t_one, t_phase, card)
+
+
+def _fleet_mesh_finish(worker, got, root, coord, solo, one, t_one, t_phase, card):
+    """``[fleet-mesh]``'s checks once its launchers have run (see
+    :func:`fleet_mesh_phase`)."""
+    worker.join()
+    if "error" in got:
+        raise got["error"]
+    t_commit, shard_bytes, pids, on_card, t_gone, smi, t_fleet, t_solo = (got[k] for k in (
+        "t_commit", "shard_bytes", "pids", "on_card", "t_gone", "smi", "t_fleet", "t_solo"))
+    logs = {name: (root / f"{name}.log").read_text() for name in ("rank0", "rank1", "solo")}
+    for name in ("rank0", "solo"):
+        if "resumed from step 3" not in logs[name]:
+            raise AssertionError(f"[fleet-mesh] {name} did not resume from step 3")
+    lines = [ln for ln in logs["rank0"].splitlines() if "resharding to epoch" in ln]
+    if len(lines) != 1:
+        raise AssertionError(f"[fleet-mesh] fleet rank 0 resharded {len(lines)} times: {lines}")
+    fleet0 = _loss_log(coord, 0)
+    resumed = _loss_log(solo, 0)
+    if sorted(fleet0) != list(range(6)) or sorted(resumed) != [3, 4, 5]:
+        raise AssertionError(f"[fleet-mesh] steps {sorted(fleet0)} / {sorted(resumed)}")
+    if [resumed[s] for s in (3, 4, 5)] != [fleet0[s] for s in (3, 4, 5)]:
+        raise AssertionError(f"[fleet-mesh] the world-1 launcher's losses {resumed} != fleet "
+                             f"rank 0's {fleet0}")
+    rel = max(abs(fleet0[s] - one[s]) / abs(one[s]) for s in range(3))
+    if rel > MESH_LOSS_TOL:
+        raise AssertionError(f"[fleet-mesh] steps 0-2 {[fleet0[s] for s in range(3)]} vs 1x1 "
+                             f"{one[:3]}: rel {rel}")
+    launches, checks = {}, {}
+    for name in ("rank0", "solo"):
+        by_rank = _train_json(logs[name], "[train] kernel launches by mesh rank: ")
+        if by_rank["launches"] != by_rank["table"] or any(
+                r["matmul"] == 0 for r in by_rank["launches"]):
+            raise AssertionError(f"[fleet-mesh] {name} launches {by_rank}")
+        launches[name] = [r["matmul"] for r in by_rank["launches"]]
+        for m in (0, 1):
+            n, err, limit, miss = json.loads(
+                ((coord if name == "rank0" else solo) / "checks" / f"rank_00000_mesh_{m}.json")
+                .read_text())
+            if miss is not None or n != launches[name][m]:
+                raise AssertionError(f"[fleet-mesh] {name} mesh rank {m}: {n} products "
+                                     f"checked of {launches[name][m]}; {miss}")
+            checks[f"{name} mesh {m}"] = err
+    ck0 = _train_json(logs["rank0"], "[train] checkpoint: ")
+    ck_solo = _train_json(logs["solo"], "[train] checkpoint: ")
+    if [s["step"] for s in ck0["saves"]] != [3, 6] or [
+            r["step"] for r in ck0["restores"]] != [3]:
+        raise AssertionError(f"[fleet-mesh] fleet rank 0 saved {ck0['saves']}, restored "
+                             f"{ck0['restores']}: not one save each of steps 3 and 6 and one "
+                             f"restore of step 3")
+    saves = {"rank0": ck0["saves"], "rank1": [
+        _train_json(logs["rank1"], "[train] saved step 3: ")]}
+    restores = {"rank0": ck0["restores"], "solo": ck_solo["restores"]}
+    summary = dict(
+        one_s=t_one, commit_s=t_commit, fleet_s=t_fleet, solo_s=t_solo, gone_s=t_gone,
+        losses={s: fleet0[s] for s in range(6)}, rel_vs_1x1=rel, shard_bytes=shard_bytes,
+        saves=saves, restores=restores, launches=launches, matmul_err=checks,
+        card_pids_before_kill=sorted(on_card), killed=pids, phase_s=time.perf_counter() - t_phase)
+    print(f"[fleet-mesh] {LM_ARCH} full width, depth {FLEET_MESH_DEPTH}, fp32, B="
+          f"{FLEET_MESH_LM[0]} S={FLEET_MESH_LM[1]}, 2 launchers x 1x2 on one card ({card}): "
+          f"step 3 committed and both held at step {FLEET_MESH_HOLD_STEP}'s start "
+          f"{t_commit:.1f} s after launch ({shard_bytes}); fleet rank 1's launcher SIGKILLed, "
+          f"its mesh ranks {pids} gone in {t_gone:.2f} s by /proc ({smi}); rank 0 evicted it "
+          f"at step {FLEET_MESH_HOLD_STEP}, restarted once from step 3 at world 1 (step 6 "
+          f"ranks [0]) and exited 0 {t_fleet:.1f} s after launch; a world-1 launcher on 1x2, "
+          f"beside it, resumed from step 3 in {t_solo:.1f} s, losses 3-5 equal rank 0's bit "
+          f"for bit; steps 0-2 within {rel:.2e} of the 1x1 run ({t_one:.1f} s)")
+    print(f"[fleet-mesh] matmul launches by mesh rank {launches} = the launch table's, every "
+          f"product within the gate (worst {max(checks.values()):.3g}); saves {json.dumps(saves)}; "
+          f"restores {json.dumps(restores)}")
+    print(f"[time] [fleet-mesh] phase {summary['phase_s']:.1f} s (the launchers beside [audit] "
+          f"and [dryrun])", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
 # ----------------------------------------------------------------------
 # device meshes: qwen2.5-3b trains on data x model and serves on model,
 # a rank a process over gloo (the ranks share the one card)
 # ----------------------------------------------------------------------
 
-MESH_DEPTH = 4  # [mesh-train]: full width, 36 layers cut to 4 (two ranks share the card)
+MESH_DEPTH = 2  # [mesh-train]: full width, 36 layers cut to 2 (PR 30; 4 before)
 MESH_STEPS = 3  # a dense step, then two sparse ones (--scheduler bar)
 MESH_SHAPES = ((1, 2), (2, 1))  # (data, model) beside 1x1
 MESH_LOSS_TOL = 1e-4  # fp32, TF32 off: summation order only
@@ -2567,7 +2891,7 @@ MESH_SERVE_DEPTH = 3  # [mesh-serve]: 36 layers cut to 3 (the script must end in
 MESH_DATA = 2  # [mesh-data-serve]: --data-mesh 2, the serve phase's 4 slots 2 a rank
 # [mesh-data-serve]'s lock-step runs: name -> (data, model, decode_seq_shard)
 MESH_LOCK = {"1x2": (1, 2, False), "2x1": (2, 1, False), "1x2 seq-model": (1, 2, True)}
-MESH_LOCK_DEPTH = 2  # their depth (and the counted step's): 318 gloo-bound steps a run
+MESH_LOCK_DEPTH = 1  # their depth (and the counted step's): 318 gloo-bound steps a run (PR 30; 2 before)
 # [mesh-seq]: a global batch --data-mesh 2 does not divide, so data moves to
 # the sequence dim as the reference's fit_spec places it; qwen2.5-3b at full
 # width, B=3 S=128 (64 positions a rank), 36 layers cut to 2 (the script's
@@ -3781,10 +4105,10 @@ MF_STEPS = 3  # dense, sparse, sparse (--scheduler bar)
 # arch -> (its cut of the full config, B, S); the reduced MoE archs at
 # moe_dp_groups 0 and 2 (a full-width kimi-k2 layer's experts are 33.8 GB
 # in bf16 before Adam, and jamba is 398 B)
-MF_TRAIN = {  # depths cut for the room [mesh-heads] needs
-    SSM_ARCH: (dict(n_layers=2), 4, 512),  # 2 of 48 layers; two 256-token SSD chunks
-    ENCDEC_ARCH: (dict(n_layers=2, n_enc_layers=2), 2, 128),  # 2 + 2 of 32 + 32, 1500 frames
-    VLM_ARCH: (dict(n_layers=2), 8, 128),  # 2 of 18 layers, 256 patches
+MF_TRAIN = {  # depths cut for the room [mesh-heads] and [fleet-mesh] need
+    SSM_ARCH: (dict(n_layers=1), 4, 512),  # 1 of 48 layers (PR 30; 2 before); two SSD chunks
+    ENCDEC_ARCH: (dict(n_layers=1, n_enc_layers=1), 2, 128),  # 1 + 1 (PR 30), 1500 frames
+    VLM_ARCH: (dict(n_layers=1), 8, 128),  # 1 of 18 layers (PR 30; 2 before), 256 patches
 }
 MF_REDUCED = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b")
 MF_REDUCED_BS = (8, 64)
@@ -4102,12 +4426,12 @@ def mesh_families_phase(train, serve, lm, gm, pa, get_config, kimi_one, card):
 MH_STEPS = 3  # dense, sparse, sparse (--scheduler bar)
 # name -> (arch, the cut of its config, B, S, --model-mesh). whisper at full
 # width on 8 ranks: 160 of its 1280 q columns a rank, 2.5 of its 20 heads
-# of 64, the 20 KV heads neither dividing 8 nor divided by it; 2 + 2 of
+# of 64, the 20 KV heads neither dividing 8 nor divided by it; 1 + 1 of
 # 32 + 32 layers, 1500 stub frames. The reduced configs whose head
 # overrides give llama4-maverick's (3 q heads on one KV head) and
 # paligemma's (half a head) spans at --model-mesh 16, on 4 ranks
 MH_CASES = {
-    ENCDEC_ARCH: (ENCDEC_ARCH, dict(n_layers=2, n_enc_layers=2), 2, 128, 8),
+    ENCDEC_ARCH: (ENCDEC_ARCH, dict(n_layers=1, n_enc_layers=1), 2, 128, 8),  # PR 30: 2 + 2
     "llama4-like": ("llama4-maverick-400b-a17b", dict(n_heads=10, n_kv_heads=2), 8, 64, 4),
     "paligemma-like": (VLM_ARCH, dict(n_heads=2, n_kv_heads=1), 8, 64, 4),
 }
@@ -5029,7 +5353,7 @@ def main() -> int:
 
     lap("families")
     # 20-22. the encoder-decoder and VLM families at full width: serving at
-    # depth 4 (paged_attention at head dims 64 and 256), then training at
+    # depth 2 (paged_attention at head dims 64 and 256), then training at
     # full depth
     enc_launches, enc_summary = xfamily_serve_phase(ENCDEC_ARCH, "[encdec-serve]", lm, pa,
                                                     serve_pkg, get_config)
@@ -5066,16 +5390,20 @@ def main() -> int:
         train, serve, lm, gm, pa, get_config, card)
 
     lap("mesh-heads")
-    # 23b-c. the program auditor and the dry run, held to the card
-    observing.__exit__(None, None, None)
+    # 15b, then 23b-c: a fleet on meshes (its launchers, processes of their
+    # own, run while this process audits), the program auditor and the dry
+    # run, held to the card
     gc.collect()
     torch.cuda.empty_cache()
+    finish_fleet_mesh = fleet_mesh_phase(train, lm, gm, policy_mod, get_config, card)
+    observing.__exit__(None, None, None)
     audit_summary = audit_phase(launch_log, gm, get_config, lm, lm_steps, tc, resnet, adam,
                                 policy_mod, card)
     dryrun_summary = dryrun_phase(mesh_train_summary, mesh_serve_summary["data"]["step"],
                                   mf_summary["seq"]["runs"], get_config, policy_mod, card)
+    fleet_mesh_summary = finish_fleet_mesh()
 
-    lap("audit-dryrun")
+    lap("fleet-mesh-audit-dryrun")
     # 24. result lines
     # the main path's decode shape: 4 slots of 160 tokens (10 pages), one
     # query row each, bf16 queries over the engine's fp32 pools
@@ -5141,6 +5469,8 @@ def main() -> int:
         path_launches, err, by_arch = {LM_ARCH: lm_launches[name]}, lm_err[name], {}
         if name == "matmul":
             path_launches["lm_resume"] = resume_launches
+            path_launches["fleet_mesh"] = sum(sum(v) for v in
+                                              fleet_mesh_summary["launches"].values())
             path_launches["mesh_train"] = mesh_train_launches
             path_launches["mesh_families"] = mf_mm_launches
             path_launches["mesh_heads"] = mh_mm_launches
@@ -5156,6 +5486,7 @@ def main() -> int:
             more = x_rows | {f"{LM_ARCH} reduced (fleet)": (fleet_summary["kernel_rows"],
                                                             fleet_summary["kernel_err"])}
             err = max([err, mesh_err, mf_err, mh_err, mesh_train_summary["seq"]["max_abs_err"],
+                       max(fleet_mesh_summary["matmul_err"].values()),
                        mf_summary["seq"]["max_abs_err"]] + [e[name] for _, e in more.values()])
             by_arch = {arch: dict(max_abs_err=e[name], step_ms=sum(
                 r["ms"] * r["launches_per_step"] for r in xr if r["dtype"] == "bfloat16"))
@@ -5166,6 +5497,7 @@ def main() -> int:
                 for k, c in r.items() if not k.startswith("seq ")))
             by_arch["mesh_families"] = dict(max_abs_err=mf_err)
             by_arch["mesh_heads"] = dict(max_abs_err=mh_err)
+            by_arch["fleet_mesh"] = dict(max_abs_err=max(fleet_mesh_summary["matmul_err"].values()))
             by_arch["mesh_seq"] = dict(max_abs_err=max(
                 mesh_train_summary["seq"]["max_abs_err"], mf_summary["seq"]["max_abs_err"]))
         kernels.append(dict(
@@ -5185,6 +5517,7 @@ def main() -> int:
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")
     print(f"[ckpt] {json.dumps(ckpt_summary)}")
     print(f"[fleet] {json.dumps({k: v for k, v in fleet_summary.items() if k != 'kernel_rows'})}")
+    print(f"[fleet-mesh] {json.dumps(fleet_mesh_summary)}")
     print(f"[ssm-train] {json.dumps(ssm_ms)}")
     print(f"[ssm-serve] shares {json.dumps(ssm_shares)}")
     print(f"[moe-serve] {json.dumps(moe_summary)}")

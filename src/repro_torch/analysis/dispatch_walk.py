@@ -433,9 +433,13 @@ class Census(TorchDispatchMode):
         out = self._answer(func, args, kwargs)
         if out is None:
             out = func(*args, **kwargs)
+        outs = _tensors(out)
         if not func.is_view:
             self._read(_tensors((args, kwargs)))
-        outs = _tensors(out)
+            # an output storage no input shares is new, whatever its address:
+            # a dead product's storage the allocator hands out again is no read
+            for t in outs:
+                self._pending.pop(t.untyped_storage()._cdata, None)
         if packet is aten._to_copy and "dtype" in kwargs and kwargs["dtype"] != args[0].dtype:
             self.counts.converts.append(
                 Convert(str(args[0].dtype), str(kwargs["dtype"]), self._where()[0]))

@@ -48,7 +48,9 @@ package's ``Array.addressable_shards`` does. On a device mesh each rank
 is one host of one device: :class:`AsyncCheckpointer` given a ``plan``
 over the mesh's ranks writes each rank's pieces from its local shards
 (:func:`write_local_shard`), and rank 0 commits the manifest, so the
-checkpoint is the JAX package's sharded format.
+checkpoint is the JAX package's sharded format. A fleet whose ranks each
+run a mesh writes the fleet's format (a plan over the fleet ranks), each
+fleet rank's pieces fetched from its mesh ranks' shards.
 """
 from __future__ import annotations
 
@@ -253,6 +255,17 @@ class AsyncCheckpointer:
     the plan gives it (:func:`write_local_shard`) and the leader commits
     the manifest of ``like``'s shapes.
 
+    **A mesh under a fleet**: given ``like``, ``mesh`` and ``specs`` (no
+    ``plan``), ``rank`` is a fleet rank that runs ``mesh``, and a save's
+    plan is :func:`make_shard_plan` over the active fleet ranks applied to
+    ``like``'s full shapes: the fleet format a fleet of one-process ranks
+    writes. Every mesh rank calls :meth:`save` with its local shards
+    (``specs``: the fitted spec of each leaf, in ``like``'s order);
+    :func:`gather_pieces` assembles the pieces the plan gives ``rank`` on
+    mesh rank 0, whose save writes ``shard_<rank>`` (:func:`write_pieces`)
+    while the others' end there, and the leader (the lowest active fleet
+    rank's mesh rank 0) commits, as in sharded mode.
+
     ``last_stats`` holds the last save's step, bytes of tensor data on
     this rank, blocking snapshot seconds (``snapshot_s``: the host
     buffers' allocation ``alloc_s`` and the copies into them ``copy_s``)
@@ -271,9 +284,12 @@ class AsyncCheckpointer:
         commit_timeout_s: float = 60.0,
         plan: Plan | None = None,
         like=None,
+        mesh=None,
+        specs=None,
     ):
         self.ckpt_dir = ckpt_dir
         self.plan = plan
+        self.mesh, self.specs = mesh, specs
         self.like_items = None if like is None else _flatten(like)[0]
         self.keep = keep
         self.rank = rank
@@ -288,20 +304,40 @@ class AsyncCheckpointer:
         t0 = time.perf_counter()
         items, _ = _flatten(tree)
         stats = {"step": step}
-        host = _snapshot(items, stats)
-        stats["snapshot_s"] = time.perf_counter() - t0
-        self.wait()
         ranks = list(self.ranks) if self.ranks is not None else None
-        self.last_stats = stats | {"bytes": sum(t.numel() * t.element_size() for _, t in host)}
+        if self.mesh is not None:
+            plan = make_shard_plan(self.like_items, ranks)
+            host = gather_pieces(items, self.specs, self.like_items, plan, self.mesh, self.rank)
+            stats["snapshot_s"] = time.perf_counter() - t0
+            if host is None:  # another mesh rank writes this fleet rank's shard
+                self.last_stats = stats | {"bytes": 0}
+                return
+            nbytes = sum(t.numel() * t.element_size() for _, ps in host for _, t in ps)
+        else:
+            plan = None
+            host = _snapshot(items, stats)
+            stats["snapshot_s"] = time.perf_counter() - t0
+            nbytes = sum(t.numel() * t.element_size() for _, t in host)
+        self.wait()
+        self.last_stats = stats | {"bytes": nbytes}
         self._thread = threading.Thread(
-            target=self._run, args=(step, host, ranks), daemon=True
+            target=self._run, args=(step, host, ranks, plan), daemon=True
         )
         self._thread.start()
 
-    def _run(self, step, host, ranks):
+    def _run(self, step, host, ranks, fleet_plan):
         t0 = time.perf_counter()
         try:
-            if self.plan is not None:
+            if fleet_plan is not None:
+                self.last_path = write_pieces(self.ckpt_dir, step, host, rank=self.rank)
+                if self.rank == min(ranks):
+                    write_sharded_manifest(
+                        self.ckpt_dir, step, self.like_items, plan=fleet_plan, ranks=ranks
+                    )
+                    commit_sharded(
+                        self.ckpt_dir, step, timeout_s=self.commit_timeout_s, keep=self.keep
+                    )
+            elif self.plan is not None:
                 self.last_path = write_local_shard(
                     self.ckpt_dir, step, host, rank=self.rank, plan=self.plan
                 )
@@ -536,20 +572,15 @@ def _read_file(path: str):
     return codec.unpackb(mm)
 
 
-def write_shard(ckpt_dir: str, step: int, host_items, *, rank: int, plan: Plan) -> str:
-    """Write this rank's pieces (crash-atomic). ``host_items`` must hold
-    host tensors. Returns the shard path."""
+def write_pieces(ckpt_dir: str, step: int, pieces, *, rank: int) -> str:
+    """Write ``shard_<rank>`` from its pieces, ``[(key, [(piece, host
+    tensor of the piece's block)])]`` (crash-atomic). Returns its path."""
     path = _step_dir(ckpt_dir, step)
     os.makedirs(path, exist_ok=True)
-    payload: dict[str, list[dict[str, Any]]] = {}
-    for key, arr in host_items:
-        own = [p for p in plan.get(key, ()) if p.shard == rank]
-        if not own:
-            continue
-        payload[key] = [
-            dict(_encode(arr[p.slices()].contiguous()), index=[list(se) for se in p.index])
-            for p in own
-        ]
+    payload = {
+        key: [dict(_encode(t.contiguous()), index=[list(se) for se in p.index]) for p, t in own]
+        for key, own in pieces if own
+    }
     shard_path = os.path.join(path, _shard_name(rank))
     tmp = f"{shard_path}.tmp.{os.getpid()}"
     _dump_file(tmp, payload)
@@ -557,14 +588,82 @@ def write_shard(ckpt_dir: str, step: int, host_items, *, rank: int, plan: Plan) 
     return shard_path
 
 
+def write_shard(ckpt_dir: str, step: int, host_items, *, rank: int, plan: Plan) -> str:
+    """Write this rank's pieces (crash-atomic). ``host_items`` must hold
+    host tensors. Returns the shard path."""
+    return write_pieces(ckpt_dir, step, [
+        (key, [(p, arr[p.slices()]) for p in plan.get(key, ()) if p.shard == rank])
+        for key, arr in host_items], rank=rank)
+
+
+def gather_pieces(local_items, specs, full_items, plan: Plan, mesh, shard: int):
+    """The pieces ``plan`` gives ``shard`` of a tree whose leaves the ranks
+    of ``mesh`` hold as blocks (``local_items``, this rank's; ``specs``,
+    each leaf's fitted spec; ``full_items``, the full leaves' shapes), as
+    ``[(key, [(piece, host tensor)])]`` on mesh rank 0 and ``None`` on the
+    others. Every rank calls it. Each part of a piece comes from the
+    lowest rank that holds it (:func:`~repro_torch.dist.sharding.block_sources`):
+    rank 0's own parts are copied, the others' sent to it (through the
+    host over gloo, on the card over NCCL), into pinned host buffers. A
+    rank whose copy fails sends zeros in its place, so that no peer waits
+    on it, and then every rank raises."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import parallel
+    from repro_torch.dist.sharding import block_sources
+
+    lead, on_card = mesh.rank == 0, mesh.backend == "nccl"
+    out, err = [], None
+    for (key, loc), spec, (_, full) in zip(local_items, specs, full_items, strict=True):
+        if isinstance(loc, Stacked):
+            loc = torch.stack(loc.parts)
+        own = []
+        for p in (p for p in plan[key] if p.shard == shard):
+            host = None
+            if lead and err is None:
+                try:
+                    host = torch.empty([e - s for s, e in p.index], dtype=loc.dtype,
+                                       pin_memory=loc.is_cuda)
+                except Exception as e:
+                    err = e
+            for src, box, origin in block_sources(spec, full.shape, mesh.shape, p.index):
+                dims = [b - a for a, b in box]
+                if mesh.rank == src:
+                    part = loc[tuple(slice(a - o, b - o)
+                                     for (a, b), o in zip(box, origin, strict=True))]
+                    if src != 0:
+                        try:
+                            part = part.contiguous() if on_card else part.cpu().contiguous()
+                        except Exception as e:
+                            err = err or e
+                            part = torch.zeros(dims, dtype=loc.dtype,
+                                               device=mesh.device if on_card else "cpu")
+                        dist.send(part, 0)
+                        continue
+                elif lead:
+                    part = torch.empty(dims, dtype=loc.dtype,
+                                       device=mesh.device if on_card else "cpu")
+                    dist.recv(part, src)
+                else:
+                    continue
+                if host is not None:
+                    host[tuple(slice(a - s, b - s) for (a, b), (s, _) in
+                               zip(box, p.index, strict=True))].copy_(part, non_blocking=True)
+            own.append((p, host))
+        out.append((key, own))
+        del loc
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    parallel.raise_any(err, mesh)
+    return out if lead else None
+
+
 def write_local_shard(ckpt_dir: str, step: int, local_items, *, rank: int, plan: Plan) -> str:
     """Write a mesh rank's pieces from its local shards (crash-atomic).
     On a mesh of one device a host, the one piece of a leaf the plan gives
     ``rank`` is the block the rank holds, so its data is the local tensor
     itself (``local_items``: host tensors). Returns the shard path."""
-    path = _step_dir(ckpt_dir, step)
-    os.makedirs(path, exist_ok=True)
-    payload: dict[str, list[dict[str, Any]]] = {}
+    pieces = []
     for key, loc in local_items:
         own = [p for p in plan.get(key, ()) if p.shard == rank]
         if not own:
@@ -573,12 +672,8 @@ def write_local_shard(ckpt_dir: str, step: int, local_items, *, rank: int, plan:
         if tuple(e - s for s, e in piece.index) != tuple(loc.shape):
             raise ValueError(f"{key}: rank {rank} holds {tuple(loc.shape)}, its piece is "
                              f"{piece.index}")
-        payload[key] = [dict(_encode(loc.contiguous()), index=[list(se) for se in piece.index])]
-    shard_path = os.path.join(path, _shard_name(rank))
-    tmp = f"{shard_path}.tmp.{os.getpid()}"
-    _dump_file(tmp, payload)
-    os.replace(tmp, shard_path)
-    return shard_path
+        pieces.append((key, [(piece, loc)]))
+    return write_pieces(ckpt_dir, step, pieces, rank=rank)
 
 
 def write_sharded_manifest(

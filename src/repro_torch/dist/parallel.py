@@ -138,6 +138,20 @@ def broadcast_object(obj, src: int = 0):
     return box[0]
 
 
+def raise_any(err: BaseException | None, mesh) -> None:
+    """Every rank of ``mesh`` raises if any rank brings an ``err``: that
+    rank its own, the others a ``RuntimeError`` naming the lowest such
+    rank. A rank that raised alone would leave its peers in the next
+    collective."""
+    every = [None] * mesh.world
+    dist.all_gather_object(every, None if err is None else f"{type(err).__name__}: {err}")
+    if err is not None:
+        raise err
+    for r, e in enumerate(every):
+        if e is not None:
+            raise RuntimeError(f"mesh rank {r} raised {e}")
+
+
 def barrier(mesh) -> None:
     """Every rank waits for every other (an all-reduce of one element)."""
     all_reduce(torch.zeros(1, device=mesh.device), None)

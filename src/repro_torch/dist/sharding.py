@@ -25,7 +25,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import axis_sizes, dp_axes
+from repro_torch.launch.mesh import axis_sizes, dp_axes, shape_mesh
 
 # attention module names across the decoder / encoder / cross-decoder
 _ATTN_KEYS = ("attn", "self", "cross")
@@ -271,6 +271,31 @@ def local_index(spec: Sequence, shape: Sequence[int], mesh) -> tuple[slice, ...]
         per = d // nblk
         idx.append(slice(blk * per, (blk + 1) * per))
     return tuple(idx)
+
+
+def block_sources(spec: Sequence, shape: Sequence[int], mesh_shape, index):
+    """Which ranks of a mesh of ``mesh_shape`` hold the block ``index``
+    (per-dim ``(start, stop)``) of a ``shape`` leaf under the fitted
+    ``spec``: ``[(rank, box, origin)]``, ``box`` the part of ``index`` the
+    rank holds and ``origin`` where the rank's own block starts, each part
+    from the lowest of the ranks that hold it (a block replicated over an
+    axis is read once)."""
+    sizes = axis_sizes(mesh_shape)
+    world = 1
+    for n in sizes.values():
+        world *= n
+    out, seen = [], set()
+    for r in range(world):
+        blk = local_index(spec, shape, shape_mesh(sizes, r))
+        held = tuple((sl.start or 0, d if sl.stop is None else sl.stop)
+                     for sl, d in zip(blk, shape, strict=True))
+        if held in seen:
+            continue
+        seen.add(held)
+        box = tuple((max(a, c), min(b, e)) for (a, b), (c, e) in zip(held, index, strict=True))
+        if all(lo < hi for lo, hi in box):
+            out.append((r, box, tuple(a for a, _ in held)))
+    return out
 
 
 def is_split(spec: Sequence, axis: str = "model") -> bool:

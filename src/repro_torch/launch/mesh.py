@@ -40,9 +40,12 @@ sums run over those ranks alone, and ``seq`` is the sequence split.
 from __future__ import annotations
 
 from collections.abc import Callable, Mapping
+import ctypes
 import dataclasses
 import os
 import pickle
+import signal
+import sys
 import tempfile
 import time
 from typing import Any
@@ -278,9 +281,28 @@ def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
     return make_fake_mesh(shape["data"], shape["model"], pod=shape.get("pod", 1), rank=rank)
 
 
-def _rank_main(rank, world, data, model, device, store_path, out_path, fn, args):
+_PR_SET_PDEATHSIG = 1  # linux/prctl.h
+
+
+def _end_with(parent: int) -> None:
+    """End this process when ``parent`` (its launcher) dies, a SIGKILL
+    included: the kernel then sends it SIGKILL (Linux's ``prctl
+    PR_SET_PDEATHSIG``). torch's spawn asks for SIGINT, which a rank
+    blocked in a collective does not act on: it would live on, holding the
+    card's memory. A parent already gone ends it now."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def _rank_main(rank, world, data, model, device, store_path, out_path, parent, fn, args):
     import torch.distributed as dist
 
+    _end_with(parent)
+    # the ranks share their launcher's output: a line a write, never torn
+    sys.stdout.reconfigure(line_buffering=True)
     torch.set_num_threads(1)
     dev = rank_device(torch.device(device), rank)
     if dev.type == "cuda":
@@ -307,7 +329,8 @@ def run_on_mesh(fn: Callable, data: int, model: int, device, *args,
     ``args`` must pickle. The kernels are built here, once, before any
     rank starts. A rank that raises ends the run (the others are
     terminated) and its traceback is raised here; past ``timeout_s`` every
-    rank is terminated and ``TimeoutError`` raised."""
+    rank is terminated and ``TimeoutError`` raised. No rank outlives this
+    process: each ends when it dies, killed or not (:func:`_end_with`)."""
     import torch.multiprocessing as mp
 
     device = torch.device(device)
@@ -327,7 +350,8 @@ def run_on_mesh(fn: Callable, data: int, model: int, device, *args,
         out_path = os.path.join(td, "rank0.pkl")
         ctx = mp.start_processes(
             _rank_main,
-            args=(world, data, model, str(device), os.path.join(td, "store"), out_path, fn, args),
+            args=(world, data, model, str(device), os.path.join(td, "store"), out_path,
+                  os.getpid(), fn, args),
             nprocs=world, join=False, start_method="spawn",
         )
         deadline = None if timeout_s is None else time.monotonic() + timeout_s

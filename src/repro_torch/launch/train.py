@@ -43,10 +43,9 @@ it and each rank keeps its slices. Every family runs on a mesh (experts
 split over ``model``, SSM heads split over ``model``, the encoder and the
 cross-decoder as the decoder stack; under a sequence split the encoder
 runs alike on every rank of the group, and the VLM's patches split with
-its tokens). Still refused, each naming the ROADMAP item that ports it:
-a fleet (``--world-size > 1``) on a mesh, and a VLM layout whose fitted
-spec splits the tokens' sequence but not the patches (none on the
-production meshes).
+its tokens). Still refused, naming the ROADMAP item that ports it: a VLM
+layout whose fitted spec splits the tokens' sequence but not the patches
+(none on the production meshes).
 
 The token pipeline gives tokens alone, as the reference's does; for the
 encoder-decoder and VLM families the port adds the stubbed frontends'
@@ -67,6 +66,21 @@ commits once every active peer's shard lands. Compute is replicated
 across ranks (every rank steps the full global batch), as in the
 reference.
 
+**A fleet on a mesh** (both sets of flags): each fleet rank is one
+launcher process that spawns its ``D*M`` mesh ranks, and each mesh steps
+the full global batch, so the fleet's losses are those of one mesh of
+that shape, bit for bit. Mesh rank 0 of each fleet rank is the fleet
+rank's seat: it alone beats, registers, supervises, logs the losses and
+writes the done marker, each under the fleet rank's number. It runs the
+step's fleet check and hands the verdict to the other mesh ranks
+(:func:`lead_verdict`), so that every mesh rank aborts at the same step
+and the restart runs on all of them together. A checkpoint is the fleet's
+format (``shard_<fleet rank>.msgpack``, a plan over the active fleet
+ranks), each fleet rank's pieces gathered from its mesh ranks' shards. A
+mesh rank ends with its launcher (``launch/mesh.py::run_on_mesh``), and a
+mesh rank that fails ends its launcher with an error, so a launcher's
+death or failure stops its heartbeat and the fleet evicts it.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --steps 8 --steps-per-epoch 2 --granularity channel --use-pallas
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
@@ -80,6 +94,8 @@ reference.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 12 --ckpt-dir /tmp/fleet/ckpt --ckpt-every 4 \\
       --coord-dir /tmp/fleet --world-size 2 --rank 0  # ... --rank 1
+  # the same fleet, each rank's launcher on a 1x2 mesh (add to each line):
+  #   --data-mesh 1 --model-mesh 2
 """
 from __future__ import annotations
 
@@ -88,6 +104,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import resource
 import time
 
 import torch
@@ -110,6 +127,7 @@ from repro_torch.dist.fault import (
     FleetSupervisor,
     Heartbeat,
     HeartbeatThread,
+    MembershipChanged,
     RestartPolicy,
     StragglerSupervisor,
 )
@@ -201,7 +219,7 @@ def _refuse_unported(args, cfg, mesh_shape=None) -> None:
     a ``pod`` axis)."""
     if args.data_mesh * args.model_mesh == 1:
         return
-    asked = ["a fleet (--world-size > 1) on a mesh"] if args.world_size > 1 else []
+    asked = []
     try:
         lm.batch_layout(cfg, shape_mesh(mesh_shape or {"data": args.data_mesh,
                                                        "model": args.model_mesh}),
@@ -246,7 +264,8 @@ def run(args, *, cfg=None, collect=(), timeout_s: float | None = None) -> dict:
     (global indices, all ranks' merged); ``"params"``, the final params
     gathered to full tensors (``name -> tensor`` on the host);
     ``timeout_s`` bounds a mesh run."""
-    _refuse_unported(args, cfg or _config(args))
+    cfg = cfg or _config(args)  # the ranks train what the caller resolved
+    _refuse_unported(args, cfg)
     if args.data_mesh * args.model_mesh > 1:
         return run_on_mesh(run_rank, args.data_mesh, args.model_mesh, args.device, args,
                            cfg, tuple(collect), timeout_s=timeout_s)
@@ -261,6 +280,34 @@ def run_rank(mesh, args, cfg=None, collect=()):
     with fp32_precision() as tf32:
         out = _train(args, mesh, cfg=cfg, collect=collect)
     return {**out, "tf32": tf32}
+
+
+def lead_verdict(mesh, fn):
+    """``fn()`` on mesh rank 0 (the only rank without a mesh), its result
+    or its error handed to every mesh rank, so that what only rank 0 runs
+    (the fleet's checks, the leader's commit) makes every rank return or
+    raise at the same point: a rank that raised alone would leave its
+    peers waiting in the next collective. A :class:`MembershipChanged`
+    is raised on every rank as itself, with the membership; any other
+    error as a ``RuntimeError`` that names it (rank 0 raises its own)."""
+    if mesh is None:
+        return fn()
+    verdict, err = None, None
+    if mesh.rank == 0:
+        try:
+            verdict = ("ok", fn())
+        except MembershipChanged as e:
+            verdict, err = ("changed", e.membership), e
+        except Exception as e:
+            verdict, err = ("error", f"{type(e).__name__}: {e}"), e
+    kind, value = parallel.broadcast_object(verdict)
+    if kind == "ok":
+        return value
+    if err is not None:
+        raise err
+    if kind == "changed":
+        raise MembershipChanged(value)
+    raise RuntimeError(f"mesh rank 0 raised {value}")
 
 
 def global_kept(cfg, site: str, sel, mesh) -> list[int]:
@@ -302,33 +349,46 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
     opt_cfg = adam.AdamConfig(lr=args.lr, clip_norm=1.0, total_steps=args.steps)
 
     ckpt_dir = args.ckpt_dir
+    # the fleet rank names the loss log, the heartbeat, the registration,
+    # the checkpoint shard and the done marker; on a mesh only mesh rank 0
+    # runs or writes them
     rank, world, coord_dir = args.rank, args.world_size, args.coord_dir
     multi = bool(coord_dir) and world > 1
+    fleet_mesh = None if not multi else mesh  # whom the fleet's verdicts reach
     layout = None
     if mesh is not None:
-        rank = mesh.rank
         layout = lm.batch_layout(cfg, mesh, args.global_batch, args.seq_len)
         step_dp = layout.step_mesh(mesh).dp  # the data ranks that split the tokens
 
-    sup = None
-    loss_log = None
+    sup = hb = loss_log = None
     if coord_dir:
-        # per-rank loss log (jsonl, append-only): replayed steps after a
-        # restart append AGAIN, so readers take the LAST occurrence of a
-        # step — exactly the value an uninterrupted run would have
-        os.makedirs(os.path.join(coord_dir, "loss"), exist_ok=True)
-        loss_log = os.path.join(coord_dir, "loss", f"rank_{rank:05d}.jsonl")
+        if lead:
+            # per-rank loss log (jsonl, append-only): replayed steps after a
+            # restart append AGAIN, so readers take the LAST occurrence of a
+            # step — exactly the value an uninterrupted run would have
+            os.makedirs(os.path.join(coord_dir, "loss"), exist_ok=True)
+            loss_log = os.path.join(coord_dir, "loss", f"rank_{rank:05d}.jsonl")
+        # every process's pid (a mesh rank each), for a check that none
+        # outlives its launcher
+        os.makedirs(os.path.join(coord_dir, "pids"), exist_ok=True)
+        mesh_rank = 0 if mesh is None else mesh.rank
+        with open(os.path.join(coord_dir, "pids", f"rank_{rank:05d}_mesh_{mesh_rank}"), "w") as f:
+            f.write(str(os.getpid()))
     if multi:
-        # background beater: heartbeat = PROCESS liveness, so a rank in a
-        # long first step is not falsely evicted while a SIGKILLed one is
-        # detected within --hb-timeout
-        hb = Heartbeat(os.path.join(coord_dir, "hb"), rank=rank, interval_s=args.hb_interval)
-        HeartbeatThread(hb).start()
-        dist_compat.initialize(coord_dir, process_id=rank, num_processes=world,
-                               timeout_s=args.rejoin_timeout)
-        sup = FleetSupervisor(coord_dir, world, timeout_s=args.hb_timeout)
-    else:
-        hb = Heartbeat(os.path.join(ckpt_dir, "hb"), rank=rank) if ckpt_dir else None
+        def join_fleet() -> None:
+            nonlocal hb, sup
+            # background beater: heartbeat = PROCESS liveness, so a rank in a
+            # long first step is not falsely evicted while a SIGKILLed one is
+            # detected within --hb-timeout
+            hb = Heartbeat(os.path.join(coord_dir, "hb"), rank=rank, interval_s=args.hb_interval)
+            HeartbeatThread(hb).start()
+            dist_compat.initialize(coord_dir, process_id=rank, num_processes=world,
+                                   timeout_s=args.rejoin_timeout)
+            sup = FleetSupervisor(coord_dir, world, timeout_s=args.hb_timeout)
+
+        lead_verdict(fleet_mesh, join_fleet)
+    elif ckpt_dir and lead:
+        hb = Heartbeat(os.path.join(ckpt_dir, "hb"), rank=rank)
     strag = StragglerSupervisor()
     restart_policy = RestartPolicy(max_restarts=3, backoff_s=0.1)
     rec = {k: [] for k in ("steps", "history", "aux", "rates", "step_times")}
@@ -361,46 +421,60 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
         sharded = shd.map_specs(lambda _, sp: shd.is_split(sp), local, specs)
         return local, adam.init(local), specs, sharded
 
-    mesh_ckpt = {}  # on a mesh: the full state's like and the pieces each rank writes
+    mesh_ckpt = {}  # on a mesh: the full state's like, its leaves' specs, the mesh's plan
 
     def plan_saves(local, specs) -> None:
         """The full state's shapes (``meta`` tensors) from this rank's
-        shards and their specs, and the plan of the pieces each rank
-        writes of them: ``plan_from_specs`` over the mesh's ranks."""
+        shards and their specs, each leaf's spec fitted to the mesh, and
+        (outside a fleet) the plan of the pieces each rank writes of them:
+        ``plan_from_specs`` over the mesh's ranks."""
         meta = shd.map_specs(
             lambda t, sp: torch.empty(
                 [d * (mesh.shape[sp[i]] if i < len(sp) and sp[i] else 1)
                  for i, d in enumerate(t.shape)], dtype=t.dtype, device="meta"),
             local, specs)
         like = ckpt_lib.like_of(jax_state(meta, adam.init(meta)))
-        jspecs = _spec_leaves(shd.param_specs(lm.jax_layout(cfg, meta, lm.StackShape)))
+        jspecs = _spec_leaves(shd.param_specs(lm.jax_layout(cfg, meta, lm.StackShape))) * 3
         items = ckpt_lib.leaf_items(like)
-        mesh_ckpt.update(like=like, plan=ckpt_lib.plan_from_specs(
-            items, jspecs * 3, mesh.shape, list(range(mesh.world))))
+        mesh_ckpt.update(like=like, specs=[
+            shd.fit_spec(sp, t.shape, mesh.shape) for sp, (_, t) in zip(jspecs, items, strict=True)])
+        if not multi:
+            mesh_ckpt["plan"] = ckpt_lib.plan_from_specs(items, jspecs, mesh.shape,
+                                                         list(range(mesh.world)))
+
+    def enter_fleet():
+        """The membership this attempt trains under; an evicted rank files
+        a rejoin request and waits to be re-admitted."""
+        m = sup.view.read()
+        if rank not in m.active:
+            # we were evicted (crash, stall, ...) — file a rejoin
+            # request and wait for the supervisor to re-admit us
+            sup.request_rejoin(rank)
+            print(f"[train] rank {rank} evicted; requesting rejoin")
+            m = sup.wait_active(rank, timeout_s=args.rejoin_timeout)
+        return m
 
     def attempt(attempt_idx: int):
         if restart_policy.excluded_ranks:
-            print(f"[train] resharding around ranks {restart_policy.excluded_ranks}")
+            say(f"[train] resharding around ranks {restart_policy.excluded_ranks}")
         membership = None
         active = [rank]
         if multi:
-            membership = sup.view.read()
-            if rank not in membership.active:
-                # we were evicted (crash, stall, ...) — file a rejoin
-                # request and wait for the supervisor to re-admit us
-                sup.request_rejoin(rank)
-                print(f"[train] rank {rank} evicted; requesting rejoin")
-                membership = sup.wait_active(rank, timeout_s=args.rejoin_timeout)
+            membership = lead_verdict(fleet_mesh, enter_fleet)
             active = list(membership.active)
-            print(f"[train] rank {rank} attempt {attempt_idx}: "
-                  f"epoch {membership.epoch} active={active}")
+            say(f"[train] rank {rank} attempt {attempt_idx}: "
+                f"epoch {membership.epoch} active={active}")
         params, opt_state, specs, sharded = fresh_state()
         if mesh is not None and ckpt_dir and not mesh_ckpt:
             plan_saves(params, specs)
         saver = None
-        if ckpt_dir:
+        if ckpt_dir and multi and mesh is not None:
             saver = ckpt_lib.AsyncCheckpointer(
-                ckpt_dir, rank=rank,
+                ckpt_dir, rank=rank, ranks=active, commit_timeout_s=args.commit_timeout,
+                like=mesh_ckpt["like"], mesh=mesh, specs=mesh_ckpt["specs"])
+        elif ckpt_dir:
+            saver = ckpt_lib.AsyncCheckpointer(
+                ckpt_dir, rank=rank if mesh is None else mesh.rank,
                 ranks=active if multi else list(range(mesh.world)) if mesh else None,
                 commit_timeout_s=args.commit_timeout, plan=mesh_ckpt.get("plan"),
                 like=mesh_ckpt.get("like"),
@@ -421,6 +495,9 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
             del params, opt_state  # the restored state takes their place on the device
             t0 = time.perf_counter()
             state = ckpt_lib.restore(ckpt_dir, latest, like_now)
+            # every leaf whole on the host at once, on each rank of a mesh
+            host_bytes = sum(t.numel() * t.element_size()
+                             for _, t in ckpt_lib.leaf_items(state))
             trees = [lm.params_from_jax(cfg, state[k], device) for k in ("params", "m", "v")]
             del state
             if mesh is not None:
@@ -429,16 +506,22 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
             opt_state = adam.restored(latest, trees[1], trees[2])
             del trees
             _sync(device)
-            ckpt_stats["restores"].append({"step": latest, "s": time.perf_counter() - t0})
+            ckpt_stats["restores"].append({
+                "step": latest, "s": time.perf_counter() - t0, "host_bytes": host_bytes,
+                # this process's peak resident bytes so far (the restore's, where it is the top)
+                "peak_rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024})
             start = latest
             say(f"[train] resumed from step {latest}")
         try:
             for step in range(start, args.steps):
                 if multi:
-                    if sup.should_poll(rank):
-                        sup.poll()
-                    # abort + reshard if the fleet changed under us
-                    membership = sup.check_epoch(membership.epoch)
+                    def check(epoch=membership.epoch):
+                        if sup.should_poll(rank):
+                            sup.poll()
+                        # abort + reshard if the fleet changed under us
+                        return sup.check_epoch(epoch)
+
+                    membership = lead_verdict(fleet_mesh, check)
                 if step == args.fail_at_step and not injected["done"]:
                     injected["done"] = True
                     raise RuntimeError("injected failure (fault-tolerance test)")
@@ -495,6 +578,9 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
                 if saver and (step + 1) % args.ckpt_every == 0:
                     saver.save(step + 1, jax_state(params, opt_state))
                     ckpt_stats["saves"].append(saver.last_stats)
+                    # a copy: the write's thread adds its seconds to the dict
+                    say(f"[train] saved step {step + 1}: {json.dumps(dict(saver.last_stats))}",
+                        flush=True)
         except BaseException:
             # a single process lets its last save land before the restart
             # looks for it; a fleet's leader may be waiting on a dead peer
@@ -502,12 +588,15 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
                 saver.wait()
             raise
         if saver:
-            saver.wait()
-            if saver.last_error is not None:
+            def landed():
+                saver.wait()
                 # a failed FINAL save must not report success — mid-run
                 # save errors (e.g. a torn commit after a peer died)
                 # surface on the next attempt's restore instead
-                raise saver.last_error
+                if saver.last_error is not None:
+                    raise saver.last_error
+
+            lead_verdict(fleet_mesh, landed)
         if "params" in collect:
             rec["params"] = params if mesh is None else shd.gather_tree(params, specs, mesh)
         return rec["history"][-1] if rec["history"] else None
@@ -515,12 +604,12 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
     final = restart_policy.run(
         attempt,
         on_restart=lambda i, e: say(f"[train] restart {i}: {e}"),
-        on_evict=lambda r, e: print(f"[train] evicted straggler rank {r}: {e}"),
-        on_reshard=lambda m: print(
+        on_evict=lambda r, e: say(f"[train] evicted straggler rank {r}: {e}"),
+        on_reshard=lambda m: say(
             f"[train] rank {rank} resharding to epoch {m.epoch} active={list(m.active)}"
         ),
     )
-    if coord_dir:
+    if coord_dir and lead:
         # durable completion marker for the multi-process harness
         os.makedirs(os.path.join(coord_dir, "done"), exist_ok=True)
         done = os.path.join(coord_dir, "done", f"rank_{rank:05d}.json")
@@ -597,6 +686,11 @@ def main():
     else:
         print(f"[train] done. final loss {out['final_loss']:.4f}")
     print("[train] kernel launches:", out["launches"])
+    if "launches_by_rank" in out:
+        print("[train] kernel launches by mesh rank:", json.dumps(
+            {"launches": out["launches_by_rank"], "table": out["launch_table_by_rank"]}))
+    if any(out["ckpt"].values()):
+        print("[train] checkpoint:", json.dumps(out["ckpt"]))
 
 
 if __name__ == "__main__":

@@ -226,6 +226,33 @@ def test_products_dead_and_peak():
     assert counts.peak_bytes >= counts.arg_bytes + 2 * 8 * 4 * 4
 
 
+def test_a_dead_products_storage_handed_out_again_is_no_read():
+    """The allocator may give a later output the storage address of a dead
+    product: reading that output does not make the product live."""
+    a = torch.empty((8, 16), device="meta")
+    b = torch.empty((16, 4), device="meta")
+    reused = []
+
+    def step():
+        dead = a @ b  # nothing reads it
+        cd = dead.untyped_storage()._cdata
+        del dead
+        keep = []
+        for _ in range(64):  # new outputs, kept alive, until one takes the address
+            keep.append(a.relu())
+            if keep[-1].untyped_storage()._cdata == cd:
+                reused.append(cd)
+                break
+        return (keep[-1].sum() + (a @ b).sum()).sum()
+
+    with dispatch_walk.Census(args=(a, b)) as c:
+        out = step()
+    counts = c.finish(out)
+    assert reused, "no later output took the dead product's storage address"
+    assert [x.live for x in counts.contractions] == [False, True]
+    assert counts.dead_flops == 2 * 8 * 16 * 4
+
+
 def test_converts_and_collectives_are_recorded():
     x = torch.empty((4, 4), device="meta")
     with dispatch_walk.Census() as c:

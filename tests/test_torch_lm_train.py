@@ -363,17 +363,17 @@ def test_train_cli_runs_in_fp32_and_restores_the_tf32_flags(before):
 
 @pytest.mark.parametrize("flag", [["--data-mesh", "3"], ["--model-mesh", "2", "--world-size", "2"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
-    """A fleet on a mesh is still refused (the meshes that train:
-    ``tests/test_torch_mesh_train.py``). A global batch (8) the data mesh
+    """Neither is refused any more (the meshes that train:
+    ``tests/test_torch_mesh_train.py``; a fleet on a mesh:
+    ``tests/test_torch_fleet_mesh.py``). A global batch (8) the data mesh
     does not divide trains: 3 ranks at 16 tokens, which ``data`` divides
-    neither, each step the whole batch, and a short run prints the
+    neither, each step the whole batch; ``--world-size 2`` on a model mesh
+    passes the refusal check, and without ``--coord-dir`` (as in the
+    reference) it is one mesh's run. A short run of each prints the
     one-device CLI's losses within 1e-5."""
     base = ["--device", "cpu", "--reduced"]
     args = ttrain.build_parser().parse_args([*base, *flag])
-    if "--world-size" in flag:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ttrain.run(args)
-        return
+    assert ttrain._refuse_unported(args, ttrain._config(args)) is None
     short = ["--steps", "2", "--steps-per-epoch", "1", "--seq-len", "16", "--log-every", "100"]
     one = ttrain.run(ttrain.build_parser().parse_args([*base, *short]))["history"]
     got = ttrain.run(ttrain.build_parser().parse_args([*base, *flag, *short]),

@@ -222,18 +222,16 @@ SHORT_SERVE = ["--batch", "2", "--requests", "4", "--prompt-len", "12", "--gen",
     (["--data-mesh", "3"], "does not divide"),
 ])
 def test_train_cli_refuses(argv, what):
-    """A fleet on a mesh still raises, naming its ROADMAP item; every
-    family trains on a mesh, and so does a global batch the data mesh does
-    not divide (3 ranks at batch 4 of 16 tokens: ``data`` divides neither,
-    so every rank steps the whole batch): the same command line (a short
-    run of it) prints the one-device CLI's losses within 1e-5 (whisper's
-    frames and paligemma's patches come from ``frontend_inputs``)."""
+    """Nothing of these is refused any more: ``--world-size 2`` on a model
+    mesh (a fleet on a mesh, ``tests/test_torch_fleet_mesh.py``; without
+    ``--coord-dir``, as in the reference, one mesh's run), every family on
+    a mesh, and a global batch the data mesh does not divide (3 ranks at
+    batch 4 of 16 tokens: ``data`` divides neither, so every rank steps the
+    whole batch): the same command line (a short run of it) prints the
+    one-device CLI's losses within 1e-5 (whisper's frames and paligemma's
+    patches come from ``frontend_inputs``)."""
     args = ttrain.build_parser().parse_args(["--device", "cpu", "--reduced", *argv])
-    if what == "fleet":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5") as e:
-            ttrain.run(args)
-        assert what.split()[0] in str(e.value)
-        return
+    assert ttrain._refuse_unported(args, ttrain._config(args)) is None
     one = ttrain.run(ttrain.build_parser().parse_args(
         ["--device", "cpu", "--reduced", *argv[2:], *SHORT_TRAIN]))["history"]  # no mesh flag
     got = ttrain.run(ttrain.build_parser().parse_args(

@@ -683,3 +683,70 @@ def serve_cli_rank(mesh, tree, argv):
     args = serve.build_parser().parse_args(argv)
     return serve.serve_rank(mesh, args, cfg, params=_serve_params(mesh, cfg, tree))[
         "generated"].tolist()
+
+
+def fleet_abort(mesh, coord, at):
+    """The training CLI's fleet check on a mesh (``train.lead_verdict``):
+    steps of one collective each (the step's stand-in), a check after
+    each; in the first attempt mesh rank 0, the only rank with a
+    supervisor, publishes a new membership epoch at step ``at`` before its
+    check. ``RestartPolicy.run`` restarts the attempt, which then runs to
+    its end. Then an error that only rank 0 raises in its verdict, and one
+    that only rank 1 brings to ``parallel.raise_any``. Returns every rank's
+    ``(step, epoch)`` at each ``MembershipChanged`` it raised, the attempt
+    that finished, and the error types it raised."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.fault import FleetSupervisor, Membership, MembershipChanged, RestartPolicy
+    from repro_torch.launch.train import lead_verdict
+
+    sup = FleetSupervisor(coord, 2, timeout_s=60.0) if mesh.rank == 0 else None
+    raised = []
+
+    def attempt(i):
+        m = lead_verdict(mesh, sup.view.read if sup else None)
+        for step in range(at + 3):
+            parallel.all_reduce(torch.ones(1), None)
+            if sup is not None and i == 0 and step == at:
+                sup.view.write(Membership(m.epoch + 1, m.active, ()))
+            try:
+                m = lead_verdict(mesh, lambda e=m.epoch: sup.check_epoch(e))
+            except MembershipChanged as e:
+                raised.append((step, e.membership.epoch))
+                raise
+        return i
+
+    finished = RestartPolicy(max_restarts=0).run(attempt)
+
+    def fail():
+        raise TimeoutError("rank 0 alone")
+
+    errors = []
+    for call in (lambda: lead_verdict(mesh, fail),  # only rank 0 raises, in its verdict
+                 lambda: parallel.raise_any(KeyError("rank 1 alone") if mesh.rank == 1 else None,
+                                            mesh)):
+        try:
+            call()
+            errors.append(None)
+        except Exception as e:
+            errors.append(type(e).__name__)
+    every = [None] * mesh.world
+    dist.all_gather_object(every, (raised, finished, errors))
+    return every
+
+
+def linger(mesh, pid_dir, limit_s=60.0):
+    """A rank that writes its pid and then lives on for ``limit_s``,
+    ignoring SIGINT (what a rank blocked in a collective's C++ wait
+    does with it): only a harder signal ends it sooner."""
+    import os
+    import time
+
+    with open(os.path.join(pid_dir, f"mesh_{mesh.rank}"), "w") as f:
+        f.write(str(os.getpid()))
+    deadline = time.monotonic() + limit_s
+    while time.monotonic() < deadline:
+        try:
+            time.sleep(0.05)
+        except KeyboardInterrupt:
+            pass
