@@ -64,7 +64,8 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    (fp32 logits within a relative L2 of 1e-4; the bf16 kernel route no
    further from the fp32 logits than 1.5x the bf16 gather route); then a
    profile of one decode step and one mixed step (host wall time, device
-   busy time, the kernels that take most of it); then the serving CLI on
+   busy time, the kernels that take most of it), eager and as the engine
+   runs them, captured CUDA graphs (``launch/graphs.py``); then the serving CLI on
    the reduced config through both routes, whose greedy token streams
    must be identical; then the reduced fp32 config through the engine
    API: 6 sampled requests on the kernel and the gather route, under swap
@@ -74,9 +75,17 @@ dispatch), and fails (non-zero exit, no result line) on any error:
 6. serve phase: ``repro_torch.launch.serve.run`` serves 8 Poisson-arriving
    requests (prompt 128, gen 32) through 4 slots of the paged engine at
    full width; every request must get exactly 32 tokens in the
-   vocabulary, and the kernel must have launched once per layer per step;
-   then ``serve_features_phase``, the rest of serving at full width and
-   3 of the 36 layers (their bf16 params), then with an fp32 copy: the
+   vocabulary, and the kernel must have launched once per layer per step
+   (the engine runs each step as a captured graph, a graph a width: the
+   replays count their launches), by its counter and on the device (the
+   run under the profiler's device tracing, ``on_device``); the same
+   requests through the eager engine (``--no-graphs``), then sampled
+   through both (the sampled captured run traced as the greedy one, each
+   mode's captured run once more untraced, for the times): the streams equal token for
+   token, with each run's p50/p99 step, tokens/s, peak memory, the
+   graphs' capture seconds and pool; then ``serve_features_phase``, the
+   rest of serving at full width and 3 of the 36 layers (their bf16
+   params), then with an fp32 copy: the
    requests sampled (temperature 0.8, top-k 50, top-p 0.95) through the paged
    engine, through a 24-page pool (swap preemptions), speculating 4
    tokens self-drafted and with a full-width 4-layer drafter, through the
@@ -108,10 +117,20 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    kernel against its plain version at the kept blocks, timed beside
    ``conv2d_weight`` / ``conv2d_input`` with ``groups`` and its bound;
 8. training phase: ``repro_torch.launch.train_classifier.run`` trains
-   ResNet-18 for 8 epoch-bar steps (2 a epoch: steps 2, 3, 6, 7 sparse);
-   every loss finite, each gathered kernel launched the route table's
-   count times 4, ``paged_attention`` not at all; then a profile of one
-   dense and one sparse step;
+   ResNet-18 for 8 epoch-bar steps (2 a epoch: steps 2, 3, 6, 7 sparse),
+   each step a captured graph (one a drop rate); every loss finite, each
+   gathered kernel launched the route table's count times 4,
+   ``paged_attention`` not at all, by the counters and on the device (the
+   run under the profiler's device tracing: the replays' kernels counted
+   where they run; the step times under it); the same run with
+   ``--no-graphs``:
+   losses, every step's kept channels, params and Adam state bit for bit,
+   or, where 3 eager runs part among themselves (cuDNN's default dense
+   algorithms), bit for bit under ``cudnn.deterministic``, the kept
+   channels an eager run's and the state within twice the eager runs'
+   widest pair's distance (``captured_vs_eager``); then a profile of one dense and one
+   sparse step, eager and captured, the captured replay's kernels on the
+   device those its graph books;
 9. DDPM kernel phase: the four gathered kernels against their plain
    versions at every shape a sparse step of the paper's DDPM UNet
    launches them with (CelebA task: B=128, 3x64x64, base 64, t_dim 256;
@@ -129,9 +148,11 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    UNet at the CelebA task (T=1000) for 8 epoch-bar steps (2, 3, 6, 7
    sparse) and samples 4 images over the whole schedule; every loss and
    sample finite, each gathered kernel launched the route table's count
-   times 4, ``paged_attention`` and ``matmul`` not at all; the backward
-   FLOPs ledger, block 32 beside block 128; then a profile of one dense
-   and one sparse step (12);
+   times 4, ``paged_attention`` and ``matmul`` not at all, each step and
+   the sampler's denoising step captured; held to the ``--no-graphs`` run
+   as in 8, the samples too; the backward FLOPs ledger, block 32 beside
+   block 128; then a profile of one dense and one sparse step and of one
+   denoising step, eager and captured (12);
 13. LM kernel phase: ``matmul`` at the 8 product shapes of a sparse
    qwen2.5-3b step (B=8, S=128, ``paper_default(0.8)``: K kept = 410, 51,
    2202), with the operands laid out as the backward hands them over
@@ -359,7 +380,9 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    printed; one sparse ResNet-18 step (B=128, ``use_pallas``, block 128)
    one sparse qwen2.5-3b step (full width, depth 4, ``--use-pallas``) and
    one of the reduced kimi-k2 (the MoE dispatch's boolean masks and
-   ``bincount`` stall the host) run under
+   ``bincount`` stall the host), and the steps that run captured (the
+   ResNet-18 and DDPM CLIs' in-place steps, qwen2.5-3b's slot step at
+   depth 2, greedy and sampled: none may stall the host) run under
    ``torch.cuda.set_sync_debug_mode("warn")``: the warnings
    counted equal the census's host syncs for the same step on meta
    (``analysis/dispatch_walk.py``), and the wrappers' launch counters the
@@ -395,8 +418,10 @@ dispatch), and fails (non-zero exit, no result line) on any error:
    (whisper's frames whole, paligemma's patch block), arguments, peak,
    collectives a step, the sequence split's and of them the cross K/V
    all-reduce's share;
-24. prints the card's line, the kernels' JSON line (a gathered kernel's
-   ``launches`` is the sum of the ResNet-18 and DDPM training phases'
+24. prints the card's line, the kernels' JSON line (``device_launches``
+   the captured paths' counts as the device ran them: ResNet-18's and the
+   DDPM's, ``[serve]``'s; a gathered kernel's ``launches`` is the sum of
+   the ResNet-18 and DDPM training phases'
    and the kernel routes of ``[shard-route]`` and ``[grouped]`` (the
    fused kernels' ``grouped`` key holding the G=2 case's times),
    ``paged_attention``'s the serve phase's, the paged runs' of
@@ -422,9 +447,11 @@ from __future__ import annotations
 
 import ast
 import atexit
+import collections
 import dataclasses
 import gc
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -451,6 +478,7 @@ FP32_ROUTE_TOL = 1e-4  # fp32 params: the routes differ in summation order only
 BF16_NOISE_FACTOR = 1.5  # bf16 params: kernel route's distance to fp32 vs the gather route's
 TRAIN_ROUTE_TOL = 1e-4  # fp32, TF32 off: the training routes differ in summation order only
 RESNET, TRAIN_BATCH, TRAIN_IMAGE = "resnet18", 128, (3, 32, 32)
+EAGER_DRAWS = 3  # eager runs a captured CNN run is held to where they part
 LM_ARCH, LM_BATCH, LM_SEQ, LM_RATE = "qwen2.5-3b", 8, 128, 0.8
 LM_ROUTE_DEPTH = 2  # the route check's depth (full width; PR 30: 4 before)
 # [serve-features]: the serving modes at 3 of qwen2.5-3b's 36 layers (the
@@ -476,6 +504,48 @@ GATHERED = {  # kernel -> the TPU kernel it replaces
     "conv_dw_fused": "src/repro/kernels/gathered_matmul.py:187",
     "conv_dx_fused": "src/repro/kernels/gathered_matmul.py:273",
 }
+
+# each wrapper's kernel as the profiler names it on the device: one a
+# launch (a launch's second kernel, a split's reduce or combine, is not
+# the wrapper's count)
+DEVICE_KERNELS = {
+    "dx_gathered": ("dx_gathered_kernel",),
+    "dw_gathered": ("dw_gathered_kernel",),
+    "conv_dw_fused": ("conv_dw_fused_kernel",),
+    "conv_dx_fused": ("conv_dx_fused_kernel",),
+    "matmul": ("matmul_wgmma_kernel", "matmul_simt_kernel"),
+    "importance": ("importance_kernel",),
+    "paged_attention": ("paged_attn_simt", "paged_attn_mma"),
+}
+
+
+def device_launches(counts) -> dict[str, int]:
+    """Each wrapper's kernel launches among device kernels (``(name,
+    count)`` pairs), by :data:`DEVICE_KERNELS`."""
+    out = dict.fromkeys(DEVICE_KERNELS, 0)
+    for key, n in counts:
+        for name, marks in DEVICE_KERNELS.items():
+            if any(m in key for m in marks):
+                out[name] += n
+    return out
+
+
+def on_device(fn):
+    """``fn()`` under the profiler's device tracing: its result and the
+    wrappers' kernels that ran on the device (:func:`device_launches`).
+    A captured graph's kernels are counted where each replay runs them,
+    not where its launch counters were bookkept. The trace's events are
+    counted by name as they come (a run's hundreds of thousands of them:
+    ``key_averages`` would take minutes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                                if e.device_type() == DeviceType.CUDA)
+    return out, device_launches(names.items())
 
 
 def smi() -> str:
@@ -818,6 +888,80 @@ SPEC_K = 4
 SHARE_MIN = 0.9  # full width, fp32: least share of tokens equal to the sampled paged run's
 
 
+def serve_captured_vs_eager(serve, cfg, params, argv, cap, pa):
+    """The serve phase's 8 requests through the captured paged engine
+    (``cap``, the counted run: a graph a width, greedy, under the
+    profiler's device tracing) against the eager engine on the same
+    params, token for token; then the same requests sampled
+    (:data:`SAMPLED`), captured (traced: its kernels on the device must be
+    its counter's, as ``cap``'s were) against eager. Each mode runs
+    captured once more untraced, for the times the eager run's compare
+    with (the tracing slows a step; an eager run's launches are counted
+    where they are made). In every run ``paged_attention`` launches once
+    a layer a step by its counter (a replay adds its graph's launches)
+    and the streams are the same. Prints each untraced run's p50 step,
+    tokens/s and peak memory, and the graphs' capture seconds and pool
+    bytes."""
+    if not cap["captured"]:
+        raise AssertionError("[serve] the paged engine did not capture its steps")
+    ap = serve.build_parser()
+    sampled = ["--temperature", str(SAMPLED["temperature"]), "--top-k", str(SAMPLED["top_k"]),
+               "--top-p", str(SAMPLED["top_p"])]
+    runs, traced = {}, {"greedy": cap}
+    for mode, extra, graphs, trace in (("greedy", [], True, False), ("greedy", [], False, False),
+                                       ("sampled", sampled, True, True),
+                                       ("sampled", sampled, True, False),
+                                       ("sampled", sampled, False, False)):
+        args = ap.parse_args(argv + extra + ([] if graphs else ["--no-graphs"]))
+        torch.cuda.reset_peak_memory_stats()
+        before = pa.launches
+        if trace:
+            out, seen = on_device(lambda: serve.serve_rank(None, args, cfg, params=params))
+        else:
+            out, seen = serve.serve_rank(None, args, cfg, params=params), None
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["launches"] = pa.launches - before
+        if (out["launches"] != cfg.n_layers * out["steps"] or out["captured"] != graphs
+                or (trace and seen["paged_attention"] != out["launches"])):
+            raise AssertionError(f"[serve] {mode} captured={graphs}: launches {out['launches']} "
+                                 f"!= {cfg.n_layers} x {out['steps']} steps or != the device's "
+                                 f"{seen and seen['paged_attention']}, or captured "
+                                 f"{out['captured']}")
+        if trace:
+            traced[mode] = out
+        else:
+            runs[(mode, graphs)] = out
+    for mode, t in traced.items():
+        if not np.array_equal(t["generated"], runs[(mode, True)]["generated"]):
+            raise AssertionError(f"[serve] {mode}: the traced captured run's streams differ")
+    summary = {}
+    for mode in ("greedy", "sampled"):
+        c, e = runs[(mode, True)], runs[(mode, False)]
+        if not np.array_equal(c["generated"], e["generated"]):
+            share = float((c["generated"] == e["generated"]).mean())
+            raise AssertionError(f"[serve] {mode}: captured streams != eager ({share:.3f} of "
+                                 "tokens equal)")
+        row = {}
+        for name, o in (("captured", c), ("eager", e)):
+            ms = np.asarray(o["step_times"]) * 1e3
+            row[name] = dict(steps=o["steps"], p50_ms=float(np.percentile(ms, 50)),
+                             p99_ms=float(np.percentile(ms, 99)),
+                             tokens_per_s=o["stats"]["tokens_per_s"],
+                             peak_gib=o["peak_bytes"] / 2**30)
+        g = c["graphs"]
+        row["graphs"] = dict(keys=g["keys"], capture_s=g["capture_s"], replays=g["replays"],
+                             pool_gib=g["pool_bytes"] / 2**30)
+        summary[mode] = row
+        print(f"[serve] {mode}: captured streams = eager, token for token ({c['generated'].size} "
+              f"tokens); step p50 captured {row['captured']['p50_ms']:.2f} ms / eager "
+              f"{row['eager']['p50_ms']:.2f} ms, p99 {row['captured']['p99_ms']:.2f} / "
+              f"{row['eager']['p99_ms']:.2f} ms, tokens/s {row['captured']['tokens_per_s']:.1f} / "
+              f"{row['eager']['tokens_per_s']:.1f}; peak memory {row['captured']['peak_gib']:.2f}"
+              f" / {row['eager']['peak_gib']:.2f} GiB; graphs {g['keys']} captured in "
+              f"{g['capture_s']:.2f} s, pool {row['graphs']['pool_gib']:.3f} GiB", flush=True)
+    return summary
+
+
 def _engine_run(S, cfg, params, reqs, dev="cuda", draft=None, **skw):
     """Serve ``reqs`` through a fresh engine; returns (engine, rid -> tokens)."""
     kw = dict(draft_cfg=draft[0], draft_params=draft[1]) if draft else {}
@@ -1028,21 +1172,46 @@ def serve_features_phase(cfg, lm, pa, ops, S, params):
     return launches, summaries, plan
 
 
-def step_profile(cfg, lm, params, dev="cuda", tag="[profile]", enc_out=None):
+def step_profile(cfg, lm, params, dev="cuda", tag="[profile]", enc_out=None, captured=False):
     """Where one step of the main path spends its time: a decode step
     (4 slots, 1 token each) and a mixed step (two prefill chunks of 32,
     two decodes) at 10 pages a slot through the kernel route (``enc_out``:
     the slots' encoder outputs, encdec). Host wall time per step over 5
     runs, then one profiled run: device busy time and the kernels that
-    take most of it."""
+    take most of it. ``captured``: the same two steps as the engine runs
+    them, the slot step captured as a CUDA graph
+    (``launch/graphs.py``), measured alike beside the eager ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch.graphs import StepGraphs
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev == "cuda" else [])
     gen = torch.Generator(device=dev).manual_seed(2)
     b, bs, nb = 4, 16, 10
     cache = lm.init_paged_cache(cfg, b * nb, bs, dtype=torch.float32, device=dev)
     tables = torch.arange(b * nb, dtype=torch.int32, device=dev).reshape(b, nb)
+    slot_step = lm_steps.make_slot_step(cfg)
+
+    def measure(label, run, c, booked=None):
+        run()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+        with profile(activities=acts) as prof:
+            run()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"{tag} {label} step (B={b} C={c} NB={nb}): host wall {wall_ms:.3f} ms, "
+              f"device busy {busy_ms:.3f} ms in {sum(e.count for e in kernels)} kernels")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+        if booked is not None:
+            replay_launches(tag, label, kernels, booked())
+        return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+
     out = {}
     for name, c, pos, cnt in (("decode", 1, [40, 90, 130, 150], [1, 1, 1, 1]),
                               ("mixed", 32, [0, 64, 120, 150], [32, 32, 1, 1])):
@@ -1055,20 +1224,16 @@ def step_profile(cfg, lm, params, dev="cuda", tag="[profile]", enc_out=None):
                                         enc_out=enc_out, block_tables=tables, paged_kernel=True)
             return logits.argmax(-1).cpu()  # the engine's read-back, which waits
 
-        run()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            run()
-        wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-        with profile(activities=acts) as prof:
-            run()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"{tag} {name} step (B={b} C={c} NB={nb}): host wall {wall_ms:.3f} ms, "
-              f"device busy {busy_ms:.3f} ms in {sum(e.count for e in kernels)} kernels")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+        out[name] = measure(name, run, c)
+        if not captured:
+            continue
+        sg = StepGraphs(lambda _, t, p, n, tb: slot_step(params, {
+            "tokens": t, "count": n, "pos": p, "cache": cache, "block_tables": tb})[0], dev)
+        out[f"{name}_captured"] = measure(
+            f"{name} captured", lambda: sg(name, tokens, pos_t, cnt_t, tables).cpu(), c,
+            lambda: sg.graphs[name].launches)
+        out[f"{name}_captured"].update(capture_s=sg.stats()["capture_s"],
+                                       pool_bytes=sg.stats()["pool_bytes"])
     return out
 
 
@@ -1577,8 +1742,11 @@ def counted_cnn_run(tag, cli, argv, gm, pa, per_step, batch):
     just before ``cli.run`` and read just after. 8 epoch-bar steps (2, 3,
     6, 7 sparse) with finite losses, each gathered kernel launched
     ``per_step`` times a sparse step and no other kernel (``matmul``,
-    ``paged_attention``). Prints the step times; returns the run's result,
-    the launches and the dense and sparse step medians."""
+    ``paged_attention``), by the launch counters and on the device (the
+    run under the profiler's device tracing, :func:`on_device`: the
+    captured steps' replays counted where they run). Prints the step
+    times; returns the run's result, the launches and the dense and
+    sparse step medians with the device's counts (``device_launches``)."""
     args = cli.build_parser().parse_args(argv)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1587,7 +1755,7 @@ def counted_cnn_run(tag, cli, argv, gm, pa, per_step, batch):
     for k in gm.launches:
         gm.launches[k] = 0
     t0 = time.perf_counter()
-    out = cli.run(args)
+    out, seen = on_device(lambda: cli.run(args))
     wall = time.perf_counter() - t0
     launches = dict(gm.launches)
     rec = out["modes"]["ssprop"]
@@ -1601,6 +1769,8 @@ def counted_cnn_run(tag, cli, argv, gm, pa, per_step, batch):
         raise AssertionError(f"{tag} kernel launches {launches} != route table x 4 {expect}")
     if pa.launches != pa_before:
         raise AssertionError(f"{tag} the training run launched paged_attention")
+    if seen != {**launches, "paged_attention": 0}:
+        raise AssertionError(f"{tag} kernels on the device {seen} != the counters {launches}")
     ms = [t * 1e3 for t in rec["step_times"]]
     med = lambda v: (v[len(v) // 2 - 1] + v[len(v) // 2]) / 2  # noqa: E731
     dense_ms = med(sorted(ms[i] for i in range(8) if i not in sparse))
@@ -1610,8 +1780,87 @@ def counted_cnn_run(tag, cli, argv, gm, pa, per_step, batch):
           f"({batch / dense_ms * 1e3:.0f} images/s), sparse median {sparse_ms:.2f} ms "
           f"({batch / sparse_ms * 1e3:.0f} images/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} = "
-          f"{per_step} x 4")
-    return out, launches, dict(dense_ms=dense_ms, sparse_ms=sparse_ms)
+          f"{per_step} x 4, the device ran as many (step times under its tracing)")
+    return out, launches, dict(dense_ms=dense_ms, sparse_ms=sparse_ms, device_launches=seen)
+
+
+def _state_leaves(rec):
+    from repro_torch.optim import adam
+
+    params, opt = rec["state"]
+    return adam.tree_leaves((params, opt.m, opt.v))
+
+
+def _same_run(a, b) -> bool:
+    """Two CLI runs' ``ssprop`` records equal bit for bit: losses, every
+    step's kept channels, params and Adam state."""
+    return (a["losses"] == b["losses"]
+            and all(np.array_equal(x, y) for x, y in zip(a["kept"], b["kept"], strict=True))
+            and all(torch.equal(x, y) for x, y in zip(_state_leaves(a), _state_leaves(b),
+                                                      strict=True)))
+
+
+def _max_state_diff(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+               for x, y in zip(_state_leaves(a), _state_leaves(b), strict=True))
+
+
+def captured_vs_eager(tag, train, argv, cap):
+    """The CLI run ``cap`` (captured: a graph a drop rate) against the
+    same training with ``--no-graphs`` from the same init (``train(argv)``:
+    the CLI's training): losses, every step's kept channels, the final
+    params and Adam state bit for bit. Where they part and
+    :data:`EAGER_DRAWS` eager runs part among themselves too (cuDNN's
+    default algorithms for the dense convs are not deterministic), a
+    captured and an eager run under ``cudnn.deterministic`` must agree bit
+    for bit, the captured run's kept channels must be an eager run's at
+    every step, and its distance to the nearest eager run (max |d| over
+    the state) at most twice the eager runs' widest pair's (the spread
+    of the eager runs, of which one pair's distance is a draw that ranged
+    over 1.8e-7 to 4.5e-6 on the DDPM). Returns the summary (the eager run's step times beside the captured
+    run's, which ran under the profiler's device tracing)."""
+    if not cap["captured"]:
+        raise AssertionError(f"{tag} the run did not capture its steps")
+    runs = [train(argv + ["--no-graphs"])]
+    if runs[0]["captured"]:
+        raise AssertionError(f"{tag} --no-graphs captured")
+    rc = cap["modes"]["ssprop"]
+    re_ = runs[0]["modes"]["ssprop"]
+    verdict = "bit for bit"
+    if not _same_run(rc, re_):
+        runs += [train(argv + ["--no-graphs"]) for _ in range(EAGER_DRAWS - 1)]
+        eager = [r["modes"]["ssprop"] for r in runs]
+        if all(_same_run(re_, e) for e in eager[1:]):
+            raise AssertionError(f"{tag} captured run != eager run, and {EAGER_DRAWS} eager runs "
+                                 f"agree: losses {rc['losses']} vs {re_['losses']}")
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = [train(argv + [g]) for g in ("--graphs", "--no-graphs")]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if not det[0]["captured"] or not _same_run(*(d["modes"]["ssprop"] for d in det)):
+            raise AssertionError(f"{tag} under cudnn.deterministic the captured run != eager")
+        spread = max(_max_state_diff(a, b) for a, b in itertools.combinations(eager, 2))
+        got = min(_max_state_diff(rc, e) for e in eager)
+        kept_ok = all(any(np.array_equal(x, e["kept"][i]) for e in eager)
+                      for i, x in enumerate(rc["kept"]))
+        if got > 2 * spread or not kept_ok:
+            raise AssertionError(f"{tag} captured vs the nearest eager run max |d state| "
+                                 f"{got:.3e} > 2 x the eager runs' widest pair's {spread:.3e}, "
+                                 f"or kept channels differ ({kept_ok})")
+        verdict = (f"bit for bit under cudnn.deterministic; with cuDNN's default (not "
+                   f"deterministic) algorithms the kept channels an eager run's at every step "
+                   f"and max |d state| {got:.3e} to the nearest of {EAGER_DRAWS} eager runs, "
+                   f"whose widest pair is {spread:.3e} apart")
+    ms = lambda rec: [round(t * 1e3, 2) for t in rec["step_times"]]  # noqa: E731
+    g = rc["graphs"]
+    print(f"{tag} captured vs eager from the same init: losses, kept channels at every step, "
+          f"params and Adam state {verdict}; step ms "
+          f"captured {ms(rc)} eager {ms(re_)}; graphs {g['keys']} captured in "
+          f"{g['capture_s']:.2f} s, {g['replays']} replays, pool {g['pool_bytes'] / 2**20:.1f} "
+          f"MiB", flush=True)
+    return dict(verdict=verdict, eager_step_ms=ms(re_), captured_step_ms=ms(rc),
+                capture_s=g["capture_s"], pool_bytes=g["pool_bytes"], eager_runs=len(runs))
 
 
 def training_phase(tc, gm, pa, resnet, policy_mod):
@@ -1625,6 +1874,8 @@ def training_phase(tc, gm, pa, resnet, policy_mod):
     out, launches, meds = counted_cnn_run(f"[train] {RESNET} B={TRAIN_BATCH} {TRAIN_IMAGE}:", tc,
                                           argv, gm, pa, per_step, TRAIN_BATCH)
     print(f"[train] eval acc {out['modes']['ssprop']['eval_acc']}")
+    meds["captured"] = captured_vs_eager(
+        "[train]", lambda a: tc.run(tc.build_parser().parse_args(a)), argv, out)
     return launches, meds
 
 
@@ -1652,9 +1903,43 @@ def profile_step(tag, name, step, top=10):
     return wall_ms, busy_ms, kernels
 
 
+def captured_profile(tag, name, fn, key, inputs):
+    """:func:`profile_step` of ``fn`` (a CLI's in-place step) captured as a
+    graph at ``key`` (``launch/graphs.py``): the warm-up call runs the
+    step and captures it, the timed and profiled calls replay. The
+    profiled replay's kernels on the device must be the launches the
+    graph books a replay. Returns (wall_ms, busy_ms, capture_s,
+    pool_bytes)."""
+    from repro_torch.launch.graphs import StepGraphs
+
+    sg = StepGraphs(fn, "cuda")
+
+    def step():
+        loss, _ = sg(key, *inputs)
+        return loss.item()  # waits for the replay
+
+    wall_ms, busy_ms, kernels = profile_step(tag, f"{name} captured", step)
+    replay_launches(tag, name, kernels, sg.graphs[key].launches)
+    st = sg.stats()
+    return wall_ms, busy_ms, st["capture_s"], st["pool_bytes"]
+
+
+def replay_launches(tag, name, kernels, booked) -> None:
+    """One replay's kernels on the device (a profile's device events)
+    against the launches its graph books a replay (``booked``)."""
+    seen = {k: n for k, n in device_launches((e.key, e.count) for e in kernels).items() if n}
+    if seen != booked:
+        raise AssertionError(f"{tag} {name}: a replay ran {seen} on the device, the graph "
+                             f"books {booked}")
+    print(f"{tag}   {name}: a replay ran {seen or 'none of the wrappers kernels'} on the "
+          "device, as its graph books")
+
+
 def train_profile(tc, resnet, policy_mod, pipeline, adam):
     """Where one dense and one sparse training step spend their time
-    (:func:`profile_step`)."""
+    (:func:`profile_step`), eager and captured."""
+    from repro_torch.launch import steps
+
     x, y = training_batch(pipeline)
     ocfg = adam.AdamConfig()
     out = {}
@@ -1667,7 +1952,13 @@ def train_profile(tc, resnet, policy_mod, pipeline, adam):
             return loss.item()  # waits for the step
 
         wall_ms, busy_ms, _ = profile_step("[train-profile]", name, step)
-        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+        fn = steps.make_inplace_step(lambda p, pl, a, b: tc.loss_fn(RESNET, p, a, b, pl),
+                                     params, opt, ocfg, lambda _, pol=pol: pol)
+        cap = captured_profile("[train-profile]", name, fn, name, (x, y))
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, captured_wall_ms=cap[0],
+                         captured_busy_ms=cap[1], capture_s=cap[2], pool_bytes=cap[3])
+    print(f"[train-profile] eager vs captured (host wall / device busy ms): {json.dumps(out)}",
+          flush=True)
     return out
 
 
@@ -1863,6 +2154,18 @@ def ddpm_training_phase(td, gm, pa, ddpm, policy_mod):
     out, launches, meds = counted_cnn_run(
         f"[ddpm-train] base {DDPM_BASE} B={DDPM_BATCH} {DDPM_IMAGE} T={DDPM_T}:", td, argv, gm,
         pa, per_step, DDPM_BATCH)
+    meds["captured"] = captured_vs_eager(
+        "[ddpm-train]", lambda a: td.fit(td.build_parser().parse_args(a)), argv, out)
+    # the sampler: the same params and noise through the eager loop
+    args = td.build_parser().parse_args(argv)
+    eager, eager_s = td.sample_images(out["modes"]["ssprop"]["state"][0], args, capture=False)
+    if not np.array_equal(eager, out["samples"]):
+        raise AssertionError(f"[ddpm-train] captured samples != eager: max |d| "
+                             f"{np.abs(eager - out['samples']).max():.3e}")
+    meds["captured"]["eager_sample_s"] = eager_s
+    print(f"[ddpm-train] sampling {DDPM_T} steps of 4 images: captured {out['sample_s']:.2f} s "
+          f"(under the device tracing), "
+          f"eager {eager_s:.2f} s, the samples bit for bit", flush=True)
     s = out["samples"]
     if s.shape != (4, *DDPM_IMAGE) or not np.isfinite(s).all():
         raise AssertionError(f"DDPM samples {s.shape}, finite {np.isfinite(s).all()}")
@@ -1882,7 +2185,11 @@ def ddpm_training_phase(td, gm, pa, ddpm, policy_mod):
 
 def ddpm_profile(td, ddpm, policy_mod, pipeline, adam):
     """Where one dense and one sparse DDPM training step spend their time
-    (:func:`profile_step`)."""
+    (:func:`profile_step`), eager and captured; then one denoising step of
+    the sampler (4 images), eager and captured."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.graphs import StepGraphs
+
     sched = ddpm.make_schedule(DDPM_T, device="cuda")
     x0, t, noise = _ddpm_batch(ddpm, pipeline)
     ocfg = adam.adamw()
@@ -1897,8 +2204,31 @@ def ddpm_profile(td, ddpm, policy_mod, pipeline, adam):
             return loss.item()  # waits for the step
 
         wall_ms, busy_ms, _ = profile_step("[ddpm-profile]", name, step)
-        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
-        del params, opt
+        fn = steps.make_inplace_step(
+            lambda p, pl, a, b, c: ddpm.loss_fn(p, sched, a, b, c, pl), params, opt, ocfg,
+            lambda _, pol=pol: pol)
+        cap = captured_profile("[ddpm-profile]", name, fn, name, (x0, t, noise))
+        out[name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, captured_wall_ms=cap[0],
+                         captured_busy_ms=cap[1], capture_s=cap[2], pool_bytes=cap[3])
+        del opt
+    xs = torch.randn((4, *DDPM_IMAGE), device="cuda")
+    zs = torch.randn_like(xs)
+    ts = torch.tensor(500, device="cuda")
+    for mode in ("eager", "captured"):
+        sg = StepGraphs(lambda _, x, tt, z: ddpm.denoise_step(params, sched, x, tt, z), "cuda",
+                        capture=mode == "captured")
+
+        def denoise():
+            with torch.no_grad():
+                return sg(None, xs, ts, zs).sum().item()
+
+        wall_ms, busy_ms, kernels = profile_step("[ddpm-profile]", f"sampler step {mode}",
+                                                 denoise)
+        if sg.captured:
+            replay_launches("[ddpm-profile]", "sampler step", kernels, sg.graphs[None].launches)
+        out[f"sampler_{mode}"] = dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    print(f"[ddpm-profile] eager vs captured (host wall / device busy ms): {json.dumps(out)}",
+          flush=True)
     return out
 
 
@@ -4656,8 +4986,10 @@ def synced_step(fn, args, gm):
     the wrappers' launches it made."""
     import warnings
 
+    from repro_torch.launch.graphs import launch_counts
+
     torch.cuda.synchronize()
-    before = dict(gm.launches)
+    before = launch_counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -4668,7 +5000,8 @@ def synced_step(fn, args, gm):
     torch.cuda.synchronize()
     syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
-    launched = {k: gm.launches[k] - before[k] for k in before if gm.launches[k] != before[k]}
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in before if after[k] != before[k]}
     return out, syncs, launched
 
 
@@ -4753,6 +5086,43 @@ def audit_phase(log, gm, get_config, lm, lm_steps, tc, resnet, adam, policy_mod,
     cases[f"{MOE_ARCH} reduced"] = (
         lm_steps.make_train_step(mcfg, lm_policy(policy_mod), adam.AdamConfig()),
         (mparams, adam.init(mparams), mbatch))
+    # the steps that run captured: none may stall the host
+    cases[f"{RESNET} B={TRAIN_BATCH} in-place (captured)"] = (
+        lambda p, o, a, b: lm_steps.make_inplace_step(
+            lambda q, pol, u, w: tc.loss_fn(RESNET, q, u, w, pol), p, o, ocfg,
+            lambda _: rpol)(LM_RATE, a, b),
+        (resnet.init_params(RESNET, 0, device="cuda"), adam.init(params), x, y))
+    from repro_torch.models import ddpm
+
+    dparams = ddpm.init_params(0, channels=DDPM_IMAGE[0], base=DDPM_BASE, t_dim=DDPM_TDIM,
+                               device="cuda")
+    dsched = ddpm.make_schedule(DDPM_T, device="cuda")
+    dx0 = torch.randn((16, *DDPM_IMAGE), generator=gen, device="cuda")
+    dpol = ddpm_policy(policy_mod)
+    cases[f"ddpm base {DDPM_BASE} B=16 in-place (captured)"] = (
+        lambda p, o, sc, a, t, n: lm_steps.make_inplace_step(
+            lambda q, pol, u, v, w: ddpm.loss_fn(q, sc, u, v, w, pol), p, o, adam.adamw(),
+            lambda _: dpol)(LM_RATE, a, t, n),
+        (dparams, adam.init(dparams), dsched, dx0,
+         torch.randint(0, DDPM_T, (16,), generator=gen, device="cuda"), torch.randn_like(dx0)))
+    for sampled in (False, True):
+        state = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=gen, device="cuda",
+                                         dtype=torch.int32),
+                 "count": torch.tensor([32, 32, 1, 0], dtype=torch.int32, device="cuda"),
+                 "pos": torch.tensor([0, 64, 120, 0], dtype=torch.int32, device="cuda"),
+                 "cache": lm.init_paged_cache(cfg, 4 * 10, 16, dtype=torch.float32,
+                                              device="cuda"),
+                 "block_tables": torch.arange(4 * 10, dtype=torch.int32,
+                                              device="cuda").reshape(4, 10)}
+        if sampled:
+            from repro_torch.serve.request import SamplingParams
+
+            state.update(lm_steps.sampling_state(
+                [SamplingParams(0.8, 50, 0.95, seed=3), None, SamplingParams(1.0, seed=4), None],
+                "cuda"))
+        cases[f"{LM_ARCH} depth {LM_ROUTE_DEPTH} slot step, "
+              f"{'sampled' if sampled else 'greedy'} (captured)"] = (
+            lambda p, st: lm_steps.make_slot_step(cfg)(p, st)[0], (lparams, state))
     for what, (fn, args) in cases.items():
         meta_args = dispatch_walk.meta_like(args)
         with dispatch_walk.Census(args=meta_args) as c:
@@ -4774,7 +5144,7 @@ def audit_phase(log, gm, get_config, lm, lm_steps, tc, resnet, adam, policy_mod,
               f"{launched} = the census's; census FLOPs {counts.flops} (torch ops) + "
               f"{counts.kernel_flops} (kernel tiles), eager peak {counts.peak_bytes} B "
               f"(meta, from shapes)", flush=True)
-    del params, opt, lparams, lopt, mparams, cases
+    del params, opt, lparams, lopt, mparams, dparams, cases
     gc.collect()
     torch.cuda.empty_cache()
     summary["steps"] = steps_out
@@ -5204,7 +5574,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[route] init_params full width in {time.perf_counter() - t0:.1f} s")
     route_rel = route_check(cfg, lm, params)
-    step_profile(cfg, lm, params)
+    serve_profile = step_profile(cfg, lm, params, captured=True)
     torch.cuda.empty_cache()
     reduced_streams_agree(serve)
     reduced_features_agree(lm, serve_pkg, get_config)
@@ -5219,9 +5589,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     pa.launches = 0
     t0 = time.perf_counter()
-    out = serve.run(args)
+    out, seen = on_device(lambda: serve.run(args))
     wall = time.perf_counter() - t0
     launches = pa.launches
+    if seen["paged_attention"] != launches:
+        raise AssertionError(f"[serve] paged_attention ran {seen['paged_attention']} times on "
+                             f"the device, the counter says {launches}")
+    serve_device = seen["paged_attention"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     gen = out["generated"]
     st = out["stats"]
     if gen.shape != (8, 32):
@@ -5238,9 +5613,11 @@ def main() -> int:
           f"{out['tokens_per_s']:.1f} generated/s; step p50 {np.percentile(step_ms, 50):.2f} ms "
           f"p99 {np.percentile(step_ms, 99):.2f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"paged_attention launches {launches} = {cfg.n_layers} x {steps}")
+          f"paged_attention launches {launches} = {cfg.n_layers} x {steps}, the device ran as "
+          f"many (the run under its tracing)")
     print("[serve] first request tokens:", gen[0][:16].tolist())
     serve_argv = list(argv)
+    serve_captured = serve_captured_vs_eager(serve, cfg, params, argv, out, pa)
     del out
     torch.cuda.empty_cache()
 
@@ -5422,6 +5799,8 @@ def main() -> int:
                           "vlm_serve": vlm_launches, "mesh_serve": mesh_serve_launches,
                           "mesh_data_serve": mesh_data_launches,
                           "mesh_families": mf_pa_launches, "mesh_heads": mh_pa_launches},
+        # the captured path's launches as the device ran them (on_device)
+        device_launches={"serve": serve_device},
         max_abs_err=max_err,
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -5450,6 +5829,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=replaces, launches=sum(by_path.values()), launches_by_path=by_path,
+            device_launches={RESNET: train_ms["device_launches"][name],
+                             "ddpm": ddpm_ms["device_launches"][name]},
             max_abs_err=max(g_err[name], d_err[name], grouped_err[name]),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"], shape=top["shape"],
@@ -5512,6 +5893,8 @@ def main() -> int:
             **{k: top[k] for k in ("variant", "tflops") if k in top},
             **({"by_arch": by_arch} if by_arch else {}),
         ))
+    print(f"[serve] captured against eager {json.dumps(serve_captured)}; decode and mixed step "
+          f"profiles {json.dumps(serve_profile)}")
     print(f"[train] training-route rel L2 {train_rel}; step medians {train_ms}")
     print(f"[ddpm-train] route rel L2 {ddpm_rel}; step medians {ddpm_ms}")
     print(f"[lm-train] route rel L2 {lm_rel}; step medians {lm_ms}")

@@ -102,8 +102,10 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0, maxval: float = 1.0
     ``[B, n]`` float32."""
     bits = random_bits(keys, n)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    # fills on the device, not copies from host memory (a step draws
+    # inside a captured graph, which holds no host copy)
+    lo = torch.full((), minval, dtype=torch.float32, device=f.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=f.device)
     # XLA fuses ``f * (hi - lo) + lo`` into one rounding: the product of
     # two float32s is exact in float64, so the float64 sum rounded once
     # to float32 gives the fused result

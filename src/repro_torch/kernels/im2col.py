@@ -11,8 +11,11 @@ conv reaches ``dx_gathered`` / ``dw_gathered`` by columnizing:
   * ``dX2`` goes back to the image by ``F.fold`` (col2im), the exact
     adjoint of the patch extraction.
 
-This is the materializing route: ``X2`` and ``dX2`` are real
-``[M, C_in*Kh*Kw]`` buffers. Padding is explicit ``(lo, hi)`` pairs; an
+A 1x1 filter takes no ``unfold``: its patches are the strided view
+``x[:, :, ::s, ::s]`` made rows, and its col2im adds ``dX2`` into zeros
+at those pixels (the same bits as ``F.fold``; on the card ``F.unfold``
+launches a kernel a sample). This is the materializing route: ``X2`` and
+``dX2`` are real ``[M, C_in*Kh*Kw]`` buffers. Padding is explicit ``(lo, hi)`` pairs; an
 asymmetric one pads the image first, since ``unfold``/``fold`` pad
 symmetrically only.
 """
@@ -45,18 +48,28 @@ def conv_patches(
     b, _, h, w = x.shape
     xp = F.pad(x, (pw0, pw1, ph0, ph1)) if (ph0 or ph1 or pw0 or pw1) else x
     hp, wp = xp.shape[2:]
-    p = F.unfold(xp, (kh, kw), dilation=dilation, padding=0, stride=stride)  # [B, CKK, L]
     h_out = (hp - dilation[0] * (kh - 1) - 1) // stride[0] + 1
     w_out = (wp - dilation[1] * (kw - 1) - 1) // stride[1] + 1
-    ckk = p.shape[1]
-    x2 = p.transpose(1, 2).reshape(b * h_out * w_out, ckk)
+    pointwise = kh == 1 and kw == 1
+    if pointwise:
+        picked = xp[:, :, :: stride[0], :: stride[1]]  # [B, C, H_out, W_out]
+        ckk = picked.shape[1]
+        x2 = picked.permute(0, 2, 3, 1).reshape(b * h_out * w_out, ckk)
+    else:
+        p = F.unfold(xp, (kh, kw), dilation=dilation, padding=0, stride=stride)  # [B, CKK, L]
+        ckk = p.shape[1]
+        x2 = p.transpose(1, 2).reshape(b * h_out * w_out, ckk)
 
     def col2im(dx2: torch.Tensor) -> torch.Tensor:
         # the cotangent in x's dtype, as the JAX package's; the overlapping
         # patch sums in fp32, rounded once (XLA's bf16 conv does the same)
         dcol = dx2.reshape(b, h_out * w_out, ckk).transpose(1, 2).to(x.dtype)
-        dxp = F.fold(dcol.float(), (hp, wp), (kh, kw), dilation=dilation, padding=0,
-                     stride=stride)
+        if pointwise:  # no overlaps: each element added once into zeros, as fold does
+            dxp = torch.zeros((b, ckk, hp, wp), dtype=torch.float32, device=x.device)
+            dxp[:, :, :: stride[0], :: stride[1]] += dcol.reshape(b, ckk, h_out, w_out)
+        else:
+            dxp = F.fold(dcol.float(), (hp, wp), (kh, kw), dilation=dilation, padding=0,
+                         stride=stride)
         return dxp[:, :, ph0 : ph0 + h, pw0 : pw0 + w].to(x.dtype)
 
     return x2, col2im, (h_out, w_out)

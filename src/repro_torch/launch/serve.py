@@ -127,6 +127,10 @@ def build_parser():
     ap.add_argument("--data-mesh", type=int, default=1)
     ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction, default=True,
+                    help="on the card, the paged engine's steps as captured CUDA graphs (the "
+                    "dense family without speculation, one device); --no-graphs runs them "
+                    "eagerly")
     return ap
 
 
@@ -272,6 +276,7 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
         draft_cfg=draft_cfg,
         draft_params=draft_params,
         mesh=mesh,
+        graphs=args.graphs,
     )
     for r in reqs:
         engine.submit(r)
@@ -298,7 +303,8 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
               "swap_preemptions", "recompute_preemptions", "spec_proposed", "spec_accepted",
               "acceptance_rate", "draft_steps"):
         out[k] = stats[k]
-    out = dict(out, stats=stats, step_times=list(engine.step_times))
+    out = dict(out, stats=stats, step_times=list(engine.step_times), captured=engine.captured,
+               graphs=engine.graph_stats())
     if digest is not None:
         out["pool_digests"] = [None] * mesh.world
         dist.all_gather_object(out["pool_digests"], digest.hexdigest())
@@ -308,13 +314,15 @@ def serve_rank(mesh, args, cfg, params=None) -> dict:
 def pool_checksum(cache) -> bytes:
     """A checksum of a paged cache's page pools (its K/V leaves; the SSM
     rows are a data rank's own), made on their device: per leaf the
-    position-weighted sum of its words as integers. A data mesh's paged
-    run chains one a step into a sha256 (``pool_digests``), which is equal
-    on two data ranks only if their pools were equal after every step."""
+    position-weighted sum of its words as integers, over the pages a block
+    table may name (not the last, the sink, which holds whichever invalid
+    token's write landed last). A data mesh's paged run chains one a step
+    into a sha256 (``pool_digests``), which is equal on two data ranks
+    only if their pools were equal after every step."""
     sums = []
     for layer in cache:
         for k in sorted(set(layer) & {"k", "v"}):
-            t = layer[k].detach().contiguous()
+            t = layer[k][:-1].detach().contiguous()
             v = t.view(torch.int16 if t.element_size() == 2 else torch.int32).reshape(-1).long()
             w = torch.arange(v.numel(), device=v.device) % 65521 + 1
             sums.append((v * w).sum())
@@ -336,7 +344,8 @@ def main():
     out = run(args)
     kernel = args.attn_kernel and args.engine == "paged"
     print(f"[serve] engine={args.engine} kernel={kernel} device={args.device} "
-          f"slots={args.batch} gen={args.gen} steps={out['steps']}")
+          f"slots={args.batch} gen={args.gen} steps={out['steps']} "
+          f"captured={out.get('captured', False)}")
     print(f"[serve] prefill {out['prefill_s']*1e3:.0f} ms, decode {out['decode_s']*1e3:.0f} ms"
           f" ({out['tokens_per_s']:.1f} tok/s, "
           f"slot util {out['slot_utilization']*100:.0f}%)")

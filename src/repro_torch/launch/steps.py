@@ -25,7 +25,7 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core import prng
+from repro_torch.core import backward, prng
 from repro_torch.core.policy import DENSE, PolicyLike
 from repro_torch.dist import parallel
 from repro_torch.models import model as lm
@@ -64,6 +64,38 @@ def value_and_grad(fn, params):
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, gs, strict=True)]
     return (loss.detach(), {k: v.detach() for k, v in aux.items()}), adam.tree_unflatten(p, grads)
+
+
+def kept_channels(log, device) -> torch.Tensor:
+    """The kept channel indices of every sparse site a
+    ``core/backward.py::record_selections`` log saw, in backward order,
+    one flat int64 tensor (empty where no site was sparse)."""
+    if not log:
+        return torch.zeros((0,), dtype=torch.int64, device=device)
+    return torch.cat([s.idx.reshape(-1).long() for _, s in log])
+
+
+def make_inplace_step(loss_of: Callable, params, opt: adam.AdamState, opt_cfg: adam.AdamConfig,
+                      policy_at: Callable) -> Callable:
+    """A CNN training CLI's step, ``fn(rate, *batch) -> (loss, kept)``: the
+    loss ``loss_of(params, policy, *batch)`` at ``policy_at(rate)``, its
+    gradients through the channel-sparse backward, and the Adam(W) update
+    written in place into ``params`` and ``opt`` (its step count too), the
+    numbers of the functional update bit for bit. ``kept`` is every sparse
+    site's kept channels (:func:`kept_channels`). Everything it changes it
+    changes in place, so it can run as a captured graph
+    (``launch/graphs.py``)."""
+
+    def fn(rate, *batch):
+        with backward.record_selections() as log:
+            (loss, _), grads = value_and_grad(
+                lambda p: (loss_of(p, policy_at(rate), *batch), {}), params)
+        with torch.no_grad():
+            _, new, _ = adam.apply_updates(opt_cfg, params, grads, opt, inplace=True)
+            opt.step.copy_(new.step)
+        return loss, kept_channels(log, loss.device)
+
+    return fn
 
 
 def make_train_step(
@@ -206,7 +238,7 @@ def truncated_logits(logits, temps, top_ks, top_ps):
     cap = min(v, TOP_K_CAP)
     top_vals = torch.topk(scaled, cap, dim=-1).values  # [B, cap], descending
     kth = torch.gather(top_vals, 1, (torch.clamp(top_ks, 1, cap) - 1).long()[:, None])
-    neg_inf = torch.tensor(float("-inf"), dtype=scaled.dtype, device=scaled.device)
+    neg_inf = torch.full((), float("-inf"), dtype=scaled.dtype, device=scaled.device)
     scaled = torch.where((top_ks[:, None] > 0) & (scaled < kth), neg_inf, scaled)
     idx = torch.sort(-scaled, dim=-1, stable=True).indices
     probs = torch.softmax(torch.gather(scaled, 1, idx), dim=-1)
@@ -233,18 +265,14 @@ def sample_tokens(logits, *, rng, temps, top_ks, top_ps, fold):
 
 
 def _emit_tokens(logits, state, fold):
-    """Greedy-or-sampled next tokens for a step's ``[B, V]`` logits. The
-    rows are independent, so only the sampled ones (temperature > 0) go
-    through :func:`sample_tokens`; the rest, and every row of a state
-    without sampling tensors, take the argmax."""
-    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    """Greedy-or-sampled next tokens for a step's ``[B, V]`` logits: every
+    row is drawn and the greedy ones (temperature 0) take the argmax, as
+    the JAX package's step computes them (the rows are independent, so a
+    sampled row's token is the one a draw of it alone gives). A state
+    without sampling tensors takes the argmax everywhere."""
     if "rng" not in state:
-        return greedy
-    rows = torch.nonzero(state["temps"] > 0)[:, 0]
-    if not len(rows):
-        return greedy
-    sampled = sample_tokens(logits[rows], fold=fold[rows], **{k: state[k][rows] for k in _CONTROLS})
-    return greedy.index_copy(0, rows, sampled)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return sample_tokens(logits, fold=fold, **{k: state[k] for k in _CONTROLS})
 
 
 def _per_position(controls, c):

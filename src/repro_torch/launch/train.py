@@ -618,7 +618,9 @@ def _train(args, mesh=None, *, cfg=None, collect=()) -> dict:
             json.dump({"rank": rank, "final_loss": final, "steps": args.steps}, f)
         os.replace(tmp, done)
     launches = {k: gm.launches[k] - before[k] for k in gm.launches}
-    out = {**rec, "final_loss": final, "launches": launches, "ckpt": ckpt_stats}
+    # the LM step runs eagerly, on a mesh and off it (ROADMAP Queue 1 item 2)
+    out = {**rec, "final_loss": final, "launches": launches, "ckpt": ckpt_stats,
+           "captured": False}
     if mesh is not None:
         names = sorted(launches)
         mine = torch.tensor([[launches[k] for k in names], [table[k] for k in names]],
@@ -686,6 +688,7 @@ def main():
     else:
         print(f"[train] done. final loss {out['final_loss']:.4f}")
     print("[train] kernel launches:", out["launches"])
+    print(f"[train] steps captured as CUDA graphs: {out['captured']}")
     if "launches_by_rank" in out:
         print("[train] kernel launches by mesh rank:", json.dumps(
             {"launches": out["launches_by_rank"], "table": out["launch_table_by_rank"]}))

@@ -14,9 +14,12 @@ image set, no augmentation), plus:
     --block-size 128 --use-pallas`` trains through the gathered CUDA
     kernels.
 
-Each step runs the forward pass, the channel-sparse backward and a
-functional Adam update; the epoch-bar schedule makes even epochs dense
-and odd ones sparse at ``--drop-rate``. At the end the CLI prints the
+Each step runs the forward pass, the channel-sparse backward and the
+Adam update (in place, the numbers of :func:`train_step`'s functional
+one); the epoch-bar schedule makes even epochs dense and odd ones sparse
+at ``--drop-rate``. On the card each step is one captured CUDA graph, a
+graph a drop rate, as the reference jits a step per rate
+(``launch/graphs.py``); ``--no-graphs`` runs the steps eagerly. At the end the CLI prints the
 backward-FLOPs ledger (the paper's Eq. 6-9 over the model's layers):
 dense, ssProp at the schedule-average rate as the example prints it,
 and a sparse step under the policy in force at its real keep counts.
@@ -39,6 +42,7 @@ from repro_torch.core.schedulers import average_rate, drop_rate_for_step
 from repro_torch.data.pipeline import ImagePipeline, ImagePipelineConfig
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps
+from repro_torch.launch.graphs import StepGraphs
 from repro_torch.launch.precision import fp32_precision
 from repro_torch.models import resnet
 from repro_torch.optim import adam
@@ -61,6 +65,9 @@ def build_parser():
                     help="shrunk backward contractions through the gathered CUDA kernels "
                     "(the SsPropPolicy field's name is the JAX package's)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction, default=True,
+                    help="on the card, each step as a captured CUDA graph (one a drop rate); "
+                    "--no-graphs runs it eagerly")
     return ap
 
 
@@ -129,9 +136,12 @@ def _sync(device: torch.device) -> None:
 def run(args) -> dict:
     """Train each mode from the same init, in full fp32 (TF32 off, as the
     JAX package computes). Returns per mode the losses, the drop rate and
-    wall time of every step (the step ends in a device sync), and the
-    eval accuracy at each epoch end; the launches of each gathered kernel
-    over the whole run; the TF32 flags that were in force; and the
+    wall time of every step (the step ends in a device sync), each step's
+    kept channels (``steps.kept_channels``, empty at a dense step), the
+    eval accuracy at each epoch end, the final params and Adam state
+    (``state``) and the step graphs' stats (``graphs``); whether the steps
+    ran as captured graphs (``captured``); the launches of each gathered
+    kernel over the whole run; the TF32 flags that were in force; and the
     backward-FLOPs ledger (:func:`flops_ledger`)."""
     with fp32_precision() as tf32:
         out = _train(args)
@@ -160,7 +170,10 @@ def _train(args) -> dict:
     for mode in modes:
         params = resnet.init_params(args.model, 0, args.classes, device=device)
         opt = adam.init(params)
-        rec = {"losses": [], "rates": [], "step_times": [], "eval_acc": []}
+        step = StepGraphs(steps.make_inplace_step(
+            lambda p, pol, x, y: loss_fn(args.model, p, x, y, pol), params, opt, ocfg,
+            lambda rate: step_policy(args, rate)), device, capture=args.graphs)
+        rec = {"losses": [], "rates": [], "step_times": [], "kept": [], "eval_acc": []}
         for i in range(args.steps):
             rate = 0.0 if mode == "dense" else drop_rate_for_step(
                 "epoch_bar", step=i, steps_per_epoch=args.steps_per_epoch,
@@ -171,20 +184,21 @@ def _train(args) -> dict:
             y = torch.from_numpy(b["labels"]).long().to(device)
             _sync(device)
             t0 = time.perf_counter()
-            params, opt, loss = train_step(
-                args.model, params, opt, x, y, step_policy(args, rate), ocfg
-            )
+            loss, kept = step(rate, x, y)
             _sync(device)
             rec["step_times"].append(time.perf_counter() - t0)
             rec["losses"].append(loss.item())
+            rec["kept"].append(kept.cpu().numpy())
             rec["rates"].append(rate)
             if (i + 1) % args.steps_per_epoch == 0:
                 with torch.no_grad():
                     logits = resnet.forward(args.model, params, ev_x, SsPropPolicy(0.0),
                                             train=False)
                 rec["eval_acc"].append((logits.argmax(-1) == ev_y).float().mean().item())
+        rec["state"], rec["graphs"] = (params, opt), step.stats()
         out[mode] = rec
-    return {"modes": out, "launches": {k: gm.launches[k] - before[k] for k in gm.launches}}
+    return {"modes": out, "captured": step.captured,
+            "launches": {k: gm.launches[k] - before[k] for k in gm.launches}}
 
 
 def main():
@@ -198,6 +212,7 @@ def main():
         t = sum(rec["step_times"])
         final = rec["eval_acc"][-1] if rec["eval_acc"] else float("nan")
         print(f"{mode:7s} steps={len(rec['losses'])} wall={t:.1f}s final_eval_acc={final:.3f}")
+    print(f"[train] steps captured as CUDA graphs: {res['captured']}")
     print("[train] gathered-kernel launches:", res["launches"])
     print_ledger(res["flops"], args)
 

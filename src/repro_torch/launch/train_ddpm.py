@@ -22,8 +22,12 @@ schedule written as ``.npy`` to ``--out``), plus:
 Data: the synthetic image stream (``ImagePipeline`` at ``(channels,
 size, size)``, labels unused). Each step draws its timesteps and noise
 from a ``torch.Generator``, runs the forward pass, the channel-sparse
-backward and a functional AdamW update, in fp32 with TF32 off. At the
-end the CLI prints the backward-FLOPs ledger.
+backward and the AdamW update (in place, the numbers of
+:func:`train_step`'s functional one), in fp32 with TF32 off. On the card
+each step is one captured CUDA graph a drop rate and the sampler one
+captured denoising step replayed ``T`` times (``launch/graphs.py``);
+``--no-graphs`` runs both eagerly. At the end the CLI prints the
+backward-FLOPs ledger.
 
   PYTHONPATH=src python -m repro_torch.launch.train_ddpm --channels 3 --size 64 \\
       --timesteps 1000 --base 64 --t-dim 256 --batch 128 --steps 8 \\
@@ -43,6 +47,7 @@ from repro_torch.core.schedulers import drop_rate_for_step
 from repro_torch.data.pipeline import ImagePipeline, ImagePipelineConfig
 from repro_torch.kernels import gathered_matmul as gm
 from repro_torch.launch import steps
+from repro_torch.launch.graphs import StepGraphs
 from repro_torch.launch.precision import fp32_precision
 from repro_torch.launch.train_classifier import flops_ledger, print_ledger, step_policy
 from repro_torch.models import ddpm
@@ -71,6 +76,9 @@ def build_parser():
                     help="shrunk backward contractions through the gathered CUDA kernels "
                     "(the SsPropPolicy field's name is the JAX package's)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction, default=True,
+                    help="on the card, each step and the sampler's denoising step as captured "
+                    "CUDA graphs; --no-graphs runs them eagerly")
     return ap
 
 
@@ -98,10 +106,12 @@ def run(args) -> dict:
     """Train each mode from the same init, in full fp32 (TF32 off, as the
     JAX package computes), then sample from the last mode trained.
     Returns per mode the losses, the drop rate and wall time of every
-    step (the step ends in a device sync); the launches of each gathered
-    kernel over the training steps; the samples and the wall time of
-    sampling them; the TF32 flags that were in force; and the
-    backward-FLOPs ledger
+    step (the step ends in a device sync), each step's kept channels, the
+    final params and AdamW state (``state``) and the step graphs' stats
+    (``graphs``); whether the steps ran as captured graphs (``captured``);
+    the launches of each gathered kernel over the training steps; the
+    samples and the wall time of sampling them; the TF32 flags that were
+    in force; and the backward-FLOPs ledger
     (:func:`~repro_torch.launch.train_classifier.flops_ledger`)."""
     with fp32_precision() as tf32:
         out = _train(args)
@@ -112,6 +122,16 @@ def run(args) -> dict:
 
 
 def _train(args) -> dict:
+    out = fit(args)
+    params = out["modes"][out["sampled_from"]]["state"][0]
+    samples, sample_s = sample_images(params, args)
+    return {**out, "samples": samples, "sample_s": sample_s}
+
+
+def fit(args) -> dict:
+    """The training half of :func:`run` (at the TF32 flags in force):
+    its per-mode records, ``captured``, the launches and the mode the
+    samples come from (``sampled_from``, the last one trained)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available (pass --device cpu)")
@@ -126,8 +146,11 @@ def _train(args) -> dict:
         params = ddpm.init_params(0, channels=args.channels, base=args.base, t_dim=args.t_dim,
                                   device=device)
         opt = adam.init(params)
+        step = StepGraphs(steps.make_inplace_step(
+            lambda p, pol, x0, t, noise: ddpm.loss_fn(p, sched, x0, t, noise, pol), params, opt,
+            ocfg, lambda rate: step_policy(args, rate)), device, capture=args.graphs)
         gen = torch.Generator(device=device).manual_seed(1)
-        rec = {"losses": [], "rates": [], "step_times": []}
+        rec = {"losses": [], "rates": [], "step_times": [], "kept": []}
         for i in range(args.steps):
             rate = 0.0 if mode == "dense" else drop_rate_for_step(
                 "epoch_bar", step=i, steps_per_epoch=args.steps_per_epoch,
@@ -137,22 +160,36 @@ def _train(args) -> dict:
             t, noise = ddpm.draw_t_noise(gen, x0, args.timesteps)
             _sync(device)
             t0 = time.perf_counter()
-            params, opt, loss = train_step(params, opt, sched, x0, t, noise,
-                                           step_policy(args, rate), ocfg)
+            loss, kept = step(rate, x0, t, noise)
             _sync(device)
             rec["step_times"].append(time.perf_counter() - t0)
             rec["losses"].append(loss.item())
+            rec["kept"].append(kept.cpu().numpy())
             rec["rates"].append(rate)
+        rec["state"], rec["graphs"] = (params, opt), step.stats()
         out[mode] = rec
     launches = {k: gm.launches[k] - before[k] for k in gm.launches}
+    return {"modes": out, "captured": step.captured, "launches": launches,
+            "sampled_from": modes[-1]}
+
+
+def sample_images(params, args, *, capture=None) -> tuple[np.ndarray, float]:
+    """:data:`N_SAMPLES` images from ``params`` over the whole schedule,
+    ``x_T`` and each step's noise from one seeded generator, and the
+    seconds it took. ``capture`` defaults to ``--graphs``."""
+    device = torch.device(args.device)
+    sched = ddpm.make_schedule(args.timesteps, device=device)
     gen = torch.Generator(device=device).manual_seed(42)
-    shape = (N_SAMPLES, *image)
+    shape = (N_SAMPLES, args.channels, args.size, args.size)
     x_t = torch.randn(shape, generator=gen, device=device)
+    graphs = StepGraphs(lambda _, x, t, z: ddpm.denoise_step(params, sched, x, t, z), device,
+                        capture=args.graphs if capture is None else capture)
     t0 = time.perf_counter()
+    # a captured step's output is its graph's buffer: .cpu() copies the last
     samples = ddpm.sample(params, sched, x_t,
-                          lambda i: torch.randn(shape, generator=gen, device=device)).cpu()
-    return {"modes": out, "launches": launches, "sampled_from": modes[-1],
-            "samples": samples.numpy(), "sample_s": time.perf_counter() - t0}
+                          lambda i: torch.randn(shape, generator=gen, device=device),
+                          step=lambda x, t, z: graphs(None, x, t, z)).cpu()
+    return samples.numpy(), time.perf_counter() - t0
 
 
 def main():
@@ -163,6 +200,7 @@ def main():
         for i in range(spe - 1, len(rec["losses"]), spe):
             print(f"[{mode}] step {i + 1:4d} loss={rec['losses'][i]:.4f}")
         print(f"{mode:7s} steps={len(rec['losses'])} wall={sum(rec['step_times']):.1f}s")
+    print(f"[train] steps captured as CUDA graphs: {res['captured']}")
     print("[train] gathered-kernel launches:", res["launches"])
     s = res["samples"]
     if args.out:

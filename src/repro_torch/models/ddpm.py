@@ -231,29 +231,46 @@ def loss_fn(params, sched, x0, t, noise, policy: PolicyLike = DENSE):
     return torch.mean((pred - noise) ** 2)
 
 
+def denoise_step(params, sched, x, t, z, policy: PolicyLike = DENSE) -> torch.Tensor:
+    """One ancestral step: ``x_{t-1}`` of ``x`` (``x_t``) at the timestep
+    ``t``, a 0-d integer tensor on ``x``'s device (so that one captured
+    step serves every timestep), under the fresh noise ``z`` (zeros at
+    ``t = 0``)."""
+    ti = t.long().reshape(1)  # a 0-d tensor index would be read back to the host
+    eps = forward(params, x, ti.expand(x.shape[0]), policy)
+    alpha = sched["alphas"][ti]
+    acp = sched["acp"][ti]
+    coef = (1 - alpha) / torch.sqrt(1 - acp)
+    mean = (x - coef * eps) / torch.sqrt(alpha)
+    return mean + torch.sqrt(sched["betas"][ti]) * z
+
+
 def sample(
     params,
     sched,
     x_t: torch.Tensor,
     noise: Callable[[int], torch.Tensor],
     policy: PolicyLike = DENSE,
+    *,
+    step: Callable | None = None,
 ) -> torch.Tensor:
     """Ancestral sampling from ``x_T`` (``x_t``) to ``x_0``. At loop step
     ``i`` (timestep ``T-1-i``) the fresh noise is ``noise(i)``, shaped
-    like ``x_t``; the last step adds none."""
+    like ``x_t``, drawn here in loop order; the last step adds zeros.
+
+    Every step is ``step(x, t, z)``, by default :func:`denoise_step`, the
+    twin of the reference's ``fori_loop`` body, with the timestep a 0-d
+    tensor on ``x_t``'s device (a caller may pass the same step captured
+    as a graph, ``launch/train_ddpm.py::sample_images``)."""
+    if step is None:
+        step = lambda x, t, z: denoise_step(params, sched, x, t, z, policy)  # noqa: E731
     timesteps = sched["betas"].shape[0]
+    ts = torch.arange(timesteps - 1, -1, -1, device=x_t.device)
     x = x_t
     with torch.no_grad():
         for i in range(timesteps):
-            t = timesteps - 1 - i
-            tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
-            eps = forward(params, x, tb, policy)
-            alpha = sched["alphas"][t]
-            acp = sched["acp"][t]
-            coef = (1 - alpha) / torch.sqrt(1 - acp)
-            mean = (x - coef * eps) / torch.sqrt(alpha)
-            z = noise(i) if t > 0 else torch.zeros_like(x)
-            x = mean + torch.sqrt(sched["betas"][t]) * z
+            z = noise(i) if i < timesteps - 1 else torch.zeros_like(x)
+            x = step(x, ts[i], z)
     return x
 
 

@@ -186,21 +186,22 @@ def attn_init(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     }
 
 
-def paged_write_index(block_tables, positions, token_valid, block_size):
-    """Where this step's real tokens go in a page pool: ``(rows, cols,
-    (page, off))``, so that token ``[rows[i], cols[i]]`` is written at
-    ``pool[page[i], off[i]]``. The token at absolute position p of slot
-    b sits in page ``block_tables[b, p // block_size]`` (block index
-    clipped to the table, as the JAX package does) at offset ``p %
-    block_size``. Invalid tokens are left out, which is what the JAX
-    package's out-of-range ``mode="drop"`` scatter does. Picking the real
-    tokens reads the mask back to the host, so a step computes this once
-    for all its layers."""
+def paged_write_index(block_tables, positions, token_valid, block_size, sink):
+    """Where this step's tokens go in a page pool: ``(rows, cols, (page,
+    off))``, so that token ``[rows, cols]`` is written at ``pool[page,
+    off]``. The token at absolute position p of slot b sits in page
+    ``block_tables[b, p // block_size]`` (block index clipped to the
+    table, as the JAX package does) at offset ``p % block_size``. Every
+    ``[B, S]`` token gets an index (rows and cols are whole slices): an
+    invalid token goes to the pool's ``sink`` page, which no block table
+    names (``models/model.py::init_paged_cache``). That is the static
+    form of the JAX package's out-of-range ``mode="drop"`` scatter: its
+    shapes do not depend on the data, so a step can be captured."""
     logical = positions.long()
     blk = torch.clamp(logical // block_size, 0, block_tables.shape[1] - 1)
     page = torch.gather(block_tables.long(), 1, blk)  # [B,S]
-    rows, cols = token_valid.nonzero(as_tuple=True)
-    return rows, cols, (page[rows, cols], (logical % block_size)[rows, cols])
+    every = slice(None)
+    return every, every, (torch.where(token_valid, page, sink), logical % block_size)
 
 
 def slot_write_index(positions, token_valid, t, lo: int = 0, t_loc: int | None = None):
@@ -378,7 +379,8 @@ def attn_apply(
     :class:`DecodeGeom`: ``geom.qpos [B,S]`` int32 is each token's
     absolute position in its slot, and this step's K/V are written **in
     place** (cast to the cache dtype) at ``geom.write_index``, which
-    leaves out the invalid tokens:
+    leaves out the invalid tokens (the paged pool sends them to its sink
+    page):
 
     * with ``geom.block_tables``, the paged layout: ``kv_cache`` is one
       layer's page pool ``[n_pages, bs, KV, D]`` shared by all slots, and

@@ -607,8 +607,9 @@ def init_local_cache(cfg: ModelConfig, layout: CacheLayout, mesh, *, max_seq: in
                      n_blocks: int = 0, block_size: int = 0, dtype=None, device="cuda"):
     """This rank's decode cache, zeros: contiguous (``max_seq`` tokens a
     slot) or, with ``layout.paged``, a pool of ``n_blocks`` pages of
-    ``block_size``. The full cache is laid out on ``meta`` and sharded
-    there (:func:`shard_cache`), so only the rank's shard is allocated."""
+    ``block_size`` and the sink (:func:`init_paged_cache`). The full
+    cache is laid out on ``meta`` and sharded there (:func:`shard_cache`),
+    so only the rank's shard is allocated."""
     if layout.paged:
         full = init_paged_cache(cfg, n_blocks, block_size, dtype, device="meta",
                                 batch=layout.n_slots)
@@ -908,13 +909,17 @@ def init_paged_cache(
     cfg: ModelConfig, n_blocks: int, block_size: int, dtype=None, device="cuda", *, batch: int = 0
 ):
     """Paged decode cache: per attention layer a K/V page pool
-    ``[n_blocks, block_size, KV, hd]``; per SSM layer its conv window and
-    state for ``batch`` slots (the JAX package's first argument, here a
-    keyword: a stack without SSM layers keeps no per-slot state)."""
+    ``[n_blocks + 1, block_size, KV, hd]``, the ``n_blocks`` pages a block
+    table may name and after them the sink, where a step writes its
+    invalid tokens (``layers.paged_write_index``; the JAX package's pool,
+    which drops them, is the first ``n_blocks``); per SSM layer its conv
+    window and state for ``batch`` slots (the JAX package's first
+    argument, here a keyword: a stack without SSM layers keeps no
+    per-slot state)."""
     dt = dtype or getattr(torch, cfg.dtype)
     if batch < 1 and any(s.mixer == "ssm" for s in transformer.period_pattern(cfg)):
         raise ValueError(f"{cfg.name}: a paged cache of SSM layers needs the slot count (batch=)")
-    return transformer.stack_cache_init(cfg, batch, block_size, dt, n_pages=n_blocks,
+    return transformer.stack_cache_init(cfg, batch, block_size, dt, n_pages=n_blocks + 1,
                                         device=device)
 
 
@@ -950,6 +955,9 @@ def decode_slots(
     kernel, ``paged_kernel=False`` gathers the pages. Without
     ``block_tables`` the cache is the contiguous one (:func:`init_cache`)
     and attention is plain PyTorch, as the JAX package's is there.
+    The paged step writes the invalid tokens' K/V to the pools' sink page
+    (:func:`init_paged_cache`), so its shapes do not depend on
+    ``token_count`` (:func:`~repro_torch.models.layers.paged_write_index`).
 
     Returns ``(logits [B, V] fp32 at each slot's last real token,
     cache)``; ``all_logits=True`` returns the whole chunk's ``[B, C, V]``
@@ -987,7 +995,8 @@ def decode_slots(
         if block_tables is not None and layout.split and kv:
             gather = mesh
             write_index = layers.paged_write_index(block_tables, positions, valid,
-                                                   cache[kv[0]]["k"].shape[1])
+                                                   cache[kv[0]]["k"].shape[1],
+                                                   transformer.sink_page(cache))
         place = layers.KvPlace(write_index, gather, layout.seq_split(mesh))
         if layout.split:
             tokens, positions, valid, token_count = (layout.rows(t) for t in
@@ -1112,7 +1121,7 @@ def reset_slots(cache, free_mask) -> None:
 
 def reset_paged(cache, slot_mask, page_mask) -> None:
     """Zero freed state in a paged cache, in place: the K/V pages in
-    ``page_mask [n_blocks]`` and the SSM rows of the slots in ``slot_mask
+    ``page_mask [n_blocks + 1]`` and the SSM rows of the slots in ``slot_mask
     [B]``, at every layer."""
     _zero_rows(cache, page_mask, ("k", "v"))
     _zero_rows(cache, slot_mask, ("conv", "state"))

@@ -223,6 +223,11 @@ def kv_layers(caches) -> list[int]:
     return [li for li, c in enumerate(caches) if "k" in c]
 
 
+def sink_page(caches) -> int:
+    """The paged pools' sink page: the last (``models/model.py::init_paged_cache``)."""
+    return caches[kv_layers(caches)[0]]["k"].shape[0] - 1
+
+
 def _decode_geometry(cfg, caches, positions, token_valid, block_tables, place=None):
     """What every attention layer of a decode step shares
     (:class:`~repro_torch.models.layers.DecodeGeom`): the int32 query
@@ -239,7 +244,8 @@ def _decode_geometry(cfg, caches, positions, token_valid, block_tables, place=No
     if block_tables is not None:
         write_index = place.write_index
         if write_index is None:
-            write_index = layers.paged_write_index(block_tables, positions, token_valid, rows)
+            write_index = layers.paged_write_index(block_tables, positions, token_valid, rows,
+                                                   sink_page(caches))
     elif place.seq is not None:
         write_index = layers.slot_write_index(positions, token_valid, rows * place.seq.n,
                                               place.seq.index * rows, rows)

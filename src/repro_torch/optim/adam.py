@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Any, NamedTuple
 
 import torch
@@ -51,13 +52,14 @@ def tree_leaves(tree) -> list[torch.Tensor]:
 
 
 def tree_unflatten(like, leaves):
-    """A tree shaped like ``like`` whose leaves, in :func:`tree_leaves`
-    order, are ``leaves``."""
+    """A tree shaped like ``like`` (its keys in ``like``'s order) whose
+    leaves, in :func:`tree_leaves` order, are ``leaves``."""
     it = iter(leaves)
 
     def build(node):
         if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
         if isinstance(node, (list, tuple)):
             return [build(v) for v in node]
         return next(it)
@@ -118,13 +120,73 @@ def global_norm(tree) -> torch.Tensor:
 
 def clip_by_global_norm(grads, max_norm: float):
     gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    scale = _clip_scale(gn, max_norm)
     return tree_map(lambda g: g * scale, grads), gn
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+
+
+# leaves are updated in groups of at most this many elements: each group is
+# one pass of every multi-tensor op, and its fp32 temporaries (the widened
+# grads and params, the update) stay a bounded size whatever the model's
+GROUP_ELEMS = 1 << 26
+# a leaf of at least this many elements is a group of its own, updated by
+# single-tensor ops: a multi-tensor launch covers at most 320 chunks of
+# 65536 elements, too few blocks to keep a card's memory busy, while a
+# single-tensor op spreads a large leaf over the whole card
+ALONE_ELEMS = 1 << 22
+
+
+def _groups(n_elems: list[int]) -> list[list[int]]:
+    """The leaves' update groups (leaf indices): a leaf of
+    :data:`ALONE_ELEMS` or more alone, the others in order, at most
+    :data:`GROUP_ELEMS` elements a group, wherever the large leaves fall
+    between them (a group of a few small leaves would be a launch of a
+    few blocks)."""
+    out, small, total = [], [], 0
+    for i, n in enumerate(n_elems):
+        if n >= ALONE_ELEMS:
+            out.append([i])
+            continue
+        if small and total + n > GROUP_ELEMS:
+            out.append(small)
+            small, total = [], 0
+        small.append(i)
+        total += n
+    if small:
+        out.append(small)
+    return out
+
+
+def _one_at_a_time(op):
+    """``op`` (a ``torch.Tensor`` method) over lists, as the
+    ``torch._foreach_*`` op of the same name takes them."""
+
+    def each(xs, *args):
+        return [op(x, *(a[i] if isinstance(a, list) else a for a in args))
+                for i, x in enumerate(xs)]
+
+    return each
+
+
+_OPS = ("mul", "mul_", "add_", "div", "div_", "sqrt_", "sub", "sub_", "copy_")
+# the update's ops over a group of leaves: multi-tensor, or one leaf's
+_MULTI = SimpleNamespace(**{k: getattr(torch, f"_foreach_{k}") for k in _OPS})
+_SINGLE = SimpleNamespace(**{k: _one_at_a_time(getattr(torch.Tensor, k)) for k in _OPS})
 
 
 def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: bool = False,
                   norm=global_norm):
     """One Adam(W) step. Returns (new_params, new_state, metrics).
+
+    The update is multi-tensor: each elementwise stage (the clip too) is
+    one ``torch._foreach_*`` call over a group of leaves (:func:`_groups`;
+    a large leaf's group is that leaf, updated by the single-tensor ops),
+    in the per-leaf order of operations and with its roundings (divisions
+    stay divisions, nothing is fused), so every leaf gets the numbers a
+    leaf-by-leaf update gives, bit for bit.
 
     ``inplace=True`` writes the clipped grads, the moments and the params
     into the tensors passed in (none may require grad) and returns those
@@ -132,40 +194,67 @@ def apply_updates(cfg: AdamConfig, params, grads, state: AdamState, *, inplace: 
     the gradient's global norm (on a mesh, ``dist/parallel.py::global_norm``
     over the local shards)."""
     gn = norm(grads)
-    if cfg.clip_norm > 0:
-        if inplace:
-            scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
-            for g in tree_leaves(grads):
-                g.mul_(scale)
-        else:
-            grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+    ps, gs, ms, vs = (tree_leaves(t) for t in (params, grads, state.m, state.v))
+    scale = _clip_scale(gn, cfg.clip_norm) if cfg.clip_norm > 0 else None
     step = state.step + 1
     lr = lr_at(cfg, step)
     sf = step.float()
     bc1 = 1 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32, device=sf.device), sf)
     bc2 = 1 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32, device=sf.device), sf)
     b1, b2 = cfg.b1, cfg.b2
-
-    def upd(p, g, m, v):
-        g32 = g.float()
+    new_p, new_m, new_v = ([None] * len(ps) for _ in range(3))
+    for grp in _groups([p.numel() for p in ps]):
+        p, g, m, v = ([t[i] for i in grp] for t in (ps, gs, ms, vs))
+        ops = _SINGLE if len(grp) == 1 else _MULTI
+        if scale is not None:
+            if inplace:
+                ops.mul_(g, scale)
+            else:
+                g = ops.mul(g, scale)
+        g32 = [t.float() for t in g]
+        # m' = b1 * m + (1 - b1) * g, then v' = b2 * v + (1 - b2) * g^2, each
+        # temporary freed before the next is made
         if inplace:
-            m_n = m.mul_(b1).add_((1 - b1) * g32)
-            v_n = v.mul_(b2).add_((1 - b2) * torch.square(g32))
+            ops.mul_(m, b1)
+            ops.mul_(v, b2)
         else:
-            m_n = b1 * m + (1 - b1) * g32
-            v_n = b2 * v + (1 - b2) * torch.square(g32)
-        delta = (m_n / bc1) / (torch.sqrt(v_n / bc2) + cfg.eps)
+            m, v = ops.mul(m, b1), ops.mul(v, b2)
+        gm = ops.mul(g32, 1 - b1)
+        ops.add_(m, gm)
+        del gm
+        gv = ops.mul(g32, g32)
+        del g32
+        ops.mul_(gv, 1 - b2)
+        ops.add_(v, gv)
+        del gv
+        # delta = (m' / bc1) / (sqrt(v' / bc2) + eps) [+ wd * p]
+        den = ops.div(v, bc2)
+        ops.sqrt_(den)
+        ops.add_(den, cfg.eps)
+        delta = ops.div(m, bc1)
+        ops.div_(delta, den)
+        del den
         if cfg.weight_decay > 0:
-            delta = delta + cfg.weight_decay * p.float()
-        p_n = p.float() - lr * delta
-        return (p.copy_(p_n) if inplace else p_n.to(p.dtype)), m_n, v_n
-
-    out = tree_map(upd, params, grads, state.m, state.v)  # (p, m, v) at each leaf
-
-    def pick(i):
-        return tree_map(lambda _, o: o[i], params, out)
-
-    return pick(0), AdamState(step, pick(1), pick(2)), {"grad_norm": gn, "lr": lr}
+            ops.add_(delta, ops.mul([t.float() for t in p], cfg.weight_decay))
+        # p' = p - lr * delta: an fp32 leaf in place, another through fp32
+        ops.mul_(delta, lr)
+        if inplace:
+            wide = [i for i, t in enumerate(p) if t.dtype == torch.float32]
+            narrow = [i for i, t in enumerate(p) if t.dtype != torch.float32]
+            if wide:
+                ops.sub_([p[i] for i in wide], [delta[i] for i in wide])
+            if narrow:
+                ops.copy_([p[i] for i in narrow], ops.sub(
+                    [p[i].float() for i in narrow], [delta[i] for i in narrow]))
+        else:
+            new = ops.sub([t.float() for t in p], delta)
+            for j, i in enumerate(grp):
+                new_p[i], new_m[i], new_v[i] = new[j].to(p[j].dtype), m[j], v[j]
+        del delta
+    if inplace:
+        return params, AdamState(step, state.m, state.v), {"grad_norm": gn, "lr": lr}
+    new = AdamState(step, tree_unflatten(state.m, new_m), tree_unflatten(state.v, new_v))
+    return tree_unflatten(params, new_p), new, {"grad_norm": gn, "lr": lr}
 
 
 def adamw(cfg: AdamConfig | None = None) -> AdamConfig:

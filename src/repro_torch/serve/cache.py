@@ -6,11 +6,12 @@ The twin of ``repro.serve.cache``. Two memory planes:
   layer K/V rows ``[B, max_seq, KV, hd]``, so slot *b* owns ``max_seq``
   rows whatever its request's length.
 * :class:`PagedCacheManager` — the paged layout: K/V live in a global
-  pool of fixed-size **pages** (per attention layer ``[n_blocks,
-  block_size, KV, hd]``) handed out by a :class:`BlockAllocator`; each
-  slot maps logical block *l* to a physical page through its row of the
-  **block table** (``[B, blocks_per_slot]`` int32). KV memory is then
-  proportional to actual sequence length.
+  pool of fixed-size **pages** (per attention layer ``[n_blocks + 1,
+  block_size, KV, hd]``, the last page the steps' sink) handed out by a
+  :class:`BlockAllocator`; each slot maps logical block *l* to a
+  physical page through its row of the **block table** (``[B,
+  blocks_per_slot]`` int32). KV memory is then proportional to actual
+  sequence length.
 
 Either way an SSM layer keeps its conv window and state as a row per
 slot (``[B, ...]``), cleared when the slot gets a new occupant.
@@ -186,7 +187,14 @@ class PagedCacheManager:
       host and restore them into fresh pages;
     * :attr:`block_tables` — the host ``[n_slots, blocks_per_slot]``
       int32 table handed to each step; unassigned entries are 0, a valid
-      page that per-slot causal masking fences.
+      page that per-slot causal masking fences;
+    * the pools' last page, past the ``n_blocks`` the allocator hands
+      out, is the sink where a step writes its invalid tokens
+      (``lm.init_paged_cache``); it is zeroed with every page this
+      manager zeroes, so an idle pool is all zeros.
+
+    Every write to the pools is in place: they keep their memory for the
+    manager's life, which a captured step relies on.
 
     Args:
       cfg: model config.
@@ -356,8 +364,9 @@ class PagedCacheManager:
             return
         slot_mask = np.zeros((self.n_slots,), bool)
         slot_mask[list(slots)] = True
-        page_mask = np.zeros((self.n_blocks,), bool)
+        page_mask = np.zeros((self.n_blocks + 1,), bool)
         page_mask[list(pages)] = True
+        page_mask[self.n_blocks] = bool(pages)  # the sink
         lm.reset_paged(self.cache, self.layout.rows(slot_mask), page_mask)
 
     def page_view(self, page: int) -> list[torch.Tensor]:

@@ -51,6 +51,16 @@ encoder output, made at admission from the request's frames.
 ``block_size > 0`` selects the paged cache (attention through the
 paged-attention kernel by default); ``block_size == 0`` the contiguous
 one (plain attention, as in the JAX package).
+
+On a card the paged engine without speculation runs each step of the
+dense decoder family as a captured CUDA graph, one a (width, greedy or
+sampled) pair, the twin of the reference's jitted slot step
+(``launch/graphs.py``; :attr:`ContinuousBatchingEngine.captured`). The
+rest stays eager:
+meshes (their collectives run through gloo on the host), speculation,
+the contiguous cache, and the other families, whose steps read data back
+to the host (the MoE dispatch's masks and ``bincount``) or change their
+cache entries' tensors (an SSM layer's new state).
 """
 from __future__ import annotations
 
@@ -64,6 +74,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.graphs import StepGraphs
 from repro_torch.models import model as lm
 from repro_torch.serve import request as rq
 from repro_torch.serve.cache import PagedCacheManager, SlotCacheManager
@@ -81,6 +92,23 @@ class TokenEvent(NamedTuple):
     rid: int
     token: int
     is_last: bool
+
+
+def _graph_step(step_fn, params, cache) -> Callable:
+    """The step a graph captures: ``step_fn`` (the slot step) over the
+    static inputs and ``cache`` (the pools), the sampling
+    tensors in ``steps._CONTROLS`` order (none for a greedy step); returns
+    the next tokens. It holds no engine, so an engine and its graphs are
+    freed as soon as the engine is dropped."""
+
+    def fn(key, tokens, count, pos, block_tables, *controls):
+        state = {"tokens": tokens, "count": count, "pos": pos, "cache": cache,
+                 "block_tables": block_tables,
+                 **(dict(zip(steps_lib._CONTROLS, controls, strict=True)) if controls else {})}
+        nxt, _ = step_fn(params, state)
+        return nxt
+
+    return fn
 
 
 class ContinuousBatchingEngine:
@@ -110,6 +138,8 @@ class ContinuousBatchingEngine:
         over ``data``.
       seq_shard: the reference's ``model`` on the paged pool's
         within-page dim; not ported (raises; no CLI asks for it).
+      graphs: on a card, run the steps the engine can capture (module
+        docstring) as CUDA graphs; ``False`` runs every step eagerly.
     """
 
     def __init__(
@@ -124,6 +154,7 @@ class ContinuousBatchingEngine:
         draft_params=None,
         mesh=None,
         seq_shard: bool = False,
+        graphs: bool = True,
     ):
         if seq_shard:
             raise NotImplementedError(SEQ_SHARD_REFUSAL)
@@ -150,6 +181,17 @@ class ContinuousBatchingEngine:
             cfg, paged_kernel=serve_cfg.attn_kernel, spec=self._spec, mesh=mesh,
             layout=self.slots.layout,
         )
+        capturable = (serve_cfg.paged and not self._spec and mesh is None
+                      and cfg.family == "dense" and not cfg.is_moe)
+        # a capturable step runs through the graphs' helper (eagerly off the
+        # card): static inputs, every row drawn
+        self._static = graphs and capturable
+        self._graphs = StepGraphs(
+            _graph_step(self._step_fn, params, self.slots.cache if self._static else None),
+            self.device, capture=self._static)
+        if self._static:
+            # the graphs hold the pools' addresses: they must never move
+            self._pool_addresses = self._pools()
         # --- speculative drafter plane (spec_k > 0) ---
         # Its own contiguous rows, slot ids mirroring the target's, sized
         # past max_seq: proposals write up to spec_k tokens beyond the
@@ -220,6 +262,28 @@ class ContinuousBatchingEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _pools(self) -> list[int]:
+        """Where the manager's K/V pools are now. The graphs write the
+        pools they were captured with: if a swap, reset or trim put other
+        tensors in the cache, the two would part."""
+        return [t.data_ptr() for layer in self.slots.cache if "k" in layer
+                for t in (layer["k"], layer["v"])]
+
+    def _run_captured(self, width, tokens, count, sampling) -> np.ndarray:
+        """One step through the graph of (``width``, greedy or sampled):
+        the host inputs staged into its static buffers, a replay (the
+        first call at a key runs the step and captures it), the tokens
+        read back."""
+        if self._pools() != self._pool_addresses:
+            raise RuntimeError("the page pools moved: a captured step would write the old "
+                               "addresses")
+        controls = [sampling[k] for k in steps_lib._CONTROLS] if sampling else []
+        nxt = self._graphs(
+            (width, bool(sampling)), torch.from_numpy(tokens), torch.from_numpy(count),
+            torch.from_numpy(self.slots.pos.copy()),
+            torch.from_numpy(self.slots.block_tables.copy()), *controls)
+        return nxt.cpu().numpy()
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -350,13 +414,13 @@ class ContinuousBatchingEngine:
                 plan.pop(victim, None)
         return plan
 
-    def _sampling_state(self, slots) -> dict[str, torch.Tensor]:
+    def _sampling_state(self, slots, device=None) -> dict[str, torch.Tensor]:
         """Sampling tensors of the requests in ``slots`` (the other rows
-        greedy)."""
+        greedy), on ``device`` (the engine's by default)."""
         return steps_lib.sampling_state(
             [self.by_slot[s].sampling if s in slots else None
              for s in range(self.serve_cfg.max_slots)],
-            self.device,
+            device or self.device,
         )
 
     # ------------------------------------------------------------------
@@ -462,6 +526,41 @@ class ContinuousBatchingEngine:
     # one engine iteration
     # ------------------------------------------------------------------
 
+    def _run_eager(self, tokens, count, is_spec, plan):
+        """One step run eagerly: ``(nxt, tok, keep, consumed, dt)``, the
+        next tokens (plain) or the chunk's tokens and ``keep``
+        (speculative), the tokens each slot consumed and the step's
+        seconds. The cache the step returns is committed."""
+        dev = self.device
+        state = {
+            "tokens": torch.from_numpy(tokens).to(dev),
+            "count": torch.from_numpy(count).to(dev),
+            "pos": torch.from_numpy(self.slots.pos.copy()).to(dev),
+            "cache": self.slots.cache,
+            **self._sampling_state(plan),
+        }
+        if self._spec:
+            state["is_spec"] = torch.from_numpy(is_spec).to(dev)
+        if self.serve_cfg.paged:
+            state["block_tables"] = torch.from_numpy(self.slots.block_tables.copy()).to(dev)
+        if self.enc_out is not None:
+            state["enc_out"] = self.enc_out
+        nxt = tok = keep = None
+        t0 = time.perf_counter()
+        # reading the tokens back to the host waits for the device, so
+        # dt covers the step's device work, not just its enqueue
+        if self._spec:
+            (tok, keep), new_state = self._step_fn(self.params, state)
+            tok, keep = tok.cpu().numpy(), keep.cpu().numpy()
+            consumed = keep
+        else:
+            nxt, new_state = self._step_fn(self.params, state)
+            nxt = nxt.cpu().numpy()
+            consumed = count
+        dt = time.perf_counter() - t0
+        self.slots.cache = new_state["cache"]
+        return nxt, tok, keep, consumed, dt
+
     def _pick_width(self, plan: dict[int, int]) -> int:
         """Smallest step width fitting the largest chunk."""
         need = max(plan.values())
@@ -507,33 +606,14 @@ class ContinuousBatchingEngine:
                     is_spec[slot] = True
                 count[slot] = 1 + len(prop)
 
-        dev = self.device
-        state = {
-            "tokens": torch.from_numpy(tokens).to(dev),
-            "count": torch.from_numpy(count).to(dev),
-            "pos": torch.from_numpy(self.slots.pos.copy()).to(dev),
-            "cache": self.slots.cache,
-            **self._sampling_state(plan),
-        }
-        if self._spec:
-            state["is_spec"] = torch.from_numpy(is_spec).to(dev)
-        if self.serve_cfg.paged:
-            state["block_tables"] = torch.from_numpy(self.slots.block_tables.copy()).to(dev)
-        if self.enc_out is not None:
-            state["enc_out"] = self.enc_out
-        t0 = time.perf_counter()
-        # reading the tokens back to the host waits for the device, so
-        # dt covers the step's device work, not just its enqueue
-        if self._spec:
-            (tok, keep), new_state = self._step_fn(self.params, state)
-            tok, keep = tok.cpu().numpy(), keep.cpu().numpy()
-            consumed = keep
-        else:
-            nxt, new_state = self._step_fn(self.params, state)
-            nxt = nxt.cpu().numpy()
+        if self._static:
+            sampling = self._sampling_state(plan, "cpu")
+            t0 = time.perf_counter()
+            nxt = self._run_captured(width, tokens, count, sampling)
+            dt = time.perf_counter() - t0
             consumed = count
-        dt = time.perf_counter() - t0
-        self.slots.cache = new_state["cache"]
+        else:
+            nxt, tok, keep, consumed, dt = self._run_eager(tokens, count, is_spec, plan)
         self.slots.pos = self.slots.pos + consumed
         if self._spec and self.serve_cfg.paged:
             # page rollback: pages ensured for the whole verify chunk but
@@ -673,3 +753,14 @@ class ContinuousBatchingEngine:
             "p50_token_latency_s": pct(50),
             "p99_token_latency_s": pct(99),
         }
+
+    @property
+    def captured(self) -> bool:
+        """Do the steps run as captured CUDA graphs (module docstring)?"""
+        return self._graphs.captured
+
+    def graph_stats(self) -> dict:
+        """The step graphs' keys, replays, capture seconds and pool bytes
+        (``launch/graphs.py::StepGraphs.stats``); :meth:`stats` keeps the
+        JAX engine's keys."""
+        return self._graphs.stats()

@@ -1218,3 +1218,183 @@ def test_tp_fast_path_runs_bf16_products_with_fp32_results_on_the_card(cuda):
     assert int((dwg.abs().sum(0) != 0).sum()) == 4 * 128  # 1 of 2 blocks a shard
     for g, c in ((dxg, dxc), (dwg, dwc)):
         assert ((g - c).norm() / c.norm()).item() <= 4e-3
+
+
+# ----------------------------------------------------------------------
+# compiled steps: the multi-tensor Adam, 1x1 patches, captured graphs
+# ----------------------------------------------------------------------
+
+
+def _adam_tree(rng, dtype, dev):
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    return {"w": t(300, 257), "blocks": [{"k": t(64, 3, 3, 3), "b": t(7)}, {"k": t(1000, 33)}],
+            "norm": t(257).float()}
+
+
+@pytest.mark.parametrize("alone", [1 << 22, 30000])  # the two largest leaves alone
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wd,clip", [(0.0, 0.0), (1e-2, 0.5)])
+def test_multi_tensor_adam_equals_per_leaf_on_the_card(cuda, dtype, inplace, wd, clip, alone,
+                                                       monkeypatch):
+    """The ``torch._foreach_*`` update against the leaf-by-leaf one on the
+    card (whose multi-tensor kernels are not the CPU's per-tensor loop):
+    params, moments and clipped grads bit for bit over three steps."""
+    from repro_torch.optim import adam
+    from torch_adam_ref import per_leaf_updates
+
+    monkeypatch.setattr(adam, "ALONE_ELEMS", alone)
+
+    cfg = adam.AdamConfig(lr=3e-3, weight_decay=wd, clip_norm=clip, schedule="cosine",
+                          total_steps=5)
+    rng = np.random.default_rng(9)
+    params = _adam_tree(rng, _DT[dtype], cuda)
+    ref = adam.tree_map(torch.clone, params)
+    state, ref_state = adam.init(params), adam.init(ref)
+    for step in range(3):
+        grads = adam.tree_map(lambda t: t * (step + 1), _adam_tree(rng, _DT[dtype], cuda))
+        ref_grads = adam.tree_map(torch.clone, grads)
+        params, state, _ = adam.apply_updates(cfg, params, grads, state, inplace=inplace)
+        ref, ref_state = per_leaf_updates(cfg, ref, ref_grads, ref_state, inplace=inplace)
+        for a, b in zip(adam.tree_leaves(grads), adam.tree_leaves(ref_grads), strict=True):
+            assert torch.equal(a, b)
+    for a, b in zip(adam.tree_leaves((params, state.m, state.v)),
+                    adam.tree_leaves((ref, ref_state.m, ref_state.v)), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pointwise_patches_equal_unfold_on_the_card(cuda, dtype):
+    """ResNet-18's 1x1 stride-2 down conv shape: the strided patches and
+    col2im against ``F.unfold`` / ``F.fold`` bit for bit on the card."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import im2col
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((16, 64, 32, 32)).astype(np.float32)).to(
+        cuda, _DT[dtype])
+    x2, col2im, (ho, wo) = im2col.conv_patches(x, 1, 1, (2, 2), ((0, 0), (0, 0)), (1, 1))
+    p = F.unfold(x, (1, 1), stride=(2, 2))
+    assert torch.equal(x2, p.transpose(1, 2).reshape(-1, 64))
+    d2 = torch.randn(x2.shape, device=cuda)
+    dcol = d2.reshape(16, ho * wo, 64).transpose(1, 2).to(x.dtype)
+    ref = F.fold(dcol.float(), (32, 32), (1, 1), stride=(2, 2)).to(x.dtype)
+    assert torch.equal(col2im(d2), ref)
+
+
+def test_step_graphs_replay_a_kernel_and_count_it(cuda):
+    """A step that launches ``paged_attention`` captured: the first call
+    runs it (one launch counted), the capture counts none, each replay
+    one; replays read new inputs and equal eager calls bit for bit."""
+    from repro_torch.launch.graphs import StepGraphs
+
+    q, k, v, tables, qpos = _inputs(cuda, s=1)
+    sg = StepGraphs(lambda _, q_, t_: tpa.paged_attention(q_, k, v, t_, qpos) * 2, cuda)
+    before = tpa.launches
+    first = sg("decode", q, tables).clone()
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1 and sg.captured
+    for seed in range(3):
+        q2 = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(seed),
+                         device=cuda).to(q.dtype)
+        got = sg("decode", q2, tables.cpu())  # a host input goes through pinned staging
+        assert torch.equal(got, tpa.paged_attention(q2, k, v, tables, qpos) * 2)
+    assert torch.equal(first, tpa.paged_attention(q, k, v, tables, qpos) * 2)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1 + 3 + 3 + 1
+    assert sg.stats()["replays"] == 3 and sg.stats()["capture_s"] > 0
+
+
+def _leaves_equal(a, b):
+    from repro_torch.optim import adam
+
+    la = adam.tree_leaves((a[0], a[1].m, a[1].v))
+    lb = adam.tree_leaves((b[0], b[1].m, b[1].v))
+    return all(torch.equal(x, y) for x, y in zip(la, lb, strict=True))
+
+
+def test_captured_classifier_steps_equal_eager_on_the_card(cuda):
+    """The ResNet-18 CLI at a small size through the kernels, captured (a
+    graph a drop rate) and eagerly from the same init, under
+    ``cudnn.deterministic`` (cuDNN's default dense algorithms are not):
+    losses, every step's kept channels, params and Adam state bit for
+    bit; the launches equal."""
+    from repro_torch.launch import train_classifier as tc
+
+    argv = ["--batch", "8", "--image-size", "16", "--steps", "4", "--steps-per-epoch", "1",
+            "--granularity", "block", "--block-size", "32", "--use-pallas", "--mode", "ssprop",
+            "--device", "cuda"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {g: tc.run(tc.build_parser().parse_args(argv + [g]))
+                for g in ("--graphs", "--no-graphs")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    cap, eager = runs["--graphs"], runs["--no-graphs"]
+    assert cap["captured"] and not eager["captured"]
+    assert cap["launches"] == eager["launches"]
+    rc, re_ = cap["modes"]["ssprop"], eager["modes"]["ssprop"]
+    for a, b in zip(rc["kept"], re_["kept"], strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert rc["losses"] == re_["losses"] and _leaves_equal(rc["state"], re_["state"])
+    assert rc["graphs"]["keys"] == ["0.0", "0.8"] and rc["graphs"]["replays"] == 2
+
+
+def test_captured_ddpm_sampler_equals_eager_on_the_card(cuda):
+    """A small UNet's 20-step sampler, one captured denoising step
+    replayed, against the eager loop from the same noise: bit for bit."""
+    from repro_torch.launch.graphs import StepGraphs
+    from repro_torch.models import ddpm
+
+    params = ddpm.init_params(0, channels=3, base=16, t_dim=64, device=cuda)
+    sched = ddpm.make_schedule(20, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(5)
+    x_t = torch.randn((4, 3, 16, 16), generator=gen, device=cuda)
+    zs = [torch.randn((4, 3, 16, 16), generator=gen, device=cuda) for _ in range(20)]
+    graphs = StepGraphs(lambda _, x, t, z: ddpm.denoise_step(params, sched, x, t, z), cuda)
+    cap = ddpm.sample(params, sched, x_t, lambda i: zs[i],
+                      step=lambda x, t, z: graphs(None, x, t, z)).clone()
+    assert graphs.captured and graphs.replays == 19
+    eager = ddpm.sample(params, sched, x_t, lambda i: zs[i])
+    assert torch.equal(cap, eager) and torch.isfinite(cap).all()
+
+
+def test_captured_engine_streams_equal_eager_on_the_card(cuda):
+    """Reduced qwen2.5-3b, fp32: greedy and sampled requests, with swaps,
+    through the paged engine captured (a graph a width and mode) and
+    eagerly: identical streams, the kernel's launches a layer a step
+    either way, the pools never moved, every real page back and zero."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as tlm
+    from repro_torch.serve import ContinuousBatchingEngine, ServeConfig, poisson_workload
+
+    cfg = get_config("qwen2.5-3b").reduced()
+    params = tlm.init_params(cfg, 0, cuda)
+    outs = {}
+    for graphs in (True, False):
+        eng = ContinuousBatchingEngine(
+            cfg, params, ServeConfig(max_slots=3, max_seq=24, prefill_chunk=8, block_size=4,
+                                     n_blocks=9, preempt="swap"),
+            device=cuda, graphs=graphs)
+        for i, r in enumerate(poisson_workload(cfg, n_requests=6, arrival_rate=2.0,
+                                               prompt_len=(3, 7), gen_len=(8, 12), seed=5,
+                                               temperature=0.8, top_k=50, top_p=0.95)):
+            if i % 3 == 0:  # some greedy requests beside the sampled ones
+                r.sampling = type(r.sampling)()
+            eng.submit(r)
+        before = tpa.launches
+        outs[graphs] = eng.run()
+        st = eng.stats()
+        assert eng.captured == graphs and st["swap_preemptions"] > 0
+        assert tpa.launches - before == cfg.n_layers * st["compute_steps"]
+        assert eng.slots.allocator.n_free == eng.slots.n_blocks
+        assert not any(layer["k"].any() or layer["v"].any() for layer in eng.slots.cache)
+        if graphs:
+            keys = eng.graph_stats()["keys"]
+            assert any("True" in k for k in keys) and any("False" in k for k in keys)
+    assert sorted(outs[True]) == sorted(outs[False])
+    for rid in outs[True]:
+        np.testing.assert_array_equal(outs[True][rid], outs[False][rid])

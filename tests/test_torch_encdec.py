@@ -313,7 +313,7 @@ def test_decode_slots_with_enc_out_match_jax(paged):
         pos = pos + count
     for li, layer in enumerate(cache):
         ref = np.asarray(jcache["k"])[li]
-        assert _rel(layer["k"].numpy(), ref) <= 1e-5, li
+        assert _rel(layer["k"][: len(ref)].numpy(), ref) <= 1e-5, li  # the sink past them
 
 
 def test_decode_step_needs_the_encoder_output():
